@@ -10,7 +10,8 @@ Runs from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, in order (any failure raises and exits non-zero):
  1. versions, `nvidia-smi` name and power limit; exit 1 without CUDA;
- 2. build the Philox kernel (csrc/philox_draws.cu) from source with nvcc;
+ 2. build every kernel source (csrc/philox_draws.cu, fused_step.cu,
+    row_gather.cu) with nvcc, one process each, all started together;
  3. the kernel against its plain version on the card at the main path's
     shape (ch=24 plays x 65,536 games): uniforms bitwise, normals within
     1e-5, chunked == per-step, moments and coverage; both timed, and the
@@ -20,7 +21,20 @@ Phases, in order (any failure raises and exits non-zero):
  5. the main path: MatchupRunner(mode="table", rng_impl="pallas_chunk",
     device="cuda") with the fixture nano table, `run_pairs_summary` over
     4,194,304 games in 65,536-game launches (1,048,576 if the warm-up
-    launch predicts more than 120 s); summary checks; games/s.
+    launch predicts more than 120 s); summary checks; games/s;
+ 6. the fused play-step kernels (B1 fused_step, B2 fused_step_tab) against
+    their plain versions at B = 131,072 for 3 keys: one step equal on
+    integer state and within 1e-5 on floats, a 24-step chunk equal to 24
+    one-step launches, and 360-step runs equal in at least 99.9% of final
+    scores with means and side-A win rate within 4 MC standard errors; both
+    timed against their plain versions; then the probes path
+    (`probes.step_arith.time_structures`): the five structures, 360 steps;
+ 7. the row gathers (row_gather, row_gather_sum) against their plain
+    versions at the B3-B6 probes' shapes: gathers bitwise, row sums
+    within 1e-6 relative; kernel, plain and torch.index_select timed; then
+    the gather probes path (`probes.gather.run_probes`).
+Every kernel's launch count is set to 0 just before each path (5, 6, 7) and
+read just after it; a path that launched one of its kernels no time fails.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -44,6 +58,31 @@ CH, N = 24, 65536                  # the main path's draw launch shape
 GAMES, LAUNCH_GAMES = 4_194_304, 65_536
 CUT_GAMES = 1_048_576              # used if the full run would pass ~120 s
 TABLE_SEED = 7
+PROBE_B, PROBE_STEPS = 131_072, 360   # benchmarks/pallas_step_arith.py's defaults
+# each kernel of the JSON line and its source in csrc/
+KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
+                  "fused_step_tab": "fused_step", "row_gather": "row_gather",
+                  "row_gather_sum": "row_gather"}
+SOURCES = tuple(dict.fromkeys(KERNEL_SOURCES.values()))
+# the Pallas kernel each replaces (the timed shape's; PERF.md lists them all)
+REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
+            "fused_step": "benchmarks/pallas_step_arith.py:270",
+            "fused_step_tab": "benchmarks/pallas_step_arith.py:383",
+            "row_gather": "benchmarks/pallas_dma_gather.py:9",
+            "row_gather_sum": "benchmarks/pallas_gather_probe.py:33"}
+
+# Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and
+# f32 operations/s outside the tensor cores, the rate every scalar
+# operation here (integer ones too) is counted at.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# Operations per (step, game) draw: 5 Philox blocks x 10 rounds x 10
+# (2 mulhi, 2 mul, 4 xor, 2 key adds) plus about 40 for the transform
+# (17 mask/convert/scale, 2 log, 2 sqrt, 2 sin, 2 cos, multiplies).
+DRAW_OPS = 540
+# Operations per (step, game) of the step arithmetic (csrc/fused_step.cu):
+# about 280 for heads, policies and state machine, plus the draw.
+STEP_OPS = 280 + DRAW_OPS
 
 
 def card_name_and_limit() -> str:
@@ -66,10 +105,67 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def device_profile(fn, reps: int):
+    """(device ms per call, device kernels and copies per call): the summed
+    duration and count of everything `fn` runs on the card
+    (torch.profiler), over `reps` calls after a warm-up.  Unlike `cuda_ms`
+    it leaves out the host's time between launches, which bounds a call of
+    a few microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in events)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / reps, sum(e.count for e in events) / reps
+
+
+def times(fn, reps: int):
+    """(device ms per call, ms per call by CUDA events around the run)."""
+    return device_profile(fn, reps)[0], cuda_ms(fn, reps)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
     print(f"  ok: {what}")
+
+
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the scalar peak, whichever is larger."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def kernel_counts() -> dict:
+    from fast_monte_carlo_tpu_torch.ops import rng
+    from fast_monte_carlo_tpu_torch.probes import gather, step_arith
+
+    return {"philox_draws": rng.philox_draws, "fused_step": step_arith.fused_step,
+            "fused_step_tab": step_arith.fused_step_tab, "row_gather": gather.row_gather,
+            "row_gather_sum": gather.row_gather_sum}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counts().values():
+        fn.launches = 0
+
+
+def read_counts(path: str, needed) -> dict:
+    counts = {name: fn.launches for name, fn in kernel_counts().items()}
+    print(f"  launches in the {path}: {counts}")
+    for name in needed:
+        check(counts[name] > 0, f"{path} launched {name} {counts[name]} times")
+    return counts
 
 
 def phase_kernel(card: str) -> dict:
@@ -107,15 +203,18 @@ def phase_kernel(card: str) -> dict:
 
     key = rng.root_key(2)
     buf = (torch.empty((CH, N, 13), device=dev), torch.empty((CH, N, 4), device=dev))
-    ms = cuda_ms(lambda: rng.chunk_draws(key, 0, CH, N, dev, out=buf), 50)
-    plain_ms = cuda_ms(lambda: rng.philox_draws_reference(key, 0, CH, N, dev), 5)
-    print(f"  philox_draws ch={CH} n={N}: kernel {ms:.4f} ms, plain torch "
-          f"{plain_ms:.4f} ms ({card})")
-    step_ms = cuda_ms(lambda: rng.step_draws(key, 0, N, dev), 50)
-    step_plain_ms = cuda_ms(lambda: rng.philox_draws_reference(key, 0, 1, N, dev), 5)
-    print(f"  step_draws (ch=1) n={N}: kernel {step_ms:.4f} ms, plain torch "
-          f"{step_plain_ms:.4f} ms ({card})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    ms, ev = times(lambda: rng.chunk_draws(key, 0, CH, N, dev, out=buf), 50)
+    plain_ms, plain_ev = times(lambda: rng.philox_draws_reference(key, 0, CH, N, dev), 5)
+    print(f"  philox_draws ch={CH} n={N}: kernel {ms:.4f} ms device ({ev:.4f} ms by "
+          f"events), plain torch {plain_ms:.4f} ms device ({plain_ev:.4f}) ({card})")
+    step_ms, step_ev = times(lambda: rng.step_draws(key, 0, N, dev), 50)
+    step_plain_ms, step_plain_ev = times(
+        lambda: rng.philox_draws_reference(key, 0, 1, N, dev), 5)
+    print(f"  step_draws (ch=1) n={N}: kernel {step_ms:.4f} ms device ({step_ev:.4f} ms "
+          f"by events), plain torch {step_plain_ms:.4f} ms device ({step_plain_ev:.4f}) "
+          f"({card})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **bound(CH * N * 17 * 4, CH * N * DRAW_OPS)}
 
 
 def phase_step() -> None:
@@ -154,7 +253,6 @@ def phase_main_path(card: str, profile_dir: Optional[Path]) -> dict:
     from fast_monte_carlo_tpu_torch import fixtures
     from fast_monte_carlo_tpu_torch.api import MatchupRunner
     from fast_monte_carlo_tpu_torch.config import SimConfig
-    from fast_monte_carlo_tpu_torch.ops import rng
 
     cfg = SimConfig()
     cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, rng_impl="pallas_chunk"))
@@ -171,13 +269,13 @@ def phase_main_path(card: str, profile_dir: Optional[Path]) -> dict:
     print(f"  warm-up launch {warm_s:.3f} s; timing {games:,} games "
           f"in {games // LAUNCH_GAMES} launches of {LAUNCH_GAMES:,}")
 
-    rng.philox_draws.launches = 0
     torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     summary = runner.run_pairs_summary(games // 2, seed=0, chunk_pairs=pairs_per_launch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = rng.philox_draws.launches
+    counts = read_counts("main path", ["philox_draws"])
 
     n = float(summary.n)
     wins = summary.win_rate.cpu().numpy()
@@ -193,7 +291,6 @@ def phase_main_path(card: str, profile_dir: Optional[Path]) -> dict:
           and bool((summary.pts_hist.sum(dim=1) == games).all()),
           "total and points histograms sum to n")
     check(all(np.isfinite(x).all() for x in (wins, mean, sd)), "no NaN in the summary")
-    check(launches > 0, f"main path launched philox_draws {launches} times")
     gps = games / dt
     launch_ms = 1000 * dt / (games // LAUNCH_GAMES)
     print(f"  main path: {games:,} games in {dt:.3f} s -> {gps:,.0f} games/s, "
@@ -202,7 +299,202 @@ def phase_main_path(card: str, profile_dir: Optional[Path]) -> dict:
           f"win {wins.round(4).tolist()}, tie {tie:.4f}")
     if profile_dir is not None:
         write_profile(runner, pairs_per_launch, card, launch_ms, profile_dir)
-    return {"launches": launches, "games_per_s": gps, "seconds": dt}
+    return {"launches": counts, "games_per_s": gps, "seconds": dt}
+
+
+def probe_states(seed: int, n: int):
+    """n random play-start states of the step probe, on the card."""
+    from fast_monte_carlo_tpu_torch import fixtures
+    from fast_monte_carlo_tpu_torch.probes import step_arith as sa
+
+    d = fixtures.play_states(np.random.default_rng(seed), n)
+    return sa.state_from_numpy((d["off"], d["sec"], d["down"], d["dist"], d["ytg"],
+                                d["period"], d["in_rz"].astype(np.int32),
+                                d["score"][:, 0], d["score"][:, 1]), "cuda")
+
+
+def same_state(got, want, what: str) -> float:
+    """Integer fields equal in every game, floats within 1e-5; max |d|."""
+    import torch
+    from fast_monte_carlo_tpu_torch.probes import step_arith as sa
+
+    torch.cuda.synchronize()
+    worst, bad = 0.0, {}
+    for f, x, y in zip(sa.STATE_FIELDS, got, want):
+        if x.dtype == torch.float32:
+            worst = max(worst, float((x - y).abs().max()))
+        else:
+            bad[f] = int((x != y).sum())
+    check(not any(bad.values()) and worst <= 1e-5,
+          f"{what}: integer state equal in all {got[1].numel():,} games "
+          f"({sum(bad.values())} differ), floats max|d| {worst:.3g} <= 1e-5")
+    return worst
+
+
+def same_scores(fused, plain, what: str) -> None:
+    """Final scores equal in >= 99.9% of games; means and side-A win rate
+    within 4 MC standard errors."""
+    fa, fb = (x.double().cpu().numpy() for x in fused)
+    pa, pb = (x.double().cpu().numpy() for x in plain)
+    n = fa.size
+    differ = int(((fa != pa) | (fb != pb)).sum())
+    check(differ <= n // 1000, f"{what}: final scores equal in {n - differ:,} of {n:,} "
+          f"games ({differ} differ, at most {n // 1000})")
+    for f, p, side in ((fa, pa, "A"), (fb, pb, "B")):
+        se = np.sqrt(f.var() / n + p.var() / n)
+        check(abs(f.mean() - p.mean()) <= 4 * se,
+              f"{what}: mean points {side} {f.mean():.4f} vs {p.mean():.4f} within 4 s.e. {se:.4f}")
+    fw, pw = (fa > fb).mean(), (pa > pb).mean()
+    se = np.sqrt(fw * (1 - fw) / n + pw * (1 - pw) / n)
+    check(abs(fw - pw) <= 4 * se, f"{what}: win A {fw:.4f} vs {pw:.4f} within 4 s.e. {se:.4f}")
+
+
+def phase_fused(card: str) -> dict:
+    import torch
+    from fast_monte_carlo_tpu_torch.ops import rng
+    from fast_monte_carlo_tpu_torch.probes import step_arith as sa
+
+    dev = torch.device("cuda")
+    b = PROBE_B
+    values = sa.make_table(dev)
+    err = {"fused_step": 0.0, "fused_step_tab": 0.0}
+    for ki, key in enumerate((rng.root_key(3), rng.fold_in(rng.root_key(4), 7), (1 << 64) - 1)):
+        s0 = probe_states(10 + ki, b)
+        for step in (0, 193):
+            err["fused_step"] = max(err["fused_step"], same_state(
+                sa.fused_step(s0, key, step, 1), sa.fused_step_reference(s0, key, step, 1),
+                f"key {ki} step {step}: fused_step vs plain"))
+            h = sa.heads_of(s0, values)
+            err["fused_step_tab"] = max(err["fused_step_tab"], same_state(
+                sa.fused_step_tab(s0, h, key, step),
+                sa.fused_step_reference(s0, key, step, 1, h),
+                f"key {ki} step {step}: fused_step_tab vs plain"))
+        chunk = sa.fused_step(s0, key, 48, sa.CH)
+        s = s0
+        for j in range(sa.CH):
+            s = sa.fused_step(s, key, 48 + j, 1)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(chunk, s)),
+              f"key {ki}: fused-chunk24 == 24 fused-step launches in every game")
+        plain = sa.run_structure("eager", b, PROBE_STEPS, key, dev)
+        for name in ("fused-step", "fused-chunk24"):
+            same_scores(sa.run_structure(name, b, PROBE_STEPS, key, dev), plain,
+                        f"key {ki}: {name} vs eager, {PROBE_STEPS} steps")
+        same_scores(sa.run_structure("hybrid-tab", b, PROBE_STEPS, key, dev, values),
+                    sa.run_structure("eager-tab", b, PROBE_STEPS, key, dev, values),
+                    f"key {ki}: hybrid-tab vs eager-tab, {PROBE_STEPS} steps")
+
+    key = rng.root_key(8)
+    s0 = sa.init_state(b, dev)
+    h = sa.heads_of(s0, values)
+    out = {}
+    # the JSON line reports the 24-step chunk launch; ch = 1 is printed too
+    for ch in (1, sa.CH):
+        ms, ev = times(lambda: sa.fused_step(s0, key, 0, ch), 50)
+        plain_ms, plain_ev = times(lambda: sa.fused_step_reference(s0, key, 0, ch), 2)
+        bd = bound(b * 9 * 4 * 2, b * ch * STEP_OPS)
+        print(f"  fused_step ch={ch} B={b:,}: kernel {ms:.4f} ms device ({ev:.4f} ms by "
+              f"events), plain torch {plain_ms:.4f} ms device ({plain_ev:.4f}), bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({card})")
+    out["fused_step"] = {"max_abs_err": err["fused_step"], "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": None, **bd}
+    ms, ev = times(lambda: sa.fused_step_tab(s0, h, key, 0), 50)
+    plain_ms, plain_ev = times(lambda: sa.fused_step_reference(s0, key, 0, 1, h), 5)
+    bd = bound(b * (9 * 4 * 2 + sa.N_HC * 4), b * STEP_OPS)
+    print(f"  fused_step_tab B={b:,}: kernel {ms:.4f} ms device ({ev:.4f} ms by events), "
+          f"plain torch {plain_ms:.4f} ms device ({plain_ev:.4f}), bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({card})")
+    out["fused_step_tab"] = {"max_abs_err": err["fused_step_tab"], "ms": ms,
+                             "plain_ms": plain_ms, "library_ms": None, **bd}
+
+    def eager_step():
+        u, z = rng.step_draws(key, 0, b, dev)
+        return sa.step_arith(s0, u, z)
+
+    for what, fn in (("one eager step (step_draws kernel + plain step_arith)", eager_step),
+                     ("heads_of (table_select)", lambda: sa.heads_of(s0, values))):
+        (ms, kernels), ev = device_profile(fn, 5), cuda_ms(fn, 5)
+        print(f"  {what} B={b:,}: {kernels:.0f} device kernels, {ms:.4f} ms device, "
+              f"{ev:.4f} ms by events (device busy {ms / ev:.3f}) ({card})")
+
+    print(f"  probes path: probes.step_arith.time_structures(B={b:,}, "
+          f"steps={PROBE_STEPS}), one timed pass each")
+    torch.cuda.synchronize()
+    zero_counts()
+    res = sa.time_structures(b, PROBE_STEPS, dev, reps=1)
+    counts = read_counts("probes path (step_arith)", ["fused_step", "fused_step_tab"])
+    for name, r in res.items():
+        check(np.isfinite([r["mean_a"], r["mean_b"]]).all() and 5 < r["mean_a"] < 50,
+              f"{name}: mean points {r['mean_a']:.3f}/{r['mean_b']:.3f}")
+        print(f"  {name:14s} {r['ms_per_step']:9.4f} ms/step {r['games_per_s']:14,.0f} "
+              f"eq-games/s  mean {r['mean_a']:.3f}/{r['mean_b']:.3f} winA {r['win_a']:.4f}  "
+              f"{res['eager']['seconds'] / r['seconds']:8.2f}x vs eager ({card})")
+    for name in ("fused_step", "fused_step_tab"):
+        out[name]["launches"] = counts[name]
+    return out
+
+
+def phase_gather(card: str) -> dict:
+    import torch
+    from fast_monte_carlo_tpu_torch.probes import gather as ga
+
+    dev = torch.device("cuda")
+    tab3, idx3 = ga.b3_inputs(dev)
+    shapes = [("B3", tab3, idx3),
+              ("B4", ga.mod_table(ga.B4_ROWS, ga.B4_COLS, dev),
+               (torch.arange(ga.B4_B, dtype=torch.int32, device=dev) * 7) % ga.B4_ROWS)]
+    for rows in ga.B5_ROWS:
+        shapes.append((f"B5 R={rows}", ga.mod_table(rows, ga.B5_COLS, dev),
+                       (torch.arange(rows, dtype=torch.int32, device=dev) * 1103 + 7) % rows))
+    for b in ga.B6_BS:
+        shapes.append((f"B6 B={b}", ga.mod_table(ga.B6_ROWS, ga.B6_COLS, dev),
+                       (torch.arange(b, dtype=torch.int32, device=dev) * 1103 + 7) % ga.B6_ROWS))
+    out = {}
+    gather_err = sum_err = 0.0
+    for what, table, idx in shapes:
+        got, want = ga.row_gather(table, idx), ga.row_gather_reference(table, idx)
+        torch.cuda.synchronize()
+        gather_err = max(gather_err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"{what}: row_gather bitwise equal to table[idx]")
+        got, want = ga.row_gather_sum(table, idx), ga.row_gather_sum_reference(table, idx)
+        torch.cuda.synchronize()
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        sum_err = max(sum_err, float((got - want).abs().max()))
+        check(rel <= 1e-6, f"{what}: row_gather_sum within 1e-6 relative ({rel:.3g})")
+        rows_touched = int(torch.unique(idx).numel())
+        n, c = idx.numel(), table.shape[1]
+        gbd = bound(4 * n + rows_touched * c * 4 + n * c * 4, 0)
+        sbd = bound(4 * n + rows_touched * c * 4 + n * 4, n * c)
+        g, g_ev = {**gbd}, {}
+        sm, sm_ev = {**sbd, "library_ms": None}, {}
+        for d, ev, key, fn in (
+                (g, g_ev, "ms", lambda: ga.row_gather(table, idx)),
+                (g, g_ev, "plain_ms", lambda: ga.row_gather_reference(table, idx)),
+                (g, g_ev, "library_ms", lambda: torch.index_select(table, 0, idx)),
+                (sm, sm_ev, "ms", lambda: ga.row_gather_sum(table, idx)),
+                (sm, sm_ev, "plain_ms", lambda: ga.row_gather_sum_reference(table, idx))):
+            d[key], ev[key] = times(fn, 100)
+        print(f"  {what} table {tuple(table.shape)} x {n:,}, ms device (by events): "
+              f"row_gather {g['ms']:.4f} ({g_ev['ms']:.4f}), plain {g['plain_ms']:.4f} "
+              f"({g_ev['plain_ms']:.4f}), index_select {g['library_ms']:.4f} "
+              f"({g_ev['library_ms']:.4f}), bound {g['bound_ms']:.4f}; row_gather_sum "
+              f"{sm['ms']:.4f} ({sm_ev['ms']:.4f}), plain {sm['plain_ms']:.4f} "
+              f"({sm_ev['plain_ms']:.4f}), bound {sm['bound_ms']:.4f} ({card})")
+        out[what] = (g, sm)
+
+    print("  gather probes path: probes.gather.run_probes()")
+    torch.cuda.synchronize()
+    zero_counts()
+    res = ga.run_probes("cuda")
+    counts = read_counts("probes path (gather)", ["row_gather", "row_gather_sum"])
+    for what, r in res.items():
+        check(r["correct"], f"{what} probe correct; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.items() if k != "correct") + f" ({card})")
+    # the JSON line reports B6's larger shape for row_gather, B3's for the sum
+    return {"row_gather": {"max_abs_err": gather_err, "launches": counts["row_gather"],
+                           **out[f"B6 B={ga.B6_BS[-1]}"][0]},
+            "row_gather_sum": {"max_abs_err": sum_err, "launches": counts["row_gather_sum"],
+                               **out["B3"][1]}}
 
 
 def write_profile(runner, pairs: int, card: str, launch_ms: float,
@@ -254,8 +546,8 @@ def main() -> int:
     from fast_monte_carlo_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.load_kernel_library("philox_draws")
-    print(f"[2] built and loaded philox_draws in {time.perf_counter() - t0:.2f} s")
+    cuda_build.load_kernel_libraries(*SOURCES)
+    print(f"[2] built and loaded {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s")
 
     print("[3] philox_draws kernel vs plain torch on the card")
     k = phase_kernel(card)
@@ -263,13 +555,19 @@ def main() -> int:
     phase_step()
     print("[5] main path: MatchupRunner.run_pairs_summary on cuda")
     mp = phase_main_path(card, args.profile)
+    k["launches"] = mp["launches"]["philox_draws"]
+    print(f"[6] fused play-step kernels vs plain torch, B={PROBE_B:,}, then the probes path")
+    fused = phase_fused(card)
+    print("[7] row-gather kernels vs plain torch, then the gather probes path")
+    gathers = phase_gather(card)
 
-    print(json.dumps({"kernels": [{
-        "name": "philox_draws", "route": "cuda",
-        "source": "fast_monte_carlo_tpu_torch/csrc/philox_draws.cu",
-        "replaces": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
-        "launches": mp["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
+    rows = {"philox_draws": k, **fused, **gathers}
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": f"fast_monte_carlo_tpu_torch/csrc/{src}.cu",
+         "replaces": REPLACES[name],
+         **{key: rows[name][key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms")}}
+        for name, src in KERNEL_SOURCES.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

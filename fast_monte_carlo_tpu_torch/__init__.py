@@ -6,10 +6,11 @@ names mirror the JAX package's, so each function's counterpart is found at
 the same path.  Hand-written Hopper kernels live in `csrc/` and are built
 from source at first use (`utils/cuda_build.py`).
 
-Every function that allocates takes an explicit `device`; asking for CUDA
-where it is absent raises, and nothing falls back to the CPU.  The CPU path
-exists for the tests, where each kernel wrapper runs its plain PyTorch
-version.
+Every function that allocates takes a `device`; the entry points
+(`api.MatchupRunner`, the probes' command lines) default to the card.
+Asking for CUDA where it is absent raises, and nothing falls back to the
+CPU.  The CPU path exists for the tests, where each kernel wrapper runs its
+plain PyTorch version.
 """
 from __future__ import annotations
 

@@ -31,7 +31,10 @@ from .parallel.aggregate import ScoreSummary, score_moments, summary_from_moment
 
 @dataclass
 class MatchupRunner:
-    """Simulator for one matchup (both orderings) on one device."""
+    """Simulator for one matchup (both orderings) on one device.
+
+    `device` defaults to the card ('cuda'), which raises where CUDA is
+    absent; the CPU runs only when asked for ('cpu')."""
 
     team_a: TeamContext
     team_b: TeamContext
@@ -42,12 +45,10 @@ class MatchupRunner:
     # table mode: nano-layout host tables for (A on offense, B on offense),
     # e.g. fixtures.nano_tables(seed)
     nano_tables: Optional[Tuple[HostTable, HostTable]] = None
-    device: Optional[object] = None   # required: 'cuda', 'cuda:0' or 'cpu'
+    device: Optional[object] = None   # 'cuda' (None), 'cuda:0' or 'cpu'
 
     def __post_init__(self):
-        if self.device is None:
-            raise ValueError("MatchupRunner needs an explicit device")
-        self.device = resolve_device(self.device)
+        self.device = resolve_device("cuda" if self.device is None else self.device)
         if self.heads is not None:
             raise NotImplementedError(
                 "trained heads are not ported yet (ROADMAP.md queue 1); "

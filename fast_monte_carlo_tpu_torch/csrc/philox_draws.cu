@@ -5,15 +5,10 @@
 //   fast_monte_carlo_tpu/ops/rng_pallas.py:94  _chunk_kernel  (chunk_draws, a play chunk)
 // The TPU kernels seed the chip's hardware PRNG per 2048-row block.  Hopper
 // has no such generator, so this kernel uses counter-based Philox4x32-10
-// (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3", SC'11).
-// Key = the 64-bit launch seed; counter = (row, absolute step, block 0..4, 0),
-// giving 20 words of which the first 17 are used.  A game's draws therefore
-// depend only on (seed, absolute step, row): the chunked stream equals the
-// per-step stream, the contract stated in rng_pallas.py:8-12.
-//
-// Output transforms follow rng_pallas.py:40-55: the low 24 bits of a word
-// become an exact-in-f32 uniform in [0, 1); words 0-12 are the uniforms;
-// Box-Muller on (13, 14) and (15, 16), with max(a, 1e-7), gives 4 normals.
+// (philox.cuh).  Key = the 64-bit launch seed; counter = (row, absolute step,
+// block 0..4, 0).  A game's draws therefore depend only on (seed, absolute
+// step, row): the chunked stream equals the per-step stream, the contract
+// stated in rng_pallas.py:8-12.
 //
 // Bound: one launch writes ch * n * 17 f32 (107 MB at ch=24, n=65,536) and
 // computes 5 Philox blocks (50 rounds of two 32x32 multiplies) per thread, so
@@ -23,34 +18,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
-
-constexpr uint32_t kM0 = 0xD2511F53u;
-constexpr uint32_t kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u;
-constexpr uint32_t kW1 = 0xBB67AE85u;
-constexpr int kUniforms = 13;
-constexpr int kNormals = 4;
-
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c[0]);
-    const uint32_t lo0 = kM0 * c[0];
-    const uint32_t hi1 = __umulhi(kM1, c[2]);
-    const uint32_t lo1 = kM1 * c[2];
-    const uint32_t n0 = hi1 ^ c[1] ^ k0;
-    const uint32_t n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-  }
-}
 
 __global__ void philox_draws_kernel(uint32_t k0, uint32_t k1, uint32_t step_base,
                                     int ch, int n, float* __restrict__ u,
@@ -62,34 +32,14 @@ __global__ void philox_draws_kernel(uint32_t k0, uint32_t k1, uint32_t step_base
   const uint32_t row = static_cast<uint32_t>(t - static_cast<long long>(j) * n);
   const uint32_t step = step_base + static_cast<uint32_t>(j);
 
-  float w[20];
+  float uu[philox::kUniforms], zz[philox::kNormals];
+  philox::step_draws(k0, k1, step, row, uu, zz);
+  float* uo = u + t * philox::kUniforms;
 #pragma unroll
-  for (int b = 0; b < 5; ++b) {
-    uint32_t c[4] = {row, step, static_cast<uint32_t>(b), 0u};
-    philox4x32_10(c, k0, k1);
+  for (int i = 0; i < philox::kUniforms; ++i) uo[i] = uu[i];
+  float* zo = z + t * philox::kNormals;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // 24 bits are exact in f32; the scale is a power of two
-      w[4 * b + i] = static_cast<float>(c[i] & 0x00FFFFFFu) * 5.9604644775390625e-8f;
-    }
-  }
-
-  float* uo = u + t * kUniforms;
-#pragma unroll
-  for (int i = 0; i < kUniforms; ++i) uo[i] = w[i];
-
-  const float two_pi = 6.283185307179586f;
-  const float a0 = fmaxf(w[13], 1e-7f);
-  const float a1 = fmaxf(w[15], 1e-7f);
-  const float r0 = sqrtf(-2.0f * logf(a0));
-  const float r1 = sqrtf(-2.0f * logf(a1));
-  const float t0 = two_pi * w[14];
-  const float t1 = two_pi * w[16];
-  float* zo = z + t * kNormals;
-  zo[0] = r0 * cosf(t0);
-  zo[1] = r0 * sinf(t0);
-  zo[2] = r1 * cosf(t1);
-  zo[3] = r1 * sinf(t1);
+  for (int i = 0; i < philox::kNormals; ++i) zo[i] = zz[i];
 }
 
 }  // namespace

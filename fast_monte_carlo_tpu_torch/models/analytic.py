@@ -114,7 +114,7 @@ def _policy_at(table, ytg: float, dist: float) -> float:
 
 
 @functools.lru_cache(maxsize=8)
-def _go_lookup(table, device: torch.device):
+def go_lookup(table, device: torch.device):
     """The go-for-it table as bin edges and a dense (ytg bin, dist bin)
     grid on `device`.  The table's bounds cut each axis into bins
     (edge[i-1], edge[i]], which torch.bucketize(right=False) finds; each
@@ -137,10 +137,10 @@ def _go_lookup(table, device: torch.device):
 def go_for_it_prob(ytg, dist, score_diff, seconds_remaining, cfg: SimConfig):
     """4th-down go-for-it policy (fast_monte_carlo_cfb.py:1336-1378): the
     table's probability for the (ytg, dist) bucket, then the late-game
-    adjustments.  The bucket is found by lookup (`_go_lookup`), which gives
+    adjustments.  The bucket is found by lookup (`go_lookup`), which gives
     the same constants as the JAX package's nested where-chain."""
     f = cfg.fourth
-    ytg_edges, dist_edges, grid = _go_lookup(f.table, ytg.device)
+    ytg_edges, dist_edges, grid = go_lookup(f.table, ytg.device)
     p = grid[torch.bucketize(ytg, ytg_edges), torch.bucketize(dist, dist_edges)]
 
     late = seconds_remaining < f.late_seconds

@@ -1,11 +1,14 @@
-"""Build a kernel source in `csrc/` with nvcc and load it through ctypes.
+"""Build the kernel sources in `csrc/` with nvcc and load them through ctypes.
 
 Each `.cu` file exposes a plain `extern "C"` launcher, so it compiles in
 seconds without PyTorch's headers and needs neither ninja nor
 `torch.utils.cpp_extension`.  The shared library lands in
-`<checkout>/.torch_ext_build/`, named by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one loads the cached build.
-Nothing is built at import time: the first call of a kernel wrapper builds.
+`<checkout>/.torch_ext_build/`, named by `build_digest`: a hash of the
+source, every shared header `csrc/*.cuh` and the flags, so an edited source
+or header rebuilds and an unchanged one loads the cached build.  Nothing is
+built at import time: the first call of a kernel wrapper builds, and
+`load_kernel_libraries` builds several sources with one nvcc each, all
+started together.
 """
 from __future__ import annotations
 
@@ -16,11 +19,17 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
+# per-source flags on top of NVCC_FLAGS.  fused_step must round every f32
+# multiply and add on its own, as the eager torch step it is held to does
+# (one elementwise kernel per operation), so nvcc may not contract them
+# into FMAs.
+EXTRA_FLAGS = {"fused_step": ("--fmad=false",)}
 
 _LOADED: dict = {}
 
@@ -33,30 +42,59 @@ def _nvcc() -> str:
     return found
 
 
-def load_kernel_library(name: str) -> ctypes.CDLL:
-    """ctypes handle of `csrc/<name>.cu`, compiled for sm_90a on first use."""
-    lib = _LOADED.get(name)
-    if lib is not None:
-        return lib
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if not out.exists():
+def nvcc_flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
+def build_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash naming the build of `csrc/<name>.cu`: its bytes, every shared
+    header `csrc/*.cuh` (name and bytes, in name order) and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(nvcc_flags(name)).encode())
+    return h.hexdigest()[:16]
+
+
+def load_kernel_libraries(*names: str) -> List[ctypes.CDLL]:
+    """ctypes handles of `csrc/<name>.cu` for each name, compiled for sm_90a
+    on first use; sources not built yet compile concurrently."""
+    # a loaded library is returned without hashing its sources again
+    outs = {name: BUILD_DIR / f"lib{name}_{build_digest(name)}.so"
+            for name in names if name not in _LOADED}
+    builds = []
+    for name, out in outs.items():
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # compile to a private name, then rename: concurrent first uses
         # never load a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        proc = subprocess.Popen(
+            [_nvcc(), *nvcc_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        builds.append((name, proc, tmp))
+    errors = []
+    for name, proc, tmp in builds:
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                                  capture_output=True, text=True)
+            _, err = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-            os.replace(tmp, out)
+                errors.append(f"nvcc failed for {CSRC / name}.cu:\n{err}")
+            else:
+                os.replace(tmp, outs[name])
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    lib = ctypes.CDLL(str(out))
-    _LOADED[name] = lib
-    return lib
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for name in names:
+        if name not in _LOADED:
+            _LOADED[name] = ctypes.CDLL(str(outs[name]))
+    return [_LOADED[name] for name in names]
+
+
+def load_kernel_library(name: str) -> ctypes.CDLL:
+    """ctypes handle of `csrc/<name>.cu`, compiled for sm_90a on first use."""
+    return load_kernel_libraries(name)[0]

@@ -90,18 +90,39 @@ def test_run_pairs_summary_rounds_up_and_is_seeded():
 
 
 def test_import_leaves_jax_pandas_sklearn_out():
+    """Every module of the port, and chip_smoke.py with every module it
+    imports, leaves the JAX package and its dependencies out; importing a
+    probe runs nothing (no output)."""
     code = (
-        "import sys, importlib, pkgutil\n"
+        "import ast, sys, importlib, pkgutil\n"
         "import fast_monte_carlo_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "tree = ast.parse(open(chip_smoke.__file__).read())\n"
+        "for node in ast.walk(tree):\n"
+        "    if isinstance(node, ast.Import):\n"
+        "        names = [a.name for a in node.names]\n"
+        "    elif isinstance(node, ast.ImportFrom):\n"
+        "        names = [node.module or '']\n"
+        "    else:\n"
+        "        continue\n"
+        "    for n in names:\n"
+        "        if n.startswith('fast_monte_carlo_tpu_torch'):\n"
+        "            importlib.import_module(n)\n"
+        "        else:\n"
+        "            assert n.split('.')[0] not in ('jax', 'fast_monte_carlo_tpu'), n\n"
+        "need = ['fast_monte_carlo_tpu_torch.probes.step_arith',"
+        " 'fast_monte_carlo_tpu_torch.probes.gather',"
+        " 'fast_monte_carlo_tpu_torch.utils.cuda_build']\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in ('jax', 'pandas', 'sklearn', 'fast_monte_carlo_tpu')"
         " if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    assert out.returncode == 0 and out.stdout == "ok\n", (out.stdout, out.stderr)
 
 
 def test_cuda_request_without_cuda_raises():
@@ -111,5 +132,19 @@ def test_cuda_request_without_cuda_raises():
     with pytest.raises(RuntimeError):
         MatchupRunner(a, b, None, _cfg(SimConfig), mode="table",
                       nano_tables=fixtures.nano_tables(TABLE_SEED), device="cuda")
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError):
         MatchupRunner(a, b, None, _cfg(SimConfig), mode="analytic")
+
+
+def test_matchup_runner_defaults_to_the_card():
+    """With no device the runner takes the card: resolve_device's error
+    where there is none, never a quiet run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    a, b = fixtures.teams()
+    with pytest.raises(RuntimeError, match="never falls back to the CPU"):
+        MatchupRunner(a, b, None, _cfg(SimConfig), mode="analytic")
+    r = MatchupRunner(a, b, None, _cfg(SimConfig), mode="analytic", device="cpu")
+    assert r.device == torch.device("cpu")
+    s = r.run_pairs_summary(64, seed=4)
+    assert float(s.n) == 128 and int(s.margin_hist.sum()) == 128
