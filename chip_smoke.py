@@ -35,6 +35,9 @@ Phases, in order (any failure raises and exits non-zero):
     the gather probes path (`probes.gather.run_probes`).
 Every kernel's launch count is set to 0 just before each path (5, 6, 7) and
 read just after it; a path that launched one of its kernels no time fails.
+Kernel times are device time per call: CUDA events around back-to-back
+calls that the host enqueued while a spin kernel held the stream
+(`held_ms`); event times without the hold are printed beside them.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -105,12 +109,56 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+@functools.lru_cache(maxsize=None)
+def cycles_per_ms() -> float:
+    """Clock cycles of `torch.cuda._sleep` per ms, measured on the card."""
+    import torch
+    torch.cuda._sleep(1000)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    torch.cuda._sleep(20_000_000)
+    t1.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / t0.elapsed_time(t1)
+
+
+def held_ms(fn, reps: int):
+    """(ms per call, held): CUDA events around `reps` back-to-back calls
+    that the host enqueues while a spin kernel holds the stream, so that
+    the events time the calls' device work and not the host's time between
+    launches, which bounds a call of a few microseconds.  `held` is False
+    where the host was still enqueuing when the hold ended (a plain version
+    of thousands of kernels fills the launch queue); the time then includes
+    the host's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    hold = 2 * (time.perf_counter() - h0) * 1e3 + 1.0
+    torch.cuda.synchronize()
+    for _ in range(2):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold * cycles_per_ms()))
+        t0.record()
+        h0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue = (time.perf_counter() - h0) * 1e3
+        t1.record()
+        held = not t0.query()
+        torch.cuda.synchronize()
+        if held or enqueue >= hold:          # a longer hold would not help
+            break
+        hold *= 4
+    return t0.elapsed_time(t1) / reps, held
+
+
 def device_profile(fn, reps: int):
-    """(device ms per call, device kernels and copies per call): the summed
-    duration and count of everything `fn` runs on the card
-    (torch.profiler), over `reps` calls after a warm-up.  Unlike `cuda_ms`
-    it leaves out the host's time between launches, which bounds a call of
-    a few microseconds."""
+    """(device ms per call, device kernels and copies per call) by
+    torch.profiler over `reps` calls after a warm-up, or None where the
+    profiler recorded no device time (it does so now and then)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,14 +171,20 @@ def device_profile(fn, reps: int):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     us = sum(e.self_device_time_total for e in events)
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / reps, sum(e.count for e in events) / reps
+    return (us / 1e3 / reps, sum(e.count for e in events) / reps) if us > 0 else None
 
 
 def times(fn, reps: int):
-    """(device ms per call, ms per call by CUDA events around the run)."""
-    return device_profile(fn, reps)[0], cuda_ms(fn, reps)
+    """(device ms per call, ms per call by CUDA events around the run, how
+    the first was measured).  The device time is `held_ms`; where the hold
+    did not cover the enqueue, torch.profiler's summed kernel time, and
+    where that recorded nothing, the held run's time, marked host-bound."""
+    ms, held = held_ms(fn, reps)
+    how = "held events"
+    if not held:
+        prof = device_profile(fn, reps)
+        ms, how = (prof[0], "profiler") if prof else (ms, "events, host-bound")
+    return ms, cuda_ms(fn, reps), how
 
 
 def check(cond: bool, what: str) -> None:
@@ -203,16 +257,18 @@ def phase_kernel(card: str) -> dict:
 
     key = rng.root_key(2)
     buf = (torch.empty((CH, N, 13), device=dev), torch.empty((CH, N, 4), device=dev))
-    ms, ev = times(lambda: rng.chunk_draws(key, 0, CH, N, dev, out=buf), 50)
-    plain_ms, plain_ev = times(lambda: rng.philox_draws_reference(key, 0, CH, N, dev), 5)
-    print(f"  philox_draws ch={CH} n={N}: kernel {ms:.4f} ms device ({ev:.4f} ms by "
-          f"events), plain torch {plain_ms:.4f} ms device ({plain_ev:.4f}) ({card})")
-    step_ms, step_ev = times(lambda: rng.step_draws(key, 0, N, dev), 50)
-    step_plain_ms, step_plain_ev = times(
-        lambda: rng.philox_draws_reference(key, 0, 1, N, dev), 5)
-    print(f"  step_draws (ch=1) n={N}: kernel {step_ms:.4f} ms device ({step_ev:.4f} ms "
-          f"by events), plain torch {step_plain_ms:.4f} ms device ({step_plain_ev:.4f}) "
+    ms, ev, how = times(lambda: rng.chunk_draws(key, 0, CH, N, dev, out=buf), 50)
+    plain_ms, plain_ev, plain_how = times(
+        lambda: rng.philox_draws_reference(key, 0, CH, N, dev), 5)
+    print(f"  philox_draws ch={CH} n={N}: kernel {ms:.4f} ms device ({how}; {ev:.4f} ms "
+          f"by events), plain torch {plain_ms:.4f} ms device ({plain_how}; {plain_ev:.4f}) "
           f"({card})")
+    step_ms, step_ev, how = times(lambda: rng.step_draws(key, 0, N, dev), 50)
+    step_plain_ms, step_plain_ev, plain_how = times(
+        lambda: rng.philox_draws_reference(key, 0, 1, N, dev), 5)
+    print(f"  step_draws (ch=1) n={N}: kernel {step_ms:.4f} ms device ({how}; {step_ev:.4f} "
+          f"ms by events), plain torch {step_plain_ms:.4f} ms device ({plain_how}; "
+          f"{step_plain_ev:.4f}) ({card})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             **bound(CH * N * 17 * 4, CH * N * DRAW_OPS)}
 
@@ -390,20 +446,21 @@ def phase_fused(card: str) -> dict:
     out = {}
     # the JSON line reports the 24-step chunk launch; ch = 1 is printed too
     for ch in (1, sa.CH):
-        ms, ev = times(lambda: sa.fused_step(s0, key, 0, ch), 50)
-        plain_ms, plain_ev = times(lambda: sa.fused_step_reference(s0, key, 0, ch), 2)
+        ms, ev, how = times(lambda: sa.fused_step(s0, key, 0, ch), 50)
+        plain_ms, plain_ev, plain_how = times(
+            lambda: sa.fused_step_reference(s0, key, 0, ch), 2)
         bd = bound(b * 9 * 4 * 2, b * ch * STEP_OPS)
-        print(f"  fused_step ch={ch} B={b:,}: kernel {ms:.4f} ms device ({ev:.4f} ms by "
-              f"events), plain torch {plain_ms:.4f} ms device ({plain_ev:.4f}), bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({card})")
+        print(f"  fused_step ch={ch} B={b:,}: kernel {ms:.4f} ms device ({how}; {ev:.4f} ms "
+              f"by events), plain torch {plain_ms:.4f} ms device ({plain_how}; "
+              f"{plain_ev:.4f}), bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({card})")
     out["fused_step"] = {"max_abs_err": err["fused_step"], "ms": ms, "plain_ms": plain_ms,
                          "library_ms": None, **bd}
-    ms, ev = times(lambda: sa.fused_step_tab(s0, h, key, 0), 50)
-    plain_ms, plain_ev = times(lambda: sa.fused_step_reference(s0, key, 0, 1, h), 5)
+    ms, ev, how = times(lambda: sa.fused_step_tab(s0, h, key, 0), 50)
+    plain_ms, plain_ev, plain_how = times(lambda: sa.fused_step_reference(s0, key, 0, 1, h), 5)
     bd = bound(b * (9 * 4 * 2 + sa.N_HC * 4), b * STEP_OPS)
-    print(f"  fused_step_tab B={b:,}: kernel {ms:.4f} ms device ({ev:.4f} ms by events), "
-          f"plain torch {plain_ms:.4f} ms device ({plain_ev:.4f}), bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({card})")
+    print(f"  fused_step_tab B={b:,}: kernel {ms:.4f} ms device ({how}; {ev:.4f} ms by "
+          f"events), plain torch {plain_ms:.4f} ms device ({plain_how}; {plain_ev:.4f}), "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({card})")
     out["fused_step_tab"] = {"max_abs_err": err["fused_step_tab"], "ms": ms,
                              "plain_ms": plain_ms, "library_ms": None, **bd}
 
@@ -413,9 +470,14 @@ def phase_fused(card: str) -> dict:
 
     for what, fn in (("one eager step (step_draws kernel + plain step_arith)", eager_step),
                      ("heads_of (table_select)", lambda: sa.heads_of(s0, values))):
-        (ms, kernels), ev = device_profile(fn, 5), cuda_ms(fn, 5)
-        print(f"  {what} B={b:,}: {kernels:.0f} device kernels, {ms:.4f} ms device, "
-              f"{ev:.4f} ms by events (device busy {ms / ev:.3f}) ({card})")
+        prof, ev = device_profile(fn, 5), cuda_ms(fn, 5)
+        if prof is None:
+            print(f"  {what} B={b:,}: torch.profiler recorded no device time; "
+                  f"{ev:.4f} ms by events ({card})")
+            continue
+        ms, kernels = prof
+        print(f"  {what} B={b:,}: {kernels:.0f} device kernels, {ms:.4f} ms device "
+              f"(profiler), {ev:.4f} ms by events (device busy {ms / ev:.3f}) ({card})")
 
     print(f"  probes path: probes.step_arith.time_structures(B={b:,}, "
           f"steps={PROBE_STEPS}), one timed pass each")
@@ -467,14 +529,17 @@ def phase_gather(card: str) -> dict:
         sbd = bound(4 * n + rows_touched * c * 4 + n * 4, n * c)
         g, g_ev = {**gbd}, {}
         sm, sm_ev = {**sbd, "library_ms": None}, {}
+        hows = set()
         for d, ev, key, fn in (
                 (g, g_ev, "ms", lambda: ga.row_gather(table, idx)),
                 (g, g_ev, "plain_ms", lambda: ga.row_gather_reference(table, idx)),
                 (g, g_ev, "library_ms", lambda: torch.index_select(table, 0, idx)),
                 (sm, sm_ev, "ms", lambda: ga.row_gather_sum(table, idx)),
                 (sm, sm_ev, "plain_ms", lambda: ga.row_gather_sum_reference(table, idx))):
-            d[key], ev[key] = times(fn, 100)
-        print(f"  {what} table {tuple(table.shape)} x {n:,}, ms device (by events): "
+            d[key], ev[key], how = times(fn, 100)
+            hows.add(how)
+        print(f"  {what} table {tuple(table.shape)} x {n:,}, ms device "
+              f"({', '.join(sorted(hows))}; by events in brackets): "
               f"row_gather {g['ms']:.4f} ({g_ev['ms']:.4f}), plain {g['plain_ms']:.4f} "
               f"({g_ev['plain_ms']:.4f}), index_select {g['library_ms']:.4f} "
               f"({g_ev['library_ms']:.4f}), bound {g['bound_ms']:.4f}; row_gather_sum "
