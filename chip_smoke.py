@@ -13,9 +13,11 @@ Phases, in order (any failure raises and exits non-zero):
  2. build every kernel source (csrc/philox_draws.cu, fused_step.cu,
     row_gather.cu) with nvcc, one process each, all started together;
  3. the kernel against its plain version on the card at the main path's
-    shape (ch=24 plays x 65,536 games): uniforms bitwise, normals within
-    1e-5, chunked == per-step, moments and coverage; both timed, and the
-    per-step launch (ch=1) too;
+    shape (ch=24 plays x 65,536 games) and at ragged ones (ch 1, 3, 24 x
+    n 1, 255, 257, 65,573) for 3 keys: uniforms bitwise, normals within
+    1e-5, chunked == per-step, moments and coverage; an output buffer off a
+    16-byte boundary raises; both timed, and the per-step launch (ch=1) too,
+    beside the launch gap (a held near-empty kernel);
  4. one play step at 65,536 states with injected draws, on CUDA and on the
     CPU: integer state equal, floats allclose(rtol=1e-5, atol=1e-5);
  5. the main path: MatchupRunner(mode="table", rng_impl="pallas_chunk",
@@ -37,7 +39,10 @@ Every kernel's launch count is set to 0 just before each path (5, 6, 7) and
 read just after it; a path that launched one of its kernels no time fails.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
-(`held_ms`); event times without the hold are printed beside them.
+(`probes.kernels.held_ms`); event times without the hold are printed
+beside them.  Each kernel's bound is the largest of its bytes and its
+instructions by class over the H100's rates (`bound`): the JSON line gives
+it with `bound_by` ("bytes" or "operations") and `bound_class`.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -45,7 +50,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import json
 import subprocess
 import sys
@@ -75,18 +79,34 @@ REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
             "row_gather": "benchmarks/pallas_dma_gather.py:9",
             "row_gather_sum": "benchmarks/pallas_gather_probe.py:33"}
 
-# Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and
-# f32 operations/s outside the tensor cores, the rate every scalar
-# operation here (integer ones too) is counted at.
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-# Operations per (step, game) draw: 5 Philox blocks x 10 rounds x 10
-# (2 mulhi, 2 mul, 4 xor, 2 key adds) plus about 40 for the transform
-# (17 mask/convert/scale, 2 log, 2 sqrt, 2 sin, 2 cos, multiplies).
-DRAW_OPS = 540
-# Operations per (step, game) of the step arithmetic (csrc/fused_step.cu):
-# about 280 for heads, policies and state machine, plus the draw.
-STEP_OPS = 280 + DRAW_OPS
+# The H100 SXM's rates by class: HBM bytes/s (NVIDIA's data sheet); per SM
+# and clock 128 instructions issued (4 schedulers x 32 lanes), 64 INT32 add,
+# logic, shift and multiply(-add), which the f32 compare, min, max and
+# select share, and 16 MUFU and int<->float conversions (Hopper white paper;
+# CUDA C++ Programming Guide, throughput table, compute capability 9.0), on
+# 132 SMs at 1.98 GHz.  A bound is the largest of the class times.
+SM_CLOCKS_PER_S = 132 * 1.98e9
+RATES = {"bytes": 3.35e12, "int32": 64 * SM_CLOCKS_PER_S,
+         "mufu_cvt": 16 * SM_CLOCKS_PER_S, "issue": 128 * SM_CLOCKS_PER_S}
+# SASS instructions per (step, game) by class, reckoned from the code: what
+# the algorithm needs, not loop control, padding or slow paths (an
+# IMAD.WIDE.U32 gives both halves of a 32x32 product; an FMA is one).
+# The draw (philox.cuh): 5 Philox blocks, 91 IMAD.WIDE (round 0's product
+# of the row is shared) and 100 three-input XORs, 18 key-schedule adds, 17
+# masks, about 20 compares and selects in logf, sqrtf and sincosf and 4 for
+# the step index: 250 INT32; 17 int->float, 2 rsqrt, 6 conversions in
+# logf and sincosf, 3 for the step division: 28; with about 110 f32 and 30
+# moves and stores, 420 in all.
+DRAW_COUNTS = {"int32": 250, "mufu_cvt": 28, "issue": 420}
+# The step arithmetic (csrc/fused_step.cu step_arith, analytic heads):
+# about 270 compares, selects, predicate and integer operations of the
+# policies and the state machine; 13 reciprocals and conversions (5
+# divisions, 2 tanhf, a floor, 3 int->float); with 165 f32 adds and
+# multiplies and 5 division checks, 455 in all.  Draw and step together,
+# 520 / 41 / 875 per game-step, against the SASS of fused_step_kernel's
+# step loop with its slow paths left out (`python -m
+# fast_monte_carlo_tpu_torch.probes.kernels`): 511 / 36 / 897.
+STEP_COUNTS = {"int32": 270, "mufu_cvt": 13, "issue": 455}
 
 
 def card_name_and_limit() -> str:
@@ -94,6 +114,24 @@ def card_name_and_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def per(counts: dict, items: float) -> dict:
+    """Per-item instruction counts of each class times `items`."""
+    return {k: v * items for k, v in counts.items()}
+
+
+def draw_bound(ch: int, n: int) -> dict:
+    """`bound` of one philox_draws launch: ch * n * 17 floats written."""
+    return bound(ch * n * 17 * 4, per(DRAW_COUNTS, ch * n))
+
+
+def step_bound(b: int, ch: int, head_bytes: int = 0) -> dict:
+    """`bound` of one fused-step launch over b games: 9 state words read and
+    written per game, `head_bytes` more read, ch draws and steps."""
+    return bound(b * (9 * 4 * 2 + head_bytes),
+                 per({k: DRAW_COUNTS[k] + STEP_COUNTS[k] for k in RATES if k != "bytes"},
+                     b * ch))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -107,52 +145,6 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
-
-
-@functools.lru_cache(maxsize=None)
-def cycles_per_ms() -> float:
-    """Clock cycles of `torch.cuda._sleep` per ms, measured on the card."""
-    import torch
-    torch.cuda._sleep(1000)
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    torch.cuda._sleep(20_000_000)
-    t1.record()
-    torch.cuda.synchronize()
-    return 20_000_000 / t0.elapsed_time(t1)
-
-
-def held_ms(fn, reps: int):
-    """(ms per call, held): CUDA events around `reps` back-to-back calls
-    that the host enqueues while a spin kernel holds the stream, so that
-    the events time the calls' device work and not the host's time between
-    launches, which bounds a call of a few microseconds.  `held` is False
-    where the host was still enqueuing when the hold ended (a plain version
-    of thousands of kernels fills the launch queue); the time then includes
-    the host's."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    hold = 2 * (time.perf_counter() - h0) * 1e3 + 1.0
-    torch.cuda.synchronize()
-    for _ in range(2):
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(hold * cycles_per_ms()))
-        t0.record()
-        h0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        enqueue = (time.perf_counter() - h0) * 1e3
-        t1.record()
-        held = not t0.query()
-        torch.cuda.synchronize()
-        if held or enqueue >= hold:          # a longer hold would not help
-            break
-        hold *= 4
-    return t0.elapsed_time(t1) / reps, held
 
 
 def device_profile(fn, reps: int):
@@ -179,6 +171,8 @@ def times(fn, reps: int):
     the first was measured).  The device time is `held_ms`; where the hold
     did not cover the enqueue, torch.profiler's summed kernel time, and
     where that recorded nothing, the held run's time, marked host-bound."""
+    from fast_monte_carlo_tpu_torch.probes.kernels import held_ms
+
     ms, held = held_ms(fn, reps)
     how = "held events"
     if not held:
@@ -193,11 +187,15 @@ def check(cond: bool, what: str) -> None:
     print(f"  ok: {what}")
 
 
-def bound(nbytes: float, nops: float) -> dict:
-    """The least time the card could take: bytes over the HBM rate or
-    operations over the scalar peak, whichever is larger."""
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / SCALAR_OPS_PER_S * 1e3
-    return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+def bound(nbytes: float, counts: dict) -> dict:
+    """The least time the card could take: bytes over the HBM rate, and
+    each class's instructions (`counts`, totals) over its rate; the largest
+    binds.  `bound_by` is "bytes" or "operations", `bound_class` the class."""
+    ms = {"bytes": nbytes / RATES["bytes"] * 1e3,
+          **{k: v / RATES[k] * 1e3 for k, v in counts.items()}}
+    cls = max(ms, key=ms.get)
+    return {"bound_ms": ms[cls], "bound_by": "bytes" if cls == "bytes" else "operations",
+            "bound_class": cls}
 
 
 def kernel_counts() -> dict:
@@ -225,11 +223,30 @@ def read_counts(path: str, needed) -> dict:
 def phase_kernel(card: str) -> dict:
     import torch
     from fast_monte_carlo_tpu_torch.ops import rng
+    from fast_monte_carlo_tpu_torch.probes.kernels import launch_gap_ms
 
     dev = torch.device("cuda")
     worst = 0.0
     for key, base in ((rng.root_key(0), 0), (rng.fold_in(rng.root_key(1), 5), 192),
                       ((1 << 64) - 1, (1 << 32) - 12)):
+        # ragged shapes: tiles that end inside a row of uniforms, n below,
+        # just above and 37 past a tile multiple
+        shapes = [(ch, n) for ch in (1, 3, CH) for n in (1, 255, 257, N + 37)]
+        equal, err = [], 0.0
+        for ch, n in shapes:
+            u, z = rng.chunk_draws(key, base, ch, n, dev)
+            ur, zr = rng.philox_draws_reference(key, base, ch, n, dev)
+            equal.append(torch.equal(u, ur))
+            err = max(err, float((z - zr).abs().max()))
+            if (ch, n) == (3, 257):
+                per_step = [rng.step_draws(key, base + j, n, dev) for j in range(ch)]
+                check(all(torch.equal(us, u[j]) and torch.equal(zs, z[j])
+                          for j, (us, zs) in enumerate(per_step)),
+                      f"key {key:#x} base {base}: (3, 257) chunk == per-step draws")
+        worst = max(worst, err)
+        check(all(equal) and err <= 1e-5,
+              f"key {key:#x} base {base}: uniforms bitwise at all {len(shapes)} ragged "
+              f"shapes ({sum(equal)} equal), normals max|d| {err:.3g} <= 1e-5")
         u, z = rng.chunk_draws(key, base, CH, N, dev)
         ur, zr = rng.philox_draws_reference(key, base, CH, N, dev)
         torch.cuda.synchronize()
@@ -257,20 +274,32 @@ def phase_kernel(card: str) -> dict:
 
     key = rng.root_key(2)
     buf = (torch.empty((CH, N, 13), device=dev), torch.empty((CH, N, 4), device=dev))
+    for i, what in enumerate(("u", "z")):
+        flat = torch.empty(buf[i].numel() + 1, device=dev)
+        off = list(buf)
+        off[i] = flat[1:].view(buf[i].shape)
+        try:
+            rng.chunk_draws(key, 0, CH, N, dev, out=tuple(off))
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, f"a {what} buffer 4 bytes past a 16-byte boundary raises")
     ms, ev, how = times(lambda: rng.chunk_draws(key, 0, CH, N, dev, out=buf), 50)
     plain_ms, plain_ev, plain_how = times(
         lambda: rng.philox_draws_reference(key, 0, CH, N, dev), 5)
+    bd = draw_bound(CH, N)
     print(f"  philox_draws ch={CH} n={N}: kernel {ms:.4f} ms device ({how}; {ev:.4f} ms "
-          f"by events), plain torch {plain_ms:.4f} ms device ({plain_how}; {plain_ev:.4f}) "
-          f"({card})")
+          f"by events), plain torch {plain_ms:.4f} ms device ({plain_how}; {plain_ev:.4f}), "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_class']}) ({card})")
     step_ms, step_ev, how = times(lambda: rng.step_draws(key, 0, N, dev), 50)
     step_plain_ms, step_plain_ev, plain_how = times(
         lambda: rng.philox_draws_reference(key, 0, 1, N, dev), 5)
+    sbd = draw_bound(1, N)
     print(f"  step_draws (ch=1) n={N}: kernel {step_ms:.4f} ms device ({how}; {step_ev:.4f} "
           f"ms by events), plain torch {step_plain_ms:.4f} ms device ({plain_how}; "
-          f"{step_plain_ev:.4f}) ({card})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            **bound(CH * N * 17 * 4, CH * N * DRAW_OPS)}
+          f"{step_plain_ev:.4f}), bound {sbd['bound_ms']:.4f} ms ({sbd['bound_class']}), "
+          f"launch gap {launch_gap_ms():.4f} ms ({card})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bd}
 
 
 def phase_step() -> None:
@@ -409,6 +438,7 @@ def phase_fused(card: str) -> dict:
     import torch
     from fast_monte_carlo_tpu_torch.ops import rng
     from fast_monte_carlo_tpu_torch.probes import step_arith as sa
+    from fast_monte_carlo_tpu_torch.probes.kernels import launch_gap_ms
 
     dev = torch.device("cuda")
     b = PROBE_B
@@ -449,18 +479,19 @@ def phase_fused(card: str) -> dict:
         ms, ev, how = times(lambda: sa.fused_step(s0, key, 0, ch), 50)
         plain_ms, plain_ev, plain_how = times(
             lambda: sa.fused_step_reference(s0, key, 0, ch), 2)
-        bd = bound(b * 9 * 4 * 2, b * ch * STEP_OPS)
+        bd = step_bound(b, ch)
         print(f"  fused_step ch={ch} B={b:,}: kernel {ms:.4f} ms device ({how}; {ev:.4f} ms "
               f"by events), plain torch {plain_ms:.4f} ms device ({plain_how}; "
-              f"{plain_ev:.4f}), bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({card})")
+              f"{plain_ev:.4f}), bound {bd['bound_ms']:.4f} ms ({bd['bound_class']}), "
+              f"launch gap {launch_gap_ms():.4f} ms ({card})")
     out["fused_step"] = {"max_abs_err": err["fused_step"], "ms": ms, "plain_ms": plain_ms,
                          "library_ms": None, **bd}
     ms, ev, how = times(lambda: sa.fused_step_tab(s0, h, key, 0), 50)
     plain_ms, plain_ev, plain_how = times(lambda: sa.fused_step_reference(s0, key, 0, 1, h), 5)
-    bd = bound(b * (9 * 4 * 2 + sa.N_HC * 4), b * STEP_OPS)
+    bd = step_bound(b, 1, sa.N_HC * 4)
     print(f"  fused_step_tab B={b:,}: kernel {ms:.4f} ms device ({how}; {ev:.4f} ms by "
           f"events), plain torch {plain_ms:.4f} ms device ({plain_how}; {plain_ev:.4f}), "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) ({card})")
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_class']}) ({card})")
     out["fused_step_tab"] = {"max_abs_err": err["fused_step_tab"], "ms": ms,
                              "plain_ms": plain_ms, "library_ms": None, **bd}
 
@@ -499,6 +530,7 @@ def phase_fused(card: str) -> dict:
 def phase_gather(card: str) -> dict:
     import torch
     from fast_monte_carlo_tpu_torch.probes import gather as ga
+    from fast_monte_carlo_tpu_torch.probes.kernels import launch_gap_ms
 
     dev = torch.device("cuda")
     tab3, idx3 = ga.b3_inputs(dev)
@@ -525,8 +557,8 @@ def phase_gather(card: str) -> dict:
         check(rel <= 1e-6, f"{what}: row_gather_sum within 1e-6 relative ({rel:.3g})")
         rows_touched = int(torch.unique(idx).numel())
         n, c = idx.numel(), table.shape[1]
-        gbd = bound(4 * n + rows_touched * c * 4 + n * c * 4, 0)
-        sbd = bound(4 * n + rows_touched * c * 4 + n * 4, n * c)
+        gbd = bound(4 * n + rows_touched * c * 4 + n * c * 4, {})
+        sbd = bound(4 * n + rows_touched * c * 4 + n * 4, {"issue": n * c})
         g, g_ev = {**gbd}, {}
         sm, sm_ev = {**sbd, "library_ms": None}, {}
         hows = set()
@@ -544,7 +576,8 @@ def phase_gather(card: str) -> dict:
               f"({g_ev['plain_ms']:.4f}), index_select {g['library_ms']:.4f} "
               f"({g_ev['library_ms']:.4f}), bound {g['bound_ms']:.4f}; row_gather_sum "
               f"{sm['ms']:.4f} ({sm_ev['ms']:.4f}), plain {sm['plain_ms']:.4f} "
-              f"({sm_ev['plain_ms']:.4f}), bound {sm['bound_ms']:.4f} ({card})")
+              f"({sm_ev['plain_ms']:.4f}), bound {sm['bound_ms']:.4f}; launch gap "
+              f"{launch_gap_ms():.4f} ({card})")
         out[what] = (g, sm)
 
     print("  gather probes path: probes.gather.run_probes()")
@@ -631,7 +664,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": f"fast_monte_carlo_tpu_torch/csrc/{src}.cu",
          "replaces": REPLACES[name],
          **{key: rows[name][key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
-                                             "bound_ms", "bound_by", "library_ms")}}
+                                             "bound_ms", "bound_by", "bound_class",
+                                             "library_ms")}}
         for name, src in KERNEL_SOURCES.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,11 +18,27 @@
 // constants arrive from the host in StepConsts, so they cannot drift from
 // config.py.
 //
-// Bound: a launch reads and writes 36 bytes of state per game (9.4 MB each
-// way at B = 131,072) and does about 800 operations per game and step (500 of
-// them Philox), so ch = 1 is bound by bytes and ch = 24 by operations.  The
-// design keeps the state in registers across the chunk: device memory is
-// touched once per launch, not once per step.
+// Bound on the H100: a launch reads and writes 36 bytes of state per game
+// (9.4 MB each way at B = 131,072).  A game-step issues about 900
+// instructions, about 520 of them INT32 (Philox's multiplies and XORs, the
+// state machine's integer and predicate work) or f32 compares, min, max and
+// selects, which the SM runs on 64 lanes a clock, not 128 (chip_smoke.py
+// counts them by class).  So ch = 24 is bound by those 64 lanes, the issue
+// rate close behind; ch = 1, one wave of 131,072 threads, by the same count
+// plus one thread's latency through a step and the launch.
+//
+// Design: the state stays in registers across the chunk, so device memory
+// is touched once per launch.  The step body has no loops: the bucketize
+// and FG-curve searches run over all 8 slots of tables padded on the host
+// (edges with +inf, FG bounds with -inf), whose entries the compiler then
+// reads as constant operands; the go-for-it grid, indexed per lane, sits in
+// shared memory, not in the parameter bank, whose loads serialise over a
+// warp's distinct addresses.  64 registers at most (__launch_bounds__), so
+// that all 1,024 blocks of a 131,072-game launch are resident at once on
+// 132 SMs.  Drawing step j + 1's Philox words before step j's arithmetic
+// was tried: the 17 words held across the step spilled under that cap and
+// ran 2-3% slower than drawing each step's words where they are used.
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -58,6 +74,32 @@ struct StepConsts {
 };
 
 namespace {
+
+constexpr int kSlots = 8;   // the edge and FG arrays of StepConsts
+
+// What the kernels read of StepConsts' searches, built by the launchers:
+// every slot filled, so that the searches need no trip count.
+struct Tables {
+  float go_ytg_edges[kSlots];   // past n_go_ytg: +inf, which no x exceeds
+  float go_dist_edges[kSlots];
+  float fg_bounds[kSlots];      // past n_fg: -inf, which no attempt is below
+  float fg_probs[kSlots];
+  int go_row;                   // n_go_dist + 1
+  int go_cells;                 // (n_go_ytg + 1) * (n_go_dist + 1)
+};
+
+Tables tables_of(const StepConsts& c) {
+  Tables t;
+  for (int k = 0; k < kSlots; ++k) {
+    t.go_ytg_edges[k] = k < c.n_go_ytg ? c.go_ytg_edges[k] : INFINITY;
+    t.go_dist_edges[k] = k < c.n_go_dist ? c.go_dist_edges[k] : INFINITY;
+    t.fg_bounds[k] = k < c.n_fg ? c.fg_bounds[k] : -INFINITY;
+    t.fg_probs[k] = k < c.n_fg ? c.fg_probs[k] : 0.0f;
+  }
+  t.go_row = c.n_go_dist + 1;
+  t.go_cells = (c.n_go_ytg + 1) * t.go_row;
+  return t;
+}
 
 struct StatePtrs {
   int* off;
@@ -105,24 +147,29 @@ __device__ __forceinline__ void store(const StatePtrs& p, int i, const State& s)
 
 // models/analytic.py, one game at a time ------------------------------------
 
-__device__ float go_for_it_prob(const StepConsts& c, float ytg, float dist, float sd,
-                               int sec) {
+// `grid` is StepConsts::go_grid in shared memory
+__device__ __forceinline__ float go_for_it_prob(const StepConsts& c, const Tables& t,
+                                                const float* grid, float ytg, float dist,
+                                                float sd, int sec) {
   int yi = 0, di = 0;  // torch.bucketize(right=False): edges below x
-  for (int k = 0; k < c.n_go_ytg; ++k) yi += ytg > c.go_ytg_edges[k];
-  for (int k = 0; k < c.n_go_dist; ++k) di += dist > c.go_dist_edges[k];
-  float p = c.go_grid[yi * (c.n_go_dist + 1) + di];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) yi += ytg > t.go_ytg_edges[k];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) di += dist > t.go_dist_edges[k];
+  float p = grid[yi * t.go_row + di];
   const bool late = sec < c.late_seconds;
-  if (late && sd > 0.0f) p = p * c.late_leading_scale;
-  if (late && sd < 0.0f)
-    p = ytg > c.late_trailing_long_fg_ytg ? c.late_trailing_go_long
-                                          : c.late_trailing_go_short;
+  p = late && sd > 0.0f ? p * c.late_leading_scale : p;
+  p = late && sd < 0.0f ? (ytg > c.late_trailing_long_fg_ytg ? c.late_trailing_go_long
+                                                             : c.late_trailing_go_short)
+                        : p;
   return clip(p, 0.0f, 1.0f);
 }
 
-__device__ float field_goal_prob(const StepConsts& c, float attempt) {
+__device__ __forceinline__ float field_goal_prob(const StepConsts& c, const Tables& t,
+                                                 float attempt) {
   float p = c.fg_long_prob;
-  for (int k = c.n_fg - 1; k >= 0; --k)
-    if (attempt < c.fg_bounds[k]) p = c.fg_probs[k];
+#pragma unroll
+  for (int k = kSlots - 1; k >= 0; --k) p = attempt < t.fg_bounds[k] ? t.fg_probs[k] : p;
   return p;
 }
 
@@ -186,8 +233,9 @@ __device__ __forceinline__ Heads analytic_heads(const State& s) {
 
 // probes/step_arith.step_arith for one game -----------------------------------
 
-__device__ State step_arith(const StepConsts& c, const State& s, const float* u,
-                            const float* n, const Heads& h) {
+__device__ __forceinline__ State step_arith(const StepConsts& c, const Tables& tabs,
+                                            const float* grid, const State& s,
+                                            const float* u, const float* n, const Heads& h) {
   const bool active = s.sec > 0;
   const bool in_rz = s.in_rz != 0;
   const bool is_a = s.off == 0;
@@ -204,8 +252,8 @@ __device__ State step_arith(const StepConsts& c, const State& s, const float* u,
   stage2(c, down, dist, &s2c1, &sck);
   const float s2c2 = s2c1 + sck;
   const float p_pass = pass_prob_v1(c, down, dist, ytg, s.sec, sd);
-  const float p_go = fminf(go_for_it_prob(c, ytg, dist, sd, s.sec) * c.go_multiplier, 1.0f);
-  const float p_fg = field_goal_prob(c, ytg + 17.0f);
+  const float p_go = fminf(go_for_it_prob(c, tabs, grid, ytg, dist, sd, s.sec) * c.go_multiplier, 1.0f);
+  const float p_fg = field_goal_prob(c, tabs, ytg + 17.0f);
   const float ep = explosive_prob(c, ytg, off_o, def_d);
   const float rzp = rz_finish_prob(c, c.rz_pass, ytg, down, off_o, def_d);
   const float rzr = rz_finish_prob(c, c.rz_run, ytg, down, off_o, def_d);
@@ -297,19 +345,32 @@ __device__ State step_arith(const StepConsts& c, const State& s, const float* u,
   return o;
 }
 
+// The go-for-it grid into shared memory; every thread of the block calls it
+// before any returns.
+__device__ __forceinline__ void load_grid(const StepConsts& c, const Tables& t, float* grid) {
+  for (int k = threadIdx.x; k < t.go_cells; k += blockDim.x) grid[k] = c.go_grid[k];
+  __syncthreads();
+}
+
+constexpr int kThreads = 128;
+constexpr int kGridCells = 81;   // StepConsts::go_grid
+
 // `in` and `out` may be the same arrays: each thread reads its game before
 // it writes it.
-__global__ void fused_step_kernel(const StepConsts c, const StatePtrs in,
-                                  const StatePtrs out, uint32_t k0, uint32_t k1,
-                                  uint32_t step_base, int ch, int n) {
+__global__ void __launch_bounds__(kThreads, 8)
+    fused_step_kernel(const StepConsts c, const Tables t, const StatePtrs in,
+                      const StatePtrs out, uint32_t k0, uint32_t k1, uint32_t step_base,
+                      int ch, int n) {
+  __shared__ float grid[kGridCells];
+  load_grid(c, t, grid);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const uint32_t row = static_cast<uint32_t>(i);
   State s = load(in, i);
   for (int j = 0; j < ch; ++j) {
     float u[philox::kUniforms], z[philox::kNormals];
-    philox::step_draws(k0, k1, step_base + static_cast<uint32_t>(j),
-                       static_cast<uint32_t>(i), u, z);
-    s = step_arith(c, s, u, z, analytic_heads(s));
+    philox::step_draws(k0, k1, step_base + static_cast<uint32_t>(j), row, u, z);
+    s = step_arith(c, t, grid, s, u, z, analytic_heads(s));
   }
   store(out, i, s);
 }
@@ -319,10 +380,12 @@ struct HeadPtrs {
   const float* p[7];
 };
 
-__global__ void fused_step_tab_kernel(const StepConsts c, const StatePtrs in,
-                                      const HeadPtrs heads, int stride,
-                                      const StatePtrs out, uint32_t k0, uint32_t k1,
-                                      uint32_t step, int n) {
+__global__ void __launch_bounds__(kThreads, 8)
+    fused_step_tab_kernel(const StepConsts c, const Tables t, const StatePtrs in,
+                          const HeadPtrs heads, int stride, const StatePtrs out,
+                          uint32_t k0, uint32_t k1, uint32_t step, int n) {
+  __shared__ float grid[kGridCells];
+  load_grid(c, t, grid);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const State s = load(in, i);
@@ -331,7 +394,7 @@ __global__ void fused_step_tab_kernel(const StepConsts c, const StatePtrs in,
                 heads.p[4][at], heads.p[5][at], heads.p[6][at]};
   float u[philox::kUniforms], z[philox::kNormals];
   philox::step_draws(k0, k1, step, static_cast<uint32_t>(i), u, z);
-  store(out, i, step_arith(c, s, u, z, h));
+  store(out, i, step_arith(c, t, grid, s, u, z, h));
 }
 
 StatePtrs state_ptrs(void* const* p) {
@@ -341,8 +404,6 @@ StatePtrs state_ptrs(void* const* p) {
                    static_cast<int*>(p[6]), static_cast<int*>(p[7]),
                    static_cast<int*>(p[8])};
 }
-
-constexpr int kThreads = 128;
 
 }  // namespace
 
@@ -357,7 +418,7 @@ extern "C" int fused_step_launch(const StepConsts* c, void* const* in, void* con
   if (n <= 0) return 0;
   fused_step_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      *c, state_ptrs(in), state_ptrs(out), k0, k1, step_base, ch, n);
+      *c, tables_of(*c), state_ptrs(in), state_ptrs(out), k0, k1, step_base, ch, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -372,6 +433,6 @@ extern "C" int fused_step_tab_launch(const StepConsts* c, void* const* in,
   for (int k = 0; k < 7; ++k) h.p[k] = static_cast<const float*>(heads[k]);
   fused_step_tab_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      *c, state_ptrs(in), h, stride, state_ptrs(out), k0, k1, step, n);
+      *c, tables_of(*c), state_ptrs(in), h, stride, state_ptrs(out), k0, k1, step, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,10 +66,14 @@ __device__ __forceinline__ void step_draws(uint32_t k0, uint32_t k1, uint32_t st
   const float r1 = sqrtf(-2.0f * logf(a1));
   const float t0 = two_pi * w[14];
   const float t1 = two_pi * w[16];
-  z[0] = r0 * cosf(t0);
-  z[1] = r0 * sinf(t0);
-  z[2] = r1 * cosf(t1);
-  z[3] = r1 * sinf(t1);
+  // one range reduction per angle; the same values as sinf and cosf
+  float s0, c0, s1, c1;
+  sincosf(t0, &s0, &c0);
+  sincosf(t1, &s1, &c1);
+  z[0] = r0 * c0;
+  z[1] = r0 * s0;
+  z[2] = r1 * c1;
+  z[3] = r1 * s1;
 }
 
 }  // namespace philox

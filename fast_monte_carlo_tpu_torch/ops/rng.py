@@ -129,11 +129,16 @@ def _launcher():
 
 
 def _check_out(t: torch.Tensor, shape, dev: torch.device) -> None:
+    """Raises unless `t` is a contiguous float32 `shape` on `dev` starting
+    on a 16-byte boundary (the kernel stores whole float4s)."""
     if (t.shape != shape or t.dtype != torch.float32 or t.device != dev
             or not t.is_contiguous()):
         raise ValueError(f"output buffer must be contiguous float32 {shape} "
                          f"on {dev}; got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"output buffer must start 16-byte aligned; got "
+                         f"address {t.data_ptr():#x}")
 
 
 def philox_draws(key: int, step_base: int, ch: int, n: int, device,
@@ -142,7 +147,8 @@ def philox_draws(key: int, step_base: int, ch: int, n: int, device,
     """(u (ch, n, 13), z (ch, n, 4)) for absolute steps step_base..+ch-1.
 
     On CUDA this launches the hand-written kernel on the current stream
-    (into `out` when given, so a launch reuses one buffer); on the CPU it
+    (into `out` when given, so a launch reuses one buffer; each buffer
+    contiguous and 16-byte aligned, or it raises); on the CPU it
     runs `philox_draws_reference`.  `philox_draws.launches` counts kernel
     launches and nothing else."""
     dev = torch.device(device)

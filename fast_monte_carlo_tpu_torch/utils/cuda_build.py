@@ -19,8 +19,10 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
+# the sources every wrapper builds from; `probes.kernels --csrc DIR` points
+# it at a copy of another commit's sources to time both in one call
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,9 +48,11 @@ def nvcc_flags(name: str) -> Tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
-def build_digest(name: str, csrc: Path = CSRC) -> str:
-    """Hash naming the build of `csrc/<name>.cu`: its bytes, every shared
-    header `csrc/*.cuh` (name and bytes, in name order) and the flags."""
+def build_digest(name: str, csrc: Optional[Path] = None) -> str:
+    """Hash naming the build of `csrc/<name>.cu` (`csrc` defaults to
+    `CSRC`): its bytes, every shared header `csrc/*.cuh` (name and bytes, in
+    name order) and the flags."""
+    csrc = CSRC if csrc is None else csrc
     h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode())

@@ -8,6 +8,7 @@ import shutil
 import pytest
 import torch
 
+from fast_monte_carlo_tpu_torch.probes import kernels
 from fast_monte_carlo_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
@@ -50,3 +51,42 @@ def test_digest_follows_source_headers_and_flags(csrc, name, monkeypatch):
 def test_fused_step_is_built_without_fma_contraction():
     assert "--fmad=false" in cuda_build.nvcc_flags("fused_step")
     assert "--fmad=false" not in cuda_build.nvcc_flags("philox_draws")
+
+
+def _sass(body: str) -> str:
+    return "\t\tFunction : _Zkernel\n" + body
+
+
+def test_sass_census_skips_slow_paths_and_takes_one_loop_trip():
+    """The census counts SASS by rate class; its main path leaves out a
+    short region that a predicated branch skips and that holds a slow path,
+    and counts a long loop's body once."""
+    straight = _sass("""\
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDC R1, c[0x0][R0+0x210] ;
+        /*0020*/              @!P0 BRA 0x50 ;
+        /*0030*/                   MOV R4, 0x40 ;
+        /*0040*/                   CALL.REL.NOINC 0x80 ;
+        /*0050*/                   IMAD.WIDE.U32 R2, R1, R1, RZ ;
+        /*0060*/                   EXIT ;
+        /*0070*/                   BRA 0x70;
+        /*0080*/                   RET.REL.NODEC R4 0x0 ;
+""")
+    got = kernels.sass_classes(straight)["_Zkernel"]
+    assert got["static"]["all"] == 9 and got["static"]["ldc_lane_indexed"] == 1
+    main = got["main_path"]
+    assert main["all"] == 5 and main["int32"] == 1 and main["memory"] == 1
+    assert main["op:IMAD.WIDE.U32"] == 1 and "op:CALL.REL.NOINC" not in main
+    lines = ["        /*0000*/                   S2R R0, SR_TID.X ;"]
+    lines += [f"        /*{16 * k:04x}*/                   FADD R2, R2, 1 ;" for k in range(1, 251)]
+    lines += [f"        /*{16 * 251:04x}*/               @P0 BRA 0x10 ;",
+              f"        /*{16 * 252:04x}*/                   EXIT ;"]
+    loop = kernels.sass_classes(_sass("\n".join(lines) + "\n"))["_Zkernel"]
+    assert loop["static"]["all"] == 253
+    assert loop["main_path"]["all"] == 251 and loop["main_path"]["f32"] == 250
+
+
+def test_kernel_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    assert kernels.main([]) == 1

@@ -77,6 +77,20 @@ def test_cpu_wrapper_is_the_reference_and_counts_no_launch():
     assert u.min() >= 0 and u.max() < 1
 
 
+def test_output_buffer_must_start_16_byte_aligned():
+    """The kernel stores whole float4s: the wrapper's check refuses a buffer
+    4 bytes past a 16-byte boundary before any launch."""
+    dev = torch.device("cpu")
+    flat = torch.empty(3 * 50 * 13 + 4)
+    assert flat.data_ptr() % 16 == 0
+    rng._check_out(flat[:1950].view(3, 50, 13), (3, 50, 13), dev)
+    for off in (1, 2, 3):
+        with pytest.raises(ValueError, match="16-byte"):
+            rng._check_out(flat[off:off + 1950].view(3, 50, 13), (3, 50, 13), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        rng._check_out(flat[:1950].view(3, 50, 13)[:, ::2], (3, 25, 13), dev)
+
+
 def _sd_se(x: np.ndarray) -> float:
     """Standard error of the sample sd (delta method on the variance)."""
     v = x.var()

@@ -148,3 +148,27 @@ def test_matchup_runner_defaults_to_the_card():
     assert r.device == torch.device("cpu")
     s = r.run_pairs_summary(64, seed=4)
     assert float(s.n) == 128 and int(s.margin_hist.sum()) == 128
+
+
+def test_smoke_bound_names_the_binding_class():
+    """chip_smoke.bound: the largest of bytes and each instruction class over
+    its H100 rate binds and is named; the draw kernel stays bound by its
+    stores at the main path's (24, 65,536), the fused chunk by the 64-lane
+    class."""
+    import chip_smoke
+
+    clock = 132 * 1.98e9
+    b = chip_smoke.bound(1e6, {"int32": 1e12, "mufu_cvt": 1e9, "issue": 1e12})
+    assert (b["bound_class"], b["bound_by"]) == ("int32", "operations")
+    assert b["bound_ms"] == pytest.approx(1e12 / (64 * clock) * 1e3)
+    b = chip_smoke.bound(1e6, {"int32": 1e6, "mufu_cvt": 1e12, "issue": 1e6})
+    assert (b["bound_class"], b["bound_ms"]) == ("mufu_cvt", pytest.approx(1e12 / (16 * clock) * 1e3))
+    b = chip_smoke.bound(1e12, {"issue": 1e6})
+    assert (b["bound_class"], b["bound_by"]) == ("bytes", "bytes")
+    d = chip_smoke.draw_bound(24, 65536)
+    assert (d["bound_class"], d["bound_by"]) == ("bytes", "bytes")
+    assert d["bound_ms"] == pytest.approx(24 * 65536 * 68 / 3.35e12 * 1e3)
+    assert round(d["bound_ms"], 4) == 0.0319
+    assert chip_smoke.step_bound(131072, 24)["bound_class"] == "int32"
+    assert chip_smoke.step_bound(131072, 24)["bound_ms"] == pytest.approx(
+        24 * chip_smoke.step_bound(131072, 1)["bound_ms"])
