@@ -16,7 +16,7 @@ Phases, in order (any failure raises and exits non-zero):
     shape (ch=24 plays x 65,536 games) and at ragged ones (ch 1, 3, 24 x
     n 1, 255, 257, 65,573) for 3 keys: uniforms bitwise, normals within
     1e-5, chunked == per-step, moments and coverage; an output buffer off a
-    16-byte boundary raises; both timed, and the per-step launch (ch=1) too,
+    16-byte boundary raises; kernel (ch 24 and 1) and plain version timed,
     beside the launch gap (a held near-empty kernel);
  4. one play step at 65,536 states with injected draws, on CUDA and on the
     CPU: integer state equal, floats allclose(rtol=1e-5, atol=1e-5);
@@ -39,8 +39,9 @@ Every kernel's launch count is set to 0 just before each path (5, 6, 7) and
 read just after it; a path that launched one of its kernels no time fails.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
-(`probes.kernels.held_ms`); event times without the hold are printed
-beside them.  Each kernel's bound is the largest of its bytes and its
+(`probes.kernels.held_ms`; `kernel_times` for philox_draws and the fused
+steps, which `python -m fast_monte_carlo_tpu_torch.probes.kernels` prints
+alone).  Each kernel's bound is the largest of its bytes and its
 instructions by class over the H100's rates (`bound`): the JSON line gives
 it with `bound_by` ("bytes" or "operations") and `bound_class`.
 The last lines are the kernels' JSON record, the card's name and power
@@ -79,34 +80,40 @@ REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
             "row_gather": "benchmarks/pallas_dma_gather.py:9",
             "row_gather_sum": "benchmarks/pallas_gather_probe.py:33"}
 
-# The H100 SXM's rates by class: HBM bytes/s (NVIDIA's data sheet); per SM
-# and clock 128 instructions issued (4 schedulers x 32 lanes), 64 INT32 add,
-# logic, shift and multiply(-add), which the f32 compare, min, max and
-# select share, and 16 MUFU and int<->float conversions (Hopper white paper;
-# CUDA C++ Programming Guide, throughput table, compute capability 9.0), on
-# 132 SMs at 1.98 GHz.  A bound is the largest of the class times.
+# The H100 SXM's rates by class, on 132 SMs at 1.98 GHz: HBM bytes/s
+# (NVIDIA's data sheet); per SM and clock, 64 on the ALU pipe (integer
+# logic, compares and selects, and the f32 compare, min, max and select),
+# 64 IMAD/IMUL (the heavy half of the FMA pipe), 16 MUFU and int<->float
+# conversions, and 128 instructions dispatched (4 schedulers x 32 lanes;
+# an FMA is one) (CUDA C++ Programming Guide, throughput table for compute
+# capability 9.0; the pipes as Nsight Compute's profiling guide names
+# them).  A bound is the largest of the class times.
 SM_CLOCKS_PER_S = 132 * 1.98e9
-RATES = {"bytes": 3.35e12, "int32": 64 * SM_CLOCKS_PER_S,
-         "mufu_cvt": 16 * SM_CLOCKS_PER_S, "issue": 128 * SM_CLOCKS_PER_S}
-# SASS instructions per (step, game) by class, reckoned from the code: what
-# the algorithm needs, not loop control, padding or slow paths (an
-# IMAD.WIDE.U32 gives both halves of a 32x32 product; an FMA is one).
-# The draw (philox.cuh): 5 Philox blocks, 91 IMAD.WIDE (round 0's product
-# of the row is shared) and 100 three-input XORs, 18 key-schedule adds, 17
-# masks, about 20 compares and selects in logf, sqrtf and sincosf and 4 for
-# the step index: 250 INT32; 17 int->float, 2 rsqrt, 6 conversions in
-# logf and sincosf, 3 for the step division: 28; with about 110 f32 and 30
-# moves and stores, 420 in all.
-DRAW_COUNTS = {"int32": 250, "mufu_cvt": 28, "issue": 420}
-# The step arithmetic (csrc/fused_step.cu step_arith, analytic heads):
-# about 270 compares, selects, predicate and integer operations of the
-# policies and the state machine; 13 reciprocals and conversions (5
-# divisions, 2 tanhf, a floor, 3 int->float); with 165 f32 adds and
-# multiplies and 5 division checks, 455 in all.  Draw and step together,
-# 520 / 41 / 875 per game-step, against the SASS of fused_step_kernel's
-# step loop with its slow paths left out (`python -m
-# fast_monte_carlo_tpu_torch.probes.kernels`): 511 / 36 / 897.
-STEP_COUNTS = {"int32": 270, "mufu_cvt": 13, "issue": 455}
+RATES = {"bytes": 3.35e12, "alu": 64 * SM_CLOCKS_PER_S, "imad": 64 * SM_CLOCKS_PER_S,
+         "mufu_cvt": 16 * SM_CLOCKS_PER_S, "dispatch": 128 * SM_CLOCKS_PER_S}
+# Instructions per item by class: what the algorithm needs and never more
+# than the built kernel runs.  Counted on the SASS of the built kernels
+# (one trip of the step loop, slow paths of division, sqrtf and sincosf
+# left out), less moves, branches, parameter and special-register reads,
+# predicate spills, work that is the same at every step of a launch, index
+# arithmetic and the padded search slots.  Integer adds and shifts, which
+# either the ALU or the IMAD pipe may run, count in dispatch only.
+# philox_draws, per (step, row): Philox4x32-10's 83 32x32-bit products
+# (IMAD.WIDE gives both halves; round 0 is shared by the 5 blocks) and 91
+# XORs, 17 masks, and in Box-Muller 30 compares, selects, min and max
+# (logf, sincosf's quadrants): 138 ALU, 83 IMAD; 17 int->float, 4
+# conversions and 2 F2I in logf and sincosf, 2 rsqrt: 25; with 89 f32, the
+# 18-add key schedule and 4 vector stores, 357 dispatched.
+DRAW_COUNTS = {"alu": 138, "imad": 83, "mufu_cvt": 25, "dispatch": 357}
+# fused_step, per game-step (its draws and step_arith): Philox's 80
+# products and 81 XORs (the words no step reads dropped, the row's and
+# the key's work hoisted out of the step loop), 13 masks, and the state
+# machine's compares, selects, clips and predicate logic over the live
+# tables (7 + 4 bucketize edges and 4 FG points, not 8 slots each): 313
+# ALU, 85 IMAD; 33 MUFU and conversions (5 divisions, 2 tanhf, logf,
+# sqrtf, sincosf, a floor); with 240 f32 and 42 integer adds, 714
+# dispatched.
+STEP_COUNTS = {"alu": 313, "imad": 85, "mufu_cvt": 33, "dispatch": 714}
 
 
 def card_name_and_limit() -> str:
@@ -128,10 +135,8 @@ def draw_bound(ch: int, n: int) -> dict:
 
 def step_bound(b: int, ch: int, head_bytes: int = 0) -> dict:
     """`bound` of one fused-step launch over b games: 9 state words read and
-    written per game, `head_bytes` more read, ch draws and steps."""
-    return bound(b * (9 * 4 * 2 + head_bytes),
-                 per({k: DRAW_COUNTS[k] + STEP_COUNTS[k] for k in RATES if k != "bytes"},
-                     b * ch))
+    written per game, `head_bytes` more read, ch game-steps each."""
+    return bound(b * (9 * 4 * 2 + head_bytes), per(STEP_COUNTS, b * ch))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -223,7 +228,7 @@ def read_counts(path: str, needed) -> dict:
 def phase_kernel(card: str) -> dict:
     import torch
     from fast_monte_carlo_tpu_torch.ops import rng
-    from fast_monte_carlo_tpu_torch.probes.kernels import launch_gap_ms
+    from fast_monte_carlo_tpu_torch.probes.kernels import kernel_times, launch_gap_ms
 
     dev = torch.device("cuda")
     worst = 0.0
@@ -284,21 +289,17 @@ def phase_kernel(card: str) -> dict:
         except ValueError:
             raised = True
         check(raised, f"a {what} buffer 4 bytes past a 16-byte boundary raises")
-    ms, ev, how = times(lambda: rng.chunk_draws(key, 0, CH, N, dev, out=buf), 50)
-    plain_ms, plain_ev, plain_how = times(
-        lambda: rng.philox_draws_reference(key, 0, CH, N, dev), 5)
-    bd = draw_bound(CH, N)
-    print(f"  philox_draws ch={CH} n={N}: kernel {ms:.4f} ms device ({how}; {ev:.4f} ms "
-          f"by events), plain torch {plain_ms:.4f} ms device ({plain_how}; {plain_ev:.4f}), "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_class']}) ({card})")
-    step_ms, step_ev, how = times(lambda: rng.step_draws(key, 0, N, dev), 50)
-    step_plain_ms, step_plain_ev, plain_how = times(
-        lambda: rng.philox_draws_reference(key, 0, 1, N, dev), 5)
-    sbd = draw_bound(1, N)
-    print(f"  step_draws (ch=1) n={N}: kernel {step_ms:.4f} ms device ({how}; {step_ev:.4f} "
-          f"ms by events), plain torch {step_plain_ms:.4f} ms device ({plain_how}; "
-          f"{step_plain_ev:.4f}), bound {sbd['bound_ms']:.4f} ms ({sbd['bound_class']}), "
-          f"launch gap {launch_gap_ms():.4f} ms ({card})")
+    held = kernel_times(dev, ("philox_draws ch=24", "philox_draws ch=1"))
+    # the JSON line reports the main path's ch = 24; ch = 1 is printed too
+    for ch in (1, CH):
+        ms = held[f"philox_draws ch={ch}"]
+        plain_ms, plain_ev, plain_how = times(
+            lambda: rng.philox_draws_reference(key, 0, ch, N, dev), 5)
+        bd = draw_bound(ch, N)
+        print(f"  philox_draws ch={ch} n={N}: kernel {ms:.4f} ms held, plain torch "
+              f"{plain_ms:.4f} ms device ({plain_how}; {plain_ev:.4f} by events), bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_class']}), launch gap "
+              f"{launch_gap_ms():.4f} ms ({card})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bd}
 
 
@@ -438,7 +439,7 @@ def phase_fused(card: str) -> dict:
     import torch
     from fast_monte_carlo_tpu_torch.ops import rng
     from fast_monte_carlo_tpu_torch.probes import step_arith as sa
-    from fast_monte_carlo_tpu_torch.probes.kernels import launch_gap_ms
+    from fast_monte_carlo_tpu_torch.probes.kernels import kernel_times, launch_gap_ms
 
     dev = torch.device("cuda")
     b = PROBE_B
@@ -473,25 +474,26 @@ def phase_fused(card: str) -> dict:
     key = rng.root_key(8)
     s0 = sa.init_state(b, dev)
     h = sa.heads_of(s0, values)
+    held = kernel_times(dev, ("fused_step ch=1", "fused_step ch=24", "fused_step_tab"))
     out = {}
     # the JSON line reports the 24-step chunk launch; ch = 1 is printed too
     for ch in (1, sa.CH):
-        ms, ev, how = times(lambda: sa.fused_step(s0, key, 0, ch), 50)
+        ms = held[f"fused_step ch={ch}"]
         plain_ms, plain_ev, plain_how = times(
             lambda: sa.fused_step_reference(s0, key, 0, ch), 2)
         bd = step_bound(b, ch)
-        print(f"  fused_step ch={ch} B={b:,}: kernel {ms:.4f} ms device ({how}; {ev:.4f} ms "
-              f"by events), plain torch {plain_ms:.4f} ms device ({plain_how}; "
-              f"{plain_ev:.4f}), bound {bd['bound_ms']:.4f} ms ({bd['bound_class']}), "
-              f"launch gap {launch_gap_ms():.4f} ms ({card})")
+        print(f"  fused_step ch={ch} B={b:,}: kernel {ms:.4f} ms held, plain torch "
+              f"{plain_ms:.4f} ms device ({plain_how}; {plain_ev:.4f} by events), bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_class']}), launch gap "
+              f"{launch_gap_ms():.4f} ms ({card})")
     out["fused_step"] = {"max_abs_err": err["fused_step"], "ms": ms, "plain_ms": plain_ms,
                          "library_ms": None, **bd}
-    ms, ev, how = times(lambda: sa.fused_step_tab(s0, h, key, 0), 50)
+    ms = held["fused_step_tab"]
     plain_ms, plain_ev, plain_how = times(lambda: sa.fused_step_reference(s0, key, 0, 1, h), 5)
     bd = step_bound(b, 1, sa.N_HC * 4)
-    print(f"  fused_step_tab B={b:,}: kernel {ms:.4f} ms device ({how}; {ev:.4f} ms by "
-          f"events), plain torch {plain_ms:.4f} ms device ({plain_how}; {plain_ev:.4f}), "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_class']}) ({card})")
+    print(f"  fused_step_tab B={b:,}: kernel {ms:.4f} ms held, plain torch {plain_ms:.4f} ms "
+          f"device ({plain_how}; {plain_ev:.4f} by events), bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_class']}) ({card})")
     out["fused_step_tab"] = {"max_abs_err": err["fused_step_tab"], "ms": ms,
                              "plain_ms": plain_ms, "library_ms": None, **bd}
 
@@ -558,7 +560,7 @@ def phase_gather(card: str) -> dict:
         rows_touched = int(torch.unique(idx).numel())
         n, c = idx.numel(), table.shape[1]
         gbd = bound(4 * n + rows_touched * c * 4 + n * c * 4, {})
-        sbd = bound(4 * n + rows_touched * c * 4 + n * 4, {"issue": n * c})
+        sbd = bound(4 * n + rows_touched * c * 4 + n * 4, {"dispatch": n * c})
         g, g_ev = {**gbd}, {}
         sm, sm_ev = {**sbd, "library_ms": None}, {}
         hows = set()

@@ -19,13 +19,13 @@
 // config.py.
 //
 // Bound on the H100: a launch reads and writes 36 bytes of state per game
-// (9.4 MB each way at B = 131,072).  A game-step issues about 900
-// instructions, about 520 of them INT32 (Philox's multiplies and XORs, the
-// state machine's integer and predicate work) or f32 compares, min, max and
-// selects, which the SM runs on 64 lanes a clock, not 128 (chip_smoke.py
-// counts them by class).  So ch = 24 is bound by those 64 lanes, the issue
-// rate close behind; ch = 1, one wave of 131,072 threads, by the same count
-// plus one thread's latency through a step and the launch.
+// (4.7 MB each way at B = 131,072).  A game-step needs about 714 dispatched
+// instructions: 313 on the 64 lanes of the ALU pipe (Philox's XORs, the
+// compares, selects and clips of the policies and the state machine), 85
+// on the 64 of IMAD (Philox's products), 240 f32 (chip_smoke.py counts
+// them by class).  So ch = 24 is bound by dispatch, the ALU close behind;
+// ch = 1, one wave of 131,072 threads, by its bytes, which take less time
+// than one thread's latency through a step and the gap between launches.
 //
 // Design: the state stays in registers across the chunk, so device memory
 // is touched once per launch.  The step body has no loops: the bucketize

@@ -11,10 +11,11 @@
 // stated in rng_pallas.py:8-12.
 //
 // Bound on the H100: a launch writes ch * n * 68 bytes (107 MB at
-// (24, 65,536), 0.0319 ms at 3.35 TB/s).  Per item it needs about 250
-// instructions of the SM's 64-lane class (Philox's multiplies and XORs, the
-// masks), 28 conversions and reciprocals on its 16 lanes and about 420 in
-// all (chip_smoke.py counts them by class), which stay under the bytes.  So
+// (24, 65,536), 0.0319 ms at 3.35 TB/s).  Per item it needs about 357
+// dispatched instructions: 138 on the 64 lanes of the ALU pipe (Philox's
+// XORs and masks, Box-Muller's compares and selects), 83 Philox products
+// on the 64 of IMAD, 25 conversions and square roots on the 16 of MUFU
+// (chip_smoke.py counts them by class), each class under the bytes.  So
 // the stores bind.  One thread per item storing its 13 uniforms as 13
 // scalar stores, 52 bytes from its neighbour's, reached 12% of that rate.
 //
@@ -28,7 +29,7 @@
 // the few floats past the last whole float4 of a ragged tile one by one.
 // The stores are evict-first (st.global.cs): a launch writes twice the L2.
 // The step j of item t is one 32-bit division (the wrapper keeps
-// ch * n < 2^31).  One cp.async.bulk copy of the tile, issued by one thread,
+// ch * n < 2^31).  One cp.async.bulk copy of the tile, started by one thread,
 // was tried in place of the block's vector stores and ran 1% slower.
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -1,33 +1,26 @@
-"""The CUDA kernels alone: held-event device times and a SASS census.
+"""The CUDA kernels alone, timed by held CUDA events.
 
-    python -m fast_monte_carlo_tpu_torch.probes.kernels [--csrc DIR] [--sass DIR]
+    python -m fast_monte_carlo_tpu_torch.probes.kernels [--csrc DIR]
 
 builds every source of `csrc/` (or of DIR, a copy of another commit's
 `csrc/` whose launchers take the same arguments, so that two versions are
-timed in one call, one process each), prints for each kernel function what
-`nvcc -Xptxas -v` reports (registers, stack, spills) and its SASS
-instructions by class (`cuobjdump -sass`), then the device time per call of
-each kernel at the shapes `chip_smoke.py` times, and of a near-empty launch
-(`torch.cuda._sleep(1)`): the gap between back-to-back kernels that every
-held time includes.  The last line is one JSON object of all of it.
+timed in one call, one process each) and prints the device time per call
+of each kernel at the shapes `chip_smoke.py` times, and of a near-empty
+launch (`torch.cuda._sleep(1)`): the gap between back-to-back kernels that
+every held time includes.  The last line is one JSON object of the times.
 
-`held_ms` is the timer `chip_smoke.py` uses: CUDA events around
-back-to-back calls that the host enqueued while a spin kernel held the
-stream, so that a call of a few microseconds is not timed by the host's
-launch rate.
+`held_ms` is the timer, and `kernel_times` the kernel times, that
+`chip_smoke.py` reports: CUDA events around back-to-back calls that the
+host enqueued while a spin kernel held the stream, so that a call of a few
+microseconds is not timed by the host's launch rate.
 """
 from __future__ import annotations
 
 import argparse
-import collections
 import functools
 import json
-import os
-import re
-import shutil
 import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
@@ -37,32 +30,10 @@ import torch
 from ..utils import cuda_build
 
 SOURCES = ("philox_draws", "fused_step", "row_gather")
+# what kernel_times times, with the calls of each held run
+RUNS = {"philox_draws ch=24": 50, "philox_draws ch=1": 200, "fused_step ch=24": 50,
+        "fused_step ch=1": 200, "fused_step_tab": 200}
 
-# SASS opcodes (the name before the first '.') by the rate class of the
-# CUDA C++ Programming Guide's throughput table for compute capability 9.0,
-# per SM and clock: f32 add/multiply/FMA 128; INT32 add, logic, shift,
-# multiply(-add) and f32 compare/min/max/select 64; MUFU and int<->float
-# conversions 16.  Uniform-datapath (U*) instructions run once per warp.
-SASS_CLASSES = {
-    "f32": {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "FSWZADD"},
-    "int32": {"IMAD", "IMUL", "IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
-              "ISETP", "IMNMX", "VIMNMX", "VIADDMNMX", "LEA", "IABS", "POPC", "FLO", "BREV",
-              "BMSK", "SGXT", "IDP", "ISCADD", "SEL", "PRMT", "PLOP3"},
-    "f32_cmp": {"FSETP", "FMNMX", "FSEL", "FSET", "FCHK"},
-    "mufu_cvt": {"MUFU", "I2F", "F2I", "F2F", "FRND", "I2FP", "F2FP", "I2I"},
-    "memory": {"LDG", "STG", "LDS", "STS", "LDC", "LDL", "STL", "LD", "ST", "ATOM", "ATOMS",
-               "ATOMG", "RED", "LDSM", "UBLKCP", "UTMALDG", "UTMASTG", "LDGSTS"},
-}
-_SASS_LINE = re.compile(
-    r"^\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)(\.[A-Z0-9_.]+)?([^;]*);")
-_TARGET = re.compile(r"0x([0-9a-f]+)")
-_SLOW_OPS = {"CALL", "LDL", "STL", "DMUL"}
-_LANE_INDEXED = re.compile(r"c\[0x[0-9a-f]+\]\[R\d+")
-
-
-# ---------------------------------------------------------------------------
-# timing
-# ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
 def cycles_per_ms() -> float:
@@ -116,165 +87,54 @@ def launch_gap_ms() -> float:
     return held_ms(lambda: torch.cuda._sleep(1), 200)[0]
 
 
-def kernel_times(dev: torch.device) -> Dict[str, float]:
-    """Held ms per call of each kernel at the shapes chip_smoke.py times:
-    philox_draws at (24, 65,536) and (1, 65,536); fused_step at B = 131,072,
-    ch = 1 and 24, from kick-off; fused_step_tab at B = 131,072."""
+def kernel_times(dev: torch.device, names: Sequence[str] = tuple(RUNS)) -> Dict[str, float]:
+    """Held ms per call of each kernel of `names` (keys of RUNS):
+    philox_draws at (24, 65,536) into a held buffer and at (1, 65,536);
+    fused_step at B = 131,072, ch = 24 and 1, from kick-off; fused_step_tab
+    at B = 131,072.  Raises where the hold did not cover the enqueue."""
     from ..ops import rng
     from . import step_arith as sa
 
     key = rng.root_key(2)
-    buf = (torch.empty((24, 65536, rng.N_UNIFORMS), device=dev),
-           torch.empty((24, 65536, rng.N_NORMALS), device=dev))
-    s0 = sa.init_state(sa.B_DEFAULT, dev)
-    heads = sa.heads_of(s0, sa.make_table(dev))
-    runs = {
-        "philox_draws ch=24": (lambda: rng.chunk_draws(key, 0, 24, 65536, dev, out=buf), 50),
-        "philox_draws ch=1": (lambda: rng.step_draws(key, 0, 65536, dev), 200),
-        "fused_step ch=24": (lambda: sa.fused_step(s0, key, 0, sa.CH), 50),
-        "fused_step ch=1": (lambda: sa.fused_step(s0, key, 0, 1), 200),
-        "fused_step_tab": (lambda: sa.fused_step_tab(s0, heads, key, 0), 200),
-    }
+    calls = {}
+    if any(n.startswith("philox") for n in names):
+        buf = (torch.empty((24, 65536, rng.N_UNIFORMS), device=dev),
+               torch.empty((24, 65536, rng.N_NORMALS), device=dev))
+        calls["philox_draws ch=24"] = lambda: rng.chunk_draws(key, 0, 24, 65536, dev, out=buf)
+        calls["philox_draws ch=1"] = lambda: rng.step_draws(key, 0, 65536, dev)
+    if any(n.startswith("fused") for n in names):
+        s0 = sa.init_state(sa.B_DEFAULT, dev)
+        heads = sa.heads_of(s0, sa.make_table(dev))
+        calls["fused_step ch=24"] = lambda: sa.fused_step(s0, key, 0, sa.CH)
+        calls["fused_step ch=1"] = lambda: sa.fused_step(s0, key, 0, 1)
+        calls["fused_step_tab"] = lambda: sa.fused_step_tab(s0, heads, key, 0)
     out = {}
-    for name, (fn, reps) in runs.items():
-        ms, held = held_ms(fn, reps)
+    for name in names:
+        ms, held = held_ms(calls[name], RUNS[name])
         if not held:
             raise RuntimeError(f"{name}: the hold did not cover the enqueue")
         out[name] = ms
-    out["launch gap"] = launch_gap_ms()
-    return out
-
-
-# ---------------------------------------------------------------------------
-# SASS census
-# ---------------------------------------------------------------------------
-
-def _tool(name: str) -> str:
-    found = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
-    if not os.path.exists(found):
-        raise RuntimeError(f"{name} not found (PATH or /usr/local/cuda/bin)")
-    return found
-
-
-def _count(instrs) -> Dict[str, int]:
-    counts: collections.Counter = collections.Counter()
-    for op, mods, operands in instrs:
-        cls = next((c for c, ops in SASS_CLASSES.items() if op in ops), None)
-        if cls is None:
-            cls = "uniform" if op.startswith("U") else "other"
-        counts[cls] += 1
-        counts["all"] += 1
-        counts["op:" + op + mods] += 1
-        if op == "LDC" and _LANE_INDEXED.search(operands):
-            counts["ldc_lane_indexed"] += 1
-    return dict(counts)
-
-
-def _main_path(instrs) -> list:
-    """The instructions one game-step (or item) runs: one trip through the
-    outermost loop of more than 200 instructions (the step loop), else the
-    kernel up to its last EXIT, without the regions under 150 instructions
-    that a predicated forward branch skips and that hold a slow path (the
-    out-of-line IEEE division, sqrtf's subnormal case, sincosf's
-    Payne-Hanek reduction: a CALL or local or double-precision work)."""
-    at = {a: i for i, (a, *_) in enumerate(instrs)}
-    # index of each predicated branch's target, where it is in the function
-    target = {i: at.get(int(_TARGET.search(x[4]).group(1), 16))
-              for i, x in enumerate(instrs) if x[2] == "BRA" and x[1]}
-    lo, hi = 0, max(i for i, x in enumerate(instrs) if x[2] == "EXIT")
-    for i, t in target.items():
-        if t is not None and i - t > 200:
-            lo, hi = t, i
-    skip = set()
-    for i, t in target.items():
-        if lo <= i < hi and t is not None and i < t <= hi + 1:
-            body = range(i + 1, t)
-            if len(body) < 150 and any(instrs[k][2] in _SLOW_OPS for k in body):
-                skip.update(body)
-    return [instrs[i][2:] for i in range(lo, hi + 1) if i not in skip]
-
-
-def sass_classes(sass: str) -> Dict[str, Dict[str, Dict[str, int]]]:
-    """`cuobjdump -sass` text -> {function: {"static": counts, "main_path":
-    counts}}.  Counts are of each class of SASS_CLASSES, of "uniform" (U*
-    opcodes), "other" and "all", of every opcode with its modifiers
-    ("op:IMAD.WIDE.U32"), and "ldc_lane_indexed": constant-bank loads at a
-    per-lane register offset, which serialise over a warp's distinct
-    addresses.  "static" counts the whole function, "main_path" what
-    `_main_path` keeps."""
-    funcs: Dict[str, list] = {}
-    instrs: Optional[list] = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            instrs = funcs.setdefault(line.split("Function :")[1].strip(), [])
-            continue
-        m = _SASS_LINE.match(line)
-        if instrs is not None and m is not None:
-            instrs.append((int(m.group(1), 16), m.group(2), m.group(3), m.group(4) or "",
-                           m.group(5)))
-    return {f: {"static": _count([x[2:] for x in ins]), "main_path": _count(_main_path(ins))}
-            for f, ins in funcs.items()}
-
-
-def census(names: Sequence[str] = SOURCES, sass_dir: Optional[Path] = None) -> Dict[str, dict]:
-    """Per source: ptxas's resource lines and the SASS classes of each
-    kernel function, from `nvcc -cubin -Xptxas -v` with the flags the
-    library is built with; the SASS text goes to `sass_dir/<name>.sass`
-    when given."""
-    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name in names:
-            cubin = Path(tmp) / f"{name}.cubin"
-            extra = list(cuda_build.EXTRA_FLAGS.get(name, ()))
-            proc = subprocess.run(
-                [_tool("nvcc"), *flags, *extra, "-cubin", "-Xptxas", "-v", "-o", str(cubin),
-                 str(cuda_build.CSRC / f"{name}.cu")],
-                capture_output=True, text=True, check=True)
-            ptxas = [ln.strip() for ln in proc.stderr.splitlines()
-                     if "registers" in ln or "stack frame" in ln or "Compiling entry" in ln]
-            sass = subprocess.run([_tool("cuobjdump"), "-sass", str(cubin)],
-                                  capture_output=True, text=True, check=True).stdout
-            if sass_dir is not None:
-                sass_dir.mkdir(parents=True, exist_ok=True)
-                (sass_dir / f"{name}.sass").write_text(sass)
-            out[name] = {"ptxas": ptxas, "sass": sass_classes(sass)}
     return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--csrc", type=Path, metavar="DIR",
+    ap.add_argument("--csrc", type=Path, default=cuda_build.CSRC, metavar="DIR",
                     help="build from DIR instead of the package's csrc/")
-    ap.add_argument("--sass", type=Path, metavar="DIR",
-                    help="also write each source's SASS to DIR/<source>.sass")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernels: this probe needs an NVIDIA card", file=sys.stderr)
         return 1
-    if args.csrc is not None:
-        cuda_build.CSRC = args.csrc.resolve()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(f"sources {cuda_build.CSRC}; card {card}", flush=True)
-    cen = census(sass_dir=args.sass)
-    for name, c in cen.items():
-        for line in c["ptxas"]:
-            print(f"  {name}: {line}")
-        for fn, both in c["sass"].items():
-            for which, counts in both.items():
-                classes = {k: v for k, v in counts.items() if not k.startswith("op:")}
-                ops = sorted(((v, k[3:]) for k, v in counts.items() if k.startswith("op:")),
-                             reverse=True)
-                print(f"  {name} {fn} {which}: {classes}")
-                print(f"    opcodes: {', '.join(f'{k} {v}' for v, k in ops)}")
-    cuda_build.load_kernel_libraries(*SOURCES)
+    csrc = args.csrc.resolve()
+    cuda_build.load_kernel_libraries(*SOURCES, csrc=csrc)
     times = kernel_times(torch.device("cuda"))
+    times["launch gap"] = launch_gap_ms()
     for name, ms in times.items():
         print(f"  {name}: {ms:.5f} ms held ({card})")
-    print(json.dumps({"csrc": str(cuda_build.CSRC), "card": card, "held_ms": times,
-                      "census": cen}))
+    print(json.dumps({"csrc": str(csrc), "card": card, "held_ms": times}))
     return 0
 
 

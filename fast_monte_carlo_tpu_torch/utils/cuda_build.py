@@ -19,10 +19,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
-# the sources every wrapper builds from; `probes.kernels --csrc DIR` points
-# it at a copy of another commit's sources to time both in one call
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,11 +46,9 @@ def nvcc_flags(name: str) -> Tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
-def build_digest(name: str, csrc: Optional[Path] = None) -> str:
-    """Hash naming the build of `csrc/<name>.cu` (`csrc` defaults to
-    `CSRC`): its bytes, every shared header `csrc/*.cuh` (name and bytes, in
-    name order) and the flags."""
-    csrc = CSRC if csrc is None else csrc
+def build_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash naming the build of `csrc/<name>.cu`: its bytes, every shared
+    header `csrc/*.cuh` (name and bytes, in name order) and the flags."""
     h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode())
@@ -61,11 +57,14 @@ def build_digest(name: str, csrc: Optional[Path] = None) -> str:
     return h.hexdigest()[:16]
 
 
-def load_kernel_libraries(*names: str) -> List[ctypes.CDLL]:
+def load_kernel_libraries(*names: str, csrc: Path = CSRC) -> List[ctypes.CDLL]:
     """ctypes handles of `csrc/<name>.cu` for each name, compiled for sm_90a
-    on first use; sources not built yet compile concurrently."""
+    on first use; sources not built yet compile concurrently.  The first
+    library loaded under a name serves every later call in the process, the
+    kernel wrappers' included: loading another copy of the sources first
+    (`probes.kernels --csrc DIR`) makes the wrappers run that copy."""
     # a loaded library is returned without hashing its sources again
-    outs = {name: BUILD_DIR / f"lib{name}_{build_digest(name)}.so"
+    outs = {name: BUILD_DIR / f"lib{name}_{build_digest(name, csrc)}.so"
             for name in names if name not in _LOADED}
     builds = []
     for name, out in outs.items():
@@ -77,7 +76,7 @@ def load_kernel_libraries(*names: str) -> List[ctypes.CDLL]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [_nvcc(), *nvcc_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")],
+            [_nvcc(), *nvcc_flags(name), "-o", tmp, str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         builds.append((name, proc, tmp))
     errors = []
@@ -85,7 +84,7 @@ def load_kernel_libraries(*names: str) -> List[ctypes.CDLL]:
         try:
             _, err = proc.communicate()
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for {CSRC / name}.cu:\n{err}")
+                errors.append(f"nvcc failed for {csrc / name}.cu:\n{err}")
             else:
                 os.replace(tmp, outs[name])
         finally:

@@ -53,37 +53,34 @@ def test_fused_step_is_built_without_fma_contraction():
     assert "--fmad=false" not in cuda_build.nvcc_flags("philox_draws")
 
 
-def _sass(body: str) -> str:
-    return "\t\tFunction : _Zkernel\n" + body
+def test_libraries_build_from_the_given_sources(csrc, tmp_path, monkeypatch):
+    """`load_kernel_libraries(csrc=DIR)` compiles DIR's sources into
+    libraries named by DIR's digests, and a loaded name serves later calls:
+    that is how `probes.kernels --csrc DIR` times another copy of csrc/."""
+    src = csrc / "philox_draws.cu"
+    src.write_bytes(src.read_bytes() + b"\n// another version\n")
+    ran = []
 
+    class FakeNvcc:
+        def __init__(self, cmd, **kw):
+            ran.append(cmd)
+            self.returncode, self.out = 0, cmd[cmd.index("-o") + 1]
 
-def test_sass_census_skips_slow_paths_and_takes_one_loop_trip():
-    """The census counts SASS by rate class; its main path leaves out a
-    short region that a predicated branch skips and that holds a slow path,
-    and counts a long loop's body once."""
-    straight = _sass("""\
-        /*0000*/                   S2R R0, SR_TID.X ;
-        /*0010*/                   LDC R1, c[0x0][R0+0x210] ;
-        /*0020*/              @!P0 BRA 0x50 ;
-        /*0030*/                   MOV R4, 0x40 ;
-        /*0040*/                   CALL.REL.NOINC 0x80 ;
-        /*0050*/                   IMAD.WIDE.U32 R2, R1, R1, RZ ;
-        /*0060*/                   EXIT ;
-        /*0070*/                   BRA 0x70;
-        /*0080*/                   RET.REL.NODEC R4 0x0 ;
-""")
-    got = kernels.sass_classes(straight)["_Zkernel"]
-    assert got["static"]["all"] == 9 and got["static"]["ldc_lane_indexed"] == 1
-    main = got["main_path"]
-    assert main["all"] == 5 and main["int32"] == 1 and main["memory"] == 1
-    assert main["op:IMAD.WIDE.U32"] == 1 and "op:CALL.REL.NOINC" not in main
-    lines = ["        /*0000*/                   S2R R0, SR_TID.X ;"]
-    lines += [f"        /*{16 * k:04x}*/                   FADD R2, R2, 1 ;" for k in range(1, 251)]
-    lines += [f"        /*{16 * 251:04x}*/               @P0 BRA 0x10 ;",
-              f"        /*{16 * 252:04x}*/                   EXIT ;"]
-    loop = kernels.sass_classes(_sass("\n".join(lines) + "\n"))["_Zkernel"]
-    assert loop["static"]["all"] == 253
-    assert loop["main_path"]["all"] == 251 and loop["main_path"]["f32"] == 250
+        def communicate(self):
+            open(self.out, "wb").close()
+            return "", ""
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "Popen", FakeNvcc)
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: path)
+    libs = cuda_build.load_kernel_libraries("philox_draws", "row_gather", csrc=csrc)
+    assert [cmd[-1] for cmd in ran] == [str(src), str(csrc / "row_gather.cu")]
+    digest = cuda_build.build_digest("philox_draws", csrc)
+    assert digest != cuda_build.build_digest("philox_draws")
+    assert libs[0].endswith(f"libphilox_draws_{digest}.so")
+    assert cuda_build.load_kernel_library("philox_draws") == libs[0] and len(ran) == 2
 
 
 def test_kernel_probe_needs_a_card():

@@ -152,23 +152,35 @@ def test_matchup_runner_defaults_to_the_card():
 
 def test_smoke_bound_names_the_binding_class():
     """chip_smoke.bound: the largest of bytes and each instruction class over
-    its H100 rate binds and is named; the draw kernel stays bound by its
-    stores at the main path's (24, 65,536), the fused chunk by the 64-lane
-    class."""
+    its H100 rate binds and is named.  IMAD has a pipe of its own beside the
+    ALU.  The draw kernel stays bound by its stores at the main path's
+    (24, 65,536); the fused 24-step chunk by dispatch, one step by its bytes.
+    No class holds more instructions than dispatch."""
     import chip_smoke
 
     clock = 132 * 1.98e9
-    b = chip_smoke.bound(1e6, {"int32": 1e12, "mufu_cvt": 1e9, "issue": 1e12})
-    assert (b["bound_class"], b["bound_by"]) == ("int32", "operations")
+    counts = {"alu": 1e12, "imad": 1e12, "mufu_cvt": 1e9, "dispatch": 1.5e12}
+    b = chip_smoke.bound(1e6, counts)
+    assert (b["bound_class"], b["bound_by"]) == ("alu", "operations")
     assert b["bound_ms"] == pytest.approx(1e12 / (64 * clock) * 1e3)
-    b = chip_smoke.bound(1e6, {"int32": 1e6, "mufu_cvt": 1e12, "issue": 1e6})
-    assert (b["bound_class"], b["bound_ms"]) == ("mufu_cvt", pytest.approx(1e12 / (16 * clock) * 1e3))
-    b = chip_smoke.bound(1e12, {"issue": 1e6})
+    for cls, lanes, more in (("imad", 64, {"imad": 2e12, "dispatch": 2.5e12}),
+                             ("dispatch", 128, {"dispatch": 4e12}),
+                             ("mufu_cvt", 16, {"mufu_cvt": 1e12})):
+        b = chip_smoke.bound(1e6, {**counts, **more})
+        assert (b["bound_class"], b["bound_ms"]) == (
+            cls, pytest.approx(more[cls] / (lanes * clock) * 1e3))
+    b = chip_smoke.bound(1e12, {"dispatch": 1e6})
     assert (b["bound_class"], b["bound_by"]) == ("bytes", "bytes")
     d = chip_smoke.draw_bound(24, 65536)
     assert (d["bound_class"], d["bound_by"]) == ("bytes", "bytes")
     assert d["bound_ms"] == pytest.approx(24 * 65536 * 68 / 3.35e12 * 1e3)
     assert round(d["bound_ms"], 4) == 0.0319
-    assert chip_smoke.step_bound(131072, 24)["bound_class"] == "int32"
-    assert chip_smoke.step_bound(131072, 24)["bound_ms"] == pytest.approx(
-        24 * chip_smoke.step_bound(131072, 1)["bound_ms"])
+    chunk, one = chip_smoke.step_bound(131072, 24), chip_smoke.step_bound(131072, 1)
+    assert chunk["bound_class"] == "dispatch"
+    assert chunk["bound_ms"] == pytest.approx(
+        24 * 131072 * chip_smoke.STEP_COUNTS["dispatch"] / (128 * clock) * 1e3)
+    assert (one["bound_class"], one["bound_ms"]) == (
+        "bytes", pytest.approx(131072 * 72 / 3.35e12 * 1e3))
+    for c in (chip_smoke.DRAW_COUNTS, chip_smoke.STEP_COUNTS):
+        assert set(c) == set(chip_smoke.RATES) - {"bytes"}
+        assert c["alu"] + c["imad"] + c["mufu_cvt"] <= c["dispatch"]
