@@ -28,22 +28,31 @@ Phases, in order (any failure raises and exits non-zero):
     their plain versions at B = 131,072 for 3 keys: one step equal on
     integer state and within 1e-5 on floats, a 24-step chunk equal to 24
     one-step launches, and 360-step runs equal in at least 99.9% of final
-    scores with means and side-A win rate within 4 MC standard errors; both
-    timed against their plain versions; then the probes path
-    (`probes.step_arith.time_structures`): the five structures, 360 steps;
+    scores with means and side-A win rate within 4 MC standard errors;
+    fused_step_tab also at B = 1, 127, 129 and 131,073 with heads of
+    stride 7 and 1, and 24 launches back to back equal to the same chain
+    synchronised between launches; both timed against their plain
+    versions; then the probes path (`probes.step_arith.time_structures`):
+    the five structures, 360 steps;
  7. the row gathers (row_gather, row_gather_sum) against their plain
-    versions at the B3-B6 probes' shapes: gathers bitwise, row sums
-    within 1e-6 relative; kernel, plain and torch.index_select timed; then
-    the gather probes path (`probes.gather.run_probes`).
+    versions, which clip indices as the kernels do: row_gather_sum at
+    widths 1, 3, 5, 8, 127, 128, 129 and 1,000, both on a table one float
+    past a 16-byte boundary and with indices outside the table; B3's
+    360-launch loop, and a 24-launch chain that sums the previous output,
+    back to back equal to the same launches synchronised one by one; then
+    at the B3-B6 probes' shapes: gathers bitwise, row sums within 1e-6
+    relative; kernel, plain and torch.index_select timed; then the gather
+    probes path (`probes.gather.run_probes`).
 Every kernel's launch count is set to 0 just before each path (5, 6, 7) and
 read just after it; a path that launched one of its kernels no time fails.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
-(`probes.kernels.held_ms`; `kernel_times` for philox_draws and the fused
-steps, which `python -m fast_monte_carlo_tpu_torch.probes.kernels` prints
-alone).  Each kernel's bound is the largest of its bytes and its
-instructions by class over the H100's rates (`bound`): the JSON line gives
-it with `bound_by` ("bytes" or "operations") and `bound_class`.
+(`probes.kernels.held_ms`; `kernel_times` for philox_draws, the fused
+steps and row_gather_sum, which `python -m
+fast_monte_carlo_tpu_torch.probes.kernels` prints alone).  Each kernel's
+bound is the largest of its bytes and its instructions by class over the
+H100's rates (`bound`): the JSON line gives it with `bound_by` ("bytes" or
+"operations") and `bound_class`.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -471,6 +480,37 @@ def phase_fused(card: str) -> dict:
                     sa.run_structure("eager-tab", b, PROBE_STEPS, key, dev, values),
                     f"key {ki}: hybrid-tab vs eager-tab, {PROBE_STEPS} steps")
 
+    # fused_step_tab at ragged sizes (a block of 1 game, one short of and
+    # one past a block, one past the probe's B), heads as the columns of one
+    # (B, 7) tensor (stride 7, as table_select gives them) and as seven
+    # vectors (stride 1, which the wrapper stacks into one)
+    key = rng.root_key(5)
+    for bb in (1, 127, 129, b + 1):
+        s0 = probe_states(20, bb)
+        h7 = sa.heads_of(s0, values)
+        h1 = [x.new_empty(x.shape).copy_(x) for x in h7]
+        for heads in (h7, h1):
+            err["fused_step_tab"] = max(err["fused_step_tab"], same_state(
+                sa.fused_step_tab(s0, heads, key, 77),
+                sa.fused_step_reference(s0, key, 77, 1, heads),
+                f"B={bb:,}, heads stride {heads[0].stride()[0]}: fused_step_tab vs plain"))
+    # 24 back-to-back launches, each reading the previous one's state,
+    # against the same chain synchronised between launches
+    s0 = probe_states(21, b)
+    h = sa.heads_of(s0, values)
+
+    def tab_chain(sync: bool):
+        s = s0
+        for j in range(sa.CH):
+            s = sa.fused_step_tab(s, h, key, j)
+            if sync:
+                torch.cuda.synchronize()
+        return s
+
+    check(all(torch.equal(x, y) for x, y in zip(tab_chain(False), tab_chain(True))),
+          f"{sa.CH} fused_step_tab launches back to back == synchronised between "
+          "launches, in every game")
+
     key = rng.root_key(8)
     s0 = sa.init_state(b, dev)
     h = sa.heads_of(s0, values)
@@ -532,55 +572,109 @@ def phase_fused(card: str) -> dict:
 def phase_gather(card: str) -> dict:
     import torch
     from fast_monte_carlo_tpu_torch.probes import gather as ga
-    from fast_monte_carlo_tpu_torch.probes.kernels import launch_gap_ms
+    from fast_monte_carlo_tpu_torch.probes.kernels import (RUNS, held_ms, kernel_times,
+                                                           launch_gap_ms)
 
     dev = torch.device("cuda")
-    tab3, idx3 = ga.b3_inputs(dev)
-    shapes = [("B3", tab3, idx3),
-              ("B4", ga.mod_table(ga.B4_ROWS, ga.B4_COLS, dev),
-               (torch.arange(ga.B4_B, dtype=torch.int32, device=dev) * 7) % ga.B4_ROWS)]
-    for rows in ga.B5_ROWS:
-        shapes.append((f"B5 R={rows}", ga.mod_table(rows, ga.B5_COLS, dev),
-                       (torch.arange(rows, dtype=torch.int32, device=dev) * 1103 + 7) % rows))
-    for b in ga.B6_BS:
-        shapes.append((f"B6 B={b}", ga.mod_table(ga.B6_ROWS, ga.B6_COLS, dev),
-                       (torch.arange(b, dtype=torch.int32, device=dev) * 1103 + 7) % ga.B6_ROWS))
-    out = {}
+    g = np.random.default_rng(11)
     gather_err = sum_err = 0.0
-    for what, table, idx in shapes:
+
+    def same_gather(table, idx, what: str) -> None:
+        nonlocal gather_err
         got, want = ga.row_gather(table, idx), ga.row_gather_reference(table, idx)
         torch.cuda.synchronize()
         gather_err = max(gather_err, float((got - want).abs().max()))
-        check(torch.equal(got, want), f"{what}: row_gather bitwise equal to table[idx]")
+        check(torch.equal(got, want), f"{what}: row_gather bitwise equal to the clipping table[idx]")
+
+    def close_sum(table, idx, what: str) -> None:
+        nonlocal sum_err
         got, want = ga.row_gather_sum(table, idx), ga.row_gather_sum_reference(table, idx)
         torch.cuda.synchronize()
         rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
         sum_err = max(sum_err, float((got - want).abs().max()))
         check(rel <= 1e-6, f"{what}: row_gather_sum within 1e-6 relative ({rel:.3g})")
+
+    def rand_table(rows: int, cols: int, skip: int = 0):
+        """U[0, 1) (rows, cols), starting `skip` floats into its buffer."""
+        flat = torch.from_numpy(g.random(rows * cols + skip, dtype=np.float32)).to(dev)
+        return flat[skip:].view(rows, cols)
+
+    # the lane groups at every width they take: 1-32 lanes, float4 items
+    # (width % 4 == 0) and floats, one item per lane, a loop within the
+    # warp; 8,193 rows, so the grid's last block is ragged
+    for cols in (1, 3, 5, 8, 127, 128, 129, 1000):
+        idx = torch.from_numpy(g.integers(0, 4096, 8193, dtype=np.int32)).to(dev)
+        close_sum(rand_table(4096, cols), idx, f"width {cols}, 8,193 rows")
+    # a table one float past a 16-byte boundary takes the scalar path
+    for cols in (8, 128):
+        table = rand_table(4096, cols, skip=1)
+        check(table.data_ptr() % 16 == 4, f"width {cols} table view 4 bytes past 16")
+        idx = torch.from_numpy(g.integers(0, 4096, 8193, dtype=np.int32)).to(dev)
+        same_gather(table, idx, f"misaligned width {cols}")
+        close_sum(table, idx, f"misaligned width {cols}")
+    # indices outside the table clip to its first and last rows
+    far = [-2 ** 31, -1000, -1, 0, 999, 1000, 1001, 2 ** 31 - 1]
+    idx = torch.tensor(far * 1025, dtype=torch.int32, device=dev)
+    for cols in (8, 128):
+        table = rand_table(1000, cols)
+        same_gather(table, idx, f"out-of-range indices, width {cols}")
+        close_sum(table, idx, f"out-of-range indices, width {cols}")
+
+    # back-to-back launches against the same launches one at a time:
+    # row_gather_sum is launched with PDL, and a read or write placed before
+    # its griddepcontrol.wait would show here
+    tab3, idx3 = ga.b3_inputs(dev)
+    check(torch.equal(ga.b3_loop(ga.row_gather_sum, tab3, idx3),
+                      ga.b3_loop(ga.row_gather_sum, tab3, idx3, sync=True)),
+          f"B3's {ga.B3_STEPS}-launch loop back to back == synchronised after every launch")
+    t0 = rand_table(8192, 8)
+    cidx = torch.from_numpy(g.integers(0, 8192, 65536, dtype=np.int32)).to(dev)
+
+    def chain(sync: bool):
+        x = t0
+        for _ in range(24):
+            x = ga.row_gather_sum(x, cidx).view(8192, 8)  # the next launch's table
+            if sync:
+                torch.cuda.synchronize()
+        return x
+
+    check(torch.equal(chain(False), chain(True)),
+          "24 launches, each summing the previous one's output as its table: back to "
+          "back == synchronised after every launch")
+
+    held = kernel_times(dev, [n for n in RUNS if n.startswith("row_gather_sum")])
+    out = {}
+    for what, table, idx in ga.probe_shapes(dev):
+        same_gather(table, idx, what)
+        close_sum(table, idx, what)
         rows_touched = int(torch.unique(idx).numel())
         n, c = idx.numel(), table.shape[1]
         gbd = bound(4 * n + rows_touched * c * 4 + n * c * 4, {})
         sbd = bound(4 * n + rows_touched * c * 4 + n * 4, {"dispatch": n * c})
-        g, g_ev = {**gbd}, {}
-        sm, sm_ev = {**sbd, "library_ms": None}, {}
+        gm, g_ev = {**gbd}, {}
+        sm_ms = held.get(f"row_gather_sum {what}")
+        if sm_ms is None:        # a shape kernel_times does not take
+            sm_ms = held_ms(lambda: ga.row_gather_sum(table, idx), 100)[0]
+        sm, sm_ev = {**sbd, "ms": sm_ms, "library_ms": None}, {}
         hows = set()
         for d, ev, key, fn in (
-                (g, g_ev, "ms", lambda: ga.row_gather(table, idx)),
-                (g, g_ev, "plain_ms", lambda: ga.row_gather_reference(table, idx)),
-                (g, g_ev, "library_ms", lambda: torch.index_select(table, 0, idx)),
-                (sm, sm_ev, "ms", lambda: ga.row_gather_sum(table, idx)),
+                (gm, g_ev, "ms", lambda: ga.row_gather(table, idx)),
+                (gm, g_ev, "plain_ms", lambda: ga.row_gather_reference(table, idx)),
+                (gm, g_ev, "library_ms", lambda: torch.index_select(table, 0, idx)),
                 (sm, sm_ev, "plain_ms", lambda: ga.row_gather_sum_reference(table, idx))):
             d[key], ev[key], how = times(fn, 100)
             hows.add(how)
         print(f"  {what} table {tuple(table.shape)} x {n:,}, ms device "
               f"({', '.join(sorted(hows))}; by events in brackets): "
-              f"row_gather {g['ms']:.4f} ({g_ev['ms']:.4f}), plain {g['plain_ms']:.4f} "
-              f"({g_ev['plain_ms']:.4f}), index_select {g['library_ms']:.4f} "
-              f"({g_ev['library_ms']:.4f}), bound {g['bound_ms']:.4f}; row_gather_sum "
-              f"{sm['ms']:.4f} ({sm_ev['ms']:.4f}), plain {sm['plain_ms']:.4f} "
-              f"({sm_ev['plain_ms']:.4f}), bound {sm['bound_ms']:.4f}; launch gap "
-              f"{launch_gap_ms():.4f} ({card})")
-        out[what] = (g, sm)
+              f"row_gather {gm['ms']:.4f} ({g_ev['ms']:.4f}), plain {gm['plain_ms']:.4f} "
+              f"({g_ev['plain_ms']:.4f}), index_select {gm['library_ms']:.4f} "
+              f"({g_ev['library_ms']:.4f}), bound {gm['bound_ms']:.4f}; row_gather_sum "
+              f"{sm['ms']:.4f} (held only), plain {sm['plain_ms']:.4f} "
+              f"({sm_ev['plain_ms']:.4f}), bound {sm['bound_ms']:.4f} "
+              f"({sm['bound_ms'] / sm['ms']:.0%} of it, bytes at the HBM rate while the "
+              f"table sits in L2), over index_select "
+              f"{sm['ms'] / gm['library_ms']:.3f}; launch gap {launch_gap_ms():.4f} ({card})")
+        out[what] = (gm, sm)
 
     print("  gather probes path: probes.gather.run_probes()")
     torch.cuda.synchronize()

@@ -38,8 +38,23 @@
 // 132 SMs.  Drawing step j + 1's Philox words before step j's arithmetic
 // was tried: the 17 words held across the step spilled under that cap and
 // ran 2-3% slower than drawing each step's words where they are used.
+//
+// fused_step_tab runs one step per launch, with the heads as inputs.  Its
+// bound is its bytes (13.1 MB at B = 131,072, one wave).  Each thread loads
+// 9 state words and 7 heads, draws, steps and stores, and the heads are
+// the columns of one (B, 7) tensor: read per thread, they took seven 4-byte
+// loads 28 bytes apart.  Design: the launcher takes the heads only as one
+// 16-byte-aligned (B, 7) slab (the wrapper stacks them otherwise), and each
+// block copies its 128 x 7 floats, 3,584 bytes, into shared memory by
+// 16-byte cp.async, which needs no registers.  The copy and the state loads
+// are issued first, the Philox draws of (key, step, row) run while they are
+// in flight, and one barrier then covers the slab and the go-for-it grid.
+// Programmatic dependent launch (pdl.cuh) is not taken: in the probe's own
+// order, after table_select's torch kernels, it saved 1% of a step's
+// device time on an H100 (PERF.md, PR 4).
 #include <cmath>
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
@@ -375,25 +390,36 @@ __global__ void __launch_bounds__(kThreads, 8)
   store(out, i, s);
 }
 
-// the 7 head vectors, by value in the kernel's parameter space
-struct HeadPtrs {
-  const float* p[7];
-};
+constexpr int kHeads = 7;
+constexpr int kSlabFloats = kThreads * kHeads;   // a block's heads, 3,584 bytes
+static_assert(kSlabFloats % 4 == 0, "a block's slab starts 16-byte aligned");
 
+// heads: the (n, 7) row-major tensor of the 7 head vectors, 16-byte aligned.
 __global__ void __launch_bounds__(kThreads, 8)
     fused_step_tab_kernel(const StepConsts c, const Tables t, const StatePtrs in,
-                          const HeadPtrs heads, int stride, const StatePtrs out,
+                          const float* __restrict__ heads, const StatePtrs out,
                           uint32_t k0, uint32_t k1, uint32_t step, int n) {
   __shared__ float grid[kGridCells];
-  load_grid(c, t, grid);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const State s = load(in, i);
-  const long long at = static_cast<long long>(i) * stride;
-  const Heads h{heads.p[0][at], heads.p[1][at], heads.p[2][at], heads.p[3][at],
-                heads.p[4][at], heads.p[5][at], heads.p[6][at]};
+  __shared__ float4 slab4[kSlabFloats / 4];
+  float* slab = reinterpret_cast<float*>(slab4);
+  const int g0 = blockIdx.x * kThreads;
+  const int floats = min(n - g0, kThreads) * kHeads;
+  const float* src = heads + static_cast<long long>(g0) * kHeads;
+  for (int k = threadIdx.x; k < floats / 4; k += kThreads)
+    __pipeline_memcpy_async(&slab4[k], reinterpret_cast<const float4*>(src) + k, 16);
+  for (int k = floats / 4 * 4 + threadIdx.x; k < floats; k += kThreads)
+    __pipeline_memcpy_async(&slab[k], src + k, 4);
+  __pipeline_commit();
+  for (int k = threadIdx.x; k < t.go_cells; k += kThreads) grid[k] = c.go_grid[k];
+  const int i = g0 + threadIdx.x;
+  const State s = load(in, min(i, n - 1));   // in flight under the draws
   float u[philox::kUniforms], z[philox::kNormals];
   philox::step_draws(k0, k1, step, static_cast<uint32_t>(i), u, z);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (i >= n) return;
+  const float* m = slab + threadIdx.x * kHeads;   // stride 7: no bank conflicts
+  const Heads h{m[0], m[1], m[2], m[3], m[4], m[5], m[6]};
   store(out, i, step_arith(c, t, grid, s, u, z, h));
 }
 
@@ -423,16 +449,21 @@ extern "C" int fused_step_launch(const StepConsts* c, void* const* in, void* con
 }
 
 // One step with the 7 head vectors given: heads is 7 device pointers, head k
-// of game i at heads[k][i * stride].
+// of game i at heads[k][i * stride].  They must be the columns of one
+// 16-byte-aligned (n, 7) tensor (stride 7, heads[k] == heads[0] + k), as
+// table_select gives them; else it launches nothing and returns
+// cudaErrorInvalidValue.
 extern "C" int fused_step_tab_launch(const StepConsts* c, void* const* in,
                                      void* const* heads, int stride, void* const* out,
                                      uint32_t k0, uint32_t k1, uint32_t step, int n,
                                      void* stream) {
   if (n <= 0) return 0;
-  HeadPtrs h;
-  for (int k = 0; k < 7; ++k) h.p[k] = static_cast<const float*>(heads[k]);
+  const float* h0 = static_cast<const float*>(heads[0]);
+  bool slab = stride == kHeads && reinterpret_cast<uintptr_t>(h0) % 16 == 0;
+  for (int k = 1; k < kHeads; ++k) slab = slab && heads[k] == h0 + k;
+  if (!slab) return static_cast<int>(cudaErrorInvalidValue);
   fused_step_tab_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      *c, tables_of(*c), state_ptrs(in), h, stride, state_ptrs(out), k0, k1, step, n);
+      *c, tables_of(*c), state_ptrs(in), h0, state_ptrs(out), k0, k1, step, n);
   return static_cast<int>(cudaGetLastError());
 }

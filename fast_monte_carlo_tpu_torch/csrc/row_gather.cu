@@ -15,11 +15,34 @@
 // row_gather gives one thread one float4 of one output row where the row
 // width allows it (C % 4 == 0 and 16-byte-aligned pointers), else one float,
 // so a warp's loads and stores cover neighbouring addresses of one or a few
-// rows.  row_gather_sum gives one thread one row and sums it in column order.
-// Indices outside [0, rows) are clipped to the table, as the probes' XLA
-// reference (`mode="clip"`) does.
+// rows.  Indices outside [0, rows) are clipped to the table, as the probes'
+// XLA reference (`mode="clip"`) does.
+//
+// row_gather_sum writes 4 bytes per row it reads, so its bytes are the rows
+// read; and at the probes' shapes one launch is one wave (131,072 rows of 8
+// at B3, 8,192 of 128 at B6): an index load, a dependent row load and a
+// store, with nothing to overlap them.  One thread walking one row with
+// scalar loads reached 23% of the bytes bound at B3 and 7% at 128 columns,
+// where a warp's load touched 32 rows 512 bytes apart.  Design: a group of
+// T lanes per row, T = min(32, next_pow2(items)), an item being a float4
+// where C % 4 == 0 and the table is 16-byte aligned, else a float (the same
+// groups over scalars).  Lane l of a group adds items l, l + T, ... of its
+// row, so a row is read as contiguous 16-byte loads, neighbouring lanes on
+// neighbouring addresses; rows wider than 32 items loop within the warp.
+// The group's first lane reads the index and passes it on by a shuffle,
+// the group reduces by __shfl_xor_sync, and its first lane writes out[i]: the
+// sum is in lane order, not column order.  It is launched with
+// programmatic dependent launch (pdl.cuh) and waits for the kernel before
+// it just ahead of its index load, its first global access: in B3's loop
+// it follows torch's `%` kernel, whose end its launch then overlaps, and a
+// loop step (index shift, `%`, this kernel, accumulate) took 0.0095 ms of
+// device time on an H100 against 0.0107 without it (PERF.md, PR 4).
+// Two items per lane (half the lanes) was 9-10% faster at 2,048 and 8,192
+// rows of 128 and 6-33% slower at B3 and at 1,024 rows or fewer.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "pdl.cuh"
 
 namespace {
 
@@ -37,18 +60,35 @@ __global__ void row_gather_kernel(const T* __restrict__ table, const int* __rest
   out[t] = table[clip_row(idx[i], rows) * width + c];
 }
 
-__global__ void row_gather_sum_kernel(const float* __restrict__ table,
-                                      const int* __restrict__ idx, float* __restrict__ out,
-                                      int rows, int width, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* row = table + clip_row(idx[i], rows) * width;
-  float s = 0.0f;
-  for (int c = 0; c < width; ++c) s += row[c];
-  out[i] = s;
-}
+__device__ __forceinline__ float item_sum(float4 v) { return (v.x + v.y) + (v.z + v.w); }
+__device__ __forceinline__ float item_sum(float v) { return v; }
 
 constexpr int kThreads = 256;
+
+// `width` is the row width in items V; groups of 2^lanes_log2 lanes, one
+// row each.  Every lane of the block takes part in the shuffles: the grid's
+// ragged edge is masked, not returned.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+    row_gather_sum_kernel(const V* __restrict__ table, const int* __restrict__ idx,
+                          float* __restrict__ out, int rows, int width, int n, int lanes_log2) {
+  pdl::launch_dependents();
+  const int lanes = 1 << lanes_log2;
+  const long long i = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> lanes_log2;
+  const int l = threadIdx.x & (lanes - 1);
+  const bool live = i < n;
+  pdl::wait();
+  int r = live && l == 0 ? idx[i] : 0;
+  r = __shfl_sync(0xffffffffu, r, 0, lanes);
+  float s = 0.0f;
+  if (live) {
+    const V* row = table + clip_row(r, rows) * width;
+#pragma unroll 4
+    for (int c = l; c < width; c += lanes) s += item_sum(row[c]);
+  }
+  for (int o = lanes >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (live && l == 0) out[i] = s;
+}
 
 unsigned blocks_for(long long total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
@@ -78,12 +118,22 @@ extern "C" int row_gather_launch(const void* table, const void* idx, void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (n,) = table (rows, cols)[idx (n,)].sum(1), summed in column order.
+// out (n,) = table (rows, cols)[idx (n,)].sum(1), summed in lane order.
 extern "C" int row_gather_sum_launch(const void* table, const void* idx, void* out,
                                      int rows, int cols, int n, void* stream) {
   if (n <= 0) return 0;
-  row_gather_sum_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int*>(idx),
-      static_cast<float*>(out), rows, cols, n);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = cols % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  const int items = vec ? cols / 4 : cols;
+  int lanes_log2 = 0;
+  while (lanes_log2 < 5 && (1 << lanes_log2) < items) ++lanes_log2;
+  const unsigned blocks = blocks_for(static_cast<long long>(n) << lanes_log2);
+  const int* ix = static_cast<const int*>(idx);
+  float* o = static_cast<float*>(out);
+  const cudaError_t err =
+      vec ? pdl::launch(row_gather_sum_kernel<float4>, blocks, kThreads, st,
+                        static_cast<const float4*>(table), ix, o, rows, items, n, lanes_log2)
+          : pdl::launch(row_gather_sum_kernel<float>, blocks, kThreads, st,
+                        static_cast<const float*>(table), ix, o, rows, items, n, lanes_log2);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -46,12 +46,18 @@ B6_ROWS, B6_COLS, B6_BS = 16384, 128, (1024, 8192)
 # plain versions and kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _clipped(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """idx as int64, clipped to [0, rows), as the kernels and the probes'
+    XLA reference (`jnp.take(..., mode="clip")`) clip."""
+    return idx.long().clamp(0, table.shape[0] - 1)
+
+
 def row_gather_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return table[idx.long()]
+    return table[_clipped(table, idx)]
 
 
 def row_gather_sum_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return table[idx.long()].sum(1)
+    return table[_clipped(table, idx)].sum(1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,9 +98,8 @@ def _launch(symbol: str, table, idx, out) -> None:
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx]: (n, cols) from a (rows, cols) f32 table and (n,) int32
-    indices.  On CUDA the kernel clips indices to the table; the plain
-    version (CPU) raises on one outside it.  `row_gather.launches` counts
-    kernel launches."""
+    indices, each clipped to [0, rows) (by the kernel on CUDA, the plain
+    version on the CPU).  `row_gather.launches` counts kernel launches."""
     if _check(table, idx).type == "cpu":
         return row_gather_reference(table, idx)
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=torch.float32,
@@ -108,7 +113,10 @@ row_gather.launches = 0
 
 
 def row_gather_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx].sum(1): (n,), each row summed in column order on CUDA.
+    """table[idx].sum(1): (n,), indices clipped as in `row_gather`.  On CUDA
+    a group of lanes sums each row and reduces by shuffles, so the sum is
+    not taken in column order: it agrees with the plain version to f32
+    rounding (`chip_smoke.py` holds it within 1e-6 relative).
     `row_gather_sum.launches` counts kernel launches."""
     if _check(table, idx).type == "cpu":
         return row_gather_sum_reference(table, idx)
@@ -165,21 +173,47 @@ def b3_inputs(dev: torch.device):
     return tab, idx
 
 
+def probe_shapes(dev: torch.device):
+    """[(name, table, idx)] at each probe's timed shape, names as in
+    `PROBE_SHAPES`: B3's inputs, then B4, B5 and B6 on `mod_table`."""
+    tab3, idx3 = b3_inputs(dev)
+    shapes = [("B3", tab3, idx3),
+              ("B4", mod_table(B4_ROWS, B4_COLS, dev),
+               (torch.arange(B4_B, dtype=torch.int32, device=dev) * 7) % B4_ROWS)]
+    for rows in B5_ROWS:
+        shapes.append((f"B5 R={rows}", mod_table(rows, B5_COLS, dev),
+                       (torch.arange(rows, dtype=torch.int32, device=dev) * 1103 + 7) % rows))
+    for b in B6_BS:
+        shapes.append((f"B6 B={b}", mod_table(B6_ROWS, B6_COLS, dev),
+                       (torch.arange(b, dtype=torch.int32, device=dev) * 1103 + 7) % B6_ROWS))
+    return shapes
+
+
+PROBE_SHAPES = ("B3", "B4", *(f"B5 R={r}" for r in B5_ROWS), *(f"B6 B={b}" for b in B6_BS))
+
+
+def b3_loop(fn: Callable, tab: torch.Tensor, idx: torch.Tensor,
+            sync: bool = False, steps: int = B3_STEPS) -> torch.Tensor:
+    """B3's loop (pallas_gather_probe.py:26-30): fn(tab, idx shifted by
+    k * 9973) accumulated over `steps` k, 360 in the probe.  `sync`
+    synchronises the device after every call of fn, so that no call
+    overlaps another."""
+    c = torch.zeros(idx.shape[0], dtype=torch.float32, device=tab.device)
+    for k in range(steps):
+        c = c + fn(tab, (idx + k * 9973) % tab.shape[0])
+        if sync:
+            _sync(tab.device)
+    return c
+
+
 def probe_b3(dev: torch.device) -> dict:
     """take(tab, idx).sum(1) once and accumulated over 360 shifted index
     sets (pallas_gather_probe.py:26-30, 63-66); the looped sum is checked
     against the plain loop."""
     tab, idx = b3_inputs(dev)
-
-    def loop(fn):
-        c = torch.zeros(B3_B, dtype=torch.float32, device=dev)
-        for k in range(B3_STEPS):
-            c = c + fn(tab, (idx + k * 9973) % B3_ROWS)
-        return c
-
     ms_x1 = _ms(lambda: row_gather_sum(tab, idx), dev, 20)    # also warms the kernel
-    got, ms_loop = _once(lambda: loop(row_gather_sum), dev)
-    want, plain_ms_loop = _once(lambda: loop(row_gather_sum_reference), dev)
+    got, ms_loop = _once(lambda: b3_loop(row_gather_sum, tab, idx), dev)
+    want, plain_ms_loop = _once(lambda: b3_loop(row_gather_sum_reference, tab, idx), dev)
     return dict(correct=bool(torch.allclose(got, want, rtol=1e-5, atol=0)),
                 ms_x1=ms_x1, ms_loop=ms_loop, plain_ms_loop=plain_ms_loop)
 

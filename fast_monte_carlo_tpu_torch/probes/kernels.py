@@ -5,9 +5,11 @@
 builds every source of `csrc/` (or of DIR, a copy of another commit's
 `csrc/` whose launchers take the same arguments, so that two versions are
 timed in one call, one process each) and prints the device time per call
-of each kernel at the shapes `chip_smoke.py` times, and of a near-empty
-launch (`torch.cuda._sleep(1)`): the gap between back-to-back kernels that
-every held time includes.  The last line is one JSON object of the times.
+of each kernel at the shapes `chip_smoke.py` times, of a step of the
+probe loops that launch fused_step_tab and row_gather_sum, in their own
+launch order (`path_times`), and of a near-empty launch
+(`torch.cuda._sleep(1)`): the gap between back-to-back kernels that every
+held time includes.  The last line is one JSON object of the times.
 
 `held_ms` is the timer, and `kernel_times` the kernel times, that
 `chip_smoke.py` reports: CUDA events around back-to-back calls that the
@@ -28,11 +30,16 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..utils import cuda_build
+from . import gather
 
 SOURCES = ("philox_draws", "fused_step", "row_gather")
 # what kernel_times times, with the calls of each held run
 RUNS = {"philox_draws ch=24": 50, "philox_draws ch=1": 200, "fused_step ch=24": 50,
-        "fused_step ch=1": 200, "fused_step_tab": 200}
+        "fused_step ch=1": 200, "fused_step_tab": 200, "row_gather_sum B3": 200,
+        f"row_gather_sum B6 B={gather.B6_BS[-1]}": 200}
+# what path_times times: steps of each probe loop in one held run, about
+# 530 and 260 launches, within the card's launch queue
+PATH_STEPS = {"hybrid-tab step": 16, "B3 loop step": 64}
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,7 +98,10 @@ def kernel_times(dev: torch.device, names: Sequence[str] = tuple(RUNS)) -> Dict[
     """Held ms per call of each kernel of `names` (keys of RUNS):
     philox_draws at (24, 65,536) into a held buffer and at (1, 65,536);
     fused_step at B = 131,072, ch = 24 and 1, from kick-off; fused_step_tab
-    at B = 131,072.  Raises where the hold did not cover the enqueue."""
+    at B = 131,072; row_gather_sum at B3's shape and at B6's 8,192 rows of
+    128.  Each kernel runs back to back after itself, a launch order no
+    probe has (`path_times` times theirs).  Raises where the hold did not
+    cover the enqueue."""
     from ..ops import rng
     from . import step_arith as sa
 
@@ -108,12 +118,51 @@ def kernel_times(dev: torch.device, names: Sequence[str] = tuple(RUNS)) -> Dict[
         calls["fused_step ch=24"] = lambda: sa.fused_step(s0, key, 0, sa.CH)
         calls["fused_step ch=1"] = lambda: sa.fused_step(s0, key, 0, 1)
         calls["fused_step_tab"] = lambda: sa.fused_step_tab(s0, heads, key, 0)
+    if any(n.startswith("row_gather_sum") for n in names):
+        for what, table, idx in gather.probe_shapes(dev):
+            if f"row_gather_sum {what}" in RUNS:
+                calls[f"row_gather_sum {what}"] = (
+                    lambda table=table, idx=idx: gather.row_gather_sum(table, idx))
     out = {}
     for name in names:
         ms, held = held_ms(calls[name], RUNS[name])
         if not held:
             raise RuntimeError(f"{name}: the hold did not cover the enqueue")
         out[name] = ms
+    return out
+
+
+def path_times(dev: torch.device) -> Dict[str, float]:
+    """Held device ms per step of the two probe loops that launch
+    fused_step_tab and row_gather_sum, in the order they launch them: a
+    hybrid-tab step at B = 131,072 (`heads_of`'s torch kernels, then
+    fused_step_tab on the previous step's state) and a step of B3's loop
+    (the index shift in torch, row_gather_sum, the accumulate).  There each
+    kernel follows and precedes torch kernels.  Each held run starts anew
+    from the same inputs.  Raises where the hold did not cover the
+    enqueue."""
+    from ..ops import rng
+    from . import step_arith as sa
+
+    key, values = rng.root_key(8), sa.make_table(dev)
+    s0 = sa.init_state(sa.B_DEFAULT, dev)
+    tab, idx = gather.b3_inputs(dev)
+
+    def hybrid():
+        s = s0
+        for j in range(PATH_STEPS["hybrid-tab step"]):
+            s = sa.fused_step_tab(s, sa.heads_of(s, values), key, j)
+        return s
+
+    runs = {"hybrid-tab step": hybrid,
+            "B3 loop step": lambda: gather.b3_loop(gather.row_gather_sum, tab, idx,
+                                                   steps=PATH_STEPS["B3 loop step"])}
+    out = {}
+    for name, fn in runs.items():
+        ms, held = held_ms(fn, 1)
+        if not held:
+            raise RuntimeError(f"{name}: the hold did not cover the enqueue")
+        out[name] = ms / PATH_STEPS[name]
     return out
 
 
@@ -131,6 +180,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     csrc = args.csrc.resolve()
     cuda_build.load_kernel_libraries(*SOURCES, csrc=csrc)
     times = kernel_times(torch.device("cuda"))
+    times.update(path_times(torch.device("cuda")))
     times["launch gap"] = launch_gap_ms()
     for name, ms in times.items():
         print(f"  {name}: {ms:.5f} ms held ({card})")

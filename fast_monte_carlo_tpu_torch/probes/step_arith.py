@@ -425,31 +425,39 @@ def fused_step(state: State, key: int, step_base: int, ch: int = 1) -> State:
 fused_step.launches = 0
 
 
+def head_slab(heads: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+    """The 7 head vectors as the columns of one 16-byte-aligned (B, 7)
+    tensor, the only layout the kernel reads: `heads` itself where they are
+    that already (as `table_select` gives them), else a stacked copy."""
+    h0 = heads[0]
+    if all(h.stride() == (N_HC,) and h.data_ptr() == h0.data_ptr() + 4 * k
+           for k, h in enumerate(heads)) and h0.data_ptr() % 16 == 0:
+        return heads
+    return torch.stack(tuple(heads), 1).unbind(1)
+
+
 def fused_step_tab(state: State, heads: Sequence[torch.Tensor], key: int,
                    step: int) -> State:
     """B2: one play step with the 7 head vectors given (`table_select`),
-    draws in the kernel.  The head vectors may be the columns of one
-    (B, 7) tensor: they share one element stride.  CPU tensors run
-    `fused_step_reference`.  `fused_step_tab.launches` counts kernel
-    launches."""
+    draws in the kernel, which reads the heads as one (B, 7) tensor
+    (`head_slab`).  CPU tensors run `fused_step_reference`.
+    `fused_step_tab.launches` counts kernel launches."""
     dev = _check(state, STATE_DTYPES, "state")
     if len(heads) != N_HC:
         raise ValueError(f"{N_HC} head vectors expected, got {len(heads)}")
-    stride = heads[0].stride()
     for h in heads:
-        if (h.dtype != _F32 or h.shape != state[1].shape or h.device != dev
-                or h.stride() != stride):
+        if h.dtype != _F32 or h.shape != state[1].shape or h.device != dev:
             raise ValueError(f"heads must be float32 vectors of shape "
-                             f"{tuple(state[1].shape)} on {dev} with one stride; "
-                             f"got {h.dtype} {tuple(h.shape)} stride {h.stride()} "
-                             f"on {h.device}")
+                             f"{tuple(state[1].shape)} on {dev}; got {h.dtype} "
+                             f"{tuple(h.shape)} on {h.device}")
     if dev.type == "cpu":
         return fused_step_reference(state, key, step, 1, heads)
+    heads = head_slab(heads)
     out = tuple(torch.empty_like(t) for t in state)
     _, tab, _, consts = _launchers()
-    _launch(dev, tab, consts, _ptrs(state), _ptrs(heads),
-            stride[0], _ptrs(out), key & 0xFFFFFFFF, (key >> 32) & 0xFFFFFFFF,
-            step & 0xFFFFFFFF, state[1].shape[0])
+    _launch(dev, tab, consts, _ptrs(state), _ptrs(heads), N_HC, _ptrs(out),
+            key & 0xFFFFFFFF, (key >> 32) & 0xFFFFFFFF, step & 0xFFFFFFFF,
+            state[1].shape[0])
     fused_step_tab.launches += 1
     return out
 

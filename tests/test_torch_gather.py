@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from fast_monte_carlo_tpu_torch.probes import gather as ga
+from fast_monte_carlo_tpu_torch.probes import kernels
 
 torch.set_num_threads(1)
 
@@ -99,3 +100,56 @@ def test_cuda_request_without_cuda_raises_in_the_probe():
         ga.run_probes("cuda")
     with pytest.raises(RuntimeError):
         ga.main([])                      # the command line defaults to the card
+
+
+@pytest.mark.parametrize("fn", ["row_gather", "row_gather_sum"])
+def test_indices_outside_the_table_clip_as_jnp_take_clip(fn):
+    """The kernels clip indices to [0, rows); so do the plain versions, as
+    the probes' XLA reference does (pallas_gather_probe.py:29)."""
+    g = np.random.default_rng(3)
+    t = g.random((37, 5), dtype=np.float32)
+    i = np.array([-2 ** 31, -40, -1, 0, 17, 36, 37, 38, 1000, 2 ** 31 - 1], np.int32)
+    want = jnp.take(jnp.asarray(t), jnp.asarray(i), axis=0, mode="clip")
+    if fn == "row_gather_sum":
+        want = want.sum(axis=1)
+    got = getattr(ga, fn)(torch.from_numpy(t), torch.from_numpy(i))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    ref = getattr(ga, f"{fn}_reference")(torch.from_numpy(t), torch.from_numpy(i))
+    np.testing.assert_array_equal(ref.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("cols", [1, 3, 5, 8, 127, 128, 129, 1000])
+def test_row_sum_at_every_lane_group_width(cols):
+    """Widths that take the kernel's float4 and scalar paths, one item per
+    lane and a loop within the warp.  torch and XLA sum in their own
+    orders: within 1e-6 relative, the gate `chip_smoke.py` holds the kernel
+    to."""
+    g = np.random.default_rng(cols)
+    t = g.random((300, cols), dtype=np.float32)
+    i = g.integers(0, 300, 1001).astype(np.int32)
+    want = np.asarray(jnp.take(jnp.asarray(t), jnp.asarray(i), axis=0).sum(axis=1))
+    got = ga.row_gather_sum(torch.from_numpy(t), torch.from_numpy(i)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+def test_the_timer_takes_its_row_sum_shapes_from_the_probes():
+    """probes.kernels times row_gather_sum at B3's shape and at B6's 8,192
+    rows of 128, which chip_smoke.py reports, on the probes' own inputs."""
+    shapes = ga.probe_shapes(CPU)
+    assert tuple(what for what, _, _ in shapes) == ga.PROBE_SHAPES
+    timed = {n.split(" ", 1)[1] for n in kernels.RUNS if n.startswith("row_gather_sum")}
+    assert timed == {"B3", f"B6 B={ga.B6_BS[-1]}"} and timed <= set(ga.PROBE_SHAPES)
+    for what, table, idx in shapes:
+        assert idx.dtype == torch.int32 and int(idx.min()) >= 0
+        assert int(idx.max()) < table.shape[0], what
+    tab, idx = ga.b3_inputs(CPU)
+    assert torch.equal(shapes[0][1], tab) and torch.equal(shapes[0][2], idx)
+
+
+def test_b3_loop_accumulates_the_shifted_row_sums():
+    """B3's loop, cut to `steps` as probes.kernels.path_times runs it."""
+    tab, idx = ga.mod_table(97, 8, CPU), torch.arange(40, dtype=torch.int32) * 5
+    want = sum(tab[((idx.long() + k * 9973) % 97)].sum(1) for k in range(3))
+    assert torch.allclose(ga.b3_loop(ga.row_gather_sum, tab, idx, steps=3), want)
+    assert torch.equal(ga.b3_loop(ga.row_gather_sum, tab, idx, steps=3),
+                       ga.b3_loop(ga.row_gather_sum, tab, idx, sync=True, steps=3))

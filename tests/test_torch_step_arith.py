@@ -202,6 +202,34 @@ def test_wrappers_run_the_plain_version_on_the_cpu():
         sa.table_from_numpy(np.zeros((10, sa.N_CH)), "cpu")
 
 
+def _is_one_slab(heads) -> bool:
+    p = heads[0].data_ptr()
+    return p % 16 == 0 and all(h.stride() == (sa.N_HC,) and h.data_ptr() == p + 4 * k
+                               for k, h in enumerate(heads))
+
+
+def test_head_slab_gives_the_kernel_one_b_by_7_tensor():
+    """The tab kernel reads the heads only as the columns of one
+    16-byte-aligned (B, 7) tensor.  table_select's heads are that and pass
+    as they are; seven separate vectors, a mix, or columns one float off
+    16 bytes are stacked into one.  The wrapper raises on a head of the
+    wrong dtype or length."""
+    arrays, _, _ = _states(8, 129)
+    s = sa.state_from_numpy(arrays, "cpu")
+    h7 = sa.heads_of(s, sa.make_table("cpu"))
+    assert _is_one_slab(h7) and sa.head_slab(h7) is h7
+    h1 = [h.contiguous() for h in h7]
+    wide = torch.stack(h1[:1] + h1, 1)[:, 1:]        # starts 4 bytes past 16
+    for heads in (h1, h1[:6] + h7[6:], wide.unbind(1)):
+        got = sa.head_slab(heads)
+        assert _is_one_slab(got)
+        assert all(torch.equal(x, y) for x, y in zip(got, h7))
+    with pytest.raises(ValueError):
+        sa.fused_step_tab(s, h7[:6] + [h7[6].double()], KEY, 3)
+    with pytest.raises(ValueError):
+        sa.fused_step_tab(s, h7[:6] + [h7[6][:-1]], KEY, 3)
+
+
 def test_cuda_request_without_cuda_raises_in_the_probe():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the CPU-only case")
