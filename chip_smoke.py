@@ -4,9 +4,10 @@
 Runs from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py              # every phase; exits 0 only if all pass
-    python3 chip_smoke.py --profile DIR  # also writes a torch.profiler
-                                         # kernel table of one launch to
-                                         # DIR/profile_launch.txt
+    python3 chip_smoke.py --profile DIR  # also writes torch.profiler
+                                         # kernel tables of one launch to
+                                         # DIR/profile_launch.txt and of the
+                                         # props path to DIR/profile_props.txt
 
 Phases, in order (any failure raises and exits non-zero):
  1. versions, `nvidia-smi` name and power limit; exit 1 without CUDA;
@@ -42,9 +43,20 @@ Phases, in order (any failure raises and exits non-zero):
     back to back equal to the same launches synchronised one by one; then
     at the B3-B6 probes' shapes: gathers bitwise, row sums within 1e-6
     relative; kernel, plain and torch.index_select timed; then the gather
-    probes path (`probes.gather.run_probes`).
-Every kernel's launch count is set to 0 just before each path (5, 6, 7) and
-read just after it; a path that launched one of its kernels no time fails.
+    probes path (`probes.gather.run_probes`);
+ 8. the props path: MatchupRunner(mode="table", rng_impl="pallas_chunk",
+    device="cuda") with the focus-roster fixture teams, `run_pairs(8,192,
+    collect_players=True, collect_stats=True)` (16,384 games, the JAX
+    package's `simulate_slate_props` default); points equal the score,
+    box-score and player identities, no NaN; 4,096 games on CUDA and on the
+    CPU agree in >= 99.5% of games on integer state and every count, yards
+    allclose; the prop reduction on the card against the CPU; a scan of the
+    fixture prop sheet prices every resolvable row; 65,536-game launches of
+    the props path and of score-only `run_pairs` timed in turns, with peak
+    device memory (and eager kernels per play with --profile).
+Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8)
+and read just after it; a path that launched one of its kernels no time
+fails.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
 (`probes.kernels.held_ms`; `kernel_times` for philox_draws, the fused
@@ -76,6 +88,9 @@ CH, N = 24, 65536                  # the main path's draw launch shape
 GAMES, LAUNCH_GAMES = 4_194_304, 65_536
 CUT_GAMES = 1_048_576              # used if the full run would pass ~120 s
 TABLE_SEED = 7
+FOCUS_SEED, PROP_SEED = 3, 4       # fixtures.focus_rows / prop_rows
+PROPS_PAIRS = 8192                 # the JAX package's simulate_slate_props n_pairs
+CROSS_PAIRS = 2048                 # props path on CUDA against the CPU
 PROBE_B, PROBE_STEPS = 131_072, 360   # benchmarks/pallas_step_arith.py's defaults
 # each kernel of the JSON line and its source in csrc/
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
@@ -357,7 +372,10 @@ def phase_main_path(card: str, profile_dir: Optional[Path]) -> dict:
     pairs_per_launch = LAUNCH_GAMES // 2
 
     t0 = time.perf_counter()                 # warm-up: one launch
-    runner.run_pairs_summary(pairs_per_launch, seed=99, chunk_pairs=pairs_per_launch)
+    # run_pairs_summary runs score-only games (collect_players=False); the
+    # box score stays off too
+    runner.run_pairs_summary(pairs_per_launch, seed=99, chunk_pairs=pairs_per_launch,
+                             collect_stats=False)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     games = GAMES if warm_s * GAMES / LAUNCH_GAMES <= 120 else CUT_GAMES
@@ -367,7 +385,8 @@ def phase_main_path(card: str, profile_dir: Optional[Path]) -> dict:
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    summary = runner.run_pairs_summary(games // 2, seed=0, chunk_pairs=pairs_per_launch)
+    summary = runner.run_pairs_summary(games // 2, seed=0, chunk_pairs=pairs_per_launch,
+                                       collect_stats=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts("main path", ["philox_draws"])
@@ -691,32 +710,191 @@ def phase_gather(card: str) -> dict:
                                **out["B3"][1]}}
 
 
+def phase_props(card: str, profile_dir: Optional[Path]) -> dict:
+    import tempfile
+
+    import torch
+    from fast_monte_carlo_tpu_torch import edge, fixtures
+    from fast_monte_carlo_tpu_torch.api import MatchupRunner
+    from fast_monte_carlo_tpu_torch.config import SimConfig
+    from fast_monte_carlo_tpu_torch.ops import rng
+    from fast_monte_carlo_tpu_torch.stats import (PC_ATT, PC_COMP, PC_TD, PC_YDS, ROLE_LABEL,
+                                                  ROLE_PASS, ROLE_REC, ROLE_RUSH,
+                                                  TEAM_STAT_FIELDS, TS)
+
+    cfg = SimConfig()
+    cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, rng_impl="pallas_chunk"))
+    a, b = fixtures.focus_teams(FOCUS_SEED)
+    tables = fixtures.nano_tables(TABLE_SEED)
+    runner = MatchupRunner(a, b, None, cfg, mode="table", nano_tables=tables, device="cuda")
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = runner.run_pairs(PROPS_PAIRS, seed=11, collect_players=True, collect_stats=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts("props path", ["philox_draws"])
+    n = 2 * PROPS_PAIRS
+    st, ps = out.stats, out.pstats
+    print(f"  props path: run_pairs({PROPS_PAIRS:,}) -> {n:,} games in {dt:.3f} s, "
+          f"first call ({card})")
+    check(tuple(st.shape) == (n, 2, 19) and tuple(ps.shape) == (n, 2, 3, 8, 6),
+          f"stats {tuple(st.shape)}, pstats {tuple(ps.shape)}")
+    check(torch.equal(st[:, :, TS["points"]], out.score.float()),
+          "points column == final score on both sides")
+    check(not bool(torch.isnan(st).any() or torch.isnan(ps).any()), "no NaN in stats, pstats")
+    check(bool((st[..., TS["comp"]] <= st[..., TS["pass_att"]]).all()), "comp <= pass_att")
+    # a sacked pass play is a target in the JAX package (wr_delta's is_pass)
+    for role, team, what in ((ROLE_PASS, st[..., TS["pass_att"]], "QB attempts <= pass_att"),
+                             (ROLE_RUSH, st[..., TS["rush_att"]], "rush_att <= team rush_att"),
+                             (ROLE_REC, st[..., TS["pass_att"]] + st[..., TS["sacks"]],
+                              "targets <= pass_att + sacks")):
+        check(bool((ps[:, :, role, :, PC_ATT].sum(-1) <= team).all()),
+              f"tracked players' {what}")
+    for role, td in ((ROLE_PASS, "pass_td"), (ROLE_RUSH, "rush_td"), (ROLE_REC, "pass_td")):
+        check(bool((ps[:, :, role, :, PC_TD].sum(-1) <= st[..., TS[td]]).all()),
+              f"{ROLE_LABEL[role]} TDs <= team {td}, both teams")
+    check(bool((ps[:, :, ROLE_REC, :, PC_ATT] >= ps[:, :, ROLE_REC, :, PC_COMP]).all()),
+          "tgt >= rec in every slot")
+    check(float(ps[..., PC_ATT].sum()) > 0, "tracked players accrued")
+    mean = st.double().mean(0).cpu().numpy()
+    print("  mean box score (A; B): " + "; ".join(
+        ", ".join(f"{f} {mean[i, TS[f]]:.2f}" for f in TEAM_STAT_FIELDS) for i in (0, 1)))
+
+    # the same games on the card and on the CPU
+    cpu = MatchupRunner(a, b, None, cfg, mode="table", nano_tables=tables, device="cpu")
+    got, want = (r.run_pairs(CROSS_PAIRS, seed=12) for r in (runner, cpu))
+    agree = np.ones(2 * CROSS_PAIRS, bool)
+    for f in ("off", "sec", "down", "period", "in_rz", "going", "score", "stats", "pstats"):
+        x, y = getattr(got, f).cpu().numpy(), getattr(want, f).numpy()
+        if f == "stats":
+            x, y = np.delete(x, [TS["pass_yds"], TS["rush_yds"]], -1), \
+                np.delete(y, [TS["pass_yds"], TS["rush_yds"]], -1)
+        elif f == "pstats":
+            x, y = np.delete(x, PC_YDS, -1), np.delete(y, PC_YDS, -1)
+        eq = x == y
+        agree &= eq.reshape(eq.shape[0], -1).all(1)
+    check(agree.mean() >= 0.995, f"CUDA vs CPU, {2 * CROSS_PAIRS:,} games: integer state "
+          f"and every count equal in {int(agree.sum()):,} (>= 99.5%)")
+    yards = [(got.stats[..., [TS["pass_yds"], TS["rush_yds"]]],
+              want.stats[..., [TS["pass_yds"], TS["rush_yds"]]]),
+             (got.pstats[..., PC_YDS], want.pstats[..., PC_YDS])]
+    worst = max(float((x.cpu()[agree] - y[agree]).abs().max()) for x, y in yards)
+    check(all(np.allclose(x.cpu().numpy()[agree], y.numpy()[agree], rtol=1e-5, atol=1e-3)
+              for x, y in yards), f"yards allclose there (max|d| {worst:.3g})")
+
+    # the prop reduction on the card against the CPU, over the same pstats
+    idx, meta = edge.resolve_prop_rows(a, b, fixtures.prop_rows(PROP_SEED))
+    red_g = edge.reduce_props_device(out.pstats, idx)
+    red_c = edge.reduce_props_device(out.pstats.cpu(), idx)
+    for k in ("p_over", "p_under", "push", "n_active"):
+        check(torch.equal(red_g[k].cpu(), red_c[k]), f"reduce_props {k}: card == CPU")
+    for k in ("mean", "median", "p75", "p90"):
+        x, y = red_g[k].cpu(), red_c[k]
+        rel = float(((x - y).abs() / y.abs().clamp_min(1.0)).max())
+        check(rel <= 1e-5, f"reduce_props {k}: card vs CPU within 1e-5 ({rel:.3g})")
+    with tempfile.TemporaryDirectory() as d:
+        sheet = str(Path(d) / "props.csv")
+        fixtures.write_csv(sheet, fixtures.prop_rows(PROP_SEED), fixtures.PROP_COLS)
+        rows = edge.scan_props_rows(out, a, b, sheet, min_abs_edge_pct=0.0)
+    check(len(rows) == len(meta) == len(fixtures.prop_rows(PROP_SEED)) - 3,
+          f"scan_props_rows priced all {len(meta)} resolvable rows of the sheet")
+    check(all(0 <= r["p_over"] and r["p_over"] + r["p_under"] <= 1 for r in rows),
+          "0 <= p_over, p_over + p_under <= 1 in every row")
+    top = rows[0]
+    print(f"  best prop: {top['player']} {top['stat']} {top['line']} {top['best_side']}, "
+          f"p_over {top['p_over']}, edge {top['edge_pct']}%, EV {top['ev_$100']} per $100")
+
+    # 65,536-game launches, props path and score-only in turns
+    pairs = LAUNCH_GAMES // 2
+    variants = {"props": dict(collect_players=True, collect_stats=True),
+                "score-only": dict(collect_players=False, collect_stats=False)}
+    secs = {v: [] for v in variants}
+    peak = {}
+    for i, v in enumerate(("score-only", "props", "props", "score-only")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        big = runner.run_pairs(pairs, seed=13, **variants[v])
+        torch.cuda.synchronize()
+        secs[v].append(time.perf_counter() - t0)
+        peak[v] = torch.cuda.max_memory_allocated() / 2 ** 20
+        if i == 1:
+            # the reduction at 65,536 games: one quantile call (under the
+            # 2^24 elements a call at which reduce_props_device splits columns)
+            red_g = edge.reduce_props_device(big.pstats, idx)
+            red_c = edge.reduce_props_device(big.pstats.cpu(), idx)
+            check(all(torch.equal(red_g[k].cpu(), red_c[k]) for k in ("p_over", "n_active")),
+                  f"reduce_props at {LAUNCH_GAMES:,} x {len(idx[0])}: p_over, n_active "
+                  "card == CPU")
+            del red_g, red_c
+        del big            # so no launch's peak holds the one before it
+    # whether torch takes a quantile call past 2^24 elements on the card
+    wide = torch.rand(LAUNCH_GAMES, 257, device="cuda")
+    try:
+        torch.nanquantile(wide, torch.tensor([0.5], device="cuda"), dim=0)
+        took = "takes"
+    except RuntimeError as e:
+        took = f"refuses ({str(e).splitlines()[0]})"
+    print(f"  torch.nanquantile {took} a ({LAUNCH_GAMES:,}, 257) = {wide.numel():,}-element "
+          f"input on the card")
+    gps = {v: [LAUNCH_GAMES / x for x in s] for v, s in secs.items()}
+    for v in variants:
+        print(f"  {v}: {LAUNCH_GAMES:,}-game launches "
+              f"{', '.join(f'{x:,.0f}' for x in gps[v])} games/s, peak device memory "
+              f"{peak[v]:,.1f} MiB ({card})")
+    ratio = sum(gps["props"]) / sum(gps["score-only"])
+    print(f"  props / score-only games/s: {ratio:.3f}")
+    res = {"launches": counts["philox_draws"], "games_per_s": gps, "peak_mib": peak}
+    if profile_dir is not None:
+        lines = [card]
+        for v, kw in variants.items():
+            launches0 = rng.philox_draws.launches
+            k, dev_ms, wall_ms, table = profile_kernels(
+                lambda: runner.run_pairs(pairs, seed=14, **kw))
+            plays = (rng.philox_draws.launches - launches0) * cfg.engine.play_chunk
+            res[f"kernels_per_play_{v}"] = k / plays
+            lines += [f"{v}: {k} device kernels over {plays} plays ({k / plays:.1f} a play), "
+                      f"{dev_ms:.3f} ms device time, {wall_ms:.3f} ms wall profiled", table]
+            print(f"  profile, {v}: {k / plays:.1f} device kernels per play, "
+                  f"{dev_ms / plays:.4f} ms device time per play")
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        (profile_dir / "profile_props.txt").write_text("\n\n".join(lines) + "\n")
+    return res
+
+
+def profile_kernels(fn):
+    """torch.profiler over fn(): (device kernels, device ms, wall ms
+    profiled, the kernel table)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in dev), sum(e.self_device_time_total for e in dev) / 1e3,
+            wall_ms, events.table(sort_by="self_device_time_total", row_limit=40))
+
+
 def write_profile(runner, pairs: int, card: str, launch_ms: float,
                   out: Path) -> None:
     """torch.profiler over one launch: device time by kernel, written to
     out/profile_launch.txt.  The profiler slows the host's enqueue
     many times over, so the busy share is the profiled device time over the
     unprofiled wall time of a launch (`launch_ms`)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=acts) as prof:
-        runner.run_pairs_summary(pairs, seed=5, chunk_pairs=pairs)
-        torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    n_kernels = sum(e.count for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_kernels, dev_ms, wall_ms, table = profile_kernels(
+        lambda: runner.run_pairs_summary(pairs, seed=5, chunk_pairs=pairs,
+                                         collect_stats=False))
     out.mkdir(parents=True, exist_ok=True)
-    table = events.table(sort_by="self_device_time_total", row_limit=40)
-    summary = (f"{n_kernels} device kernels, {dev_us / 1e3:.3f} ms device time; "
-               f"wall {wall_us / 1e3:.3f} ms profiled, {launch_ms:.3f} ms "
-               f"unprofiled (busy share {dev_us / 1e3 / launch_ms:.4f})")
+    summary = (f"{n_kernels} device kernels, {dev_ms:.3f} ms device time; "
+               f"wall {wall_ms:.3f} ms profiled, {launch_ms:.3f} ms "
+               f"unprofiled (busy share {dev_ms / launch_ms:.4f})")
     (out / "profile_launch.txt").write_text(f"{card}\n{summary}\n\n{table}\n")
     print(f"  profile of one launch: {summary}; table in {out / 'profile_launch.txt'}")
 
@@ -754,6 +932,10 @@ def main() -> int:
     fused = phase_fused(card)
     print("[7] row-gather kernels vs plain torch, then the gather probes path")
     gathers = phase_gather(card)
+    print("[8] props path: run_pairs with both collectors, reductions, prop scan")
+    props = phase_props(card, args.profile)
+    print(f"  philox_draws launches: main path {k['launches']}, props path "
+          f"{props['launches']}")
 
     rows = {"philox_draws": k, **fused, **gathers}
     print(json.dumps({"kernels": [

@@ -1,9 +1,11 @@
 """fast_monte_carlo_tpu_torch — the PyTorch/CUDA port of fast_monte_carlo_tpu.
 
 The JAX package `fast_monte_carlo_tpu` is the reference this package is held
-against; nothing here imports it (or JAX, pandas or scikit-learn).  Module
-names mirror the JAX package's, so each function's counterpart is found at
-the same path.  Hand-written Hopper kernels live in `csrc/` and are built
+against; nothing here imports it (or JAX or scikit-learn), and pandas is
+imported only inside the functions that return a DataFrame, when called:
+each wraps a pandas-free core that returns the same columns.  Module names
+mirror the JAX package's, so each function's counterpart is found at the
+same path.  Hand-written Hopper kernels live in `csrc/` and are built
 from source at first use (`utils/cuda_build.py`).
 
 Every function that allocates takes a `device`; the entry points

@@ -5,6 +5,10 @@ port's tests and `chip_smoke.py` run on:
 
 * two synthetic teams with the SP+ numbers the JAX package's own tests use
   (tests/test_mechanics.py), one Unknown player per role, 8 slots;
+* the same two teams with rosters (`focus_teams`): a seeded focus-players
+  sheet (`focus_rows`) of 2 QBs, 3 rushers and 5 targets per team, usages
+  in percent that leave a shortfall, read back by `data/usage.py`; and a
+  prop sheet over those players (`prop_rows`);
 * one fused head grid per direction, shape (1, 5, 16, 32, 16, 3, 7) =
   (slot, down, dist, ytg, sec, sd, channel) on the nano profile, channels in
   FUSED_CHANNELS[:7] order, each cell drawn uniformly from a plausible
@@ -20,12 +24,17 @@ checking one play step against a reference on the same inputs.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import csv
+import os
+import tempfile
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from .data.context import TeamContext, team_context
+from .data.usage import focus_usage_columns
 from .models.tables import FUSED_CHANNELS, HostTable, nano_from_fused, nano_profile
+from .stats import N_PLAYER_STATS, N_TEAM_STATS, PC_YDS, TS
 
 TEAM_A = ("Team A", 2025, 1, 15.6, 35.7, 20.0)
 TEAM_B = ("Team B", 2025, 1, 11.0, 31.5, 20.6)
@@ -45,6 +54,101 @@ CHANNEL_RANGES = {
 def teams(player_slots: int = 8) -> Tuple[TeamContext, TeamContext]:
     return (team_context(*TEAM_A, player_slots=player_slots),
             team_context(*TEAM_B, player_slots=player_slots))
+
+
+FOCUS_COLS = ("team", "player", "pos", "usage", "stat", "yards")
+PROP_COLS = ("team", "player", "stat", "yards")
+# per role: (stat, positions, mean line of the first player)
+_ROSTER = {"pass": ("pass_yards", ("QB", "QB"), 245.0),
+           "rush": ("rush_yards", ("RB", "RB", "QB"), 70.0),
+           "rec": ("rec_yards", ("WR", "WR", "TE", "WR", "RB"), 65.0)}
+# prop stats by role, each with a typical line for the role's first player
+_PROP_LINES = {"pass": {"pass_yds": 245.5, "pass_td": 1.5, "pass_att": 33.5,
+                        "pass_comp": 21.5, "INT": 0.5, "sacks": 2.0},
+               "rush": {"rush_yds": 70.5, "rush_td": 0.5, "rush_att": 15.0},
+               "rec": {"rec_yds": 60.5, "rec_td": 0.5, "rec": 5.0, "tgt": 7.5}}
+
+
+_LABEL = {"pass": "Passer", "rush": "Rusher", "rec": "Receiver"}
+
+
+def roster_name(team: str, role: str, i: int) -> str:
+    """The i-th player of a fixture team's role; a QB who rushes (the
+    third rusher) is the team's first passer."""
+    if role == "rush" and i == 2:
+        role, i = "pass", 0
+    return f"{team} {_LABEL[role]} {i + 1}"
+
+
+def focus_rows(seed: int) -> List[dict]:
+    """A focus-players sheet for TEAM_A and TEAM_B: per team 2 QBs
+    (pass_yards), 3 rushers (rush_yards; the third is QB 1) and 5 targets
+    (rec_yards), usages in percent summing to 80-95 per role, so each role
+    gets an `__Other__` slot; `yards` the player's line of the stat."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for team in (TEAM_A[0], TEAM_B[0]):
+        for role, (stat, pos, line) in _ROSTER.items():
+            n = len(pos)
+            usage = rng.dirichlet(np.linspace(4.0, 1.0, n)) * rng.uniform(80.0, 95.0)
+            for i in range(n):
+                rows.append({"team": team, "player": roster_name(team, role, i),
+                             "pos": pos[i], "usage": round(float(usage[i]), 1),
+                             "stat": stat,
+                             "yards": float(np.round(line * usage[i] / usage.max() * 2) / 2)})
+    return rows
+
+
+def write_csv(path, rows: List[dict], cols) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(cols))
+        w.writeheader()
+        w.writerows(rows)
+
+
+def focus_teams(seed: int, path: Optional[str] = None,
+                player_slots: int = 8) -> Tuple[TeamContext, TeamContext]:
+    """TEAM_A and TEAM_B with the rosters of `focus_rows(seed)`, written to
+    `path` (a temporary file, removed after, if None) and read back."""
+    if path is None:
+        with tempfile.TemporaryDirectory() as d:
+            return focus_teams(seed, os.path.join(d, "focus.csv"), player_slots)
+    write_csv(path, focus_rows(seed), FOCUS_COLS)
+    focus = focus_usage_columns(path)
+    return (team_context(*TEAM_A, player_slots=player_slots, focus_usage=focus),
+            team_context(*TEAM_B, player_slots=player_slots, focus_usage=focus))
+
+
+def prop_rows(seed: int) -> List[dict]:
+    """A prop sheet (team, player, stat, yards) over `focus_rows`' players:
+    per team every stat of the three roles for the role's first player,
+    the aliases pass_yards, rush_yards and rec_yards for others, and one
+    more receiver (33 rows, so a scan pads them to 40), lines drawn
+    near each stat's typical value (whole numbers for the counts that take
+    them, so pushes happen); then one row each for an untracked player, an
+    unknown stat and a team outside the matchup, which a scan skips."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for team in (TEAM_A[0], TEAM_B[0]):
+        for role, lines in _PROP_LINES.items():
+            for stat, line in lines.items():
+                step = 1.0 if line == int(line) else 0.5
+                jitter = np.round(rng.uniform(-0.15, 0.15) * line / step) * step
+                rows.append({"team": team, "player": roster_name(team, role, 0),
+                             "stat": stat, "yards": float(max(line + jitter, 0.5))})
+        for role, alias, line in (("pass", "pass_yards", 20.5), ("rush", "rush_yards", 30.5),
+                                  ("rec", "rec_yards", 40.5)):
+            rows.append({"team": team, "player": roster_name(team, role, 1),
+                         "stat": alias, "yards": line})
+    a = TEAM_A[0]
+    rows.append({"team": TEAM_B[0], "player": roster_name(TEAM_B[0], "rec", 2),
+                 "stat": "rec_yds", "yards": 25.5})
+    rows += [{"team": a, "player": "Not On The Sheet", "stat": "rush_yds", "yards": 40.5},
+             {"team": a, "player": roster_name(a, "pass", 0), "stat": "fantasy_pts",
+              "yards": 18.5},
+             {"team": "Team C", "player": roster_name(a, "rec", 0), "stat": "rec_yds",
+              "yards": 55.5}]
+    return rows
 
 
 def fused_grid(rng: np.random.Generator) -> np.ndarray:
@@ -75,10 +179,14 @@ def nano_tables(seed: int) -> Tuple[HostTable, HostTable]:
     return nano_from_fused(a, prof), nano_from_fused(b, prof)
 
 
-def play_states(rng: np.random.Generator, n: int) -> dict:
+def play_states(rng: np.random.Generator, n: int, k: Optional[int] = None) -> dict:
     """n play-start states (numpy arrays keyed by GameState field) that
     reach every branch of the play step: 4th downs, red zone, long fields,
-    clocks just past halftime, late-game clocks, finished games."""
+    clocks just past halftime, late-game clocks, finished games.  With `k`
+    the box score and player stats start nonzero (counts whole, yards in
+    tenths, (n, 2, 19) and (n, 2, 3, k, 6)); without it they are the
+    1-element dummies of disabled collectors, and the draws from `rng` are
+    those of the states alone."""
     off = rng.integers(0, 2, n).astype(np.int32)
     sec = rng.integers(1, 3601, n).astype(np.int32)
     sec[: n // 10] = rng.integers(1801, 1830, n // 10)   # ticks across halftime
@@ -88,11 +196,25 @@ def play_states(rng: np.random.Generator, n: int) -> dict:
     dist = (np.round(rng.uniform(0.5, 25, n) * 2) / 2).astype(np.float32)
     ytg = rng.integers(1, 100, n).astype(np.float32)
     period = np.where(sec > 0, 4 - (sec - 1) // 900, 4).astype(np.int32)
-    return dict(
+    d = dict(
         gid=np.zeros(n, np.int32), fo=off.copy(), off=off, sec=sec, down=down,
         dist=dist, ytg=ytg, period=period, in_rz=rng.random(n) < 0.3,
         going=np.zeros(n, bool),
         score=rng.integers(0, 50, (n, 2)).astype(np.int32))
+    if k is None:
+        d["stats"] = np.zeros((n, 1, 1), np.float32)
+        d["pstats"] = np.zeros((n, 1, 1, 1, 1), np.float32)
+        return d
+
+    def counts_and_yards(shape, yards_cols):
+        x = rng.integers(0, 30, shape).astype(np.float32)
+        y = np.round(rng.uniform(-20.0, 400.0, shape[:-1] + (len(yards_cols),)), 1)
+        x[..., yards_cols] = y
+        return x
+
+    d["stats"] = counts_and_yards((n, 2, N_TEAM_STATS), [TS["pass_yds"], TS["rush_yds"]])
+    d["pstats"] = counts_and_yards((n, 2, 3, k, N_PLAYER_STATS), [PC_YDS])
+    return d
 
 
 def play_draws(rng: np.random.Generator, shape) -> Tuple[np.ndarray, np.ndarray]:

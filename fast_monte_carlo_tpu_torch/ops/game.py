@@ -1,4 +1,4 @@
-"""The game engine: port of fast_monte_carlo_tpu/ops/game.py (score-only).
+"""The game engine: port of fast_monte_carlo_tpu/ops/game.py.
 
 One branchless play step advances a batch of games: every outcome path is
 computed for every game and combined with masks; finished games
@@ -16,10 +16,18 @@ one the same numbers.  `simulate_games` draws them with the Philox kernel
 (`ops/rng.py`), one launch per play chunk (`rng_impl="pallas_chunk"`) or per
 step (`"pallas"`).
 
-Box-score and player accrual (`collect_stats`, `collect_players`) and
-antithetic draws are not ported yet (ROADMAP.md queue 1) and raise.
-Game state keeps the JAX package's int32/f32/bool dtypes; indices are cast
-to int64 only where they index.
+With `collect_stats` each play adds one row of the 19 team stats
+(`stats.TEAM_STAT_FIELDS`) to the offense's side; with `collect_players` it
+adds one 6-column row per role to the sampled slot's cell, where the slot
+is tracked.  Each is one indexed add on a flat view, in place: the JAX
+package's dense one-hot add (its `ops/game.py:649-653`) gives the same bits,
+since every other cell adds +-0, but reads and writes the whole
+(B, 2, 3, K, 6) carry every play.  A disabled collector carries the JAX
+package's 1-element dummy.
+
+Antithetic draws are not ported yet (ROADMAP.md queue 1) and raise.  Game
+state keeps the JAX package's int32/f32/bool dtypes; indices are cast to
+int64 only where they index.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import torch
 
 from ..config import SimConfig
 from ..models import analytic
+from ..stats import (N_PLAYER_STATS, N_TEAM_STATS, ROLE_PASS, ROLE_REC, ROLE_RUSH,
+                     TEAM_STAT_FIELDS, TS)
 from .pack import MatchupPack
 from .rng import N_NORMALS, N_UNIFORMS, chunk_draws, step_draws
 
@@ -54,6 +64,8 @@ class GameState(NamedTuple):
     in_rz: torch.Tensor    # (B,) bool
     going: torch.Tensor    # (B,) bool
     score: torch.Tensor    # (B,2) i32
+    stats: torch.Tensor    # (B,2,N_TEAM_STATS) f32; (B,1,1) when not collected
+    pstats: torch.Tensor   # (B,2,3,K,6) f32; (B,1,1,1,1) when not collected
 
 
 class StepObs(NamedTuple):
@@ -115,6 +127,19 @@ def _clip(x, lo: float, hi: torch.Tensor):
     return torch.minimum(torch.clamp_min(x, lo), hi)
 
 
+def add_player_rows(pstats: torch.Tensor, off: torch.Tensor, slot: torch.Tensor,
+                    gate: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """pstats[b, off[b], r, slot[b, r], :] += delta[b, r] * gate[b, r] for
+    the three roles r, in place, by one index_add_ on a flat view of the
+    contiguous (B, 2, 3, K, 6) pstats.  slot, gate: (B, 3); delta (B, 3, 6)."""
+    b, k = off.shape[0], pstats.shape[3]
+    side_row = torch.arange(b, device=off.device) * 2 + off
+    cell = (side_row[:, None] * 3 + torch.arange(3, device=off.device)) * k + slot.long()
+    pstats.view(-1, N_PLAYER_STATS).index_add_(
+        0, cell.reshape(-1), (delta * gate[:, :, None]).reshape(-1, N_PLAYER_STATS))
+    return pstats
+
+
 def make_analytic_heads_eval(cfg: SimConfig) -> HeadsEvalFn:
     """Artifact-free heads: smooth closed-form stand-ins for every model
     head (clearly NOT the reference models).  heads_state is unused."""
@@ -151,11 +176,9 @@ def play_step(
     collect_players: bool = False,
     collect_stats: bool = False,
 ) -> GameState:
-    """One play for every game; `draws` = (u (B,13), n (B,4)) f32."""
-    if collect_players or collect_stats:
-        raise NotImplementedError(
-            "box-score and player accrual are not ported yet (ROADMAP.md "
-            "queue 1); pass collect_players=False, collect_stats=False")
+    """One play for every game; `draws` = (u (B,13), n (B,4)) f32.  With a
+    collector on, `s.stats` / `s.pstats` are updated in place and returned
+    in the new state."""
     if cfg.engine.antithetic:
         raise NotImplementedError("antithetic draws are not ported yet "
                                   "(ROADMAP.md queue 1)")
@@ -366,19 +389,62 @@ def play_step(
     side = torch.stack([off == 0, off == 1], dim=1)
     score_f = s.score + (side * pts[:, None]).to(I32)
 
+    if collect_stats or collect_players:
+        pass_yds = torch.where(pass_td, ytg0, torch.where(pass_gain, yards_p, 0.0))
+        rush_yds = torch.where(run_td, ytg0, torch.where(run_gain, yards_r, 0.0))
+        pass_att = complete | o_inc | o_int
+    if collect_stats:
+        # going_for_it is only ever true on the go play itself (was_going = go)
+        conv = go & (td | (pass_gain & (yards_p + 1e-6 >= dist0))
+                     | (run_gain & (yards_r + 1e-6 >= dist0)))
+        cols = {
+            "plays": scrim, "pass_att": pass_att, "comp": complete,
+            "pass_yds": pass_yds, "pass_td": pass_td, "INT": o_int, "sacks": o_sck,
+            "rush_att": is_run, "rush_yds": rush_yds, "rush_td": run_td,
+            "FG": fg_good, "FGA": fg_att, "punts": punt,
+            "rz_trips": trip1.to(F32) + trip2.to(F32),
+            "rz_TD": run_td & (ytg0 <= 20),   # quirk: rushing TDs only
+            "fourth_go": go, "fourth_conv": conv,
+            "points": torch.zeros_like(dist0),  # final score written after the loop
+            "fumbles_lost": fum,
+        }
+        delta = torch.stack([cols[f].to(F32) for f in TEAM_STAT_FIELDS], dim=1)
+        side_row = torch.arange(off.shape[0], device=off.device) * 2 + off
+        s.stats.view(-1, N_TEAM_STATS).index_add_(0, side_row, delta)
+    if collect_players:
+        no = torch.zeros_like(dist0)
+        by_role = {   # columns: att comp yds td INT sacks (stats.PC_*)
+            ROLE_PASS: (qb, pack.qb_tracked,
+                        (pass_att, complete, pass_yds, pass_td, o_int, o_sck)),
+            ROLE_RUSH: (rb, pack.rb_tracked, (is_run, no, rush_yds, run_td, no, no)),
+            ROLE_REC: (wr, pack.wr_tracked, (is_pass, complete, pass_yds, pass_td, no, no)),
+        }
+        roles = (ROLE_PASS, ROLE_RUSH, ROLE_REC)   # = 0, 1, 2: pstats' role axis
+        delta = torch.stack([c.to(F32) for r in roles for c in by_role[r][2]], dim=1)
+        slot = torch.stack([by_role[r][0] for r in roles], dim=1)
+        gate = torch.stack([by_role[r][1].reshape(-1)[dirx.long() * pack.k + by_role[r][0]]
+                            for r in roles], dim=1).to(F32)
+        add_player_rows(s.pstats, off, slot, gate, delta.view(-1, 3, N_PLAYER_STATS))
+
     return GameState(
         gid=s.gid, fo=s.fo,
         off=off_c.to(I32), sec=sec_b.to(I32), down=down_c.to(I32),
         dist=dist_c.to(F32), ytg=ytg_c.to(F32), period=period_b,
-        in_rz=in_rz_f, going=going_f, score=score_f,
+        in_rz=in_rz_f, going=going_f, score=score_f, stats=s.stats, pstats=s.pstats,
     )
 
 
-def initial_state(n: int, first_offense, cfg: SimConfig, device,
-                  game_id=0) -> GameState:
+def initial_state(n: int, first_offense, cfg: SimConfig, device, game_id=0,
+                  k: Optional[int] = None, collect_players: bool = True,
+                  collect_stats: bool = True) -> GameState:
     """n games at the opening kickoff; `first_offense` and `game_id` are
-    ints or (n,) tensors."""
+    ints or (n,) tensors.  `k` player slots (default cfg.engine.player_slots);
+    a disabled collector gets a 1-element dummy per game, as in the JAX
+    package (the full pstats is about 1.15 KB a game at K = 8)."""
     dev = torch.device(device)
+    k = cfg.engine.player_slots if k is None else k
+    stats_shape = (n, 2, N_TEAM_STATS) if collect_stats else (n, 1, 1)
+    pstats_shape = (n, 2, 3, k, N_PLAYER_STATS) if collect_players else (n, 1, 1, 1, 1)
 
     def ivec(v):
         return torch.as_tensor(v, dtype=I32, device=dev).expand(n).clone()
@@ -394,6 +460,8 @@ def initial_state(n: int, first_offense, cfg: SimConfig, device,
         in_rz=torch.zeros((n,), dtype=torch.bool, device=dev),
         going=torch.zeros((n,), dtype=torch.bool, device=dev),
         score=torch.zeros((n, 2), dtype=I32, device=dev),
+        stats=torch.zeros(stats_shape, dtype=F32, device=dev),
+        pstats=torch.zeros(pstats_shape, dtype=F32, device=dev),
     )
 
 
@@ -405,9 +473,9 @@ def simulate_games(
     key: int,
     n: int,
     first_offense,
-    collect_players: bool = False,
+    collect_players: bool = True,
     game_id=0,
-    collect_stats: bool = False,
+    collect_stats: bool = True,
 ) -> GameState:
     """Run n independent games to completion on the pack's device; returns
     the final GameState.  `key` is a 64-bit launch key (ops/rng.fold_in).
@@ -416,14 +484,17 @@ def simulate_games(
     once whether any game is still running (with early_exit), as the JAX
     package's while_loop cond does.  Draws come from the Philox kernel:
     with rng_impl="pallas_chunk" one launch fills the chunk's whole draw
-    buffer, allocated once per call; with "pallas" one launch per play."""
+    buffer, allocated once per call; with "pallas" one launch per play.
+    With collect_stats the final score is written into the `points` column
+    after the loop."""
     rng = cfg.engine.rng_impl
     if rng not in ("pallas", "pallas_chunk"):
         raise NotImplementedError(
             f"rng_impl={rng!r} is a JAX generator and is not ported "
             "(ROADMAP.md queue 1: threefry/rbg); use 'pallas_chunk' or 'pallas'")
     dev = pack.device
-    s = initial_state(n, first_offense, cfg, dev, game_id)
+    s = initial_state(n, first_offense, cfg, dev, game_id, pack.k,
+                      collect_players, collect_stats)
     ch = cfg.engine.play_chunk
     n_chunks = -(-cfg.engine.max_plays // ch)
     buf = None
@@ -441,4 +512,6 @@ def simulate_games(
                      else step_draws(key, step0 + j, n, dev))
             s = play_step(s, draws, pack, cfg, heads_eval, heads_state,
                           collect_players, collect_stats)
+    if collect_stats:
+        s.stats[:, :, TS["points"]] = s.score.to(F32)
     return s

@@ -15,63 +15,19 @@ import pytest
 import torch
 
 from fast_monte_carlo_tpu.config import SimConfig as JaxSimConfig
-from fast_monte_carlo_tpu.config import resolve_nano_select
 from fast_monte_carlo_tpu.ops import game as jg
-from fast_monte_carlo_tpu.ops import table_lookup as jtl
 from fast_monte_carlo_tpu_torch import fixtures
 from fast_monte_carlo_tpu_torch.config import SimConfig
 from fast_monte_carlo_tpu_torch.ops import game as tg
-from fast_monte_carlo_tpu_torch.ops import table_lookup as ttl
 from fast_monte_carlo_tpu_torch.ops.rng import root_key
 
-from test_torch_support import (FLOAT_FIELDS, INT_FIELDS, TABLE_SEED, jax_pack,
-                                jax_state, jax_table_heads, port_pack,
-                                port_state, row_mismatch)
+from test_torch_support import (FLOAT_FIELDS, INT_FIELDS, flips_back, heads_pair,
+                                jax_pack, jax_state, port_pack, port_state,
+                                row_mismatch)
 
 torch.set_num_threads(1)
 
 N_STATES = 12000
-NUDGE = 1e-4
-
-
-def _heads(mode):
-    """(jax heads_eval, jax heads_state, port heads_eval, port heads_state)."""
-    if mode == "analytic":
-        return (jg.make_analytic_heads_eval(JaxSimConfig()), None,
-                tg.make_analytic_heads_eval(SimConfig()), None)
-    jcfg = resolve_nano_select(JaxSimConfig(), collect_stats=False)
-    return (jtl.make_table_heads_eval(jcfg), jax_table_heads(),
-            ttl.make_table_heads_eval(SimConfig()),
-            ttl.pack_tables(*fixtures.nano_tables(TABLE_SEED), device="cpu"))
-
-
-def _flips_back(d, i, u, z, want, pack, he, hs):
-    """Does row i reach the JAX outcome `want` when one of its 17 draws
-    moves by +-NUDGE?  (True = the row sits within NUDGE of a threshold.)"""
-    variants = []
-    for c in range(17):
-        for sgn in (-1.0, 1.0):
-            uu, zz = u[i].copy(), z[i].copy()
-            if c < 13:
-                uu[c] = np.clip(uu[c] + sgn * NUDGE, 0.0, 1.0 - 2.0 ** -24)
-            else:
-                zz[c - 13] += sgn * NUDGE
-            variants.append((uu, zz))
-    m = len(variants)
-    rows = {k: np.repeat(v[i:i + 1], m, axis=0) for k, v in d.items()}
-    out = tg.play_step(port_state(rows),
-                       (torch.from_numpy(np.stack([v[0] for v in variants])),
-                        torch.from_numpy(np.stack([v[1] for v in variants]))),
-                       pack, SimConfig(), he, hs)
-    for f in INT_FIELDS:
-        got = getattr(out, f).numpy()
-        ok = got == want[f]
-        ok = ok.all(axis=1) if ok.ndim > 1 else ok
-        if f == INT_FIELDS[0]:
-            match = ok
-        else:
-            match &= ok
-    return bool(match.any())
 
 
 @pytest.mark.parametrize("mode", ["analytic", "table"])
@@ -81,7 +37,7 @@ def test_play_step_matches_jax_on_injected_draws(mode):
     u, z = fixtures.play_draws(rng, (N_STATES,))
     jpack = jax_pack()
     pack = port_pack(jpack)
-    jhe, jhs, he, hs = _heads(mode)
+    jhe, jhs, he, hs = heads_pair(mode)
     jcfg = JaxSimConfig()
     step = jax.jit(lambda s, uu, zz, h: jg.play_step(
         s, jax.random.PRNGKey(0), jpack, jcfg, jhe, h, False, False,
@@ -111,7 +67,7 @@ def test_play_step_matches_jax_on_injected_draws(mode):
     assert bad.mean() <= 0.001, f"{bad.sum()} of {N_STATES} rows differ"
     wants = {f: np.asarray(getattr(want, f)) for f in INT_FIELDS}
     for i in np.flatnonzero(bad):
-        assert _flips_back(d, i, u, z, {f: v[i] for f, v in wants.items()},
+        assert flips_back(d, i, u, z, {f: v[i] for f, v in wants.items()},
                            pack, he, hs), f"row {i} differs off any threshold"
     ok = ~bad
     for f in FLOAT_FIELDS:
@@ -134,7 +90,7 @@ def test_whole_games_match_jax_on_one_draw_table(mode):
     u, z = fixtures.play_draws(rng, (steps, b))
     jpack = jax_pack()
     pack = port_pack(jpack)
-    jhe, jhs, he, hs = _heads(mode)
+    jhe, jhs, he, hs = heads_pair(mode)
     fo = np.arange(b) % 2
 
     def run_jax(h, uu, zz):
@@ -188,11 +144,6 @@ def test_unported_engine_options_raise():
     for cfg in (SimConfig(), _runner_cfg(rng_impl="rbg")):   # threefry, rbg
         with pytest.raises(NotImplementedError):
             tg.simulate_games(pack, cfg, he, None, 1, 8, 0)
-    cfg = _runner_cfg(rng_impl="pallas_chunk")
-    with pytest.raises(NotImplementedError):
-        tg.simulate_games(pack, cfg, he, None, 1, 8, 0, collect_stats=True)
-    with pytest.raises(NotImplementedError):
-        tg.simulate_games(pack, cfg, he, None, 1, 8, 0, collect_players=True)
     with pytest.raises(NotImplementedError):
         tg.simulate_games(pack, _runner_cfg(rng_impl="pallas_chunk",
                                             antithetic=True), he, None, 1, 8, 0)

@@ -114,7 +114,9 @@ def test_import_leaves_jax_pandas_sklearn_out():
         "            assert n.split('.')[0] not in ('jax', 'fast_monte_carlo_tpu'), n\n"
         "need = ['fast_monte_carlo_tpu_torch.probes.step_arith',"
         " 'fast_monte_carlo_tpu_torch.probes.gather',"
-        " 'fast_monte_carlo_tpu_torch.utils.cuda_build']\n"
+        " 'fast_monte_carlo_tpu_torch.utils.cuda_build',"
+        " 'fast_monte_carlo_tpu_torch.stats', 'fast_monte_carlo_tpu_torch.boxscore',"
+        " 'fast_monte_carlo_tpu_torch.edge', 'fast_monte_carlo_tpu_torch.data.usage']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in ('jax', 'pandas', 'sklearn', 'fast_monte_carlo_tpu')"
         " if m in sys.modules]\n"
@@ -123,6 +125,30 @@ def test_import_leaves_jax_pandas_sklearn_out():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout == "ok\n", (out.stdout, out.stderr)
+
+
+def test_summary_path_runs_score_only(monkeypatch):
+    """run_pairs_summary asks simulate_games for score-only games (both
+    collectors off), as the JAX package does; run_pairs takes its defaults,
+    both collectors on."""
+    from fast_monte_carlo_tpu_torch import api
+
+    calls = []
+    real = api.simulate_games
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(api, "simulate_games", spy)
+    a, b = fixtures.teams()
+    r = MatchupRunner(a, b, None, _cfg(SimConfig), mode="analytic", device="cpu")
+    r.run_pairs_summary(64, seed=1, chunk_pairs=32)
+    assert len(calls) == 2
+    assert all(c["collect_players"] is False and c["collect_stats"] is False for c in calls)
+    out = r.run_pairs(8, seed=1)
+    assert calls[-1]["collect_players"] is True and calls[-1]["collect_stats"] is True
+    assert out.stats.shape == (16, 2, 19) and out.pstats.shape == (16, 2, 3, 8, 6)
 
 
 def test_cuda_request_without_cuda_raises():
