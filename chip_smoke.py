@@ -8,8 +8,10 @@ Runs from the root of a checkout on a machine with one NVIDIA H100:
                                          # kernel tables of one launch to
                                          # DIR/profile_launch.txt, of the
                                          # props path to DIR/profile_props.txt
-                                         # and of two live queries to
-                                         # DIR/profile_live.txt
+                                         # of two live queries to
+                                         # DIR/profile_live.txt and of a
+                                         # slate launch to
+                                         # DIR/profile_slate.txt
 
 Phases, in order (any failure raises and exits non-zero):
  1. versions, `nvidia-smi` name and power limit; exit 1 without CUDA;
@@ -80,11 +82,28 @@ Phases, in order (any failure raises and exits non-zero):
     after a warm-up, with their philox_draws launches split by ch.  The
     launch counts are set to 0 just before these queries, so the live
     path's philox_draws launches are the queries' own (warm-ups included),
-    not those of the checks before them.
+    not those of the checks before them;
+10. the slate path: a 60-matchup fixture slate (`fixtures.slate`, the
+    default SimConfig()) through `SlateRunner(game_shard=True)
+    .run_summary_rows` at BASELINE.md config #3's size, 98,304 games a
+    matchup in 3 launches of 16,384 pairs a matchup (1 launch if the
+    warm-up launch predicts more than 60 s); each game's n exact, win +
+    win + tie = 1, mean points in (10, 50), histograms summing to n, no
+    NaN; games/s and peak device memory; one launch at the JAX default
+    chunk_pairs 32,768 with its peak memory; the philox_draws kernel at
+    that launch's shape (24 x 3,932,160) against its plain version on
+    three slices of rows; a 3 x 4,096-game slate on CUDA and on the CPU
+    equal in >= 99.5% of games on integer state; the loop layout
+    (`simulate_slate_summary_rows(layout="loop")`) at 4 matchups x 16,384
+    games, each game within 4 standard errors of the one-launch layout,
+    both timed; `edge.slate_market_rows` prices all 60 games against
+    `fixtures.slate_lines`, by name and by position alike (`--profile`
+    adds `DIR/profile_slate.txt`: device kernels and device ms a play of
+    one slate launch, and the busy share).
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
-9) and read just after it; a path that launched one of its kernels no time
-fails.  The JSON line's philox_draws launches are the main path's and the
-live queries'.
+9, 10) and read just after it; a path that launched one of its kernels no
+time fails.  The JSON line's philox_draws launches are the main path's,
+the live queries' and the slate path's.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
 (`probes.kernels.held_ms`; `kernel_times` for philox_draws, the fused
@@ -124,6 +143,14 @@ LIVE_GAMES = 65_536                # the JAX package's run_live / 4th-down defau
 LIVE_KICK_GAMES = 8192             # kickoff situation against a kickoff start
 CURVE_PER = 8192                   # the JAX package's run_live_batch n_games_per
 LIVE_REPS = 3                      # timed calls of each live query
+SLATE_GAMES, SLATE_SEED = 60, 8    # BASELINE.md config #3: a weekly slate of ~60 games
+SLATE_PAIRS = 49_152               # 98,304 games a matchup (BASELINE.md #3: 100k)
+SLATE_CHUNK = 16_384               # pairs a matchup a launch: 3 launches
+SLATE_BIG_CHUNK = 32_768           # the JAX package's default chunk_pairs
+SLATE_CUT_S = 60                   # one launch if three would take longer
+SLATE_CROSS_GAMES = 3              # matchups on CUDA against the CPU, CROSS_PAIRS each
+LOOP_GAMES = 4                     # matchups of the loop layout against one launch
+LOOP_PAIRS = 8_192                 # 16,384 games a matchup, one launch each
 # each kernel of the JSON line and its source in csrc/
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
@@ -1083,6 +1110,199 @@ def phase_live(card: str, profile_dir: Optional[Path]) -> dict:
     return res
 
 
+def check_slate_summaries(per_game, n: int, what: str) -> None:
+    """Each matchup's host summary: n exact, win + win + tie = 1, mean
+    points in (10, 50), every histogram summing to n, no NaN."""
+    ns = np.array([float(s.n) for s in per_game])
+    win = np.array([s.win_rate for s in per_game], dtype=np.float64)
+    tie = np.array([float(s.tie_rate) for s in per_game])
+    mean = np.array([s.mean_pts for s in per_game], dtype=np.float64)
+    sd = np.array([s.sd_pts for s in per_game], dtype=np.float64)
+    g = len(per_game)
+    check(bool((ns == n).all()), f"{what}: n == {n:,} in each of {g} matchups")
+    check(float(np.abs(win.sum(1) + tie - 1).max()) < 1e-5,
+          f"{what}: win + win + tie == 1 in every matchup")
+    check(bool(((mean > 10) & (mean < 50)).all()),
+          f"{what}: mean points in (10, 50) (from {mean.min():.2f} to {mean.max():.2f})")
+    check(all(int(s.margin_hist.sum()) == n and int(s.total_hist.sum()) == n
+              and bool((s.pts_hist.sum(axis=1) == n).all()) for s in per_game),
+          f"{what}: margin, total and points histograms sum to n in every matchup")
+    check(all(np.isfinite(x).all() for x in (win, tie, mean, sd)),
+          f"{what}: no NaN in the summaries")
+
+
+def phase_slate(card: str, profile_dir: Optional[Path]) -> dict:
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+    from fast_monte_carlo_tpu_torch import api, edge, fixtures
+    from fast_monte_carlo_tpu_torch.config import SimConfig
+    from fast_monte_carlo_tpu_torch.ops import rng
+
+    cfg = SimConfig()                      # rng_impl "threefry": the Philox stream
+    t0 = time.perf_counter()
+    matchups, tables = fixtures.slate(SLATE_GAMES, SLATE_SEED)
+    sr = api.SlateRunner(matchups, None, cfg, game_shard=True, nano_tables=tables,
+                         device="cuda")
+    torch.cuda.synchronize()
+    table_mb = sr.heads_state.nano_values.numel() * 4 / 1e6
+    print(f"  {SLATE_GAMES} matchups built and packed in {time.perf_counter() - t0:.2f} s; "
+          f"nano table {tuple(sr.heads_state.nano_values.shape)} f32, {table_mb:,.1f} MB")
+    games = [(a.name, b.name) for a, b in matchups]
+
+    t0 = time.perf_counter()               # warm-up: one launch
+    sr.run_summary_rows(SLATE_CHUNK, seed=99, chunk_pairs=SLATE_CHUNK)
+    warm_s = time.perf_counter() - t0
+    pairs = SLATE_PAIRS if warm_s * SLATE_PAIRS / SLATE_CHUNK <= SLATE_CUT_S else SLATE_CHUNK
+    launches = -(-pairs // SLATE_CHUNK)
+    n = 2 * SLATE_CHUNK * launches
+    print(f"  warm-up launch ({SLATE_GAMES} x {2 * SLATE_CHUNK:,} games) {warm_s:.3f} s; "
+          f"timing {launches} launch(es), {n:,} games a matchup")
+
+    torch.cuda.synchronize()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    by_ch = dict(rng.philox_draws.launches_by_ch)
+    t0 = time.perf_counter()
+    rows, per_game = sr.run_summary_rows(pairs, seed=0, chunk_pairs=SLATE_CHUNK)
+    dt = time.perf_counter() - t0            # ends in the host copy of the summaries
+    counts = read_counts("slate path", ["philox_draws"])
+    ch24 = rng.philox_draws.launches_by_ch[CH] - by_ch.get(CH, 0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check_slate_summaries(per_game, n, f"slate, {SLATE_GAMES} x {n:,} games")
+    check(all(r["n_games"] == n for r in rows) and len(rows) == SLATE_GAMES,
+          f"{SLATE_GAMES} summary rows, n_games {n:,} each")
+    gps = SLATE_GAMES * n / dt
+    print(f"  slate (one launch a chunk): {SLATE_GAMES * n:,} games in {dt:.3f} s -> "
+          f"{gps:,.0f} games/s, {1000 * dt / launches:.1f} ms per "
+          f"{SLATE_GAMES * 2 * SLATE_CHUNK:,}-game launch, {ch24 * CH / launches:.0f} plays a "
+          f"launch, peak device memory {peak:,.1f} MiB ({card})")
+    res = {"launches": counts["philox_draws"], "games_per_s": gps, "seconds": dt,
+           "peak_mib": peak, "launch_ms": 1000 * dt / launches}
+
+    # one launch at the JAX package's default chunk_pairs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, big = sr.run_summary_rows(SLATE_BIG_CHUNK, seed=1, chunk_pairs=SLATE_BIG_CHUNK)
+    big_s = time.perf_counter() - t0
+    big_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check_slate_summaries(big, 2 * SLATE_BIG_CHUNK,
+                          f"slate, one launch of {SLATE_GAMES} x {2 * SLATE_BIG_CHUNK:,}")
+    big_n = SLATE_GAMES * 2 * SLATE_BIG_CHUNK
+    print(f"  one launch at chunk_pairs {SLATE_BIG_CHUNK:,}: {big_n:,} games in {big_s:.3f} s "
+          f"-> {big_n / big_s:,.0f} games/s, peak device memory {big_peak:,.1f} MiB ({card})")
+    res.update(big_games_per_s=big_n / big_s, big_peak_mib=big_peak)
+    del big
+
+    # the draw kernel at that launch's shape, on slices of rows
+    key, dev = rng.fold_in(rng.root_key(6), 2), torch.device("cuda")
+    u, z = rng.chunk_draws(key, 48, CH, big_n, dev)
+    worst, w = 0.0, min(4096, big_n // 2)
+    for r0 in (0, big_n // 2 - w // 3, big_n - w):
+        ur, zr = rng.philox_draws_reference(key, 48, CH, w, dev, row0=r0)
+        err = float((z[:, r0:r0 + w] - zr).abs().max())
+        worst = max(worst, err)
+        check(torch.equal(u[:, r0:r0 + w], ur) and err <= 1e-5,
+              f"philox_draws ({CH}, {big_n:,}), rows {r0:,}..{r0 + w - 1:,}: uniforms "
+              f"bitwise, normals max|d| {err:.3g} <= 1e-5")
+    ms = cuda_ms(lambda: rng.chunk_draws(key, 48, CH, big_n, dev, out=(u, z)), 5)
+    bd = draw_bound(CH, big_n)
+    print(f"  philox_draws ({CH}, {big_n:,}): {ms:.4f} ms by events, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_class']}; {bd['bound_ms'] / ms:.0%}) ({card})")
+    res.update(draw_ms=ms, draw_bound_ms=bd["bound_ms"], draw_err=worst)
+    del u, z
+
+    # the same slate games on the card and on the CPU
+    sub = slice(0, SLATE_CROSS_GAMES)
+    outs = [api.SlateRunner(matchups[sub], None, cfg, nano_tables=tables[sub],
+                            device=d).run(CROSS_PAIRS, seed=12) for d in ("cuda", "cpu")]
+    agree = np.ones(SLATE_CROSS_GAMES * 2 * CROSS_PAIRS, bool)
+    for f in ("gid", "fo", "off", "sec", "down", "period", "in_rz", "going", "score"):
+        eq = getattr(outs[0], f).cpu().numpy() == getattr(outs[1], f).numpy()
+        agree &= eq.reshape(eq.shape[0], -1).all(1)
+    check(agree.mean() >= 0.995, f"slate {SLATE_CROSS_GAMES} x {2 * CROSS_PAIRS:,} games, "
+          f"CUDA vs CPU: integer state equal in {int(agree.sum()):,} (>= 99.5%)")
+    del outs
+
+    # the loop layout against one launch, on the first LOOP_GAMES matchups
+    sub = slice(0, LOOP_GAMES)
+    loop_kw = dict(contexts=matchups[sub], nano_tables=tables[sub], n_pairs=LOOP_PAIRS,
+                   chunk_pairs=LOOP_PAIRS, layout="loop", device="cuda")
+    api.simulate_slate_summary_rows(games[sub], seed=97, **loop_kw)     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loop = api.simulate_slate_summary_rows(games[sub], seed=3, **loop_kw)
+    loop_s = time.perf_counter() - t0
+    one = api.SlateRunner(matchups[sub], None, cfg, game_shard=True, nano_tables=tables[sub],
+                          device="cuda")
+    one.run_summary_rows(LOOP_PAIRS, seed=96, chunk_pairs=LOOP_PAIRS)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, once = one.run_summary_rows(LOOP_PAIRS, seed=4, chunk_pairs=LOOP_PAIRS)
+    once_s = time.perf_counter() - t0
+    m = 2 * LOOP_PAIRS
+    check_slate_summaries(loop, m, f"loop layout, {LOOP_GAMES} x {m:,}")
+    gap = 0.0
+    for gi, (x, y) in enumerate(zip(loop, once)):
+        for side in (0, 1):
+            p, q = float(x.win_rate[side]), float(y.win_rate[side])
+            se_w = ((p * (1 - p) + q * (1 - q)) / m) ** 0.5
+            se_m = ((float(x.sd_pts[side]) ** 2 + float(y.sd_pts[side]) ** 2) / m) ** 0.5
+            d_m = abs(float(x.mean_pts[side]) - float(y.mean_pts[side]))
+            gap = max(gap, abs(p - q) / se_w, d_m / se_m)
+            check(abs(p - q) <= 4 * se_w and d_m <= 4 * se_m,
+                  f"matchup {gi} side {side}: loop win {p:.4f} / one launch {q:.4f} within 4 "
+                  f"s.e. {se_w:.4f}; mean points {d_m:.3f} apart, 4 s.e. {4 * se_m:.3f}")
+    print(f"  loop layout, {LOOP_GAMES} x {m:,} games: {loop_s:.3f} s -> "
+          f"{LOOP_GAMES * m / loop_s:,.0f} games/s (a launch a matchup: the rate does not "
+          f"depend on the matchup count); one launch of the same games {once_s:.3f} s -> "
+          f"{LOOP_GAMES * m / once_s:,.0f} games/s; largest gap {gap:.2f} s.e. ({card})")
+    res.update(loop_games_per_s=LOOP_GAMES * m / loop_s,
+               one_launch_g4_games_per_s=LOOP_GAMES * m / once_s)
+
+    # the slate's markets, by name and by position
+    lines = fixtures.slate_lines(rows, SLATE_SEED)
+    t0 = time.perf_counter()
+    table = edge.slate_market_rows(matchups, per_game, lines)
+    price_ms = (time.perf_counter() - t0) * 1e3
+    positional = edge.slate_market_rows(
+        matchups, per_game, [{k: v for k, v in r.items() if k != "team_a"} for r in lines])
+    check(len(table) == SLATE_GAMES and sum("spread" in r for r in table) == SLATE_GAMES
+          and sum("total" in r for r in table) == SLATE_GAMES - 1,
+          f"slate_market_rows priced all {SLATE_GAMES} games (spreads {SLATE_GAMES}, totals "
+          f"{SLATE_GAMES - 1}: one left out) in {price_ms:.1f} ms on the host")
+    check(table == positional, "lines matched by team_a == the same lines by position")
+    check(all(abs(r["p_win_a"] - float(s.win_rate[0])) < 1e-6
+              and abs(r["p_win_a"] + r["p_win_b"] + float(s.tie_rate) - 1) < 1e-5
+              and 0 <= r["p_cover_a"] <= 1 for r, s in zip(table, per_game)),
+          "every row: moneyline p_win_a == the summary's win rate, p_win_a + p_win_b + tie "
+          "== 1, 0 <= p_cover_a <= 1")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        edge.print_slate_edges(table)
+    print("\n".join("  | " + x for x in buf.getvalue().strip().splitlines()[:9]))
+    res["price_ms"] = price_ms
+
+    if profile_dir is not None:
+        before = rng.philox_draws.launches_by_ch[CH]
+        k, dev_ms, wall_ms, tab = profile_kernels(
+            lambda: sr.run_summary_rows(SLATE_CHUNK, seed=5, chunk_pairs=SLATE_CHUNK))
+        plays = (rng.philox_draws.launches_by_ch[CH] - before) * CH
+        line = (f"one slate launch ({SLATE_GAMES} x {2 * SLATE_CHUNK:,} games): {k} device "
+                f"kernels over {plays} plays ({k / plays:.1f} a play), {dev_ms:.3f} ms device "
+                f"time ({dev_ms / plays:.4f} a play), {wall_ms:.3f} ms wall profiled, busy "
+                f"share {dev_ms / res['launch_ms']:.4f} of an unprofiled launch "
+                f"({res['launch_ms']:.1f} ms)")
+        print(f"  profile, {line}")
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        (profile_dir / "profile_slate.txt").write_text(f"{card}\n{line}\n\n{tab}\n")
+        res.update(kernels_per_play=k / plays, device_ms_per_play=dev_ms / plays,
+                   busy=dev_ms / res["launch_ms"])
+    return res
+
+
 def live_curve_situations(cfg):
     """16 moments of one game, from the kickoff to the last four minutes:
     the clock falling 225 s a step, the score, possession and field moving."""
@@ -1170,9 +1390,14 @@ def main() -> int:
     print("[9] live and 4th-down: run_live, run_live_batch, run_fourth_decision on cuda, "
           "SimConfig() (threefry: the Philox stream)")
     live = phase_live(card, args.profile)
+    print(f"[10] slate path: SlateRunner(game_shard=True).run_summary_rows, {SLATE_GAMES} "
+          "matchups on cuda, then the loop layout and the slate's markets")
+    slate = phase_slate(card, args.profile)
     print(f"  philox_draws launches: main path {k['launches']}, props path "
-          f"{props['launches']}, live queries {live['launches']}")
-    k["launches"] += live["launches"]
+          f"{props['launches']}, live queries {live['launches']}, slate path "
+          f"{slate['launches']}")
+    k["launches"] += live["launches"] + slate["launches"]
+    k["max_abs_err"] = max(k["max_abs_err"], slate["draw_err"])
 
     rows = {"philox_draws": k, **fused, **gathers}
     print(json.dumps({"kernels": [

@@ -22,6 +22,17 @@ Live queries resume games from a mid-game `Situation` (`run_live`,
 `simulate_live_curve`, `evaluate_fourth_down`).  The JAX entry points build
 their runner from an SP+ sheet and trained heads, neither of which is in
 the repository, so the port's take a built `runner=`.
+
+Weekly slates: `SlateRunner` plays every matchup of a slate in one
+`simulate_games` call (direction row gid*2 + off into one pack and one
+nano table); `simulate_slate_summaries` runs a slate as a loop of
+per-matchup runners or through a `SlateRunner`, and `simulate_slate` as a
+loop of per-matchup score frames.  For the same reason as the live entry
+points they take built inputs, `contexts=` (a pair of `TeamContext`s per
+game) and `nano_tables=` (a pair of nano tables per game), in place of
+the JAX package's SP+ sheet and model artifacts.  Their DataFrames wrap
+pandas-free row cores (`SlateRunner.summary_rows`, `run_summary_rows`,
+`simulate_slate_summary_rows`, `simulate_slate_rows`).
 """
 from __future__ import annotations
 
@@ -40,9 +51,9 @@ from .models import analytic
 from .models.tables import HostTable
 from .ops.game import (GameState, Situation, make_analytic_heads_eval, play_step,
                        simulate_games, state_from_situation)
-from .ops.pack import pack_matchup
+from .ops.pack import pack_matchup, pack_matchups
 from .ops.rng import fold_in, root_key, step_draws
-from .ops.table_lookup import make_table_heads_eval, pack_tables
+from .ops.table_lookup import make_table_heads_eval, pack_tables, pack_tables_multi
 from .parallel.aggregate import (ScoreMoments, ScoreSummary, score_moments,
                                  summary_from_moments)
 from .stats import (PC_ATT, PC_COMP, PC_INT, PC_SACKS, PC_TD, PC_YDS, PLAYER_COLS,
@@ -57,6 +68,8 @@ FORCED_PLAY_STREAM = 1 << 20
 # a Situation's fields as tensors: i32 discrete fields, f32 yardages
 _SITUATION_DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32,
                      torch.float32, torch.int32, torch.int32)
+SHARD_NOT_PORTED = ("shard=True is not ported yet (ROADMAP.md P9: trial sharding over "
+                    "torch.distributed)")
 
 
 @dataclass
@@ -80,8 +93,7 @@ class MatchupRunner:
 
     def __post_init__(self):
         if self.shard:
-            raise NotImplementedError("shard=True is not ported yet (ROADMAP.md P9: trial "
-                                      "sharding over torch.distributed)")
+            raise NotImplementedError(SHARD_NOT_PORTED)
         self.device = resolve_device("cuda" if self.device is None else self.device)
         if self.heads is not None:
             raise NotImplementedError(
@@ -427,8 +439,7 @@ def simulate_matchup_columns(
     Table mode needs a runner built with nano_tables (or passes its
     ValueError on); shard=True (trial sharding) is not ported (ROADMAP P9)."""
     if shard:
-        raise NotImplementedError("shard=True is not ported yet (ROADMAP.md P9: trial "
-                                  "sharding over torch.distributed)")
+        raise NotImplementedError(SHARD_NOT_PORTED)
     runner = runner or MatchupRunner(team_a, team_b, heads, cfg or SimConfig(), mode)
     out = runner.run_pairs(n, seed=seed, collect_players=collect_players, key=key)
     return (scores_columns(out, team_a.name, team_b.name),
@@ -489,8 +500,7 @@ def simulate_live_game(team_a: str, team_b: str, situation: Situation, *,
     `edge.market_odds_from_summary` and `edge.summary_moneyline`."""
     runner = _need_runner(runner, "simulate_live_game")
     if shard:
-        raise NotImplementedError("shard=True is not ported yet (ROADMAP.md P9: trial "
-                                  "sharding over torch.distributed)")
+        raise NotImplementedError(SHARD_NOT_PORTED)
     s, = host_summaries(runner.run_live(situation, n_games=n_games, seed=seed,
                                         chunk_games=chunk_games))
     row = {
@@ -588,3 +598,378 @@ def evaluate_fourth_down(team_a: str, team_b: str, situation: Situation, *,
         res["best_vs_policy_pp"] = round((out[best]["win_off"] - out["policy"]["win_off"]) * 100,
                                          2)
     return res
+
+
+# ---- weekly slates ------------------------------------------------------------
+
+@dataclass
+class SlateRunner:
+    """Every matchup of a slate in one `simulate_games` call on one device.
+
+    `__post_init__` packs both directions of each matchup into one
+    `MatchupPack` and their nano tables into one table, rows [g0 A-off,
+    g0 B-off, g1 A-off, ...]; a game reads direction row gid*2 + off.  In a
+    run of n_pairs_per_game pairs, game t belongs to matchup
+    t // (2*n_pairs_per_game) and has team (t % 2) on offense first.
+
+    `run` is one launch that returns the final state (`summary_rows` or
+    `summaries` read it); with game_shard=True, `run_summaries` plays
+    launches of chunk_pairs pairs per matchup and reduces each matchup on
+    the device.  The JAX package's game_shard layout (per-matchup tables
+    stacked on a game axis, scanned over a ('game',) mesh) is not ported:
+    one card holds a weekly slate's tables (60 matchups of nano tables are
+    413 MB), so both methods run the shared table and game_shard only
+    selects between them, as it does in the JAX package.
+
+    `nano_tables` holds one (A on offense, B on offense) nano table pair
+    per matchup (e.g. `fixtures.slate`).  `coach_map` matters only with a
+    play model, which is not ported: it is accepted and unused.  Trained
+    `heads`, another `quality` and `shard=True` (trial sharding over
+    several cards) raise NotImplementedError."""
+
+    matchups: List[Tuple[TeamContext, TeamContext]]
+    heads: Optional[object] = None
+    cfg: SimConfig = field(default_factory=SimConfig)
+    coach_map: Optional[Dict[str, str]] = None
+    quality: str = "nano"
+    shard: bool = False
+    game_shard: bool = False
+    nano_tables: Optional[Sequence[Tuple[HostTable, HostTable]]] = None
+    device: Optional[object] = None   # 'cuda' (None), 'cuda:0' or 'cpu'
+
+    def __post_init__(self):
+        if self.shard:
+            raise NotImplementedError(SHARD_NOT_PORTED)
+        if self.heads is not None:
+            raise NotImplementedError(
+                "trained heads are not ported yet (ROADMAP.md queue 1 item 4); "
+                "SlateRunner takes nano_tables")
+        if self.quality != "nano":
+            raise NotImplementedError(f"quality={self.quality!r}: only 'nano' is ported")
+        if not self.matchups:
+            raise ValueError("SlateRunner needs at least one matchup")
+        if self.nano_tables is None or len(self.nano_tables) != len(self.matchups):
+            raise ValueError("SlateRunner needs one nano table pair per matchup "
+                             "(e.g. fixtures.slate(g, seed))")
+        self.device = resolve_device("cuda" if self.device is None else self.device)
+        dirs = []
+        for a, b in self.matchups:
+            dirs += [build_direction(a, b, self.cfg), build_direction(b, a, self.cfg)]
+        self.pack = pack_matchups(dirs, self.device)
+        self.heads_state = pack_tables_multi(self.nano_tables, self.device)
+        self.heads_fn = make_table_heads_eval(self.cfg)
+
+    def _launch(self, n_pairs: int, key: int) -> GameState:
+        """One score-only `simulate_games` call: 2*n_pairs games of each
+        matchup, in matchup order, first offense alternating."""
+        per = 2 * n_pairs
+        t = torch.arange(len(self.matchups) * per, dtype=torch.int32, device=self.device)
+        return simulate_games(self.pack, self.cfg, self.heads_fn, self.heads_state, key,
+                              t.numel(), t % 2, collect_players=False, game_id=t // per,
+                              collect_stats=False)
+
+    def run(self, n_pairs_per_game: int, seed: int = 0) -> GameState:
+        """The final GameState of G * 2*n_pairs_per_game score-only games
+        under root_key(seed)."""
+        if self.game_shard:
+            raise ValueError("run() is the shared-table path; game_shard "
+                             "slates use run_summaries()")
+        return self._launch(n_pairs_per_game, root_key(seed))
+
+    def summary_rows(self, out: GameState) -> List[dict]:
+        """One row per matchup of a `run`'s games: the JAX package's
+        `summaries` columns (means, win rates, mean margin and total from
+        team A's side, n_games)."""
+        g = len(self.matchups)
+        sc = _np(out.score).astype(float)
+        per = sc.shape[0] // g
+        rows = []
+        for gi, (a, b) in enumerate(self.matchups):
+            s = sc[gi * per:(gi + 1) * per]
+            rows.append({
+                "team_a": a.name, "team_b": b.name,
+                "mean_a": s[:, 0].mean(), "mean_b": s[:, 1].mean(),
+                "win_a": (s[:, 0] > s[:, 1]).mean(),
+                "win_b": (s[:, 1] > s[:, 0]).mean(),
+                "mean_margin_a": (s[:, 0] - s[:, 1]).mean(),
+                "mean_total": s.sum(axis=1).mean(),
+                "n_games": per,
+            })
+        return rows
+
+    def summaries(self, out: GameState):
+        """`summary_rows` as a DataFrame."""
+        import pandas as pd
+
+        return pd.DataFrame(self.summary_rows(out))
+
+    def run_summary_rows(self, n_pairs_per_game: int, seed: int = 0,
+                         chunk_pairs: int = 32768,
+                         mesh=None) -> Tuple[List[dict], List[ScoreSummary]]:
+        """The slate's summaries (game_shard=True): launches of chunk_pairs
+        pairs per matchup, launch ci under fold_in(root_key(seed), ci);
+        each launch's scores reduce per matchup on the device (one offset
+        `bincount` over the (G, 2*chunk_pairs, 2) view) and accumulate
+        there; the summaries are finished once and copied to the host
+        once.  n_pairs_per_game rounds UP to whole launches.  Returns (one
+        row per matchup, with `simulate_slate_summary_rows`' columns; the
+        per-matchup ScoreSummary in numpy, for `edge.slate_market_table`).
+
+        The JAX package folds a key per matchup; here a launch has one key
+        and its matchups draw from disjoint Philox rows (row g*2*chunk_pairs
+        + i), so no two matchups share draws and the two packages agree in
+        distribution."""
+        if not self.game_shard:
+            raise ValueError("run_summaries needs SlateRunner(game_shard=True)")
+        if mesh is not None:
+            raise NotImplementedError("mesh=: the ('game',) mesh over several cards is not "
+                                      "ported (ROADMAP.md P9); one card holds the slate")
+        if n_pairs_per_game <= 0:
+            raise ValueError(f"n_pairs_per_game must be positive, got {n_pairs_per_game}")
+        g = len(self.matchups)
+        chunk_pairs = min(chunk_pairs, n_pairs_per_game)
+        root = root_key(seed)
+        acc = None
+        for ci in range(-(-n_pairs_per_game // chunk_pairs)):
+            # the launch's state is dropped here, before the next launch
+            m = score_moments(self._launch(chunk_pairs, fold_in(root, ci)).score.view(
+                g, 2 * chunk_pairs, 2))
+            acc = m if acc is None else acc + m
+        host, = host_summaries(summary_from_moments(acc))
+        per_game = [ScoreSummary(*(f[gi] for f in host)) for gi in range(g)]
+        return ([_summary_row(a.name, b.name, s) for (a, b), s in zip(self.matchups, per_game)],
+                per_game)
+
+    def run_summaries(self, n_pairs_per_game: int, seed: int = 0, chunk_pairs: int = 32768,
+                      mesh=None, return_summaries: bool = False):
+        """`run_summary_rows` as a DataFrame, and with return_summaries=True
+        (DataFrame, per-matchup summaries)."""
+        import pandas as pd
+
+        rows, per_game = self.run_summary_rows(n_pairs_per_game, seed, chunk_pairs, mesh)
+        return (pd.DataFrame(rows), per_game) if return_summaries else pd.DataFrame(rows)
+
+
+def _summary_row(team_a: str, team_b: str, s: ScoreSummary) -> dict:
+    """One slate row from a matchup's host summary."""
+    mean, win = s.mean_pts, s.win_rate
+    return {"team_a": team_a, "team_b": team_b,
+            "mean_a": float(mean[0]), "mean_b": float(mean[1]),
+            "win_a": float(win[0]), "win_b": float(win[1]),
+            "mean_margin_a": float(mean[0] - mean[1]),
+            "mean_total": float(mean[0] + mean[1]),
+            "n_games": int(s.n)}
+
+
+# Runner memos for the slate entry points.  A runner is read-only after
+# __post_init__, so reusing one is the supported pattern (`runner=`).  The
+# keys are the identities of the given contexts and tables; the cached
+# runner holds those objects, so no id is reused while its entry lives.
+def _fifo_memo(memo: Dict, cap: int, key, build):
+    """The value of `key` in `memo`, built and stored if absent, the oldest
+    entries evicted past `cap`.  id()-based keys are safe only while the
+    value pins the keyed objects alive: keep that if eviction changes."""
+    v = memo.get(key)
+    if v is None:
+        v = build()
+        while len(memo) >= cap:
+            memo.pop(next(iter(memo)))
+        memo[key] = v
+    return v
+
+
+_RUNNER_MEMO: Dict[tuple, MatchupRunner] = {}
+_RUNNER_MEMO_MAX = 128
+
+
+def _runner_for(a: TeamContext, b: TeamContext, tables, cfg: SimConfig, mode: str,
+                table_quality: str, shard: bool, device) -> MatchupRunner:
+    """The memoized MatchupRunner of one matchup."""
+    return _fifo_memo(
+        _RUNNER_MEMO, _RUNNER_MEMO_MAX,
+        (id(a), id(b), tuple(id(t) for t in tables or ()), cfg, mode, table_quality,
+         shard, device),
+        lambda: MatchupRunner(a, b, None, cfg, mode=mode, table_quality=table_quality,
+                              nano_tables=tables, device=device, shard=shard))
+
+
+_GAME_SHARD_MEMO: Dict = {}
+_GAME_SHARD_MEMO_MAX = 4
+# key -> (the build's error, the keyed contexts and tables, held so that
+# their ids are not reused while the entry lives); FIFO-bounded, so a
+# transient failure does not mark a slate failed for good
+_GAME_SHARD_FAILED: Dict = {}
+_GAME_SHARD_FAILED_MAX = 16
+# the qualities layout='game_shard' takes, as in the JAX package (the port
+# builds 'nano' alone; the others raise NotImplementedError in SlateRunner)
+GAME_SHARD_QUALITIES = ("nano", "turbo", "fused")
+
+
+def _game_shard_runner(contexts, nano_tables, cfg: SimConfig, quality: str,
+                       device) -> SlateRunner:
+    """The memoized game_shard SlateRunner of a slate.  A slate whose build
+    failed raises that failure again without another build."""
+    key = (tuple((id(a), id(b)) for a, b in contexts),
+           tuple(id(t) for pair in nano_tables or () for t in pair), cfg, quality, device)
+    if key in _GAME_SHARD_FAILED:
+        raise ValueError("layout='game_shard': this slate previously failed to build: "
+                         f"{_GAME_SHARD_FAILED[key][0]}")
+    try:
+        return _fifo_memo(
+            _GAME_SHARD_MEMO, _GAME_SHARD_MEMO_MAX, key,
+            lambda: SlateRunner(list(contexts), None, cfg, quality=quality, game_shard=True,
+                                nano_tables=nano_tables, device=device))
+    except Exception as e:   # recorded and raised again
+        while len(_GAME_SHARD_FAILED) >= _GAME_SHARD_FAILED_MAX:
+            _GAME_SHARD_FAILED.pop(next(iter(_GAME_SHARD_FAILED)))
+        _GAME_SHARD_FAILED[key] = (f"{type(e).__name__}: {e}", contexts, nano_tables)
+        raise
+
+
+def _slate_inputs(games, contexts, nano_tables, sp_path, artifact_dir, focus_csv, what: str):
+    """Raise unless the slate comes as built inputs: one context pair (and,
+    if given, one nano table pair) per game."""
+    if sp_path is not None or artifact_dir is not None or focus_csv is not None:
+        raise NotImplementedError(
+            f"{what}: sp_path=, artifact_dir= and focus_csv= build the slate's contexts and "
+            "tables from an SP+ sheet and trained heads, which are not ported yet "
+            "(ROADMAP.md queue 1); pass contexts= and nano_tables=")
+    if contexts is None:
+        raise NotImplementedError(
+            f"{what} without contexts= builds them from an SP+ sheet, which is not ported "
+            "yet (ROADMAP.md queue 1); pass one (team A, team B) TeamContext pair per game")
+    if len(contexts) != len(games) or (nano_tables is not None
+                                       and len(nano_tables) != len(games)):
+        raise ValueError(f"{what}: {len(games)} games need as many context pairs "
+                         f"(got {len(contexts)}) and nano table pairs")
+
+
+def simulate_slate_summary_rows(
+    games: Sequence[Tuple[str, str]],
+    *,
+    contexts: Optional[Sequence[Tuple[TeamContext, TeamContext]]] = None,
+    nano_tables: Optional[Sequence[Tuple[HostTable, HostTable]]] = None,
+    sp_path: Optional[str] = None,
+    artifact_dir: Optional[str] = None,
+    focus_csv: Optional[str] = None,
+    n_pairs: int = 50000,
+    mode: str = "table",
+    table_quality: str = "nano",
+    cfg: Optional[SimConfig] = None,
+    seed: int = 0,
+    shard: bool = False,
+    chunk_pairs: int = 32768,
+    layout: str = "auto",
+    device=None,
+) -> Tuple[List[dict], List[ScoreSummary]]:
+    """A weekly slate's summaries: (one row per game: team_a, team_b,
+    mean_a, mean_b, win_a, win_b, mean_margin_a, mean_total, n_games;
+    the per-game ScoreSummary in numpy, whose histograms price the game's
+    markets through `edge.slate_market_table`).
+
+    layout 'loop' runs each game on its own memoized MatchupRunner,
+    `run_pairs_summary(n_pairs, key=fold_in(root_key(seed), gi),
+    chunk_pairs=...)`, its summary left on the device; every summary comes
+    to the host in one copy at the end.  'game_shard' runs the slate
+    through one memoized `SlateRunner(game_shard=True).run_summary_rows`
+    (table mode; its rows name the contexts' teams).  'auto' is the loop:
+    the JAX package picks the loop on one device too, and the port has no
+    layout over several cards yet.  An empty slate returns ([], []) before
+    anything else is read."""
+    cfg = cfg or SimConfig()
+    if layout not in ("auto", "loop", "game_shard"):
+        raise ValueError(f"layout must be auto|loop|game_shard, got {layout!r}")
+    if not games:
+        return [], []
+    if layout == "game_shard":
+        # as in the JAX package: an explicit request must not drop a knob
+        if focus_csv is not None:
+            raise ValueError("layout='game_shard' cannot honor focus_csv "
+                             "(focus rosters are player-dependent and "
+                             "don't fuse); use layout='loop'")
+        if mode != "table":
+            raise ValueError(f"layout='game_shard' is table-mode only "
+                             f"(got mode={mode!r}); use layout='loop'")
+        if shard:
+            raise ValueError("layout='game_shard' and shard=True (trial "
+                             "sharding) are different layouts — pick one")
+        if table_quality not in GAME_SHARD_QUALITIES:
+            raise ValueError(
+                f"layout='game_shard' supports table_quality in "
+                f"{GAME_SHARD_QUALITIES} (got {table_quality!r}); other "
+                f"presets would silently degrade to a coarse fused table")
+    _slate_inputs(games, contexts, nano_tables, sp_path, artifact_dir, focus_csv,
+                  "simulate_slate_summaries")
+    if layout == "game_shard":
+        return _game_shard_runner(contexts, nano_tables, cfg, table_quality,
+                                  device).run_summary_rows(n_pairs, seed, chunk_pairs)
+    if shard:
+        raise NotImplementedError(SHARD_NOT_PORTED)
+    root = root_key(seed)
+    summs = [_runner_for(a, b, nano_tables[gi] if nano_tables is not None else None, cfg,
+                         mode, table_quality, False, device).run_pairs_summary(
+                             n_pairs, key=fold_in(root, gi), chunk_pairs=chunk_pairs)
+             for gi, (a, b) in enumerate(contexts)]
+    host = host_summaries(*summs)
+    return [_summary_row(ta, tb, s) for (ta, tb), s in zip(games, host)], host
+
+
+def simulate_slate_summaries(games, *, return_summaries: bool = False, **kw):
+    """`simulate_slate_summary_rows` as a DataFrame, and with
+    return_summaries=True (DataFrame, per-game summaries)."""
+    import pandas as pd
+
+    rows, summs = simulate_slate_summary_rows(games, **kw)
+    return (pd.DataFrame(rows), summs) if return_summaries else pd.DataFrame(rows)
+
+
+def simulate_slate_rows(
+    games: Sequence[Tuple[str, str]],
+    *,
+    contexts: Optional[Sequence[Tuple[TeamContext, TeamContext]]] = None,
+    nano_tables: Optional[Sequence[Tuple[HostTable, HostTable]]] = None,
+    sp_path: Optional[str] = None,
+    artifact_dir: Optional[str] = None,
+    focus_csv: Optional[str] = None,
+    n: int = 1000,
+    mode: str = "table",
+    table_quality: str = "nano",
+    cfg: Optional[SimConfig] = None,
+    seed: int = 0,
+    device=None,
+) -> List[dict]:
+    """One summary row per game from its score frame: n pairs of games on
+    the game's memoized MatchupRunner under seed + gi
+    (`simulate_matchup_columns`).  As in the JAX package, mean_margin_a and
+    win_a read the games team A started with the ball, win_b those team B
+    started, mean_a and mean_b all of them."""
+    cfg = cfg or SimConfig()
+    _slate_inputs(games, contexts, nano_tables, sp_path, artifact_dir, focus_csv,
+                  "simulate_slate")
+    rows = []
+    for gi, ((ta, tb), (a, b)) in enumerate(zip(games, contexts)):
+        runner = _runner_for(a, b, nano_tables[gi] if nano_tables is not None else None,
+                             cfg, mode, table_quality, False, device)
+        sc, _, _ = simulate_matchup_columns(a, b, None, n, cfg=cfg, seed=seed + gi,
+                                            mode=mode, runner=runner)
+        team, pts, opp = sc["team"], sc["pts"], sc["opp_pts"]
+        summ = summary_columns(sc)
+        means = dict(zip(summ["team"], summ["mean_pts"]))
+        first_a, first_b = team == a.name, team == b.name
+        rows.append({
+            "team_a": ta, "team_b": tb,
+            "mean_a": float(means[a.name]), "mean_b": float(means[b.name]),
+            "win_a": float((pts[first_a] > opp[first_a]).mean()),
+            "win_b": float((pts[first_b] > opp[first_b]).mean()),
+            "mean_margin_a": float((pts[first_a] - opp[first_a]).mean()),
+            "mean_total": float((pts + opp).mean()),
+            "n_games": len(team),
+        })
+    return rows
+
+
+def simulate_slate(games, **kw):
+    """`simulate_slate_rows` as a DataFrame."""
+    import pandas as pd
+
+    return pd.DataFrame(simulate_slate_rows(games, **kw))

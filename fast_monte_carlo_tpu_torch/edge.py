@@ -6,26 +6,30 @@ of a prop), the mapping of a prop sheet's rows onto a matchup's player-stat
 cells (`resolve_prop_rows`), the per-prop reduction over a batch of games
 on the device of its player stats (`reduce_props_device`) and the prop
 table with edges and EV.  The game markets priced from a `ScoreSummary`'s
-histograms (`market_odds_from_summary`, `summary_moneyline`) go through
-the `Dist` core in numpy on the host.  The rest of the JAX package's
-`edge.py` (markets over saved files, alternate lines, middles, parlays,
-round robins, the slate market table) is not ported yet (ROADMAP P10).
+histograms (`market_odds_from_summary`, `summary_moneyline`), their
+alternate-line ladders (`alt_lines_from_summary`), middles
+(`middles_from_summary`) and a whole slate's markets
+(`slate_market_table`) go through the `Dist` core in numpy on the host.
+The rest of the JAX package's `edge.py` (markets over saved files,
+parlays, round robins) is not ported yet (ROADMAP P10).
 
 One divergence from the JAX package, on purpose: `Dist.affine` raises for
 scale <= 0, which the JAX package accepts (its edge.py:262; a negative
 scale mirrors the distribution and swaps over and under).
 
-The JAX package returns the prop table as a DataFrame; here the pandas-free
-cores return it as a list of row dicts in the same column order
-(`prop_rows_from_reductions`, `scan_props_rows`), and the JAX package's
-names wrap them into DataFrames, importing pandas only there.
+The JAX package returns the prop table, the ladders and the slate table as
+DataFrames; here the pandas-free cores return lists of row dicts in the
+same column order (`prop_rows_from_reductions`, `scan_props_rows`,
+`alt_spread_rows`, `alt_total_rows`, `alt_line_rows_from_summary`,
+`slate_market_rows`), and the JAX package's names wrap them into
+DataFrames, importing pandas only there.  The printers take either.
 """
 from __future__ import annotations
 
 import csv
 import re
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -459,3 +463,356 @@ def summary_moneyline(summary, team: str, opp: str,
         "opp": {"name": opp, "p_win": round(p_opp, 6),
                 "ml_fair": prob_to_american(p_opp)},
     }
+
+
+# ---- alternate lines, middles and the slate table ------------------------------------
+
+def ladder_lines(center: float, width: float = 12.0, step: float = 1.0) -> np.ndarray:
+    """The alternate-line grid around a quoted line, both ends and the
+    quoted line itself included."""
+    if step <= 0:
+        raise ValueError(f"ladder step must be positive, got {step}")
+    k = int(round(float(width) / float(step)))
+    return float(center) + float(step) * np.arange(-k, k + 1)
+
+
+def alt_spread_rows(margins: Dist, team: str, opp: str, spreads,
+                    price: int = -110) -> List[dict]:
+    """One row per alternate spread quoted from `team`'s side (cover iff
+    margin > -spread): cover, not-cover and push probabilities, fair
+    prices of both sides, and the better side's edge and EV were every
+    row offered at `price`."""
+    rows = []
+    for s in np.asarray(spreads, dtype=float):
+        p_c, p_n, p_p = margins.over(-s), margins.under(-s), margins.push(-s)
+        rec = best_side_ev(p_c, price=price)
+        bet = f"{team} {s:+g}" if rec["side"] == "Over" else f"{opp} {-s:+g}"
+        rows.append({
+            "spread": float(s),
+            "p_cover": round(p_c, 6), "p_notcover": round(p_n, 6),
+            "push_rate": round(p_p, 6),
+            "fair_cover": prob_to_american(p_c),
+            "fair_notcover": prob_to_american(p_n),
+            "bet": bet, "edge_pct": round(rec["edge"] * 100, 2),
+            "ev_$100": round(rec["ev"], 2),
+        })
+    return rows
+
+
+def alt_total_rows(totals: Dist, lines, price: int = -110) -> List[dict]:
+    """One row per alternate total: over, under and push probabilities,
+    fair prices, and the better side at `price`."""
+    rows = []
+    for t in np.asarray(lines, dtype=float):
+        p_o, p_u, p_p = totals.over(t), totals.under(t), totals.push(t)
+        rec = best_side_ev(p_o, price=price)
+        rows.append({
+            "total": float(t),
+            "p_over": round(p_o, 6), "p_under": round(p_u, 6),
+            "push_rate": round(p_p, 6),
+            "fair_over": prob_to_american(p_o),
+            "fair_under": prob_to_american(p_u),
+            "bet": f"{rec['side']} {t:g}",
+            "edge_pct": round(rec["edge"] * 100, 2),
+            "ev_$100": round(rec["ev"], 2),
+        })
+    return rows
+
+
+def alt_spread_table(margins: Dist, team: str, opp: str, spreads, price: int = -110):
+    """`alt_spread_rows` as a DataFrame."""
+    import pandas as pd
+
+    return pd.DataFrame(alt_spread_rows(margins, team, opp, spreads, price))
+
+
+def alt_total_table(totals: Dist, lines, price: int = -110):
+    """`alt_total_rows` as a DataFrame."""
+    import pandas as pd
+
+    return pd.DataFrame(alt_total_rows(totals, lines, price))
+
+
+def alt_line_rows_from_summary(summary, team: str, opp: str, *,
+                               spread: Optional[float] = None,
+                               total: Optional[float] = None,
+                               width: float = 12.0, step: float = 1.0, price: int = -110,
+                               calibration: Optional[MarketCalibration] = None
+                               ) -> Dict[str, List[dict]]:
+    """Alternate spread and total ladders centred on the quoted lines, off a
+    ScoreSummary's histograms (team == side 0), after the same opt-in
+    `calibration` as `market_odds_from_summary`: {"spread": rows,
+    "total": rows} for the lines given."""
+    c = calibration or MarketCalibration()
+    out: Dict[str, List[dict]] = {}
+    if spread is not None:
+        out["spread"] = alt_spread_rows(c.margin(summary_margin_dist(summary)), team, opp,
+                                        ladder_lines(spread, width, step), price=price)
+    if total is not None:
+        out["total"] = alt_total_rows(c.total(summary_total_dist(summary)),
+                                      ladder_lines(total, width, step), price=price)
+    return out
+
+
+def alt_lines_from_summary(summary, team: str, opp: str, **kw):
+    """`alt_line_rows_from_summary` with each ladder a DataFrame."""
+    import pandas as pd
+
+    return {k: pd.DataFrame(v)
+            for k, v in alt_line_rows_from_summary(summary, team, opp, **kw).items()}
+
+
+def middle_odds(dist: Dist, low: float, high: float, *,
+                price_low: int = -110, price_high: int = -110) -> Dict:
+    """A middle: "over `low`" and "under `high`" tickets on one quantity
+    (low < high).  Inside the window both win; outside it one does; a push
+    at either line refunds that leg while the other wins.  EV stakes $100
+    on each side."""
+    low, high = float(low), float(high)
+    if not low < high:
+        raise ValueError(
+            f"middle window is empty: need low < high, got [{low}, {high}]")
+    p_push_low, p_push_high = dist.push(low), dist.push(high)
+    p_mid = dist.over(low) - dist.over(high) - p_push_high
+    p_over_only = dist.over(high)    # over the window: the low leg wins
+    p_under_only = dist.under(low)   # under the window: the high leg wins
+
+    def _profit(price: int) -> float:
+        price = int(price)
+        return 100 * (100 / (-price)) if price < 0 else float(price)
+
+    w_lo, w_hi = _profit(price_low), _profit(price_high)
+    ev = (p_mid * (w_lo + w_hi)
+          + p_push_low * w_hi + p_push_high * w_lo
+          + p_under_only * (w_hi - 100.0) + p_over_only * (w_lo - 100.0))
+    return {
+        "low": low, "high": high,
+        "p_middle": round(p_mid, 6),
+        "p_low_leg_only": round(p_over_only, 6),
+        "p_high_leg_only": round(p_under_only, 6),
+        "p_push_low": round(p_push_low, 6),
+        "p_push_high": round(p_push_high, 6),
+        "price_low": int(price_low), "price_high": int(price_high),
+        "ev_$100_each": round(ev, 2),
+    }
+
+
+def spread_middle(margins: Dist, team: str, opp: str, line_team: float,
+                  line_opp: float, *, price_team: int = -110,
+                  price_opp: int = -110) -> Dict:
+    """`team` at `line_team` (wins iff margin > -line_team) against `opp`
+    at `line_opp` (wins iff margin < line_opp), on team's margin Dist."""
+    res = middle_odds(margins, -float(line_team), float(line_opp),
+                      price_low=price_team, price_high=price_opp)
+    res["legs"] = [f"{team} {float(line_team):+g}", f"{opp} {float(line_opp):+g}"]
+    return res
+
+
+def total_middle(totals: Dist, over_line: float, under_line: float, *,
+                 price_over: int = -110, price_under: int = -110) -> Dict:
+    """An Over at `over_line` against an Under at `under_line`."""
+    res = middle_odds(totals, float(over_line), float(under_line),
+                      price_low=price_over, price_high=price_under)
+    res["legs"] = [f"Over {float(over_line):g}", f"Under {float(under_line):g}"]
+    return res
+
+
+def middles_from_summary(summary, team: str, opp: str, *, mid_spread=None,
+                         mid_total=None, price: int = -110) -> Dict[str, Dict]:
+    """Middles off a ScoreSummary's histograms (team == side 0):
+    `mid_spread` = (team's line, opp's line), `mid_total` = (over line,
+    under line)."""
+    out: Dict[str, Dict] = {}
+    if mid_spread is not None:
+        lt, lo = mid_spread
+        out["spread"] = spread_middle(summary_margin_dist(summary), team, opp, lt, lo,
+                                      price_team=price, price_opp=price)
+    if mid_total is not None:
+        ov, un = mid_total
+        out["total"] = total_middle(summary_total_dist(summary), ov, un,
+                                    price_over=price, price_under=price)
+    return out
+
+
+def _records(table) -> List[dict]:
+    """Row dicts of a DataFrame (NaN where a row lacks a column) or of a
+    list of dicts."""
+    if table is None:
+        return []
+    return table.to_dict("records") if hasattr(table, "to_dict") else list(table)
+
+
+def _given(v) -> bool:
+    """Neither None nor NaN (pandas' notna on one value)."""
+    return v is not None and not (isinstance(v, (float, np.floating)) and np.isnan(v))
+
+
+def _line_rows(lines) -> Optional[List[dict]]:
+    """`lines` (a list of row dicts, a dict of columns or a DataFrame) as
+    row dicts."""
+    if lines is None or hasattr(lines, "to_dict"):
+        return None if lines is None else lines.to_dict("records")
+    if isinstance(lines, dict):
+        n = len(next(iter(lines.values()), ()))
+        return [{k: v[i] for k, v in lines.items()} for i in range(n)]
+    return [dict(r) for r in lines]
+
+
+def slate_market_rows(games, summaries, lines=None, price: int = -110) -> List[dict]:
+    """A slate's game markets in one pass, one row per game: fair
+    moneylines and, where `lines` quotes them, spread and total
+    probabilities, fair prices and the better side's edge and EV at
+    `price`, all off the per-game ScoreSummary histograms
+    (`SlateRunner.run_summary_rows`, `api.simulate_slate_summary_rows`).
+
+    `lines` holds `spread` (team A's side) and `total` quotes, as a list of
+    row dicts, a dict of columns or a DataFrame.  Where any row has a
+    `team_a`, a game takes the first row whose normalized `team_a` is its
+    team A's (none: unpriced); otherwise row gi prices game gi."""
+    rows_in = _line_rows(lines)
+    by_name = rows_in is not None and any("team_a" in r for r in rows_in)
+
+    def _line_for(gi: int, ta: str):
+        if rows_in is None:
+            return None, None
+        if by_name:
+            r = next((r for r in rows_in if _given(r.get("team_a"))
+                      and _norm_team(str(r["team_a"])) == _norm_team(ta)), None)
+        else:
+            r = rows_in[gi] if gi < len(rows_in) else None
+        if r is None:
+            return None, None
+        sp, tt = r.get("spread"), r.get("total")
+        return (float(sp) if _given(sp) else None, float(tt) if _given(tt) else None)
+
+    rows = []
+    for gi, ((a, b), s) in enumerate(zip(games, summaries)):
+        ta, tb = getattr(a, "name", a), getattr(b, "name", b)
+        sp, tt = _line_for(gi, ta)
+        ml = summary_moneyline(s, ta, tb)
+        row = {"team_a": ta, "team_b": tb, "n": int(np.asarray(_host(s.n))),
+               "p_win_a": ml["team"]["p_win"], "p_win_b": ml["opp"]["p_win"],
+               "ml_fair_a": ml["team"]["ml_fair"], "ml_fair_b": ml["opp"]["ml_fair"]}
+        mk = market_odds_from_summary(s, ta, tb, spread=sp, total=tt)
+        if sp is not None:
+            m = mk["spread"]
+            rec = best_side_ev(m["p_cover"], price=price)
+            row.update({
+                "spread": sp, "p_cover_a": m["p_cover"],
+                "fair_cover_a": m["american_cover"], "mean_margin_a": m["mean_margin"],
+                "spread_bet": (f"{ta} {sp:+g}" if rec["side"] == "Over"
+                               else f"{tb} {-sp:+g}"),
+                "spread_edge_pct": round(rec["edge"] * 100, 2),
+                "spread_ev_$100": round(rec["ev"], 2),
+            })
+        if tt is not None:
+            t = mk["total"]
+            rec = best_side_ev(t["p_over"], price=price)
+            row.update({
+                "total": tt, "p_over": t["p_over"], "fair_over": t["american_over"],
+                "mean_total": t["mean_total"], "total_bet": f"{rec['side']} {tt:g}",
+                "total_edge_pct": round(rec["edge"] * 100, 2),
+                "total_ev_$100": round(rec["ev"], 2),
+            })
+        rows.append(row)
+    return rows
+
+
+def slate_market_table(games, summaries, lines=None, price: int = -110):
+    """`slate_market_rows` as a DataFrame."""
+    import pandas as pd
+
+    return pd.DataFrame(slate_market_rows(games, summaries, lines, price))
+
+
+# ---- printers ----------------------------------------------------------------------
+
+def _odds_str(o: int) -> str:
+    return f"{o:+d}"
+
+
+def _desc_order(values: np.ndarray) -> np.ndarray:
+    """The row order of pandas' sort_values(ascending=False) on one float
+    column, NaN last, by pandas' own steps (reverse, quicksort, reverse),
+    so that ties fall as they do there."""
+    nan = np.isnan(values)
+    idx = np.flatnonzero(~nan)[::-1]
+    order = idx[values[idx].argsort(kind="quicksort")][::-1]
+    return np.concatenate([order, np.flatnonzero(nan)])
+
+
+def print_slate_edges(table) -> None:
+    """A compact view of a slate market table (rows or DataFrame), the
+    largest edge first."""
+    rows = _records(table)
+    if not rows:
+        print("\n— Slate Market Edges —\n  (no matchups priced)")
+        return
+    cols = {c for r in rows for c in r}
+    edge_cols = [c for c in ("spread_edge_pct", "total_edge_pct") if c in cols]
+    if edge_cols:
+        best = np.array([max((abs(r[c]) for c in edge_cols if _given(r.get(c))),
+                             default=np.nan) for r in rows], dtype=float)
+        rows = [rows[i] for i in _desc_order(best)]
+    print("\n— Slate Market Edges (fair vs -110) —")
+    for r in rows:
+        print(f"\n{r['team_a']} vs {r['team_b']}  (n={int(r['n'])})")
+        print(f"  ML fair: {r['team_a']} {_odds_str(int(r['ml_fair_a']))} "
+              f"({100*r['p_win_a']:.1f}%)  |  {r['team_b']} "
+              f"{_odds_str(int(r['ml_fair_b']))} ({100*r['p_win_b']:.1f}%)")
+        if _given(r.get("spread")):
+            print(f"  Spread {r['team_a']} {r['spread']:+.1f}: cover "
+                  f"{100*r['p_cover_a']:.1f}% fair "
+                  f"{_odds_str(int(r['fair_cover_a']))}  ->  "
+                  f"{r['spread_bet']}  edge {r['spread_edge_pct']:+.2f}%  "
+                  f"EV ${r['spread_ev_$100']:+.2f}/$100")
+        if _given(r.get("total")):
+            print(f"  Total {r['total']:.1f}: over {100*r['p_over']:.1f}% "
+                  f"fair {_odds_str(int(r['fair_over']))}  ->  "
+                  f"{r['total_bet']}  edge {r['total_edge_pct']:+.2f}%  "
+                  f"EV ${r['total_ev_$100']:+.2f}/$100")
+
+
+def print_alt_lines(res: Dict) -> None:
+    """Readable alternate-line ladders (`alt_line_rows_from_summary`, or
+    `alt_lines_from_summary`'s DataFrames)."""
+    sp = _records(res.get("spread"))
+    if sp:
+        print("\n— Alternate Spreads —")
+        print(f"  {'line':>7}  {'cover%':>7}  {'push%':>6}  "
+              f"{'fair':>6}/{'fair-':<6}  best @ -110")
+        for r in sp:
+            print(f"  {r['spread']:>+7.1f}  {100*r['p_cover']:>6.1f}%  "
+                  f"{100*r['push_rate']:>5.1f}%  "
+                  f"{_odds_str(int(r['fair_cover'])):>6}/"
+                  f"{_odds_str(int(r['fair_notcover'])):<6}  "
+                  f"{r['bet']}  {r['edge_pct']:+.2f}%  "
+                  f"${r['ev_$100']:+.2f}/$100")
+    tt = _records(res.get("total"))
+    if tt:
+        print("\n— Alternate Totals —")
+        print(f"  {'line':>7}  {'over%':>7}  {'push%':>6}  "
+              f"{'fair':>6}/{'fair-':<6}  best @ -110")
+        for r in tt:
+            print(f"  {r['total']:>7.1f}  {100*r['p_over']:>6.1f}%  "
+                  f"{100*r['push_rate']:>5.1f}%  "
+                  f"{_odds_str(int(r['fair_over'])):>6}/"
+                  f"{_odds_str(int(r['fair_under'])):<6}  "
+                  f"{r['bet']}  {r['edge_pct']:+.2f}%  "
+                  f"${r['ev_$100']:+.2f}/$100")
+
+
+def print_middle_readable(res: Dict) -> None:
+    legs = " / ".join(res.get("legs", [f"over {res['low']:g}",
+                                       f"under {res['high']:g}"]))
+    print(f"\n=== Middle: {legs} ===")
+    print(f"  P(both win):  {res['p_middle']:.4f}   "
+          f"window ({res['low']:g}, {res['high']:g})")
+    print(f"  P(low leg only): {res['p_low_leg_only']:.4f}   "
+          f"P(high leg only): {res['p_high_leg_only']:.4f}")
+    if res["p_push_low"] or res["p_push_high"]:
+        print(f"  push low/high: {res['p_push_low']:.4f} / "
+              f"{res['p_push_high']:.4f}")
+    print(f"  At {_odds_str(res['price_low'])} / "
+          f"{_odds_str(res['price_high'])}, $100 each side: "
+          f"EV ${res['ev_$100_each']:+.2f}")

@@ -9,6 +9,10 @@ port's tests and `chip_smoke.py` run on:
   sheet (`focus_rows`) of 2 QBs, 3 rushers and 5 targets per team, usages
   in percent that leave a shortfall, read back by `data/usage.py`; and a
   prop sheet over those players (`prop_rows`);
+* a weekly slate (`slate`): g matchups of distinct synthetic teams
+  ("Team 000" on), SP+ numbers drawn from the FBS range the two teams
+  above sit in, each matchup with its own seeded nano table pair; and
+  quoted spreads and totals for it (`slate_lines`);
 * one fused head grid per direction, shape (1, 5, 16, 32, 16, 3, 7) =
   (slot, down, dist, ytg, sec, sd, channel) on the nano profile, channels in
   FUSED_CHANNELS[:7] order, each cell drawn uniformly from a plausible
@@ -177,6 +181,54 @@ def nano_tables(seed: int) -> Tuple[HostTable, HostTable]:
     prof = nano_profile()
     a, b = fused_tables(seed)
     return nano_from_fused(a, prof), nano_from_fused(b, prof)
+
+
+# SP+ offense and defense of the slate's teams: the FBS range the two
+# fixture teams sit in (offense 31.5-35.7, defense 20.0-20.6)
+SLATE_OFFENSE = (18.0, 42.0)
+SLATE_DEFENSE = (12.0, 36.0)
+
+
+def slate_teams(g: int, seed: int) -> List[tuple]:
+    """2g team rows (name, year, week, rating, offense, defense) named
+    "Team 000" on: offense and defense uniform over the FBS range, the
+    rating their difference (as SP+ sums its two sides) within a point."""
+    rng = np.random.default_rng(seed)
+    off = rng.uniform(*SLATE_OFFENSE, 2 * g)
+    deff = rng.uniform(*SLATE_DEFENSE, 2 * g)
+    rating = off - deff + rng.uniform(-1.0, 1.0, 2 * g)
+    return [(f"Team {i:03d}", 2025, 1, round(float(rating[i]), 1),
+             round(float(off[i]), 1), round(float(deff[i]), 1)) for i in range(2 * g)]
+
+
+def slate(g: int, seed: int, player_slots: int = 8):
+    """A weekly slate of g matchups: ([(team A, team B) contexts],
+    [nano table pair]), matchup i between teams 2i and 2i+1 of
+    `slate_teams(g, seed)` on `nano_tables(seed + i)`."""
+    rows = slate_teams(g, seed)
+    ctx = [team_context(*r, player_slots=player_slots) for r in rows]
+    return ([(ctx[2 * i], ctx[2 * i + 1]) for i in range(g)],
+            [nano_tables(seed + i) for i in range(g)])
+
+
+def slate_lines(summary_rows, seed: int) -> List[dict]:
+    """Quoted lines for a slate, one {"team_a", "spread", "total"} row per
+    matchup in slate order, from its summary rows (`team_a`,
+    `mean_margin_a`, `mean_total`, as `SlateRunner.run_summaries` gives
+    them): a spread within a field goal of minus the game's mean margin
+    and a total within a touchdown of its mean total, on the half point.
+    Matchup 1's total is left out (None), so that game prices its spread
+    alone, and matchup 0's name is written in capitals, so a lookup by
+    name normalizes it.  A market table matches these rows by `team_a`;
+    the same rows without it match by position."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i, r in enumerate(summary_rows):
+        spread = np.round((-r["mean_margin_a"] + rng.uniform(-3.0, 3.0)) * 2) / 2
+        total = np.round((r["mean_total"] + rng.uniform(-7.0, 7.0)) * 2) / 2
+        rows.append({"team_a": r["team_a"].upper() if i == 0 else r["team_a"],
+                     "spread": float(spread), "total": None if i == 1 else float(total)})
+    return rows
 
 
 def play_states(rng: np.random.Generator, n: int, k: Optional[int] = None) -> dict:

@@ -99,11 +99,13 @@ def _transform(words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def philox_draws_reference(key: int, step_base: int, ch: int, n: int,
-                           device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-torch twin of the kernel: (u (ch, n, 13), z (ch, n, 4)) f32."""
+                           device, row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of the kernel: (u (ch, n, 13), z (ch, n, 4)) f32,
+    the draws of rows row0 .. row0 + n - 1 (so a slice of a launch too
+    wide to draw in plain torch can be checked)."""
     dev = torch.device(device)
     k0, k1 = key & _MASK32, (key >> 32) & _MASK32
-    row = torch.arange(n, dtype=torch.int64, device=dev).expand(ch, n)
+    row = torch.arange(row0, row0 + n, dtype=torch.int64, device=dev).expand(ch, n)
     step = ((step_base + torch.arange(ch, dtype=torch.int64, device=dev))
             & _MASK32).view(ch, 1).expand(ch, n)
     zero = torch.zeros((ch, n), dtype=torch.int64, device=dev)

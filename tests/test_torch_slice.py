@@ -119,7 +119,7 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " 'fast_monte_carlo_tpu_torch.edge', 'fast_monte_carlo_tpu_torch.data.usage',"
         " 'fast_monte_carlo_tpu_torch.api', 'fast_monte_carlo_tpu_torch.ops.game',"
         " 'fast_monte_carlo_tpu_torch.parallel.aggregate']\n"
-        "from fast_monte_carlo_tpu_torch import api, edge\n"
+        "from fast_monte_carlo_tpu_torch import api, edge, fixtures\n"
         "from fast_monte_carlo_tpu_torch.ops import game\n"
         "from fast_monte_carlo_tpu_torch.parallel import aggregate\n"
         "assert all(callable(f) for f in (api.MatchupRunner.run_live,"
@@ -127,7 +127,11 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " api.simulate_live_game, api.simulate_live_curve, api.simulate_live_curve_columns,"
         " api.evaluate_fourth_down, api.situation_from_fields, game.state_from_situation,"
         " aggregate.cover_probs, aggregate.total_probs, edge.market_odds_from_summary,"
-        " edge.summary_moneyline, edge.Dist))\n"
+        " edge.summary_moneyline, edge.Dist, api.SlateRunner, api.simulate_slate_summaries,"
+        " api.simulate_slate_summary_rows, api.simulate_slate, api.simulate_slate_rows,"
+        " edge.slate_market_table, edge.slate_market_rows, edge.alt_lines_from_summary,"
+        " edge.middles_from_summary, edge.print_slate_edges, fixtures.slate,"
+        " fixtures.slate_lines))\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in ('jax', 'pandas', 'sklearn', 'fast_monte_carlo_tpu')"
         " if m in sys.modules]\n"
