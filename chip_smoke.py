@@ -9,9 +9,11 @@ Runs from the root of a checkout on a machine with one NVIDIA H100:
                                          # DIR/profile_launch.txt, of the
                                          # props path to DIR/profile_props.txt
                                          # of two live queries to
-                                         # DIR/profile_live.txt and of a
+                                         # DIR/profile_live.txt, of a
                                          # slate launch to
-                                         # DIR/profile_slate.txt
+                                         # DIR/profile_slate.txt and of a
+                                         # parlay query to
+                                         # DIR/profile_parlay.txt
 
 Phases, in order (any failure raises and exits non-zero):
  1. versions, `nvidia-smi` name and power limit; exit 1 without CUDA;
@@ -99,11 +101,34 @@ Phases, in order (any failure raises and exits non-zero):
     both timed; `edge.slate_market_rows` prices all 60 games against
     `fixtures.slate_lines`, by name and by position alike (`--profile`
     adds `DIR/profile_slate.txt`: device kernels and device ms a play of
-    one slate launch, and the busy share).
+    one slate launch, and the busy share);
+11. the multi-leg, season and slate-props path, default SimConfig():
+    `simulate_parlay` on the focus-roster teams at the JAX default n_pairs
+    32,768 (65,536 games, player stats, no box score), six legs (a spread,
+    the moneyline, a whole and a half-point total, two props), priced at
+    +600 with correlations and a round robin by 2/3; on a run of the same
+    seed its counts on the card equal numpy's on the host exactly, the
+    same games reduced on the CPU price the same dict, the correlations
+    are within 1e-6 of numpy's corrcoef, every ticket equals parlay_odds
+    of its legs, a 6-point teaser wins no leg less often, and a 2-block
+    cross-game teaser equals the blocks' products; `project_season` over a
+    4-game fixture schedule (`fixtures.season`, cut from a 12-game season)
+    at the JAX defaults (n_pairs 50,000, chunk_pairs 32,768: 131,072 games
+    a game), its p_wins equal to its slate summary rows, the pmf summing
+    to 1; `simulate_slate_props` over `fixtures.focus_slate(5, 6)` with
+    `slate_prop_rows` at the JAX default n_pairs 8,192 (16,384 games a
+    launch): exactly 3 launches a scan, each matchup's reduction of the
+    scan's own games on the card equal to the CPU's on counts (floats
+    within 1e-5) and to the scan's rows, matchup 3 played under its slate
+    index, every resolvable row priced.  The three queries run first, each
+    a warm-up and 3 timed calls (the season 2), between setting the launch
+    counts to 0 and reading them, and each call must launch philox_draws;
+    the checks run after, on each warm-up's result (`--profile` adds
+    `DIR/profile_parlay.txt`).
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
-9, 10) and read just after it; a path that launched one of its kernels no
-time fails.  The JSON line's philox_draws launches are the main path's,
-the live queries' and the slate path's.
+9, 10, 11) and read just after it; a path that launched one of its kernels
+no time fails.  The JSON line's philox_draws launches are the main path's,
+the live queries', the slate path's and phase 11's.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
 (`probes.kernels.held_ms`; `kernel_times` for philox_draws, the fused
@@ -151,6 +176,26 @@ SLATE_CUT_S = 60                   # one launch if three would take longer
 SLATE_CROSS_GAMES = 3              # matchups on CUDA against the CPU, CROSS_PAIRS each
 LOOP_GAMES = 4                     # matchups of the loop layout against one launch
 LOOP_PAIRS = 8_192                 # 16,384 games a matchup, one launch each
+PARLAY_PAIRS = 32_768              # the JAX package's simulate_parlay n_pairs
+PARLAY_PRICE = 600
+# six legs on the focus-roster teams: a spread, the moneyline, a whole and a
+# half-point total (the whole one pushes) and two prop legs (one by alias)
+PARLAY_LEGS = [
+    {"kind": "spread", "team": "Team A", "line": 6.5},
+    {"kind": "moneyline", "team": "Team A"},
+    {"kind": "total", "side": "over", "line": 40},
+    {"kind": "total", "side": "under", "line": 70.5},
+    {"kind": "prop", "team": "Team A", "player": "Team A Passer 1", "stat": "pass_yds",
+     "side": "over", "line": 150.5},
+    {"kind": "prop", "team": "Team B", "player": "Team B Receiver 1", "stat": "rec_yards",
+     "side": "under", "line": 60.5},
+]
+SEASON_GAMES, SEASON_SEED = 4, 17  # a 12-game season cut to 4 games
+SEASON_PAIRS, SEASON_CHUNK = 50_000, 32_768   # the JAX package's project_season defaults
+SLATE_PROPS_GAMES, SLATE_PROPS_SEED = 5, 6    # fixtures.focus_slate / slate_prop_rows
+SLATE_PROPS_PAIRS = 8_192          # the JAX package's simulate_slate_props n_pairs
+MULTI_REPS = 3                     # timed calls of the parlay and the slate prop scan
+SEASON_REPS = 2                    # timed calls of the season (~16 s each)
 # each kernel of the JSON line and its source in csrc/
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
@@ -1077,20 +1122,7 @@ def phase_live(card: str, profile_dir: Optional[Path]) -> dict:
     torch.cuda.synchronize()
     zero_counts()
     for what, fn in queries.items():
-        fn()
-        torch.cuda.synchronize()
-        ms, launches = [], None
-        for _ in range(LIVE_REPS):
-            before = dict(rng.philox_draws.launches_by_ch)
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            launches = {f"ch={c}": rng.philox_draws.launches_by_ch[c] - before.get(c, 0)
-                        for c in (CH, 1)}
-        res[what] = {"ms": ms, "launches": launches}
-        print(f"  {what}: {', '.join(f'{x:.1f}' for x in ms)} ms per query; philox_draws "
-              f"launches per query {launches} ({card})")
+        res[what] = timed_query(what, fn, LIVE_REPS, card)[1]
     counts = read_counts("live queries", ["philox_draws"])
     res["launches"] = counts["philox_draws"]
     if profile_dir is not None:
@@ -1303,6 +1335,265 @@ def phase_slate(card: str, profile_dir: Optional[Path]) -> dict:
     return res
 
 
+def np_settle(score: np.ndarray, pstats: np.ndarray, arrays):
+    """(B, L) win and push masks of resolved parlay legs, in numpy float32
+    on the host: the settlement rule written out again, to hold the card's
+    counts to."""
+    src, side, role, slot, col, sgn, drn, thr = arrays
+    margin = (score[:, 0] - score[:, 1]).astype(np.float32)
+    total = score.sum(axis=1).astype(np.float32)
+    game = np.where(src == 0, margin[:, None] * sgn, total[:, None])
+    v = np.where(src == 2, pstats[:, side, role, slot, col], game).astype(np.float32)
+    win = np.where(drn > 0, v > thr, v < thr)
+    return win, np.abs(v - thr) <= np.float32(1e-9)
+
+
+def timed_query(what: str, fn, reps: int, card: str):
+    """One warm-up call of fn, then `reps` timed calls: ms a call on the
+    host clock ending in a synchronize, and philox_draws launches a call
+    split by ch.  Fails if any call launched philox_draws no time.  Returns
+    the warm-up's result and the record."""
+    import torch
+    from fast_monte_carlo_tpu_torch.ops import rng
+
+    by_ch = rng.philox_draws.launches_by_ch
+    torch.cuda.synchronize()
+    n0, t0 = rng.philox_draws.launches, time.perf_counter()
+    first = fn()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    calls, ms, launches = [rng.philox_draws.launches - n0], [], None
+    for _ in range(reps):
+        n0, before = rng.philox_draws.launches, dict(by_ch)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        calls.append(rng.philox_draws.launches - n0)
+        launches = {f"ch={c}": by_ch[c] - before.get(c, 0) for c in (CH, 1)}
+    check(min(calls) > 0, f"{what}: every call launched philox_draws ({calls})")
+    print(f"  {what}: {', '.join(f'{x:.1f}' for x in ms)} ms per query after a "
+          f"{warm_ms:.1f} ms warm-up; philox_draws launches per query {launches} ({card})")
+    return first, {"ms": ms, "warm_ms": warm_ms, "launches": launches}
+
+
+def phase_multi(card: str, profile_dir: Optional[Path]) -> dict:
+    import itertools
+
+    import torch
+    from fast_monte_carlo_tpu_torch import api, edge, fixtures
+    from fast_monte_carlo_tpu_torch.api import MatchupRunner
+    from fast_monte_carlo_tpu_torch.config import SimConfig
+    from fast_monte_carlo_tpu_torch.ops import rng
+
+    cfg = SimConfig()                      # rng_impl "threefry": the Philox stream
+    a, b = fixtures.focus_teams(FOCUS_SEED)
+    runner = MatchupRunner(a, b, None, cfg, mode="table",
+                           nano_tables=fixtures.nano_tables(TABLE_SEED), device="cuda")
+    slate, slate_tables = fixtures.focus_slate(SLATE_PROPS_GAMES, SLATE_PROPS_SEED)
+    slate_games = [(x.name, y.name) for x, y in slate]
+    sheet = fixtures.slate_prop_rows(SLATE_PROPS_GAMES, SLATE_PROPS_SEED)
+    season_games, season_ctx, season_tables = fixtures.season(SEASON_GAMES, SEASON_SEED)
+    team = season_games[0][0]
+    sides = ["a" if ta == team else "b" for ta, _ in season_games]
+    n = 2 * PARLAY_PAIRS
+    per = 2 * SEASON_CHUNK * -(-SEASON_PAIRS // SEASON_CHUNK)
+
+    pkw = dict(runner=runner, n_pairs=PARLAY_PAIRS, price=PARLAY_PRICE, correlations=True,
+               round_robin=(2, 3))
+    skw = dict(contexts=season_ctx, nano_tables=season_tables, n_pairs=SEASON_PAIRS,
+               chunk_pairs=SEASON_CHUNK, seed=41, device="cuda")
+    vkw = dict(contexts=slate, nano_tables=slate_tables, n_pairs=SLATE_PROPS_PAIRS, seed=51,
+               min_abs_edge_pct=0.0, device="cuda")
+    # each slate prop scan's simulate_games calls: (keyword arguments, output)
+    real, scans = api.simulate_games, []
+
+    def counted(*args, **kw):
+        out = real(*args, **kw)
+        scans[-1].append((kw, out))
+        return out
+
+    def scan():
+        scans.append([])
+        api.simulate_games = counted
+        try:
+            return api.simulate_slate_prop_rows(slate_games, props_csv=sheet, **vkw)
+        finally:
+            api.simulate_games = real
+
+    queries = {
+        "parlay": (f"simulate_parlay, {len(PARLAY_LEGS)} legs, {n:,} games, correlations, "
+                   f"round robin by 2/3", MULTI_REPS,
+                   lambda: api.simulate_parlay_core(a.name, b.name, PARLAY_LEGS, seed=31, **pkw)),
+        "season": (f"project_season, {SEASON_GAMES} games x {per:,}", SEASON_REPS,
+                   lambda: api.project_season_rows(team, games=season_games, line=1.5, **skw)),
+        "slate_props": (f"simulate_slate_props, {SLATE_PROPS_GAMES} matchups, 3 x "
+                        f"{2 * SLATE_PROPS_PAIRS:,} games", MULTI_REPS, scan),
+    }
+    # the entry points alone, warm-ups included, between zeroing the counts
+    # and reading them; the checks below hold each warm-up's result
+    res, first, part_s = {}, {}, {}
+    torch.cuda.synchronize()
+    zero_counts()
+    for key, (what, reps, fn) in queries.items():
+        t0 = time.perf_counter()
+        first[key], res[key] = timed_query(what, fn, reps, card)
+        part_s[key] = time.perf_counter() - t0
+    counts = read_counts("multi-leg, season and slate-props queries", ["philox_draws"])
+    res["launches"] = counts["philox_draws"]
+    t_part = time.perf_counter()
+
+    # -- the same-game parlay: the same games run again
+    got = first["parlay"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.run_pairs(PARLAY_PAIRS, seed=31, collect_players=True, collect_stats=False)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    check(out.pstats.device.type == "cuda" and tuple(out.pstats.shape) == (n, 2, 3, 8, 6),
+          f"parlay run: {n:,} games with player stats on the card")
+    t0 = time.perf_counter()
+    odds = edge.parlay_odds(out, a, b, PARLAY_LEGS, price=PARLAY_PRICE)
+    corr = edge.parlay_correlation_matrix(out, a, b, PARLAY_LEGS)
+    rr = edge.round_robin(out, a, b, PARLAY_LEGS, by=(2, 3), price=PARLAY_PRICE)
+    settle_ms = (time.perf_counter() - t0) * 1e3
+    check({k: v for k, v in got.items() if k not in ("leg_corr", "round_robin")} == odds
+          and got["round_robin"] == rr and got["leg_corr"][0] == corr[0]
+          and np.array_equal(got["leg_corr"][1], corr[1]),
+          "simulate_parlay == parlay_odds, correlations and round robin of run_pairs with "
+          "its seed")
+    arrays, meta = edge.resolve_parlay_legs(a, b, PARLAY_LEGS)
+    card_counts = edge._host_counts(edge.reduce_parlay_device(out.score, out.pstats, arrays))
+    score, ps = out.score.cpu().numpy(), out.pstats.cpu().numpy()
+    win, push = np_settle(score, ps, arrays)
+    lose = ~(win | push)
+    host_counts = {"leg_win": win.sum(0), "leg_push": push.sum(0),
+                   "all_win": win.all(1).sum(), "no_lose": (~lose.any(1)).sum(),
+                   "all_push": push.all(1).sum()}
+    check(all(np.array_equal(card_counts[k], v) for k, v in host_counts.items()),
+          f"parlay counts on the card == numpy on the host, exactly (all win "
+          f"{int(host_counts['all_win']):,}, pushes by leg {host_counts['leg_push'].tolist()})")
+    check(0 < odds["p_all_win"] < 1 and all(0 < x["p_win"] < 1 for x in odds["legs"]),
+          f"{len(PARLAY_LEGS)} legs, each won and lost; P(all win) {odds['p_all_win']}, fair "
+          f"{odds['fair_american']}, correlation x{odds['correlation_mult']}")
+    cpu_out = type(out)(*(x.cpu() for x in out))
+    check(edge.parlay_odds(cpu_out, a, b, PARLAY_LEGS, price=PARLAY_PRICE) == odds,
+          "parlay_odds of the same games reduced on the CPU == on the card")
+    for what, want, tol in (
+            ("the CPU's on the same games", edge.parlay_correlation_matrix(
+                cpu_out, a, b, PARLAY_LEGS)[1], 1e-6),
+            ("numpy's float64 corrcoef (float32 rounding)",
+             np.corrcoef(win.T.astype(np.float64)), 1e-5)):
+        err = float(np.nanmax(np.abs(corr[1] - want)))
+        check(np.array_equal(np.isnan(corr[1]), np.isnan(want)) and err <= tol,
+              f"leg correlations on the card vs {what}: max|d| {err:.3g} <= {tol:g}")
+    combos = [c for k in (2, 3) for c in itertools.combinations(range(len(PARLAY_LEGS)), k)]
+    keys = ("p_all_win", "p_lose", "p_void", "p_win_reduced", "p_parlay", "fair_american",
+            "edge_pct", "ev_$100", "kelly")
+    check(rr["n_tickets"] == len(combos) and all(
+        all(t[k] == edge.parlay_odds(out, a, b, [PARLAY_LEGS[j] for j in c],
+                                     price=PARLAY_PRICE)[k] for k in keys)
+        for t, c in zip(rr["tickets"], combos)),
+        f"round robin by 2/3: each of {len(combos)} tickets == parlay_odds of its legs")
+    # a teaser of the spread and total legs, and a cross-game ticket of two
+    # teased blocks: the second game is matchup 0 of the props slate
+    gl = [leg for leg in PARLAY_LEGS if leg["kind"] in ("spread", "total")]
+    teased = edge.tease_legs(gl, 6)
+    blk1 = edge.parlay_odds(out, a, b, teased, price=PARLAY_PRICE)
+    base = edge.parlay_odds(out, a, b, gl)
+    check(blk1["p_all_win"] >= base["p_all_win"] and all(
+        t["p_win"] >= g["p_win"] for t, g in zip(blk1["legs"], base["legs"])),
+        f"6-point teaser of {len(gl)} legs: P(all win) {base['p_all_win']} -> "
+        f"{blk1['p_all_win']}, no leg less likely")
+    c, d = slate[0]
+    other = api._runner_for(c, d, slate_tables[0], cfg, "table", "nano", False, "cuda")
+    legs2 = edge.tease_legs([{"kind": "spread", "team": c.name, "line": -2.5},
+                             {"kind": "total", "side": "under", "line": 48}], 6)
+    blk2 = edge.parlay_odds(other.run_pairs(PARLAY_PAIRS, seed=32, collect_players=False,
+                                            collect_stats=False), c, d, legs2)
+    cross = edge.cross_game_parlay([blk1, blk2], price=PARLAY_PRICE)
+    check(cross["p_all_win"] == round(blk1["p_all_win"] * blk2["p_all_win"], 6)
+          and cross["p_lose"] == round(1 - (1 - blk1["p_lose"]) * (1 - blk2["p_lose"]), 6)
+          and cross["p_void"] == round(blk1["p_void"] * blk2["p_void"], 6),
+          f"2-block cross-game teaser == the blocks' products (P(all win) "
+          f"{cross['p_all_win']}, fair {cross['fair_american']})")
+    res["parlay"].update(run_ms=run_ms, settle_ms=settle_ms)
+    print(f"  parlay pricing on the card's games (parlay_odds, correlations, round robin of "
+          f"{len(combos)} tickets): {settle_ms:.1f} ms against {run_ms:.1f} ms for the run "
+          f"({card})")
+
+    # -- the season: the warm-up's schedule rows are its slate summary rows
+    s = first["season"]
+    rows = s["schedule"]
+    p_wins = [round(r[f"win_{side}"], 6) for r, side in zip(rows, sides)]
+    check(all(r["n_games"] == per and 10 < r["mean_a"] < 50 and 10 < r["mean_b"] < 50
+              and r["win_a"] + r["win_b"] <= 1 for r in rows),
+          f"season: {SEASON_GAMES} games of {per:,} trials each, mean points in (10, 50), "
+          "win + win <= 1")
+    check(s["p_wins"] == p_wins and [r["p_win_team"] for r in rows] == p_wins
+          and [r["team_side"] for r in rows] == sides,
+          f"project_season: p_wins {p_wins} == its slate summary rows' win rates by side")
+    check(abs(sum(s["pmf"]) - 1) < 1e-5 and len(s["pmf"]) == SEASON_GAMES + 1,
+          f"season pmf sums to 1 ({sum(s['pmf']):.6f}); mean wins {s['mean_wins']}, over "
+          f"1.5 {s['p_over']}")
+
+    # -- the slate prop scan: three matchups of five priced, three launches
+    scanned = first["slate_props"]
+    check(all(len(x) == 3 for x in scans) and all(kw["collect_players"] for kw, _ in scans[0]),
+          f"slate props over {SLATE_PROPS_GAMES} matchups: {[len(x) for x in scans]} launches "
+          "a scan (matchups 0, 1, 3 have rows), each with player stats")
+    n_meta = 0
+    for gi, (_, o) in zip((0, 1, 3), scans[0]):
+        x, y = slate[gi]
+        idx, meta = edge.resolve_prop_rows(x, y, sheet)
+        n_meta += len(meta)
+        red_g = edge.reduce_props_device(o.pstats, idx)
+        red_c = edge.reduce_props_device(o.pstats.cpu(), idx)
+        rel = max(float(((red_g[k].cpu() - red_c[k]).abs() / red_c[k].abs().clamp_min(1.0))
+                        .max()) for k in ("mean", "median", "p75", "p90"))
+        check(all(torch.equal(red_g[k].cpu(), red_c[k])
+                  for k in ("p_over", "p_under", "push", "n_active")) and rel <= 1e-5,
+              f"matchup {gi}: reduce_props on the card == CPU on counts, floats within 1e-5 "
+              f"({rel:.3g}), {len(idx[0])} padded rows")
+        label = f"{x.name} vs {y.name}"
+        mine = [json.dumps({"matchup": label, **r}, sort_keys=True)
+                for r in edge.prop_rows_from_reductions(meta, red_g, 0.0)]
+        theirs = [json.dumps(r, sort_keys=True) for r in scanned if r["matchup"] == label]
+        check(sorted(mine) == sorted(theirs),
+              f"matchup {gi}: the scan's {len(theirs)} rows == its own games, reduced")
+    # the matchup after the skipped one plays under its slate index
+    x, y = slate[3]
+    o = api._runner_for(x, y, slate_tables[3], cfg, "table", "nano", False, "cuda").run_pairs(
+        SLATE_PROPS_PAIRS, key=rng.fold_in(rng.root_key(51), 3), collect_players=True)
+    check(torch.equal(o.score, scans[0][2][1].score),
+          "matchup 3's games in the scan == run_pairs under fold_in(root_key(seed), 3)")
+    edges = [abs(r["edge_pct"]) for r in scanned]
+    check(len(scanned) == n_meta == len(sheet) - 1 and edges == sorted(edges, reverse=True),
+          f"slate props: every resolvable row priced ({len(scanned)} of {len(sheet)}: one "
+          f"team is outside the slate), largest |edge| first")
+    part_s["checks"] = time.perf_counter() - t_part
+    print("  phase 11 by part: " + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items()))
+    res["part_s"] = part_s
+    res["settle_share"] = settle_ms / min(res["parlay"]["ms"])
+    print(f"  the parlay's pricing: {res['settle_share']:.4f} of the fastest query")
+
+    if profile_dir is not None:
+        n0 = rng.philox_draws.launches
+        k, dev_ms, wall_ms, tab = profile_kernels(
+            lambda: api.simulate_parlay_core(a.name, b.name, PARLAY_LEGS, seed=34, **pkw))
+        plays = (rng.philox_draws.launches - n0) * CH
+        line = (f"one simulate_parlay query ({n:,} games, {len(PARLAY_LEGS)} legs, "
+                f"correlations, round robin by 2/3): {k} device kernels over {plays} plays "
+                f"({k / plays:.1f} a play), {dev_ms:.3f} ms device time ({dev_ms / plays:.4f} a "
+                f"play), {wall_ms:.3f} ms wall profiled, busy share "
+                f"{dev_ms / min(res['parlay']['ms']):.4f} of the fastest unprofiled query")
+        print(f"  profile, {line}")
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        (profile_dir / "profile_parlay.txt").write_text(f"{card}\n{line}\n\n{tab}\n")
+        res.update(kernels_per_play=k / plays, device_ms_per_play=dev_ms / plays)
+    return res
+
+
 def live_curve_situations(cfg):
     """16 moments of one game, from the kickoff to the last four minutes:
     the clock falling 225 s a step, the score, possession and field moving."""
@@ -1393,10 +1684,13 @@ def main() -> int:
     print(f"[10] slate path: SlateRunner(game_shard=True).run_summary_rows, {SLATE_GAMES} "
           "matchups on cuda, then the loop layout and the slate's markets")
     slate = phase_slate(card, args.profile)
+    print("[11] multi-leg markets, season and slate props: simulate_parlay, project_season, "
+          "simulate_slate_props on cuda")
+    multi = phase_multi(card, args.profile)
     print(f"  philox_draws launches: main path {k['launches']}, props path "
           f"{props['launches']}, live queries {live['launches']}, slate path "
-          f"{slate['launches']}")
-    k["launches"] += live["launches"] + slate["launches"]
+          f"{slate['launches']}, multi-leg/season/slate props {multi['launches']}")
+    k["launches"] += live["launches"] + slate["launches"] + multi["launches"]
     k["max_abs_err"] = max(k["max_abs_err"], slate["draw_err"])
 
     rows = {"philox_draws": k, **fused, **gathers}

@@ -33,17 +33,26 @@ game) and `nano_tables=` (a pair of nano tables per game), in place of
 the JAX package's SP+ sheet and model artifacts.  Their DataFrames wrap
 pandas-free row cores (`SlateRunner.summary_rows`, `run_summary_rows`,
 `simulate_slate_summary_rows`, `simulate_slate_rows`).
+
+Markets that only a joint per-game simulation can price:
+`simulate_parlay` (a same-game parlay, its leg correlations and round
+robin from one run; takes `runner=` as the live entry points do),
+`project_season` (a season win total over a schedule run as a slate) and
+`simulate_slate_props` (a prop sheet scanned over a slate), with the
+pandas-free cores `simulate_parlay_core`, `project_season_rows` and
+`simulate_slate_prop_rows`.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import edge, resolve_device
 from .config import SimConfig
 from .data.context import TeamContext
 from .matchup import build_direction
@@ -973,3 +982,208 @@ def simulate_slate(games, **kw):
     import pandas as pd
 
     return pd.DataFrame(simulate_slate_rows(games, **kw))
+
+
+# ---- multi-leg markets, season win totals, slate prop scans --------------------
+
+def simulate_parlay_core(team_a: str, team_b: str, legs, *,
+                         runner: Optional[MatchupRunner] = None,
+                         sp_path: Optional[str] = None, artifact_dir: Optional[str] = None,
+                         focus_csv: Optional[str] = None, n_pairs: int = 32768,
+                         seed: int = 0, shard: bool = False, price: Optional[int] = None,
+                         correlations: bool = False, round_robin=None) -> dict:
+    """A same-game parlay for the runner's matchup (`edge.parlay_odds` over
+    2*n_pairs games run once), with `leg_corr` = (leg labels, (L, L) numpy
+    correlations) when `correlations` and the `edge.round_robin` card of
+    the `round_robin` size spec under `round_robin`, all from the same
+    games.  The legs and the size spec are checked before anything runs;
+    player stats are collected only for a prop leg, the box score never.
+
+    The JAX package builds the runner from an SP+ sheet and trained heads,
+    which are not in the repository: pass a built `runner=` (its teams are
+    team_a and team_b)."""
+    if sp_path is not None or artifact_dir is not None or focus_csv is not None:
+        raise NotImplementedError(
+            "simulate_parlay: sp_path=, artifact_dir= and focus_csv= build the runner from an "
+            "SP+ sheet and trained heads, which are not ported yet (ROADMAP.md queue 1); "
+            "pass runner=")
+    if shard:
+        raise NotImplementedError(SHARD_NOT_PORTED)
+    runner = _need_runner(runner, "simulate_parlay")
+    a, b = runner.team_a, runner.team_b
+    if [edge._norm_team(t) for t in (team_a, team_b)] != \
+            [edge._norm_team(t.name) for t in (a, b)]:
+        raise ValueError(f"the runner plays {a.name} vs {b.name}, not {team_a} vs {team_b}")
+    # a bad leg or size spec fails before any launch
+    resolved = edge.resolve_parlay_legs(a, b, legs)
+    if round_robin is not None:
+        edge._rr_sizes(round_robin, len(legs))
+    want_players = any(m["kind"] == "prop" for m in resolved[1])
+    out = runner.run_pairs(n_pairs, seed=seed, collect_players=want_players,
+                           collect_stats=False)
+    res = edge.parlay_odds(out, a, b, legs, price=price, resolved=resolved)
+    if correlations:
+        res["leg_corr"] = edge.parlay_correlation_matrix(out, a, b, legs, resolved=resolved)
+    if round_robin is not None:
+        res["round_robin"] = edge.round_robin(out, a, b, legs, by=round_robin, price=price,
+                                              resolved=resolved)
+    return res
+
+
+def simulate_parlay(team_a: str, team_b: str, legs, **kw) -> dict:
+    """`simulate_parlay_core` with `leg_corr` as a DataFrame indexed by leg
+    label, as the JAX package returns it."""
+    res = simulate_parlay_core(team_a, team_b, legs, **kw)
+    if "leg_corr" in res:
+        import pandas as pd
+
+        labels, corr = res["leg_corr"]
+        res["leg_corr"] = pd.DataFrame(corr, index=labels, columns=labels)
+    return res
+
+
+def project_season_rows(
+    team: str,
+    opponents: Optional[List[str]] = None,
+    games: Optional[List[Tuple[str, str]]] = None,
+    *,
+    line: Optional[float] = None,
+    contexts: Optional[Sequence[Tuple[TeamContext, TeamContext]]] = None,
+    nano_tables: Optional[Sequence[Tuple[HostTable, HostTable]]] = None,
+    sp_path: Optional[str] = None,
+    artifact_dir: Optional[str] = None,
+    focus_csv: Optional[str] = None,
+    n_pairs: int = 50000,
+    mode: str = "table",
+    table_quality: str = "nano",
+    cfg: Optional[SimConfig] = None,
+    seed: int = 0,
+    shard: bool = False,
+    chunk_pairs: int = 32768,
+    price: int = -110,
+    device=None,
+) -> dict:
+    """A team's season win total from per-game simulations: the schedule as
+    `opponents` (the team is side A of each game) or as `games` rows with
+    the team on either side, one context pair (and nano table pair) per
+    game.  The games run through `simulate_slate_summary_rows`; the team's
+    strict win probability is read off each row by its side and composed
+    exactly by `edge.season_win_market` (with `line`, the over/under at
+    that win total).  Returns the market dict with `schedule`: the summary
+    rows, each with team_side, p_win_team (rounded to 6 places) and
+    opponent."""
+    if (opponents is None) == (games is None):
+        raise ValueError("pass exactly one of opponents= or games=")
+    if opponents is not None:
+        games = [(team, o) for o in opponents]
+    tn = edge._norm_team(team)
+    sides = []
+    for ta, tb in games:
+        if edge._norm_team(ta) == tn:
+            sides.append("a")
+        elif edge._norm_team(tb) == tn:
+            sides.append("b")
+        else:
+            raise ValueError(
+                f"{team!r} plays in every scheduled game, but ({ta!r}, "
+                f"{tb!r}) doesn't include it")
+    rows, _ = simulate_slate_summary_rows(
+        list(games), contexts=contexts, nano_tables=nano_tables, sp_path=sp_path,
+        artifact_dir=artifact_dir, focus_csv=focus_csv, n_pairs=n_pairs, mode=mode,
+        table_quality=table_quality, cfg=cfg, seed=seed, shard=shard,
+        chunk_pairs=chunk_pairs, device=device)
+    p_wins = [float(r[f"win_{s}"]) for s, r in zip(sides, rows)]
+    res = edge.season_win_market(p_wins, line=line, team=team, price=price)
+    res["schedule"] = [
+        {**r, "team_side": s, "p_win_team": float(p), "opponent": ta if s == "b" else tb}
+        for r, s, p, (ta, tb) in zip(rows, sides, np.round(p_wins, 6), games)]
+    return res
+
+
+def project_season(team: str, opponents=None, games=None, **kw) -> dict:
+    """`project_season_rows` with the schedule as a DataFrame."""
+    import pandas as pd
+
+    res = project_season_rows(team, opponents, games, **kw)
+    res["schedule"] = pd.DataFrame(res["schedule"])
+    return res
+
+
+def _prop_sheet(props) -> List[dict]:
+    """A prop sheet given as a CSV path, a DataFrame or row dicts, as row
+    dicts."""
+    if isinstance(props, (str, os.PathLike)):
+        return edge.read_prop_sheet(os.fspath(props))
+    return props.to_dict("records") if hasattr(props, "to_dict") else list(props)
+
+
+def simulate_slate_prop_rows(
+    games: Sequence[Tuple[str, str]],
+    *,
+    props_csv,
+    contexts: Optional[Sequence[Tuple[TeamContext, TeamContext]]] = None,
+    nano_tables: Optional[Sequence[Tuple[HostTable, HostTable]]] = None,
+    sp_path: Optional[str] = None,
+    artifact_dir: Optional[str] = None,
+    focus_csv: Optional[str] = None,
+    n_pairs: int = 8192,
+    mode: str = "table",
+    table_quality: str = "nano",
+    cfg: Optional[SimConfig] = None,
+    seed: int = 0,
+    min_abs_edge_pct: float = 2.0,
+    shard: bool = False,
+    device=None,
+) -> List[dict]:
+    """A slate-wide player-prop scan: the prop table of every matchup
+    (PROP_TABLE_COLS after a leading `matchup`), best |edge_pct| first
+    across the slate, ties in the order pandas' sort gives them.
+
+    `props_csv` is a prop sheet: a CSV path, a DataFrame or row dicts.
+    Each matchup's rows are resolved before it runs, and a matchup with no
+    resolvable row runs nothing.  Game gi (its index in `games`, skipped
+    games counted) runs `run_pairs(n_pairs, key=fold_in(root_key(seed),
+    gi), collect_players=True)` on its memoized runner and reduces its rows
+    on the device; the reductions stay there until one host copy per
+    padded width at the end.  Takes `contexts=` and `nano_tables=` as
+    `simulate_slate_summary_rows` does."""
+    cfg = cfg or SimConfig()
+    _slate_inputs(games, contexts, nano_tables, sp_path, artifact_dir, focus_csv,
+                  "simulate_slate_props")
+    if shard:
+        raise NotImplementedError(SHARD_NOT_PORTED)
+    props = _prop_sheet(props_csv)
+    root = root_key(seed)
+    pending = []
+    for gi, ((ta, tb), (a, b)) in enumerate(zip(games, contexts)):
+        indices, meta = edge.resolve_prop_rows(a, b, props)
+        if not meta:
+            continue
+        runner = _runner_for(a, b, nano_tables[gi] if nano_tables is not None else None,
+                             cfg, mode, table_quality, False, device)
+        out = runner.run_pairs(n_pairs, key=fold_in(root, gi), collect_players=True)
+        pending.append((f"{ta} vs {tb}", meta, edge.reduce_props_device(out.pstats, indices)))
+    if not pending:
+        return []
+    fields = sorted(pending[0][2])
+    by_width: Dict[int, List[int]] = {}
+    for i, (_, _, red) in enumerate(pending):
+        by_width.setdefault(red[fields[0]].shape[0], []).append(i)
+    host: Dict[int, dict] = {}
+    for idxs in by_width.values():
+        arr = torch.stack([torch.stack([pending[i][2][k] for k in fields])
+                           for i in idxs]).cpu().numpy()
+        for j, i in enumerate(idxs):
+            host[i] = dict(zip(fields, arr[j]))
+    rows = [{"matchup": matchup, **r}
+            for i, (matchup, meta, _) in enumerate(pending)
+            for r in edge.prop_rows_from_reductions(meta, host[i], min_abs_edge_pct)]
+    order = edge._desc_order(np.abs(np.array([r["edge_pct"] for r in rows], dtype=float)))
+    return [rows[i] for i in order]
+
+
+def simulate_slate_props(games, **kw):
+    """`simulate_slate_prop_rows` as a DataFrame (empty: no columns)."""
+    import pandas as pd
+
+    return pd.DataFrame(simulate_slate_prop_rows(games, **kw))

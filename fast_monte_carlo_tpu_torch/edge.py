@@ -10,8 +10,14 @@ histograms (`market_odds_from_summary`, `summary_moneyline`), their
 alternate-line ladders (`alt_lines_from_summary`), middles
 (`middles_from_summary`) and a whole slate's markets
 (`slate_market_table`) go through the `Dist` core in numpy on the host.
-The rest of the JAX package's `edge.py` (markets over saved files,
-parlays, round robins) is not ported yet (ROADMAP P10).
+Multi-leg tickets settle every leg on the same simulated game: same-game
+parlays (`parlay_odds`), leg correlations, round robins and teasers reduce
+over the games on the device of the scores (`reduce_parlay_device`,
+`leg_corr_device`, `reduce_round_robin_device`), with one host copy of
+their counts; cross-game tickets (`cross_game_parlay`,
+`round_robin_blocks`) and season win totals (`season_win_pmf`,
+`season_win_market`) compose independent games on the host.  The markets
+over saved sim files are not ported yet (ROADMAP P10).
 
 One divergence from the JAX package, on purpose: `Dist.affine` raises for
 scale <= 0, which the JAX package accepts (its edge.py:262; a negative
@@ -21,8 +27,9 @@ The JAX package returns the prop table, the ladders and the slate table as
 DataFrames; here the pandas-free cores return lists of row dicts in the
 same column order (`prop_rows_from_reductions`, `scan_props_rows`,
 `alt_spread_rows`, `alt_total_rows`, `alt_line_rows_from_summary`,
-`slate_market_rows`), and the JAX package's names wrap them into
-DataFrames, importing pandas only there.  The printers take either.
+`slate_market_rows`, `parlay_correlation_matrix`), and the JAX package's
+names wrap them into DataFrames, importing pandas only there.  The
+printers take either.
 """
 from __future__ import annotations
 
@@ -725,6 +732,515 @@ def slate_market_table(games, summaries, lines=None, price: int = -110):
     return pd.DataFrame(slate_market_rows(games, summaries, lines, price))
 
 
+# ---- same-game parlays, round robins, season win totals ---------------------------
+#
+# Every leg settles on the same simulated game, so a multi-leg ticket is
+# priced from the joint per-game sample: one reduction over the game axis on
+# the device of the scores, its integer counts copied to the host in one
+# transfer, every probability derived from them on the host in the JAX
+# package's order (so the result dicts are equal, not merely close).
+
+_SRC_MARGIN, _SRC_TOTAL, _SRC_PSTAT = 0, 1, 2
+
+
+def resolve_parlay_legs(team_a_ctx, team_b_ctx, legs):
+    """Validate and encode same-game-parlay legs for one matchup.
+
+    Each leg is a dict: {"kind": "spread", "team", "line"} (wins iff the
+    team's margin > -line, push at equality); {"kind": "moneyline", "team"}
+    (margin > 0, a tie pushes); {"kind": "total", "side": "over"|"under",
+    "line"}; {"kind": "prop", "team", "player", "stat", "side", "line"}
+    (stat names take the prop sheet's aliases).
+
+    Returns (arrays, meta): arrays = (src, side, role, slot, col) int32 and
+    (sgn, drn, thr) f32 numpy arrays, one entry per leg; meta the legs'
+    kinds and labels.  An unresolvable leg raises ValueError: a parlay with
+    a leg dropped would price another ticket.  Legs that are not props
+    carry 0 in side/role/slot/col, so they read pstats cell 0 of any
+    layout (the 1-element dummy of a run without player stats too)."""
+    sides = {_norm_team(team_a_ctx.name): (0, team_a_ctx, 1.0),
+             _norm_team(team_b_ctx.name): (1, team_b_ctx, -1.0)}
+
+    def _side(leg):
+        key = _norm_team(str(leg["team"]))
+        if key not in sides:
+            raise ValueError(
+                f"parlay leg team {leg['team']!r} is not in this matchup "
+                f"({team_a_ctx.name} vs {team_b_ctx.name})")
+        return sides[key]
+
+    def _drn(leg):
+        side = str(leg.get("side", "")).strip().lower()
+        if side not in ("over", "under"):
+            raise ValueError(
+                f"parlay {leg.get('kind')} leg needs side 'over' or "
+                f"'under', got {leg.get('side')!r}")
+        return 1.0 if side == "over" else -1.0
+
+    rows, meta = [], []
+    for leg in legs:
+        if not isinstance(leg, dict):
+            raise ValueError(
+                f"each parlay leg must be an object/dict, got "
+                f"{type(leg).__name__}: {leg!r}")
+        kind = str(leg.get("kind", "")).strip().lower()
+        if kind == "spread":
+            _, tc, sgn = _side(leg)
+            line = float(leg["line"])
+            rows.append((_SRC_MARGIN, 0, 0, 0, 0, sgn, 1.0, -line))
+            meta.append({"kind": kind, "label": f"{tc.name} {line:+g}"})
+        elif kind == "moneyline":
+            _, tc, sgn = _side(leg)
+            rows.append((_SRC_MARGIN, 0, 0, 0, 0, sgn, 1.0, 0.0))
+            meta.append({"kind": kind, "label": f"{tc.name} ML"})
+        elif kind == "total":
+            drn = _drn(leg)
+            line = float(leg["line"])
+            rows.append((_SRC_TOTAL, 0, 0, 0, 0, 1.0, drn, line))
+            meta.append({"kind": kind, "label": f"{leg['side'].title()} {line:g}"})
+        elif kind == "prop":
+            side_i, tc, _ = _side(leg)
+            role, slot, col, stat_col = _resolve_stat_target(
+                tc, leg["player"], leg["stat"], strict=True)
+            drn = _drn(leg)
+            line = float(leg["line"])
+            rows.append((_SRC_PSTAT, side_i, role, slot, col, 1.0, drn, line))
+            meta.append({"kind": kind,
+                         "label": (f"{leg['player']} {leg['side'].title()} "
+                                   f"{line:g} {stat_col}")})
+        else:
+            raise ValueError(
+                f"unknown parlay leg kind {leg.get('kind')!r} (want "
+                "spread | moneyline | total | prop)")
+    if not rows:
+        raise ValueError("parlay needs at least one leg")
+    arr = np.asarray(rows, dtype=np.float32)
+    ints = tuple(arr[:, j].astype(np.int32) for j in range(5))
+    return ints + (arr[:, 5], arr[:, 6], arr[:, 7]), meta
+
+
+def _settle_legs(score: torch.Tensor, pstats: torch.Tensor, arrays):
+    """Per-game (B, L) win and push masks of resolved legs, on the device of
+    `score`: the settlement rule that the parlay, correlation and round-robin
+    reductions share.  As in the JAX package, in float32: the margin (team
+    A's view) times the leg's sign, the total, or the player's stat, against
+    the line, `v > thr` (over) or `v < thr`, a push at |v - thr| <= 1e-9."""
+    dev = score.device
+    src = torch.as_tensor(np.asarray(arrays[0]), device=dev)
+    side, role, slot, col = (torch.as_tensor(np.asarray(a), device=dev).long()
+                             for a in arrays[1:5])
+    sgn, drn, thr = (torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+                     for a in arrays[5:8])
+    margin = (score[:, 0] - score[:, 1]).to(torch.float32)
+    total = score.sum(dim=1).to(torch.float32)
+    pv = pstats[:, side, role, slot, col]                          # (B, L)
+    game = torch.where(src == _SRC_MARGIN, margin[:, None] * sgn, total[:, None])
+    v = torch.where(src == _SRC_PSTAT, pv, game)
+    win = torch.where(drn > 0, v > thr, v < thr)
+    push = (v - thr).abs() <= 1e-9
+    return win, push
+
+
+def _host_counts(red: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Integer reductions as numpy, by one device-to-host copy of all of
+    them packed into one int64 tensor."""
+    flat = torch.cat([v.reshape(-1).to(torch.int64) for v in red.values()]).cpu().numpy()
+    out, i = {}, 0
+    for k, v in red.items():
+        out[k] = flat[i:i + v.numel()].reshape(tuple(v.shape))
+        i += v.numel()
+    return out
+
+
+def reduce_parlay_device(score: torch.Tensor, pstats: torch.Tensor, arrays) -> Dict:
+    """A parlay's counts over the games, on the device of `score`: per leg
+    its wins and pushes (leg_win, leg_push, (L,)), and the games where every
+    leg won (all_win), none lost (no_lose) and every leg pushed (all_push)."""
+    win, push = _settle_legs(score, pstats, arrays)
+    lose = ~(win | push)
+    return {"leg_win": win.sum(dim=0), "leg_push": push.sum(dim=0),
+            "all_win": win.all(dim=1).sum(), "no_lose": (~lose.any(dim=1)).sum(),
+            "all_push": push.all(dim=1).sum()}
+
+
+def _need_player_stats(meta, pstats) -> None:
+    if any(m["kind"] == "prop" for m in meta) and (
+            pstats.ndim != 5 or pstats.shape[1] != 2):
+        raise ValueError(
+            "prop parlay legs need per-player stats: run with "
+            "collect_players=True")
+
+
+def parlay_odds(out, team_a_ctx, team_b_ctx, legs,
+                price: Optional[int] = None, *, resolved=None) -> Dict:
+    """Price a same-game parlay off the joint per-game sample of `out` (a
+    GameState from `MatchupRunner.run_pairs`).
+
+    Book rules per simulated game: the ticket loses iff a leg loses, pushed
+    legs are voided (the parlay reduces), every leg pushed refunds.  Both a
+    full void and a reduced win count as stake back: the fair probability
+    `p_parlay` is P(all win) / (P(all win) + P(lose)), and the quoted-price
+    edge, EV and Kelly use the same convention.  `correlation_mult` is
+    P(all win) over the product of the legs' own win rates.  Prop legs
+    settle unconditionally (a game where the player recorded nothing counts
+    at 0).  `resolved` takes a `resolve_parlay_legs` result, so callers that
+    validate legs before simulating do not resolve twice."""
+    arrays, meta = resolved if resolved is not None else \
+        resolve_parlay_legs(team_a_ctx, team_b_ctx, legs)
+    _need_player_stats(meta, out.pstats)
+    red = _host_counts(reduce_parlay_device(out.score, out.pstats, arrays))
+    n = float(out.score.shape[0])
+
+    p_all_win = float(red["all_win"]) / n
+    p_no_lose = float(red["no_lose"]) / n
+    p_void = float(red["all_push"]) / n
+    p_win_reduced = p_no_lose - p_all_win - p_void
+    p_parlay = p_all_win / max(p_all_win + (1.0 - p_no_lose), 1e-12)
+    leg_p = [float(w) / n for w in red["leg_win"]]
+    p_independent = float(np.prod(leg_p))
+    res: Dict = {
+        "team": team_a_ctx.name, "opp": team_b_ctx.name, "n": int(n),
+        "legs": [{**m, "p_win": round(p, 6), "p_push": round(float(q) / n, 6)}
+                 for m, p, q in zip(meta, leg_p, red["leg_push"])],
+        "p_all_win": round(p_all_win, 6),
+        "p_lose": round(1.0 - p_no_lose, 6),
+        "p_void": round(p_void, 6),
+        "p_win_reduced": round(p_win_reduced, 6),
+        "p_parlay": round(p_parlay, 6),
+        "fair_american": prob_to_american(p_parlay),
+        "p_independent": round(p_independent, 6),
+        "fair_american_independent": prob_to_american(p_independent),
+        "correlation_mult": (round(p_all_win / p_independent, 4)
+                             if p_independent > 0 else float("nan")),
+    }
+    if price is not None:
+        res.update(_priced_block(p_all_win, p_no_lose, p_parlay, price))
+    return res
+
+
+def _priced_block(p_all_win: float, p_no_lose: float, p_parlay: float,
+                  price: int) -> Dict:
+    """Quoted-price metrics of a ticket (refund semantics: full voids and
+    reduced wins return the stake)."""
+    price = int(price)
+    profit = 100 * (100 / (-price)) if price < 0 else price
+    ev = p_all_win * profit - (1.0 - p_no_lose) * 100.0
+    return {
+        "price": price,
+        "edge_pct": round((p_parlay - american_implied_prob(price)) * 100, 2),
+        "ev_$100": round(ev, 2),
+        "kelly": round(kelly_fraction(
+            p_all_win, price, p_push=max(0.0, p_no_lose - p_all_win)), 4),
+    }
+
+
+def leg_corr_device(score: torch.Tensor, pstats: torch.Tensor, arrays) -> torch.Tensor:
+    """(L, L) Pearson correlations of the legs' win indicators (a push is
+    not a win) over the games, float32 on the device of `score`; NaN where
+    a leg's variance is 0 (it always or never wins).  w.T @ w sums 0/1
+    values: exact in float32 (and in TF32, whose inputs hold 0 and 1
+    exactly) below 2^24 games."""
+    win, _ = _settle_legs(score, pstats, arrays)
+    w = win.to(torch.float32)
+    b = w.shape[0]
+    mu = w.mean(dim=0)
+    cov = w.T @ w / b - mu[:, None] * mu[None, :]
+    sd = torch.sqrt(torch.clamp_min(torch.diagonal(cov), 0.0))
+    denom = sd[:, None] * sd[None, :]
+    return torch.where(denom > 0, cov / torch.clamp_min(denom, 1e-30), torch.nan)
+
+
+def parlay_correlation_matrix(out, team_a_ctx, team_b_ctx, legs, *,
+                              resolved=None) -> Tuple[List[str], np.ndarray]:
+    """(leg labels, (L, L) float64 numpy) pairwise correlations of the legs'
+    win indicators over the same games as `parlay_odds`: positive pairs
+    price above their independence product, negative ones below."""
+    arrays, meta = resolved if resolved is not None else \
+        resolve_parlay_legs(team_a_ctx, team_b_ctx, legs)
+    _need_player_stats(meta, out.pstats)
+    corr = leg_corr_device(out.score, out.pstats, arrays).cpu().numpy()
+    return [m["label"] for m in meta], np.asarray(corr, dtype=float)
+
+
+def parlay_correlations(out, team_a_ctx, team_b_ctx, legs, *, resolved=None):
+    """`parlay_correlation_matrix` as a DataFrame indexed by leg label."""
+    import pandas as pd
+
+    labels, corr = parlay_correlation_matrix(out, team_a_ctx, team_b_ctx, legs,
+                                             resolved=resolved)
+    return pd.DataFrame(corr, index=labels, columns=labels)
+
+
+def tease_legs(legs, points: float):
+    """Teaser legs: each spread and total leg moved `points` in the
+    bettor's favor (spreads gain points, Over totals drop, Under totals
+    rise), as new leg dicts for `parlay_odds` or per-game blocks and
+    `cross_game_parlay`.  Moneyline and prop legs are refused."""
+    points = float(points)
+    if points < 0:
+        raise ValueError(f"teaser points must be >= 0, got {points}")
+    out = []
+    for leg in legs:
+        if not isinstance(leg, dict):
+            raise ValueError(
+                f"each teaser leg must be an object/dict, got "
+                f"{type(leg).__name__}: {leg!r}")
+        kind = str(leg.get("kind", "")).strip().lower()
+        if kind == "spread":
+            out.append({**leg, "line": float(leg["line"]) + points})
+        elif kind == "total":
+            side = str(leg.get("side", "")).strip().lower()
+            if side not in ("over", "under"):
+                raise ValueError(
+                    f"teaser total leg needs side 'over' or 'under', got "
+                    f"{leg.get('side')!r}")
+            shift = -points if side == "over" else points
+            out.append({**leg, "line": float(leg["line"]) + shift})
+        else:
+            raise ValueError(
+                f"teasers take spread/total legs only, got kind "
+                f"{leg.get('kind')!r}")
+    return out
+
+
+def cross_game_parlay(blocks, price: Optional[int] = None) -> Dict:
+    """One ticket over per-game parlay blocks (`parlay_odds` results of
+    distinct matchups).  Distinct games are independent simulations, so the
+    settlement probabilities multiply exactly; `correlation_mult` is the
+    product of the blocks' own."""
+    if not blocks:
+        raise ValueError("cross-game parlay needs at least one block")
+    seen = set()
+    for blk in blocks:
+        g = (_norm_team(blk["team"]), _norm_team(blk["opp"]))
+        if g in seen or g[::-1] in seen:
+            raise ValueError(
+                f"two blocks price the same game {blk['team']} vs "
+                f"{blk['opp']}: merge their legs into ONE same-game block "
+                "(blocks multiply as independent, same-game legs are not)")
+        seen.add(g)
+    p_all_win = float(np.prod([b["p_all_win"] for b in blocks]))
+    p_no_lose = float(np.prod([1.0 - b["p_lose"] for b in blocks]))
+    p_void = float(np.prod([b["p_void"] for b in blocks]))
+    p_independent = float(np.prod([b["p_independent"] for b in blocks]))
+    p_parlay = p_all_win / max(p_all_win + (1.0 - p_no_lose), 1e-12)
+    res: Dict = {
+        "games": [f"{b['team']} vs {b['opp']}" for b in blocks],
+        "legs": [{**leg, "game": f"{b['team']} vs {b['opp']}"}
+                 for b in blocks for leg in b["legs"]],
+        "p_all_win": round(p_all_win, 6),
+        "p_lose": round(1.0 - p_no_lose, 6),
+        "p_void": round(p_void, 6),
+        "p_win_reduced": round(max(0.0, p_no_lose - p_all_win - p_void), 6),
+        "p_parlay": round(p_parlay, 6),
+        "fair_american": prob_to_american(p_parlay),
+        "p_independent": round(p_independent, 6),
+        "fair_american_independent": prob_to_american(p_independent),
+        "correlation_mult": (round(p_all_win / p_independent, 4)
+                             if p_independent > 0 else float("nan")),
+    }
+    if price is not None:
+        res.update(_priced_block(p_all_win, p_no_lose, p_parlay, price))
+    return res
+
+
+def reduce_round_robin_device(score: torch.Tensor, pstats: torch.Tensor, mask: np.ndarray,
+                              kvec: np.ndarray, arrays) -> Dict:
+    """A round robin's counts over the games, on the device of `score`:
+    per ticket (rows of the (S, L) bool `mask`, `kvec` legs each) the games
+    it won whole (all_win), lost none of (no_lose) and pushed whole
+    (all_push), and the games where some ticket / every ticket won whole.
+    A ticket's member counts are one (B, L) @ (L, S) float32 product per
+    outcome, thresholded at k - 0.5 as in the JAX package: sums of at most
+    L zeros and ones, exact in float32 and in TF32."""
+    dev = score.device
+    win, push = _settle_legs(score, pstats, arrays)
+    lose = ~(win | push)
+    m = torch.as_tensor(np.asarray(mask), device=dev).to(torch.float32).T   # (L, S)
+    full = torch.as_tensor(np.asarray(kvec), dtype=torch.float32, device=dev) - 0.5
+    cw = win.to(torch.float32) @ m
+    cl = lose.to(torch.float32) @ m
+    cp = push.to(torch.float32) @ m
+    tick_win = cw > full
+    return {"all_win": tick_win.sum(dim=0), "no_lose": (cl < 0.5).sum(dim=0),
+            "all_push": (cp > full).sum(dim=0), "any_win": tick_win.any(dim=1).sum(),
+            "every_win": tick_win.all(dim=1).sum()}
+
+
+def _rr_sizes(by, n_legs: int) -> List[int]:
+    """A round-robin size spec (an int or an iterable of ints) as sorted
+    sizes, each checked against the leg count.  bool and np.bool_, str and
+    bytes, and fractional sizes are refused."""
+    def _as_size(k):
+        if isinstance(k, (bool, np.bool_)) or float(k) != int(k):
+            raise ValueError(
+                f"round-robin ticket size must be an integer, got {k!r}")
+        return int(k)
+
+    if isinstance(by, (str, bytes, np.bool_)):
+        raise ValueError(
+            f"round-robin size spec must be an int or an iterable of "
+            f"ints, got {by!r}")
+    scalar = isinstance(by, (int, float, np.integer, np.floating))
+    ks = sorted({_as_size(k) for k in ((by,) if scalar else by)})
+    if not ks:
+        raise ValueError("round robin needs at least one ticket size")
+    for k in ks:
+        if not 1 <= k <= n_legs:
+            raise ValueError(
+                f"round-robin ticket size {k} is invalid for {n_legs} legs")
+    return ks
+
+
+def round_robin(out, team_a_ctx, team_b_ctx, legs, by=2,
+                price: Optional[int] = None, *, resolved=None,
+                max_tickets: int = 512) -> Dict:
+    """A same-game round robin: every `by`-leg combination of the legs (one
+    size or several, e.g. (2, 3)) priced as its own `parlay_odds` ticket,
+    all of them from one reduction over the games and one host copy.
+    Card-level fields: `p_any_ticket_wins`, `p_all_tickets_win` and, with
+    `price` (applied per ticket), `ev_total_$100` at $100 a ticket.  More
+    than `max_tickets` tickets raise."""
+    import itertools
+
+    arrays, meta = resolved if resolved is not None else \
+        resolve_parlay_legs(team_a_ctx, team_b_ctx, legs)
+    _need_player_stats(meta, out.pstats)
+    n_legs = len(meta)
+    ks = _rr_sizes(by, n_legs)
+    combos = [c for k in ks for c in itertools.combinations(range(n_legs), k)]
+    if len(combos) > max_tickets:
+        raise ValueError(
+            f"round robin of sizes {ks} over {n_legs} legs writes "
+            f"{len(combos)} tickets (> max_tickets={max_tickets})")
+    mask = np.zeros((len(combos), n_legs), dtype=bool)
+    for i, c in enumerate(combos):
+        mask[i, list(c)] = True
+    kvec = mask.sum(axis=1).astype(np.float32)
+    red = _host_counts(reduce_round_robin_device(out.score, out.pstats, mask, kvec, arrays))
+    n = float(out.score.shape[0])
+    labels = [m["label"] for m in meta]
+
+    tickets = []
+    for i, c in enumerate(combos):
+        p_all_win = float(red["all_win"][i]) / n
+        p_no_lose = float(red["no_lose"][i]) / n
+        p_void = float(red["all_push"][i]) / n
+        p_parlay = p_all_win / max(p_all_win + (1.0 - p_no_lose), 1e-12)
+        t: Dict = {
+            "legs": [labels[j] for j in c], "k": int(len(c)),
+            "p_all_win": round(p_all_win, 6),
+            "p_lose": round(1.0 - p_no_lose, 6),
+            "p_void": round(p_void, 6),
+            "p_win_reduced": round(max(0.0, p_no_lose - p_all_win - p_void), 6),
+            "p_parlay": round(p_parlay, 6),
+            "fair_american": prob_to_american(p_parlay),
+        }
+        if price is not None:
+            t.update(_priced_block(p_all_win, p_no_lose, p_parlay, price))
+        tickets.append(t)
+
+    res: Dict = {
+        "team": team_a_ctx.name, "opp": team_b_ctx.name, "n": int(n),
+        "by": ks, "n_tickets": len(tickets), "leg_labels": labels,
+        "p_any_ticket_wins": round(float(red["any_win"]) / n, 6),
+        "p_all_tickets_win": round(float(red["every_win"]) / n, 6),
+        "tickets": tickets,
+    }
+    if price is not None:
+        res["price"] = int(price)
+        res["stake_$"] = 100 * len(tickets)
+        res["ev_total_$100"] = round(sum(t["ev_$100"] for t in tickets), 2)
+    return res
+
+
+def round_robin_blocks(blocks, by=2, price: Optional[int] = None) -> Dict:
+    """A round robin over per-game parlay blocks: every `by`-block
+    combination priced as a `cross_game_parlay` ticket.  The number of
+    blocks that win whole is Poisson-binomial over their `p_all_win`
+    (`season_win_pmf`), which gives `p_any_ticket_wins` (at least min(by)
+    blocks win) and `p_all_tickets_win` (all do)."""
+    import itertools
+
+    ks = _rr_sizes(by, len(blocks))
+    combos = [c for k in ks for c in itertools.combinations(range(len(blocks)), k)]
+    tickets = [cross_game_parlay([blocks[j] for j in c], price=price) for c in combos]
+    pmf = season_win_pmf([b["p_all_win"] for b in blocks])
+    res: Dict = {
+        "games": [f"{b['team']} vs {b['opp']}" for b in blocks],
+        "by": ks, "n_tickets": len(tickets),
+        "p_any_ticket_wins": round(float(pmf[min(ks):].sum()), 6),
+        "p_all_tickets_win": round(float(pmf[-1]), 6),
+        "tickets": tickets,
+    }
+    if price is not None:
+        res["price"] = int(price)
+        res["stake_$"] = 100 * len(tickets)
+        res["ev_total_$100"] = round(sum(t["ev_$100"] for t in tickets), 2)
+    return res
+
+
+def season_win_pmf(p_wins) -> np.ndarray:
+    """The exact distribution of a season's win count from per-game strict
+    win probabilities (independent games): the Poisson-binomial pmf,
+    pmf[k] = P(exactly k wins), length len(p_wins) + 1."""
+    pmf = np.array([1.0])
+    for i, p in enumerate(np.asarray(list(p_wins), float)):
+        if not 0.0 <= p <= 1.0 or not np.isfinite(p):
+            raise ValueError(f"p_wins[{i}]={p!r} is not a probability")
+        pmf = np.convolve(pmf, [1.0 - p, p])
+    return pmf
+
+
+def season_win_market(p_wins, line: Optional[float] = None,
+                      team: str = "", price: int = -110) -> Dict:
+    """A season win-total market from per-game win probabilities: the win
+    distribution (pmf, mean and median wins, P(wins >= k) for every k) and,
+    with a quoted `line`, over/under/push probabilities, fair prices and
+    the better side at `price` (push-aware: an integer line pushes on
+    exactly `line` wins and refunds the stake)."""
+    p_wins = list(np.asarray(list(p_wins), float))
+    pmf = season_win_pmf(p_wins)
+    dist = Dist.from_hist(pmf, np.arange(len(pmf)))
+    at_least = np.concatenate([[1.0], np.cumsum(pmf[::-1])[::-1][1:]])
+    res: Dict = {
+        "team": team,
+        "games": len(p_wins),
+        "p_wins": [round(float(p), 6) for p in p_wins],
+        "mean_wins": round(dist.mean(), 4),
+        "median_wins": dist.median(),
+        "pmf": [round(float(p), 6) for p in pmf],
+        "p_at_least": [round(float(p), 6) for p in at_least],
+    }
+    if line is not None:
+        p_over, p_under = dist.over(line), dist.under(line)
+        p_push = dist.push(line)
+        res.update({
+            "line": float(line),
+            "p_over": round(p_over, 6),
+            "p_under": round(p_under, 6),
+            "push_rate": round(p_push, 6),
+            "american_over": prob_to_american(p_over),
+            "american_under": prob_to_american(p_under),
+        })
+        profit = (100.0 * 100.0 / -price) if price < 0 else float(price)
+        ev_over = p_over * profit - p_under * 100.0
+        ev_under = p_under * profit - p_over * 100.0
+        side, p_side, ev = (("Over", p_over, ev_over) if ev_over >= ev_under
+                            else ("Under", p_under, ev_under))
+        live = p_over + p_under
+        res["best"] = {
+            "side": side,
+            "ev": round(ev, 2),
+            # the edge of the push-excluded conditional over the price's
+            # break-even
+            "edge": (round(p_side / live - american_implied_prob(price), 6)
+                     if live > 0 else 0.0),
+            "kelly": round(kelly_fraction(p_side, price, p_push=p_push), 4),
+        }
+    return res
+
+
 # ---- printers ----------------------------------------------------------------------
 
 def _odds_str(o: int) -> str:
@@ -800,6 +1316,73 @@ def print_alt_lines(res: Dict) -> None:
                   f"{_odds_str(int(r['fair_under'])):<6}  "
                   f"{r['bet']}  {r['edge_pct']:+.2f}%  "
                   f"${r['ev_$100']:+.2f}/$100")
+
+
+def print_round_robin_readable(res: Dict) -> None:
+    where = (f"{res['team']} vs {res['opp']} (n={res['n']})"
+             if "team" in res else " + ".join(res["games"]))
+    sizes = "/".join(str(k) for k in res["by"])
+    print(f"\n=== Round robin by {sizes}: {where} — "
+          f"{res['n_tickets']} tickets ===")
+    rows = sorted(res["tickets"], key=lambda t: t.get("ev_$100", t["p_parlay"]),
+                  reverse=True)
+    for t in rows:
+        legs = " + ".join(leg["label"] if isinstance(leg, dict) else leg
+                          for leg in t["legs"])
+        line = (f"  {legs:<52s} p {t['p_parlay']:.4f}  "
+                f"fair {_odds_str(t['fair_american'])}")
+        if "ev_$100" in t:
+            line += f"  EV ${t['ev_$100']:+.2f}"
+        print(line)
+    print(f"  P(any ticket wins): {res['p_any_ticket_wins']:.4f}   "
+          f"P(all tickets win): {res['p_all_tickets_win']:.4f}")
+    if "ev_total_$100" in res:
+        print(f"  Card at {_odds_str(res['price'])} per ticket: stake "
+              f"${res['stake_$']}  total EV ${res['ev_total_$100']:+.2f}")
+
+
+def print_parlay_readable(res: Dict) -> None:
+    if "team" in res:
+        print(f"\n=== Same-game parlay: {res['team']} vs {res['opp']} "
+              f"(n={res['n']}) ===")
+    else:
+        print(f"\n=== Cross-game parlay: {' + '.join(res['games'])} ===")
+    for leg in res["legs"]:
+        tag = f" [{leg['game']}]" if "game" in leg else ""
+        print(f"  {leg['label'] + tag:<40s} p_win {leg['p_win']:.4f}"
+              + (f"  push {leg['p_push']:.4f}" if leg["p_push"] else ""))
+    print(f"  P(all legs win):        {res['p_all_win']:.4f}")
+    if res["p_win_reduced"] or res["p_void"]:
+        print(f"  P(win reduced):         {res['p_win_reduced']:.4f}   "
+              f"P(full void): {res['p_void']:.4f}")
+    print(f"  Fair odds (joint):      {_odds_str(res['fair_american'])}"
+          f"   (p={res['p_parlay']:.4f})")
+    print(f"  If legs were indep.:    "
+          f"{_odds_str(res['fair_american_independent'])}"
+          f"   (p={res['p_independent']:.4f})")
+    print(f"  Correlation multiplier: {res['correlation_mult']:.3f}x")
+    if "price" in res:
+        print(f"  At quoted {_odds_str(res['price'])}: edge "
+              f"{res['edge_pct']:+.2f}%  EV ${res['ev_$100']:+.2f}/$100"
+              f"  kelly {res['kelly']:.3f}")
+
+
+def print_season_readable(res: Dict) -> None:
+    hdr = res["team"] or "team"
+    print(f"\n=== Season win total: {hdr} ({res['games']} games) ===")
+    print(f"  mean wins {res['mean_wins']:.2f}   "
+          f"median {res['median_wins']:.0f}")
+    lad = "  ".join(f"{k}+:{p:.3f}" for k, p in enumerate(res["p_at_least"]) if k)
+    print(f"  P(at least k wins): {lad}")
+    if "line" in res:
+        b = res["best"]
+        print(f"  line {res['line']}: over {res['p_over']:.4f} "
+              f"({_odds_str(res['american_over'])})  "
+              f"under {res['p_under']:.4f} "
+              f"({_odds_str(res['american_under'])})"
+              + (f"  push {res['push_rate']:.4f}" if res["push_rate"] else ""))
+        print(f"  best side: {b['side']}  edge {b['edge'] * 100:+.2f}%  "
+              f"EV ${b['ev']:+.2f}/$100  kelly {b['kelly']:.3f}")
 
 
 def print_middle_readable(res: Dict) -> None:

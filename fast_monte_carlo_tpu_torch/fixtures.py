@@ -12,7 +12,9 @@ port's tests and `chip_smoke.py` run on:
 * a weekly slate (`slate`): g matchups of distinct synthetic teams
   ("Team 000" on), SP+ numbers drawn from the FBS range the two teams
   above sit in, each matchup with its own seeded nano table pair; and
-  quoted spreads and totals for it (`slate_lines`);
+  quoted spreads and totals for it (`slate_lines`); the same slate with
+  rosters (`focus_slate`) and a prop sheet over some of its matchups
+  (`slate_prop_rows`); a team's season against g others (`season`);
 * one fused head grid per direction, shape (1, 5, 16, 32, 16, 3, 7) =
   (slot, down, dist, ytg, sec, sd, channel) on the nano profile, channels in
   FUSED_CHANNELS[:7] order, each cell drawn uniformly from a plausible
@@ -89,9 +91,13 @@ def focus_rows(seed: int) -> List[dict]:
     (pass_yards), 3 rushers (rush_yards; the third is QB 1) and 5 targets
     (rec_yards), usages in percent summing to 80-95 per role, so each role
     gets an `__Other__` slot; `yards` the player's line of the stat."""
-    rng = np.random.default_rng(seed)
+    return _focus_rows((TEAM_A[0], TEAM_B[0]), np.random.default_rng(seed))
+
+
+def _focus_rows(team_names, rng: np.random.Generator) -> List[dict]:
+    """`focus_rows`' layout over `team_names`, in order, drawn from `rng`."""
     rows = []
-    for team in (TEAM_A[0], TEAM_B[0]):
+    for team in team_names:
         for role, (stat, pos, line) in _ROSTER.items():
             n = len(pos)
             usage = rng.dirichlet(np.linspace(4.0, 1.0, n)) * rng.uniform(80.0, 95.0)
@@ -123,6 +129,25 @@ def focus_teams(seed: int, path: Optional[str] = None,
             team_context(*TEAM_B, player_slots=player_slots, focus_usage=focus))
 
 
+def _team_prop_rows(team: str, rng: np.random.Generator) -> List[dict]:
+    """One team's block of a prop sheet: every stat of the three roles for
+    the role's first player, lines drawn near each stat's typical value
+    (whole numbers for the counts that take them), then the aliases
+    pass_yards, rush_yards and rec_yards for each role's second player."""
+    rows = []
+    for role, lines in _PROP_LINES.items():
+        for stat, line in lines.items():
+            step = 1.0 if line == int(line) else 0.5
+            jitter = np.round(rng.uniform(-0.15, 0.15) * line / step) * step
+            rows.append({"team": team, "player": roster_name(team, role, 0),
+                         "stat": stat, "yards": float(max(line + jitter, 0.5))})
+    for role, alias, line in (("pass", "pass_yards", 20.5), ("rush", "rush_yards", 30.5),
+                              ("rec", "rec_yards", 40.5)):
+        rows.append({"team": team, "player": roster_name(team, role, 1),
+                     "stat": alias, "yards": line})
+    return rows
+
+
 def prop_rows(seed: int) -> List[dict]:
     """A prop sheet (team, player, stat, yards) over `focus_rows`' players:
     per team every stat of the three roles for the role's first player,
@@ -132,18 +157,7 @@ def prop_rows(seed: int) -> List[dict]:
     them, so pushes happen); then one row each for an untracked player, an
     unknown stat and a team outside the matchup, which a scan skips."""
     rng = np.random.default_rng(seed)
-    rows = []
-    for team in (TEAM_A[0], TEAM_B[0]):
-        for role, lines in _PROP_LINES.items():
-            for stat, line in lines.items():
-                step = 1.0 if line == int(line) else 0.5
-                jitter = np.round(rng.uniform(-0.15, 0.15) * line / step) * step
-                rows.append({"team": team, "player": roster_name(team, role, 0),
-                             "stat": stat, "yards": float(max(line + jitter, 0.5))})
-        for role, alias, line in (("pass", "pass_yards", 20.5), ("rush", "rush_yards", 30.5),
-                                  ("rec", "rec_yards", 40.5)):
-            rows.append({"team": team, "player": roster_name(team, role, 1),
-                         "stat": alias, "yards": line})
+    rows = [r for team in (TEAM_A[0], TEAM_B[0]) for r in _team_prop_rows(team, rng)]
     a = TEAM_A[0]
     rows.append({"team": TEAM_B[0], "player": roster_name(TEAM_B[0], "rec", 2),
                  "stat": "rec_yds", "yards": 25.5})
@@ -208,6 +222,51 @@ def slate(g: int, seed: int, player_slots: int = 8):
     rows = slate_teams(g, seed)
     ctx = [team_context(*r, player_slots=player_slots) for r in rows]
     return ([(ctx[2 * i], ctx[2 * i + 1]) for i in range(g)],
+            [nano_tables(seed + i) for i in range(g)])
+
+
+def focus_slate(g: int, seed: int, path: Optional[str] = None, player_slots: int = 8):
+    """`slate(g, seed)` with rosters: every team of `slate_teams(g, seed)`
+    with the roster of a focus sheet over all 2g teams in `focus_rows`'
+    layout (drawn from `seed`), written to `path` (a temporary file,
+    removed after, if None) and read back; matchup i on
+    `nano_tables(seed + i)`."""
+    if path is None:
+        with tempfile.TemporaryDirectory() as d:
+            return focus_slate(g, seed, os.path.join(d, "focus.csv"), player_slots)
+    rows = slate_teams(g, seed)
+    write_csv(path, _focus_rows([r[0] for r in rows], np.random.default_rng(seed)),
+              FOCUS_COLS)
+    focus = focus_usage_columns(path)
+    ctx = [team_context(*r, player_slots=player_slots, focus_usage=focus) for r in rows]
+    return ([(ctx[2 * i], ctx[2 * i + 1]) for i in range(g)],
+            [nano_tables(seed + i) for i in range(g)])
+
+
+def slate_prop_rows(g: int, seed: int) -> List[dict]:
+    """A prop sheet over `focus_slate(g, seed)`'s rosters, for matchups 0,
+    1 and 3 only (of those below g): both teams' blocks of matchups 0 and 3
+    (32 rows each), team A's of matchup 1 (16 rows, so its reduction has a
+    padded width of its own); then one row of a team outside the slate,
+    which a scan skips.  Matchups 2 and 4 on have no row."""
+    rng = np.random.default_rng(seed)
+    names = [r[0] for r in slate_teams(g, seed)]
+    teams = {0: names[0:2], 1: names[2:3], 3: names[6:8]}
+    rows = [r for i, ts in teams.items() if i < g for t in ts for r in _team_prop_rows(t, rng)]
+    outside = f"Team {2 * g:03d}"
+    rows.append({"team": outside, "player": roster_name(outside, "rec", 0),
+                 "stat": "rec_yds", "yards": 55.5})
+    return rows
+
+
+def season(g: int, seed: int, player_slots: int = 8):
+    """A season of g games for team 0 of `slate_teams(g, seed)` against
+    teams 1..g, the team side A of even games and side B of odd ones:
+    (games as (team A, team B) names, their context pairs, one nano table
+    pair a game, `nano_tables(seed + i)`)."""
+    ctx = [team_context(*r, player_slots=player_slots) for r in slate_teams(g, seed)[:g + 1]]
+    pairs = [(ctx[0], ctx[i + 1]) if i % 2 == 0 else (ctx[i + 1], ctx[0]) for i in range(g)]
+    return ([(a.name, b.name) for a, b in pairs], pairs,
             [nano_tables(seed + i) for i in range(g)])
 
 

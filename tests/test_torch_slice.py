@@ -131,7 +131,15 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " api.simulate_slate_summary_rows, api.simulate_slate, api.simulate_slate_rows,"
         " edge.slate_market_table, edge.slate_market_rows, edge.alt_lines_from_summary,"
         " edge.middles_from_summary, edge.print_slate_edges, fixtures.slate,"
-        " fixtures.slate_lines))\n"
+        " fixtures.slate_lines, edge.resolve_parlay_legs, edge.reduce_parlay_device,"
+        " edge.parlay_odds, edge.leg_corr_device, edge.parlay_correlation_matrix,"
+        " edge.parlay_correlations, edge.tease_legs, edge.cross_game_parlay,"
+        " edge.reduce_round_robin_device, edge.round_robin, edge.round_robin_blocks,"
+        " edge.season_win_pmf, edge.season_win_market, edge.print_parlay_readable,"
+        " edge.print_round_robin_readable, edge.print_season_readable,"
+        " api.simulate_parlay, api.simulate_parlay_core, api.project_season,"
+        " api.project_season_rows, api.simulate_slate_props, api.simulate_slate_prop_rows,"
+        " fixtures.focus_slate, fixtures.slate_prop_rows, fixtures.season))\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in ('jax', 'pandas', 'sklearn', 'fast_monte_carlo_tpu')"
         " if m in sys.modules]\n"
