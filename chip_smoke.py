@@ -130,9 +130,13 @@ Phases, in order (any failure raises and exits non-zero):
     (stage 1 of 188 trees, stage 2, nine quantile forests of 400 trees,
     fumble, play): K5 (`forest_eval`) against its plain walk on the card for
     every forest at B = 65,536 feature rows of `fixtures.play_states` and at
-    ragged B = 1, 255, 257, 65,573, within rtol=1e-5, atol=1e-4; K5 held
-    ms per forest and per play (the default config's 11 forests), the plain
-    walk's ms and the bound counted on the walks the rows take; one
+    ragged B = 1, 255, 257, 65,573, within rtol=1e-5, atol=1e-4, and how
+    many launches were bitwise equal; K5 held ms per forest and per play
+    (the default config's 11 forests), the plain walk's ms and the bound
+    counted on the walks the rows take (`forest_bound`: a record read, a
+    compare and a child step a node visited, a feature read a numeric one,
+    an add a (row, tree)); a forest of 65 numerics, whose packed records
+    would overflow the row slot, raises ValueError with no launch; one
     exact-mode play step at 65,536 states on CUDA and on the CPU, integer
     state equal in >= 99.5%; the nano tables built from the same heads
     (`MatchupRunner(mode="table", heads=)`, host seconds); then
@@ -215,7 +219,6 @@ SLATE_PROPS_GAMES, SLATE_PROPS_SEED = 5, 6    # fixtures.focus_slate / slate_pro
 SLATE_PROPS_PAIRS = 8_192          # the JAX package's simulate_slate_props n_pairs
 MULTI_REPS = 3                     # timed calls of the parlay and the slate prop scan
 SEASON_REPS = 1                    # timed calls of the season (13-26 s each)
-HEADS_SEED = 0                     # fixtures.heads(HEADS_SEED, "reference")
 K5_BS = (65_536, 1, 255, 257, 65_573)  # K5 against its plain version: the launch, ragged
 EXACT_LAUNCH_GAMES = 65_536        # exact mode's games a launch
 EXACT_TARGET_S = 12                # exact mode's timed launches fill about this
@@ -268,19 +271,17 @@ DRAW_COUNTS = {"alu": 138, "imad": 83, "mufu_cvt": 25, "dispatch": 357}
 # sqrtf, sincosf, a floor); with 240 f32 and 42 integer adds, 714
 # dispatched.
 STEP_COUNTS = {"alu": 313, "imad": 85, "mufu_cvt": 33, "dispatch": 714}
-# forest_eval (K5), counted on the walks this run's rows take (the plain
-# walk's leaves give each row's path): per internal node visited, the leaf,
-# is-categorical and threshold tests and the child select (4 ALU), the
-# record's address (IMAD), the child's float->int conversion, two 16-byte
-# loads; per numeric node visited, the feature index's conversion, its
-# shared-memory address and load; per categorical node, the id match; with
-# zeros as missing, the zero test and its select; per (row, tree), the
-# class select and add, the root and leaf loads.
-FOREST_VISIT_COUNTS = {"alu": 4, "imad": 1, "mufu_cvt": 1, "dispatch": 8}
-FOREST_NUMERIC_COUNTS = {"imad": 1, "mufu_cvt": 1, "dispatch": 3}
-FOREST_CAT_COUNTS = {"alu": 1, "dispatch": 1}
-FOREST_ZERO_COUNTS = {"alu": 2, "dispatch": 2}
-FOREST_TREE_COUNTS = {"alu": 1, "dispatch": 4}
+# forest_eval (K5): what any walk of this run's rows must do, whatever its
+# layout (the plain walk's leaves give each row's path; the same bound
+# holds any kernel of the walk): per internal node visited, one
+# record read, one compare (ALU) and one child step (an integer add); per
+# numeric node visited, the feature read; per (row, tree), one add.
+FOREST_VISIT_COUNTS = {"alu": 1, "dispatch": 3}
+FOREST_NUMERIC_COUNTS = {"dispatch": 1}
+FOREST_TREE_COUNTS = {"dispatch": 1}
+# the node table's bytes a node in the bound: a threshold and one 32-bit
+# word of the rest, the least a layout can hold (K5's record)
+FOREST_NODE_BYTES = 8
 
 
 def card_name_and_limit() -> str:
@@ -1657,22 +1658,21 @@ def path_counts(f) -> dict:
 
 def forest_bound(f, tf, leaves, n_feat: int) -> tuple:
     """(bytes, instruction counts by class) of one K5 launch whose rows
-    reach `leaves` (B, T) in FlatForest f (packed as tf): the feature rows,
-    ids and margins and the forest's tables read or written once; the
-    instructions of the walks those rows take (the FOREST_* counts)."""
+    reach `leaves` (B, T) in FlatForest f (packed as tf): each input read
+    once (the feature rows, ids, the node table at FOREST_NODE_BYTES a
+    node, tree classes, base margins) and the margins written once; the
+    work of the walks those rows take (the FOREST_* counts)."""
     import torch
 
     b, t = leaves.shape
     g = max(1, len(tf.group_names))
-    nbytes = (b * (n_feat + g + tf.n_classes) * 4 + f.n_nodes * (32 + 4)
-              + t * 8 + tf.n_classes * 4)
+    nbytes = (b * (n_feat + g + tf.n_classes) * 4 + f.n_nodes * FOREST_NODE_BYTES
+              + t * 4 + tf.n_classes * 4)
     pc = {k: torch.from_numpy(v).to(leaves.device) for k, v in path_counts(f).items()}
     visits = {k: float(v[leaves].sum()) for k, v in pc.items()}
     counts = {}
     for per, items in ((FOREST_VISIT_COUNTS, visits["internal"]),
                        (FOREST_NUMERIC_COUNTS, visits["numeric"]),
-                       (FOREST_CAT_COUNTS, visits["cat"]),
-                       (FOREST_ZERO_COUNTS, visits["internal"] if tf.zero_as_missing else 0.0),
                        (FOREST_TREE_COUNTS, float(b * t))):
         for k, v in per.items():
             counts[k] = counts.get(k, 0.0) + v * items
@@ -1680,8 +1680,8 @@ def forest_bound(f, tf, leaves, n_feat: int) -> tuple:
 
 
 def phase_exact(card: str) -> dict:
-    """Exact mode and tables from heads, on fixtures.heads(HEADS_SEED,
-    "reference")."""
+    """Exact mode and tables from heads, on fixtures.heads(0, "reference")
+    (`probes.kernels.k5_forests`)."""
     import torch
     from fast_monte_carlo_tpu_torch import fixtures
     from fast_monte_carlo_tpu_torch.api import MatchupRunner
@@ -1689,46 +1689,23 @@ def phase_exact(card: str) -> dict:
     from fast_monte_carlo_tpu_torch.ops import forest_eval as fe
     from fast_monte_carlo_tpu_torch.ops import game
     from fast_monte_carlo_tpu_torch.ops.pack import build_packs
-    from fast_monte_carlo_tpu_torch.probes.kernels import held_ms
+    from fast_monte_carlo_tpu_torch.probes.kernels import held_ms, k5_args, k5_forests, k5_rows
 
     dev = torch.device("cuda")
     cfg = SimConfig()
     t0 = time.perf_counter()
-    heads = fixtures.heads(HEADS_SEED, "reference")
-    print(f"  reference-shape heads in {time.perf_counter() - t0:.2f} s")
+    heads, host, packed, play, pack = k5_forests(dev)
     focus = fixtures.focus_teams(FOCUS_SEED)
-    pack, hp = build_packs(*focus, heads, cfg, dev, fixtures.COACH_MAP)
-    host = {"stage1": heads.stage1, "stage2": heads.stage2, "fumble": heads.fumble,
-            "play": heads.play}
-    packed = {"stage1": hp.stage1, "stage2": hp.stage2, "fumble": hp.fumble, "play": hp.play}
-    for kind, trio, ptrio in (("pq", heads.pass_quants, hp.pq), ("rq", heads.rush_quants, hp.rq),
-                              ("sq", heads.sack_quants, hp.sq)):
-        for i in range(3):
-            host[f"{kind}{i}"], packed[f"{kind}{i}"] = trio[i], ptrio[i]
-    # the forests of a play at the default config (no fumbles, no play policy)
-    play = [k for k in packed if k not in ("fumble", "play")]
+    print(f"  reference-shape heads, packed, in {time.perf_counter() - t0:.2f} s; K5 tiles "
+          + ", ".join(f"{k} {v.kernel.tiles.shape[0]}" for k, v in packed.items()))
     rng = np.random.default_rng(12)
-
-    def rows(b: int):
-        d = fixtures.play_states(rng, b)
-        t = {k: torch.tensor(v, device=dev) for k, v in d.items()}
-        sd = (t["score"][:, 0] - t["score"][:, 1]) * (1 - 2 * t["off"])
-        x = game._state_features(pack, cfg, t["gid"] * 2 + t["off"], t["down"], t["dist"],
-                                 t["ytg"], t["sec"], sd)
-        return x, {g: torch.tensor(rng.integers(-1, 8, b).astype(np.int32), device=dev)
-                   for g in ("passer_name", "target_name", "rusher_name", "head_coach")}
-
-    def inputs(name, x, ids):
-        tf = packed[name]
-        xx = x if name != "play" else x[:, :len(tf.numeric_names)].contiguous()
-        return tf, xx, {g: ids[g] for g in tf.group_names}
 
     worst, equal, total = 0.0, 0, 0
     per_forest = {}
     for b in K5_BS:
-        x, ids = rows(b)
-        for name in packed:
-            tf, xx, cats = inputs(name, x, ids)
+        x, ids = k5_rows(pack, rng, b, dev)
+        for name, tf in packed.items():
+            xx, cats = k5_args(tf, x, ids)
             got = fe.eval_margin(tf, xx, cats)
             want = fe.eval_margin_reference(tf, xx, cats)
             torch.cuda.synchronize()
@@ -1749,18 +1726,35 @@ def phase_exact(card: str) -> dict:
                 print(f"  K5 {name} (T={tf.n_trees}, depth {tf.max_depth}, C={tf.n_classes}) "
                       f"at B={b:,}: {ms:.4f} ms held, plain {plain_ms:.3f} ms ({how}; "
                       f"{plain_ev:.3f} by events), bound {per_forest[name]['bound_ms']:.4f} ms "
-                      f"({per_forest[name]['bound_class']}), {counts['alu'] / 1e6:.1f} M ALU "
-                      f"({card})")
+                      f"({per_forest[name]['bound_class']}, "
+                      f"{per_forest[name]['bound_ms'] / ms:.1%} of it), "
+                      f"{counts['dispatch'] / 1e6:.1f} M dispatched ({card})")
     print(f"  K5 bitwise equal to the plain walk in {equal} of {total} launches, "
           f"max|d| {worst:.3g}")
     nbytes = sum(per_forest[k]["nbytes"] for k in play)
-    counts = {c: sum(per_forest[k]["counts"][c] for k in play) for c in RATES if c != "bytes"}
+    counts = {c: sum(per_forest[k]["counts"].get(c, 0.0) for k in play)
+              for c in RATES if c != "bytes"}
     row = {"ms": sum(per_forest[k]["ms"] for k in play),
            "plain_ms": sum(per_forest[k]["plain_ms"] for k in play),
            "library_ms": None, "max_abs_err": worst, **bound(nbytes, counts)}
     print(f"  K5 per play ({len(play)} forests, B={K5_BS[0]:,}): {row['ms']:.4f} ms held, "
           f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_class']}) ({card})")
+          f"({row['bound_class']}, {row['bound_ms'] / row['ms']:.1%} of it) ({card})")
+
+    # a forest whose packed records overflow a field: the kernel refuses it
+    lay = heads.stage2.layout
+    wide = dataclasses.replace(heads.stage2, layout=dataclasses.replace(
+        lay, numeric_names=lay.numeric_names + tuple(f"extra{i}" for i in range(48))))
+    tw = fe.pack_forest(wide, dev)
+    before = fe.eval_margin_cuda.launches
+    try:
+        fe.eval_margin(tw, torch.zeros((4, 65), device=dev))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check(tw.kernel is None and "numeric features" in refused
+          and fe.eval_margin_cuda.launches == before,
+          f"K5 refuses a forest of 65 numerics without launching: {refused!r}")
 
     # one exact-mode play step, the card against the CPU
     d = fixtures.play_states(np.random.default_rng(13), N)

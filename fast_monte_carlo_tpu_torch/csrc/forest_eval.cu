@@ -1,130 +1,282 @@
 // K5: tree-ensemble margins, margins[b, c] = base[c] + sum over the trees t
-// of class c of leaf[the node row b reaches in tree t].
+// of class c of the leaf value row b reaches in tree t.
 //
 // Replaces fast_monte_carlo_tpu/ops/forest_eval.py:96 eval_margin, which is
 // XLA on the TPU, not a Pallas kernel: a depth-bounded gather walk over a
 // (B, T) front of (row, tree) pairs, one (B*T, 8) node-record gather a
 // level, and the class sum as a (B, T) x (T, C) product on the MXU.
 //
-// Here one thread takes one row and walks the trees one after another, its
-// C class sums in registers, added in tree order (the plain version,
-// `eval_margin_reference`, sums in the same order, so the two agree
-// bitwise).  Per level a thread reads its node's 32-byte record as two
-// float4s through the read-only path, [num_idx, is_cat, cat_group,
-// cat_local, thresh, left, right, default_left] (f32, every index exact),
-// and the split value: its category id's match for a categorical node,
-// else its feature row's entry, staged in shared memory for the block (a
-// row is F floats, an odd stride for F = 17, so the reads meet no bank
-// conflict).  Leaves loop to themselves (left == right), which ends a
-// walk early; the plain version runs all max_depth levels to the same
-// node.  Category ids are compared as floats: exact below 2^24, and ids
-// are below the group's size.
+// What bounds it on the H100: the walk is a chain of dependent steps per
+// (row, tree) - read the node, read the value it splits on, compare, step
+// to the child - so the latency of each step and the instructions it
+// issues bound it, not bytes (a 400-tree forest is 48 KB of records against
+// 5 MB of rows).  The design, against that:
 //
-// Bound: operations.  The bytes are the feature rows, ids and margins
-// (about 80 bytes a row) and the node table, which is read once from
-// device memory and then from L1/L2 (192 KB for 400 trees of 15 nodes).
-// Each level costs two float->int conversions (the numeric index and the
-// child), 16 a clock an SM, against a few compares and selects; the bound
-// counts those by class for the levels this run's rows take
-// (`chip_smoke.forest_bound`).  A warp walks one tree at a time on 32
-// rows, so its node loads hit the same few records; the chain of
-// dependent loads (record, value, child) per level is what this simple
-// design leaves exposed.
+// * Compact records, built once on the host (ops/forest_eval.py
+//   pack_kernel_records, which states the layout): 8 bytes a node, word 0
+//   the threshold (f32), a categorical node's category id (int32) or a
+//   leaf's value, word 1 the byte offset of the left child's record in its
+//   tree (the right child's is 8 more), the byte offset of the row word the
+//   node reads (a group's id or a numeric feature), and flag bits.  A
+//   categorical node's two outcomes (the id matches or not) are resolved on
+//   the host, zeros-as-missing included; a leaf reads as a categorical
+//   node that never goes right, so it stays put and a walk takes a fixed
+//   number of levels with no leaf test.  A level is one 8-byte and one
+//   4-byte shared-memory load and a dozen integer and compare
+//   instructions: no float->int conversion, no address scaling, no
+//   separate leaf load.  Limits (the wrapper raises ValueError beyond
+//   them): a tree of at most kTileRecords records (the 15-bit child
+//   offset), at most kGroups groups and kMaxFeatures numerics (the 9-bit
+//   row offset).
+// * Records in shared memory: the forest is cut on the host into tiles of
+//   whole trees (at most kTileRecords records, each from a 16-byte
+//   boundary); thread 0 copies them with cp.async.bulk (TMA, 1D) into two
+//   buffers under an mbarrier each, so tile i + 1 arrives while tile i is
+//   walked, and a block of kThreads rows reuses each tile kThreads times.
+// * Rows in shared memory: a block stages its rows as words [id_0 ..
+//   id_3, x_0 .. x_{F-1}] at an odd stride (no bank conflict when a warp
+//   reads one slot).
+// * Walks in flight: a thread takes one row and walks kWalks trees of the
+//   tile at once, level by level, so kWalks independent chains hide each
+//   other's latency; then it adds their leaf values to its class sums in
+//   tree order, as the plain version (`eval_margin_reference`) does, so
+//   the two agree bitwise.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxGroups = 4;
+constexpr int kThreads = 256;     // rows a block
+constexpr int kWalks = 8;         // trees a thread walks at once
+constexpr int kGroups = 4;        // id slots at the front of a staged row
+constexpr int kTileRecords = 4096;  // records a tile buffer: 32 KB
+constexpr int kMaxFeatures = 64;
+// the record's meta word (ops/forest_eval.py states the layout and limits)
+constexpr unsigned kSlotMask = (1u << 9) - 1;  // byte offset of the row word read
+constexpr unsigned kIsCat = 1u << 9;
+constexpr unsigned kDefaultRight = 1u << 10;
+constexpr unsigned kCatMatchRight = 1u << 11;
+constexpr unsigned kCatMissRight = 1u << 12;
+constexpr int kLeftShift = 17;  // the left child's byte offset in its tree
+// the walk reads the three outcome bits as bit 3 (the right child's extra
+// 8 bytes) after a shift
+static_assert(kDefaultRight >> 7 == 8 && kCatMatchRight >> 8 == 8 && kCatMissRight >> 9 == 8,
+              "outcome bits");
+constexpr size_t kTileBytes = static_cast<size_t>(kTileRecords) * 8;
+constexpr size_t kRowsOffset = 2 * kTileBytes + 128;  // after the tiles and barriers
 
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    forest_eval_kernel(const float4* __restrict__ nodes, const float* __restrict__ leaf,
-                       const int* __restrict__ roots, const int* __restrict__ tree_class,
+__host__ __device__ inline int row_stride(int n_feat) { return (kGroups + n_feat) | 1; }
+
+size_t smem_bytes(int n_feat) {
+  return kRowsOffset + static_cast<size_t>(kThreads) * row_stride(n_feat) * 4;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// the tile's bytes arrive on `bar`, which thread 0 arms for them
+__device__ __forceinline__ void load_tile(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  // order this block's earlier reads of the buffer before the async write
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+template <int C, bool LT, bool ZAM>
+__global__ void __launch_bounds__(kThreads, 2)
+    forest_eval_kernel(const uint2* __restrict__ recs, const int4* __restrict__ tiles,
+                       const int* __restrict__ tree_off, const int* __restrict__ tree_class,
                        const float* __restrict__ base, const float* __restrict__ x,
                        const int* __restrict__ cid, float* __restrict__ out, int n_rows,
-                       int n_feat, int n_groups, int n_trees, int max_depth, bool cmp_lt,
-                       bool zero_as_missing) {
-  extern __shared__ float xs[];  // kThreads rows of n_feat floats
+                       int n_feat, int n_groups, int n_tiles, int steps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * kTileBytes);
+  unsigned* xs = reinterpret_cast<unsigned*>(smem + kRowsOffset);
+  const int tid = static_cast<int>(threadIdx.x);
+  const int stride = row_stride(n_feat);
+
+  if (tid == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    fence_barrier_init();
+    for (int i = 0; i < 2 && i < n_tiles; ++i) {
+      const int4 tl = __ldg(tiles + i);
+      load_tile(smem + i * kTileBytes, recs + tl.x, static_cast<unsigned>(tl.y), &bar[i]);
+    }
+  }
+  // the block's rows, read coalesced while the first tiles arrive
   const long long row0 = static_cast<long long>(blockIdx.x) * kThreads;
   const int rows = static_cast<int>(min(static_cast<long long>(kThreads), n_rows - row0));
-  // the block's feature rows, read coalesced
   const float* xb = x + row0 * n_feat;
-  for (int i = threadIdx.x; i < rows * n_feat; i += kThreads) xs[i] = __ldg(xb + i);
+  for (int i = tid; i < rows * n_feat; i += kThreads)
+    xs[(i / n_feat) * stride + kGroups + i % n_feat] = __float_as_uint(__ldg(xb + i));
+  const int* cb = cid + row0 * n_groups;
+  for (int i = tid; i < rows * n_groups; i += kThreads)
+    xs[(i / n_groups) * stride + i % n_groups] = static_cast<unsigned>(__ldg(cb + i));
   __syncthreads();
-  if (static_cast<int>(threadIdx.x) >= rows) return;
-  const long long b = row0 + threadIdx.x;
-  const float* xr = xs + threadIdx.x * n_feat;
 
-  float ids[kMaxGroups];
-#pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g)
-    ids[g] = g < n_groups ? static_cast<float>(__ldg(cid + b * n_groups + g)) : -1.0f;
-
+  // a thread past the last row walks whatever its staged row holds (every
+  // record offset stays in its tree) and stores nothing
+  const unsigned char* xr = reinterpret_cast<const unsigned char*>(xs + tid * stride);
   float acc[C];
 #pragma unroll
   for (int k = 0; k < C; ++k) acc[k] = 0.0f;
 
-  for (int t = 0; t < n_trees; ++t) {
-    int node = __ldg(roots + t);
-    for (int d = 0; d < max_depth; ++d) {
-      const float4 a = __ldg(nodes + 2 * node);      // num_idx, is_cat, group, local
-      const float4 r = __ldg(nodes + 2 * node + 1);  // thresh, left, right, default_left
-      if (r.y == r.z) break;                         // a leaf: its walk is over
-      float val;
-      if (a.y != 0.0f) {
-        float trial = ids[0];
+  for (int i = 0; i < n_tiles; ++i) {
+    const int4 tl = __ldg(tiles + i);
+    const unsigned char* tile = smem + (i & 1) * kTileBytes;
+    int next[kWalks];  // the byte offsets of the next kWalks trees' roots
 #pragma unroll
-        for (int g = 1; g < kMaxGroups; ++g) trial = a.z == static_cast<float>(g) ? ids[g] : trial;
-        val = trial == a.w ? 1.0f : 0.0f;
-      } else {
-        val = xr[__float2int_rz(a.x)];
+    for (int k = 0; k < kWalks; ++k) next[k] = __ldg(tree_off + min(tl.z + k, tl.w - 1)) * 8;
+    mbar_wait(&bar[i & 1], static_cast<unsigned>(i >> 1) & 1u);
+    for (int t = tl.z; t < tl.w; t += kWalks) {
+      const unsigned char* root[kWalks];
+      unsigned node[kWalks];
+#pragma unroll
+      for (int k = 0; k < kWalks; ++k) {
+        root[k] = tile + next[k];
+        node[k] = 0;
+        next[k] = __ldg(tree_off + min(t + kWalks + k, tl.w - 1)) * 8;
       }
-      bool go_left = cmp_lt ? val < r.x : val <= r.x;
-      if (zero_as_missing && val == 0.0f) go_left = r.w != 0.0f;
-      node = __float2int_rz(go_left ? r.y : r.z);
+      for (int s = 0; s < steps; ++s) {
+#pragma unroll
+        for (int k = 0; k < kWalks; ++k) {
+          const uint2 r = *reinterpret_cast<const uint2*>(root[k] + node[k]);
+          const unsigned m = r.y;
+          const unsigned w = *reinterpret_cast<const unsigned*>(xr + (m & kSlotMask));
+          const float wf = __uint_as_float(w), th = __uint_as_float(r.x);
+          // 8 (the right child's extra offset) or 0, kept as integers so
+          // that no bool is materialised: the numeric compare, else a
+          // categorical node's outcome bit (11 on a match, 12 otherwise;
+          // bit 3 after the shift)
+          unsigned right = (LT ? wf < th : wf <= th) ? 0u : 8u;
+          if (ZAM && wf == 0.0f) right = (m >> 7) & 8u;
+          const unsigned cat_right = (m >> (w == r.x ? 8 : 9)) & 8u;
+          right = (m & kIsCat) ? cat_right : right;
+          node[k] = (m >> kLeftShift) + right;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kWalks; ++k) {
+        if (t + k < tl.w) {
+          const float v = *reinterpret_cast<const float*>(root[k] + node[k]);
+          if (C == 1) {
+            acc[0] += v;
+          } else {
+            const int c = __ldg(tree_class + t + k);
+#pragma unroll
+            for (int j = 0; j < C; ++j)
+              if (c == j) acc[j] += v;
+          }
+        }
+      }
     }
-    const float v = __ldg(leaf + node);
-    const int c = __ldg(tree_class + t);
-#pragma unroll
-    for (int k = 0; k < C; ++k) acc[k] += c == k ? v : 0.0f;
+    __syncthreads();  // every thread is done with this buffer
+    if (tid == 0 && i + 2 < n_tiles) {
+      const int4 nx = __ldg(tiles + i + 2);
+      load_tile(smem + (i & 1) * kTileBytes, recs + nx.x, static_cast<unsigned>(nx.y),
+                &bar[i & 1]);
+    }
   }
+  if (tid < rows) {
+    const long long b = row0 + tid;
 #pragma unroll
-  for (int k = 0; k < C; ++k) out[b * C + k] = acc[k] + __ldg(base + k);
+    for (int k = 0; k < C; ++k) out[b * C + k] = acc[k] + __ldg(base + k);
+  }
+}
+
+template <int C, bool LT, bool ZAM>
+cudaError_t launch(const uint2* recs, const int4* tiles, const int* tree_off,
+                   const int* tree_class, const float* base, const float* x, const int* cid,
+                   float* out, int n_rows, int n_feat, int n_groups, int n_tiles, int steps,
+                   cudaStream_t st) {
+  // above 48 KB of dynamic shared memory only by this attribute, set on
+  // the current device
+  auto fn = forest_eval_kernel<C, LT, ZAM>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem_bytes(kMaxFeatures)));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const unsigned blocks = static_cast<unsigned>((n_rows + kThreads - 1) / kThreads);
+  forest_eval_kernel<C, LT, ZAM><<<blocks, kThreads, smem_bytes(n_feat), st>>>(
+      recs, tiles, tree_off, tree_class, base, x, cid, out, n_rows, n_feat, n_groups, n_tiles,
+      steps);
+  return cudaGetLastError();
 }
 
 template <int C>
-cudaError_t launch(const float4* nodes, const float* leaf, const int* roots,
-                   const int* tree_class, const float* base, const float* x, const int* cid,
-                   float* out, int n_rows, int n_feat, int n_groups, int n_trees, int max_depth,
-                   bool cmp_lt, bool zero_as_missing, cudaStream_t st) {
-  const unsigned blocks = static_cast<unsigned>((n_rows + kThreads - 1) / kThreads);
-  const size_t smem = static_cast<size_t>(kThreads) * n_feat * sizeof(float);
-  forest_eval_kernel<C><<<blocks, kThreads, smem, st>>>(nodes, leaf, roots, tree_class, base,
-                                                         x, cid, out, n_rows, n_feat, n_groups,
-                                                         n_trees, max_depth, cmp_lt,
-                                                         zero_as_missing);
-  return cudaGetLastError();
+cudaError_t launch_c(bool lt, bool zm, const uint2* recs, const int4* tiles,
+                     const int* tree_off, const int* tree_class, const float* base,
+                     const float* x, const int* cid, float* out, int n_rows, int n_feat,
+                     int n_groups, int n_tiles, int steps, cudaStream_t st) {
+  if (lt && zm)
+    return launch<C, true, true>(recs, tiles, tree_off, tree_class, base, x, cid, out, n_rows,
+                                 n_feat, n_groups, n_tiles, steps, st);
+  if (lt)
+    return launch<C, true, false>(recs, tiles, tree_off, tree_class, base, x, cid, out, n_rows,
+                                  n_feat, n_groups, n_tiles, steps, st);
+  if (zm)
+    return launch<C, false, true>(recs, tiles, tree_off, tree_class, base, x, cid, out, n_rows,
+                                  n_feat, n_groups, n_tiles, steps, st);
+  return launch<C, false, false>(recs, tiles, tree_off, tree_class, base, x, cid, out, n_rows,
+                                 n_feat, n_groups, n_tiles, steps, st);
 }
 
 }  // namespace
 
 // margins out (n_rows, n_classes) f32 of x (n_rows, n_feat) f32 and category
-// ids cid (n_rows, n_groups) int32 through the forest's node table nodes
-// (N, 8) f32 (16-byte aligned), leaf (N,) f32, roots and tree_class (T,)
-// int32 and base (n_classes,) f32; all contiguous.  1 <= n_groups <= 4,
-// 1 <= n_classes <= 8, n_feat <= 64 (the wrapper checks).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int forest_eval_launch(const void* nodes, const void* leaf, const void* roots,
-                                  const void* tree_class, const void* base, const void* x,
-                                  const void* cid, void* out, int n_rows, int n_feat,
-                                  int n_groups, int n_trees, int n_classes, int max_depth,
-                                  int cmp_lt, int zero_as_missing, void* stream) {
+// ids cid (n_rows, n_groups) int32 through a forest's packed records recs
+// (R, 2) int32 (16-byte aligned), its tiles (n_tiles, 4) int32 [first
+// record (even), bytes to copy (a multiple of 16), first tree, end tree],
+// each tree's first record within its tile tree_off (T,) int32, tree_class
+// (T,) int32 and base (n_classes,) f32; all contiguous.  Every walk takes
+// `steps` levels.  1 <= n_groups <= 4, 1 <= n_classes <= 8, n_feat <= 64,
+// tile_records == kTileRecords (the wrapper's packing) or the launch is
+// refused.  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
+extern "C" int forest_eval_packed_launch(const void* recs, const void* tiles,
+                                         const void* tree_off, const void* tree_class,
+                                         const void* base, const void* x, const void* cid,
+                                         void* out, int n_rows, int n_feat, int n_groups,
+                                         int n_tiles, int n_classes, int steps, int cmp_lt,
+                                         int zero_as_missing, int tile_records, void* stream) {
+  if (tile_records != kTileRecords || n_feat > kMaxFeatures || n_feat < 0 || n_groups < 1 ||
+      n_groups > kGroups || n_tiles < 1 || steps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return 0;
-  const float4* nd = static_cast<const float4*>(nodes);
-  const float* lf = static_cast<const float*>(leaf);
-  const int* rt = static_cast<const int*>(roots);
+  const uint2* rc = static_cast<const uint2*>(recs);
+  const int4* tl = static_cast<const int4*>(tiles);
+  const int* to = static_cast<const int*>(tree_off);
   const int* tc = static_cast<const int*>(tree_class);
   const float* bs = static_cast<const float*>(base);
   const float* xx = static_cast<const float*>(x);
@@ -132,10 +284,10 @@ extern "C" int forest_eval_launch(const void* nodes, const void* leaf, const voi
   float* o = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool lt = cmp_lt != 0, zm = zero_as_missing != 0;
-#define FOREST_EVAL_CASE(K)                                                                \
-  case K:                                                                                  \
-    return static_cast<int>(launch<K>(nd, lf, rt, tc, bs, xx, ci, o, n_rows, n_feat,       \
-                                      n_groups, n_trees, max_depth, lt, zm, st));
+#define FOREST_EVAL_CASE(K)                                                               \
+  case K:                                                                                 \
+    return static_cast<int>(launch_c<K>(lt, zm, rc, tl, to, tc, bs, xx, ci, o, n_rows,   \
+                                        n_feat, n_groups, n_tiles, steps, st));
   switch (n_classes) {
     FOREST_EVAL_CASE(1)
     FOREST_EVAL_CASE(2)

@@ -8,12 +8,20 @@ left, right, default_left] with per-node metadata resolved on the host
 (every field round-trips through f32 exactly: indices < 2^24), leaves
 self-looping so a finished walk stays put.
 
+Beside it `pack_kernel_records` builds the layout K5 reads, once on the
+host: one 8-byte record a node (`KernelForest`), each tree renumbered
+breadth first so that a node's children are an adjacent pair, the trees
+cut into tiles the kernel stages in shared memory.  A forest that
+overflows one of its fields packs with `kernel=None` and the reason in
+`kernel_refusal`; the plain walk still takes it, the kernel raises.
+
 `eval_margin` computes margins (B, C) = base_margin + the sum over each
 class's trees of the leaf a row reaches.  On CUDA it launches K5, the
-hand-written kernel `csrc/forest_eval.cu` (one thread per row, trees in a
-loop, per-class sums in registers, in tree order); a failed build or
-launch raises.  On the CPU it runs the plain version, `eval_margin_reference`:
-the JAX package's depth-bounded gather walk (exactly max_depth levels,
+hand-written kernel `csrc/forest_eval.cu` (a block's rows and a tile of
+records in shared memory, several walks in flight a thread, per-class
+sums in tree order); a failed build or launch raises.  On the CPU it runs
+the plain version, `eval_margin_reference`: the JAX package's
+depth-bounded gather walk (exactly max_depth levels,
 clipped takes), then each class's leaves summed in tree order in float32,
 the kernel's order.  The JAX package sums through an f32 `jnp.dot` and its
 numpy oracle in float64, so margins agree to a few ulps; the leaves a row
@@ -37,15 +45,63 @@ from .. import resolve_device
 from ..models.forest import FlatForest
 
 _KERNEL = "forest_eval"
-# the kernel keeps a row's category ids and class sums in registers
+# the kernel stages a row's category ids in MAX_GROUPS slots and keeps its
+# class sums in registers
 MAX_GROUPS = 4
 MAX_CLASSES = 8
-# it stages its block's feature rows in shared memory: 128 rows of at most
-# this many floats (32 KB)
+# it stages its block's rows in shared memory: 256 rows of MAX_GROUPS ids
+# and at most this many floats
 MAX_FEATURES = 64
+# records of one tile: one of the kernel's two shared-memory buffers
+# (32 KB; kTileRecords in csrc/forest_eval.cu).  A tree must fit in one.
+TILE_RECORDS = 4096
+
+# A kernel record is two 32-bit words.  Word 0: an internal numeric node's
+# threshold (f32 bits), a categorical node's category id (int32, any), a
+# leaf's value (f32 bits).  Word 1 (`meta`), by bit:
+#   0-8   SLOT: the byte offset in the staged row of the word the node
+#         reads: 4 g for a categorical node of group g (< MAX_GROUPS),
+#         4 (MAX_GROUPS + j) for numeric feature j (< MAX_FEATURES): < 512
+#   9     IS_CAT (leaves too: they never go right)
+#   10    DEFAULT_RIGHT: a numeric node's child for a value of 0.0 when
+#         zeros are missing is the right one
+#   11    CAT_MATCH_RIGHT: a categorical node goes right when the id matches
+#   12    CAT_MISS_RIGHT: ... when it does not (the value is then 0.0, so
+#         with zeros as missing this is DEFAULT_RIGHT)
+#   13    LEAF
+#   17-31 LEFT: the byte offset of the left child's record from its tree's
+#         first (8 x its index); the right child is the next record.  A
+#         leaf's own offset.  Below 2^15: a tree of at most TILE_RECORDS
+#         = 4,096 records.
+SLOT_MASK = (1 << 9) - 1
+IS_CAT_BIT = 1 << 9
+DEFAULT_RIGHT_BIT = 1 << 10
+CAT_MATCH_RIGHT_BIT = 1 << 11
+CAT_MISS_RIGHT_BIT = 1 << 12
+LEAF_BIT = 1 << 13
+LEFT_SHIFT = 17
 # the plain version walks at most this many (row, tree) pairs at a time:
 # 64 MB of gathered node records a level
 _PLAIN_PAIRS = 1 << 21
+
+
+@dataclass(frozen=True)
+class KernelForest:
+    """K5's layout of a forest (`pack_kernel_records`)."""
+
+    records: torch.Tensor   # (R, 2) int32: [threshold / category id / leaf value, meta]
+    trees: torch.Tensor     # (T,) int32 each tree's first record within its tile
+    tiles: torch.Tensor     # (n_tiles, 4) int32: [first record (even), bytes to copy
+                            #  (a multiple of 16), first tree, end tree]
+    node_of: torch.Tensor   # (R,) int64 the FlatForest node of each record (-1: padding)
+    steps: int              # levels every walk takes from its root
+
+    @property
+    def tree_tile(self) -> torch.Tensor:
+        """(T,) int64 the tile of each tree."""
+        t = torch.arange(self.trees.shape[0], device=self.trees.device)
+        return torch.searchsorted(self.tiles[:, 3].contiguous().to(torch.int64), t,
+                                  right=True)
 
 
 @dataclass(frozen=True)
@@ -68,6 +124,9 @@ class TorchForest:
     numeric_names: Tuple[str, ...]
     # each class's tree indices, in tree order (the plain class sum)
     class_trees: Tuple[Tuple[int, ...], ...] = ()
+    # K5's layout, or None and why the kernel does not take this forest
+    kernel: Optional[KernelForest] = None
+    kernel_refusal: str = ""
 
     @property
     def device(self) -> torch.device:
@@ -116,6 +175,15 @@ def pack_forest(f: FlatForest, device) -> TorchForest:
     def t(a, dtype):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
+    kernel, refusal = None, ""
+    try:
+        recs, trees, tiles, node_of, steps = pack_kernel_records(f)
+        kernel = KernelForest(records=t(recs, torch.int32), trees=t(trees, torch.int32),
+                              tiles=t(tiles, torch.int32), node_of=t(node_of, torch.int64),
+                              steps=steps)
+    except ValueError as e:
+        refusal = str(e)
+
     return TorchForest(
         nodes=t(nodes, torch.float32),
         leaf=t(f.leaf, torch.float32),
@@ -132,7 +200,115 @@ def pack_forest(f: FlatForest, device) -> TorchForest:
         numeric_names=tuple(lay.numeric_names),
         class_trees=tuple(tuple(int(i) for i in np.flatnonzero(tc == c))
                           for c in range(int(f.n_classes))),
+        kernel=kernel,
+        kernel_refusal=refusal,
     )
+
+
+def _bfs_levels(f: FlatForest):
+    """Each tree's nodes breadth first, every tree at once: per level
+    (nodes, trees, local indices, internal), trees in order and a node's
+    children adjacent.  At most max_depth + 1 levels, as many as the plain
+    walk's max_depth steps reach; a node on the last of them ends its walk
+    whatever it is."""
+    n_trees = f.n_trees
+    node = np.asarray(f.roots, np.int64)
+    tree = np.arange(n_trees, dtype=np.int64)
+    count = np.zeros(n_trees, np.int64)
+    levels = []
+    for lev in range(int(f.max_depth) + 1):
+        if node.size == 0:
+            break
+        internal = (f.feat[node] >= 0) & (lev < f.max_depth)
+        first = np.searchsorted(tree, tree, side="left")
+        local = count[tree] + np.arange(node.size) - first
+        count += np.bincount(tree, minlength=n_trees)
+        levels.append((node, tree, local, internal))
+        parents = node[internal]
+        node = np.stack([f.left[parents], f.right[parents]], axis=1).reshape(-1).astype(np.int64)
+        tree = np.repeat(tree[internal], 2)
+    return levels, count
+
+
+def pack_kernel_records(f: FlatForest):
+    """K5's layout of forest f: (records (R, 2) int32, each tree's first
+    record within its tile (T,) int32, tiles (n_tiles, 4) int32, the
+    FlatForest node of each record (R,) int64, steps).  Each tree is
+    renumbered breadth first from its root, so a node's children are an
+    adjacent pair; a node the plain walk's max_depth steps end on is a leaf
+    record holding its `leaf` value.  Every walk takes `steps` levels: the
+    levels below the root that any tree reaches, at most max_depth.  Trees
+    keep their order; a tile holds whole trees, at most TILE_RECORDS
+    records, and starts on a 16-byte boundary.  Raises ValueError where a
+    field overflows (see the record layout above)."""
+    lay = f.layout
+    what = f"forest {f.name!r}"
+    if len(lay.cat_group_names) > MAX_GROUPS:
+        raise ValueError(f"{what}: {len(lay.cat_group_names)} category groups; the kernel's "
+                         f"record and row hold at most {MAX_GROUPS}")
+    if len(lay.numeric_names) > MAX_FEATURES:
+        raise ValueError(f"{what}: {len(lay.numeric_names)} numeric features; the kernel's "
+                         f"record and row hold at most {MAX_FEATURES}")
+    if max(lay.cat_group_sizes, default=0) >= 1 << 31:
+        raise ValueError(f"{what}: a category id does not fit the record's int32")
+    levels, count = _bfs_levels(f)
+    steps = len(levels) - 1
+    big = int(count.max(initial=0))
+    if big > TILE_RECORDS:
+        raise ValueError(f"{what}: a tree of {big} records; the kernel's tile and its "
+                         f"child field hold {TILE_RECORDS}")
+    # tiles: whole trees in order, each tile from an even record
+    tiles, trees = [], np.zeros(f.n_trees, np.int64)
+    start, first_tree, used = 0, 0, 0
+    for t in range(f.n_trees):
+        if used + count[t] > TILE_RECORDS:
+            tiles.append((start, (used * 8 + 15) // 16 * 16, first_tree, t))
+            start += used + (used & 1)
+            first_tree, used = t, 0
+        trees[t] = used
+        used += int(count[t])
+    tiles.append((start, (used * 8 + 15) // 16 * 16, first_tree, f.n_trees))
+    n_rec = start + used + (used & 1)
+    if n_rec >= 1 << 31:
+        raise ValueError(f"{what}: {n_rec} records overflow the kernel's int32 offsets")
+    tile_arr = np.asarray(tiles, np.int64).reshape(-1, 4)
+    first_rec = np.repeat(tile_arr[:, 0], tile_arr[:, 3] - tile_arr[:, 2]) + trees
+
+    words = np.zeros((n_rec, 2), np.uint32)
+    node_of = np.full(n_rec, -1, np.int64)
+    ncat = lay.n_cat
+    offs = np.asarray(lay.cat_group_offsets + (ncat,), np.int64)
+    lt = f.cmp == "lt"
+    for lev, (node, tree, local, internal) in enumerate(levels):
+        rec = first_rec[tree] + local
+        node_of[rec] = node
+        meta = np.zeros(node.size, np.uint32)
+        word0 = f.leaf[node].astype(np.float32).view(np.uint32)
+        # leaves (and the nodes the walk ends on): their own offset, never right
+        meta |= np.where(internal, 0, (local << 3 << LEFT_SHIFT) | LEAF_BIT
+                         | IS_CAT_BIT).astype(np.uint32)
+        if internal.any():
+            kids = levels[lev + 1][2].reshape(-1, 2)[:, 0]       # left child's local index
+            i = np.flatnonzero(internal)
+            fe, th = f.feat[node[i]].astype(np.int64), f.thresh[node[i]].astype(np.float32)
+            right0 = ~f.default_left[node[i]].astype(bool)
+            cat = fe < ncat
+            g = np.searchsorted(offs, fe, side="right") - 1
+            slot = np.where(cat, g, MAX_GROUPS + fe - ncat)
+            match_r = ~((np.float32(1.0) < th) if lt else (np.float32(1.0) <= th))
+            miss_r = right0 if f.zero_as_missing else ~(
+                (np.float32(0.0) < th) if lt else (np.float32(0.0) <= th))
+            m = ((kids << 3 << LEFT_SHIFT) | (slot * 4) | np.where(right0, DEFAULT_RIGHT_BIT, 0)
+                 | np.where(cat, IS_CAT_BIT, 0)
+                 | np.where(cat & match_r, CAT_MATCH_RIGHT_BIT, 0)
+                 | np.where(cat & miss_r, CAT_MISS_RIGHT_BIT, 0))
+            meta[i] = m.astype(np.uint32)
+            word0[i] = np.where(cat, (fe - offs[np.clip(g, 0, None)]).astype(np.uint32),
+                                th.view(np.uint32))
+        words[rec, 0] = word0
+        words[rec, 1] = meta
+    return (words.view(np.int32), trees.astype(np.int32), tile_arr.astype(np.int32),
+            node_of, steps)
 
 
 def category_matrix(tf: TorchForest, cat_ids: Optional[Dict[str, torch.Tensor]],
@@ -227,6 +403,82 @@ def eval_margin_reference(tf: TorchForest, x_num: torch.Tensor,
     return out
 
 
+def _kernel_layout(tf: TorchForest) -> KernelForest:
+    if tf.kernel is None:
+        raise ValueError(f"K5 does not take this forest: {tf.kernel_refusal}")
+    return tf.kernel
+
+
+def _staged_rows(x: torch.Tensor, cid: torch.Tensor) -> torch.Tensor:
+    """(B, MAX_GROUPS + F) int32: a row as the kernel stages it, the
+    category ids in the first MAX_GROUPS words, then the features' f32
+    bits."""
+    ids = torch.zeros((x.shape[0], MAX_GROUPS), dtype=torch.int32, device=x.device)
+    ids[:, :cid.shape[1]] = cid
+    return torch.cat([ids, x.contiguous().view(torch.int32)], dim=1)
+
+
+def _walk_records(tf: TorchForest, rows: torch.Tensor) -> torch.Tensor:
+    """(B, T) int64 record each staged row ends on in each tree: the
+    kernel's walk, decoding each record as the kernel does."""
+    kf = _kernel_layout(tf)
+    root = (kf.tiles[kf.tree_tile, 0].to(torch.int64)
+            + kf.trees.to(torch.int64)).expand(rows.shape[0], -1)
+    node = torch.zeros_like(root)
+    for _ in range(kf.steps):
+        rec = kf.records[root + node]                          # (B, T, 2)
+        meta = rec[..., 1]
+        w = torch.gather(rows, 1, ((meta & SLOT_MASK) >> 2).to(torch.int64))
+        wf, th = w.view(torch.float32), rec[..., 0].view(torch.float32)
+        right = ~(wf < th) if tf.cmp_lt else ~(wf <= th)
+        if tf.zero_as_missing:
+            right = torch.where(wf == 0.0, (meta & DEFAULT_RIGHT_BIT) != 0, right)
+        cat_right = torch.where(w == rec[..., 0], (meta & CAT_MATCH_RIGHT_BIT) != 0,
+                                (meta & CAT_MISS_RIGHT_BIT) != 0)
+        right = torch.where((meta & IS_CAT_BIT) != 0, cat_right, right)
+        # meta is int32 here: mask the sign the arithmetic shift spreads
+        node = (((meta >> LEFT_SHIFT) & 0x7FFF) >> 3).to(torch.int64) + right.to(torch.int64)
+    return root + node
+
+
+def walk_packed(tf: TorchForest, x_num: torch.Tensor,
+                cat_ids: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """(B, T) int64: the FlatForest node each row ends on in each tree, by
+    the kernel's walk over its packed records (`pack_kernel_records`); the
+    tests hold it to `walk_leaves` leaf for leaf.  Raises ValueError for a
+    forest the kernel does not take."""
+    _check_inputs(tf, x_num)
+    kf = _kernel_layout(tf)
+    rows = _staged_rows(x_num, category_matrix(tf, cat_ids, x_num.shape[0], x_num.device))
+    out = torch.empty((x_num.shape[0], tf.n_trees), dtype=torch.int64, device=x_num.device)
+    step = _rows_per_pass(tf)
+    for i in range(0, x_num.shape[0], step):
+        out[i:i + step] = kf.node_of[_walk_records(tf, rows[i:i + step])]
+    return out
+
+
+def eval_margin_packed(tf: TorchForest, x_num: torch.Tensor,
+                       cat_ids: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """The kernel's plain twin on its own layout: the walk over the packed
+    records, then each class's leaf values (the end records' word 0) summed
+    in tree order in float32, plus the base margin.  Bitwise equal to
+    `eval_margin_reference`."""
+    _check_inputs(tf, x_num)
+    kf = _kernel_layout(tf)
+    b = x_num.shape[0]
+    rows = _staged_rows(x_num, category_matrix(tf, cat_ids, b, x_num.device))
+    out = torch.empty((b, tf.n_classes), dtype=torch.float32, device=x_num.device)
+    step = _rows_per_pass(tf)
+    for i in range(0, b, step):
+        lv = kf.records[_walk_records(tf, rows[i:i + step]), 0].view(torch.float32)
+        for c, trees in enumerate(tf.class_trees):
+            acc = torch.zeros_like(lv[:, 0])
+            for t in trees:
+                acc = acc + lv[:, t]
+            out[i:i + step, c] = acc + tf.base_margin[c]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
@@ -234,8 +486,8 @@ def eval_margin_reference(tf: TorchForest, x_num: torch.Tensor,
 def _launcher():
     from ..utils.cuda_build import load_kernel_library
 
-    fn = load_kernel_library(_KERNEL).forest_eval_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn = load_kernel_library(_KERNEL).forest_eval_packed_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -249,8 +501,14 @@ def _contiguous(name: str, t: torch.Tensor, dtype, align: int = 4) -> None:
 
 def eval_margin_cuda(tf: TorchForest, x_num: torch.Tensor, cid: torch.Tensor) -> torch.Tensor:
     """K5 on the current stream: margins (B, C) of the rows of x_num (B, F)
-    f32 with category ids cid (B, G) int32 (`category_matrix`).  Raises on
-    what the kernel does not take, and on a failed launch."""
+    f32 with category ids cid (B, G) int32 (`category_matrix`), through the
+    forest's packed records (`tf.kernel`).  Raises ValueError, without
+    launching, for a forest whose records overflow a field
+    (`pack_kernel_records`: at most MAX_GROUPS groups, MAX_FEATURES
+    numerics, TILE_RECORDS records a tree), for more than MAX_CLASSES
+    classes or MAX_FEATURES feature columns, and for tensors off the card;
+    RuntimeError on a failed launch."""
+    kf = _kernel_layout(tf)
     b = x_num.shape[0]
     dev = tf.device
     if dev.type != "cuda" or x_num.device != dev or cid.device != dev:
@@ -266,15 +524,15 @@ def eval_margin_cuda(tf: TorchForest, x_num: torch.Tensor, cid: torch.Tensor) ->
                          f"not {x_num.shape[1]}")
     _contiguous("x", x_num, torch.float32)
     _contiguous("category ids", cid, torch.int32)
-    _contiguous("nodes", tf.nodes, torch.float32, 16)
+    _contiguous("records", kf.records, torch.int32, 16)
     out = torch.empty((b, tf.n_classes), dtype=torch.float32, device=dev)
     launch = _launcher()
     with torch.cuda.device(dev):
-        err = launch(tf.nodes.data_ptr(), tf.leaf.data_ptr(), tf.roots.data_ptr(),
+        err = launch(kf.records.data_ptr(), kf.tiles.data_ptr(), kf.trees.data_ptr(),
                      tf.tree_class.data_ptr(), tf.base_margin.data_ptr(),
                      x_num.data_ptr(), cid.data_ptr(), out.data_ptr(),
-                     b, x_num.shape[1], g, tf.n_trees, tf.n_classes, tf.max_depth,
-                     int(tf.cmp_lt), int(tf.zero_as_missing),
+                     b, x_num.shape[1], g, kf.tiles.shape[0], tf.n_classes, kf.steps,
+                     int(tf.cmp_lt), int(tf.zero_as_missing), TILE_RECORDS,
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"forest_eval kernel launch failed: CUDA error {err}")

@@ -214,8 +214,9 @@ def test_plain_version_chunks_rows(monkeypatch):
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     """On the CPU eval_margin runs the plain version; the kernel's wrapper
-    raises for tensors off the card and for shapes the kernel does not
-    take, without launching."""
+    raises for tensors off the card, for shapes the kernel does not take
+    and for a forest whose packed records would overflow a field (here the
+    row slot: 65 numerics), without launching."""
     h = fixtures.heads(HEADS_SEED, "small")
     tp = tfe.pack_forest(h.stage1, "cpu")
     x = torch.zeros((4, 17))
@@ -226,6 +227,13 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         tfe.eval_margin(tp, torch.zeros((4, 16)))
     with pytest.raises(ValueError, match="float32"):
         tfe.eval_margin(tp, torch.zeros((4, 17), dtype=torch.float64))
+    lay = h.stage1.layout
+    wide = dataclasses.replace(h.stage1, layout=dataclasses.replace(
+        lay, numeric_names=lay.numeric_names + tuple(f"extra{i}" for i in range(48))))
+    tw = tfe.pack_forest(wide, "cpu")
+    assert tw.kernel is None
+    with pytest.raises(ValueError, match="65 numeric features"):
+        tfe.eval_margin_cuda(tw, torch.zeros((4, 65)), torch.zeros((4, 1), dtype=torch.int32))
     assert tfe.eval_margin_cuda.launches == before
 
 
