@@ -145,13 +145,31 @@ Phases, in order (any failure raises and exits non-zero):
     launches, as many as fill about 6 s of exact mode after a warm-up (at
     most 2), each with the summary checks, exact mode's forests through K5
     only (the plain walk never called, no K5 launch in a table turn), and
-    the two games/s side by side.
+    the two games/s side by side;
+13. inputs from files: a schema-B SP+ sheet of 136 teams
+    (`fixtures.write_sp_sheet`) and the focus sheet written to a temporary
+    directory; the SP+ load, `load_heads(fixtures.ARTIFACT_DIR)` cold and
+    warm (the memo) and `load_reconstructed_heads` (the committed
+    sklearn-1.9 overlay) timed on the host, and in a subprocess where
+    sklearn, joblib and pandas cannot be imported the same loads succeed
+    and none of them enters sys.modules; K5 on every loaded forest (stage
+    1, stage 2 and the overlay's stage 2, nine quantile forests, fumble,
+    play) bitwise equal to its plain walk at B = 65,536, held ms a play
+    beside `forest_bound`; the nano build a direction timed; then, between
+    setting the counts to 0 and reading them,
+    `simulate_upcoming_matchup_columns` (65,536 pairs) in exact mode with
+    the focus sheet and in table mode without it, each with the summary
+    checks and equal column for column to the same run composed by hand
+    (contexts, heads, `MatchupRunner`), games/s of the hand-composed runs;
+    `simulate_live_game` and `evaluate_fourth_down` through `sp_path=`;
+    `simulate_slate_summary_rows(sp_path=, layout="game_shard")` over 2
+    matchups (`SlateRunner(heads=)`).
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
-9, 10, 11, 12) and read just after it; a path that launched one of its
+9, 10, 11, 12, 13) and read just after it; a path that launched one of its
 kernels no time fails.  forest_eval's launches in the JSON line are exact
-mode's; its times are per play (11 launches), the bound too.  The JSON
-line's philox_draws launches are the main path's, the live queries', the
-slate path's and phase 11's.
+mode's and phase 13's; its times are per play (11 launches), the bound
+too.  The JSON line's philox_draws launches are the main path's, the live
+queries', the slate path's, phase 11's and phase 13's.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
 (`probes.kernels.held_ms`; `kernel_times` for philox_draws, the fused
@@ -223,6 +241,10 @@ K5_BS = (65_536, 1, 255, 257, 65_573)  # K5 against its plain version: the launc
 EXACT_LAUNCH_GAMES = 65_536        # exact mode's games a launch
 EXACT_TARGET_S = 12                # exact mode's timed launches fill about this
 EXACT_MAX_LAUNCHES = 4
+SP_TEAMS, SP_SEED = 136, 0         # the 2025 SP+ sheet's FBS teams (fixtures.write_sp_sheet)
+FILE_PAIRS = 65_536                # simulate_upcoming_matchup n (pairs): 131,072 games
+FILE_LIVE_GAMES = 65_536           # the JAX package's simulate_live_game default
+FILE_SLATE_PAIRS = 16_384          # a slate matchup's pairs: one 65,536-game launch
 # each kernel of the JSON line and its source in csrc/
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
@@ -1832,6 +1854,233 @@ def phase_exact(card: str) -> dict:
             "table_gps": table_gps, "build_s": build_s}
 
 
+def _columns_summary(scores, team_a: str):
+    """The ScoreSummary (on the card) of `scores_columns` rows: each game's
+    (team A, team B) points."""
+    import torch
+    from fast_monte_carlo_tpu_torch.parallel.aggregate import score_moments, summary_from_moments
+
+    a_first = scores["team"] == team_a
+    sa = np.where(a_first, scores["pts"], scores["opp_pts"])
+    sb = np.where(a_first, scores["opp_pts"], scores["pts"])
+    score = torch.tensor(np.stack([sa, sb], axis=1).astype(np.int32), device="cuda")
+    return summary_from_moments(score_moments(score))
+
+
+def _same_columns(got, want, what: str) -> None:
+    check(list(got) == list(want) and all(np.array_equal(np.asarray(got[c]),
+                                                         np.asarray(want[c])) for c in want),
+          f"{what}: every column equal to the run composed by hand "
+          f"({len(next(iter(want.values()))):,} rows)")
+
+
+def phase_files(card: str) -> dict:
+    """Inputs from files: a schema-B SP+ sheet and a focus sheet written to
+    a temporary directory, the trained-head fixture directory
+    (`fixtures.ARTIFACT_DIR`) and the committed overlay read by the
+    sklearn-free loaders; K5 on every loaded forest against its plain walk;
+    then the routes a user calls, each equal to the run composed by hand."""
+    import os
+    import tempfile
+
+    import torch
+    from fast_monte_carlo_tpu_torch import api, fixtures
+    from fast_monte_carlo_tpu_torch.config import SimConfig
+    from fast_monte_carlo_tpu_torch.data.context import build_team_context_from_sp_flex
+    from fast_monte_carlo_tpu_torch.data.sp import load_sp_flex
+    from fast_monte_carlo_tpu_torch.models import heads as heads_mod
+    from fast_monte_carlo_tpu_torch.models.tables import nano_profile
+    from fast_monte_carlo_tpu_torch.ops import forest_eval as fe
+    from fast_monte_carlo_tpu_torch.ops.game import Situation
+    from fast_monte_carlo_tpu_torch.ops.pack import build_packs
+    from fast_monte_carlo_tpu_torch.ops.table_lookup import build_table_heads
+    from fast_monte_carlo_tpu_torch.probes.kernels import held_ms, k5_args, k5_rows
+
+    dev = torch.device("cuda")
+    cfg = SimConfig()
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    sp_path = fixtures.write_sp_sheet(os.path.join(tmp.name, "sp.csv"), SP_TEAMS, SP_SEED)
+    focus_csv = os.path.join(tmp.name, "focus.csv")
+    fixtures.write_csv(focus_csv, fixtures.focus_rows(FOCUS_SEED), fixtures.FOCUS_COLS)
+    t0 = time.perf_counter()
+    sp = load_sp_flex(sp_path)
+    sp_s = time.perf_counter() - t0
+    check(len(sp) == SP_TEAMS + 2, f"SP+ sheet: {len(sp)} teams (Current and Past-only)")
+
+    heads_mod._HEADS_MEMO.clear()
+    t0 = time.perf_counter()
+    heads = heads_mod.load_heads(fixtures.ARTIFACT_DIR)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = heads_mod.load_heads(fixtures.ARTIFACT_DIR)
+    warm_s = time.perf_counter() - t0
+    check(again is heads, "load_heads warm returns the memoized instance")
+    recon = heads_mod.load_reconstructed_heads(fixtures.ARTIFACT_DIR)
+    check(recon.stage2.n_trees == 3 and recon.play_temperature == 1.45
+          and recon.stage1 is heads.stage1,
+          "load_reconstructed_heads: the committed sklearn-1.9 overlay read without sklearn")
+    code = ("import sys\n"
+            "for m in ('sklearn', 'joblib', 'pandas', 'jax'):\n"
+            "    sys.modules[m] = None\n"
+            "from fast_monte_carlo_tpu_torch import api, fixtures\n"
+            "from fast_monte_carlo_tpu_torch.models import heads\n"
+            "h = heads.load_heads(fixtures.ARTIFACT_DIR)\n"
+            "r = heads.load_reconstructed_heads(fixtures.ARTIFACT_DIR)\n"
+            "assert h.stage1 is not None and r.stage2 is not None\n"
+            "print(sorted(m for m in ('sklearn', 'joblib', 'pandas', 'jax', "
+            "'fast_monte_carlo_tpu') if sys.modules.get(m) is not None))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0 and out.stdout.strip() == "[]",
+          "a process where sklearn, joblib and pandas cannot be imported loads the heads "
+          f"and the overlay; none of them (nor jax) in sys.modules ({out.stderr[-300:]!r})")
+
+    # K5 on every loaded forest against its plain walk, bitwise
+    forests = {"stage1": heads.stage1, "stage2": heads.stage2, "stage2_overlay": recon.stage2,
+               "fumble": heads.fumble, "play": heads.play}
+    for kind, trio in (("pq", heads.pass_quants), ("rq", heads.rush_quants),
+                       ("sq", heads.sack_quants)):
+        forests.update({f"{kind}{i}": f for i, f in enumerate(trio)})
+    play = ["stage1", "stage2"] + [f"{k}{i}" for k in ("pq", "rq", "sq") for i in range(3)]
+    packed = {k: fe.pack_forest(f, dev) for k, f in forests.items()}
+    refused = [k for k, tf in packed.items() if tf.kernel is None]
+    check(not refused, f"every loaded forest packs into K5's records (refused: {refused})")
+    rng = np.random.default_rng(131)
+    pack, _ = build_packs(*fixtures.focus_teams(FOCUS_SEED), heads, cfg, dev,
+                          fixtures.COACH_MAP)
+    x, ids = k5_rows(pack, rng, K5_BS[0], dev)
+    for g in ids:     # ids over the forests' split categories, unseen ones and -1
+        used = [f.used_cat_locals(g) for f in forests.values()
+                if g in f.layout.cat_group_names]
+        size = max(f.layout.cat_group_sizes[f.layout.cat_group_names.index(g)]
+                   for f in forests.values() if g in f.layout.cat_group_names)
+        pool = np.concatenate([[-1], *used, rng.integers(0, size, 64)])
+        ids[g] = torch.tensor(rng.choice(pool, K5_BS[0]).astype(np.int32), device=dev)
+    per, equal = {}, 0
+    for name, tf in packed.items():
+        xx, cats = k5_args(tf, x, ids)
+        got = fe.eval_margin(tf, xx, cats)
+        want = fe.eval_margin_reference(tf, xx, cats)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        equal += int(same)
+        check(same, f"K5 {name} (T={tf.n_trees}, depth {tf.max_depth}, C={tf.n_classes}) on "
+              f"the loaded heads at B={K5_BS[0]:,}: bitwise equal to the plain walk "
+              f"(max|d| {float((got - want).abs().max()):.3g})")
+        if name in play:
+            nbytes, counts = forest_bound(forests[name], tf, fe.walk_leaves(tf, xx, cats),
+                                          xx.shape[1])
+            per[name] = dict(ms=held_ms(lambda: fe.eval_margin(tf, xx, cats), 20)[0],
+                             nbytes=nbytes, counts=counts)
+    counts = {c: sum(per[k]["counts"].get(c, 0.0) for k in play) for c in RATES if c != "bytes"}
+    k5 = {"ms": sum(per[k]["ms"] for k in play),
+          **bound(sum(per[k]["nbytes"] for k in play), counts)}
+    print(f"  K5 per play on the loaded heads ({len(play)} forests, B={K5_BS[0]:,}): "
+          f"{k5['ms']:.4f} ms held, bound {k5['bound_ms']:.4f} ms ({k5['bound_class']}, "
+          f"{k5['bound_ms'] / k5['ms']:.1%} of it); stage 2 {per['stage2']['ms']:.4f} ms, "
+          f"a quantile forest {per['pq1']['ms']:.4f} ms ({card})")
+
+    a = build_team_context_from_sp_flex("Team A", 2025, 1, sp)
+    b = build_team_context_from_sp_flex("Team B", 2025, 1, sp)
+    t0 = time.perf_counter()
+    build_table_heads(a, b, heads, cfg, nano=nano_profile(), device=dev)
+    build_s = (time.perf_counter() - t0) / 2
+    print(f"  inputs (host): SP+ sheet of {SP_TEAMS} teams read in {sp_s:.4f} s, load_heads "
+          f"cold {cold_s:.3f} s, warm {warm_s * 1e3:.3f} ms, nano build {build_s:.2f} s a "
+          f"direction ({card})")
+
+    # the routes alone between the counts' reset and their reading; the runs
+    # composed by hand that they are held to come after
+    kw = dict(artifact_dir=fixtures.ARTIFACT_DIR, n=FILE_PAIRS, seed=7)
+    modes = (("exact", focus_csv), ("table", None))
+    live_kw = dict(sp_path=sp_path, artifact_dir=fixtures.ARTIFACT_DIR)
+    q4 = Situation(offense=0, sec=300, down=2, dist=7.0, ytg=40.0, score_a=21, score_b=17)
+    games = [("Team A", "Team B"), ("Team 000", "Team 001")]
+    routes, k5_route = {}, {}
+    plain_calls = []
+    plain = fe.eval_margin_reference
+    fe.eval_margin_reference = lambda *a, **k: plain_calls.append(1) or plain(*a, **k)
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        for mode, focus in modes:
+            before = fe.eval_margin_cuda.launches
+            routes[mode] = api.simulate_upcoming_matchup_columns(
+                "Team A", "Team B", sp_path=sp_path, focus_csv=focus, mode=mode, **kw)
+            torch.cuda.synchronize()
+            k5_route[mode] = fe.eval_margin_cuda.launches - before
+        row, _ = api.simulate_live_game("Team A", "Team B", q4, n_games=FILE_LIVE_GAMES,
+                                        **live_kw)
+        fourth = api.evaluate_fourth_down(
+            "Team A", "Team B", Situation(offense=1, sec=420, down=4, dist=2.0, ytg=33.0,
+                                          score_a=14, score_b=10),
+            n_games=FILE_LIVE_GAMES, **live_kw)
+        rows, summs = api.simulate_slate_summary_rows(
+            games, sp_path=sp_path, artifact_dir=fixtures.ARTIFACT_DIR,
+            n_pairs=FILE_SLATE_PAIRS, chunk_pairs=FILE_SLATE_PAIRS, layout="game_shard")
+        torch.cuda.synchronize()
+        launches = read_counts("inputs-from-files path", ["philox_draws", "forest_eval"])
+    finally:
+        fe.eval_margin_reference = plain
+    check(not plain_calls and k5_route["exact"] > 0 and k5_route["exact"] % len(play) == 0
+          and launches["forest_eval"] == k5_route["exact"],
+          f"the exact route evaluated its forests through K5 only: {k5_route['exact']} "
+          f"launches, {len(play)} a play, the plain walk called {len(plain_calls)} times")
+    check(k5_route["table"] == 0, "the table route (nano tables from the loaded heads) "
+          "launched no forest walk")
+
+    gps, warm = {}, {}
+    for mode, focus in modes:
+        scores, players, summary, _, _, meta = routes[mode]
+        n_games = 2 * FILE_PAIRS
+        gps[mode] = n_games / meta["sim_time_sec"]
+        check_summary(_columns_summary(scores, "Team A"), n_games,
+                      f"simulate_upcoming_matchup, mode={mode!r}")
+        ha = build_team_context_from_sp_flex("Team A", 2025, 1, sp, focus_csv=focus)
+        hb = build_team_context_from_sp_flex("Team B", 2025, 1, sp, focus_csv=focus)
+        runner = api.MatchupRunner(ha, hb, heads, cfg, mode)
+        before = fe.eval_margin_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.run_pairs(FILE_PAIRS, seed=7, collect_players=True)
+        want_scores = api.scores_columns(out, "Team A", "Team B")
+        warm[mode] = n_games / (time.perf_counter() - t0)
+        check(fe.eval_margin_cuda.launches - before == k5_route[mode],
+              f"mode={mode!r}: the run composed by hand launched K5 as often as the route "
+              f"({k5_route[mode]})")
+        _same_columns(scores, want_scores, f"simulate_upcoming_matchup, mode={mode!r}")
+        _same_columns(players, api.players_columns(out, ha, hb),
+                      f"its player rows, mode={mode!r}")
+        print(f"  {mode}: the route {gps[mode]:,.0f} games/s (its sim_time_sec "
+              f"{meta['sim_time_sec']:.2f} s, the runner's build included), the same run composed by hand {warm[mode]:,.0f} "
+              f"games/s (warm), {n_games:,} games ({card}); mean pts "
+              f"{summary['mean_pts'].round(3).tolist()}, win "
+              f"{summary['win_rate'].round(4).tolist()}")
+
+    check(row["n_games"] == FILE_LIVE_GAMES and abs(row["win_a"] + row["win_b"] + row["tie"]
+                                                    - 1) < 1e-6 and row["win_a"] > 0.5,
+          f"simulate_live_game from the sheet: win A {row['win_a']:.4f} up 21-17 at Q4 05:00")
+    check(set(fourth["choices"]) == {"fg", "go", "policy", "punt"}
+          and fourth["best"] in ("fg", "go", "punt"),
+          f"evaluate_fourth_down from the sheet: best {fourth['best']}, "
+          f"{ {c: r['win_off'] for c, r in fourth['choices'].items()} }")
+    check([(r["team_a"], r["team_b"]) for r in rows] == games
+          and all(r["n_games"] == 2 * FILE_SLATE_PAIRS for r in rows),
+          "simulate_slate_summary_rows from the sheet (SlateRunner(heads=), game_shard): "
+          + ", ".join(f"{r['team_a']} {r['mean_a']:.2f}-{r['mean_b']:.2f}" for r in rows))
+    for (ta, tb), sm in zip(games, summs):
+        check(int(sm.n) == 2 * FILE_SLATE_PAIRS and abs(float(sm.win_rate.sum())
+                                                        + float(sm.tie_rate) - 1) < 1e-5
+              and 10 < float(sm.mean_pts.min()) and float(sm.mean_pts.max()) < 50,
+              f"slate game {ta} vs {tb}: summary well formed")
+    tmp.cleanup()
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s; the routes' own rates: "
+          f"exact {gps['exact']:,.0f} and table {gps['table']:,.0f} games/s ({card})")
+    return {"launches": launches, "k5": k5, "gps": gps, "warm_gps": warm, "sp_s": sp_s,
+            "cold_s": cold_s, "warm_s": warm_s, "build_s": build_s}
+
+
 def check_summary(summary, games: int, what: str) -> None:
     """n, rates summing to 1, mean points in (10, 50), histograms summing
     to n, no NaN."""
@@ -1945,10 +2194,18 @@ def main() -> int:
     print("[12] exact mode and tables from heads: K5 (forest_eval) vs plain torch, "
           "MatchupRunner(mode='exact') and mode='table' with heads on cuda")
     exact = phase_exact(card)
+    print("[13] inputs from files: an SP+ sheet and the trained-head fixture directory "
+          "through load_heads, simulate_upcoming_matchup and the sp_path= routes on cuda")
+    files = phase_files(card)
     print(f"  philox_draws launches: main path {k['launches']}, props path "
           f"{props['launches']}, live queries {live['launches']}, slate path "
-          f"{slate['launches']}, multi-leg/season/slate props {multi['launches']}")
-    k["launches"] += live["launches"] + slate["launches"] + multi["launches"]
+          f"{slate['launches']}, multi-leg/season/slate props {multi['launches']}, "
+          f"inputs from files {files['launches']['philox_draws']}")
+    print(f"  forest_eval launches: exact mode {exact['launches']}, inputs from files "
+          f"{files['launches']['forest_eval']}")
+    k["launches"] += (live["launches"] + slate["launches"] + multi["launches"]
+                      + files["launches"]["philox_draws"])
+    exact["launches"] += files["launches"]["forest_eval"]
     k["max_abs_err"] = max(k["max_abs_err"], slate["draw_err"])
 
     rows = {"philox_draws": k, **fused, **gathers, "forest_eval": exact}

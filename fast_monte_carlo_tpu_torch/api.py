@@ -12,9 +12,18 @@ Compute modes:
                (the K5 kernel on the card): the fidelity oracle that table
                mode is held to
   'analytic' - artifact-free closed-form heads
-Trained heads come as arrays (`models.heads.model_heads_from_numpy`) or
-from `fixtures.heads`: the loaders of the reference's artifacts are not
-ported (ROADMAP.md queue 1).
+Trained heads come from an artifact directory (`models.heads.load_heads`,
+read without sklearn), as arrays (`models.heads.model_heads_from_numpy`) or
+from `fixtures.heads`.
+
+A user's run starts from an SP+ sheet and an artifact directory:
+`simulate_upcoming_matchup` (with its pandas-free core
+`simulate_upcoming_matchup_columns`) builds both teams' contexts
+(`data.context.build_team_context_from_sp_flex`) and loads the heads, and
+every entry point below takes the same `sp_path=`/`artifact_dir=`/
+`focus_csv=` route (memoized contexts, heads and runners), beside the built
+inputs the tests and the smoke pass (`runner=`, `contexts=`,
+`nano_tables=`).
 
 Outputs: `scores_columns`, `players_columns` and `summary_columns` return
 the columns of the JAX package's `scores_frame`, `players_frame` and
@@ -25,20 +34,18 @@ the same pattern.
 
 Live queries resume games from a mid-game `Situation` (`run_live`,
 `run_live_batch`, `run_fourth_decision`; `simulate_live_game`,
-`simulate_live_curve`, `evaluate_fourth_down`).  The JAX entry points build
-their runner from an SP+ sheet and trained heads, neither of which is in
-the repository, so the port's take a built `runner=`.
+`simulate_live_curve`, `evaluate_fourth_down`), each from an SP+ sheet
+and trained heads or from a built `runner=`.
 
 Weekly slates: `SlateRunner` plays every matchup of a slate in one
 `simulate_games` call (direction row gid*2 + off into one pack and one
 nano table); `simulate_slate_summaries` runs a slate as a loop of
 per-matchup runners or through a `SlateRunner`, and `simulate_slate` as a
-loop of per-matchup score frames.  For the same reason as the live entry
-points they take built inputs, `contexts=` (a pair of `TeamContext`s per
-game) and `nano_tables=` (a pair of nano tables per game), in place of
-the JAX package's SP+ sheet and model artifacts.  Their DataFrames wrap
-pandas-free row cores (`SlateRunner.summary_rows`, `run_summary_rows`,
-`simulate_slate_summary_rows`, `simulate_slate_rows`).
+loop of per-matchup score frames.  Besides the SP+ sheet and artifacts
+they take built inputs, `contexts=` (a pair of `TeamContext`s per game)
+and `nano_tables=` (a pair of nano tables per game).  Their DataFrames
+wrap pandas-free row cores (`SlateRunner.summary_rows`,
+`run_summary_rows`, `simulate_slate_summary_rows`, `simulate_slate_rows`).
 
 Markets that only a joint per-game simulation can price:
 `simulate_parlay` (a same-game parlay, its leg correlations and round
@@ -50,8 +57,10 @@ pandas-free cores `simulate_parlay_core`, `project_season_rows` and
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -60,18 +69,19 @@ import torch
 
 from . import edge, resolve_device
 from .config import SimConfig
-from .data.context import TeamContext
+from .data.context import TeamContext, build_team_context_from_sp_flex
+from .data.sp import load_sp_flex, norm_team
 from .matchup import build_direction
 from .models import analytic
-from .models.heads import ModelHeads
+from .models.heads import DEFAULT_ARTIFACT_DIR, ModelHeads, load_heads
 from .models.tables import HostTable, nano_profile
 from .ops.game import (GameState, Situation, make_analytic_heads_eval,
                        make_exact_heads_eval, play_step, simulate_games,
                        state_from_situation)
 from .ops.pack import pack_heads, pack_matchup, pack_matchups
 from .ops.rng import fold_in, root_key, step_draws
-from .ops.table_lookup import (build_table_heads, make_table_heads_eval, pack_tables,
-                               pack_tables_multi)
+from .ops.table_lookup import (build_table_heads, make_table_heads_eval,
+                               nano_tables_from_heads, pack_tables, pack_tables_multi)
 from .parallel.aggregate import (ScoreMoments, ScoreSummary, score_moments,
                                  summary_from_moments)
 from .stats import (PC_ATT, PC_COMP, PC_INT, PC_SACKS, PC_TD, PC_YDS, PLAYER_COLS,
@@ -86,8 +96,8 @@ FORCED_PLAY_STREAM = 1 << 20
 # a Situation's fields as tensors: i32 discrete fields, f32 yardages
 _SITUATION_DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32,
                      torch.float32, torch.int32, torch.int32)
-SHARD_NOT_PORTED = ("shard=True is not ported yet (ROADMAP.md P9: trial sharding over "
-                    "torch.distributed)")
+SHARD_NOT_PORTED = ("shard=True is not ported yet (ROADMAP.md queue 1, P9: trial sharding "
+                    "over torch.distributed)")
 
 
 @dataclass
@@ -123,12 +133,14 @@ class MatchupRunner:
         if self.mode == "table":
             if self.table_quality != "nano":
                 raise NotImplementedError(
-                    f"table_quality={self.table_quality!r}: only 'nano' is ported")
+                    f"table_quality={self.table_quality!r}: only 'nano' is ported "
+                    "(ROADMAP.md queue 1: the other table layouts)")
             if self.nano_tables is not None and self.heads is not None:
                 raise ValueError("table mode takes nano_tables or heads, not both")
             if self.nano_tables is not None:
                 self.heads_state = pack_tables(*self.nano_tables, device=self.device)
             elif self.heads is not None:
+                _need_table_heads(self.heads)
                 self.heads_state = build_table_heads(
                     self.team_a, self.team_b, self.heads, self.cfg, self.coach_map,
                     nano=nano_profile(), device=self.device)
@@ -285,6 +297,15 @@ class MatchupRunner:
                              collect_players=False, collect_stats=False, situation=sit,
                              init_state=init)
         return score_moments(out.score)
+
+
+def _need_table_heads(heads: ModelHeads) -> None:
+    """The nano build reads stage 1 and the three quantile trios."""
+    if heads.stage1 is None or not all(
+            (heads.pass_quants, heads.rush_quants, heads.sack_quants)):
+        raise ValueError("table mode from heads needs trained heads with stage 1 and the "
+                         "pass, rush and sack quantile forests (an artifact directory "
+                         "without them loads as empty heads)")
 
 
 def situation_from_fields(*, ytg, offense=0, sec=None, quarter=None, clock=None,
@@ -466,13 +487,15 @@ def simulate_matchup_columns(
     shard: bool = False,
     runner: Optional[MatchupRunner] = None,
     key: Optional[int] = None,
+    device=None,
 ) -> Tuple[Columns, Optional[Columns], MatchupRunner]:
     """n pairs of games: (scores columns, player columns or None, runner).
-    Table mode needs a runner built with nano_tables (or passes its
-    ValueError on); shard=True (trial sharding) is not ported (ROADMAP P9)."""
+    Without `runner`, a MatchupRunner of `heads` in `mode` on `device` (the
+    card by default); shard=True (trial sharding) is not ported (ROADMAP P9)."""
     if shard:
         raise NotImplementedError(SHARD_NOT_PORTED)
-    runner = runner or MatchupRunner(team_a, team_b, heads, cfg or SimConfig(), mode)
+    runner = runner or MatchupRunner(team_a, team_b, heads, cfg or SimConfig(), mode,
+                                     device=device)
     out = runner.run_pairs(n, seed=seed, collect_players=collect_players, key=key)
     return (scores_columns(out, team_a.name, team_b.name),
             players_columns(out, team_a, team_b) if collect_players else None, runner)
@@ -487,6 +510,160 @@ def simulate_matchup(team_a: TeamContext, team_b: TeamContext, heads=None, n: in
     scores, players, runner = simulate_matchup_columns(team_a, team_b, heads, n, **kw)
     return (pd.DataFrame(scores), None if players is None else _players_df(players),
             runner)
+
+
+# ---- a user's run: an SP+ sheet and an artifact directory ---------------------
+
+def csv_base_from(team_a: str, team_b: str, week: int, ext: str = ".csv") -> str:
+    return f"{norm_team(team_a)}_{norm_team(team_b)}_wk{int(week)}_sims{ext}"
+
+
+def _sheet_contexts(teams, sp_df, year: int, week: int, focus_csv, cfg: SimConfig):
+    """The memoized TeamContext of each of `teams` from an SP+ table."""
+    return tuple(build_team_context_from_sp_flex(t, year, week, sp_df, focus_csv=focus_csv,
+                                                 player_slots=cfg.engine.player_slots)
+                 for t in teams)
+
+
+def _one_of(what: str, built: str, given: bool, sp_path, focus_csv) -> None:
+    """A route takes the built input `built`= (`given`) or the SP+ sheet at
+    `sp_path`: exactly one of the two, else ValueError."""
+    if given and (sp_path is not None or focus_csv is not None):
+        raise ValueError(f"{what}: pass {built}= or sp_path= (with artifact_dir= and "
+                         "focus_csv=), not both")
+    if not given and sp_path is None:
+        raise ValueError(f"{what} needs sp_path= (an SP+ sheet; the heads come from "
+                         f"artifact_dir=) or {built}=")
+
+
+def simulate_upcoming_matchup_columns(
+    team_a: str,
+    team_b: str,
+    *,
+    year: int = 2025,
+    week: int = 1,
+    sp_path: str,
+    artifact_dir: str = DEFAULT_ARTIFACT_DIR,
+    focus_csv: Optional[str] = None,
+    n: int = 1000,
+    seed: int = 0,
+    collect_players: bool = True,
+    save_csv: Optional[str] = None,
+    mode: str = "table",
+    shard: bool = False,
+    cfg: Optional[SimConfig] = None,
+    heads: Optional[ModelHeads] = None,
+    device=None,
+):
+    """The JAX package's `simulate_upcoming_matchup` without pandas: both
+    teams' contexts from the SP+ sheet at `sp_path` (rosters from
+    `focus_csv`), the heads of `artifact_dir` (or `heads`), n pairs of games
+    on a new MatchupRunner (`simulate_matchup_columns`), and with `save_csv`
+    the frames written (`_save_frames`).  Returns (scores columns, player
+    columns or None, summary columns, ctx_a, ctx_b, meta), meta with the
+    simulation's and the write's host seconds."""
+    cfg = cfg or SimConfig()
+    a, b = _sheet_contexts((team_a, team_b), load_sp_flex(sp_path), year, week, focus_csv, cfg)
+    heads = heads if heads is not None else load_heads(artifact_dir)
+
+    t0 = time.perf_counter()
+    scores, players, _ = simulate_matchup_columns(
+        a, b, heads, n, cfg=cfg, seed=seed, collect_players=collect_players, mode=mode,
+        shard=shard, device=device)
+    sim_time = time.perf_counter() - t0
+
+    summary = summary_columns(scores)
+    write_time = 0.0
+    if save_csv:
+        t_w = time.perf_counter()
+        _save_frames(save_csv, scores, players)
+        write_time = time.perf_counter() - t_w
+    meta = {"sim_time_sec": sim_time, "io_time_sec": write_time,
+            "total_time_sec": sim_time + write_time, "sims": n, "mode": mode}
+    return scores, players, summary, a, b, meta
+
+
+def simulate_upcoming_matchup(team_a: str, team_b: str, **kw):
+    """`simulate_upcoming_matchup_columns` with DataFrames, as the JAX
+    package returns them: (sims_df, players_df or None, summary indexed by
+    team, ctx_a, ctx_b, meta)."""
+    import pandas as pd
+
+    scores, players, summary, a, b, meta = simulate_upcoming_matchup_columns(
+        team_a, team_b, **kw)
+    return (pd.DataFrame(scores), None if players is None else _players_df(players),
+            pd.DataFrame(summary).set_index("team"), a, b, meta)
+
+
+def _csv_text(v) -> str:
+    """One cell as pandas' to_csv writes it: missing values empty, numpy
+    scalars by their shortest repr (float32 as float32)."""
+    if v is None or (isinstance(v, (float, np.floating)) and np.isnan(v)):
+        return ""
+    return str(v)
+
+
+def _write_columns_csv(path: str, cols: Columns) -> None:
+    """Columns written as pandas' `DataFrame(cols).to_csv(path, index=False)`
+    writes them."""
+    names = list(cols)
+    n = len(cols[names[0]]) if names else 0
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(names)
+        for i in range(n):
+            w.writerow([_csv_text(cols[c][i]) for c in names])
+
+
+def _save_frames(save_csv: str, scores: Columns, players: Optional[Columns]) -> None:
+    """`scores_<save_csv>` and `players_<save_csv>` in the working
+    directory: CSV through `csv`, or parquet (a `.parquet` name) through
+    pandas imported here; on any failure, CSV at `<name>.csv`, as the JAX
+    package falls back."""
+    try:
+        if save_csv.lower().endswith(".parquet"):
+            import pandas as pd
+
+            pd.DataFrame(scores).to_parquet(f"scores_{save_csv}", index=False)
+            if players is not None:
+                _players_df(players).to_parquet(f"players_{save_csv}", index=False)
+        else:
+            _write_columns_csv(f"scores_{save_csv}", scores)
+            if players is not None:
+                _write_columns_csv(f"players_{save_csv}", players)
+    except Exception:
+        _write_columns_csv(f"scores_{save_csv}.csv", scores)
+        if players is not None:
+            _write_columns_csv(f"players_{save_csv}.csv", players)
+
+
+def _prepared_contexts(team_a, team_b, *, sp_path, year, week, artifact_dir,
+                       focus_csv, cfg):
+    """The memoized cold-path loads the single-matchup entry points share:
+    (heads, ctx_a, ctx_b, cfg) — everything needed to validate a request,
+    before the runner's table build."""
+    cfg = cfg or SimConfig()
+    heads = load_heads(artifact_dir)
+    a, b = _sheet_contexts((team_a, team_b), load_sp_flex(sp_path), year, week, focus_csv, cfg)
+    return heads, a, b, cfg
+
+
+def _prepared_runner(team_a, team_b, *, sp_path, year, week, artifact_dir,
+                     focus_csv, mode, table_quality, cfg, shard, device):
+    """`_prepared_contexts` plus the runner memo (which builds the matchup's
+    tables).  Returns (runner, ctx_a, ctx_b, cfg)."""
+    heads, a, b, cfg = _prepared_contexts(
+        team_a, team_b, sp_path=sp_path, year=year, week=week,
+        artifact_dir=artifact_dir, focus_csv=focus_csv, cfg=cfg)
+    return (_runner_for(a, b, None, cfg, mode, table_quality, shard, device, heads),
+            a, b, cfg)
+
+
+def _route_runner(what: str, runner, team_a: str, team_b: str, **kw) -> "MatchupRunner":
+    """The given `runner`, or the memoized runner of the SP+ sheet route
+    (`_prepared_runner(team_a, team_b, **kw)`); one of the two, not both."""
+    _one_of(what, "runner", runner is not None, kw["sp_path"], kw["focus_csv"])
+    return runner if runner is not None else _prepared_runner(team_a, team_b, **kw)[0]
 
 
 # ---- live entry points --------------------------------------------------------
@@ -507,15 +684,6 @@ def host_summaries(*summaries: ScoreSummary) -> List[ScoreSummary]:
     return [ScoreSummary(*out[j:j + k]) for j in range(0, len(out), k)]
 
 
-def _need_runner(runner, what: str) -> "MatchupRunner":
-    if runner is None:
-        raise NotImplementedError(
-            f"{what} without runner= builds its runner from an SP+ sheet and the trained "
-            "heads' artifacts, which the port does not read yet (ROADMAP.md queue 1); "
-            "pass a built MatchupRunner")
-    return runner
-
-
 def _situation_fields(sit: Situation) -> dict:
     return {"offense": int(sit.offense), "sec": int(sit.sec), "down": int(sit.down),
             "dist": float(sit.dist), "ytg": float(sit.ytg),
@@ -523,16 +691,25 @@ def _situation_fields(sit: Situation) -> dict:
 
 
 def simulate_live_game(team_a: str, team_b: str, situation: Situation, *,
-                       runner: Optional[MatchupRunner] = None, n_games: int = 65536,
-                       seed: int = 0, shard: bool = False, chunk_games: int = 65536):
+                       sp_path: Optional[str] = None, year: int = 2025, week: int = 1,
+                       n_games: int = 65536, artifact_dir: str = DEFAULT_ARTIFACT_DIR,
+                       focus_csv: Optional[str] = None, mode: str = "table",
+                       table_quality: str = "nano", cfg: Optional[SimConfig] = None,
+                       seed: int = 0, shard: bool = False, chunk_games: int = 65536,
+                       runner: Optional[MatchupRunner] = None, device=None):
     """Live win probability and market distribution for one matchup:
     (row, ScoreSummary in numpy).  `row` is the headline dict of the JAX
     package's `simulate_live_game` (win and tie rates, means, sds); the
     summary's histograms price live markets through
-    `edge.market_odds_from_summary` and `edge.summary_moneyline`."""
-    runner = _need_runner(runner, "simulate_live_game")
+    `edge.market_odds_from_summary` and `edge.summary_moneyline`.  The
+    runner is the memoized one of the SP+ sheet at `sp_path` and the heads
+    of `artifact_dir` on `device`, or a built `runner=`."""
     if shard:
         raise NotImplementedError(SHARD_NOT_PORTED)
+    runner = _route_runner("simulate_live_game", runner, team_a, team_b, sp_path=sp_path,
+                           year=year, week=week, artifact_dir=artifact_dir,
+                           focus_csv=focus_csv, mode=mode, table_quality=table_quality,
+                           cfg=cfg, shard=shard, device=device)
     s, = host_summaries(runner.run_live(situation, n_games=n_games, seed=seed,
                                         chunk_games=chunk_games))
     row = {
@@ -549,13 +726,22 @@ def simulate_live_game(team_a: str, team_b: str, situation: Situation, *,
 
 
 def simulate_live_curve_columns(team_a: str, team_b: str, situations, *,
+                                sp_path: Optional[str] = None, year: int = 2025,
+                                week: int = 1, n_games_per: int = 8192,
+                                artifact_dir: str = DEFAULT_ARTIFACT_DIR,
+                                focus_csv: Optional[str] = None, mode: str = "table",
+                                table_quality: str = "nano",
+                                cfg: Optional[SimConfig] = None, seed: int = 0,
                                 runner: Optional[MatchupRunner] = None,
-                                n_games_per: int = 8192,
-                                seed: int = 0) -> Tuple[Columns, ScoreSummary]:
+                                device=None) -> Tuple[Columns, ScoreSummary]:
     """The win-probability curve (`MatchupRunner.run_live_batch`): the
     columns of the JAX package's `simulate_live_curve` frame, one row per
-    situation in input order, and the summary (numpy, a leading S axis)."""
-    runner = _need_runner(runner, "simulate_live_curve")
+    situation in input order, and the summary (numpy, a leading S axis).
+    The runner comes as in `simulate_live_game`."""
+    runner = _route_runner("simulate_live_curve", runner, team_a, team_b, sp_path=sp_path,
+                           year=year, week=week, artifact_dir=artifact_dir,
+                           focus_csv=focus_csv, mode=mode, table_quality=table_quality,
+                           cfg=cfg, shard=False, device=device)
     s, = host_summaries(runner.run_live_batch(situations, n_games_per=n_games_per,
                                               seed=seed))
     rows = []
@@ -584,16 +770,23 @@ def simulate_live_curve(team_a: str, team_b: str, situations, **kw):
 
 
 def evaluate_fourth_down(team_a: str, team_b: str, situation: Situation, *,
-                         runner: Optional[MatchupRunner] = None, n_games: int = 65536,
-                         seed: int = 0, chunk_games: int = 65536,
-                         choices=FOURTH_CHOICES) -> dict:
+                         sp_path: Optional[str] = None, year: int = 2025, week: int = 1,
+                         n_games: int = 65536, artifact_dir: str = DEFAULT_ARTIFACT_DIR,
+                         focus_csv: Optional[str] = None, mode: str = "table",
+                         table_quality: str = "nano", cfg: Optional[SimConfig] = None,
+                         seed: int = 0, chunk_games: int = 65536, choices=FOURTH_CHOICES,
+                         runner: Optional[MatchupRunner] = None, device=None) -> dict:
     """The 4th-down chart (`MatchupRunner.run_fourth_decision`): the
     offense's win probability under each forced choice beside the
     engine's own policy, as the JAX package's dict: {"team_a", "team_b",
     "situation", "choices": {choice: row} in sorted order, "best",
     "se_pp"} and, with "policy" priced, "best_vs_policy_pp".  'fg' rows
-    carry the kick's make probability."""
-    runner = _need_runner(runner, "evaluate_fourth_down")
+    carry the kick's make probability.  The runner comes as in
+    `simulate_live_game`."""
+    runner = _route_runner("evaluate_fourth_down", runner, team_a, team_b, sp_path=sp_path,
+                           year=year, week=week, artifact_dir=artifact_dir,
+                           focus_csv=focus_csv, mode=mode, table_quality=table_quality,
+                           cfg=cfg, shard=False, device=device)
     cfg = runner.cfg
     summaries = runner.run_fourth_decision(situation, n_games=n_games, seed=seed,
                                            chunk_games=chunk_games, choices=choices)
@@ -653,14 +846,18 @@ class SlateRunner:
     413 MB), so both methods run the shared table and game_shard only
     selects between them, as it does in the JAX package.
 
-    `nano_tables` holds one (A on offense, B on offense) nano table pair
-    per matchup (e.g. `fixtures.slate`).  `coach_map` matters only with a
-    play model, which is not ported: it is accepted and unused.  Trained
-    `heads`, another `quality` and `shard=True` (trial sharding over
-    several cards) raise NotImplementedError."""
+    The table holds one (A on offense, B on offense) nano table pair per
+    matchup: `nano_tables` given (e.g. `fixtures.slate`), or built from
+    trained `heads` (`ops.table_lookup.nano_tables_from_heads`, the build
+    `MatchupRunner(mode="table", heads=)` packs) and packed the same way,
+    so a slate from heads launches exactly what the same tables given by
+    hand launch.  `coach_map` names the teams' head coaches for the
+    directions (`matchup.build_direction`).  Another `quality` and
+    `shard=True` (trial sharding over several cards) raise
+    NotImplementedError."""
 
     matchups: List[Tuple[TeamContext, TeamContext]]
-    heads: Optional[object] = None
+    heads: Optional[ModelHeads] = None
     cfg: SimConfig = field(default_factory=SimConfig)
     coach_map: Optional[Dict[str, str]] = None
     quality: str = "nano"
@@ -672,24 +869,29 @@ class SlateRunner:
     def __post_init__(self):
         if self.shard:
             raise NotImplementedError(SHARD_NOT_PORTED)
-        if self.heads is not None:
-            raise NotImplementedError(
-                "SlateRunner(heads=) is not ported yet (ROADMAP.md queue 1 item 4: the "
-                "table build from heads runs per matchup in MatchupRunner); SlateRunner "
-                "takes nano_tables")
         if self.quality != "nano":
-            raise NotImplementedError(f"quality={self.quality!r}: only 'nano' is ported")
+            raise NotImplementedError(f"quality={self.quality!r}: only 'nano' is ported "
+                                      "(ROADMAP.md queue 1: the other table layouts)")
         if not self.matchups:
             raise ValueError("SlateRunner needs at least one matchup")
-        if self.nano_tables is None or len(self.nano_tables) != len(self.matchups):
+        if self.heads is not None and self.nano_tables is not None:
+            raise ValueError("SlateRunner takes nano_tables or heads, not both")
+        if self.heads is None and (self.nano_tables is None
+                                   or len(self.nano_tables) != len(self.matchups)):
             raise ValueError("SlateRunner needs one nano table pair per matchup "
-                             "(e.g. fixtures.slate(g, seed))")
+                             "(e.g. fixtures.slate(g, seed)) or trained heads")
         self.device = resolve_device("cuda" if self.device is None else self.device)
+        tables = self.nano_tables
+        if self.heads is not None:
+            _need_table_heads(self.heads)
+            tables = [nano_tables_from_heads(a, b, self.heads, self.cfg, self.coach_map)
+                      for a, b in self.matchups]
         dirs = []
         for a, b in self.matchups:
-            dirs += [build_direction(a, b, self.cfg), build_direction(b, a, self.cfg)]
+            dirs += [build_direction(a, b, self.cfg, self.heads, self.coach_map),
+                     build_direction(b, a, self.cfg, self.heads, self.coach_map)]
         self.pack = pack_matchups(dirs, self.device)
-        self.heads_state = pack_tables_multi(self.nano_tables, self.device)
+        self.heads_state = pack_tables_multi(tables, self.device)
         self.heads_fn = make_table_heads_eval(self.cfg)
 
     def _launch(self, n_pairs: int, key: int) -> GameState:
@@ -756,7 +958,7 @@ class SlateRunner:
             raise ValueError("run_summaries needs SlateRunner(game_shard=True)")
         if mesh is not None:
             raise NotImplementedError("mesh=: the ('game',) mesh over several cards is not "
-                                      "ported (ROADMAP.md P9); one card holds the slate")
+                                      "ported (ROADMAP.md queue 1, P9); one card holds the slate")
         if n_pairs_per_game <= 0:
             raise ValueError(f"n_pairs_per_game must be positive, got {n_pairs_per_game}")
         g = len(self.matchups)
@@ -816,14 +1018,19 @@ _RUNNER_MEMO_MAX = 128
 
 
 def _runner_for(a: TeamContext, b: TeamContext, tables, cfg: SimConfig, mode: str,
-                table_quality: str, shard: bool, device) -> MatchupRunner:
-    """The memoized MatchupRunner of one matchup."""
+                table_quality: str, shard: bool, device, heads=None) -> MatchupRunner:
+    """The memoized MatchupRunner of one matchup: table mode on the given
+    nano `tables`, else on tables built from `heads`; exact mode on
+    `heads`."""
+    if mode == "table" and tables is not None:
+        heads = None
     return _fifo_memo(
         _RUNNER_MEMO, _RUNNER_MEMO_MAX,
-        (id(a), id(b), tuple(id(t) for t in tables or ()), cfg, mode, table_quality,
-         shard, device),
-        lambda: MatchupRunner(a, b, None, cfg, mode=mode, table_quality=table_quality,
-                              nano_tables=tables, device=device, shard=shard))
+        (id(a), id(b), id(heads), tuple(id(t) for t in tables or ()), cfg, mode,
+         table_quality, shard, device),
+        lambda: MatchupRunner(a, b, heads, cfg, mode=mode, table_quality=table_quality,
+                              nano_tables=tables if mode == "table" else None,
+                              device=device, shard=shard))
 
 
 _GAME_SHARD_MEMO: Dict = {}
@@ -838,52 +1045,59 @@ _GAME_SHARD_FAILED_MAX = 16
 GAME_SHARD_QUALITIES = ("nano", "turbo", "fused")
 
 
-def _game_shard_runner(contexts, nano_tables, cfg: SimConfig, quality: str,
-                       device) -> SlateRunner:
-    """The memoized game_shard SlateRunner of a slate.  A slate whose build
-    failed raises that failure again without another build."""
+def _game_shard_runner(contexts, nano_tables, cfg: SimConfig, quality: str, device,
+                       heads=None) -> SlateRunner:
+    """The memoized game_shard SlateRunner of a slate, on the given nano
+    tables or on tables built from `heads`.  A slate whose build failed
+    raises that failure again without another build."""
+    if nano_tables is not None:
+        heads = None
     key = (tuple((id(a), id(b)) for a, b in contexts),
-           tuple(id(t) for pair in nano_tables or () for t in pair), cfg, quality, device)
+           tuple(id(t) for pair in nano_tables or () for t in pair), id(heads), cfg,
+           quality, device)
     if key in _GAME_SHARD_FAILED:
         raise ValueError("layout='game_shard': this slate previously failed to build: "
                          f"{_GAME_SHARD_FAILED[key][0]}")
     try:
         return _fifo_memo(
             _GAME_SHARD_MEMO, _GAME_SHARD_MEMO_MAX, key,
-            lambda: SlateRunner(list(contexts), None, cfg, quality=quality, game_shard=True,
+            lambda: SlateRunner(list(contexts), heads, cfg, quality=quality, game_shard=True,
                                 nano_tables=nano_tables, device=device))
     except Exception as e:   # recorded and raised again
         while len(_GAME_SHARD_FAILED) >= _GAME_SHARD_FAILED_MAX:
             _GAME_SHARD_FAILED.pop(next(iter(_GAME_SHARD_FAILED)))
-        _GAME_SHARD_FAILED[key] = (f"{type(e).__name__}: {e}", contexts, nano_tables)
+        _GAME_SHARD_FAILED[key] = (f"{type(e).__name__}: {e}", contexts, nano_tables, heads)
         raise
 
 
-def _slate_inputs(games, contexts, nano_tables, sp_path, artifact_dir, focus_csv, what: str):
-    """Raise unless the slate comes as built inputs: one context pair (and,
-    if given, one nano table pair) per game."""
-    if sp_path is not None or artifact_dir is not None or focus_csv is not None:
-        raise NotImplementedError(
-            f"{what}: sp_path=, artifact_dir= and focus_csv= build the slate's contexts and "
-            "tables from an SP+ sheet and the trained heads' artifacts, which the port does "
-            "not read yet (ROADMAP.md queue 1); pass contexts= and nano_tables=")
+def _slate_inputs(games, contexts, nano_tables, sp_path, year, week, artifact_dir,
+                  focus_csv, cfg: SimConfig, mode: str, what: str):
+    """A slate's (one context pair a game, the heads its runners build from
+    or None): the given `contexts`, or both teams of each game from the SP+
+    sheet at `sp_path` (rosters from `focus_csv`); the heads of
+    `artifact_dir` only where a runner needs them: exact mode, or table
+    mode without `nano_tables`."""
+    _one_of(what, "contexts", contexts is not None, sp_path, focus_csv)
     if contexts is None:
-        raise NotImplementedError(
-            f"{what} without contexts= builds them from an SP+ sheet, which is not ported "
-            "yet (ROADMAP.md queue 1); pass one (team A, team B) TeamContext pair per game")
+        sp_df = load_sp_flex(sp_path)
+        contexts = [_sheet_contexts(game, sp_df, year, week, focus_csv, cfg) for game in games]
     if len(contexts) != len(games) or (nano_tables is not None
                                        and len(nano_tables) != len(games)):
         raise ValueError(f"{what}: {len(games)} games need as many context pairs "
                          f"(got {len(contexts)}) and nano table pairs")
+    needs_heads = mode == "exact" or (mode == "table" and nano_tables is None)
+    return contexts, load_heads(artifact_dir) if needs_heads else None
 
 
 def simulate_slate_summary_rows(
     games: Sequence[Tuple[str, str]],
     *,
+    sp_path: Optional[str] = None,
+    year: int = 2025,
+    week: int = 1,
     contexts: Optional[Sequence[Tuple[TeamContext, TeamContext]]] = None,
     nano_tables: Optional[Sequence[Tuple[HostTable, HostTable]]] = None,
-    sp_path: Optional[str] = None,
-    artifact_dir: Optional[str] = None,
+    artifact_dir: str = DEFAULT_ARTIFACT_DIR,
     focus_csv: Optional[str] = None,
     n_pairs: int = 50000,
     mode: str = "table",
@@ -908,7 +1122,12 @@ def simulate_slate_summary_rows(
     (table mode; its rows name the contexts' teams).  'auto' is the loop:
     the JAX package picks the loop on one device too, and the port has no
     layout over several cards yet.  An empty slate returns ([], []) before
-    anything else is read."""
+    anything else is read.
+
+    The games' contexts come from the SP+ sheet at `sp_path` (`year`,
+    `week`, rosters from `focus_csv`) or as `contexts=`; the runners' tables
+    are `nano_tables=` (one pair a game) or are built from the heads of
+    `artifact_dir` (`_slate_inputs`)."""
     cfg = cfg or SimConfig()
     if layout not in ("auto", "loop", "game_shard"):
         raise ValueError(f"layout must be auto|loop|game_shard, got {layout!r}")
@@ -931,16 +1150,17 @@ def simulate_slate_summary_rows(
                 f"layout='game_shard' supports table_quality in "
                 f"{GAME_SHARD_QUALITIES} (got {table_quality!r}); other "
                 f"presets would silently degrade to a coarse fused table")
-    _slate_inputs(games, contexts, nano_tables, sp_path, artifact_dir, focus_csv,
-                  "simulate_slate_summaries")
+    contexts, heads = _slate_inputs(games, contexts, nano_tables, sp_path, year, week,
+                                    artifact_dir, focus_csv, cfg, mode,
+                                    "simulate_slate_summaries")
     if layout == "game_shard":
-        return _game_shard_runner(contexts, nano_tables, cfg, table_quality,
-                                  device).run_summary_rows(n_pairs, seed, chunk_pairs)
+        return _game_shard_runner(contexts, nano_tables, cfg, table_quality, device,
+                                  heads).run_summary_rows(n_pairs, seed, chunk_pairs)
     if shard:
         raise NotImplementedError(SHARD_NOT_PORTED)
     root = root_key(seed)
     summs = [_runner_for(a, b, nano_tables[gi] if nano_tables is not None else None, cfg,
-                         mode, table_quality, False, device).run_pairs_summary(
+                         mode, table_quality, False, device, heads).run_pairs_summary(
                              n_pairs, key=fold_in(root, gi), chunk_pairs=chunk_pairs)
              for gi, (a, b) in enumerate(contexts)]
     host = host_summaries(*summs)
@@ -959,12 +1179,14 @@ def simulate_slate_summaries(games, *, return_summaries: bool = False, **kw):
 def simulate_slate_rows(
     games: Sequence[Tuple[str, str]],
     *,
+    sp_path: Optional[str] = None,
+    year: int = 2025,
+    week: int = 1,
+    n: int = 1000,
     contexts: Optional[Sequence[Tuple[TeamContext, TeamContext]]] = None,
     nano_tables: Optional[Sequence[Tuple[HostTable, HostTable]]] = None,
-    sp_path: Optional[str] = None,
-    artifact_dir: Optional[str] = None,
+    artifact_dir: str = DEFAULT_ARTIFACT_DIR,
     focus_csv: Optional[str] = None,
-    n: int = 1000,
     mode: str = "table",
     table_quality: str = "nano",
     cfg: Optional[SimConfig] = None,
@@ -975,14 +1197,15 @@ def simulate_slate_rows(
     the game's memoized MatchupRunner under seed + gi
     (`simulate_matchup_columns`).  As in the JAX package, mean_margin_a and
     win_a read the games team A started with the ball, win_b those team B
-    started, mean_a and mean_b all of them."""
+    started, mean_a and mean_b all of them.  Inputs as
+    `simulate_slate_summary_rows` takes them."""
     cfg = cfg or SimConfig()
-    _slate_inputs(games, contexts, nano_tables, sp_path, artifact_dir, focus_csv,
-                  "simulate_slate")
+    contexts, heads = _slate_inputs(games, contexts, nano_tables, sp_path, year, week,
+                                    artifact_dir, focus_csv, cfg, mode, "simulate_slate")
     rows = []
     for gi, ((ta, tb), (a, b)) in enumerate(zip(games, contexts)):
         runner = _runner_for(a, b, nano_tables[gi] if nano_tables is not None else None,
-                             cfg, mode, table_quality, False, device)
+                             cfg, mode, table_quality, False, device, heads)
         sc, _, _ = simulate_matchup_columns(a, b, None, n, cfg=cfg, seed=seed + gi,
                                             mode=mode, runner=runner)
         team, pts, opp = sc["team"], sc["pts"], sc["opp_pts"]
@@ -1011,37 +1234,42 @@ def simulate_slate(games, **kw):
 # ---- multi-leg markets, season win totals, slate prop scans --------------------
 
 def simulate_parlay_core(team_a: str, team_b: str, legs, *,
-                         runner: Optional[MatchupRunner] = None,
-                         sp_path: Optional[str] = None, artifact_dir: Optional[str] = None,
-                         focus_csv: Optional[str] = None, n_pairs: int = 32768,
+                         sp_path: Optional[str] = None, year: int = 2025, week: int = 1,
+                         n_pairs: int = 32768, artifact_dir: str = DEFAULT_ARTIFACT_DIR,
+                         focus_csv: Optional[str] = None, mode: str = "table",
+                         table_quality: str = "nano", cfg: Optional[SimConfig] = None,
                          seed: int = 0, shard: bool = False, price: Optional[int] = None,
-                         correlations: bool = False, round_robin=None) -> dict:
-    """A same-game parlay for the runner's matchup (`edge.parlay_odds` over
+                         correlations: bool = False, round_robin=None,
+                         runner: Optional[MatchupRunner] = None, device=None) -> dict:
+    """A same-game parlay for one matchup (`edge.parlay_odds` over
     2*n_pairs games run once), with `leg_corr` = (leg labels, (L, L) numpy
     correlations) when `correlations` and the `edge.round_robin` card of
     the `round_robin` size spec under `round_robin`, all from the same
-    games.  The legs and the size spec are checked before anything runs;
-    player stats are collected only for a prop leg, the box score never.
+    games.  The legs and the size spec are checked before the runner is
+    built or anything runs; player stats are collected only for a prop
+    leg, the box score never.
 
-    The JAX package builds the runner from an SP+ sheet and trained heads,
-    which are not in the repository: pass a built `runner=` (its teams are
-    team_a and team_b)."""
-    if sp_path is not None or artifact_dir is not None or focus_csv is not None:
-        raise NotImplementedError(
-            "simulate_parlay: sp_path=, artifact_dir= and focus_csv= build the runner from an "
-            "SP+ sheet and the trained heads' artifacts, which the port does not read yet "
-            "(ROADMAP.md queue 1); pass runner=")
+    The matchup's contexts and heads come from the SP+ sheet at `sp_path`
+    and `artifact_dir` (the runner memoized, as in the live entry points),
+    or the matchup is a built `runner=` whose teams are team_a and team_b."""
     if shard:
         raise NotImplementedError(SHARD_NOT_PORTED)
-    runner = _need_runner(runner, "simulate_parlay")
-    a, b = runner.team_a, runner.team_b
-    if [edge._norm_team(t) for t in (team_a, team_b)] != \
-            [edge._norm_team(t.name) for t in (a, b)]:
-        raise ValueError(f"the runner plays {a.name} vs {b.name}, not {team_a} vs {team_b}")
-    # a bad leg or size spec fails before any launch
+    _one_of("simulate_parlay", "runner", runner is not None, sp_path, focus_csv)
+    if runner is None:
+        heads, a, b, cfg = _prepared_contexts(
+            team_a, team_b, sp_path=sp_path, year=year, week=week,
+            artifact_dir=artifact_dir, focus_csv=focus_csv, cfg=cfg)
+    else:
+        a, b = runner.team_a, runner.team_b
+        if [edge._norm_team(t) for t in (team_a, team_b)] != \
+                [edge._norm_team(t.name) for t in (a, b)]:
+            raise ValueError(f"the runner plays {a.name} vs {b.name}, not {team_a} vs {team_b}")
+    # a bad leg or size spec fails before the runner's build or any launch
     resolved = edge.resolve_parlay_legs(a, b, legs)
     if round_robin is not None:
         edge._rr_sizes(round_robin, len(legs))
+    if runner is None:
+        runner = _runner_for(a, b, None, cfg, mode, table_quality, False, device, heads)
     want_players = any(m["kind"] == "prop" for m in resolved[1])
     out = runner.run_pairs(n_pairs, seed=seed, collect_players=want_players,
                            collect_stats=False)
@@ -1072,12 +1300,14 @@ def project_season_rows(
     games: Optional[List[Tuple[str, str]]] = None,
     *,
     line: Optional[float] = None,
+    sp_path: Optional[str] = None,
+    year: int = 2025,
+    week: int = 1,
+    n_pairs: int = 50000,
     contexts: Optional[Sequence[Tuple[TeamContext, TeamContext]]] = None,
     nano_tables: Optional[Sequence[Tuple[HostTable, HostTable]]] = None,
-    sp_path: Optional[str] = None,
-    artifact_dir: Optional[str] = None,
+    artifact_dir: str = DEFAULT_ARTIFACT_DIR,
     focus_csv: Optional[str] = None,
-    n_pairs: int = 50000,
     mode: str = "table",
     table_quality: str = "nano",
     cfg: Optional[SimConfig] = None,
@@ -1089,8 +1319,9 @@ def project_season_rows(
 ) -> dict:
     """A team's season win total from per-game simulations: the schedule as
     `opponents` (the team is side A of each game) or as `games` rows with
-    the team on either side, one context pair (and nano table pair) per
-    game.  The games run through `simulate_slate_summary_rows`; the team's
+    the team on either side; contexts and tables as
+    `simulate_slate_summary_rows` takes them.  The games run through
+    `simulate_slate_summary_rows` (the loop layout); the team's
     strict win probability is read off each row by its side and composed
     exactly by `edge.season_win_market` (with `line`, the over/under at
     that win total).  Returns the market dict with `schedule`: the summary
@@ -1113,7 +1344,8 @@ def project_season_rows(
                 f"{tb!r}) doesn't include it")
     rows, _ = simulate_slate_summary_rows(
         list(games), contexts=contexts, nano_tables=nano_tables, sp_path=sp_path,
-        artifact_dir=artifact_dir, focus_csv=focus_csv, n_pairs=n_pairs, mode=mode,
+        year=year, week=week, artifact_dir=artifact_dir, focus_csv=focus_csv,
+        n_pairs=n_pairs, mode=mode,
         table_quality=table_quality, cfg=cfg, seed=seed, shard=shard,
         chunk_pairs=chunk_pairs, device=device)
     p_wins = [float(r[f"win_{s}"]) for s, r in zip(sides, rows)]
@@ -1144,13 +1376,15 @@ def _prop_sheet(props) -> List[dict]:
 def simulate_slate_prop_rows(
     games: Sequence[Tuple[str, str]],
     *,
+    sp_path: Optional[str] = None,
     props_csv,
+    year: int = 2025,
+    week: int = 1,
+    n_pairs: int = 8192,
     contexts: Optional[Sequence[Tuple[TeamContext, TeamContext]]] = None,
     nano_tables: Optional[Sequence[Tuple[HostTable, HostTable]]] = None,
-    sp_path: Optional[str] = None,
-    artifact_dir: Optional[str] = None,
+    artifact_dir: str = DEFAULT_ARTIFACT_DIR,
     focus_csv: Optional[str] = None,
-    n_pairs: int = 8192,
     mode: str = "table",
     table_quality: str = "nano",
     cfg: Optional[SimConfig] = None,
@@ -1169,11 +1403,11 @@ def simulate_slate_prop_rows(
     games counted) runs `run_pairs(n_pairs, key=fold_in(root_key(seed),
     gi), collect_players=True)` on its memoized runner and reduces its rows
     on the device; the reductions stay there until one host copy per
-    padded width at the end.  Takes `contexts=` and `nano_tables=` as
-    `simulate_slate_summary_rows` does."""
+    padded width at the end.  Contexts and tables as
+    `simulate_slate_summary_rows` takes them."""
     cfg = cfg or SimConfig()
-    _slate_inputs(games, contexts, nano_tables, sp_path, artifact_dir, focus_csv,
-                  "simulate_slate_props")
+    contexts, heads = _slate_inputs(games, contexts, nano_tables, sp_path, year, week,
+                                    artifact_dir, focus_csv, cfg, mode, "simulate_slate_props")
     if shard:
         raise NotImplementedError(SHARD_NOT_PORTED)
     props = _prop_sheet(props_csv)
@@ -1184,7 +1418,7 @@ def simulate_slate_prop_rows(
         if not meta:
             continue
         runner = _runner_for(a, b, nano_tables[gi] if nano_tables is not None else None,
-                             cfg, mode, table_quality, False, device)
+                             cfg, mode, table_quality, False, device, heads)
         out = runner.run_pairs(n_pairs, key=fold_in(root, gi), collect_players=True)
         pending.append((f"{ta} vs {tb}", meta, edge.reduce_props_device(out.pstats, indices)))
     if not pending:

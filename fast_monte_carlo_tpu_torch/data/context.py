@@ -1,7 +1,9 @@
 """Team context: SP+ ratings + per-role player tables in dense padded form.
 
-Port of `fast_monte_carlo_tpu/data/context.py` (`RoleTable`, `TeamContext`,
-`_build`) without pandas.  Player shares come from `data/usage.py`: a
+Port of `fast_monte_carlo_tpu/data/context.py` without pandas: `RoleTable`,
+`TeamContext`, `_build`, and the builders from an SP+ sheet
+(`build_team_context_from_sp_flex`, `build_team_context`, read by
+`data/sp.py`) with their memos.  Player shares come from `data/usage.py`: a
 focus-players sheet, the per-team fallback files, or, where neither names
 the team, one `Unknown` slot with share 1.0 per role.
 
@@ -14,12 +16,15 @@ Slot layout per role (K = player_slots):
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 
-from .usage import OTHER_SENTINEL, UNKNOWN, usage_columns_for_team
+from .sp import SpTable, load_sp_flex, lookup_sp_flex, lookup_sp_historical
+from .usage import (_FALLBACK_FILES, OTHER_SENTINEL, UNKNOWN, focus_usage_columns,
+                    usage_columns_for_team)
 
 
 @dataclass
@@ -113,3 +118,88 @@ def team_context(name: str, year: int, week: int, rating: float, off: float,
     files in `usage_dir`; with neither, one Unknown player per role."""
     return _build(name, year, week, rating, off, deff, focus_usage or {}, usage_dir,
                   player_slots)
+
+
+# In-process memos for the warm slate path, as in the JAX package: a slate
+# builds two contexts a matchup per call, and each would re-read the focus
+# sheet.  Keys are content (team, the sheet's fingerprint, file stats),
+# never identity, so a rebuilt table or an edited file misses.  Returned
+# TeamContexts are shared and treated as immutable (the engine packs them
+# into arrays).
+_CONTEXT_MEMO: dict = {}
+_FOCUS_MEMO: dict = {}
+
+
+def _file_fp(path) -> tuple:
+    """(path, mtime_ns, size) — stat-based staleness fingerprint."""
+    try:
+        st = os.stat(path)
+        return (str(path), st.st_mtime_ns, st.st_size)
+    except OSError:
+        return (str(path), None, None)
+
+
+def _focus_tables_cached(focus_csv: str) -> dict:
+    fp = _file_fp(focus_csv)
+    hit = _FOCUS_MEMO.get(fp)
+    if hit is None:
+        hit = _FOCUS_MEMO[fp] = focus_usage_columns(focus_csv)
+    return hit
+
+
+def _sp_fp(sp_df: SpTable) -> int:
+    """Content fingerprint of an SP+ table, computed once and stashed in its
+    attrs so memo hits skip the fuzzy lookup; no code path mutates a loaded
+    table."""
+    fp = sp_df.attrs.get("_fmc_content_fp")
+    if fp is None:
+        fp = sp_df.attrs["_fmc_content_fp"] = hash(
+            tuple((k, tuple(v.tolist())) for k, v in sp_df.cols.items()))
+    return fp
+
+
+def build_team_context_from_sp_flex(
+    team: str,
+    year: int,
+    week: int,
+    sp_df: Optional[SpTable] = None,
+    *,
+    sp_path: Optional[str] = None,
+    focus_csv: Optional[str] = None,
+    usage_dir: str = ".",
+    player_slots: int = 8,
+) -> TeamContext:
+    """Context from a flex-schema SP+ sheet (`data.sp.load_sp_flex`)."""
+    if sp_df is None:
+        if sp_path is None:
+            raise ValueError("provide sp_df or sp_path")
+        sp_df = load_sp_flex(sp_path)
+    key = (team, year, week, _sp_fp(sp_df),
+           _file_fp(focus_csv) if focus_csv else None,
+           tuple(_file_fp(os.path.join(usage_dir, f))
+                 for f in _FALLBACK_FILES.values()),
+           player_slots)
+    hit = _CONTEXT_MEMO.get(key)
+    if hit is not None:
+        return hit
+    rating, off, deff = lookup_sp_flex(team, sp_df)
+    focus = _focus_tables_cached(focus_csv) if focus_csv else {}
+    ctx = _build(team, year, week, rating, off, deff, focus, usage_dir, player_slots)
+    _CONTEXT_MEMO[key] = ctx
+    return ctx
+
+
+def build_team_context(
+    team: str,
+    year: int,
+    week: int,
+    *,
+    sp_hist_path: str,
+    focus_csv: Optional[str] = None,
+    usage_dir: str = ".",
+    player_slots: int = 8,
+) -> TeamContext:
+    """Context from the historical weekly SP+ table."""
+    rating, off, deff = lookup_sp_historical(team, year, week, sp_hist_path)
+    focus = focus_usage_columns(focus_csv) if focus_csv else {}
+    return _build(team, year, week, rating, off, deff, focus, usage_dir, player_slots)

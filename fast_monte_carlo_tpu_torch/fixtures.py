@@ -1,7 +1,8 @@
-"""Artifact-free inputs made from a seed.
+"""Inputs made from a seed.
 
-The SP+ sheet and the trained model heads are not in the repository, so the
-port's tests and `chip_smoke.py` run on:
+The port's tests and `chip_smoke.py` run on these and on the trained-head
+artifact directory `tests/data/torch_artifacts/` (`ARTIFACT_DIR`, written by
+`tests/data/make_torch_artifacts.py`):
 
 * two synthetic teams with the SP+ numbers the JAX package's own tests use
   (tests/test_mechanics.py), one Unknown player per role, 8 slots;
@@ -15,6 +16,9 @@ port's tests and `chip_smoke.py` run on:
   quoted spreads and totals for it (`slate_lines`); the same slate with
   rosters (`focus_slate`) and a prop sheet over some of its matchups
   (`slate_prop_rows`); a team's season against g others (`season`);
+* an SP+ sheet in the 2025 sheet's schema (`sp_sheet_rows`,
+  `write_sp_sheet`): the two teams above and FBS-sized filler teams with
+  `slate_teams`' numbers;
 * one fused head grid per direction, shape (1, 5, 16, 32, 16, 3, 7) =
   (slot, down, dist, ytg, sec, sd, channel) on the nano profile, channels in
   FUSED_CHANNELS[:7] order, each cell drawn uniformly from a plausible
@@ -51,6 +55,10 @@ from .models.forest import FeatureLayout, FlatForest, stack_nodes
 from .models.heads import ST1_FEATURES, STAGE2_CLASSES, ModelHeads
 from .models.tables import FUSED_CHANNELS, HostTable, nano_from_fused, nano_profile
 from .stats import N_PLAYER_STATS, N_TEAM_STATS, PC_YDS, TS
+
+# the trained-head fixture directory, in the reference's file layout
+ARTIFACT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "tests", "data", "torch_artifacts")
 
 TEAM_A = ("Team A", 2025, 1, 15.6, 35.7, 20.0)
 TEAM_B = ("Team B", 2025, 1, 11.0, 31.5, 20.6)
@@ -223,6 +231,32 @@ def slate_teams(g: int, seed: int) -> List[tuple]:
     rating = off - deff + rng.uniform(-1.0, 1.0, 2 * g)
     return [(f"Team {i:03d}", 2025, 1, round(float(rating[i]), 1),
              round(float(off[i]), 1), round(float(deff[i]), 1)) for i in range(2 * g)]
+
+
+# the columns of the 2025 SP+ sheet (schema B of data/sp.py), rank first
+SP_SHEET_COLS = ("Rk", "Current SP+", "Rating", "Offense Rating", "Defense Rating",
+                 "Past SP+")
+
+
+def sp_sheet_rows(n_teams: int, seed: int) -> List[dict]:
+    """A schema-B SP+ sheet of `n_teams` rows, best rating first: TEAM_A,
+    TEAM_B and the first n_teams - 2 of `slate_teams` with their numbers.
+    The 'Past SP+' column (last year's order, whose names the loader reads
+    only where this year's lack them) holds the same names shuffled, two
+    teams of its own ("Past Team 000", "Past Team 001") and two blanks."""
+    rows = [TEAM_A, TEAM_B] + slate_teams((n_teams - 1) // 2, seed)[:n_teams - 2]
+    rows = sorted(rows, key=lambda r: -r[3])
+    rng = np.random.default_rng(seed + 1)
+    past = [r[0] for r in rows[:n_teams - 4]] + ["Past Team 000", "Past Team 001"]
+    past = [past[i] for i in rng.permutation(len(past))] + ["", ""]
+    return [{"Rk": i + 1, "Current SP+": r[0], "Rating": r[3], "Offense Rating": r[4],
+             "Defense Rating": r[5], "Past SP+": past[i]} for i, r in enumerate(rows)]
+
+
+def write_sp_sheet(path, n_teams: int = 136, seed: int = 0) -> str:
+    """`sp_sheet_rows(n_teams, seed)` written as a CSV at `path`."""
+    write_csv(path, sp_sheet_rows(n_teams, seed), SP_SHEET_COLS)
+    return str(path)
 
 
 def slate(g: int, seed: int, player_slots: int = 8):

@@ -18,8 +18,9 @@ Comparison semantics are recorded per forest:
 and `zero_as_missing` (XGBoost over sparse CSR input treats 0.0 as missing)
 routes a value of exactly 0.0 through the node's default_left child.
 
-The trained artifacts are not read by the port (`models/heads.py`); forests
-come in as arrays (`flat_forest_from_numpy`) or from `fixtures.heads`.
+Forests are compiled from trained artifacts (`models/xgb_json.py`,
+`models/sklearn_gbr.py`, read by `models.heads.load_heads`), come in as
+arrays (`flat_forest_from_numpy`) or from `fixtures.heads`.
 """
 from __future__ import annotations
 

@@ -227,14 +227,43 @@ _TABLE_MEMO: Dict[tuple, tuple] = {}
 _TABLE_MEMO_MAX = 16
 
 
+def nano_tables_from_heads(team_a, team_b, heads, cfg: SimConfig,
+                           coach_map=None) -> Tuple[HostTable, HostTable]:
+    """One matchup's host nano tables (A on offense, B on offense) built
+    from `heads`: each direction's fused grid (`build_fused_table`, host
+    numpy) in the config's sd mode, re-laid out on the nano profile.  Raises
+    NotImplementedError (ROADMAP.md queue 1) for sd_mode 'cachewarm', the
+    ML play-policy table and a direction whose heads do not fuse."""
+    prof = nano_profile()
+    if cfg.model.use_play_model and heads.play is not None:
+        raise _not_ported("the ML play-policy table")
+    if cfg.engine.sd_mode == "cachewarm":
+        raise _not_ported("sd_mode='cachewarm' (its oracle warm-up games, cachewarm_events)")
+    out = []
+    for off, deff in ((team_a, team_b), (team_b, team_a)):
+        d = build_direction(off, deff, cfg, heads, coach_map)
+        ft = build_fused_table(d, heads, cfg, prof)
+        if ft is None:
+            raise _not_ported(
+                f"the per-head fine/coarse tables ({off.name} on offense: a focus "
+                "roster keeps a head's player rows from collapsing to one, so the "
+                "heads do not fuse into the nano table)")
+        ts = TableSet(stage1=None, stage2=None, pq=None, rq=None, sq=None, fumble=None,
+                      play=None, fine=None, coarse=None, fused=ft)
+        _apply_sd_mode(ts, cfg, prof)
+        out.append(nano_from_fused(ts.fused, prof))
+    return out[0], out[1]
+
+
 def build_table_heads(team_a, team_b, heads, cfg: SimConfig, coach_map=None,
                       fine=None, coarse=None, fused=None,
                       nano: Optional[TableProfile] = None,
                       cache_dir: Optional[str] = None, device="cuda") -> TableHeads:
     """Both directions' nano tables for one matchup, built from `heads` on
-    the host and packed on `device` (the JAX package's build_table_heads
-    with its nano preset).  Memoized in-process on the identity of the
-    teams and the heads' forests, the config and the coach map.
+    the host (`nano_tables_from_heads`) and packed on `device` (the JAX
+    package's build_table_heads with its nano preset).  Memoized in-process
+    on the identity of the teams and the heads' forests, the config and the
+    coach map.
 
     Raises NotImplementedError (ROADMAP.md queue 1) for the per-head
     profiles (`fine`, `coarse`, `fused`), a nano profile other than
@@ -250,30 +279,14 @@ def build_table_heads(team_a, team_b, heads, cfg: SimConfig, coach_map=None,
         raise _not_ported("a table profile other than nano_profile()")
     if cache_dir is not None:
         raise _not_ported("the table disk cache (cache_dir, _table_cache_key)")
-    if cfg.model.use_play_model and heads.play is not None:
-        raise _not_ported("the ML play-policy table")
-    if cfg.engine.sd_mode == "cachewarm":
-        raise _not_ported("sd_mode='cachewarm' (its oracle warm-up games, cachewarm_events)")
     dev = resolve_device(device)
     key = (id(team_a), id(team_b), _heads_sig(heads), cfg,
            tuple(sorted((coach_map or {}).items())), dev)
     hit = _TABLE_MEMO.get(key)
     if hit is not None:
         return hit[0]
-    sets = []
-    for off, deff in ((team_a, team_b), (team_b, team_a)):
-        d = build_direction(off, deff, cfg, heads, coach_map)
-        ft = build_fused_table(d, heads, cfg, prof)
-        if ft is None:
-            raise _not_ported(
-                f"the per-head fine/coarse tables ({off.name} on offense: a focus "
-                "roster keeps a head's player rows from collapsing to one, so the "
-                "heads do not fuse into the nano table)")
-        ts = TableSet(stage1=None, stage2=None, pq=None, rq=None, sq=None, fumble=None,
-                      play=None, fine=None, coarse=None, fused=ft)
-        _apply_sd_mode(ts, cfg, prof)
-        sets.append(ts)
-    th = pack_tables(*(nano_from_fused(ts.fused, prof) for ts in sets), device=dev)
+    th = pack_tables(*nano_tables_from_heads(team_a, team_b, heads, cfg, coach_map),
+                     device=dev)
     refs = (team_a, team_b, heads, heads.stage1, heads.stage2, heads.pass_quants,
             heads.rush_quants, heads.sack_quants, heads.fumble, heads.play)
     while len(_TABLE_MEMO) >= _TABLE_MEMO_MAX:

@@ -115,8 +115,14 @@ def test_heads_carried_across_equal_jax_field_for_field():
     assert h.stage2_class_order == STAGE2_CLASSES
     with pytest.raises(ValueError, match="three forests"):
         model_heads_from_numpy({**heads_arrays(h), "pass_quants": heads_arrays(h)["pass_quants"][:2]})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        load_heads("artifacts")
+    # a directory without artifacts loads as the JAX package's does: no head
+    from fast_monte_carlo_tpu.models.heads import load_heads as jax_load_heads
+
+    empty, jempty = load_heads("no-such-artifacts"), jax_load_heads("no-such-artifacts")
+    for k in (*HEAD_FIELDS, *TRIO_FIELDS):
+        assert getattr(empty, k) is None and getattr(jempty, k) is None, k
+    for k in ("stage2_class_order", "play_temperature", "play_classes"):
+        assert getattr(empty, k) == getattr(jempty, k), k
 
 
 def test_stack_nodes_equals_jax():

@@ -331,7 +331,9 @@ def test_simulate_live_curve_matches_jax(monkeypatch):
 
 def test_live_entry_points_end_to_end():
     """simulate_live_game and the curve on a real runner: rows well formed,
-    n exact; without a runner each raises naming ROADMAP.md queue 1."""
+    n exact; with neither a runner nor an SP+ sheet each raises ValueError,
+    and so does a runner with a sheet (tests/test_torch_routes.py drives
+    the sheet route)."""
     r = port_analytic_runner()
     row, s = api.simulate_live_game("Team A", "Team B", Q4, runner=r, n_games=512)
     assert row["n_games"] == 512 and abs(row["win_a"] + row["win_b"] + row["tie"] - 1) < 1e-6
@@ -340,5 +342,7 @@ def test_live_entry_points_end_to_end():
     assert len(df) == 2 and (df["n_games"] == 256).all() and list(df["sec"]) == [300, 2400]
     for fn, args in ((api.simulate_live_game, (Q4,)), (api.simulate_live_curve, ([Q4],)),
                      (api.evaluate_fourth_down, (Q4._replace(down=4),))):
-        with pytest.raises(NotImplementedError, match="queue 1"):
+        with pytest.raises(ValueError, match="needs sp_path= .* or runner="):
             fn("Team A", "Team B", *args)
+        with pytest.raises(ValueError, match="not both"):
+            fn("Team A", "Team B", *args, runner=r, sp_path="sp.csv")

@@ -531,11 +531,13 @@ def test_simulate_parlay_refuses_before_any_launch(focus_run, legs, rr):
 
 
 def test_simulate_parlay_needs_a_runner(focus_run):
+    """A parlay needs a runner or an SP+ sheet, not both (the sheet route:
+    tests/test_torch_routes.py)."""
     legs = focus_legs()[:2]
-    for kw in (dict(sp_path="sp.csv"), dict(artifact_dir="."), dict(focus_csv="f.csv")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    for kw in (dict(sp_path="sp.csv"), dict(focus_csv="f.csv")):
+        with pytest.raises(ValueError, match="not both"):
             api.simulate_parlay("Team A", "Team B", legs, runner=focus_run["runner"], **kw)
-    with pytest.raises(NotImplementedError, match="runner="):
+    with pytest.raises(ValueError, match="runner="):
         api.simulate_parlay("Team A", "Team B", legs)
     with pytest.raises(NotImplementedError, match="P9"):
         api.simulate_parlay("Team A", "Team B", legs, runner=focus_run["runner"], shard=True)

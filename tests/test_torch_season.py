@@ -176,11 +176,13 @@ def test_project_season_argument_errors_equal_jax(args, monkeypatch):
 
 
 def test_project_season_needs_built_inputs():
+    """A season needs contexts or an SP+ sheet, not both (the sheet route:
+    tests/test_torch_routes.py)."""
     games, kw = _season_kw()
-    for extra in (dict(sp_path="sp.csv"), dict(artifact_dir="."), dict(focus_csv="f.csv")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            api.project_season("Team 000", games=games, **extra)
-    with pytest.raises(NotImplementedError, match="contexts="):
+    for extra in (dict(sp_path="sp.csv"), dict(focus_csv="f.csv")):
+        with pytest.raises(ValueError, match="not both"):
+            api.project_season("Team 000", games=games, **dict(kw, **extra))
+    with pytest.raises(ValueError, match="contexts="):
         api.project_season("Team 000", games=games)
     with pytest.raises(ValueError, match="3 games need as many context pairs"):
         api.project_season("Team 000", games=games, **dict(kw, contexts=kw["contexts"][:2]))

@@ -302,10 +302,11 @@ def test_slate_layout_errors_match_jax():
     with pytest.raises(ValueError, match="positive"):
         sr.run_summaries(0)
     matchups, tables = _slate()
-    for kw, err in ((dict(heads=object()), "queue 1 item 4"), (dict(quality="turbo"), "nano"),
-                    (dict(shard=True), "P9")):
+    for kw, err in ((dict(quality="turbo"), "nano"), (dict(shard=True), "P9")):
         with pytest.raises(NotImplementedError, match=err):
             api.SlateRunner(matchups, nano_tables=tables, device="cpu", **kw)
+    with pytest.raises(ValueError, match="nano_tables or heads, not both"):
+        api.SlateRunner(matchups, heads=fixtures.heads(0), nano_tables=tables, device="cpu")
     with pytest.raises(ValueError, match="one nano table pair per matchup"):
         api.SlateRunner(matchups, nano_tables=tables[:2], device="cpu")
     with pytest.raises(ValueError, match="at least one"):
@@ -455,15 +456,17 @@ def test_simulate_slate_summaries_validation_matches_jax(monkeypatch, kw):
 
 
 def test_slate_entry_points_need_built_inputs():
-    """(g) sp_path=, artifact_dir= or focus_csv= (which build contexts from
-    an SP+ sheet), or no contexts, raise naming ROADMAP.md; so do trial
-    sharding and a context list of the wrong length."""
+    """(g) contexts with sp_path= or focus_csv= (which build contexts from
+    an SP+ sheet), or neither contexts nor a sheet, raise ValueError; trial
+    sharding raises naming P9, a context list of the wrong length
+    ValueError.  (The sheet route: tests/test_torch_routes.py.)"""
     matchups, tables = _slate()
     for fn in (api.simulate_slate_summaries, api.simulate_slate):
-        for kw in (dict(sp_path="sp.csv"), dict(artifact_dir="."), dict(focus_csv="f.csv"),
-                   dict()):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-                fn(GAMES, **kw)
+        for kw in (dict(sp_path="sp.csv"), dict(focus_csv="f.csv")):
+            with pytest.raises(ValueError, match="not both"):
+                fn(GAMES, contexts=matchups, nano_tables=tables, device="cpu", **kw)
+        with pytest.raises(ValueError, match="needs sp_path="):
+            fn(GAMES)
         with pytest.raises(ValueError, match="3 games need as many context pairs"):
             fn(GAMES, contexts=matchups[:2], nano_tables=tables, device="cpu")
     with pytest.raises(NotImplementedError, match="P9"):

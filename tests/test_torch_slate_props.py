@@ -208,11 +208,14 @@ def test_simulate_slate_props_matches_jax_up_to_ties(slate, monkeypatch, min_edg
 
 
 def test_slate_props_needs_built_inputs(slate):
+    """Contexts or an SP+ sheet, not both (the sheet route:
+    tests/test_torch_routes.py)."""
     games, props = slate["games"], slate["props"]
-    for kw in (dict(sp_path="sp.csv"), dict(artifact_dir="."), dict(focus_csv="f.csv"),
-               dict()):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            api.simulate_slate_props(games, props_csv=props, **kw)
+    for kw in (dict(sp_path="sp.csv"), dict(focus_csv="f.csv")):
+        with pytest.raises(ValueError, match="not both"):
+            api.simulate_slate_props(games, props_csv=props, **dict(slate["kw"], **kw))
+    with pytest.raises(ValueError, match="needs sp_path="):
+        api.simulate_slate_props(games, props_csv=props)
     with pytest.raises(ValueError, match="5 games need as many context pairs"):
         api.simulate_slate_props(games, props_csv=props,
                                  **dict(slate["kw"], contexts=slate["matchups"][:4]))

@@ -111,7 +111,8 @@ def test_import_leaves_jax_pandas_sklearn_out():
         "        if n.startswith('fast_monte_carlo_tpu_torch'):\n"
         "            importlib.import_module(n)\n"
         "        else:\n"
-        "            assert n.split('.')[0] not in ('jax', 'fast_monte_carlo_tpu'), n\n"
+        "            assert n.split('.')[0] not in ('jax', 'fast_monte_carlo_tpu', 'pandas',"
+        " 'sklearn', 'joblib'), n\n"
         "need = ['fast_monte_carlo_tpu_torch.probes.step_arith',"
         " 'fast_monte_carlo_tpu_torch.probes.gather',"
         " 'fast_monte_carlo_tpu_torch.utils.cuda_build',"
@@ -121,7 +122,11 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " 'fast_monte_carlo_tpu_torch.parallel.aggregate',"
         " 'fast_monte_carlo_tpu_torch.models.forest', 'fast_monte_carlo_tpu_torch.models.heads',"
         " 'fast_monte_carlo_tpu_torch.ops.forest_eval', 'fast_monte_carlo_tpu_torch.models.tables',"
-        " 'fast_monte_carlo_tpu_torch.ops.table_lookup', 'fast_monte_carlo_tpu_torch.ops.pack']\n"
+        " 'fast_monte_carlo_tpu_torch.ops.table_lookup', 'fast_monte_carlo_tpu_torch.ops.pack',"
+        " 'fast_monte_carlo_tpu_torch.compat', 'fast_monte_carlo_tpu_torch.data.sp',"
+        " 'fast_monte_carlo_tpu_torch.data.context', 'fast_monte_carlo_tpu_torch.models.xgb_json',"
+        " 'fast_monte_carlo_tpu_torch.models.sklearn_gbr',"
+        " 'fast_monte_carlo_tpu_torch.models.wrappers']\n"
         "from fast_monte_carlo_tpu_torch import api, edge, fixtures\n"
         "from fast_monte_carlo_tpu_torch.ops import game\n"
         "from fast_monte_carlo_tpu_torch.parallel import aggregate\n"
@@ -150,9 +155,12 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " heads.model_heads_from_numpy, forest_eval.pack_forest, forest_eval.eval_margin,"
         " forest_eval.predict, forest_eval.eval_margin_cuda, pack.pack_heads,"
         " pack.build_packs, tables.eval_forest_on_grid, tables.build_fused_table,"
-        " table_lookup.build_table_heads))\n"
+        " table_lookup.build_table_heads, table_lookup.nano_tables_from_heads,"
+        " heads.load_heads, heads.load_reconstructed_heads, api.simulate_upcoming_matchup,"
+        " api.simulate_upcoming_matchup_columns, api.csv_base_from, api._save_frames))\n"
         "assert all(m in sys.modules for m in need), need\n"
-        "bad = [m for m in ('jax', 'pandas', 'sklearn', 'fast_monte_carlo_tpu')"
+        "bad = [m for m in ('jax', 'pandas', 'sklearn', 'joblib', 'xgboost',"
+        " 'fast_monte_carlo_tpu')"
         " if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

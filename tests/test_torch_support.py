@@ -307,3 +307,93 @@ def port_heads(h):
     from fast_monte_carlo_tpu_torch.models.heads import model_heads_from_numpy
 
     return model_heads_from_numpy(heads_arrays(h))
+
+
+def jax_readable_copy(src, dst):
+    """A copy of the artifact directory `src` at `dst` that the JAX
+    package's loaders read: its `load_sklearn_artifact` opens a joblib file
+    as an uncompressed stream, so compressed joblib files (the fixture's
+    quantile heads are zlib) are written decompressed, as joblib.load
+    reads them.  Returns dst as a string."""
+    import shutil
+    import zlib
+    from pathlib import Path
+
+    dst = Path(dst)
+    shutil.copytree(src, dst)
+    for p in dst.glob("*.joblib"):
+        raw = p.read_bytes()
+        if raw[:1] == b"\x78":
+            p.write_bytes(zlib.decompress(raw))
+    return str(dst)
+
+
+def xgb_model_dict(rng, n_features: int, *, objective: str = "binary:logistic",
+                   n_classes: int = 0, rounds: int = 4, levels: int = 4,
+                   base_score: float = 0.4, cat_cols: int = 0) -> dict:
+    """A seeded XGBoost JSON model dict (the fields `forest_from_xgb_json`
+    reads): `rounds` boosting rounds of one tree per class, splits to
+    `levels` levels, the first `cat_cols` columns one-hot (threshold 1.0),
+    the others numeric thresholds in [0, 10) on the half point."""
+    per = max(1, n_classes)
+    trees = []
+    for t in range(rounds * per):
+        tr = {k: [] for k in ("left_children", "right_children", "split_indices",
+                              "split_conditions", "default_left")}
+
+        def node(level):
+            i = len(tr["left_children"])
+            for k in tr:
+                tr[k].append(0)
+            if level == levels - 1 or (level and rng.random() < 0.25):
+                tr["left_children"][i] = tr["right_children"][i] = -1
+                tr["split_conditions"][i] = float(np.float32(rng.normal(0, 0.3)))
+                return i
+            col = int(rng.integers(n_features))
+            tr["split_indices"][i] = col
+            tr["split_conditions"][i] = 1.0 if col < cat_cols else \
+                float(np.round(rng.uniform(0, 10) * 2) / 2)
+            tr["default_left"][i] = int(rng.random() < 0.5)
+            tr["left_children"][i] = node(level + 1)
+            tr["right_children"][i] = node(level + 1)
+            return i
+
+        node(0)
+        tr["split_type"] = [0] * len(tr["left_children"])
+        trees.append(tr)
+    return {"learner": {
+        "objective": {"name": objective},
+        "learner_model_param": {"base_score": f"{base_score:.7E}", "num_class": str(n_classes),
+                                "num_feature": str(n_features)},
+        "gradient_booster": {"name": "gbtree", "model": {
+            "trees": trees, "tree_info": [t % per for t in range(len(trees))]}}}}
+
+
+def assert_same_forest(port, jax):
+    """Two FlatForests (of either package) equal field for field: every
+    node array with its dtype, the scalars and the layout."""
+    p, j = forest_arrays(port), forest_arrays(jax)
+    assert p.keys() == j.keys()
+    for k, v in j.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(p[k], v, err_msg=k)
+            assert p[k].dtype == v.dtype, k
+        else:
+            assert p[k] == v, k
+
+
+def assert_same_heads(port, jax):
+    """Two ModelHeads equal: every forest (or both None), the stage-2 class
+    order, the play temperature and classes."""
+    for k in HEAD_FIELDS:
+        a, b = getattr(port, k), getattr(jax, k)
+        assert (a is None) == (b is None), k
+        if a is not None:
+            assert_same_forest(a, b)
+    for k in TRIO_FIELDS:
+        a, b = getattr(port, k), getattr(jax, k)
+        assert (a is None) == (b is None), k
+        for x, y in zip(a or (), b or ()):
+            assert_same_forest(x, y)
+    for k in ("stage2_class_order", "play_temperature", "play_classes"):
+        assert getattr(port, k) == getattr(jax, k), k
