@@ -30,8 +30,9 @@ Phases, in order (any failure raises and exits non-zero):
     CPU: integer state equal, floats allclose(rtol=1e-5, atol=1e-5);
  5. the main path: MatchupRunner(mode="table", rng_impl="pallas_chunk",
     device="cuda") with the fixture nano table, `run_pairs_summary` over
-    4,194,304 games in 65,536-game launches (1,048,576 if the warm-up
-    launch predicts more than 120 s); summary checks; games/s;
+    2,097,152 games in 65,536-game launches (1,048,576 if the warm-up
+    launch predicts more than 120 s; 4,194,304 before phase 14 came);
+    summary checks; games/s;
  6. the fused play-step kernels (B1 fused_step, B2 fused_step_tab) against
     their plain versions at B = 131,072 for 3 keys: one step equal on
     integer state and within 1e-5 on floats, a 24-step chunk equal to 24
@@ -163,13 +164,30 @@ Phases, in order (any failure raises and exits non-zero):
     (contexts, heads, `MatchupRunner`), games/s of the hand-composed runs;
     `simulate_live_game` and `evaluate_fourth_down` through `sp_path=`;
     `simulate_slate_summary_rows(sp_path=, layout="game_shard")` over 2
-    matchups (`SlateRunner(heads=)`).
+    matchups (`SlateRunner(heads=)`);
+14. the resident server: `serve.SimService(ServeConfig(mode="table",
+    device="cuda"))` on the 136-team sheet and the fixture artifacts, with
+    every memo (heads, tables, runners) emptied first, behind
+    `serve.make_server(port=0)` on a thread, spoken to over HTTP with
+    urllib: `warm` with two matchups, GET /health (platform cuda, the
+    card's name), a cold and a warm /sim (spread, total, alt; 32,768
+    pairs; the warm answer equal to the cold), four distinct /sim requests
+    posted while the service lock is held (coalesced), /slate with lines
+    on 4 matchups, /live and /live with situations, /fourth, /parlay,
+    /season; a second server in exact mode with the focus sheet: /sim
+    (16,384 pairs, K5) and /props over the fixture prop sheet; every
+    answer's summary rows checked; then, after the counts are read, each
+    coalesced answer equal bitwise to the same request alone, the cold
+    /sim equal to `api.simulate_slate_summary_rows` on the card, and K4 at
+    that /sim's first launch key and shape against its plain version;
+    latencies of each endpoint and /health's p50 and p95 printed.
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
-9, 10, 11, 12, 13) and read just after it; a path that launched one of its
-kernels no time fails.  forest_eval's launches in the JSON line are exact
-mode's and phase 13's; its times are per play (11 launches), the bound
-too.  The JSON line's philox_draws launches are the main path's, the live
-queries', the slate path's, phase 11's and phase 13's.
+9, 10, 11, 12, 13, 14) and read just after it; a path that launched one of
+its kernels no time fails.  forest_eval's launches in the JSON line are
+exact mode's, phase 13's and phase 14's; its times are per play (11
+launches), the bound too.  The JSON line's philox_draws launches are the
+main path's, the live queries', the slate path's, phase 11's, phase 13's
+and phase 14's.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
 (`probes.kernels.held_ms`; `kernel_times` for philox_draws, the fused
@@ -198,7 +216,7 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 CH, N = 24, 65536                  # the main path's draw launch shape
-GAMES, LAUNCH_GAMES = 4_194_304, 65_536
+GAMES, LAUNCH_GAMES = 2_097_152, 65_536   # cut from 4,194,304 to make room for phase 14
 CUT_GAMES = 1_048_576              # used if the full run would pass ~120 s
 TABLE_SEED = 7
 FOCUS_SEED, PROP_SEED = 3, 4       # fixtures.focus_rows / prop_rows
@@ -245,6 +263,17 @@ SP_TEAMS, SP_SEED = 136, 0         # the 2025 SP+ sheet's FBS teams (fixtures.wr
 FILE_PAIRS = 65_536                # simulate_upcoming_matchup n (pairs): 131,072 games
 FILE_LIVE_GAMES = 65_536           # the JAX package's simulate_live_game default
 FILE_SLATE_PAIRS = 16_384          # a slate matchup's pairs: one 65,536-game launch
+SERVE_PAIRS = 32_768               # /sim n_pairs (the JAX server's default): one launch
+SERVE_SLATE_PAIRS = 16_384         # /slate and /season pairs a matchup
+SERVE_EXACT_PAIRS = 16_384         # the exact-mode server's /sim
+SERVE_PROPS_PAIRS = 4_096          # /props on the exact-mode server
+SERVE_LIVE_GAMES = 65_536          # /live and /fourth n_games (the JAX server's default)
+SERVE_CURVE_PER = 8_192            # /live situations' n_games_per (its default)
+SERVE_SEED = 5
+SERVE_WARM = [("Team A", "Team B"), ("Team 000", "Team 001")]
+SERVE_COLD = ("Team B", "Team A")    # the fixture teams the other way round: new tables
+SERVE_COALESCED = SERVE_WARM + [SERVE_COLD, ("Team 002", "Team 003")]
+HEALTH_GETS = 50
 # each kernel of the JSON line and its source in csrc/
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
@@ -2081,6 +2110,264 @@ def phase_files(card: str) -> dict:
             "cold_s": cold_s, "warm_s": warm_s, "build_s": build_s}
 
 
+def _http(base: str, path: str, body=None):
+    """(status, JSON answer, seconds) of one request to the server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, out = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, out = e.code, json.loads(e.read())
+    return code, out, time.perf_counter() - t0
+
+
+def check_row(row: dict, games: int, what: str) -> None:
+    """`check_summary` for an answer's summary row: n, win rates (and the
+    tie, where the row has it) summing to 1 at most (exactly with the tie),
+    mean points in [0, 100), every number finite.  Not (10, 50): on nano
+    tables from the fixture heads the sheet's two weakest teams (Team 002
+    and Team 003) score 11 and 5 a game, as the JAX package's tables (the
+    same, bitwise) would have them score."""
+    wins = row["win_a"] + row["win_b"] + row.get("tie", 0.0)
+    nums = [v for v in row.values() if isinstance(v, (int, float))]
+    check(row["n_games"] == games and (abs(wins - 1) < 1e-5 if "tie" in row else wins <= 1 + 1e-9)
+          and 0 <= row["mean_a"] < 100 and 0 <= row["mean_b"] < 100
+          and all(np.isfinite(nums)),
+          f"{what}: n {row['n_games']:,}, win {row['win_a']:.4f} / {row['win_b']:.4f}, "
+          f"means {row['mean_a']:.2f}-{row['mean_b']:.2f}")
+
+
+def _bare(out: dict) -> dict:
+    return {k: v for k, v in out.items() if k != "elapsed_s"}
+
+
+def phase_serve(card: str) -> dict:
+    """The resident server on the card: a table-mode `SimService` behind a
+    `ThreadingHTTPServer` on a free port, started with every memo empty,
+    spoken to over HTTP; then an exact-mode one.  The counts cover the
+    requests only; the checks that run the path again come after."""
+    import os
+    import tempfile
+    import threading
+
+    import torch
+    from fast_monte_carlo_tpu_torch import api, fixtures
+    from fast_monte_carlo_tpu_torch.edge import market_odds_from_summary, summary_moneyline
+    from fast_monte_carlo_tpu_torch.models import heads as heads_mod
+    from fast_monte_carlo_tpu_torch.ops import rng, table_lookup
+    from fast_monte_carlo_tpu_torch.serve import ServeConfig, SimService, jsonable, make_server
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    sp_path = fixtures.write_sp_sheet(os.path.join(tmp.name, "sp.csv"), SP_TEAMS, SP_SEED)
+    focus_csv = os.path.join(tmp.name, "focus.csv")
+    fixtures.write_csv(focus_csv, fixtures.focus_rows(FOCUS_SEED), fixtures.FOCUS_COLS)
+    # a fresh process's state: no heads, nano tables or runners memoized
+    heads_mod._HEADS_MEMO.clear()
+    table_lookup._TABLE_MEMO.clear()
+    api._RUNNER_MEMO.clear()
+
+    servers = []
+
+    def start(**kw):
+        service = SimService(ServeConfig(sp_path=sp_path, artifact_dir=fixtures.ARTIFACT_DIR,
+                                         device="cuda", **kw))
+        srv = make_server(service, port=0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        servers.append(srv)
+        return f"http://127.0.0.1:{srv.server_address[1]}", service
+
+    ab = {"team_a": "Team A", "team_b": "Team B"}
+    q4 = {**ab, "offense": "A", "quarter": 4, "clock": "05:00", "down": 2, "dist": 7,
+          "ytg": 40, "score_a": 21, "score_b": 17}
+    sim_body = {"team_a": SERVE_COLD[0], "team_b": SERVE_COLD[1], "n_pairs": SERVE_PAIRS,
+                "seed": SERVE_SEED, "spread": -3.5, "total": 41.5, "alt": {"width": 6, "step": 1}}
+    batch = [{"team_a": a, "team_b": b, "n_pairs": SERVE_PAIRS, "seed": SERVE_SEED + 1,
+              "spread": 2.5} for a, b in SERVE_COALESCED]
+    ms, ans = {}, {}
+
+    def ask(name, path, body=None):
+        code, out, dt = _http(base, path, body)
+        check(code == 200, f"{name}: HTTP {code} ({str(out)[:300]})")
+        ms[name], ans[name] = 1e3 * dt, out
+        return out
+
+    try:
+        base, service = start(mode="table")
+        torch.cuda.synchronize()
+        zero_counts()
+        by_ch = dict(rng.philox_draws.launches_by_ch)
+        t0 = time.perf_counter()
+        warm = service.warm(SERVE_WARM)
+        ms["warm"] = 1e3 * (time.perf_counter() - t0)
+        health = ask("/health", "/health")
+        ask("/sim cold", "/sim", sim_body)
+        ask("/sim warm", "/sim", sim_body)
+
+        # four distinct matchups queued while the device lock is held
+        outs = [None] * len(batch)
+
+        def post(i):
+            outs[i] = _http(base, "/sim", batch[i])
+
+        coalesced0 = service._coalesced
+        service._lock.acquire()
+        try:
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(len(batch))]
+            for t in threads:
+                t.start()
+            t_wait = time.perf_counter()
+            while time.perf_counter() - t_wait < 60:
+                with service._batch_lock:
+                    queued = sum(it.waiters for b in service._sim_batches.values()
+                                 for it in b.items.values())
+                if queued == len(batch):
+                    break
+                time.sleep(0.01)
+            t0 = time.perf_counter()
+        finally:
+            service._lock.release()
+        for t in threads:
+            t.join(timeout=600)
+        ms["coalesced batch"] = 1e3 * (time.perf_counter() - t0)
+        coalesced = service._coalesced - coalesced0
+
+        ask("/slate", "/slate", {"games": [list(g) for g in SERVE_COALESCED],
+                                 "n_pairs": SERVE_SLATE_PAIRS,
+                                 "lines": [{"team_a": "Team A", "spread": -3.5, "total": 44.5},
+                                           {"team_a": "Team 002", "spread": 1.5}]})
+        ask("/live", "/live", {**q4, "n_games": SERVE_LIVE_GAMES, "spread": -3.5,
+                               "total": 44.5})
+        ask("/live situations", "/live", {**ab, "n_games_per": SERVE_CURVE_PER, "situations": [
+            q4, {**q4, "quarter": 3, "clock": "10:00", "score_a": 14},
+            {**q4, "quarter": 2, "offense": "B", "down": 1, "dist": 10, "ytg": 75},
+            {**q4, "quarter": 1, "clock": "15:00", "down": 1, "dist": 10, "ytg": 75,
+             "score_a": 0, "score_b": 0}]})
+        ask("/fourth", "/fourth", {**q4, "offense": "B", "clock": "07:00", "down": 4,
+                                   "dist": 2, "ytg": 33, "score_a": 14, "score_b": 10,
+                                   "n_games": SERVE_LIVE_GAMES})
+        ask("/parlay", "/parlay", {**ab, "n_pairs": SERVE_PAIRS, "price": 400,
+                                   "correlations": True, "round_robin": 2,
+                                   "legs": [{"kind": "moneyline", "team": "Team A"},
+                                            {"kind": "total", "side": "over", "line": 40.5},
+                                            {"kind": "spread", "team": "Team B", "line": 6.5}]})
+        # home and away against Team B: the tables of the warm and the cold /sim
+        ask("/season", "/season", {"team": "Team A", "games": [["Team A", "Team B"],
+                                                               ["Team B", "Team A"]],
+                                   "n_pairs": SERVE_SLATE_PAIRS, "line": 1.5})
+        exact_base, _ = start(mode="exact", focus_csv=focus_csv)
+        base = exact_base
+        ask("/sim exact", "/sim", {**ab, "n_pairs": SERVE_EXACT_PAIRS, "seed": 2})
+        ask("/props exact", "/props", {"games": [["Team A", "Team B"]],
+                                       "n_pairs": SERVE_PROPS_PAIRS,
+                                       "props": fixtures.prop_rows(PROP_SEED)})
+        health_ms = [1e3 * _http(exact_base, "/health")[2] for _ in range(HEALTH_GETS)]
+        torch.cuda.synchronize()
+        launches = read_counts("server path", ["philox_draws", "forest_eval"])
+        k3 = rng.philox_draws.launches_by_ch[1] - by_ch.get(1, 0)
+        k4 = rng.philox_draws.launches_by_ch[CH] - by_ch.get(CH, 0)
+        check(k3 > 0 and k4 > 0, f"server path: philox_draws ch=24 (K4) {k4} launches, "
+              f"ch=1 (K3, the forced 4th-down plays) {k3}")
+
+        check(warm == {"heads": "loaded", "sp": "loaded", "compiled": "2 matchups @ 256 pairs"},
+              f"warm: {warm}")
+        check(health["platform"] == "cuda" and health["device_name"] ==
+              torch.cuda.get_device_name(0) and health["device_count"] ==
+              torch.cuda.device_count() and health["config"]["device"] == "cuda",
+              f"/health: platform {health['platform']}, {health['device_name']}, "
+              f"{health['device_count']} device(s)")
+        cold = ans["/sim cold"]
+        check(_bare(cold) == _bare(ans["/sim warm"]), "the warm /sim answers as the cold one")
+        check_row(cold["summary"], 2 * SERVE_PAIRS, "/sim")
+        check(set(cold["markets"]) == {"spread", "total"} and len(cold["alt"]["spread"]) == 13,
+              "/sim priced the spread, the total and 13-line ladders")
+        check(all(o is not None and o[0] == 200 for o in outs) and coalesced >= 3,
+              f"{len(batch)} distinct /sim requests queued behind the lock: all answered, "
+              f"{coalesced} from the leader's batch")
+        for body, o in zip(batch, outs):
+            check_row(o[1]["summary"], 2 * SERVE_PAIRS, f"coalesced /sim {body['team_a']}")
+        for r in ans["/slate"]["summaries"]:
+            check_row(r, 2 * SERVE_SLATE_PAIRS, f"/slate {r['team_a']} vs {r['team_b']}")
+        mk = ans["/slate"]["markets"]
+        check([r["spread"] for r in mk] == [-3.5, None, None, 1.5] and mk[0]["total"] == 44.5,
+              "/slate priced the quoted lines of 2 of its 4 games by team A's name")
+        check_row(ans["/live"]["live"], SERVE_LIVE_GAMES, "/live")
+        for i, r in enumerate(ans["/live situations"]["curve"]):
+            check_row(r, SERVE_CURVE_PER, f"/live situation {i}")
+        fourth = ans["/fourth"]["fourth"]
+        check(set(fourth["choices"]) == {"fg", "go", "policy", "punt"}
+              and fourth["best"] in ("fg", "go", "punt"),
+              f"/fourth: best {fourth['best']}, "
+              f"{ {c: r['win_off'] for c, r in fourth['choices'].items()} }")
+        par = ans["/parlay"]["parlay"]
+        check(par["n"] == 2 * SERVE_PAIRS and len(par["leg_corr"]) == 3
+              and par["round_robin"]["n_tickets"] == 3
+              and 0 < par["p_all_win"] <= min(leg["p_win"] for leg in par["legs"]),
+              f"/parlay: p_all_win {par['p_all_win']}, fair {par['fair_american']}")
+        season = ans["/season"]["season"]
+        for r in season["schedule"]:
+            check_row(r, 2 * SERVE_SLATE_PAIRS, f"/season vs {r['opponent']} ({r['team_side']})")
+        check(abs(sum(season["pmf"]) - 1) <= len(season["pmf"]) * 5e-7 + 1e-12,
+              f"/season: pmf {season['pmf']}")
+        check_row(ans["/sim exact"]["summary"], 2 * SERVE_EXACT_PAIRS, "/sim, exact mode")
+        props = ans["/props exact"]["props"]
+        check(len(props) == 33 and all(np.isfinite(r["edge_pct"]) for r in props),
+              f"/props (exact mode, focus rosters): {len(props)} rows priced")
+
+        # outside the count window: each coalesced answer against the same
+        # request alone, the cold /sim against the direct call, K4 at its key
+        base = f"http://127.0.0.1:{servers[0].server_address[1]}"
+        for body, o in zip(batch, outs):
+            code, solo, _ = _http(base, "/sim", body)
+            check(code == 200 and _bare(o[1]) == _bare(solo),
+                  f"coalesced /sim {body['team_a']} vs {body['team_b']} == the same request "
+                  "alone, bitwise")
+        ta, tb = SERVE_COLD
+        rows, (s,) = api.simulate_slate_summary_rows(
+            [SERVE_COLD], sp_path=sp_path, artifact_dir=fixtures.ARTIFACT_DIR,
+            n_pairs=SERVE_PAIRS, seed=SERVE_SEED, device=service.device)
+        check(cold["summary"] == jsonable(rows[0])
+              and cold["moneyline"] == jsonable(summary_moneyline(s, ta, tb))
+              and cold["markets"] == jsonable(market_odds_from_summary(
+                  s, ta, tb, spread=-3.5, total=41.5)),
+              "/sim == api.simulate_slate_summary_rows on the card and its pricing, bitwise")
+        check_summary(type(s)(*(torch.as_tensor(f, device="cuda") for f in s)),
+                      2 * SERVE_PAIRS, "the direct call's summary")
+        dev = torch.device("cuda")
+        key = rng.fold_in(rng.fold_in(rng.root_key(SERVE_SEED), 0), 0)
+        u, z = rng.chunk_draws(key, 0, CH, 2 * SERVE_PAIRS, dev)
+        ur, zr = rng.philox_draws_reference(key, 0, CH, 2 * SERVE_PAIRS, dev)
+        draw_err = float((z - zr).abs().max())
+        check(torch.equal(u, ur) and draw_err <= 1e-5,
+              f"K4 at the cold /sim's first launch (key {key:#x}, ({CH}, {2 * SERVE_PAIRS:,})): "
+              f"uniforms bitwise, normals max|d| {draw_err:.3g} <= 1e-5")
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        tmp.cleanup()
+
+    hq = np.percentile(health_ms, [50, 95])
+    print(f"  server latency ({card}): warm (2 matchups, 256 pairs) {ms['warm']:.1f} ms; "
+          f"/sim at {2 * SERVE_PAIRS:,} games cold {ms['/sim cold']:.1f} ms, warm "
+          f"{ms['/sim warm']:.1f} ms")
+    print(f"  coalesced batch of {len(batch)} distinct /sim ({2 * SERVE_PAIRS:,} games each): "
+          f"{ms['coalesced batch']:.1f} ms from the lock's release to the last answer ({card})")
+    print("  endpoint latency: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in ms.items() if k.startswith("/")) + f" ({card})")
+    print(f"  /health over {HEALTH_GETS} requests: p50 {hq[0]:.2f} ms, p95 {hq[1]:.2f} ms ({card})")
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s; launches K4 {k4}, K3 {k3}, "
+          f"K5 {launches['forest_eval']} ({card})")
+    return {"launches": launches, "k3": k3, "k4": k4, "ms": ms, "health_ms": hq.tolist(),
+            "draw_err": draw_err}
+
+
 def check_summary(summary, games: int, what: str) -> None:
     """n, rates summing to 1, mean points in (10, 50), histograms summing
     to n, no NaN."""
@@ -2197,16 +2484,20 @@ def main() -> int:
     print("[13] inputs from files: an SP+ sheet and the trained-head fixture directory "
           "through load_heads, simulate_upcoming_matchup and the sp_path= routes on cuda")
     files = phase_files(card)
+    print("[14] the resident server: SimService behind make_server on cuda, over HTTP "
+          "(table mode, then exact mode)")
+    served = phase_serve(card)
     print(f"  philox_draws launches: main path {k['launches']}, props path "
           f"{props['launches']}, live queries {live['launches']}, slate path "
           f"{slate['launches']}, multi-leg/season/slate props {multi['launches']}, "
-          f"inputs from files {files['launches']['philox_draws']}")
+          f"inputs from files {files['launches']['philox_draws']}, server "
+          f"{served['launches']['philox_draws']}")
     print(f"  forest_eval launches: exact mode {exact['launches']}, inputs from files "
-          f"{files['launches']['forest_eval']}")
+          f"{files['launches']['forest_eval']}, server {served['launches']['forest_eval']}")
     k["launches"] += (live["launches"] + slate["launches"] + multi["launches"]
-                      + files["launches"]["philox_draws"])
-    exact["launches"] += files["launches"]["forest_eval"]
-    k["max_abs_err"] = max(k["max_abs_err"], slate["draw_err"])
+                      + files["launches"]["philox_draws"] + served["launches"]["philox_draws"])
+    exact["launches"] += files["launches"]["forest_eval"] + served["launches"]["forest_eval"]
+    k["max_abs_err"] = max(k["max_abs_err"], slate["draw_err"], served["draw_err"])
 
     rows = {"philox_draws": k, **fused, **gathers, "forest_eval": exact}
     print(json.dumps({"kernels": [

@@ -1,0 +1,773 @@
+"""Command-line entry points: port of fast_monte_carlo_tpu/cli.py.
+
+    python -m fast_monte_carlo_tpu_torch.cli sim "Team A" "Team B" \\
+        --sp sp.csv --artifacts tests/data/torch_artifacts -n 1000 --save
+    python -m fast_monte_carlo_tpu_torch.cli slate --games games.csv --sp sp.csv -n 10000
+    python -m fast_monte_carlo_tpu_torch.cli serve --sp sp.csv --artifacts DIR
+
+Subcommands, flags and defaults are the JAX CLI's; each ported subcommand
+adds `--device` (default `cuda`; `cpu` for a host without a card, where
+`cuda` raises).  Ported: `sim`, `live`, `fourth`, `parlay`, `slate` (the
+summary loop, `--lines`, `--batched` and `--shard game`), `season` and
+`serve`.  They read CSVs with the `csv` module and print the JAX commands'
+lines; where the JAX command prints a DataFrame, `_frame_text` prints the
+same columns in the same order, laid out as pandas lays them out.
+
+Not ported yet, each raising NotImplementedError before any simulation:
+`edges`, `prop` and `slate --props` (the markets over saved sim files and
+their printers, ROADMAP.md queue 1 item 2), `sim --sd-mode cachewarm`
+(item 4), `backtest` (`backtest.py`, item 5), `bench` (the port's bench
+entry, item 1) and `--shard` (trial sharding, item 6).  `train` is outside
+the port's scope.
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import math
+import time
+
+from .models.heads import DEFAULT_ARTIFACT_DIR
+
+_SAVED_FILES = ("the markets over saved sim files and their printers are not ported yet "
+                "(ROADMAP.md queue 1 item 2)")
+_TRIAL_SHARDING = ("--shard: trial sharding over several cards is not ported yet "
+                   "(ROADMAP.md queue 1 item 6)")
+
+
+def _no_trial_sharding(args) -> None:
+    if getattr(args, "shard", False) in (True, "trial"):
+        raise NotImplementedError(_TRIAL_SHARDING)
+
+
+def _read_games(path: str) -> list:
+    """The first two columns of a CSV's rows after its header, as
+    (team_a, team_b) tuples (pandas' `read_csv(path).iloc[:, :2]`)."""
+    with open(path, newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    return [tuple(r[:2]) for r in rows[1:]]
+
+
+def _cell(v: str):
+    """One CSV cell as pandas reads it: empty is NaN, a number a float."""
+    if v == "":
+        return math.nan
+    try:
+        return float(v)
+    except ValueError:
+        return v
+
+
+def _read_rows(path: str) -> list:
+    """A CSV's rows as dicts by header, cells as `_cell` reads them."""
+    with open(path, newline="") as f:
+        return [{k: _cell(v) for k, v in r.items()} for r in csv.DictReader(f)]
+
+
+def _column_text(vals) -> list:
+    """One column's cells as pandas prints them: floats with six places,
+    trailing zeros that every cell shares trimmed (at least one place
+    kept), NaN as NaN; a column with text or no float as str."""
+    if (not any(isinstance(v, float) for v in vals)
+            or any(isinstance(v, str) for v in vals)):
+        return ["NaN" if isinstance(v, float) and math.isnan(v) else str(v) for v in vals]
+    cells = ["NaN" if math.isnan(v) else f"{v:.6f}" for v in map(float, vals)]
+    nums = [c for c in cells if c != "NaN"]
+    while nums and all(c.endswith("0") and c[-2] != "." for c in nums):
+        nums = [c[:-1] for c in nums]
+        cells = [c if c == "NaN" else c[:-1] for c in cells]
+    return cells
+
+
+def _frame_text(columns: dict, index=None, index_name=None) -> str:
+    """A table of `columns` (name -> values) laid out as pandas prints a
+    DataFrame: with `index`, its labels left-aligned before the columns
+    and (`index_name`) a line naming it under the header, columns two
+    spaces apart; without, as `to_string(index=False)`, one space apart."""
+    names = list(columns)
+    cells = {c: _column_text([v.item() if hasattr(v, "item") else v for v in columns[c]])
+             for c in names}
+    widths = {c: max([len(str(c))] + [len(x) for x in cells[c]]) for c in names}
+    n = len(next(iter(cells.values()), []))
+    if index is None:
+        lines = [" ".join(str(c).rjust(widths[c]) for c in names)]
+        lines += [" ".join(cells[c][i].rjust(widths[c]) for c in names) for i in range(n)]
+        return "\n".join(lines)
+    labels = [str(x) for x in index]
+    iw = max([len(str(index_name or ""))] + [len(x) for x in labels])
+    body = "  ".join(str(c).rjust(widths[c]) for c in names)
+    lines = [" " * iw + "  " + body]
+    if index_name:
+        lines.append(str(index_name).ljust(iw + 2 + len(body)))
+    lines += [labels[i].ljust(iw) + "  " + "  ".join(cells[c][i].rjust(widths[c])
+                                                    for c in names) for i in range(n)]
+    return "\n".join(lines)
+
+
+def _rows_text(rows: list) -> str:
+    """Row dicts as `pd.DataFrame(rows).to_string(index=False)` prints them."""
+    cols = list(dict.fromkeys(k for r in rows for k in r))
+    return _frame_text({c: [r.get(c, math.nan) for r in rows] for c in cols})
+
+
+def _cmd_sim(args) -> int:
+    from .api import csv_base_from, simulate_upcoming_matchup_columns
+
+    _no_trial_sharding(args)
+    if args.sd_mode == "cachewarm":
+        raise NotImplementedError("--sd-mode cachewarm: the oracle warm-up games are not "
+                                  "ported yet (ROADMAP.md queue 1 item 4)")
+    cfg = None
+    heads = None
+    if args.reconstructed:
+        # full-fidelity reconstructed mode: recovered ML play policy +
+        # repo-trained stage-2 + non-unit temperature overlay
+        from .config import reconstructed_config
+        from .models.heads import load_reconstructed_heads
+        cfg = reconstructed_config()
+        heads = load_reconstructed_heads(args.artifacts)
+    if args.sd_mode != "axis":
+        import dataclasses
+
+        from .config import SimConfig
+        cfg = cfg or SimConfig()
+        cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, sd_mode=args.sd_mode))
+    save = csv_base_from(args.team_a, args.team_b, args.week) if args.save else None
+    scores, _, summary, _, _, meta = simulate_upcoming_matchup_columns(
+        args.team_a, args.team_b, year=args.year, week=args.week,
+        sp_path=args.sp, artifact_dir=args.artifacts, focus_csv=args.focus,
+        n=args.n, collect_players=args.players, save_csv=save, mode=args.mode,
+        seed=args.seed, cfg=cfg, heads=heads, device=args.device)
+    print(_frame_text({c: v for c, v in summary.items() if c != "team"},
+                      index=summary["team"], index_name="team"))
+    pairs = max(1, len(scores["team"]) // 2)
+    print(f"\nTiming: {meta['total_time_sec']:.2f}s total | {pairs} sims "
+          f"| {pairs/meta['total_time_sec']:.2f} sims/sec "
+          f"| sim-only {meta['sim_time_sec']:.2f}s | I/O {meta['io_time_sec']:.2f}s")
+    if save:
+        print(f"saved scores_{save} / players_{save}")
+    return 0
+
+
+def _cmd_live(args) -> int:
+    """In-game win probability from a mid-game situation."""
+    from .api import simulate_live_game, situation_from_fields
+    from .config import SimConfig
+    from .edge import market_odds_from_summary, summary_moneyline
+
+    _no_trial_sharding(args)
+    sa, sb = (int(v) for v in args.score.split("-"))
+    sit = situation_from_fields(
+        ytg=args.ytg, offense=args.offense, sec=args.sec,
+        quarter=args.quarter, clock=args.clock, down=args.down,
+        dist=args.dist, score_a=sa, score_b=sb)
+    sec, offense = sit.sec, sit.offense
+    row, summary = simulate_live_game(
+        args.team_a, args.team_b, sit, sp_path=args.sp, year=args.year,
+        week=args.week, n_games=args.n, artifact_dir=args.artifacts,
+        focus_csv=args.focus, mode=args.mode, table_quality=args.quality,
+        seed=args.seed, device=args.device)
+    qsec = SimConfig().clock.quarter_seconds
+    qtr = 4 - (int(sec) - 1) // qsec      # the engine's own period formula
+    clock = int(sec) - (4 - qtr) * qsec   # seconds left in that quarter
+    print(f"{args.team_a} {sa} - {sb} {args.team_b} | "
+          f"Q{qtr} {clock // 60}:{clock % 60:02d} | "
+          f"{'AB'[offense]} ball, down {args.down} & {args.dist:g} "
+          f"at ytg {args.ytg:g}")
+    print(f"win: {args.team_a} {row['win_a']:.3f} / {args.team_b} "
+          f"{row['win_b']:.3f} / tie {row['tie']:.3f}   "
+          f"(n={row['n_games']})")
+    print(f"proj: {row['mean_a']:.1f} - {row['mean_b']:.1f} "
+          f"(margin {row['mean_margin_a']:+.1f}, total {row['mean_total']:.1f})")
+    ml = summary_moneyline(summary, args.team_a, args.team_b)
+    print(f"fair moneyline: {ml}")
+    if args.spread is not None or args.total is not None:
+        print(market_odds_from_summary(summary, args.team_a, args.team_b,
+                                       spread=args.spread, total=args.total))
+    return 0
+
+
+def _cmd_fourth(args) -> int:
+    """4th-down decision chart: forced go/FG/punt win probabilities next to
+    the engine's sampled policy."""
+    from .api import evaluate_fourth_down, situation_from_fields
+
+    sa, sb = (int(v) for v in args.score.split("-"))
+    sit = situation_from_fields(
+        ytg=args.ytg, offense=args.offense, sec=args.sec,
+        quarter=args.quarter, clock=args.clock, down=4,
+        dist=args.dist, score_a=sa, score_b=sb)
+    sec, offense = sit.sec, sit.offense
+    res = evaluate_fourth_down(
+        args.team_a, args.team_b, sit, sp_path=args.sp, year=args.year,
+        week=args.week, n_games=args.n, artifact_dir=args.artifacts,
+        focus_csv=args.focus, mode=args.mode, table_quality=args.quality,
+        seed=args.seed, device=args.device)
+    off_team = (args.team_a, args.team_b)[offense]
+    print(f"{args.team_a} {sa} - {sb} {args.team_b} | 4th & {args.dist:g} "
+          f"at ytg {args.ytg:g}, {sec}s left | {off_team} ball")
+    for choice in ("policy", "go", "fg", "punt"):
+        if choice not in res["choices"]:
+            continue
+        row = res["choices"][choice]
+        extra = (f"  (make prob {row['fg_make_prob']:.2f})"
+                 if choice == "fg" else "")
+        mark = "  <-- best" if choice == res["best"] else ""
+        print(f"  {choice:<7s} win({off_team}) {row['win_off']:.4f}   "
+              f"margin {row['mean_margin_off']:+.2f}{extra}{mark}")
+    print(f"  best {res['best']} vs policy: {res['best_vs_policy_pp']:+.2f}pp"
+          f"   (MC scale ~{res['se_pp']:.2f}pp/choice; deltas are "
+          "CRN-paired)")
+    return 0
+
+
+def _cmd_parlay(args) -> int:
+    """Same-game parlay pricing off the joint per-trial distribution."""
+    from .api import simulate_parlay_core
+    from .edge import print_parlay_readable
+    from .serve import corr_records, jsonable
+
+    _no_trial_sharding(args)
+    raw = args.legs
+    if raw.startswith("@"):
+        with open(raw[1:]) as f:
+            raw = f.read()
+    legs = json.loads(raw)
+    if not isinstance(legs, list):
+        raise SystemExit("--legs must be a JSON array of leg objects "
+                         "(or @path to one)")
+    if args.tease is not None:
+        from .edge import tease_legs
+        legs = tease_legs(legs, args.tease)
+        print(f"[teaser: every leg moved {args.tease:+g} points in the "
+              "bettor's favor; pushes void and reduce]")
+    rr = None
+    if args.rr is not None:
+        try:
+            rr = [int(k) for k in args.rr.split(",")]
+        except ValueError:
+            raise SystemExit(f"--rr wants a size or comma list of sizes "
+                             f"(e.g. 2 or 2,3), got {args.rr!r}")
+    res = simulate_parlay_core(
+        args.team_a, args.team_b, legs, sp_path=args.sp, year=args.year,
+        week=args.week, n_pairs=args.n, artifact_dir=args.artifacts,
+        focus_csv=args.focus, mode=args.mode, table_quality=args.quality,
+        seed=args.seed, price=args.price, correlations=args.corr,
+        round_robin=rr, device=args.device)
+    print_parlay_readable(res)
+    if args.corr:
+        labels, corr = res["leg_corr"]
+        print("\nLeg win-indicator correlations:")
+        print(_frame_text({lab: [round(float(v), 3) for v in corr[:, j]]
+                           for j, lab in enumerate(labels)}, index=labels))
+        res["leg_corr"] = corr_records(labels, corr)
+    if rr is not None:
+        from .edge import print_round_robin_readable
+        print_round_robin_readable(res["round_robin"])
+    if args.json:
+        print(json.dumps(jsonable(res)))
+    return 0
+
+
+def _slate_contexts(args, games):
+    """Build (team_a, team_b) contexts + heads once for the SlateRunner
+    branches of `slate` (game-sharded and batched share this block)."""
+    from .data.context import build_team_context_from_sp_flex
+    from .data.sp import load_sp_flex
+    from .models.heads import load_heads
+
+    sp = load_sp_flex(args.sp)
+    ms = [(build_team_context_from_sp_flex(a, args.year, args.week, sp),
+           build_team_context_from_sp_flex(b, args.year, args.week, sp))
+          for a, b in games]
+    return ms, load_heads(args.artifacts)
+
+
+def _cmd_slate(args) -> int:
+    if args.props:
+        raise NotImplementedError(f"slate --props: {_SAVED_FILES}")
+    _no_trial_sharding(args)
+    if args.lines and args.batched and args.shard == "none":
+        # fail before simulating: the batched path has no device-histogram
+        # summaries, so it cannot price markets
+        print("--lines needs a summary slate path (drop --batched, or use "
+              "--shard trial|game); no simulation run")
+        return 2
+    games = _read_games(args.games)
+    lines = _read_rows(args.lines) if args.lines else None
+    summaries = None
+    t0 = time.perf_counter()
+    if lines is not None and not args.batched and args.shard == "none":
+        # --lines routes the default through the summary sweep: market
+        # pricing needs the device-histogram summaries it accumulates
+        from .api import simulate_slate_summary_rows
+        rows, summaries = simulate_slate_summary_rows(
+            games, sp_path=args.sp, year=args.year, week=args.week,
+            n_pairs=args.n, artifact_dir=args.artifacts, mode=args.mode,
+            table_quality=args.quality, device=args.device)
+    elif args.shard == "game":
+        # every matchup's table in one SlateRunner, the whole slate in
+        # launches of all its matchups
+        from .api import SlateRunner
+
+        ms, heads = _slate_contexts(args, games)
+        sr = SlateRunner(ms, heads, quality=args.quality, game_shard=True,
+                         device=args.device)
+        rows, summaries = sr.run_summary_rows(args.n)
+    elif args.batched:
+        from .api import SlateRunner
+
+        ms, heads = _slate_contexts(args, games)
+        sr = SlateRunner(ms, heads,
+                         quality=args.quality if args.quality in
+                         ("turbo", "nano", "fused") else "fused", device=args.device)
+        rows = sr.summary_rows(sr.run(args.n))
+    else:
+        from .api import simulate_slate_rows
+        rows = simulate_slate_rows(games, sp_path=args.sp, year=args.year, week=args.week,
+                                   n=args.n, artifact_dir=args.artifacts, mode=args.mode,
+                                   table_quality=args.quality, device=args.device)
+    print(_rows_text(rows))
+    total_games = int(sum(r["n_games"] for r in rows))
+    dt = time.perf_counter() - t0
+    print(f"\n{len(games)} matchups x {args.n} pairs = {total_games} games "
+          f"in {dt:.1f}s ({total_games/dt:,.0f} games/s incl. table builds)")
+    if lines is not None:
+        from .edge import print_slate_edges, slate_market_rows
+        print_slate_edges(slate_market_rows(games, summaries, lines))
+    return 0
+
+
+def _cmd_season(args) -> int:
+    """Season win-total projection: per-game slate sims -> exact
+    Poisson-binomial win-count distribution (api.project_season_rows)."""
+    from .api import project_season_rows
+    from .edge import print_season_readable
+
+    _no_trial_sharding(args)
+    if (args.opponents is None) == (args.games is None):
+        print("pass exactly one of --opponents or --games; no simulation run")
+        return 2
+    opps = ([s.strip() for s in args.opponents.split(",") if s.strip()]
+            if args.opponents else None)
+    games = _read_games(args.games) if args.games else None
+    t0 = time.perf_counter()
+    res = project_season_rows(
+        args.team, opponents=opps, games=games, line=args.line,
+        sp_path=args.sp, year=args.year, week=args.week, n_pairs=args.n,
+        artifact_dir=args.artifacts, mode=args.mode,
+        table_quality=args.quality, seed=args.seed, device=args.device)
+    dt = time.perf_counter() - t0
+    sched = res["schedule"]
+    for row in sched:
+        us, them = (("mean_a", "mean_b") if row["team_side"] == "a"
+                    else ("mean_b", "mean_a"))
+        print(f"  vs {str(row['opponent']):<24s} p_win "
+              f"{row['p_win_team']:.4f}  (proj {row[us]:.1f}-{row[them]:.1f})")
+    print_season_readable(res)
+    total = int(sum(r["n_games"] for r in sched))
+    print(f"\n[{len(sched)} matchups x {args.n} pairs = {total} games "
+          f"in {dt:.1f}s]")
+    return 0
+
+
+def _cmd_serve(args) -> int:
+    """Run the resident simulation service (see serve.py)."""
+    from .serve import ServeConfig, serve_forever
+
+    _no_trial_sharding(args)
+    warm_games = _read_games(args.warm) if args.warm else None
+    serve_forever(
+        ServeConfig(sp_path=args.sp, artifact_dir=args.artifacts,
+                    year=args.year, week=args.week, mode=args.mode,
+                    table_quality=args.quality, focus_csv=args.focus,
+                    shard=args.shard, max_n_pairs=args.max_pairs,
+                    max_games=args.max_games, deadline_s=args.deadline,
+                    aot_dir=args.aot, device=args.device),
+        host=args.host, port=args.port, warm_games=warm_games)
+    return 0
+
+
+def _cmd_edges(args) -> int:
+    raise NotImplementedError(f"edges: {_SAVED_FILES}")
+
+
+def _cmd_prop(args) -> int:
+    raise NotImplementedError(f"prop: {_SAVED_FILES}")
+
+
+def _cmd_backtest(args) -> int:
+    raise NotImplementedError("backtest: backtest.py is not ported yet "
+                              "(ROADMAP.md queue 1 item 5)")
+
+
+def _cmd_bench(args) -> int:
+    raise NotImplementedError("bench: the port's bench entry is not written yet "
+                              "(ROADMAP.md queue 1 item 1)")
+
+
+def _cmd_train(args) -> int:
+    raise NotImplementedError("train: offline training is outside the port's scope "
+                              "(ROADMAP.md: train/pipeline.py); train with the JAX "
+                              "package and read its artifacts with --artifacts")
+
+
+def _arg_offense(s: str) -> str:
+    """argparse validator: clean error instead of a KeyError traceback."""
+    if s.strip().lower() not in ("a", "b"):
+        raise argparse.ArgumentTypeError(f"offense must be A or B, got {s!r}")
+    return s
+
+
+def _arg_score(s: str) -> str:
+    parts = s.split("-")
+    if len(parts) != 2 or not all(p.strip().isdigit() for p in parts):
+        raise argparse.ArgumentTypeError(
+            f"score must look like 21-17, got {s!r}")
+    return s
+
+
+def _add_device(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the card; raises without one) or cpu")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="fast_monte_carlo_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    ps = sub.add_parser("sim", help="simulate one matchup")
+    ps.add_argument("team_a")
+    ps.add_argument("team_b")
+    ps.add_argument("--sp", required=True, help="SP+ csv path (schema A or B)")
+    ps.add_argument("-n", type=int, default=1000, help="number of PAIRS")
+    ps.add_argument("--year", type=int, default=2025)
+    ps.add_argument("--week", type=int, default=1)
+    ps.add_argument("--seed", type=int, default=0)
+    ps.add_argument("--mode", default="table", choices=["table", "exact", "analytic"])
+    ps.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
+    ps.add_argument("--focus", default=None, help="focus players csv")
+    ps.add_argument("--players", action="store_true", help="collect player stats")
+    ps.add_argument("--save", action="store_true")
+    ps.add_argument("--shard", action="store_true",
+                    help="shard the trial axis over all devices (not ported)")
+    ps.add_argument("--reconstructed", action="store_true",
+                    help="full-fidelity reconstructed mode: recovered ML "
+                         "play policy + repo-trained stage-2 + non-unit "
+                         "temperature (config.reconstructed_config + the "
+                         "committed artifact overlay)")
+    ps.add_argument("--sd-mode", default="axis", dest="sd_mode",
+                    choices=["axis", "frozen", "marginal", "cachewarm"],
+                    help="score_diff treatment for the table heads "
+                         "(EngineConfig.sd_mode; see config.py notes)")
+    _add_device(ps)
+    ps.set_defaults(fn=_cmd_sim)
+
+    pg = sub.add_parser(
+        "live", help="in-game win probability from a mid-game state")
+    pg.add_argument("team_a")
+    pg.add_argument("team_b")
+    pg.add_argument("--sp", required=True, help="SP+ csv path")
+    pg.add_argument("--offense", default="A", type=_arg_offense,
+                    help="side with the ball: A or B")
+    pg.add_argument("--sec", type=int, default=None,
+                    help="seconds remaining in the GAME (overrides "
+                         "--quarter/--clock)")
+    pg.add_argument("--quarter", type=int, default=1, choices=[1, 2, 3, 4])
+    pg.add_argument("--clock", default=None,
+                    help="MM:SS remaining in the quarter (default 15:00)")
+    pg.add_argument("--down", type=int, default=1, choices=[1, 2, 3, 4])
+    pg.add_argument("--dist", type=float, default=10.0,
+                    help="yards to the first-down marker")
+    pg.add_argument("--ytg", type=float, required=True,
+                    help="yards to the opponent goal line (1-99)")
+    pg.add_argument("--score", default="0-0", type=_arg_score,
+                    help="current score as A-B, e.g. 21-17")
+    pg.add_argument("-n", type=int, default=65536, help="number of GAMES")
+    pg.add_argument("--spread", type=float, default=None,
+                    help="live spread quote (team A perspective)")
+    pg.add_argument("--total", type=float, default=None,
+                    help="live total quote")
+    pg.add_argument("--year", type=int, default=2025)
+    pg.add_argument("--week", type=int, default=1)
+    pg.add_argument("--seed", type=int, default=0)
+    pg.add_argument("--mode", default="table",
+                    choices=["table", "exact", "analytic"])
+    pg.add_argument("--quality", default="nano")
+    pg.add_argument("--focus", default=None)
+    pg.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
+    pg.add_argument("--shard", action="store_true",
+                    help="shard the trial axis over all devices (not ported)")
+    _add_device(pg)
+    pg.set_defaults(fn=_cmd_live)
+
+    pf = sub.add_parser(
+        "fourth", help="4th-down decision chart (forced go/fg/punt vs policy)")
+    pf.add_argument("team_a")
+    pf.add_argument("team_b")
+    pf.add_argument("--sp", required=True, help="SP+ csv path")
+    pf.add_argument("--offense", default="A", type=_arg_offense,
+                    help="side with the ball: A or B")
+    pf.add_argument("--sec", type=int, default=None,
+                    help="seconds remaining in the GAME (overrides "
+                         "--quarter/--clock)")
+    pf.add_argument("--quarter", type=int, default=4, choices=[1, 2, 3, 4])
+    pf.add_argument("--clock", default=None,
+                    help="MM:SS remaining in the quarter (default 15:00)")
+    pf.add_argument("--dist", type=float, required=True,
+                    help="yards to the first-down marker")
+    pf.add_argument("--ytg", type=float, required=True,
+                    help="yards to the opponent goal line (1-99)")
+    pf.add_argument("--score", default="0-0", type=_arg_score,
+                    help="current score as A-B, e.g. 21-17")
+    pf.add_argument("-n", type=int, default=65536,
+                    help="number of GAMES per choice")
+    pf.add_argument("--year", type=int, default=2025)
+    pf.add_argument("--week", type=int, default=1)
+    pf.add_argument("--seed", type=int, default=0)
+    pf.add_argument("--mode", default="table",
+                    choices=["table", "exact", "analytic"])
+    pf.add_argument("--quality", default="nano")
+    pf.add_argument("--focus", default=None)
+    pf.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
+    _add_device(pf)
+    pf.set_defaults(fn=_cmd_fourth)
+
+    pp = sub.add_parser(
+        "parlay", help="price a same-game parlay off the joint distribution")
+    pp.add_argument("team_a")
+    pp.add_argument("team_b")
+    pp.add_argument("--sp", required=True, help="SP+ csv path")
+    pp.add_argument(
+        "--legs", required=True,
+        help='JSON array of legs, or @path to a JSON file.  Leg kinds: '
+             '{"kind":"spread","team":...,"line":-3.5}, '
+             '{"kind":"moneyline","team":...}, '
+             '{"kind":"total","side":"over|under","line":55.5}, '
+             '{"kind":"prop","team":...,"player":...,"stat":"pass_yds",'
+             '"side":"over|under","line":249.5}')
+    pp.add_argument("-n", type=int, default=32768, help="number of PAIRS")
+    pp.add_argument("--price", type=int, default=None,
+                    help="quoted American price for the ticket, e.g. +450")
+    pp.add_argument("--year", type=int, default=2025)
+    pp.add_argument("--week", type=int, default=1)
+    pp.add_argument("--seed", type=int, default=0)
+    pp.add_argument("--mode", default="table",
+                    choices=["table", "exact", "analytic"])
+    pp.add_argument("--quality", default="nano")
+    pp.add_argument("--focus", default=None,
+                    help="focus-players csv (needed for prop legs)")
+    pp.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
+    pp.add_argument("--shard", action="store_true",
+                    help="shard the trial axis over all devices (not ported)")
+    pp.add_argument("--json", action="store_true",
+                    help="also print the raw result dict as JSON")
+    pp.add_argument("--tease", type=float, default=None,
+                    help="price as a teaser: shift every spread/total leg "
+                         "this many points in the bettor's favor "
+                         "(moneyline/prop legs are refused)")
+    pp.add_argument("--corr", action="store_true",
+                    help="also print the pairwise leg win-indicator "
+                         "correlation matrix (same trial sample)")
+    pp.add_argument("--rr", default=None, metavar="K[,K...]",
+                    help="also price the round robin: every K-leg "
+                         "combination as its own ticket off the same "
+                         "trials (e.g. --rr 2 or --rr 2,3)")
+    _add_device(pp)
+    pp.set_defaults(fn=_cmd_parlay)
+
+    pe = sub.add_parser("edges", help="betting edges over saved sims (not ported)")
+    pe.add_argument("--base", default=None)
+    pe.add_argument("--team-a", required=True)
+    pe.add_argument("--team-b", required=True)
+    pe.add_argument("--spread", type=float, default=None)
+    pe.add_argument("--total", type=float, default=None)
+    pe.add_argument("--props", default=None)
+    pe.add_argument("--dir", default=".")
+    pe.add_argument("--device", action="store_true",
+                    help="simulate + reduce on the accelerator (no files)")
+    pe.add_argument("--sp", default=None, help="SP+ csv (with --device)")
+    pe.add_argument("-n", type=int, default=65536,
+                    help="pairs (with --device); large market-only scans "
+                         "round n UP to whole 32768-pair launches")
+    pe.add_argument("--year", type=int, default=2025)
+    pe.add_argument("--week", type=int, default=1)
+    pe.add_argument("--seed", type=int, default=0)
+    pe.add_argument("--mode", default="table")
+    pe.add_argument("--quality", default="nano")
+    pe.add_argument("--focus", default=None)
+    pe.add_argument("--shard", action="store_true",
+                    help="with --device: shard the trial axis over all "
+                         "devices (per-device moments + one psum)")
+    pe.add_argument("--alt", action="store_true",
+                    help="print alternate spread/total ladders around the "
+                         "quoted lines (same distribution, zero extra sim)")
+    pe.add_argument("--alt-width", type=float, default=12.0,
+                    help="ladder half-width in points (default 12)")
+    pe.add_argument("--alt-step", type=float, default=1.0,
+                    help="ladder step in points (default 1)")
+    pe.add_argument("--mid-spread", default=None, metavar="TEAM_LINE,OPP_LINE",
+                    help="price a spread middle: hold team-a at the first "
+                         "line and team-b at the second (negative first "
+                         "lines need the = form: --mid-spread=-3.5,7.5)")
+    pe.add_argument("--mid-total", default=None, metavar="OVER,UNDER",
+                    help="price a total middle: Over the first line and "
+                         "Under the second (e.g. 51.5,57.5)")
+    pe.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
+    pe.set_defaults(fn=_cmd_edges)
+
+    pr = sub.add_parser(
+        "prop", help="price one player prop off saved sims (not ported)")
+    pr.add_argument("team")
+    pr.add_argument("player")
+    pr.add_argument("stat", help="e.g. pass_yds / rush_yds / rec_yds / INT")
+    pr.add_argument("line", type=float)
+    pr.add_argument("--base", default=None,
+                    help="saved-sim base name (players_<base> table)")
+    pr.add_argument("--dir", default=".")
+    pr.add_argument("--role", default=None,
+                    help="qb/rush/target (default: inferred from the stat)")
+    pr.add_argument("--ladder", action="store_true",
+                    help="print the alternate-line ladder around the quote "
+                         "(same samples, zero extra sim)")
+    pr.add_argument("--width", type=float, default=None,
+                    help="ladder half-width (default by stat family)")
+    pr.add_argument("--step", type=float, default=None,
+                    help="ladder step (default by stat family)")
+    pr.add_argument("--price", type=int, default=-110)
+    pr.set_defaults(fn=_cmd_prop)
+
+    pl = sub.add_parser("slate", help="simulate a slate of matchups")
+    pl.add_argument("--games", required=True, help="csv with team_a,team_b columns")
+    pl.add_argument("--sp", required=True)
+    pl.add_argument("-n", type=int, default=1000)
+    pl.add_argument("--year", type=int, default=2025)
+    pl.add_argument("--week", type=int, default=1)
+    pl.add_argument("--mode", default="table")
+    pl.add_argument("--quality", default="nano")
+    pl.add_argument("--shard", default="none",
+                    choices=["none", "trial", "game"],
+                    help="'game': every matchup's tables in one runner, "
+                         "the slate in launches of all its matchups; "
+                         "'trial' (trial sharding) is not ported")
+    pl.add_argument("--batched", action="store_true",
+                    help="run the whole slate in one launch")
+    pl.add_argument("--lines", default=None,
+                    help="csv of market lines (team_a[,team_b],spread,"
+                         "total; spread from team_a's perspective): prints "
+                         "per-matchup spread/total/moneyline edges priced "
+                         "off the device summaries (routes the unsharded "
+                         "default through the summary sweep)")
+    pl.add_argument("--props", default=None,
+                    help="prop sheet csv (team,player,stat,yards) (not ported)")
+    pl.add_argument("--props-n", type=int, default=8192, dest="props_n",
+                    help="pairs per matchup for the prop sims")
+    pl.add_argument("--min-edge", type=float, default=2.0, dest="min_edge",
+                    help="min |edge| %% to show a prop (reference: 2)")
+    pl.add_argument("--focus", default=None,
+                    help="focus players csv for prop rosters")
+    pl.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
+    _add_device(pl)
+    pl.set_defaults(fn=_cmd_slate)
+
+    pn = sub.add_parser(
+        "season", help="season win-total projection (exact Poisson-"
+                       "binomial over per-game slate sims)")
+    pn.add_argument("team")
+    pn.add_argument("--opponents", default=None,
+                    help="comma-separated opponent names (team takes "
+                         "side A in every matchup)")
+    pn.add_argument("--games", default=None,
+                    help="csv with team_a,team_b columns; team must "
+                         "appear in every row")
+    pn.add_argument("--sp", required=True, help="SP+ csv path")
+    pn.add_argument("--line", type=float, default=None,
+                    help="season win-total quote, e.g. 8.5")
+    pn.add_argument("-n", type=int, default=50000, help="PAIRS per matchup")
+    pn.add_argument("--year", type=int, default=2025)
+    pn.add_argument("--week", type=int, default=1)
+    pn.add_argument("--seed", type=int, default=0)
+    pn.add_argument("--mode", default="table")
+    pn.add_argument("--quality", default="nano")
+    pn.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
+    pn.add_argument("--shard", action="store_true",
+                    help="shard each matchup's trial axis over the mesh (not ported)")
+    _add_device(pn)
+    pn.set_defaults(fn=_cmd_season)
+
+    pk = sub.add_parser(
+        "backtest", help="score the sim against actual finals (not ported)")
+    pk.add_argument("--results", required=True,
+                    help="csv of finals: team_a,team_b,score_a,score_b "
+                         "(either orientation)")
+    pk.add_argument("--games", default=None,
+                    help="optional csv of matchups to simulate (default: "
+                         "the results rows themselves)")
+    pk.add_argument("--sp", required=True,
+                    help="SP+ csv AS OF the games' week (pregame ratings "
+                         "— postgame ratings would leak the outcomes)")
+    pk.add_argument("-n", type=int, default=32768, help="PAIRS per matchup")
+    pk.add_argument("--bins", type=int, default=10,
+                    help="reliability-table probability bins")
+    pk.add_argument("--year", type=int, default=2025)
+    pk.add_argument("--week", type=int, default=1)
+    pk.add_argument("--seed", type=int, default=0)
+    pk.add_argument("--mode", default="table")
+    pk.add_argument("--quality", default="nano")
+    pk.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
+    pk.add_argument("--shard", action="store_true",
+                    help="shard each matchup's trial axis over the mesh")
+    pk.set_defaults(fn=_cmd_backtest)
+
+    pb = sub.add_parser("bench", help="run the benchmark harness (not ported)")
+    pb.add_argument("--mode", default="table")
+    pb.add_argument("-n", type=int, default=100000)
+    pb.set_defaults(fn=_cmd_bench)
+
+    pt = sub.add_parser("train", help="train model heads (outside the port's scope)")
+    pt.add_argument("--data", required=True, help="ml_*-style plays csv")
+    pt.add_argument("--out", required=True, help="artifact output directory")
+    pt.add_argument("--heads", default="stage1,stage2,fumble,play",
+                    help="comma list: stage1,stage2,fumble,play,pass,run,sack")
+    pt.add_argument("--multiclass", action="store_true",
+                    help="5-class play model (default binary run/pass)")
+    pt.add_argument("--trees", type=int, default=400,
+                    help="n_estimators for the quantile heads")
+    pt.set_defaults(fn=_cmd_train)
+
+    pv = sub.add_parser(
+        "serve", help="resident HTTP service (warm heads/tables/kernels)")
+    pv.add_argument("--sp", required=True, help="SP+ csv path")
+    pv.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
+    pv.add_argument("--host", default="127.0.0.1")
+    pv.add_argument("--port", type=int, default=8787)
+    pv.add_argument("--year", type=int, default=2025)
+    pv.add_argument("--week", type=int, default=1)
+    pv.add_argument("--mode", default="table")
+    pv.add_argument("--quality", default="nano")
+    pv.add_argument("--focus", default=None)
+    pv.add_argument("--shard", action="store_true",
+                    help="default requests to trial-sharded launches (not ported)")
+    pv.add_argument("--warm", default=None,
+                    help="games csv to build tables for at startup")
+    pv.add_argument("--max-pairs", type=int, default=2_000_000,
+                    dest="max_pairs", help="per-request n_pairs ceiling")
+    pv.add_argument("--max-games", type=int, default=80, dest="max_games",
+                    help="per-request slate size ceiling")
+    pv.add_argument("--deadline", type=float, default=None,
+                    help="per-request admission deadline (seconds): shed "
+                         "requests with 503 when queue wait exceeds it "
+                         "(omit or <=0: never shed)")
+    pv.add_argument("--aot", default=None, metavar="DIR",
+                    help="the JAX CLI's AOT snapshot dir: accepted and "
+                         "ignored (eager PyTorch has no program to snapshot)")
+    _add_device(pv)
+    pv.set_defaults(fn=_cmd_serve)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

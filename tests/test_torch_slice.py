@@ -126,7 +126,8 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " 'fast_monte_carlo_tpu_torch.compat', 'fast_monte_carlo_tpu_torch.data.sp',"
         " 'fast_monte_carlo_tpu_torch.data.context', 'fast_monte_carlo_tpu_torch.models.xgb_json',"
         " 'fast_monte_carlo_tpu_torch.models.sklearn_gbr',"
-        " 'fast_monte_carlo_tpu_torch.models.wrappers']\n"
+        " 'fast_monte_carlo_tpu_torch.models.wrappers', 'fast_monte_carlo_tpu_torch.serve',"
+        " 'fast_monte_carlo_tpu_torch.cli']\n"
         "from fast_monte_carlo_tpu_torch import api, edge, fixtures\n"
         "from fast_monte_carlo_tpu_torch.ops import game\n"
         "from fast_monte_carlo_tpu_torch.parallel import aggregate\n"
