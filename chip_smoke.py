@@ -180,14 +180,36 @@ Phases, in order (any failure raises and exits non-zero):
     coalesced answer equal bitwise to the same request alone, the cold
     /sim equal to `api.simulate_slate_summary_rows` on the card, and K4 at
     that /sim's first launch key and shape against its plain version;
-    latencies of each endpoint and /health's p50 and p95 printed.
+    latencies of each endpoint and /health's p50 and p95 printed;
+15. saved sims, bundles and the backtest, in a temporary working directory
+    with the 136-team sheet, the focus sheet, the fixture prop sheet and the
+    fixture artifacts, each step timed with its K4 and K5 launches: `cli sim
+    --save --players` (exact mode on the focus rosters, 16,384 pairs), then
+    `edges` (spread, total, props, ladders, both middles) and `prop
+    --ladder` over the saved files, their printed cover, over and win shares
+    held to numpy's counts over the CSV rows, `moneyline_from_sims` too;
+    `edges --device` market-only at 131,072 pairs (run_pairs_summary), with
+    props on the focus rosters (exact mode) and in exact mode at 8,192
+    pairs, each summary's n exact, K5 11 a play in every exact run and the
+    plain walk never called, `player_stat_probs` on the card equal to numpy
+    over the host pstats for every resolved prop row; a small market-only
+    query under `utils.profiling.trace_context` (a Chrome trace with kernel
+    events); the batched sweep's core (3 chunks of 8,192 pairs, each
+    bitwise `simulate_matchup_columns` under its folded key; resumed past
+    chunks 0-1 it plays chunk 2 alone); `store.make_signature` of a fixed
+    meta against the JAX package's hex; `cli backtest` over the smoke's own
+    finals (8 games, a pair in both orientations, a rematch, a tie), its
+    report well formed and its rows' win_a bitwise
+    `api.simulate_slate_summary_rows`; `cli slate --props` on the focus
+    teams equal to `api.simulate_slate_prop_rows`; `device_memory_stats`
+    and `SimMeter` over the steps.
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
-9, 10, 11, 12, 13, 14) and read just after it; a path that launched one of
-its kernels no time fails.  forest_eval's launches in the JSON line are
-exact mode's, phase 13's and phase 14's; its times are per play (11
-launches), the bound too.  The JSON line's philox_draws launches are the
-main path's, the live queries', the slate path's, phase 11's, phase 13's
-and phase 14's.
+9, 10, 11, 12, 13, 14, 15) and read just after it; a path that launched one
+of its kernels no time fails.  forest_eval's launches in the JSON line are
+exact mode's, phase 13's, phase 14's and phase 15's; its times are per play
+(11 launches), the bound too.  The JSON line's philox_draws launches are
+the main path's, the live queries', the slate path's, phase 11's, phase
+13's, phase 14's and phase 15's.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
 (`probes.kernels.held_ms`; `kernel_times` for philox_draws, the fused
@@ -204,6 +226,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -274,6 +297,27 @@ SERVE_WARM = [("Team A", "Team B"), ("Team 000", "Team 001")]
 SERVE_COLD = ("Team B", "Team A")    # the fixture teams the other way round: new tables
 SERVE_COALESCED = SERVE_WARM + [SERVE_COLD, ("Team 002", "Team 003")]
 HEALTH_GETS = 50
+SAVED_PAIRS = 16_384               # sim --save n (pairs): 32,768 games with player rows
+SAVED_SEED = 3
+EDGES_PAIRS = 131_072              # edges --device market-only: run_pairs_summary's branch
+EDGES_SMALL_PAIRS = 8_192          # edges --device with props, and in exact mode
+TRACE_PAIRS = 512                  # the traced market-only edges --device query
+SWEEP_PAIRS, SWEEP_CHUNKS, SWEEP_SEED = 8_192, 3, 11   # the batched sweep's chunks
+BACKTEST_PAIRS, BACKTEST_SEED = 8_192, 6
+# the backtest's finals, drawn from the matchups whose nano tables phase 14
+# built (SERVE_COALESCED): Team A and Team B in both orientations and met
+# again, Team 000 and Team 001 met twice, Team 002 and Team 003 three times,
+# the sixth game a tie
+BACKTEST_GAMES = [("Team A", "Team B"), ("Team B", "Team A"), ("Team 000", "Team 001"),
+                  ("Team 002", "Team 003"), ("Team 000", "Team 001"), ("Team 002", "Team 003"),
+                  ("Team A", "Team B"), ("Team 002", "Team 003")]
+SAVED_SLATE_GAMES = [("Team A", "Team B"), ("Team B", "Team A")]   # the focus sheet's teams
+# store.make_signature of this meta, as the JAX package's make_signature gives it
+SIGNATURE_META = {"teams": ["Team A", "Team B"], "n_pairs": 16384, "seed": 3,
+                  "mode": "exact", "cfg": {"rng_impl": "threefry", "play_chunk": 24,
+                                           "lines": [-3.5, 44.5]},
+                  "note": "saved sims, bundles and the backtest"}
+SIGNATURE_HEX = "217959fcfc1d278bd456d5507a3e462578409e07fe800aadce65b98723cd03b7"
 # each kernel of the JSON line and its source in csrc/
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
@@ -2367,6 +2411,348 @@ def phase_serve(card: str) -> dict:
     return {"launches": launches, "k3": k3, "k4": k4, "ms": ms, "health_ms": hq.tolist(),
             "draw_err": draw_err}
 
+def _cli(argv) -> str:
+    """What `cli.main(argv)` prints; fails unless it returns 0."""
+    import contextlib
+    import io
+
+    from fast_monte_carlo_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {' '.join(argv[:3])} ...: exit {rc}")
+    return buf.getvalue()
+
+
+def _printed(fn, *a, **k) -> str:
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*a, **k)
+    return buf.getvalue()
+
+
+def _saved_rows(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def phase_saved(card: str) -> dict:
+    """Saved sims, bundles and the backtest: `sim --save` on the card, then
+    `edges` and `prop --ladder` over the files; `edges --device` three ways;
+    the batched sweep's core; a bundle signature; `backtest` and `slate
+    --props` through the CLI; trace_context, device_memory_stats and SimMeter.
+    The counts cover the steps; the checks that run a path again come after
+    they are read."""
+    import os
+    import tempfile
+
+    import torch
+    from fast_monte_carlo_tpu_torch import api, backtest, edge, fixtures, store
+    from fast_monte_carlo_tpu_torch.models.heads import load_heads
+    from fast_monte_carlo_tpu_torch.ops import forest_eval as fe
+    from fast_monte_carlo_tpu_torch.ops import rng
+    from fast_monte_carlo_tpu_torch.parallel import player_stat_probs
+    from fast_monte_carlo_tpu_torch.utils.profiling import (SimMeter, device_memory_stats,
+                                                            trace_context)
+
+    t_phase = time.perf_counter()
+    dev = "cuda"      # as the CLI passes it, so the runner memos serve both
+    art = fixtures.ARTIFACT_DIR
+    tmp = tempfile.TemporaryDirectory()
+    home = os.getcwd()
+    os.chdir(tmp.name)
+    sheet = fixtures.write_sp_sheet("sp.csv", SP_TEAMS, SP_SEED)
+    fixtures.write_csv("focus.csv", fixtures.focus_rows(FOCUS_SEED), fixtures.FOCUS_COLS)
+    fixtures.write_csv("props.csv", fixtures.prop_rows(PROP_SEED), fixtures.PROP_COLS)
+    scores = np.random.default_rng(BACKTEST_SEED).integers(0, 56, (len(BACKTEST_GAMES), 2))
+    scores[5, 1] = scores[5, 0]
+    fixtures.write_csv("finals.csv", [
+        {"team_a": a, "team_b": b, "score_a": int(x), "score_b": int(y)}
+        for (a, b), (x, y) in zip(BACKTEST_GAMES, scores)],
+        ("team_a", "team_b", "score_a", "score_b"))
+    fixtures.write_csv("slate.csv", [{"team_a": a, "team_b": b} for a, b in SAVED_SLATE_GAMES],
+                       ("team_a", "team_b"))
+    src = ["--sp", sheet, "--artifacts", art]
+    ab = ["--team-a", "Team A", "--team-b", "Team B"]
+    base = api.csv_base_from("Team A", "Team B", 1)
+    meter = SimMeter()
+    ms, k4, k5, out_text, step_games = {}, {}, {}, {}, {}
+    plain_calls = []
+    plain = fe.eval_margin_reference
+    fe.eval_margin_reference = lambda *a, **k: plain_calls.append(1) or plain(*a, **k)
+
+    def step(name, fn, games=0):
+        """fn() timed on the host clock ending in a synchronize, with its K4
+        (philox_draws ch=24) and K5 (forest_eval) launches."""
+        torch.cuda.synchronize()
+        n4 = rng.philox_draws.launches_by_ch[CH]
+        n5 = fe.eval_margin_cuda.launches
+        t0 = time.perf_counter()
+        if games:     # a simulated step: one "simulate" record with its games
+            res = fn()
+            torch.cuda.synchronize()
+            meter.record_run(games, time.perf_counter() - t0, step=name)
+        else:
+            with meter.phase(name):
+                res = fn()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        step_games[name] = games
+        k4[name] = rng.philox_draws.launches_by_ch[CH] - n4
+        k5[name] = fe.eval_margin_cuda.launches - n5
+        if games:
+            check(k4[name] > 0, f"{name}: K4 launched {k4[name]} times")
+        return res
+
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        # 1. saved files on the card, then the markets over them
+        out_text["sim"] = step("sim --save", lambda: _cli(
+            ["sim", "Team A", "Team B", *src, "--focus", "focus.csv", "--mode", "exact",
+             "-n", str(SAVED_PAIRS), "--players", "--save", "--seed", str(SAVED_SEED)]),
+            games=2 * SAVED_PAIRS)
+        out_text["edges"] = step("edges (saved files)", lambda: _cli(
+            ["edges", "--base", base, *ab, "--spread", "-3.5", "--total", "44.5",
+             "--props", "props.csv", "--alt", "--mid-spread=-3.5,7.5",
+             "--mid-total", "40.5,47.5"]))
+        qb = fixtures.roster_name("Team A", "pass", 0)
+        out_text["prop"] = step("prop --ladder (saved files)", lambda: _cli(
+            ["prop", "Team A", qb, "pass_yds", "240.5", "--base", base, "--ladder"]))
+        ml = edge.moneyline_from_sims(base, "Team A", "Team B")
+
+        # 2. edges --device: market-only (run_pairs_summary), props on the
+        # focus rosters and market-only in exact mode (focus rosters need exact
+        # mode: their heads do not fuse into the nano table)
+        out_text["device"] = step("edges --device (market-only)", lambda: _cli(
+            ["edges", "--device", *src, *ab, "-n", str(EDGES_PAIRS), "--spread", "-3.5",
+             "--total", "44.5", "--alt", "--mid-spread=-3.5,7.5", "--seed", "4"]),
+            games=2 * EDGES_PAIRS)
+        mem = device_memory_stats()
+        props_argv = ["edges", "--device", *src, *ab, "--focus", "focus.csv", "--mode",
+                      "exact", "-n", str(EDGES_SMALL_PAIRS), "--spread", "-3.5",
+                      "--props", "props.csv", "--seed", "5"]
+        out_text["device props"] = step("edges --device (props, exact)",
+                                        lambda: _cli(props_argv), games=2 * EDGES_SMALL_PAIRS)
+        out_text["device exact"] = step("edges --device (exact)", lambda: _cli(
+            ["edges", "--device", *src, *ab, "--mode", "exact", "-n", str(EDGES_SMALL_PAIRS),
+             "--spread", "-3.5", "--total", "44.5", "--seed", "6"]),
+            games=2 * EDGES_SMALL_PAIRS)
+        trace_dir = os.path.join(tmp.name, "trace")
+        with trace_context(trace_dir):
+            out_text["traced"] = step("edges --device (traced)", lambda: _cli(
+                ["edges", "--device", *src, *ab, "-n", str(TRACE_PAIRS), "--spread", "-3.5"]),
+                games=2 * TRACE_PAIRS)
+
+        # 3. the batched sweep's core on the card, then resumed past chunks 0-1
+        # the market-only query's memoized runner (its nano tables built once)
+        runner, a, b, _ = api._prepared_runner(
+            "Team A", "Team B", sp_path=sheet, year=2025, week=1, artifact_dir=art,
+            focus_csv=None, mode="table", table_quality="nano", cfg=None, shard=False,
+            device=dev)
+        heads = load_heads(art)
+        chunk_k4, chunks = {}, {}
+
+        def sweep(done=()):
+            got = {}
+            n4 = rng.philox_draws.launches_by_ch[CH]
+            for ci, cols, _ in api.simulate_matchup_batched_chunks(
+                    a, b, heads, SWEEP_CHUNKS * SWEEP_PAIRS, SWEEP_PAIRS, seed=SWEEP_SEED,
+                    runner=runner, done=done):
+                got[ci] = cols
+                chunk_k4[(done, ci)] = rng.philox_draws.launches_by_ch[CH] - n4
+                n4 = rng.philox_draws.launches_by_ch[CH]
+            return got
+
+        chunks = step("batched sweep (3 chunks)", sweep, games=2 * SWEEP_CHUNKS * SWEEP_PAIRS)
+        resumed = step("batched sweep (resumed)", lambda: sweep((0, 1)), games=2 * SWEEP_PAIRS)
+
+        # 4. the content address of a bundle
+        sig = store.make_signature(SIGNATURE_META)
+
+        # 5. the backtest of the smoke's own finals, its report kept
+        reports = []
+        real_print = backtest.print_backtest_readable
+        backtest.print_backtest_readable = lambda rep: reports.append(rep) or real_print(rep)
+        try:
+            out_text["backtest"] = step("backtest (8 games)", lambda: _cli(
+                ["backtest", "--results", "finals.csv", *src, "-n", str(BACKTEST_PAIRS),
+                 "--seed", str(BACKTEST_SEED)]), games=2 * BACKTEST_PAIRS * len(BACKTEST_GAMES))
+        finally:
+            backtest.print_backtest_readable = real_print
+
+        # 6. slate --props on the focus teams (exact mode)
+        slate_argv = ["slate", "--games", "slate.csv", *src, "--focus", "focus.csv",
+                      "--mode", "exact", "-n", "1024", "--props", "props.csv",
+                      "--props-n", str(EDGES_SMALL_PAIRS), "--min-edge", "0"]
+        out_text["slate"] = step("slate --props (2 matchups)", lambda: _cli(slate_argv),
+                                 games=2 * (1024 + EDGES_SMALL_PAIRS) * len(SAVED_SLATE_GAMES))
+        torch.cuda.synchronize()
+        launches = read_counts("saved-sims path", ["philox_draws", "forest_eval"])
+    finally:
+        fe.eval_margin_reference = plain
+        os.chdir(home)
+
+    try:
+        os.chdir(tmp.name)
+        # 1. the printed shares against numpy over the saved rows
+        rows = _saved_rows(f"scores_{base}")
+        side = {t: [(int(r["pts"]), int(r["opp_pts"])) for r in rows if r["team"] == t]
+                for t in ("Team A", "Team B")}
+        pa, pb = (np.array(side[t]) for t in ("Team A", "Team B"))
+        check(len(rows) == 2 * SAVED_PAIRS and len(pa) + len(pb) == 2 * SAVED_PAIRS,
+              f"sim --save wrote {len(rows):,} score rows")
+        p_cover = round(float(np.mean(pa[:, 0] - pa[:, 1] > 3.5)), 6)
+        p_over = round(float(np.mean(pa.sum(axis=1) > 44.5)), 6)
+        p_win = (round(float(np.mean(pa[:, 0] > pa[:, 1])), 6),
+                 round(float(np.mean(pb[:, 0] > pb[:, 1])), 6))
+        text = out_text["edges"]
+        check(f"Cover:     {100 * p_cover:.1f}%" in text and f"Over:   {100 * p_over:.1f}%"
+              in text and f"Team A: {100 * p_win[0]:.2f}%" in text
+              and f"Team B: {100 * p_win[1]:.2f}%" in text,
+              f"edges over the saved files prints numpy's cover {p_cover}, over {p_over} "
+              f"and win shares {p_win}")
+        check((ml["team"]["p_win"], ml["opp"]["p_win"]) == p_win,
+              f"moneyline_from_sims p_win {ml['team']['p_win']}, {ml['opp']['p_win']} == "
+              "numpy's counts")
+        check("— Player Props value" in text and "— Alternate Spreads —" in text
+              and text.count("=== Middle:") == 2, "edges printed the props, ladders and "
+              "both middles")
+        prows = [r for r in _saved_rows(f"players_{base}")
+                 if r["team"] == "Team A" and r["player"] == qb and r["role"] == "QB"]
+        p_qb = round(float(np.mean([float(r["pass_yds"]) > 240.5 for r in prows])), 4)
+        check(f"Over:  {p_qb:.1%}" in out_text["prop"]
+              and "Alternate lines (same samples as the quote):" in out_text["prop"],
+              f"prop {qb} pass_yds 240.5: over {p_qb} as numpy counts {len(prows):,} rows")
+
+        # 2. exact sums and launch shapes of edges --device
+        for name, pairs in (("device", EDGES_PAIRS), ("device props", EDGES_SMALL_PAIRS),
+                            ("device exact", EDGES_SMALL_PAIRS), ("traced", TRACE_PAIRS)):
+            last = [x for x in out_text[name].splitlines() if x.startswith("[")][-1]
+            check(last.startswith(f"[{2 * pairs} games simulated + reduced on cuda in"),
+                  f"edges --device ({name}): {last}")
+        check(k5["edges --device (market-only)"] == 0,
+              f"the market-only query (table mode): {k4['edges --device (market-only)']} K4 "
+              f"launches over {EDGES_PAIRS // 32_768} launches of 65,536 games, no forest walk")
+        for name in ("sim --save", "edges --device (props, exact)", "edges --device (exact)",
+                     "slate --props (2 matchups)"):
+            check(k5[name] == 11 * CH * k4[name], f"{name} (exact mode): K5 {k5[name]} "
+                  f"launches, 11 a play over {k4[name]} chunks of {CH} plays")
+        check(not plain_calls, f"exact mode walked its forests through K5 only (the plain "
+              f"walk called {len(plain_calls)} times)")
+        runner_p, pa_ctx, pb_ctx, _ = api._prepared_runner(
+            "Team A", "Team B", sp_path=sheet, year=2025, week=1, artifact_dir=art,
+            focus_csv="focus.csv", mode="exact", table_quality="nano", cfg=None, shard=False,
+            device=dev)
+        out = runner_p.run_pairs(EDGES_SMALL_PAIRS, seed=5, collect_players=True,
+                                 collect_stats=False)
+        table = _printed(edge.print_prop_table,
+                         edge.scan_props_rows(out, pa_ctx, pb_ctx, "props.csv"))
+        check(table.strip() in out_text["device props"],
+              "edges --device --props printed scan_props_rows of the same games")
+        idx, meta = edge.resolve_prop_rows(pa_ctx, pb_ctx, edge.read_prop_sheet("props.csv"))
+        pst = out.pstats.cpu().numpy()
+        n = pst.shape[0]
+        same = 0
+        for i in range(len(meta)):
+            sd, ro, sl, co = (int(x[i]) for x in idx[:4])
+            line = np.float32(idx[4][i])
+            got = {k: v.item() for k, v in player_stat_probs(out.pstats, sd, ro, sl, co,
+                                                             float(line)).items()}
+            v = pst[:, sd, ro, sl, co]
+            inv = np.float32(1) / np.float32(n)
+            want = {"p_over": np.float32((v > line).sum()) * inv,
+                    "p_under": np.float32((v < line).sum()) * inv,
+                    "push": np.float32((np.abs(v - line) <= np.float32(1e-9)).sum()) * inv,
+                    "mean": np.float32(v.astype(np.float64).sum() / n)}
+            same += all(np.float32(got[k]) == want[k] for k in want)
+        check(same == len(meta) > 0, f"player_stat_probs on the card == numpy over the host "
+              f"pstats, exactly, for {same} of {len(meta)} resolved prop rows")
+        stats = mem.get("cuda:0", {})
+        check(stats and stats["peak_bytes_in_use"] >= stats["bytes_in_use"] > 0
+              and stats["bytes_limit"] > stats["peak_bytes_in_use"],
+              f"device_memory_stats: {mem}")
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        check(len(traces) == 1, f"trace_context wrote {len(traces)} file in {trace_dir}")
+        trace_mb = os.path.getsize(traces[0]) / 2 ** 20
+        with open(traces[0]) as f:
+            text = f.read()
+        kernels = len(re.findall(r'"cat":\s*"kernel"', text))
+        check(text.lstrip().startswith("{") and "traceEvents" in text and kernels > 0,
+              f"trace_context wrote a Chrome trace of {trace_mb:.1f} MB, {kernels:,} kernel "
+              "events")
+
+        # 3. the sweep's chunks bitwise the keyed runs; the resume ran chunk 2 alone
+        for ci, cols in chunks.items():
+            want, _, _ = api.simulate_matchup_columns(
+                a, b, None, SWEEP_PAIRS, runner=runner,
+                key=rng.fold_in(rng.root_key(SWEEP_SEED), ci))
+            _same_columns(cols, want, f"sweep chunk {ci} == simulate_matchup_columns(key="
+                                      f"fold_in(root_key({SWEEP_SEED}), {ci}))")
+        check(sorted(resumed) == [2] and chunk_k4[((0, 1), 2)] == chunk_k4[((), 2)] > 0,
+              f"the resumed sweep played chunk 2 alone: {chunk_k4[((0, 1), 2)]} K4 launches, "
+              f"as chunk 2 the first time")
+        _same_columns(resumed[2], chunks[2], "the resumed chunk 2")
+
+        # 4. the signature
+        check(sig == SIGNATURE_HEX, f"make_signature of the fixed meta: {sig}")
+
+        # 5. the report, its rows bitwise the slate's at the same seed
+        rep, = reports
+        w, pit = rep["win"], rep["pit"]
+        check(rep["games"] == len(BACKTEST_GAMES) and w["n"] == len(BACKTEST_GAMES) - 1
+              and 0 <= w["brier"] <= 1 and 0 <= pit["margin_ks"] <= 1
+              and 0 <= pit["total_ks"] <= 1,
+              f"backtest report: {rep['games']} games ({w['n']} with a winner), brier "
+              f"{w['brier']}, KS margin {pit['margin_ks']}, total {pit['total_ks']}")
+        srows, _ = api.simulate_slate_summary_rows(
+            BACKTEST_GAMES, sp_path=sheet, artifact_dir=art, n_pairs=BACKTEST_PAIRS,
+            seed=BACKTEST_SEED, device=dev)
+        check(all(r["win_a"] == srows[r["_pred_index"]]["win_a"] for r in rep["rows"])
+              and [r["_pred_index"] for r in rep["rows"]] == list(range(len(BACKTEST_GAMES)))
+              and all((r["actual_a"], r["actual_b"]) == tuple(map(float, scores[i]))
+                      for i, r in enumerate(rep["rows"])),
+              "the joined rows' win_a == simulate_slate_summary_rows at the same seed, "
+              "bitwise; each row its own final, the rematch in order")
+        cal, ses = backtest.fit_calibration(rep)
+        check(isinstance(cal, edge.MarketCalibration) and np.isfinite(
+            [cal.margin_shift, cal.total_shift]).all(),
+              f"fit_calibration: {cal} (se {ses})")
+
+        # 6. slate --props == simulate_slate_prop_rows
+        prop_rows = api.simulate_slate_prop_rows(
+            SAVED_SLATE_GAMES, sp_path=sheet, props_csv="props.csv",
+            n_pairs=EDGES_SMALL_PAIRS, mode="exact", artifact_dir=art, focus_csv="focus.csv",
+            min_abs_edge_pct=0, device=dev)
+        check(prop_rows and out_text["slate"].endswith(_printed(edge.print_prop_table,
+                                                                prop_rows)),
+              f"slate --props printed simulate_slate_prop_rows' {len(prop_rows)} rows")
+
+        # 7. the meter
+        summ = meter.summary()
+        runs = [r for r in meter.records if r["phase"] == "simulate"]
+        check(len(meter.records) == len(ms)
+              and len(runs) == sum(1 for g in step_games.values() if g)
+              and summ["games"] == sum(r["games"] for r in runs) and summ["sim_time_sec"] > 0,
+              f"SimMeter: {len(meter.records)} records, {len(runs)} simulated steps, "
+              f"{summ['games']:,} games")
+    finally:
+        os.chdir(home)
+        tmp.cleanup()
+
+    print("  query latency: " + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+          + f" ({card})")
+    print(f"  K4 launches by step: {k4}; K5: {k5} ({card})")
+    print(f"  SimMeter: {json.dumps(meter.summary())}")
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s; launches K4 "
+          f"{launches['philox_draws']}, K5 {launches['forest_eval']} ({card})")
+    return {"launches": launches, "ms": ms, "k4": k4, "k5": k5, "trace_mb": trace_mb}
+
 
 def check_summary(summary, games: int, what: str) -> None:
     """n, rates summing to 1, mean points in (10, 50), histograms summing
@@ -2487,16 +2873,22 @@ def main() -> int:
     print("[14] the resident server: SimService behind make_server on cuda, over HTTP "
           "(table mode, then exact mode)")
     served = phase_serve(card)
+    print("[15] saved sims, bundles and the backtest: sim --save, edges and prop over the "
+          "files, edges --device, the batched sweep, backtest and slate --props on cuda")
+    saved = phase_saved(card)
     print(f"  philox_draws launches: main path {k['launches']}, props path "
           f"{props['launches']}, live queries {live['launches']}, slate path "
           f"{slate['launches']}, multi-leg/season/slate props {multi['launches']}, "
           f"inputs from files {files['launches']['philox_draws']}, server "
-          f"{served['launches']['philox_draws']}")
+          f"{served['launches']['philox_draws']}, saved sims {saved['launches']['philox_draws']}")
     print(f"  forest_eval launches: exact mode {exact['launches']}, inputs from files "
-          f"{files['launches']['forest_eval']}, server {served['launches']['forest_eval']}")
+          f"{files['launches']['forest_eval']}, server {served['launches']['forest_eval']}, "
+          f"saved sims {saved['launches']['forest_eval']}")
     k["launches"] += (live["launches"] + slate["launches"] + multi["launches"]
-                      + files["launches"]["philox_draws"] + served["launches"]["philox_draws"])
-    exact["launches"] += files["launches"]["forest_eval"] + served["launches"]["forest_eval"]
+                      + files["launches"]["philox_draws"] + served["launches"]["philox_draws"]
+                      + saved["launches"]["philox_draws"])
+    exact["launches"] += (files["launches"]["forest_eval"] + served["launches"]["forest_eval"]
+                          + saved["launches"]["forest_eval"])
     k["max_abs_err"] = max(k["max_abs_err"], slate["draw_err"], served["draw_err"])
 
     rows = {"philox_draws": k, **fused, **gathers, "forest_eval": exact}

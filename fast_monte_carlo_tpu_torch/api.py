@@ -54,6 +54,11 @@ robin from one run; takes `runner=` as the live entry points do),
 `simulate_slate_props` (a prop sheet scanned over a slate), with the
 pandas-free cores `simulate_parlay_core`, `project_season_rows` and
 `simulate_slate_prop_rows`.
+
+Long sweeps: `simulate_matchup_batched` checkpoints chunks of pairs to
+parquet files and resumes past those on disk; its core
+`simulate_matchup_batched_chunks` yields each chunk's columns without
+pandas.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -512,6 +518,119 @@ def simulate_matchup(team_a: TeamContext, team_b: TeamContext, heads=None, n: in
             runner)
 
 
+# ---- checkpointed sweeps ------------------------------------------------------------
+
+# The chunk-key convention of a run directory: chunk ci plays under
+# fold_in(root_key(seed), ci) on the port's Philox stream.  The JAX package
+# writes "fold_in-v2" for its threefry games; the tags differ so that
+# neither package resumes the other's directory into one dataset.
+_CHUNK_KEY_SCHEME = "torch-philox-fold_in-v1"
+
+
+def simulate_matchup_batched_chunks(
+    team_a: TeamContext,
+    team_b: TeamContext,
+    heads,
+    n_pairs_total: int,
+    batch_pairs: int,
+    *,
+    cfg: Optional[SimConfig] = None,
+    seed: int = 0,
+    mode: str = "table",
+    collect_players: bool = False,
+    done=(),
+    runner: Optional[MatchupRunner] = None,
+    device=None,
+):
+    """The pandas-free core of `simulate_matchup_batched`: yields (ci,
+    scores columns, player columns or None) for each chunk ci of
+    ceil(n_pairs_total / batch_pairs) not in `done`, chunk ci being
+    min(batch_pairs, what is left) pairs under fold_in(root_key(seed), ci)
+    (`simulate_matchup_columns(key=...)`).  One runner plays every chunk:
+    `runner`, or one built at the first chunk played."""
+    if batch_pairs <= 0 or n_pairs_total <= 0:
+        raise ValueError(f"n_pairs_total and batch_pairs must be positive, got "
+                         f"{n_pairs_total} and {batch_pairs}")
+    cfg = cfg or SimConfig()
+    root = root_key(seed)
+    for ci in range(-(-n_pairs_total // batch_pairs)):
+        if ci in done:
+            continue
+        pairs = min(batch_pairs, n_pairs_total - ci * batch_pairs)
+        scores, players, runner = simulate_matchup_columns(
+            team_a, team_b, heads, pairs, cfg=cfg, key=fold_in(root, ci),
+            collect_players=collect_players, mode=mode, runner=runner, device=device)
+        yield ci, scores, players
+
+
+def simulate_matchup_batched(
+    team_a: TeamContext,
+    team_b: TeamContext,
+    heads,
+    n_pairs_total: int,
+    batch_pairs: int,
+    run_dir: str,
+    *,
+    cfg: Optional[SimConfig] = None,
+    seed: int = 0,
+    mode: str = "table",
+    collect_players: bool = False,
+    runner: Optional[MatchupRunner] = None,
+    device=None,
+):
+    """A checkpointed long sweep: chunks of `batch_pairs` pairs written to
+    `run_dir` as scores_chunk_NNNNN.parquet (players_chunk_NNNNN.parquet
+    with collect_players), each to a .tmp file renamed when whole.  A
+    second call skips the chunks on disk, so a killed sweep goes on where it
+    stopped.  Returns the scores of every chunk as one DataFrame (pandas
+    imported here).
+
+    run_dir/KEY_SCHEME records the chunk-key convention
+    (`_CHUNK_KEY_SCHEME`); a directory with another tag, or with chunks and
+    no tag, is refused rather than resumed."""
+    import pandas as pd
+
+    d = Path(run_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    scheme = d / "KEY_SCHEME"
+    if scheme.exists():
+        tag = scheme.read_text().strip()
+        if tag != _CHUNK_KEY_SCHEME:
+            raise ValueError(
+                f"{run_dir} was written under chunk-key scheme {tag!r}; "
+                f"this build uses {_CHUNK_KEY_SCHEME!r}. Resuming would mix "
+                "two RNG conventions in one dataset — use a fresh run_dir "
+                "(or delete the old chunks to restart).")
+    elif any(d.glob("scores_chunk_*.parquet")):
+        raise ValueError(
+            f"{run_dir} holds chunks with no KEY_SCHEME marker (written "
+            "before the fold_in chunk-key change). Resuming would splice "
+            "two RNG conventions — use a fresh run_dir or delete the old "
+            "chunks.")
+    else:
+        scheme.write_text(_CHUNK_KEY_SCHEME + "\n")
+
+    def chunk_path(ci: int) -> Path:
+        return d / f"scores_chunk_{ci:05d}.parquet"
+
+    n_chunks = -(-n_pairs_total // max(batch_pairs, 1))
+    done = {ci for ci in range(n_chunks) if chunk_path(ci).exists()}
+    frames = {ci: pd.read_parquet(chunk_path(ci)) for ci in sorted(done)}
+    for ci, scores, players in simulate_matchup_batched_chunks(
+            team_a, team_b, heads, n_pairs_total, batch_pairs, cfg=cfg, seed=seed,
+            mode=mode, collect_players=collect_players, done=done, runner=runner,
+            device=device):
+        sims_df = pd.DataFrame(scores)
+        tmp = chunk_path(ci).with_suffix(".tmp")
+        sims_df.to_parquet(tmp, index=False)
+        tmp.rename(chunk_path(ci))
+        if players is not None:
+            _players_df(players).to_parquet(d / f"players_chunk_{ci:05d}.parquet",
+                                            index=False)
+        frames[ci] = sims_df
+    return pd.concat([frames[ci] for ci in sorted(frames)], ignore_index=True)
+
+
 # ---- a user's run: an SP+ sheet and an artifact directory ---------------------
 
 def csv_base_from(team_a: str, team_b: str, week: int, ext: str = ".csv") -> str:
@@ -595,24 +714,28 @@ def simulate_upcoming_matchup(team_a: str, team_b: str, **kw):
             pd.DataFrame(summary).set_index("team"), a, b, meta)
 
 
-def _csv_text(v) -> str:
-    """One cell as pandas' to_csv writes it: missing values empty, numpy
-    scalars by their shortest repr (float32 as float32)."""
-    if v is None or (isinstance(v, (float, np.floating)) and np.isnan(v)):
-        return ""
-    return str(v)
+def _csv_cells(col) -> list:
+    """A column's cells as pandas' to_csv writes them, converted at once:
+    missing values empty, numpy scalars by their shortest repr (float32 as
+    float32; a float column's distinct values once)."""
+    col = np.asarray(col)
+    if col.dtype.kind in "iub":
+        return col.astype(str).tolist()
+    if col.dtype.kind == "f":     # distinct by bits: -0.0 writes as "-0.0"
+        bits, where = np.unique(col.view(f"i{col.itemsize}"), return_inverse=True)
+        return np.where(np.isnan(col), "", bits.view(col.dtype).astype(str)[where]).tolist()
+    missing = (col != col) | (col == None)  # noqa: E711 (elementwise: NaN or None)
+    return np.where(missing, "", col.astype(str)).tolist()
 
 
 def _write_columns_csv(path: str, cols: Columns) -> None:
     """Columns written as pandas' `DataFrame(cols).to_csv(path, index=False)`
-    writes them."""
+    writes them, by `csv`'s writer, which quotes as pandas does."""
     names = list(cols)
-    n = len(cols[names[0]]) if names else 0
     with open(path, "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")
         w.writerow(names)
-        for i in range(n):
-            w.writerow([_csv_text(cols[c][i]) for c in names])
+        w.writerows(zip(*(_csv_cells(cols[c]) for c in names)))
 
 
 def _save_frames(save_csv: str, scores: Columns, players: Optional[Columns]) -> None:

@@ -8,17 +8,22 @@
 Subcommands, flags and defaults are the JAX CLI's; each ported subcommand
 adds `--device` (default `cuda`; `cpu` for a host without a card, where
 `cuda` raises).  Ported: `sim`, `live`, `fourth`, `parlay`, `slate` (the
-summary loop, `--lines`, `--batched` and `--shard game`), `season` and
-`serve`.  They read CSVs with the `csv` module and print the JAX commands'
-lines; where the JAX command prints a DataFrame, `_frame_text` prints the
-same columns in the same order, laid out as pandas lays them out.
+summary loop, `--lines`, `--batched`, `--shard game` and `--props`),
+`season`, `edges`, `prop`, `backtest` and `serve`.  They read CSVs with the
+`csv` module and print the JAX commands' lines; where the JAX command
+prints a DataFrame, `_frame_text` prints the same columns in the same
+order, laid out as pandas lays them out.
+
+`edges` keeps the JAX CLI's `--device` switch between its two branches:
+without it the markets are priced from saved sim files (`edge.find_edges`
+and the ladders and middles over `scores_*`/`players_*`); a bare
+`--device` simulates and prices on the card, `--device cpu` on the CPU.
+`prop` prices one player prop (and its ladder) from a saved players file.
 
 Not ported yet, each raising NotImplementedError before any simulation:
-`edges`, `prop` and `slate --props` (the markets over saved sim files and
-their printers, ROADMAP.md queue 1 item 2), `sim --sd-mode cachewarm`
-(item 4), `backtest` (`backtest.py`, item 5), `bench` (the port's bench
-entry, item 1) and `--shard` (trial sharding, item 6).  `train` is outside
-the port's scope.
+`sim --sd-mode cachewarm` (ROADMAP.md queue 1 item 4), `bench` (the port's
+bench entry, item 1) and `--shard` (trial sharding, item 6).  `train` is
+outside the port's scope.
 """
 from __future__ import annotations
 
@@ -26,12 +31,14 @@ import argparse
 import csv
 import json
 import math
+import re
+import sys
 import time
+
+import numpy as np
 
 from .models.heads import DEFAULT_ARTIFACT_DIR
 
-_SAVED_FILES = ("the markets over saved sim files and their printers are not ported yet "
-                "(ROADMAP.md queue 1 item 2)")
 _TRIAL_SHARDING = ("--shard: trial sharding over several cards is not ported yet "
                    "(ROADMAP.md queue 1 item 6)")
 
@@ -49,60 +56,79 @@ def _read_games(path: str) -> list:
     return [tuple(r[:2]) for r in rows[1:]]
 
 
-def _cell(v: str):
-    """One CSV cell as pandas reads it: empty is NaN, a number a float."""
-    if v == "":
-        return math.nan
-    try:
-        return float(v)
-    except ValueError:
-        return v
-
-
 def _read_rows(path: str) -> list:
-    """A CSV's rows as dicts by header, cells as `_cell` reads them."""
-    with open(path, newline="") as f:
-        return [{k: _cell(v) for k, v in r.items()} for r in csv.DictReader(f)]
+    """A CSV's rows as dicts by header, cells as pandas' read_csv types
+    them (`data.columns.read_csv_columns`)."""
+    from .data.columns import read_csv_columns, records_of
+
+    return records_of(read_csv_columns(path))
 
 
-def _column_text(vals) -> list:
-    """One column's cells as pandas prints them: floats with six places,
-    trailing zeros that every cell shares trimmed (at least one place
-    kept), NaN as NaN; a column with text or no float as str."""
-    if (not any(isinstance(v, float) for v in vals)
-            or any(isinstance(v, str) for v in vals)):
-        return ["NaN" if isinstance(v, float) and math.isnan(v) else str(v) for v in vals]
-    cells = ["NaN" if math.isnan(v) else f"{v:.6f}" for v in map(float, vals)]
-    nums = [c for c in cells if c != "NaN"]
-    while nums and all(c.endswith("0") and c[-2] != "." for c in nums):
-        nums = [c[:-1] for c in nums]
-        cells = [c if c == "NaN" else c[:-1] for c in cells]
-    return cells
+_DECIMAL_NUMBER = re.compile(r"^\s*[\+-]?[0-9]+\.[0-9]*$")
+
+
+def _trim_zeros(cells: list) -> list:
+    """pandas' `_trim_zeros_float`: the trailing zeros every decimal number
+    of a column shares trimmed, one kept after the point."""
+    def dec(x):
+        return _DECIMAL_NUMBER.match(x) is not None
+
+    while any(dec(x) for x in cells) and all(x.endswith("0") for x in cells if dec(x)):
+        cells = [x[:-1] if dec(x) else x for x in cells]
+    return [x + "0" if dec(x) and x.endswith(".") else x for x in cells]
+
+
+def _is_number(v) -> bool:
+    return isinstance(v, (int, float, np.integer, np.floating)) and not isinstance(
+        v, (bool, np.bool_))
+
+
+def _column_text(vals, leading_space: bool):
+    """(cells, numeric) of one column as pandas prints it: integers as
+    integers; floats (ints among them, NaN as NaN) with six places, the
+    trailing zeros every cell shares trimmed, in e-notation where a value is
+    below 1e-6 or, too long, above 1e6; anything else as str.  With
+    `leading_space` (pandas does so when it prints the index) a cell keeps a
+    place for the sign.  `numeric` says whether pandas would give the
+    column a numeric dtype, whose header it prints with a leading space."""
+    pad = " " if leading_space else ""
+    if vals and all(_is_number(v) for v in vals):
+        if all(isinstance(v, (int, np.integer)) for v in vals):
+            return [f"{v: d}" if leading_space else f"{v:d}" for v in vals], True
+        nums = [float(v) for v in vals]
+        cells = _trim_zeros(["NaN" if math.isnan(v) else format(v, f"{pad}.6f")
+                             for v in nums])
+        finite = [abs(v) for v in nums if not math.isnan(v)]
+        small = any(0 < v < 1e-6 for v in finite)
+        if small or (max(map(len, cells)) > 12 and any(v > 1e6 for v in finite)):
+            cells = ["NaN" if math.isnan(v) else format(v, f"{pad}.6e") for v in nums]
+        return cells, True
+    numeric = bool(vals) and all(isinstance(v, (bool, np.bool_)) for v in vals)
+    return [pad + ("NaN" if isinstance(v, float) and math.isnan(v) else str(v))
+            for v in vals], numeric
 
 
 def _frame_text(columns: dict, index=None, index_name=None) -> str:
-    """A table of `columns` (name -> values) laid out as pandas prints a
-    DataFrame: with `index`, its labels left-aligned before the columns
-    and (`index_name`) a line naming it under the header, columns two
-    spaces apart; without, as `to_string(index=False)`, one space apart."""
+    """A table of `columns` (name -> values) as pandas prints a DataFrame:
+    with `index`, as `to_string()` (its labels left-aligned before the
+    columns and, with `index_name`, a line naming it under the header);
+    without, as `to_string(index=False)`."""
     names = list(columns)
-    cells = {c: _column_text([v.item() if hasattr(v, "item") else v for v in columns[c]])
-             for c in names}
-    widths = {c: max([len(str(c))] + [len(x) for x in cells[c]]) for c in names}
-    n = len(next(iter(cells.values()), []))
-    if index is None:
-        lines = [" ".join(str(c).rjust(widths[c]) for c in names)]
-        lines += [" ".join(cells[c][i].rjust(widths[c]) for c in names) for i in range(n)]
-        return "\n".join(lines)
-    labels = [str(x) for x in index]
-    iw = max([len(str(index_name or ""))] + [len(x) for x in labels])
-    body = "  ".join(str(c).rjust(widths[c]) for c in names)
-    lines = [" " * iw + "  " + body]
-    if index_name:
-        lines.append(str(index_name).ljust(iw + 2 + len(body)))
-    lines += [labels[i].ljust(iw) + "  " + "  ".join(cells[c][i].rjust(widths[c])
-                                                    for c in names) for i in range(n)]
-    return "\n".join(lines)
+    lead = index is not None
+    texts = [_column_text([v.item() if hasattr(v, "item") else v for v in columns[c]], lead)
+             for c in names]
+    n = len(texts[0][0]) if texts else 0
+    blocks = []
+    if lead:
+        labels = [str(x) for x in index]
+        head = ["", str(index_name)] if index_name else [""]
+        iw = max(len(x) for x in head + labels)
+        blocks.append([x.ljust(iw) for x in head + labels])
+    for c, (cells, numeric) in zip(names, texts):
+        head = [(" " if numeric else "") + str(c)] + ([""] if lead and index_name else [])
+        w = max(len(x) for x in head + cells)
+        blocks.append([x.rjust(w) for x in head + cells])
+    return "\n".join(" ".join(b[i] for b in blocks) for i in range(len(blocks[0])))
 
 
 def _rows_text(rows: list) -> str:
@@ -285,8 +311,6 @@ def _slate_contexts(args, games):
 
 
 def _cmd_slate(args) -> int:
-    if args.props:
-        raise NotImplementedError(f"slate --props: {_SAVED_FILES}")
     _no_trial_sharding(args)
     if args.lines and args.batched and args.shard == "none":
         # fail before simulating: the batched path has no device-histogram
@@ -336,6 +360,14 @@ def _cmd_slate(args) -> int:
     if lines is not None:
         from .edge import print_slate_edges, slate_market_rows
         print_slate_edges(slate_market_rows(games, summaries, lines))
+    if args.props:
+        from .api import simulate_slate_prop_rows
+        from .edge import print_prop_table
+        print_prop_table(simulate_slate_prop_rows(
+            games, sp_path=args.sp, props_csv=args.props, year=args.year,
+            week=args.week, n_pairs=args.props_n, mode=args.mode,
+            artifact_dir=args.artifacts, table_quality=args.quality,
+            focus_csv=args.focus, min_abs_edge_pct=args.min_edge, device=args.device))
     return 0
 
 
@@ -389,17 +421,168 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+def _parse_line_pair(spec: str, flag: str):
+    """Parse a LOW,HIGH line pair for the middle flags."""
+    try:
+        lo, hi = (float(x) for x in spec.split(","))
+    except ValueError:
+        raise SystemExit(
+            f"{flag} wants two comma-separated lines (e.g. -3.5,7.5), "
+            f"got {spec!r}")
+    return lo, hi
+
+
+def _middle_specs(args):
+    """The (mid_spread, mid_total) kwargs both edges paths share."""
+    return dict(
+        mid_spread=(None if args.mid_spread is None else
+                    _parse_line_pair(args.mid_spread, "--mid-spread")),
+        mid_total=(None if args.mid_total is None else
+                   _parse_line_pair(args.mid_total, "--mid-total")))
+
+
 def _cmd_edges(args) -> int:
-    raise NotImplementedError(f"edges: {_SAVED_FILES}")
+    if args.device is not None:
+        return _cmd_edges_device(args)
+    mids = _middle_specs(args)  # bad --mid specs fail before any pricing
+    want_mid = any(v is not None for v in mids.values())
+    from .edge import find_edges
+    if (args.spread is not None or args.total is not None
+            or args.props is not None or not want_mid):
+        # a middles-only call skips the main report (game_market_odds
+        # refuses to price without a quoted line); any other call, a
+        # middles+props one too, prints spread/total/ML/props
+        find_edges(csv_base=args.base, team_a=args.team_a,
+                   team_b=args.team_b, spread=args.spread, total=args.total,
+                   props_csv=args.props, directory=args.dir)
+    want_alt = args.alt and (args.spread is not None
+                             or args.total is not None)
+    if want_alt or want_mid:
+        from .edge import find_saved_files, read_table_columns
+        scores_path, _ = find_saved_files(args.base, team_a=args.team_a,
+                                          team_b=args.team_b,
+                                          directory=args.dir)
+        sims = read_table_columns(scores_path)
+    if want_alt:
+        from .edge import alt_line_rows_from_sims, print_alt_lines
+        print_alt_lines(alt_line_rows_from_sims(
+            sims, args.team_a, args.team_b,
+            spread=args.spread, total=args.total, width=args.alt_width,
+            step=args.alt_step))
+    if want_mid:
+        from .edge import middles_from_sims, print_middle_readable
+        for res in middles_from_sims(sims, args.team_a, args.team_b,
+                                     **mids).values():
+            print_middle_readable(res)
+    return 0
 
 
 def _cmd_prop(args) -> int:
-    raise NotImplementedError(f"prop: {_SAVED_FILES}")
+    """One player prop off saved sims (players_* table), optionally with
+    the alternate-line ladder around the quote."""
+    from .edge import _players_for, player_prop_ladder_rows, player_prop_odds
+
+    # the quote and its ladder price the same samples: the file read once
+    players = _players_for(args.base, args.team, args.dir)
+    res = player_prop_odds(args.base, args.team, args.player, args.stat,
+                           args.line, role=args.role, directory=args.dir,
+                           players_df=players)
+    print(f"\n=== {res['player']} ({res['team']}, {res['role']}) "
+          f"{res['stat']} {res['line']:g} ===")
+    print(f"  Over:  {res['p_over']:.1%} fair {res['american_over']:+d}   "
+          f"Under: {res['p_under']:.1%} fair {res['american_under']:+d}"
+          + (f"   push {res['push_rate']:.1%}" if res["push_rate"] else ""))
+    print(f"  mean {res['mean']:.1f}  median {res['median']:.1f}  "
+          f"p75 {res['p75']:.1f}  p90 {res['p90']:.1f}")
+    print(f"  Best side at -110: {res['best_side']} "
+          f"(edge {res['edge']:+.2f}%, EV ${res['ev_per_$100']:+.2f}/$100)")
+    if args.ladder:
+        rows = player_prop_ladder_rows(args.base, args.team, args.player,
+                                       args.stat, args.line, role=args.role,
+                                       directory=args.dir, players_df=players,
+                                       width=args.width, step=args.step, price=args.price)
+        print("\nAlternate lines (same samples as the quote):")
+        print(_rows_text([{k: v for k, v in r.items() if k not in ("team", "player", "stat")}
+                          for r in rows]))
+    return 0
+
+
+def _cmd_edges_device(args) -> int:
+    """Simulate and price in one process, on `--device` (the card for a
+    bare flag): spread, total and moneyline from the score histograms,
+    props from the player stats, no file written."""
+    from .api import _prepared_runner, host_summaries
+    from .edge import (market_odds_from_summary, print_game_market_readable,
+                       print_prop_table, scan_props_rows)
+    from .parallel import summarize_scores
+
+    _no_trial_sharding(args)
+    if not args.sp:
+        print("edges --device needs --sp (it simulates in-process)",
+              file=sys.stderr)
+        return 2
+    mids = _middle_specs(args)  # bad --mid specs fail before the sim runs
+    runner, a, b, _ = _prepared_runner(
+        args.team_a, args.team_b, sp_path=args.sp, year=args.year, week=args.week,
+        artifact_dir=args.artifacts, focus_csv=args.focus, mode=args.mode,
+        table_quality=args.quality, cfg=None, shard=False, device=args.device)
+    want_players = bool(args.props)
+    t0 = time.perf_counter()
+    if args.n > 65536 and not want_players:
+        # a large market-only scan: launches of 32,768 pairs whose moments
+        # accumulate on the device (n rounds up to whole launches); props
+        # need every game's player stats, so they run one launch
+        summary = runner.run_pairs_summary(args.n, seed=args.seed)
+    else:
+        out = runner.run_pairs(args.n, seed=args.seed,
+                               collect_players=want_players,
+                               collect_stats=False)
+        summary = summarize_scores(out.score)
+    summary, = host_summaries(summary)   # the markets read it: one copy
+    n_games = int(summary.n)
+    dt = time.perf_counter() - t0
+    res = market_odds_from_summary(summary, args.team_a, args.team_b,
+                                   spread=args.spread, total=args.total)
+    print_game_market_readable(res)
+    if args.alt and (args.spread is not None or args.total is not None):
+        from .edge import alt_line_rows_from_summary, print_alt_lines
+        print_alt_lines(alt_line_rows_from_summary(
+            summary, args.team_a, args.team_b, spread=args.spread,
+            total=args.total, width=args.alt_width, step=args.alt_step))
+    if any(v is not None for v in mids.values()):
+        from .edge import middles_from_summary, print_middle_readable
+        for r in middles_from_summary(summary, args.team_a, args.team_b,
+                                      **mids).values():
+            print_middle_readable(r)
+    if args.props:
+        print_prop_table(scan_props_rows(out, a, b, args.props))
+    print(f"\n[{n_games} games simulated + reduced on "
+          f"{runner.device.type} in {dt:.2f}s]")
+    return 0
 
 
 def _cmd_backtest(args) -> int:
-    raise NotImplementedError("backtest: backtest.py is not ported yet "
-                              "(ROADMAP.md queue 1 item 5)")
+    """Score the simulator against real finals (backtest.py): win-prob
+    calibration, point accuracy and PIT distribution checks."""
+    from .backtest import backtest_slate_report, print_backtest_readable
+    from .data.columns import read_csv_columns, records_of
+
+    _no_trial_sharding(args)
+    table = read_csv_columns(args.results)
+    need = {"team_a", "team_b", "score_a", "score_b"}
+    if not need <= set(table):
+        print(f"--results needs columns {sorted(need)}, got {list(table)}")
+        return 2
+    results = records_of(table)
+    games = (_read_games(args.games) if args.games else
+             [(r["team_a"], r["team_b"]) for r in results])
+    rep = backtest_slate_report(
+        games, results, sp_path=args.sp, year=args.year, week=args.week,
+        n_pairs=args.n, artifact_dir=args.artifacts, mode=args.mode,
+        table_quality=args.quality, seed=args.seed, bins=args.bins,
+        device=args.device)
+    print_backtest_readable(rep)
+    return 0
 
 
 def _cmd_bench(args) -> int:
@@ -577,7 +760,7 @@ def main(argv=None) -> int:
     _add_device(pp)
     pp.set_defaults(fn=_cmd_parlay)
 
-    pe = sub.add_parser("edges", help="betting edges over saved sims (not ported)")
+    pe = sub.add_parser("edges", help="betting edges over saved sims")
     pe.add_argument("--base", default=None)
     pe.add_argument("--team-a", required=True)
     pe.add_argument("--team-b", required=True)
@@ -585,8 +768,9 @@ def main(argv=None) -> int:
     pe.add_argument("--total", type=float, default=None)
     pe.add_argument("--props", default=None)
     pe.add_argument("--dir", default=".")
-    pe.add_argument("--device", action="store_true",
-                    help="simulate + reduce on the accelerator (no files)")
+    pe.add_argument("--device", nargs="?", const="cuda", default=None,
+                    help="simulate + reduce in process (no files): bare, on the "
+                         "card (raises without one); --device cpu on the CPU")
     pe.add_argument("--sp", default=None, help="SP+ csv (with --device)")
     pe.add_argument("-n", type=int, default=65536,
                     help="pairs (with --device); large market-only scans "
@@ -599,7 +783,7 @@ def main(argv=None) -> int:
     pe.add_argument("--focus", default=None)
     pe.add_argument("--shard", action="store_true",
                     help="with --device: shard the trial axis over all "
-                         "devices (per-device moments + one psum)")
+                         "devices (not ported)")
     pe.add_argument("--alt", action="store_true",
                     help="print alternate spread/total ladders around the "
                          "quoted lines (same distribution, zero extra sim)")
@@ -618,7 +802,7 @@ def main(argv=None) -> int:
     pe.set_defaults(fn=_cmd_edges)
 
     pr = sub.add_parser(
-        "prop", help="price one player prop off saved sims (not ported)")
+        "prop", help="price one player prop off saved sims")
     pr.add_argument("team")
     pr.add_argument("player")
     pr.add_argument("stat", help="e.g. pass_yds / rush_yds / rec_yds / INT")
@@ -660,7 +844,10 @@ def main(argv=None) -> int:
                          "off the device summaries (routes the unsharded "
                          "default through the summary sweep)")
     pl.add_argument("--props", default=None,
-                    help="prop sheet csv (team,player,stat,yards) (not ported)")
+                    help="prop sheet csv (team,player,stat,yards): scans "
+                         "the whole slate's player props with per-matchup "
+                         "player-collection sims reduced on the device "
+                         "(separate from the score-only slate sims above)")
     pl.add_argument("--props-n", type=int, default=8192, dest="props_n",
                     help="pairs per matchup for the prop sims")
     pl.add_argument("--min-edge", type=float, default=2.0, dest="min_edge",
@@ -697,7 +884,8 @@ def main(argv=None) -> int:
     pn.set_defaults(fn=_cmd_season)
 
     pk = sub.add_parser(
-        "backtest", help="score the sim against actual finals (not ported)")
+        "backtest", help="score the sim against actual finals "
+                         "(calibration, accuracy, PIT)")
     pk.add_argument("--results", required=True,
                     help="csv of finals: team_a,team_b,score_a,score_b "
                          "(either orientation)")
@@ -717,7 +905,8 @@ def main(argv=None) -> int:
     pk.add_argument("--quality", default="nano")
     pk.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
     pk.add_argument("--shard", action="store_true",
-                    help="shard each matchup's trial axis over the mesh")
+                    help="shard each matchup's trial axis over the mesh (not ported)")
+    _add_device(pk)
     pk.set_defaults(fn=_cmd_backtest)
 
     pb = sub.add_parser("bench", help="run the benchmark harness (not ported)")

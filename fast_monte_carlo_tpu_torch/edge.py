@@ -1,5 +1,4 @@
-"""Market pricing: the props and summary-market parts of
-fast_monte_carlo_tpu/edge.py.
+"""Market pricing: port of fast_monte_carlo_tpu/edge.py.
 
 The odds math (American odds, EV at a price, Kelly stakes, the better side
 of a prop), the mapping of a prop sheet's rows onto a matchup's player-stat
@@ -16,31 +15,47 @@ over the games on the device of the scores (`reduce_parlay_device`,
 `leg_corr_device`, `reduce_round_robin_device`), with one host copy of
 their counts; cross-game tickets (`cross_game_parlay`,
 `round_robin_blocks`) and season win totals (`season_win_pmf`,
-`season_win_market`) compose independent games on the host.  The markets
-over saved sim files are not ported yet (ROADMAP P10).
+`season_win_market`) compose independent games on the host.
 
-One divergence from the JAX package, on purpose: `Dist.affine` raises for
+The markets over saved sim files (`sim --save`'s scores_* and players_*,
+CSV or parquet) read them as columns (`data.columns`: a CSV typed and
+valued as pandas reads it, parquet through pandas imported on use) and price
+them through the same `Dist` core: `player_prop_odds` and its ladder,
+`game_market_odds`, `moneyline_from_sims`, `alt_line_rows_from_sims`,
+`middles_from_sims`, the prop-sheet scan (`scan_props_for_matchup_rows`)
+and the one-call report `find_edges`, with the printers of its parts.
+
+Two divergences from the JAX package, on purpose: `Dist.affine` raises for
 scale <= 0, which the JAX package accepts (its edge.py:262; a negative
-scale mirrors the distribution and swaps over and under).
+scale mirrors the distribution and swaps over and under); and the saved-file
+prop scan skips a row only for the errors a row can raise (ValueError,
+KeyError, FileNotFoundError, a team or player cell that is not text),
+where the JAX package skips on any exception (its edge.py:486).
 
 The JAX package returns the prop table, the ladders and the slate table as
 DataFrames; here the pandas-free cores return lists of row dicts in the
 same column order (`prop_rows_from_reductions`, `scan_props_rows`,
 `alt_spread_rows`, `alt_total_rows`, `alt_line_rows_from_summary`,
-`slate_market_rows`, `parlay_correlation_matrix`), and the JAX package's
-names wrap them into DataFrames, importing pandas only there.  The
-printers take either.
+`slate_market_rows`, `parlay_correlation_matrix`, `alt_prop_rows`,
+`player_prop_ladder_rows`, `alt_line_rows_from_sims`,
+`scan_props_for_matchup_rows`, `read_table_columns`,
+`load_players_columns`), and the JAX package's names wrap them into
+DataFrames, importing pandas only there.  The printers take either.
 """
 from __future__ import annotations
 
+import ast
 import csv
 import re
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .data.columns import (Columns, columns_from_records, columns_of, frame, is_na, lowered,
+                           read_csv_columns, records_of, take, to_numeric)
 from .stats import ROLE_PASS, ROLE_REC, ROLE_RUSH
 
 STAT_ALIASES = {
@@ -732,6 +747,416 @@ def slate_market_table(games, summaries, lines=None, price: int = -110):
     return pd.DataFrame(slate_market_rows(games, summaries, lines, price))
 
 
+# ---- the markets over saved sim files -------------------------------------------------
+#
+# `sim --save` writes scores_<base> (team, opp, pts, opp_pts) and players_<base>
+# (PLAYER_COLS) as CSV or parquet.  The cores read them as columns
+# (`data.columns`: CSV with `csv`, parquet through pandas imported there) and
+# price them through the same Dist core; `sims=`/`players_df=` take a
+# DataFrame or a dict of columns.
+
+# the players table's columns that `load_players_table` coerces to numbers
+_PLAYER_NUMERIC = ("pass_yds", "rush_yds", "rec_yds", "pass_td", "rush_td", "rec_td",
+                   "tgt", "rec", "pass_att", "pass_comp", "sacks")
+# the saved-file prop scan's columns (`scan_props_for_matchup`)
+SAVED_SCAN_COLS = ("team", "player", "stat", "line", "best_side", "p_over", "p_under",
+                   "edge_pct", "ev_$100", "mean", "median", "samples")
+
+
+def infer_role_from_stat(stat: str) -> str:
+    stat = stat.lower()
+    if stat.startswith("pass_"):
+        return "QB"
+    if stat.startswith("rush_"):
+        return "Rusher"
+    return "Receiver"
+
+
+def find_saved_files(csv_base: Optional[str] = None, team_a: Optional[str] = None,
+                     team_b: Optional[str] = None, directory: str = "."
+                     ) -> Tuple[Path, Optional[Path]]:
+    """(scores path, players path or None) of a saved run: `csv_base`'s
+    files (`.parquet` before `.csv`), or the first of the sorted
+    `scores_*.csv`, then the sorted `scores_*.parquet`, whose name holds
+    both normalized team names."""
+    d = Path(directory)
+
+    def _maybe(stem: str) -> Optional[Path]:
+        for ext in (".parquet", ".csv"):
+            p = d / f"{stem}{ext}"
+            if p.exists():
+                return p
+        return None
+
+    if csv_base:
+        stem = csv_base
+        for suffix in (".csv", ".parquet"):
+            if stem.endswith(suffix):
+                stem = stem[: -len(suffix)]
+        scores = _maybe(f"scores_{csv_base}") or _maybe(f"scores_{stem}")
+        if scores is None:
+            raise FileNotFoundError(f"Could not find scores_{csv_base} (.csv/.parquet)")
+        players = _maybe(f"players_{csv_base}") or _maybe(f"players_{stem}")
+        return scores, players
+
+    if team_a is None:
+        raise ValueError("Provide csv_base or team names for fuzzy search.")
+    na = _norm_team(team_a)
+    nb = _norm_team(team_b) if team_b else ""
+    for p in sorted(d.glob("scores_*.csv")) + sorted(d.glob("scores_*.parquet")):
+        low = p.name.lower()
+        if na in low and nb in low:
+            stem = p.name.rsplit(".", 1)[0]
+            return p, _maybe(stem.replace("scores_", "players_"))
+    raise FileNotFoundError("No matching scores_* file for those teams.")
+
+
+def read_table_columns(path) -> Columns:
+    """A saved table as columns: parquet through pandas (imported here; a
+    host without pandas raises ModuleNotFoundError), else the CSV typed as
+    pandas' reader types it."""
+    if str(path).lower().endswith(".parquet"):
+        import pandas as pd
+
+        return columns_of(pd.read_parquet(path))
+    return read_csv_columns(path)
+
+
+def load_table(path):
+    """`read_table_columns` as a DataFrame."""
+    return frame(read_table_columns(path))
+
+
+def load_players_columns(players_path) -> Columns:
+    """A players table as columns, the reference's packed layout (columns
+    named 0, 1, ..., each cell a dict's text) unpacked into one row per
+    dict, the stat columns coerced to numbers (junk NaN), and team_low and
+    player_low added."""
+    cols = read_table_columns(players_path)
+    if cols and all(str(c).isdigit() for c in cols):
+        rows = []
+        for col in cols.values():
+            for v in col:
+                if is_na(v):
+                    continue
+                try:
+                    d = ast.literal_eval(v)
+                except (ValueError, TypeError, SyntaxError, MemoryError, RecursionError):
+                    continue
+                if isinstance(d, dict):
+                    rows.append(d)
+        if rows:
+            cols = columns_from_records(rows)
+    cols = {str(c): v for c, v in cols.items()}
+    for c in _PLAYER_NUMERIC:
+        if c in cols:
+            cols[c] = to_numeric(cols[c])
+    cols["team_low"] = lowered(cols["team"])
+    cols["player_low"] = lowered(cols["player"])
+    return cols
+
+
+def load_players_table(players_path):
+    """`load_players_columns` as a DataFrame."""
+    return frame(load_players_columns(players_path))
+
+
+def _players_for(csv_base: Optional[str], team: str, directory: str) -> Columns:
+    _, players_path = find_saved_files(csv_base, team_a=team, directory=directory)
+    if players_path is None or not players_path.exists():
+        raise FileNotFoundError(
+            "no players_* file to scan props from — rerun the sim with "
+            "collect_players=True")
+    return load_players_columns(players_path)
+
+
+def _player_stat_dist(csv_base: Optional[str], team: str, player: str, stat: str, *,
+                      role: Optional[str] = None, directory: str = ".", players_df=None):
+    """(Dist, stat column, role) of one player's simulated stat in a players
+    table (`players_df`, a DataFrame or columns, or the saved file)."""
+    cols = (_players_for(csv_base, team, directory) if players_df is None
+            else columns_of(players_df))
+    stat_col = STAT_ALIASES.get(stat, stat)
+    if stat_col not in cols:
+        raise ValueError(
+            f"players table has no '{stat_col}' column (requested stat {stat!r})")
+    role = role or infer_role_from_stat(stat_col)
+    if "team_low" not in cols:
+        cols = {**cols, "team_low": lowered(cols["team"]),
+                "player_low": lowered(cols["player"])}
+    mask = ((np.asarray(cols["team_low"], dtype=object) == team.lower())
+            & (np.asarray(cols["player_low"], dtype=object) == player.lower())
+            & (np.asarray(cols["role"], dtype=object) == role))
+    if not mask.any():
+        raise ValueError(f"{player} ({role}) never appears for {team} in the players table")
+    samples = to_numeric(cols[stat_col][mask]).astype(float)
+    samples = samples[~np.isnan(samples)]
+    if samples.size == 0:
+        raise ValueError(f"{player}'s {stat_col} column holds no numeric samples")
+    return Dist.from_values(samples), stat_col, role
+
+
+def player_prop_odds(csv_base: Optional[str], team: str, player: str, stat: str,
+                     line: float, *, role: Optional[str] = None, directory: str = ".",
+                     players_df=None) -> Dict:
+    """One player prop priced off the saved (or given) player samples."""
+    d, stat_col, role = _player_stat_dist(
+        csv_base, team, player, stat, role=role, directory=directory,
+        players_df=players_df)
+    market = _ou_market(
+        d, float(line), digits=4, over_key="over", under_key="under", loc_prefix="",
+        head={"team": team, "player": player, "role": role, "stat": stat_col,
+              "line": float(line)})
+    pick = best_side_ev(d.over(line), price=-110)
+    market.update({
+        "p75": d.pct(75), "p90": d.pct(90),
+        "best_side": pick["side"], "edge": round(pick["edge"] * 100, 2),
+        "ev_per_$100": round(pick["ev"], 2),
+    })
+    order = ["team", "player", "role", "stat", "line", "samples",
+             "p_over", "p_under", "push_rate", "american_over",
+             "american_under", "mean", "median", "p75", "p90",
+             "best_side", "edge", "ev_per_$100"]
+    return {k: market[k] for k in order}
+
+
+def _team_rows(sims, team: str, opp: str) -> Columns:
+    """The rows of a scores table from `team`'s side against `opp`."""
+    cols = columns_of(sims)
+    return take(cols, (lowered(cols["team"]) == team.lower())
+                & (lowered(cols["opp"]) == opp.lower()))
+
+
+def _margin_dist(sims, team: str, opp: str) -> Optional[Dist]:
+    rows = _team_rows(sims, team, opp)
+    if not len(rows["pts"]):
+        return None
+    return Dist.from_values(rows["pts"] - rows["opp_pts"])
+
+
+def _saved_scores(csv_base: Optional[str], team: str, opp: str, directory: str) -> Columns:
+    scores_path, _ = find_saved_files(csv_base, team_a=team, team_b=opp, directory=directory)
+    return read_table_columns(scores_path)
+
+
+def moneyline_from_sims(csv_base: Optional[str], team: str, opp: str,
+                        directory: str = ".", sims=None) -> Dict:
+    """Fair moneylines from saved (or given) scores: each side's P(margin >
+    0) from its own rows, or one minus the other's where a side has none."""
+    if sims is None:
+        sims = _saved_scores(csv_base, team, opp, directory)
+    dists = (_margin_dist(sims, team, opp), _margin_dist(sims, opp, team))
+    p_team, p_opp = (float("nan") if d is None else d.over(0.0) for d in dists)
+    if not np.isfinite(p_team) and np.isfinite(p_opp):
+        p_team = min(max(1.0 - p_opp, 0.0), 1.0)
+    if not np.isfinite(p_opp) and np.isfinite(p_team):
+        p_opp = min(max(1.0 - p_team, 0.0), 1.0)
+    return {
+        "team": {"name": team, "p_win": round(p_team, 6),
+                 "ml_fair": prob_to_american(p_team)},
+        "opp": {"name": opp, "p_win": round(p_opp, 6),
+                "ml_fair": prob_to_american(p_opp)},
+    }
+
+
+def _sims_dists(sims, team: str, opp: str) -> Tuple[Dist, Dist]:
+    """(margin Dist, total Dist) of `team`'s rows against `opp`."""
+    rows = _team_rows(sims, team, opp)
+    if not len(rows["pts"]):
+        raise ValueError(f"scores data holds no rows from {team}'s perspective vs {opp}")
+    return (Dist.from_values(rows["pts"] - rows["opp_pts"]),
+            Dist.from_values(rows["pts"] + rows["opp_pts"]))
+
+
+def game_market_odds(csv_base: Optional[str], team: str, opp: str, *,
+                     spread: Optional[float] = None, total: Optional[float] = None,
+                     directory: str = ".", sims=None) -> Dict:
+    """Spread cover and total over/under from saved (or given) scores, from
+    `team`'s rows against `opp`."""
+    if sims is None:
+        sims = _saved_scores(csv_base, team, opp, directory)
+    margins, totals = _sims_dists(sims, team, opp)
+    out: Dict = {}
+    if spread is not None:
+        out["spread"] = _spread_market(margins, team, opp, spread)
+    if total is not None:
+        out["total"] = _total_market(totals, team, opp, total)
+    if not out:
+        raise ValueError("nothing to price: pass spread= and/or total=")
+    return out
+
+
+def _saved_scan(csv_base: Optional[str], team_a: str, team_b: str, prop_sheet_path: str,
+                directory: str, min_abs_edge_pct: float,
+                players_df) -> Tuple[List[int], List[dict], bool]:
+    """(positions among the priced rows, rows kept, whether any priced) of
+    a prop-sheet scan over saved player samples, sorted by |edge| then EV,
+    both descending, ties in sheet order.
+
+    A row that cannot be priced is skipped: a player, stat column or line
+    that does not resolve (ValueError, KeyError), no players file
+    (FileNotFoundError), a team or player cell that is not text.  The JAX
+    package skips a row on any exception (its edge.py:486); anything else
+    raises here."""
+    sheet = read_csv_columns(prop_sheet_path)
+    teams = {team_a.lower(), team_b.lower()}
+    keep = [r for r, low in zip(records_of(sheet), lowered(sheet["team"])) if low in teams]
+    if players_df is not None:
+        players_df = columns_of(players_df)
+    cache: Dict[Path, Columns] = {}
+    results = []
+    for r in keep:
+        stat_col = STAT_ALIASES.get(str(r["stat"]), str(r["stat"]))
+        try:
+            if not isinstance(r["team"], str) or not isinstance(r["player"], str):
+                continue
+            players = players_df
+            if players is None:
+                _, path = find_saved_files(csv_base, team_a=r["team"], directory=directory)
+                if path is None or not path.exists():
+                    continue
+                if path not in cache:
+                    cache[path] = load_players_columns(path)
+                players = cache[path]
+            line = float(r["yards"])
+            out = player_prop_odds(csv_base, r["team"], r["player"], stat_col, line,
+                                   directory=directory, players_df=players)
+        except (ValueError, KeyError, FileNotFoundError):
+            continue
+        results.append({
+            "team": r["team"], "player": r["player"], "stat": stat_col,
+            "line": line, "best_side": out["best_side"],
+            "p_over": out["p_over"], "p_under": out["p_under"],
+            "edge_pct": out["edge"], "ev_$100": out["ev_per_$100"],
+            "mean": out["mean"], "median": out["median"],
+            "samples": out["samples"],
+        })
+    order = sorted(range(len(results)),
+                   key=lambda i: (-abs(results[i]["edge_pct"]), -results[i]["ev_$100"]))
+    kept = [i for i in order if abs(results[i]["edge_pct"]) >= min_abs_edge_pct]
+    return kept, [results[i] for i in kept], bool(results)
+
+
+def scan_props_for_matchup_rows(csv_base: Optional[str], team_a: str, team_b: str,
+                                prop_sheet_path: str, directory: str = ".",
+                                min_abs_edge_pct: float = 2.0,
+                                players_df=None) -> List[dict]:
+    """A prop sheet's rows for either team priced off saved player samples,
+    as row dicts (SAVED_SCAN_COLS), best |edge| first, those under
+    `min_abs_edge_pct` dropped."""
+    return _saved_scan(csv_base, team_a, team_b, prop_sheet_path, directory,
+                       min_abs_edge_pct, players_df)[1]
+
+
+def scan_props_for_matchup(csv_base: Optional[str], team_a: str, team_b: str,
+                           prop_sheet_path: str, directory: str = ".",
+                           min_abs_edge_pct: float = 2.0, players_df=None):
+    """`scan_props_for_matchup_rows` as a DataFrame indexed by the rows'
+    positions among those priced (empty, with no columns, if none was)."""
+    import pandas as pd
+
+    index, rows, any_priced = _saved_scan(csv_base, team_a, team_b, prop_sheet_path,
+                                          directory, min_abs_edge_pct, players_df)
+    if not any_priced:
+        return pd.DataFrame()
+    return pd.DataFrame(rows, index=index, columns=list(SAVED_SCAN_COLS))
+
+
+def alt_prop_rows(dist: Dist, lines, price: int = -110) -> List[dict]:
+    """One row per alternate prop line off a player's stat Dist: over,
+    under and push probabilities, fair prices, and the better side at
+    `price`."""
+    rows = []
+    for ln in np.asarray(lines, dtype=float):
+        p_o, p_u, p_p = dist.over(ln), dist.under(ln), dist.push(ln)
+        rec = best_side_ev(p_o, price=price)
+        rows.append({
+            "line": float(ln),
+            "p_over": round(p_o, 6), "p_under": round(p_u, 6),
+            "push_rate": round(p_p, 6),
+            "fair_over": prob_to_american(p_o),
+            "fair_under": prob_to_american(p_u),
+            "bet": f"{rec['side']} {ln:g}",
+            "edge_pct": round(rec["edge"] * 100, 2),
+            "ev_$100": round(rec["ev"], 2),
+        })
+    return rows
+
+
+def alt_prop_table(dist: Dist, lines, price: int = -110):
+    """`alt_prop_rows` as a DataFrame."""
+    return frame(columns_from_records(alt_prop_rows(dist, lines, price)))
+
+
+def _prop_ladder_grid(stat_col: str):
+    """Default (width, step) of a prop ladder: yardage in 5s over +-30,
+    count stats in halves over +-2.5."""
+    if "yds" in stat_col or "yards" in stat_col:
+        return 30.0, 5.0
+    return 2.5, 0.5
+
+
+def player_prop_ladder_rows(csv_base: Optional[str], team: str, player: str, stat: str,
+                            line: float, *, role: Optional[str] = None,
+                            directory: str = ".", players_df=None,
+                            width: Optional[float] = None, step: Optional[float] = None,
+                            price: int = -110) -> List[dict]:
+    """The alternate-line ladder of one player prop around its quoted line,
+    off the samples `player_prop_odds` prices: rows of team, player, stat
+    and `alt_prop_rows`' columns."""
+    d, stat_col, role = _player_stat_dist(
+        csv_base, team, player, stat, role=role, directory=directory,
+        players_df=players_df)
+    dflt_w, dflt_s = _prop_ladder_grid(stat_col)
+    rows = alt_prop_rows(d, ladder_lines(line, dflt_w if width is None else width,
+                                         dflt_s if step is None else step), price=price)
+    return [{"team": team, "player": player, "stat": stat_col, **r} for r in rows]
+
+
+def player_prop_ladder(csv_base: Optional[str], team: str, player: str, stat: str,
+                       line: float, **kw):
+    """`player_prop_ladder_rows` as a DataFrame."""
+    return frame(columns_from_records(
+        player_prop_ladder_rows(csv_base, team, player, stat, line, **kw)))
+
+
+def alt_line_rows_from_sims(sims, team: str, opp: str, *, spread: Optional[float] = None,
+                            total: Optional[float] = None, width: float = 12.0,
+                            step: float = 1.0, price: int = -110) -> Dict[str, List[dict]]:
+    """Alternate spread and total ladders from a scores table (the file
+    path's twin of `alt_line_rows_from_summary`)."""
+    margins, totals = _sims_dists(sims, team, opp)
+    out: Dict[str, List[dict]] = {}
+    if spread is not None:
+        out["spread"] = alt_spread_rows(margins, team, opp,
+                                        ladder_lines(spread, width, step), price=price)
+    if total is not None:
+        out["total"] = alt_total_rows(totals, ladder_lines(total, width, step), price=price)
+    return out
+
+
+def alt_lines_from_sims(sims, team: str, opp: str, **kw):
+    """`alt_line_rows_from_sims` with each ladder a DataFrame."""
+    return {k: frame(columns_from_records(v))
+            for k, v in alt_line_rows_from_sims(sims, team, opp, **kw).items()}
+
+
+def middles_from_sims(sims, team: str, opp: str, *, mid_spread=None, mid_total=None,
+                      price: int = -110) -> Dict[str, Dict]:
+    """Middles from a scores table (the file path's twin of
+    `middles_from_summary`)."""
+    margins, totals = _sims_dists(sims, team, opp)
+    out: Dict[str, Dict] = {}
+    if mid_spread is not None:
+        lt, lo = mid_spread
+        out["spread"] = spread_middle(margins, team, opp, lt, lo,
+                                      price_team=price, price_opp=price)
+    if mid_total is not None:
+        ov, un = mid_total
+        out["total"] = total_middle(totals, ov, un, price_over=price, price_under=price)
+    return out
+
+
 # ---- same-game parlays, round robins, season win totals ---------------------------
 #
 # Every leg settles on the same simulated game, so a multi-leg ticket is
@@ -1399,3 +1824,107 @@ def print_middle_readable(res: Dict) -> None:
     print(f"  At {_odds_str(res['price_low'])} / "
           f"{_odds_str(res['price_high'])}, $100 each side: "
           f"EV ${res['ev_$100_each']:+.2f}")
+
+
+def print_game_market_readable(res: dict) -> None:
+    print("\n— Game Market —")
+    be = breakeven_minus110()
+    if "spread" in res:
+        s = res["spread"]
+        ev_cover = ev_per_100_at_minus110(s["p_cover"], s["push_rate"])
+        ev_not = ev_per_100_at_minus110(s["p_notcover"], s["push_rate"])
+        print(f"Spread: {s['team']} vs {s['opp']}  |  {s['team']} {s['spread']:+.1f}"
+              f"  (samples {s['samples']})")
+        print(f"  Cover:     {100*s['p_cover']:.1f}%  fair {_odds_str(s['american_cover'])}  "
+              f"edge {(100*(s['p_cover']-be)):.2f}%  EV ${ev_cover:.2f}/$100")
+        print(f"  Not cover: {100*s['p_notcover']:.1f}%  fair "
+              f"{_odds_str(s['american_notcover'])}  "
+              f"edge {(100*(s['p_notcover']-be)):.2f}%  EV ${ev_not:.2f}/$100")
+        print(f"  Push:      {100*s['push_rate']:.1f}%   | mean/median margin "
+              f"{s['mean_margin']:.1f} / {s['median_margin']:.1f}")
+    if "total" in res:
+        t = res["total"]
+        ev_over = ev_per_100_at_minus110(t["p_over"], t["push_rate"])
+        ev_under = ev_per_100_at_minus110(t["p_under"], t["push_rate"])
+        print(f"\nTotal: {t['team']} vs {t['opp']}  |  {t['total']:.1f}  "
+              f"(samples {t['samples']})")
+        print(f"  Over:   {100*t['p_over']:.1f}%  fair {_odds_str(t['american_over'])}   "
+              f"edge {(100*(t['p_over']-be)):.2f}%  EV ${ev_over:.2f}/$100")
+        print(f"  Under:  {100*t['p_under']:.1f}% fair {_odds_str(t['american_under'])}  "
+              f"edge {(100*(t['p_under']-be)):.2f}%  EV ${ev_under:.2f}/$100")
+        print(f"  Push:   {100*t['push_rate']:.1f}%   | mean/median total "
+              f"{t['mean_total']:.1f} / {t['median_total']:.1f}")
+    if "spread" in res and "total" in res:
+        _print_projected_scores(res)
+
+
+def _print_projected_scores(res: dict) -> None:
+    """Mean and median projected score from the margin and the total."""
+    t = res["total"]
+    s = res["spread"]
+    for label, tv, sv in (("Mean", t["mean_total"], s["mean_margin"]),
+                          ("Median", t["median_total"], s["median_margin"])):
+        team_score = (tv + sv) / 2.0
+        opp_score = (tv - sv) / 2.0
+        print(f"\n{label} Score: {t['team']} - {team_score:.0f} vs "
+              f"{t['opp']} - {opp_score:.0f}  |  (samples {t['samples']})")
+
+
+def print_moneyline_readable(ml: dict) -> None:
+    print("\n— Fair Moneyline (no vig) —")
+    for k in ("team", "opp"):
+        e = ml[k]
+        print(f"  {e['name']}: {100*e['p_win']:.2f}%   fair {_odds_str(e['ml_fair'])}")
+
+
+def _stat_group(stat) -> str:
+    s = str(stat).lower()
+    if s.startswith("pass"):
+        return "Passing"
+    if s.startswith("rush"):
+        return "Rushing"
+    if s.startswith("rec") or s in {"tgt", "receptions", "targets"}:
+        return "Receiving"
+    return "Other"
+
+
+def print_prop_table(table) -> None:
+    """A prop table (rows or a DataFrame: `scan_props_rows`,
+    `scan_props_for_matchup`, `simulate_slate_prop_rows`) by stat group,
+    the largest |edge| first within a group, ties in the table's order."""
+    rows = _records(table)
+    if not rows:
+        print("\n— Player Props value (@ -110 both sides) —\n"
+              "  (no props matched or no value found)")
+        return
+    groups = [_stat_group(r["stat"]) for r in rows]
+    order = sorted(range(len(rows)), key=lambda i: (groups[i], -abs(rows[i]["edge_pct"])))
+    print("\n— Player Props value (@ -110 both sides) —")
+    for gname in ("Passing", "Rushing", "Receiving", "Other"):
+        g = [rows[i] for i in order if groups[i] == gname]
+        if not g:
+            continue
+        print(f"\n[{gname}]")
+        for r in g:
+            print(f"{r['team']}: {r['player']}  |  {r['stat']} {r['best_side']} "
+                  f"{r['line']:.1f}  (edge {r['edge_pct']:+.2f}%, "
+                  f"EV ${r['ev_$100']:+.2f}/$100, mean {r['mean']:.1f}, "
+                  f"med {r['median']:.1f}, n={int(r['samples'])})")
+
+
+def find_edges(*, csv_base: Optional[str], team_a: str, team_b: str,
+               spread: Optional[float], total: Optional[float],
+               props_csv: Optional[str] = None, directory: str = ".",
+               min_abs_edge_pct: float = 2.0) -> None:
+    """One report over saved sims: the spread and total (where quoted), the
+    fair moneylines, and the prop scan (with a prop sheet)."""
+    if spread is not None or total is not None:
+        print_game_market_readable(game_market_odds(
+            csv_base, team_a, team_b, spread=spread, total=total, directory=directory))
+    # the moneyline and props need no quoted line
+    print_moneyline_readable(moneyline_from_sims(csv_base, team_a, team_b,
+                                                 directory=directory))
+    if props_csv and Path(props_csv).exists():
+        print_prop_table(scan_props_for_matchup_rows(
+            csv_base, team_a, team_b, props_csv, directory=directory,
+            min_abs_edge_pct=min_abs_edge_pct))

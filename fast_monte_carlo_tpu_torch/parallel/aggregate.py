@@ -10,8 +10,9 @@ Scores with leading axes, (S, B, 2), reduce to moments with those axes in
 front, one set of histograms per group from one `bincount` (group g's
 values offset by g * size), where the JAX package vmaps `score_moments`;
 `summary_from_moments` finishes them alike.  `cover_probs` and
-`total_probs` price one spread or total line over a score batch, in torch
-on the scores' device.
+`total_probs` price one spread or total line over a score batch, and
+`player_stat_probs` one player prop over a batch's player stats, in torch
+on the device of their input.
 """
 from __future__ import annotations
 
@@ -147,4 +148,22 @@ def total_probs(score: torch.Tensor, total: float) -> Dict[str, torch.Tensor]:
         "p_under": _mean(tot < t),
         "push": _mean(tot == t),
         "mean_total": _mean(tot),
+    }
+
+
+def player_stat_probs(pstats: torch.Tensor, team: int, role: int, slot: int, col: int,
+                      line: float) -> Dict[str, torch.Tensor]:
+    """P(over), P(under) and P(push) of one player stat against a prop line
+    over every game of a (B, 2, 3, K, 6) `pstats`, and its mean, as f32
+    tensors on the device of `pstats`.  A push is |v - line| <= 1e-9 in
+    f32, as `edge._settle_legs` settles one.  The probabilities are the
+    JAX package's f32 means of the indicators; the mean sums in f64 and
+    rounds once to f32 (the JAX package sums in f32, in XLA's order)."""
+    vals = pstats[:, team, role, slot, col].to(F32)
+    n = vals.shape[0]
+    return {
+        "p_over": _mean(vals > line),
+        "p_under": _mean(vals < line),
+        "push": _mean((vals - line).abs() <= 1e-9),
+        "mean": (vals.to(torch.float64).sum() / n).to(F32),
     }

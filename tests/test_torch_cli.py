@@ -5,12 +5,17 @@ directory: every ported subcommand prints the JAX command's lines once the
 numbers are masked, and its numbers agree within Monte-Carlo error (the two
 packages draw different streams).  The JAX CLI runs with its scan unrolled
 once, which shapes only XLA's loop, so that its programs compile in
-seconds.  The subcommands not ported raise NotImplementedError naming their
-ROADMAP.md queue item before any game is played; `serve` binds and answers
-/health."""
+seconds.  Over the same saved sim files `edges` and `prop` print the JAX
+CLI's lines exactly; `edges --device` keeps the JAX CLI's branches and
+launch shapes.  The subcommands not ported raise NotImplementedError naming
+their ROADMAP.md queue item before any game is played; `serve` binds and
+answers /health."""
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import re
 import threading
 import time
@@ -24,7 +29,7 @@ import torch
 from fast_monte_carlo_tpu_torch import api, cli, fixtures, serve
 from fast_monte_carlo_tpu_torch.ops import game
 
-from test_torch_support import jax_readable_copy, within
+from test_torch_support import jax_readable_copy, within, write_focus
 
 torch.set_num_threads(1)
 
@@ -42,9 +47,28 @@ def files(tmp_path_factory):
     games.write_text("team_a,team_b\nTeam A,Team B\nTeam 000,Team 001\n")
     one.write_text("team_a,team_b\nTeam A,Team B\n")
     lines.write_text("team_a,spread,total\nTeam A,-3.5,44.5\nTeam 000,,40.5\n")
+    fixtures.write_csv(d / "props.csv", fixtures.prop_rows(4), fixtures.PROP_COLS)
     return {"sp": fixtures.write_sp_sheet(d / "sp.csv", 136, 0), "games": str(games),
-            "one": str(one), "lines": str(lines),
+            "one": str(one), "lines": str(lines), "props": str(d / "props.csv"),
+            "focus": str(write_focus(d / "focus.csv")),
             "jart": jax_readable_copy(ART, d / "jart"), "dir": d}
+
+
+@pytest.fixture(scope="module")
+def saved(files, tmp_path_factory):
+    """The directory `sim --save --players` (the port, focus rosters,
+    analytic mode) wrote scores_ and players_teama_teamb_wk1_sims.csv to."""
+    d = tmp_path_factory.mktemp("saved")
+    here = os.getcwd()
+    os.chdir(d)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli.main(["sim", "Team A", "Team B", "--sp", files["sp"], "--artifacts", ART,
+                             "--mode", "analytic", "-n", "512", "--players", "--save",
+                             "--focus", files["focus"], "--device", "cpu"]) == 0
+    finally:
+        os.chdir(here)
+    return str(d)
 
 
 @pytest.fixture
@@ -188,15 +212,8 @@ def test_slate_game_shard_and_batched_branches(capsys, files):
 
 
 NOT_PORTED = {
-    "edges": (["edges", "--team-a", "A", "--team-b", "B"], "queue 1 item 2"),
-    "edges --device": (["edges", "--team-a", "A", "--team-b", "B", "--device"],
-                       "queue 1 item 2"),
-    "prop": (["prop", "Team A", "P", "pass_yds", "200.5"], "queue 1 item 2"),
-    "backtest": (["backtest", "--results", "r.csv", "--sp", "SP"], "queue 1 item 5"),
     "bench": (["bench"], "queue 1 item 1"),
     "train": (["train", "--data", "d.csv", "--out", "o"], "outside the port's scope"),
-    "slate --props": (["slate", "--games", "GAMES", "--sp", "SP", "--props", "p.csv"],
-                      "queue 1 item 2"),
     "slate --shard trial": (["slate", "--games", "GAMES", "--sp", "SP", "--shard", "trial"],
                             "queue 1 item 6"),
     "sim --shard": (["sim", "Team A", "Team B", "--sp", "SP", "--shard"], "queue 1 item 6"),
@@ -223,7 +240,7 @@ def test_unported_subcommands_raise_before_any_game(name, files, monkeypatch):
     argv = [{"SP": files["sp"], "GAMES": files["games"]}.get(a, a) for a in argv]
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         cli.main(argv + (["--device", "cpu"] if name.split()[0] not in
-                         ("edges", "prop", "backtest", "bench", "train") else []))
+                         ("bench", "train") else []))
 
 
 def test_device_defaults_to_the_card(files):
@@ -270,7 +287,7 @@ def test_serve_binds_warms_and_answers_health(files, capsys, monkeypatch):
 
 def test_csv_readers_and_table_equal_pandas(files, tmp_path):
     """The games and lines readers read what pandas reads; the table
-    printer prints pandas' cells and columns (spacing aside)."""
+    printer prints what pandas' to_string prints."""
     assert cli._read_games(files["games"]) == [
         tuple(r) for r in pd.read_csv(files["games"]).iloc[:, :2].itertuples(index=False)]
     got = cli._read_rows(files["lines"])
@@ -280,8 +297,163 @@ def test_csv_readers_and_table_equal_pandas(files, tmp_path):
     rows = [{"team": "Team A", "x": 42.71875, "y": 1.0, "n": 3, "s": "a"},
             {"team": "T", "x": 40.875, "y": np.nan, "n": 4, "z": 0.25}]
     df = pd.DataFrame(rows)
-    assert cli._rows_text(rows).split() == df.to_string(index=False).split()
+    assert cli._rows_text(rows) == df.to_string(index=False)
     ix = df.set_index("team")
     text = cli._frame_text({c: ix[c].tolist() for c in ix.columns}, index=ix.index,
                            index_name="team")
-    assert [x.split() for x in text.splitlines()] == [x.split() for x in str(ix).splitlines()]
+    assert text == ix.to_string()
+
+
+EDGES = {
+    "full": ["--base", "teama_teamb_wk1_sims.csv", "--spread", "-3.5", "--total", "44.5",
+             "--props", "PROPS", "--alt", "--alt-width", "3", "--mid-spread=-3.5,7.5",
+             "--mid-total", "40.5,47.5"],
+    "no lines": ["--props", "PROPS"],
+    "middles only": ["--mid-total", "41,46", "--mid-spread", "2.5,6.5"],
+}
+
+
+@pytest.mark.parametrize("name", list(EDGES))
+def test_edges_over_saved_files_prints_what_jax_prints(name, jax_main, capsys, files, saved):
+    argv = ["edges", "--team-a", "Team A", "--team-b", "Team B", "--dir", saved] + [
+        files["props"] if a == "PROPS" else a for a in EDGES[name]]
+    port = _out(cli.main, argv, capsys)
+    assert port == _out(jax_main, argv, capsys)
+    assert ("— Player Props value" in port) == ("--props" in argv)
+
+
+PROPS = {
+    "pass_yds ladder": ["Team A", "Team A Passer 1", "pass_yds", "230.5", "--ladder"],
+    "rec ladder": ["Team B", "Team B Receiver 1", "rec", "4", "--ladder", "--width", "2",
+                   "--step", "1", "--price", "-120", "--base", "teama_teamb_wk1_sims.csv"],
+    "rush_yds": ["Team B", "Team B Rusher 1", "rush_yds", "40.5", "--role", "Rusher"],
+}
+
+
+@pytest.mark.parametrize("name", list(PROPS))
+def test_prop_prints_what_jax_prints(name, jax_main, capsys, saved):
+    argv = ["prop", *PROPS[name], "--dir", saved]
+    port = _out(cli.main, argv, capsys)
+    assert port == _out(jax_main, argv, capsys)
+    assert ("Alternate lines" in port) == ("--ladder" in argv)
+
+
+def test_edges_device_cpu_prices_markets(jax_main, capsys, files):
+    """`edges --device cpu` simulates and prices in process: the markets'
+    lines as the JAX CLI's `edges --device` prints them once the numbers are
+    masked, the prop table of the same games, the games counted on cpu."""
+    n = 512
+    argv = ["edges", "--team-a", "Team A", "--team-b", "Team B", "--sp", files["sp"],
+            "--mode", "analytic", "-n", str(n), "--spread", "-3.5", "--total", "44.5",
+            "--alt", "--alt-width", "2", "--mid-spread=-3.5,7.5", "--props", files["props"],
+            "--focus", files["focus"]]
+    port = _out(cli.main, argv + ["--device", "cpu", "--artifacts", ART], capsys)
+    jax = _out(jax_main, argv + ["--device", "--artifacts", files["jart"]], capsys)
+    cut = "\n— Player Props value"
+
+    def sides(text):   # a ladder row's better side may differ within MC error
+        return [re.sub(r"\b(Over|Under|Team A|Team B) #", "SIDE #", x)
+                for x in _masked(text.split(cut)[0])]
+
+    assert sides(port) == sides(jax)
+    assert port.splitlines()[-1].startswith(f"[{2 * n} games simulated + reduced on cpu in")
+    got = _floats(_line(port, "Cover:"))[0] / 100
+    assert within(got, _floats(_line(jax, "Cover:"))[0] / 100, got, 2 * n)
+    assert port.count("n=1024)") > 10
+
+
+@pytest.mark.parametrize("props", [False, True])
+def test_edges_device_launch_shapes(props, files, capsys, monkeypatch):
+    """As the JAX CLI launches: a market-only scan above 65,536 pairs goes
+    through run_pairs_summary(n) (whole launches); with --props, one
+    run_pairs with players and no box score."""
+    calls = []
+
+    def summary(self, n, seed=0, **kw):
+        calls.append(("run_pairs_summary", n, seed))
+        return real_summary(self, 64, seed=seed)
+
+    def pairs(self, n, seed=0, **kw):
+        if n != 64:        # not the small summary's own launch
+            calls.append(("run_pairs", n, seed, kw))
+        return real_pairs(self, 64, seed=seed, **kw)
+
+    real_summary, real_pairs = api.MatchupRunner.run_pairs_summary, api.MatchupRunner.run_pairs
+    monkeypatch.setattr(api.MatchupRunner, "run_pairs_summary", summary)
+    monkeypatch.setattr(api.MatchupRunner, "run_pairs", pairs)
+    argv = ["edges", "--team-a", "Team A", "--team-b", "Team B", "--sp", files["sp"],
+            "--artifacts", ART, "--mode", "analytic", "-n", "70000", "--seed", "3",
+            "--spread", "1.5", "--device", "cpu"]
+    out = _out(cli.main, argv + (["--props", files["props"], "--focus", files["focus"]]
+                                 if props else []), capsys)
+    if props:
+        assert calls == [("run_pairs", 70000, 3,
+                          {"collect_players": True, "collect_stats": False})]
+        assert "— Player Props value" in out
+    else:
+        assert calls == [("run_pairs_summary", 70000, 3)]
+    assert out.splitlines()[-1].startswith("[128 games simulated")
+
+
+def test_edges_device_refusals(files, monkeypatch, capsys):
+    """`edges --device --shard` raises naming queue 1 item 6 before any
+    game; a bare `--device` asks for the card, which raises where there is
+    none; without --sp nothing runs (exit 2)."""
+    def launched(*a, **k):
+        raise AssertionError("a game was played")
+
+    monkeypatch.setattr(api, "simulate_games", launched)
+    monkeypatch.setattr(game, "simulate_games", launched)
+    argv = ["edges", "--team-a", "Team A", "--team-b", "Team B", "--sp", files["sp"],
+            "--artifacts", ART, "--spread", "1.5"]
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        cli.main(argv + ["--device", "--shard"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        cli.main(argv + ["--shard", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="never falls back to the CPU"):
+            cli.main(argv + ["--device"])
+    assert cli.main(["edges", "--team-a", "A", "--team-b", "B", "--device", "cpu"]) == 2
+    assert "needs --sp" in capsys.readouterr().err
+
+
+def test_slate_props_prints_the_prop_table(files, capsys):
+    """`slate --props --device cpu`: the slate's table, then the prop table
+    of `api.simulate_slate_prop_rows` on the same arguments."""
+    argv = ["slate", "--games", files["one"], "--sp", files["sp"], "--artifacts", ART,
+            "--mode", "analytic", "-n", "64", "--props", files["props"], "--props-n", "256",
+            "--focus", files["focus"], "--min-edge", "0", "--device", "cpu"]
+    out = _out(cli.main, argv, capsys)
+    rows = api.simulate_slate_prop_rows([("Team A", "Team B")], sp_path=files["sp"],
+                                        props_csv=files["props"], n_pairs=256, mode="analytic",
+                                        artifact_dir=ART, focus_csv=files["focus"],
+                                        min_abs_edge_pct=0, device="cpu")
+    from fast_monte_carlo_tpu_torch.edge import print_prop_table
+    print_prop_table(rows)
+    table = capsys.readouterr().out
+    assert len(rows) == 33 and out.endswith(table) and "[Passing]" in table
+
+
+def test_backtest_prints_a_well_formed_report(files, tmp_path, capsys):
+    """`backtest --device cpu` over finals in both orientations and a tie:
+    the report's header, win, margin, total and PIT lines; results without
+    the score columns exit 2 before any game."""
+    finals = tmp_path / "finals.csv"
+    finals.write_text("team_a,team_b,score_a,score_b\nTeam B,Team A,20,27\n"
+                      "Team 000,Team 001,17,17\nTeam 002,Team 003,35,10\n")
+    out = _out(cli.main, ["backtest", "--results", str(finals), "--sp", files["sp"],
+                          "--artifacts", ART, "--mode", "analytic", "-n", "256", "--bins", "4",
+                          "--device", "cpu"], capsys)
+    lines = out.strip().splitlines()
+    assert lines[0] == "=== Backtest: 3 games (2 with a winner) ==="
+    brier = float(re.search(r"brier (\S+)", lines[1]).group(1))
+    assert 0 <= brier <= 1
+    assert _line(out, "margin").strip().startswith("margin   : bias")
+    assert _line(out, "total").strip().startswith("total    : bias")
+    ks = [float(x) for x in re.findall(r"(?:margin|total) (\S+) \(mean", _line(out, "PIT"))]
+    assert len(ks) == 2 and all(0 <= k <= 1 for k in ks)
+    bad = tmp_path / "bad.csv"
+    bad.write_text("team_a,team_b,pts\nTeam A,Team B,3\n")
+    assert cli.main(["backtest", "--results", str(bad), "--sp", files["sp"],
+                     "--device", "cpu"]) == 2
+    assert "--results needs columns" in capsys.readouterr().out

@@ -114,7 +114,7 @@ def test_import_leaves_jax_pandas_sklearn_out():
         "            assert n.split('.')[0] not in ('jax', 'fast_monte_carlo_tpu', 'pandas',"
         " 'sklearn', 'joblib'), n\n"
         "need = ['fast_monte_carlo_tpu_torch.probes.step_arith',"
-        " 'fast_monte_carlo_tpu_torch.probes.gather',"
+        " 'fast_monte_carlo_tpu_torch.probes.gather', 'fast_monte_carlo_tpu_torch.probes.csv_read',"
         " 'fast_monte_carlo_tpu_torch.utils.cuda_build',"
         " 'fast_monte_carlo_tpu_torch.stats', 'fast_monte_carlo_tpu_torch.boxscore',"
         " 'fast_monte_carlo_tpu_torch.edge', 'fast_monte_carlo_tpu_torch.data.usage',"
@@ -127,7 +127,9 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " 'fast_monte_carlo_tpu_torch.data.context', 'fast_monte_carlo_tpu_torch.models.xgb_json',"
         " 'fast_monte_carlo_tpu_torch.models.sklearn_gbr',"
         " 'fast_monte_carlo_tpu_torch.models.wrappers', 'fast_monte_carlo_tpu_torch.serve',"
-        " 'fast_monte_carlo_tpu_torch.cli']\n"
+        " 'fast_monte_carlo_tpu_torch.cli', 'fast_monte_carlo_tpu_torch.store',"
+        " 'fast_monte_carlo_tpu_torch.backtest', 'fast_monte_carlo_tpu_torch.utils.profiling',"
+        " 'fast_monte_carlo_tpu_torch.data.columns', 'fast_monte_carlo_tpu_torch.parallel']\n"
         "from fast_monte_carlo_tpu_torch import api, edge, fixtures\n"
         "from fast_monte_carlo_tpu_torch.ops import game\n"
         "from fast_monte_carlo_tpu_torch.parallel import aggregate\n"
@@ -158,9 +160,25 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " pack.build_packs, tables.eval_forest_on_grid, tables.build_fused_table,"
         " table_lookup.build_table_heads, table_lookup.nano_tables_from_heads,"
         " heads.load_heads, heads.load_reconstructed_heads, api.simulate_upcoming_matchup,"
-        " api.simulate_upcoming_matchup_columns, api.csv_base_from, api._save_frames))\n"
+        " api.simulate_upcoming_matchup_columns, api.csv_base_from, api._save_frames,"
+        " api.simulate_matchup_batched, api.simulate_matchup_batched_chunks,"
+        " edge.find_saved_files, edge.load_table, edge.load_players_table,"
+        " edge.player_prop_odds, edge.moneyline_from_sims, edge.game_market_odds,"
+        " edge.scan_props_for_matchup, edge.alt_prop_table, edge.player_prop_ladder,"
+        " edge.alt_lines_from_sims, edge.middles_from_sims, edge.print_game_market_readable,"
+        " edge.print_moneyline_readable, edge.print_prop_table, edge.find_edges,"
+        " edge.infer_role_from_stat))\n"
+        "from fast_monte_carlo_tpu_torch import backtest, store\n"
+        "from fast_monte_carlo_tpu_torch.parallel import player_stat_probs\n"
+        "from fast_monte_carlo_tpu_torch.utils import profiling\n"
+        "assert all(callable(f) for f in (store.make_signature, store.save_sim_bundle,"
+        " store.load_sim_bundle, backtest.join_results, backtest.calibration_report,"
+        " backtest.fit_calibration, backtest.backtest_slate, backtest.win_calibration,"
+        " backtest.point_metrics, backtest.pit_values, backtest.ks_uniform,"
+        " backtest.print_backtest_readable, player_stat_probs, profiling.SimMeter,"
+        " profiling.trace_context, profiling.device_memory_stats))\n"
         "assert all(m in sys.modules for m in need), need\n"
-        "bad = [m for m in ('jax', 'pandas', 'sklearn', 'joblib', 'xgboost',"
+        "bad = [m for m in ('jax', 'pandas', 'pyarrow', 'sklearn', 'joblib', 'xgboost',"
         " 'fast_monte_carlo_tpu')"
         " if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -168,6 +186,39 @@ def test_import_leaves_jax_pandas_sklearn_out():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout == "ok\n", (out.stdout, out.stderr)
+
+
+def test_csv_routes_leave_pandas_and_pyarrow_out(tmp_path):
+    """`sim --save` to CSV, then `edges` and `prop --ladder` over the files
+    and `backtest`, in one process on the CPU: neither pandas nor pyarrow
+    is ever imported (the card's host has neither)."""
+    code = (
+        "import contextlib, io, os, sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "from fast_monte_carlo_tpu_torch import cli, fixtures\n"
+        f"os.chdir({str(tmp_path)!r})\n"
+        "sp = fixtures.write_sp_sheet('sp.csv', 136, 0)\n"
+        "fixtures.write_csv('focus.csv', fixtures.focus_rows(3), fixtures.FOCUS_COLS)\n"
+        "fixtures.write_csv('props.csv', fixtures.prop_rows(4), fixtures.PROP_COLS)\n"
+        "open('finals.csv', 'w').write('team_a,team_b,score_a,score_b\\n"
+        "Team A,Team B,21,17\\nTeam 001,Team 000,10,13\\n')\n"
+        "art = ['--artifacts', fixtures.ARTIFACT_DIR, '--device', 'cpu', '--mode', 'analytic']\n"
+        "runs = [['sim', 'Team A', 'Team B', '--sp', sp, '-n', '64', '--players', '--save',"
+        " '--focus', 'focus.csv'] + art,"
+        " ['edges', '--base', 'teama_teamb_wk1_sims.csv', '--team-a', 'Team A', '--team-b',"
+        " 'Team B', '--spread', '-3.5', '--total', '44.5', '--props', 'props.csv', '--alt',"
+        " '--mid-total', '40.5,47.5'],"
+        " ['prop', 'Team A', 'Team A Passer 1', 'pass_yds', '230.5', '--ladder'],"
+        " ['backtest', '--results', 'finals.csv', '--sp', sp, '-n', '64'] + art]\n"
+        "for argv in runs:\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        assert cli.main(argv) == 0, argv\n"
+        "print(sorted(m for m in ('pandas', 'pyarrow') if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0 and out.stdout == "[]\n", (out.stdout, out.stderr[-2000:])
 
 
 @pytest.mark.parametrize("antithetic", [False, True])
