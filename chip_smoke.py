@@ -23,9 +23,12 @@ Phases, in order (any failure raises and exits non-zero):
  3. the kernel against its plain version on the card at the main path's
     shape (ch=24 plays x 65,536 games) and at ragged ones (ch 1, 3, 24 x
     n 1, 255, 257, 65,573) for 3 keys: uniforms bitwise, normals within
-    1e-5, chunked == per-step, moments and coverage; an output buffer off a
-    16-byte boundary raises; kernel (ch 24 and 1) and plain version timed,
-    beside the launch gap (a held near-empty kernel);
+    1e-5, chunked == per-step, moments and coverage; from a row offset
+    (a rank's first game: 65,536, 2^31 + 7, 2^32 - 255) against the plain
+    version, and half a launch drawn alone from its row == those rows of
+    the whole launch; an output buffer off a 16-byte boundary raises;
+    kernel (ch 24 and 1, from row 65,536) and plain version timed, beside
+    the launch gap (a held near-empty kernel);
  4. one play step at 65,536 states with injected draws, on CUDA and on the
     CPU: integer state equal, floats allclose(rtol=1e-5, atol=1e-5);
  5. the main path: MatchupRunner(mode="table", rng_impl="pallas_chunk",
@@ -141,7 +144,8 @@ Phases, in order (any failure raises and exits non-zero):
     compare and a child step a node visited, a feature read a numeric one,
     an add a (row, tree)); a forest of 65 numerics, whose packed records
     would overflow the row slot, raises ValueError with no launch; one
-    exact-mode play step at 16,384 states (65,536 before phase 16) on CUDA
+    exact-mode play step at 4,096 states (16,384 before phase 18, 65,536
+    before phase 16) on CUDA
     and on the CPU, integer state equal in >= 99.5%; the nano tables built from the same heads
     (`MatchupRunner(mode="table", heads=)`, host seconds); then
     `run_pairs_summary` of `MatchupRunner(mode="exact")` and of that table
@@ -215,7 +219,9 @@ Phases, in order (any failure raises and exits non-zero):
     well formed; 65,536-game launches with both collectors and score-only
     timed; one play step on the per-head tables at 65,536 states on CUDA
     and on the CPU (`TableHeads.to`), integer state equal in >= 99.5%;
-    (b) `cli sim --reconstructed` (the ML play policy in table mode), then
+    (b) `cli sim --reconstructed` (the ML play policy in table mode) on the
+    small heads (`fixtures.heads(0, "small")`, handed to the CLI by its
+    loader; the reference-shape heads before phase 18), then
     `MatchupRunner(reconstructed_config())` on the same contexts reusing
     its build: the play table's build seconds a direction and MB, P(pass)
     on the card equal to the CPU's lookup and within the play clip, the
@@ -243,17 +249,34 @@ Phases, in order (any failure raises and exits non-zero):
     `cli sim --sd-mode cachewarm`; (e) a 4-matchup cachewarm
     `SlateRunner(game_shard=True)` on the small heads (16 warm-up games a
     matchup), built twice, the second time with no table built and no
-    oracle game played, then run.
+    oracle game played, then run;
+18. trial sharding (`parallel/mesh.py`): (a) in this process a world of one
+    over NCCL on cuda:0: `MatchupRunner(shard=True).run_pairs_summary` on
+    the main path's fixture runner at 4 launches of 65,536 games equal to
+    shard=False on every field, the two timed in turns, and `run_live`
+    (65,536 games from Q4 05:00) equal to its unsharded run; (b) two ranks
+    as child processes that meet through a FileStore: NCCL on cuda:0 and
+    cuda:1 where there are two cards, else gloo with both ranks on cuda:0
+    (each launches K4 on the card; only the collectives pass through the
+    host): `run_pairs_summary(shard=True)` at 262,144 games, `run_live`,
+    and the game layout (`SlateRunner(game_shard=True).run_summary_rows(
+    mesh=group)`) over 8 fixture matchups, each rank holding only its
+    block's tables; every rank's summaries bitwise equal to this process's
+    unsharded runs, each rank launching philox_draws and importing no jax
+    or fast_monte_carlo_tpu; (c) `cli sim --shard` (analytic) in a world of
+    one printing what `cli sim` prints, and a server's /sim with "shard":
+    true answered 200 and equal to "shard": false.
 Every phase prints its seconds, and a line before the JSON lines lists
 them with the whole smoke's.
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
-9, 10, 11, 12, 13, 14, 15, 16, 17) and read just after it; a path that
+9, 10, 11, 12, 13, 14, 15, 16, 17) and read just after it (phase 18 counts
+the sharded runs' own launches, its ranks' included); a path that
 launched one of its kernels no time fails.  forest_eval's launches in the JSON line are
 exact mode's, phase 13's, phase 14's and phase 15's; its times are per play
 (11 launches), the bound too.  The JSON line's philox_draws launches are
 the main path's, the live queries', the slate path's, phase 11's, phase
-13's, phase 14's, phase 15's, phase 16's and phase 17's (its child
-process's included).
+13's, phase 14's, phase 15's, phase 16's, phase 17's (its child
+process's included) and phase 18's (its ranks' included).
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
 (`probes.kernels.held_ms`; `kernel_times` for philox_draws, the fused
@@ -330,7 +353,8 @@ EXACT_LAUNCH_GAMES = 65_536        # exact mode's games a launch
 EXACT_TARGET_S = 6                 # exact mode's timed launches fill about this (12
                                    # before phase 17)
 EXACT_MAX_LAUNCHES = 4
-EXACT_STEP_STATES = 16_384         # the exact play step, CUDA vs CPU (65,536 before phase 16)
+EXACT_STEP_STATES = 4_096          # the exact play step, CUDA vs CPU (16,384 before phase 18,
+                                   # 65,536 before phase 16)
 SP_TEAMS, SP_SEED = 136, 0         # the 2025 SP+ sheet's FBS teams (fixtures.write_sp_sheet)
 FILE_PAIRS = 65_536                # simulate_upcoming_matchup n (pairs): 131,072 games
 FILE_LIVE_GAMES = 65_536           # the JAX package's simulate_live_game default
@@ -390,6 +414,14 @@ LAYOUT_SLATE_BAND = (0, 70)
 # and the 4-matchup cachewarm slate's, cut to keep the smoke in its limit
 CACHEWARM_GAMES = 64
 SLATE_WARM_GAMES = 16
+# phase 18: trial sharding; the main path's fixture runner at 4 launches of
+# 65,536 games, run_live from phase 9's Q4 situation, and the game layout
+# over 8 fixture matchups at one launch of 16,384 games a matchup
+SHARD_PAIRS, SHARD_CHUNK, SHARD_SEED = 131_072, 32_768, 18
+SHARD_LIVE_GAMES = 65_536
+SHARD_SLATE_GAMES, SHARD_SLATE_PAIRS = 8, 8_192
+SHARD_CLI_PAIRS = 8_192            # cli sim --shard and the server's /sim, analytic
+SHARD_CHILD_S = 300                # the two ranks' time limit
 # each kernel of the JSON line and its source in csrc/
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
@@ -599,6 +631,21 @@ def phase_kernel(card: str) -> dict:
             us, zs = rng.step_draws(key, base + j, N, dev)
             check(torch.equal(us, u[j]) and torch.equal(zs, z[j]),
                   f"chunk step {j} == per-step draws at step {base + j}")
+        # a row offset (a rank's first global game): against the plain
+        # version, and against the rows of a launch from row 0
+        for ch, n, r0 in ((CH, N, N), (3, 257, (1 << 31) + 7), (1, 255, (1 << 32) - 255)):
+            uo, zo = rng.chunk_draws(key, base, ch, n, dev, row0=r0)
+            ur, zr = rng.philox_draws_reference(key, base, ch, n, dev, row0=r0)
+            err = float((zo - zr).abs().max())
+            worst = max(worst, err)
+            check(torch.equal(uo, ur) and err <= 1e-5,
+                  f"key {key:#x} base {base}: ({ch}, {n}) from row {r0:,}: uniforms bitwise, "
+                  f"normals max|d| {err:.3g} <= 1e-5")
+        half = N // 2
+        uo, zo = rng.chunk_draws(key, base, CH, half, dev, row0=half)
+        check(torch.equal(uo, u[:, half:]) and torch.equal(zo, z[:, half:]),
+              f"key {key:#x} base {base}: rows {half:,}.. drawn alone == the same rows of the "
+              f"({CH}, {N:,}) launch")
         uf, zf = u.double().reshape(-1), z.double().reshape(-1)
         m = uf.numel()
         check(abs(float(uf.mean()) - 0.5) < 4 * (1 / 12 / m) ** 0.5,
@@ -1613,8 +1660,10 @@ def phase_multi(card: str, profile_dir: Optional[Path]) -> dict:
                chunk_pairs=SEASON_CHUNK, seed=41, device="cuda")
     vkw = dict(contexts=slate, nano_tables=slate_tables, n_pairs=SLATE_PROPS_PAIRS, seed=51,
                min_abs_edge_pct=0.0, device="cuda")
-    # each slate prop scan's simulate_games calls: (keyword arguments, output)
-    real, scans = api.simulate_games, []
+    # each slate prop scan's simulate_games calls: (keyword arguments, output);
+    # a runner's launches go through parallel.mesh
+    from fast_monte_carlo_tpu_torch.parallel import mesh
+    real, scans = mesh.simulate_games, []
 
     def counted(*args, **kw):
         out = real(*args, **kw)
@@ -1623,11 +1672,11 @@ def phase_multi(card: str, profile_dir: Optional[Path]) -> dict:
 
     def scan():
         scans.append([])
-        api.simulate_games = counted
+        mesh.simulate_games = counted
         try:
             return api.simulate_slate_prop_rows(slate_games, props_csv=sheet, **vkw)
         finally:
-            api.simulate_games = real
+            mesh.simulate_games = real
 
     queries = {
         "parlay": (f"simulate_parlay, {len(PARLAY_LEGS)} legs, {n:,} games, correlations, "
@@ -2969,13 +3018,24 @@ def phase_layouts(card: str, device: str = "cuda") -> dict:
     check(bad.mean() <= 0.005, f"per-head play step at {N:,} states, CUDA vs CPU: integer "
           f"state equal in {N - int(bad.sum()):,} (>= 99.5%)")
 
-    # (b) the ML play policy in table mode
-    rheads = load_reconstructed_heads(art)
+    # (b) the ML play policy in table mode, on the small heads (their play
+    # head at temperature 1.25): the CLI's own flag and route, its loader
+    # handing it the small heads.  On the reference-shape heads the play
+    # table takes about 54 s of host numpy, room that phase 18 needs.
+    from fast_monte_carlo_tpu_torch.models import heads as heads_mod
+    check(load_reconstructed_heads(art).play is not None,
+          "load_reconstructed_heads reads the artifact heads with the overlay")
+    rheads = small
     rcfg = reconstructed_config()
+    loader, heads_mod.load_reconstructed_heads = (heads_mod.load_reconstructed_heads,
+                                                  lambda *a, **k: small)
     t0 = time.perf_counter()
-    text = _cli(["sim", "Team A", "Team B", "--sp", sp_path, "--artifacts", art, "-n",
-                 str(LAYOUT_PAIRS), "--seed", str(LAYOUT_SEED), "--reconstructed",
-                 "--device", str(dev)])
+    try:
+        text = _cli(["sim", "Team A", "Team B", "--sp", sp_path, "--artifacts", art, "-n",
+                     str(LAYOUT_PAIRS), "--seed", str(LAYOUT_SEED), "--reconstructed",
+                     "--device", str(dev)])
+    finally:
+        heads_mod.load_reconstructed_heads = loader
     cli_s = time.perf_counter() - t0
     check(all(any(line.strip().startswith(t) for line in text.splitlines())
               for t in ("Team A", "Team B", "Timing:")),
@@ -3009,7 +3069,7 @@ def phase_layouts(card: str, device: str = "cuda") -> dict:
           f"the pass share moves with the play table: {shares['low']:.4f} with every P(pass) "
           f"at {lo}, {shares['table']:.4f} on the table, {shares['high']:.4f} at {hi}")
     gps = _timed_summary(rr, "reconstructed_config(), table mode", card)
-    print(f"  (b) play-policy table: built in {rth.play_seconds[0]:.1f} s and "
+    print(f"  (b) play-policy table (small heads): built in {rth.play_seconds[0]:.1f} s and "
           f"{rth.play_seconds[1]:.1f} s of host numpy (directions A, B; each direction's whole "
           f"build {rth.build_seconds[0]:.1f} and {rth.build_seconds[1]:.1f} s), "
           f"{rth.play.nbytes / 1e6:,.1f} MB on the card; {gps:,.0f} games/s score-only ({card})")
@@ -3306,6 +3366,261 @@ def phase_cache(card: str, layouts: dict, phase16_dir: str, cache_root: str,
     tmp.cleanup()
     return out
 
+def shard_inputs(device, shard: bool):
+    """Phase 18's runners on `device`: the main path's MatchupRunner (the
+    fixture teams, the seed-7 nano table, pallas_chunk), sharded or not,
+    and a game-layout SlateRunner of SHARD_SLATE_GAMES fixture matchups (in
+    a group of several ranks, this rank's block) with the device bytes its
+    construction took; and phase 9's Q4 05:00 situation."""
+    import torch
+    from fast_monte_carlo_tpu_torch import api, fixtures
+    from fast_monte_carlo_tpu_torch.config import SimConfig
+
+    cfg = SimConfig()
+    cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, rng_impl="pallas_chunk"))
+    runner = api.MatchupRunner(*fixtures.teams(), None, cfg, mode="table",
+                               nano_tables=fixtures.nano_tables(TABLE_SEED), device=device,
+                               shard=shard)
+    matchups, tables = fixtures.slate(SHARD_SLATE_GAMES, SLATE_SEED)
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    slate = api.SlateRunner(matchups, nano_tables=tables, device=device, game_shard=True)
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device) - before
+    q4 = api.situation_from_fields(ytg=40, offense="A", quarter=4, clock="05:00", down=2,
+                                   dist=7, score_a=21, score_b=17)
+    return runner, slate, q4, held
+
+
+def summary_digest(s) -> str:
+    """sha256 of every field of a ScoreSummary (torch or numpy), in order."""
+    import hashlib
+
+    return hashlib.sha256(b"".join(
+        (f.detach().cpu().numpy() if hasattr(f, "detach") else np.asarray(f)).tobytes()
+        for f in s)).hexdigest()
+
+
+def shard_runs(runner, slate, q4, group=None) -> dict:
+    """Phase 18's three runs on one rank (or unsharded, without `group`):
+    the digests of run_pairs_summary, run_live and the game layout's
+    per-matchup summaries, and each run's seconds."""
+    import torch
+
+    out = {}
+    t0 = time.perf_counter()
+    s = runner.run_pairs_summary(SHARD_PAIRS, seed=SHARD_SEED, chunk_pairs=SHARD_CHUNK)
+    torch.cuda.synchronize()
+    out["pairs_s"], out["pairs"] = time.perf_counter() - t0, summary_digest(s)
+    check_summary(s, 2 * SHARD_PAIRS, "run_pairs_summary" + (" sharded" if group else ""))
+    t0 = time.perf_counter()
+    live = runner.run_live(q4, n_games=SHARD_LIVE_GAMES, seed=SHARD_SEED)
+    torch.cuda.synchronize()
+    out["live_s"], out["live"] = time.perf_counter() - t0, summary_digest(live)
+    t0 = time.perf_counter()
+    rows, per_game = slate.run_summary_rows(SHARD_SLATE_PAIRS, seed=SHARD_SEED,
+                                            chunk_pairs=SHARD_SLATE_PAIRS, mesh=group)
+    out["slate_s"] = time.perf_counter() - t0
+    out["slate"] = summary_digest([f for s in per_game for f in s])
+    check_slate_summaries(per_game, 2 * SHARD_SLATE_PAIRS, "game layout"
+                          + (" over the ranks" if group else " on one card"))
+    return out
+
+
+# phase 18 (b): one of the two ranks, started by the smoke with its rank as
+# argv[1]; forms the group from a FileStore, builds its runners, waits for
+# the smoke's go file, runs `shard_runs` and prints one JSON line
+SHARD_CHILD = """
+import json, os, sys, time
+sys.path.insert(0, {repo!r})
+import torch
+import torch.distributed as dist
+import chip_smoke
+from fast_monte_carlo_tpu_torch.utils import cuda_build
+rank = int(sys.argv[1])
+device = torch.device("cuda", rank if {backend!r} == "nccl" else 0)
+torch.cuda.set_device(device)
+cuda_build.load_kernel_libraries(*chip_smoke.SOURCES)
+dist.init_process_group({backend!r}, store=dist.FileStore({store!r}, 2), rank=rank,
+                        world_size=2)
+from fast_monte_carlo_tpu_torch.parallel import mesh
+group = mesh.trial_group(device)
+assert (group.rank, group.world, group.backend) == (rank, 2, {backend!r})
+runner, slate, q4, held = chip_smoke.shard_inputs(device, shard=True)
+while not os.path.exists({go!r}):
+    time.sleep(0.05)
+dist.barrier()
+chip_smoke.zero_counts()
+out = chip_smoke.shard_runs(runner, slate, q4, group)
+torch.cuda.synchronize()
+bad = [m for m in ("jax", "fast_monte_carlo_tpu") if m in sys.modules]
+print(json.dumps(dict(out, rank=rank, block=list(slate.block), held=held, imported=bad,
+                      launches=chip_smoke.kernel_counts()["philox_draws"].launches)))
+dist.barrier()          # both ranks done before either tears the group down
+dist.destroy_process_group()
+"""
+
+
+def phase_shard(card: str) -> dict:
+    """Trial sharding on the card: (a) a world of one over NCCL in this
+    process, MatchupRunner(shard=True) against shard=False (run_pairs_summary
+    at 4 launches of 65,536 games, timed, and run_live) bit for bit; (b) two
+    ranks as child processes (NCCL on two cards where there are two, else
+    gloo with both on cuda:0, where each rank launches K4 on the card and
+    only the collectives pass through the host): run_pairs_summary,
+    run_live and the game layout over the ranks, bit for bit the unsharded
+    runs, each child launching philox_draws and importing neither jax nor
+    the JAX package; (c) `cli sim --shard` in a world of one and a server
+    request with "shard": true."""
+    import tempfile
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from fast_monte_carlo_tpu_torch import fixtures
+    from fast_monte_carlo_tpu_torch.serve import ServeConfig, SimService, make_server
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    k4 = kernel_counts()["philox_draws"]
+    own = [0]       # K4 launches of this process's sharded runs (not the references)
+
+    def sharded_run(fn):
+        before = k4.launches
+        res = fn()
+        own[0] += k4.launches - before
+        return res
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    go = os.path.join(tmp.name, "go")
+    child = SHARD_CHILD.format(repo=str(REPO), backend=backend,
+                               store=os.path.join(tmp.name, "store"), go=go)
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    # the ranks start (torch, the kernels, their runners) while (a) runs,
+    # and play once (a) is done, alone on the card
+    ranks = [subprocess.Popen([sys.executable, "-c", child, str(r)], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        # (a) a world of one over NCCL
+        torch.cuda.synchronize()
+        zero_counts()
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+        sharded, slate, q4, whole = shard_inputs("cuda:0", shard=True)
+        check((sharded.group.world, sharded.group.backend) == (1, "nccl"),
+              "(a) MatchupRunner(shard=True) in an NCCL world of one on cuda:0")
+        plain, _, _, _ = shard_inputs("cuda:0", shard=False)
+        runs = {}
+        for name, r in (("unsharded", plain), ("sharded", sharded)):
+            t0 = time.perf_counter()
+            runs[name] = (sharded_run if r.shard else lambda f: f())(
+                lambda: r.run_pairs_summary(SHARD_PAIRS, seed=SHARD_SEED,
+                                            chunk_pairs=SHARD_CHUNK))
+            torch.cuda.synchronize()
+            runs[name + "_s"] = time.perf_counter() - t0
+        check(summary_digest(runs["sharded"]) == summary_digest(runs["unsharded"]),
+              f"(a) run_pairs_summary(shard=True), {2 * SHARD_PAIRS:,} games in "
+              f"{2 * SHARD_PAIRS // (2 * SHARD_CHUNK)} launches: every field bitwise equal to "
+              "shard=False")
+        check_summary(runs["sharded"], 2 * SHARD_PAIRS, "(a) sharded run_pairs_summary")
+        gps = {k: 2 * SHARD_PAIRS / runs[k + "_s"] for k in ("unsharded", "sharded")}
+        print(f"  (a) world of one: {gps['sharded']:,.0f} games/s sharded against "
+              f"{gps['unsharded']:,.0f} unsharded, one run each in turns ({card})")
+        live = sharded_run(lambda: sharded.run_live(q4, n_games=SHARD_LIVE_GAMES,
+                                                    seed=SHARD_SEED))
+        live0 = plain.run_live(q4, n_games=SHARD_LIVE_GAMES, seed=SHARD_SEED)
+        check(summary_digest(live) == summary_digest(live0),
+              f"(a) run_live(shard=True), {SHARD_LIVE_GAMES:,} games from Q4 05:00: bitwise "
+              "equal to the unsharded run")
+        dist.destroy_process_group()
+        torch.cuda.synchronize()
+        out["world_of_one"] = dict(gps)
+        want = dict(pairs=summary_digest(runs["unsharded"]), live=summary_digest(live0))
+        del runs, sharded
+
+        # (b) two ranks
+        open(go, "w").close()
+        t0 = time.perf_counter()
+        got = []
+        for r, p in enumerate(ranks):
+            o, e = p.communicate(timeout=SHARD_CHILD_S)
+            check(p.returncode == 0, f"(b) rank {r} exited {p.returncode}"
+                  + (f": {e[-3000:]}" if p.returncode else ""))
+            got.append(json.loads(o.strip().splitlines()[-1]))
+        wall = time.perf_counter() - t0
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"  (b) two ranks over {backend} ("
+          + ("cuda:0 and cuda:1" if backend == "nccl" else "both on cuda:0, the collectives "
+             "through the host") + f"), {wall:.1f} s from the go")
+    rows, per_game = slate.run_summary_rows(SHARD_SLATE_PAIRS, seed=SHARD_SEED,
+                                            chunk_pairs=SHARD_SLATE_PAIRS)
+    want["slate"] = summary_digest([f for s in per_game for f in s])
+    for what, label in (("pairs", f"run_pairs_summary(shard=True), {2 * SHARD_PAIRS:,} games"),
+                        ("live", f"run_live(shard=True), {SHARD_LIVE_GAMES:,} games"),
+                        ("slate", f"the game layout over the ranks, {SHARD_SLATE_GAMES} "
+                                  f"matchups x {2 * SHARD_SLATE_PAIRS:,} games")):
+        check(got[0][what] == got[1][what] == want[what],
+              f"(b) {label}: both ranks hold the unsharded run's summaries bitwise "
+              f"(sha256 {want[what][:16]})")
+    blk = -(-SHARD_SLATE_GAMES // 2)
+    check([g["block"] for g in got] == [[0, blk], [blk, SHARD_SLATE_GAMES]]
+          and all(0 < g["held"] <= whole * blk / SHARD_SLATE_GAMES + 2 ** 20 for g in got),
+          f"(b) each rank built and holds only its block of the slate, matchups "
+          f"{got[0]['block']} and {got[1]['block']}: {got[0]['held'] / 1e6:,.1f} and "
+          f"{got[1]['held'] / 1e6:,.1f} MB on its card against {whole / 1e6:,.1f} MB for the "
+          "whole slate on one card")
+    check(all(g["launches"] > 0 and g["imported"] == [] for g in got),
+          f"(b) each rank launched philox_draws ({got[0]['launches']} and "
+          f"{got[1]['launches']} times) and imported no jax or fast_monte_carlo_tpu")
+    pair_gps = 2 * SHARD_PAIRS / max(g["pairs_s"] for g in got)
+    slate_gps = 2 * SHARD_SLATE_PAIRS * SHARD_SLATE_GAMES / max(g["slate_s"] for g in got)
+    print(f"  (b) {backend} pair: run_pairs_summary {pair_gps:,.0f} games/s (the slower rank's "
+          f"{max(g['pairs_s'] for g in got):.2f} s), run_live "
+          f"{max(g['live_s'] for g in got):.3f} s, the game layout {slate_gps:,.0f} games/s "
+          f"({card})")
+    out["pair"] = dict(backend=backend, gps=pair_gps, slate_gps=slate_gps,
+                       live_s=max(g["live_s"] for g in got), wall_s=wall)
+
+    # (c) the CLI and the server, in a world of one (no process group)
+    sp_path = fixtures.write_sp_sheet(os.path.join(tmp.name, "sp.csv"), SP_TEAMS, SP_SEED)
+    argv = ["sim", "Team A", "Team B", "--sp", sp_path, "--artifacts", fixtures.ARTIFACT_DIR,
+            "--mode", "analytic", "-n", str(SHARD_CLI_PAIRS), "--seed", str(SHARD_SEED),
+            "--device", "cuda"]
+    texts = [[x for x in (sharded_run if extra else lambda f: f())(
+        lambda: _cli(argv + extra)).splitlines() if not x.startswith("Timing")]
+        for extra in (["--shard"], [])]
+    check(texts[0] == texts[1] and any(x.startswith("Team A") for x in texts[0]),
+          "(c) cli sim --shard in a world of one prints what cli sim prints")
+    service = SimService(ServeConfig(sp_path=sp_path, artifact_dir=fixtures.ARTIFACT_DIR,
+                                     mode="analytic", device="cuda"))
+    srv = make_server(service, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    answers = []
+    for shard in (True, False):
+        code, ans, dt = (sharded_run if shard else lambda f: f())(lambda: _http(
+            base, "/sim", {"team_a": "Team A", "team_b": "Team B",
+                           "n_pairs": SHARD_CLI_PAIRS, "seed": SHARD_SEED, "shard": shard}))
+        check(code == 200, f"(c) /sim with \"shard\": {str(shard).lower()} answered {code} in "
+              f"{dt:.2f} s")
+        answers.append({k: v for k, v in ans.items() if k != "elapsed_s"})
+    srv.shutdown()
+    srv.server_close()
+    check(answers[0] == answers[1], "(c) the server's sharded /sim equals its unsharded one")
+    children = sum(g["launches"] for g in got)
+    check(own[0] > 0, f"the sharded runs of this process launched philox_draws {own[0]} times "
+          f"(the ranks {children}; the unsharded references not counted)")
+    out["launches"] = own[0] + children
+    tmp.cleanup()
+    return out
+
+
 def _lookup_obs(seed: int, dev):
     """N StepObs on `dev` from play_states rows, random slots and score
     differences."""
@@ -3469,6 +3784,9 @@ def main() -> int:
                   "phase 16's cache, a cachewarm runner, cli sim --sd-mode cachewarm and a "
                   "cachewarm slate on cuda", phase_cache, card, layouts,
                   os.path.join(cache_root.name, "phase16"), cache_root.name)
+    shard = phase(18, "trial sharding on cuda: a world of one over NCCL, two ranks, the game "
+                  "layout over them, cli sim --shard and a sharded server request",
+                  phase_shard, card)
     layout_k4 = layouts["launches"]["philox_draws"]
     del layouts
     cache_root.cleanup()
@@ -3478,14 +3796,14 @@ def main() -> int:
           f"inputs from files {files['launches']['philox_draws']}, server "
           f"{served['launches']['philox_draws']}, saved sims {saved['launches']['philox_draws']}, "
           f"other table layouts {layout_k4}, disk cache and cachewarm "
-          f"{cache['launches']['philox_draws']}")
+          f"{cache['launches']['philox_draws']}, trial sharding {shard['launches']}")
     print(f"  forest_eval launches: exact mode {exact['launches']}, inputs from files "
           f"{files['launches']['forest_eval']}, server {served['launches']['forest_eval']}, "
           f"saved sims {saved['launches']['forest_eval']}")
     k["launches"] += (live["launches"] + slate["launches"] + multi["launches"]
                       + files["launches"]["philox_draws"] + served["launches"]["philox_draws"]
                       + saved["launches"]["philox_draws"]
-                      + layout_k4 + cache["launches"]["philox_draws"])
+                      + layout_k4 + cache["launches"]["philox_draws"] + shard["launches"])
     exact["launches"] += (files["launches"]["forest_eval"] + served["launches"]["forest_eval"]
                           + saved["launches"]["forest_eval"])
     k["max_abs_err"] = max(k["max_abs_err"], slate["draw_err"], served["draw_err"])

@@ -61,9 +61,18 @@ Long sweeps: `simulate_matchup_batched` checkpoints chunks of pairs to
 parquet files and resumes past those on disk; its core
 `simulate_matchup_batched_chunks` yields each chunk's columns without
 pandas.
+
+Several cards: `shard=True` (runners and routes, as in the JAX package)
+splits each launch's games over the ranks of `parallel.mesh.trial_group`,
+one process a card; a sharded run equals the unsharded one of the same key
+bit for bit.  A slate's game layout splits its matchups over the ranks
+instead (`SlateRunner.run_summary_rows(mesh=)`; `layout="auto"` picks it
+where there is more than one rank).  In a process outside any group both
+run in a world of one.
 """
 from __future__ import annotations
 
+import copy
 import csv
 import dataclasses
 import os
@@ -75,7 +84,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import edge, resolve_device
+from . import edge
 from .config import SimConfig
 from .data.context import TeamContext, build_team_context_from_sp_flex
 from .data.sp import load_sp_flex, norm_team
@@ -95,6 +104,9 @@ from .ops.table_lookup import (TableHeads, build_table_heads, fused_tables_from_
                                pack_tables_multi)
 from .parallel.aggregate import (ScoreMoments, ScoreSummary, score_moments,
                                  summary_from_moments)
+from .parallel.mesh import (TrialGroup, agree, all_gather_rows, game_group, local_group,
+                            simulate_games_sharded, simulate_moments_sharded,
+                            trial_group, world_size)
 from .stats import (PC_ATT, PC_COMP, PC_INT, PC_SACKS, PC_TD, PC_YDS, PLAYER_COLS,
                     ROLE_LABEL, ROLE_PASS, ROLE_REC, ROLE_RUSH)
 
@@ -107,8 +119,6 @@ FORCED_PLAY_STREAM = 1 << 20
 # a Situation's fields as tensors: i32 discrete fields, f32 yardages
 _SITUATION_DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32,
                      torch.float32, torch.int32, torch.int32)
-SHARD_NOT_PORTED = ("shard=True is not ported yet (ROADMAP.md queue 1, P9: trial sharding "
-                    "over torch.distributed)")
 
 
 def table_profiles(quality: str) -> dict:
@@ -152,7 +162,12 @@ class MatchupRunner:
     takes `heads`.  `coach_map` names each team's head coach
     for the play head (default matchup.DEFAULT_HEAD_COACH_MAP).  `device`
     defaults to the card ('cuda'), which raises where CUDA is absent; the
-    CPU runs only when asked for ('cpu')."""
+    CPU runs only when asked for ('cpu').  The runner plays on its
+    `TrialGroup` (`group`): a world of one on `device`, or with `shard=True`
+    the ranks of `parallel.mesh.trial_group` and this rank's device.
+    `run_pairs`, `run_pairs_summary` and `run_live` split each launch's
+    games over the group, while `run_live_batch` and `run_fourth_decision`
+    run whole on each rank, as in the JAX package."""
 
     team_a: TeamContext
     team_b: TeamContext
@@ -162,13 +177,12 @@ class MatchupRunner:
     table_quality: str = "nano"
     nano_tables: Optional[Tuple[HostTable, HostTable]] = None
     device: Optional[object] = None   # 'cuda' (None), 'cuda:0' or 'cpu'
-    shard: bool = False   # trial sharding: not ported (ROADMAP.md P9)
+    shard: bool = False   # trial sharding over the ranks of parallel.mesh.trial_group
     coach_map: Optional[Dict[str, str]] = None
 
     def __post_init__(self):
-        if self.shard:
-            raise NotImplementedError(SHARD_NOT_PORTED)
-        self.device = resolve_device("cuda" if self.device is None else self.device)
+        self.group = (trial_group if self.shard else local_group)(self.device)
+        self.device = self.group.device
         self.pack = pack_matchup(
             build_direction(self.team_a, self.team_b, self.cfg, self.heads, self.coach_map),
             build_direction(self.team_b, self.team_a, self.cfg, self.heads, self.coach_map),
@@ -209,14 +223,15 @@ class MatchupRunner:
         """2*n_pairs games; even trials have team A on offense first.
         collect_stats=False skips the box score, collect_players=False the
         player stats (score-only sweeps).  `key` overrides the
-        root_key(seed) derivation (64-bit int)."""
+        root_key(seed) derivation (64-bit int).  Sharded, 2*n_pairs must be
+        a multiple of the world size (ValueError: the games are returned,
+        so nothing rounds up) and every rank returns all of them."""
         n_games = 2 * n_pairs
-        k = key if key is not None else root_key(seed)
-        return simulate_games(self.pack, self.cfg, self.heads_fn,
-                              self.heads_state, k, n_games,
-                              _fo_alternating(n_games, self.device),
-                              collect_players=collect_players,
-                              collect_stats=collect_stats)
+        return simulate_games_sharded(self.pack, self.cfg, self.heads_fn, self.heads_state,
+                                      key if key is not None else root_key(seed), n_games,
+                                      _fo_alternating(n_games, self.device), self.group,
+                                      collect_players=collect_players,
+                                      collect_stats=collect_stats)
 
     def run_pairs_summary(self, n_pairs: int, seed: int = 0,
                           chunk_pairs: int = 32768,
@@ -226,17 +241,21 @@ class MatchupRunner:
         pairs whose moments accumulate on the device, finished once.
         `n_pairs` rounds UP to whole launches; the summary's `n` records the
         games simulated.  Launch ci draws from fold_in(root, ci), as the JAX
-        package's fold_in(PRNGKey(seed), ci) does."""
+        package's fold_in(PRNGKey(seed), ci) does.  Sharded, the chunk rounds
+        up to a multiple of the world size and each launch's moments are
+        summed over the ranks (`simulate_moments_sharded`)."""
         if n_pairs <= 0:
             raise ValueError(f"n_pairs must be positive, got {n_pairs}")
-        chunk_pairs = min(chunk_pairs, n_pairs)
+        world = self.group.world
+        chunk_pairs = -(-min(chunk_pairs, n_pairs) // world) * world
         n_chunks = -(-n_pairs // chunk_pairs)
         root = key if key is not None else root_key(seed)
+        fo = _fo_alternating(2 * chunk_pairs, self.device)
         acc = None
         for ci in range(n_chunks):
-            out = self.run_pairs(chunk_pairs, key=fold_in(root, ci),
-                                 collect_players=False, collect_stats=collect_stats)
-            m = score_moments(out.score)
+            m = simulate_moments_sharded(self.pack, self.cfg, self.heads_fn, self.heads_state,
+                                         fold_in(root, ci), 2 * chunk_pairs, fo, self.group,
+                                         collect_stats=collect_stats)
             acc = m if acc is None else acc + m
         return summary_from_moments(acc)
 
@@ -249,7 +268,9 @@ class MatchupRunner:
         Launches of `chunk_games` games draw from fold_in(root, ci) and
         accumulate moments on the device, finished once; n_games rounds UP
         to whole launches and the summary's `n` records the games run.
-        Late-game states finish in a chunk or two of plays."""
+        Late-game states finish in a chunk or two of plays.  Sharded, the
+        chunk rounds up to a multiple of the world size and every rank
+        holds the situation."""
         if n_games <= 0:
             raise ValueError(f"n_games must be positive, got {n_games}")
         sit = _device_situation(_validated_situation(situation, self.cfg), self.device)
@@ -303,38 +324,53 @@ class MatchupRunner:
                                  "(want policy | go | fg | punt)")
         dsit = _device_situation(sit, self.device)
         root = key if key is not None else root_key(seed)
-        return {c: self._live_summary(dsit, n_games, chunk_games, root,
-                                      None if c == "policy" else c)
+        whole = self.sharded(False)     # every choice on this rank's card alone
+        return {c: whole._live_summary(dsit, n_games, chunk_games, root,
+                                       None if c == "policy" else c)
                 for c in choices}
 
     def _live_summary(self, sit: Situation, n_games: int, chunk_games: int, root: int,
                       force: Optional[str] = None) -> ScoreSummary:
-        """Launches of min(chunk_games, n_games) games resumed from `sit`,
-        launch ci under fold_in(root, ci), their moments accumulated and
-        finished once."""
-        chunk = min(chunk_games, n_games)
+        """Launches of min(chunk_games, n_games) games (rounded up to a
+        multiple of the world size) resumed from `sit`, launch ci under
+        fold_in(root, ci) and split over the group, their moments
+        accumulated and finished once.  `force` (a 4th-down choice) runs
+        on a world of one."""
+        world = self.group.world
+        chunk = -(-min(chunk_games, n_games) // world) * world
         acc = None
         for ci in range(-(-n_games // chunk)):
-            m = self._live_moments(fold_in(root, ci), sit, chunk, force)
+            m = (self._forced_moments(fold_in(root, ci), sit, chunk, force) if force else
+                 simulate_moments_sharded(self.pack, self.cfg, self.heads_fn,
+                                          self.heads_state, fold_in(root, ci), chunk, 0,
+                                          self.group, situation=sit))
             acc = m if acc is None else acc + m
         return summary_from_moments(acc)
 
-    def _live_moments(self, key: int, sit: Situation, n: int,
-                      force: Optional[str] = None) -> ScoreMoments:
+    def sharded(self, shard: bool = True) -> "MatchupRunner":
+        """This runner on the trial group (`shard`) or on a world of one,
+        sharing its pack and tables (no rebuild): how a route honours
+        shard= on a given `runner=`."""
+        if shard == self.shard:
+            return self
+        r = copy.copy(self)
+        r.shard = shard
+        r.group = (trial_group if shard else local_group)(self.device)
+        return r
+
+    def _forced_moments(self, key: int, sit: Situation, n: int, force: str) -> ScoreMoments:
         """ScoreMoments of n score-only games resumed from `sit` under
-        launch key `key`.  With `force`, the first play runs under
-        fourth.force = force on draws of its own, step_draws(fold_in(key,
-        FORCED_PLAY_STREAM), 0, ...), and the game continues from there on
-        the same draws as the unforced run."""
-        init = None
-        if force is not None:
-            cfg_f = dataclasses.replace(
-                self.cfg, fourth=dataclasses.replace(self.cfg.fourth, force=force))
-            init = state_from_situation(n, sit, self.cfg, self.device, 0, self.pack.k,
-                                        collect_players=False, collect_stats=False)
-            rows = n // 2 if self.cfg.engine.antithetic and n % 4 == 0 else n
-            draws = step_draws(fold_in(key, FORCED_PLAY_STREAM), 0, rows, self.device)
-            init = play_step(init, draws, self.pack, cfg_f, self.heads_fn, self.heads_state)
+        launch key `key`, the first play under fourth.force = force on
+        draws of its own, step_draws(fold_in(key, FORCED_PLAY_STREAM), 0,
+        ...); the game continues from there on the same draws as the
+        unforced run."""
+        cfg_f = dataclasses.replace(
+            self.cfg, fourth=dataclasses.replace(self.cfg.fourth, force=force))
+        init = state_from_situation(n, sit, self.cfg, self.device, 0, self.pack.k,
+                                    collect_players=False, collect_stats=False)
+        rows = n // 2 if self.cfg.engine.antithetic and n % 4 == 0 else n
+        draws = step_draws(fold_in(key, FORCED_PLAY_STREAM), 0, rows, self.device)
+        init = play_step(init, draws, self.pack, cfg_f, self.heads_fn, self.heads_state)
         out = simulate_games(self.pack, self.cfg, self.heads_fn, self.heads_state, key, n, 0,
                              collect_players=False, collect_stats=False, situation=sit,
                              init_state=init)
@@ -533,11 +569,11 @@ def simulate_matchup_columns(
 ) -> Tuple[Columns, Optional[Columns], MatchupRunner]:
     """n pairs of games: (scores columns, player columns or None, runner).
     Without `runner`, a MatchupRunner of `heads` in `mode` on `device` (the
-    card by default); shard=True (trial sharding) is not ported (ROADMAP P9)."""
-    if shard:
-        raise NotImplementedError(SHARD_NOT_PORTED)
-    runner = runner or MatchupRunner(team_a, team_b, heads, cfg or SimConfig(), mode,
-                                     device=device)
+    card by default); shard=True splits the games over the ranks
+    (`MatchupRunner.run_pairs`), a given runner's tables shared."""
+    runner = (runner.sharded(shard) if runner is not None else
+              MatchupRunner(team_a, team_b, heads, cfg or SimConfig(), mode, device=device,
+                            shard=shard))
     out = runner.run_pairs(n, seed=seed, collect_players=collect_players, key=key)
     return (scores_columns(out, team_a.name, team_b.name),
             players_columns(out, team_a, team_b) if collect_players else None, runner)
@@ -819,10 +855,13 @@ def _prepared_runner(team_a, team_b, *, sp_path, year, week, artifact_dir,
 
 
 def _route_runner(what: str, runner, team_a: str, team_b: str, **kw) -> "MatchupRunner":
-    """The given `runner`, or the memoized runner of the SP+ sheet route
-    (`_prepared_runner(team_a, team_b, **kw)`); one of the two, not both."""
+    """The given `runner` (sharded as `shard` says), or the memoized runner
+    of the SP+ sheet route (`_prepared_runner(team_a, team_b, **kw)`); one
+    of the two, not both."""
     _one_of(what, "runner", runner is not None, kw["sp_path"], kw["focus_csv"])
-    return runner if runner is not None else _prepared_runner(team_a, team_b, **kw)[0]
+    if runner is not None:
+        return runner.sharded(kw["shard"])
+    return _prepared_runner(team_a, team_b, **kw)[0]
 
 
 # ---- live entry points --------------------------------------------------------
@@ -862,9 +901,8 @@ def simulate_live_game(team_a: str, team_b: str, situation: Situation, *,
     summary's histograms price live markets through
     `edge.market_odds_from_summary` and `edge.summary_moneyline`.  The
     runner is the memoized one of the SP+ sheet at `sp_path` and the heads
-    of `artifact_dir` on `device`, or a built `runner=`."""
-    if shard:
-        raise NotImplementedError(SHARD_NOT_PORTED)
+    of `artifact_dir` on `device`, or a built `runner=`; shard=True splits
+    each launch over the ranks (`MatchupRunner.run_live`)."""
     runner = _route_runner("simulate_live_game", runner, team_a, team_b, sp_path=sp_path,
                            year=year, week=week, artifact_dir=artifact_dir,
                            focus_csv=focus_csv, mode=mode, table_quality=table_quality,
@@ -991,6 +1029,23 @@ def evaluate_fourth_down(team_a: str, team_b: str, situation: Situation, *,
 SLATE_PROFILES = {"turbo": turbo_profile, "nano": nano_profile}
 
 
+def _block_width(g: int, world: int, cfg: SimConfig) -> int:
+    """Matchups a rank holds in the game layout: ceil(g / world), even
+    under antithetic draws so that no block splits a mirrored block of
+    four games (its first game g0*2*chunk_pairs is a multiple of 4 for any
+    chunk)."""
+    blk = -(-g // world)
+    return blk + blk % 2 if cfg.engine.antithetic else blk
+
+
+def _game_block(g: int, group: TrialGroup, cfg: SimConfig) -> Tuple[int, int]:
+    """(g0, g1): rank group.rank's contiguous block of a slate of g
+    matchups in the game layout (the last blocks shorter or empty)."""
+    blk = _block_width(g, group.world, cfg)
+    g0 = min(g, group.rank * blk)
+    return g0, min(g, g0 + blk)
+
+
 @dataclass
 class SlateRunner:
     """Every matchup of a slate in one `simulate_games` call on one device.
@@ -1002,13 +1057,15 @@ class SlateRunner:
     t // (2*n_pairs_per_game) and has team (t % 2) on offense first.
 
     `run` is one launch that returns the final state (`summary_rows` or
-    `summaries` read it); with game_shard=True, `run_summaries` plays
-    launches of chunk_pairs pairs per matchup and reduces each matchup on
-    the device.  The JAX package's game_shard layout (per-matchup tables
-    stacked on a game axis, scanned over a ('game',) mesh) is not ported:
-    one card holds a weekly slate's tables (60 matchups of nano tables are
-    413 MB), so both methods run the shared table and game_shard only
-    selects between them, as it does in the JAX package.
+    `summaries` read it; with `shard=True` its games split over the ranks
+    of `parallel.mesh.trial_group`, their game ids with them); with
+    game_shard=True, `run_summaries` plays launches of chunk_pairs pairs per
+    matchup and reduces each matchup on the device.  On one card both
+    methods run the shared table (60 matchups of nano tables are 413 MB).
+    A game_shard runner plays on `parallel.mesh.game_group`: over several
+    ranks each rank builds, holds and plays only its contiguous block of
+    the matchups (`block`), the port's counterpart of the JAX package's
+    ('game',) mesh; its stacked per-game scan is not ported.
 
     The table holds one (A on offense, B on offense) table pair per
     matchup: nano tables given (`nano_tables`, e.g. `fixtures.slate`), or
@@ -1024,8 +1081,10 @@ class SlateRunner:
     modes apply after it ('cachewarm' plays or reads the matchup's oracle
     warm-up; `ops.table_lookup.fused_tables_from_heads`).  `coach_map`
     names the teams' head coaches for the directions
-    (`matchup.build_direction`).  `shard=True` (trial sharding over
-    several cards) raises NotImplementedError."""
+    (`matchup.build_direction`).  The runner's matchups (the rank's block
+    in the game layout, else the whole slate) are packed on the device at
+    construction, so a slate that does not pack fails there, on every rank
+    where one rank's block fails."""
 
     matchups: List[Tuple[TeamContext, TeamContext]]
     heads: Optional[ModelHeads] = None
@@ -1038,8 +1097,6 @@ class SlateRunner:
     device: Optional[object] = None   # 'cuda' (None), 'cuda:0' or 'cpu'
 
     def __post_init__(self):
-        if self.shard:
-            raise NotImplementedError(SHARD_NOT_PORTED)
         if not self.matchups:
             raise ValueError("SlateRunner needs at least one matchup")
         if self.heads is not None and self.nano_tables is not None:
@@ -1051,43 +1108,69 @@ class SlateRunner:
         if self.nano_tables is not None and self.quality != "nano":
             raise ValueError(f"nano_tables are nano-layout tables; quality={self.quality!r} "
                              "builds fused tables from heads")
-        self.device = resolve_device("cuda" if self.device is None else self.device)
-        tables = self.nano_tables
+        self.group = (trial_group if self.shard or self.game_shard else
+                      local_group)(self.device)
+        self.device = self.group.device
+        g = len(self.matchups)
+        self.block = _game_block(g, self.group, self.cfg) if self.game_shard else (0, g)
+        self.heads_fn = make_table_heads_eval(self.cfg)
+        self.pack = self.heads_state = None     # a rank past the slate's last block
+        agree(self.group, lambda: self._pack(*self.block))
+
+    def _pack(self, g0: int, g1: int) -> None:
+        """Build matchups g0..g1-1's tables and put them and the
+        directions on the device."""
+        if g1 == g0:
+            return
+        ms = self.matchups[g0:g1]
         fused_prof = None
-        if self.heads is not None:
+        if self.heads is None:
+            tables = self.nano_tables[g0:g1]
+        else:
             _need_table_heads(self.heads)
             if self.quality == "nano":
                 tables = [nano_tables_from_heads(a, b, self.heads, self.cfg, self.coach_map)
-                          for a, b in self.matchups]
+                          for a, b in ms]
             else:
                 fused_prof = SLATE_PROFILES.get(self.quality, coarse_profile)()
                 tables = [fused_tables_from_heads(a, b, self.heads, self.cfg,
                                                   self.coach_map, fused_prof)
-                          for a, b in self.matchups]
+                          for a, b in ms]
         dirs = []
-        for a, b in self.matchups:
+        for a, b in ms:
             dirs += [build_direction(a, b, self.cfg, self.heads, self.coach_map),
                      build_direction(b, a, self.cfg, self.heads, self.coach_map)]
         self.pack = pack_matchups(dirs, self.device)
         self.heads_state = pack_tables_multi(tables, self.device, fused_prof=fused_prof)
-        self.heads_fn = make_table_heads_eval(self.cfg)
 
     def _launch(self, n_pairs: int, key: int) -> GameState:
-        """One score-only `simulate_games` call: 2*n_pairs games of each
-        matchup, in matchup order, first offense alternating."""
+        """One score-only `simulate_games` call: 2*n_pairs games of each of
+        the runner's matchups (its block), in matchup order, first offense
+        alternating; they draw the rows and make the antithetic choice of
+        the whole slate's launch."""
+        g0, g1 = self.block
         per = 2 * n_pairs
-        t = torch.arange(len(self.matchups) * per, dtype=torch.int32, device=self.device)
+        t = torch.arange((g1 - g0) * per, dtype=torch.int32, device=self.device)
         return simulate_games(self.pack, self.cfg, self.heads_fn, self.heads_state, key,
                               t.numel(), t % 2, collect_players=False, game_id=t // per,
-                              collect_stats=False)
+                              collect_stats=False, row0=g0 * per, antithetic=(
+                                  self.cfg.engine.antithetic
+                                  and len(self.matchups) * per % 4 == 0))
 
     def run(self, n_pairs_per_game: int, seed: int = 0) -> GameState:
         """The final GameState of G * 2*n_pairs_per_game score-only games
-        under root_key(seed)."""
+        under root_key(seed), split over the runner's group (with
+        shard=True the ranks, whose number must divide the games), every
+        rank returning all of them."""
         if self.game_shard:
             raise ValueError("run() is the shared-table path; game_shard "
                              "slates use run_summaries()")
-        return self._launch(n_pairs_per_game, root_key(seed))
+        per = 2 * n_pairs_per_game
+        t = torch.arange(len(self.matchups) * per, dtype=torch.int32, device=self.device)
+        return simulate_games_sharded(self.pack, self.cfg, self.heads_fn, self.heads_state,
+                                      root_key(seed), t.numel(), t % 2, self.group,
+                                      collect_players=False, game_id=t // per,
+                                      collect_stats=False)
 
     def summary_rows(self, out: GameState) -> List[dict]:
         """One row per matchup of a `run`'s games: the JAX package's
@@ -1131,23 +1214,46 @@ class SlateRunner:
         The JAX package folds a key per matchup; here a launch has one key
         and its matchups draw from disjoint Philox rows (row g*2*chunk_pairs
         + i), so no two matchups share draws and the two packages agree in
-        distribution."""
+        distribution.
+
+        The runner's group (`parallel.mesh.game_group`, W ranks; `mesh`, if
+        given, must be that group) splits the slate into contiguous blocks
+        (`game_block`): rank r built and holds only its block's tables and
+        plays them under the same launch keys, rows and antithetic choice,
+        and the blocks' moments, padded to one length, are gathered on
+        every rank and cut back to G.  The summaries equal the one-card
+        run's bit for bit."""
         if not self.game_shard:
             raise ValueError("run_summaries needs SlateRunner(game_shard=True)")
-        if mesh is not None:
-            raise NotImplementedError("mesh=: the ('game',) mesh over several cards is not "
-                                      "ported (ROADMAP.md queue 1, P9); one card holds the slate")
+        if mesh is not None and not isinstance(mesh, TrialGroup):
+            raise TypeError(f"mesh must be a parallel.mesh.TrialGroup, got {type(mesh).__name__}")
+        if mesh is not None and mesh != self.group:
+            raise ValueError("mesh must be the runner's own group (SlateRunner.group, "
+                             "parallel.mesh.game_group): a rank holds the block it was built for")
         if n_pairs_per_game <= 0:
             raise ValueError(f"n_pairs_per_game must be positive, got {n_pairs_per_game}")
         g = len(self.matchups)
+        g0, g1 = self.block
         chunk_pairs = min(chunk_pairs, n_pairs_per_game)
         root = root_key(seed)
-        acc = None
-        for ci in range(-(-n_pairs_per_game // chunk_pairs)):
-            # the launch's state is dropped here, before the next launch
-            m = score_moments(self._launch(chunk_pairs, fold_in(root, ci)).score.view(
-                g, 2 * chunk_pairs, 2))
-            acc = m if acc is None else acc + m
+
+        def play():
+            acc = None
+            for ci in range(-(-n_pairs_per_game // chunk_pairs) if g1 > g0 else 0):
+                # the launch's state is dropped here, before the next launch
+                m = score_moments(self._launch(chunk_pairs, fold_in(root, ci)).score.view(
+                    g1 - g0, 2 * chunk_pairs, 2))
+                acc = m if acc is None else acc + m
+            return acc
+
+        acc = agree(self.group, play)
+        if self.group.world > 1:
+            # the moments of no games pad every block to the widest
+            blk = _block_width(g, self.group.world, self.cfg)
+            pad = score_moments(torch.zeros((blk - (g1 - g0), 0, 2), dtype=torch.int32,
+                                            device=self.device))
+            acc = pad if acc is None else ScoreMoments(*map(torch.cat, zip(acc, pad)))
+            acc = ScoreMoments(*(all_gather_rows(self.group, f)[:g] for f in acc))
         host, = host_summaries(summary_from_moments(acc))
         per_game = [ScoreSummary(*(f[gi] for f in host)) for gi in range(g)]
         return ([_summary_row(a.name, b.name, s) for (a, b), s in zip(self.matchups, per_game)],
@@ -1243,14 +1349,16 @@ GAME_SHARD_QUALITIES = ("nano", "turbo", "fused")
 
 def _game_shard_runner(contexts, nano_tables, cfg: SimConfig, quality: str, device,
                        heads=None) -> SlateRunner:
-    """The memoized game_shard SlateRunner of a slate, on the given nano
-    tables or on tables built from `heads`.  A slate whose build failed
-    raises that failure again without another build."""
+    """The memoized game_shard SlateRunner of a slate on `device`'s
+    `game_group` (this rank's block), on the given nano tables or on tables
+    built from `heads`.  A slate whose build failed raises that failure again without
+    another build."""
     if nano_tables is not None:
         heads = None
+    group = game_group(device)
     key = (tuple((id(a), id(b)) for a, b in contexts),
            tuple(id(t) for pair in nano_tables or () for t in pair), id(heads), cfg,
-           quality, device)
+           quality, group)
     if key in _GAME_SHARD_FAILED:
         raise ValueError("layout='game_shard': this slate previously failed to build: "
                          f"{_GAME_SHARD_FAILED[key][0]}")
@@ -1258,7 +1366,7 @@ def _game_shard_runner(contexts, nano_tables, cfg: SimConfig, quality: str, devi
         return _fifo_memo(
             _GAME_SHARD_MEMO, _GAME_SHARD_MEMO_MAX, key,
             lambda: SlateRunner(list(contexts), heads, cfg, quality=quality, game_shard=True,
-                                nano_tables=nano_tables, device=device))
+                                nano_tables=nano_tables, device=group.device))
     except Exception as e:   # recorded and raised again
         while len(_GAME_SHARD_FAILED) >= _GAME_SHARD_FAILED_MAX:
             _GAME_SHARD_FAILED.pop(next(iter(_GAME_SHARD_FAILED)))
@@ -1313,12 +1421,17 @@ def simulate_slate_summary_rows(
     layout 'loop' runs each game on its own memoized MatchupRunner,
     `run_pairs_summary(n_pairs, key=fold_in(root_key(seed), gi),
     chunk_pairs=...)`, its summary left on the device; every summary comes
-    to the host in one copy at the end.  'game_shard' runs the slate
-    through one memoized `SlateRunner(game_shard=True).run_summary_rows`
-    (table mode; its rows name the contexts' teams).  'auto' is the loop:
-    the JAX package picks the loop on one device too, and the port has no
-    layout over several cards yet.  An empty slate returns ([], []) before
-    anything else is read.
+    to the host in one copy at the end; shard=True splits each launch over
+    the ranks (chunk_pairs times the world size, as in the JAX package).
+    'game_shard' runs the slate through one memoized
+    `SlateRunner(game_shard=True).run_summary_rows` (table mode; its rows
+    name the contexts' teams), over the ranks of `parallel.mesh.game_group`
+    where there are several.  'auto' is that game layout where there is
+    more than one rank, shard=False, more than one game, no focus roster,
+    table mode and a quality in GAME_SHARD_QUALITIES, as in the JAX
+    package, falling back to the loop if the slate's runner fails to build;
+    else the loop.  An empty slate returns ([], []) before anything else is
+    read.
 
     The games' contexts come from the SP+ sheet at `sp_path` (`year`,
     `week`, rosters from `focus_csv`) or as `contexts=`; the runners' tables
@@ -1349,14 +1462,27 @@ def simulate_slate_summary_rows(
     contexts, heads = _slate_inputs(games, contexts, nano_tables, sp_path, year, week,
                                     artifact_dir, focus_csv, cfg, mode,
                                     "simulate_slate_summaries")
-    if layout == "game_shard":
-        return _game_shard_runner(contexts, nano_tables, cfg, table_quality, device,
-                                  heads).run_summary_rows(n_pairs, seed, chunk_pairs)
+    want_game_shard = layout == "game_shard" or (
+        layout == "auto" and world_size() > 1 and not shard and len(games) > 1
+        and focus_csv is None and mode == "table" and table_quality in GAME_SHARD_QUALITIES)
+    if want_game_shard:
+        sr = None
+        try:
+            sr = _game_shard_runner(contexts, nano_tables, cfg, table_quality, device, heads)
+        except Exception:
+            # as in the JAX package: 'auto' falls back to the loop on any
+            # build failure; an explicit 'game_shard' says why.  The build
+            # agrees over the ranks (SlateRunner), so where one rank's
+            # block fails every rank takes the loop.
+            if layout == "game_shard":
+                raise
+        if sr is not None:
+            return sr.run_summary_rows(n_pairs, seed, chunk_pairs)
     if shard:
-        raise NotImplementedError(SHARD_NOT_PORTED)
+        chunk_pairs *= world_size()
     root = root_key(seed)
     summs = [_runner_for(a, b, nano_tables[gi] if nano_tables is not None else None, cfg,
-                         mode, table_quality, False, device, heads).run_pairs_summary(
+                         mode, table_quality, shard, device, heads).run_pairs_summary(
                              n_pairs, key=fold_in(root, gi), chunk_pairs=chunk_pairs)
              for gi, (a, b) in enumerate(contexts)]
     host = host_summaries(*summs)
@@ -1447,9 +1573,9 @@ def simulate_parlay_core(team_a: str, team_b: str, legs, *,
 
     The matchup's contexts and heads come from the SP+ sheet at `sp_path`
     and `artifact_dir` (the runner memoized, as in the live entry points),
-    or the matchup is a built `runner=` whose teams are team_a and team_b."""
-    if shard:
-        raise NotImplementedError(SHARD_NOT_PORTED)
+    or the matchup is a built `runner=` whose teams are team_a and team_b.
+    shard=True splits the games over the ranks (`MatchupRunner.run_pairs`:
+    2*n_pairs a multiple of the world size)."""
     _one_of("simulate_parlay", "runner", runner is not None, sp_path, focus_csv)
     if runner is None:
         heads, a, b, cfg = _prepared_contexts(
@@ -1464,8 +1590,8 @@ def simulate_parlay_core(team_a: str, team_b: str, legs, *,
     resolved = edge.resolve_parlay_legs(a, b, legs)
     if round_robin is not None:
         edge._rr_sizes(round_robin, len(legs))
-    if runner is None:
-        runner = _runner_for(a, b, None, cfg, mode, table_quality, False, device, heads)
+    runner = (_runner_for(a, b, None, cfg, mode, table_quality, shard, device, heads)
+              if runner is None else runner.sharded(shard))
     want_players = any(m["kind"] == "prop" for m in resolved[1])
     out = runner.run_pairs(n_pairs, seed=seed, collect_players=want_players,
                            collect_stats=False)
@@ -1600,12 +1726,14 @@ def simulate_slate_prop_rows(
     gi), collect_players=True)` on its memoized runner and reduces its rows
     on the device; the reductions stay there until one host copy per
     padded width at the end.  Contexts and tables as
-    `simulate_slate_summary_rows` takes them."""
+    `simulate_slate_summary_rows` takes them.  shard=True splits each
+    matchup's games over the ranks, n_pairs rounded up to a multiple of the
+    world size as in the JAX package."""
     cfg = cfg or SimConfig()
     contexts, heads = _slate_inputs(games, contexts, nano_tables, sp_path, year, week,
                                     artifact_dir, focus_csv, cfg, mode, "simulate_slate_props")
     if shard:
-        raise NotImplementedError(SHARD_NOT_PORTED)
+        n_pairs = -(-n_pairs // world_size()) * world_size()
     props = _prop_sheet(props_csv)
     root = root_key(seed)
     pending = []
@@ -1614,7 +1742,7 @@ def simulate_slate_prop_rows(
         if not meta:
             continue
         runner = _runner_for(a, b, nano_tables[gi] if nano_tables is not None else None,
-                             cfg, mode, table_quality, False, device, heads)
+                             cfg, mode, table_quality, shard, device, heads)
         out = runner.run_pairs(n_pairs, key=fold_in(root, gi), collect_players=True)
         pending.append((f"{ta} vs {tb}", meta, edge.reduce_props_device(out.pstats, indices)))
     if not pending:

@@ -24,16 +24,29 @@ and the ladders and middles over `scores_*`/`players_*`); a bare
 CPU-oracle warm-up games on the host before the table build, and keeps
 them, with the tables, in the table disk cache (`.table_cache/`).
 
-Not ported yet, each raising NotImplementedError before any simulation:
-`bench` (the port's bench entry, ROADMAP.md queue 1 item 1) and `--shard`
-(trial sharding, item 6).  `train` is outside the port's scope.
+`--shard` (on `sim`, `live`, `parlay`, `edges --device`, `season`,
+`backtest` and `serve`; `slate --shard trial|game`) splits the games over
+the ranks of `parallel.mesh.trial_group`: a plain command runs in a world
+of one, and
+
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m fast_monte_carlo_tpu_torch.cli sim "Team A" "Team B" --sp sp.csv --shard
+
+runs N ranks, one a card.  Every rank runs the same calls; only rank 0
+prints and writes files (`--save`), and a server's rank 0 answers HTTP.
+
+Not ported yet, raising NotImplementedError before any simulation: `bench`
+(the port's bench entry, ROADMAP.md queue 1 item 1).  `train` is outside
+the port's scope.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
 import math
+import os
 import re
 import sys
 import time
@@ -41,15 +54,6 @@ import time
 import numpy as np
 
 from .models.heads import DEFAULT_ARTIFACT_DIR
-
-_TRIAL_SHARDING = ("--shard: trial sharding over several cards is not ported yet "
-                   "(ROADMAP.md queue 1 item 6)")
-
-
-def _no_trial_sharding(args) -> None:
-    if getattr(args, "shard", False) in (True, "trial"):
-        raise NotImplementedError(_TRIAL_SHARDING)
-
 
 def _read_games(path: str) -> list:
     """The first two columns of a CSV's rows after its header, as
@@ -142,8 +146,8 @@ def _rows_text(rows: list) -> str:
 
 def _cmd_sim(args) -> int:
     from .api import csv_base_from, simulate_upcoming_matchup_columns
+    from .parallel.mesh import process_rank
 
-    _no_trial_sharding(args)
     cfg = None
     heads = None
     if args.reconstructed:
@@ -159,12 +163,14 @@ def _cmd_sim(args) -> int:
         from .config import SimConfig
         cfg = cfg or SimConfig()
         cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, sd_mode=args.sd_mode))
-    save = csv_base_from(args.team_a, args.team_b, args.week) if args.save else None
+    # only rank 0 writes the frames
+    save = (csv_base_from(args.team_a, args.team_b, args.week)
+            if args.save and process_rank() == 0 else None)
     scores, _, summary, _, _, meta = simulate_upcoming_matchup_columns(
         args.team_a, args.team_b, year=args.year, week=args.week,
         sp_path=args.sp, artifact_dir=args.artifacts, focus_csv=args.focus,
         n=args.n, collect_players=args.players, save_csv=save, mode=args.mode,
-        seed=args.seed, cfg=cfg, heads=heads, device=args.device)
+        seed=args.seed, shard=args.shard, cfg=cfg, heads=heads, device=args.device)
     print(_frame_text({c: v for c, v in summary.items() if c != "team"},
                       index=summary["team"], index_name="team"))
     pairs = max(1, len(scores["team"]) // 2)
@@ -182,7 +188,6 @@ def _cmd_live(args) -> int:
     from .config import SimConfig
     from .edge import market_odds_from_summary, summary_moneyline
 
-    _no_trial_sharding(args)
     sa, sb = (int(v) for v in args.score.split("-"))
     sit = situation_from_fields(
         ytg=args.ytg, offense=args.offense, sec=args.sec,
@@ -193,7 +198,7 @@ def _cmd_live(args) -> int:
         args.team_a, args.team_b, sit, sp_path=args.sp, year=args.year,
         week=args.week, n_games=args.n, artifact_dir=args.artifacts,
         focus_csv=args.focus, mode=args.mode, table_quality=args.quality,
-        seed=args.seed, device=args.device)
+        seed=args.seed, shard=args.shard, device=args.device)
     qsec = SimConfig().clock.quarter_seconds
     qtr = 4 - (int(sec) - 1) // qsec      # the engine's own period formula
     clock = int(sec) - (4 - qtr) * qsec   # seconds left in that quarter
@@ -254,7 +259,6 @@ def _cmd_parlay(args) -> int:
     from .edge import print_parlay_readable
     from .serve import corr_records, jsonable
 
-    _no_trial_sharding(args)
     raw = args.legs
     if raw.startswith("@"):
         with open(raw[1:]) as f:
@@ -279,7 +283,7 @@ def _cmd_parlay(args) -> int:
         args.team_a, args.team_b, legs, sp_path=args.sp, year=args.year,
         week=args.week, n_pairs=args.n, artifact_dir=args.artifacts,
         focus_csv=args.focus, mode=args.mode, table_quality=args.quality,
-        seed=args.seed, price=args.price, correlations=args.corr,
+        seed=args.seed, shard=args.shard, price=args.price, correlations=args.corr,
         round_robin=rr, device=args.device)
     print_parlay_readable(res)
     if args.corr:
@@ -311,7 +315,6 @@ def _slate_contexts(args, games):
 
 
 def _cmd_slate(args) -> int:
-    _no_trial_sharding(args)
     if args.lines and args.batched and args.shard == "none":
         # fail before simulating: the batched path has no device-histogram
         # summaries, so it cannot price markets
@@ -322,22 +325,23 @@ def _cmd_slate(args) -> int:
     lines = _read_rows(args.lines) if args.lines else None
     summaries = None
     t0 = time.perf_counter()
-    if lines is not None and not args.batched and args.shard == "none":
-        # --lines routes the default through the summary sweep: market
-        # pricing needs the device-histogram summaries it accumulates
+    if args.shard == "trial" or (lines is not None and not args.batched
+                                 and args.shard == "none"):
+        # per-matchup launches, each split over the ranks with 'trial';
+        # --lines also routes the unsharded default here: market pricing
+        # needs the device-histogram summaries this path accumulates
         from .api import simulate_slate_summary_rows
         rows, summaries = simulate_slate_summary_rows(
             games, sp_path=args.sp, year=args.year, week=args.week,
             n_pairs=args.n, artifact_dir=args.artifacts, mode=args.mode,
-            table_quality=args.quality, device=args.device)
+            table_quality=args.quality, shard=args.shard == "trial", device=args.device)
     elif args.shard == "game":
-        # every matchup's table in one SlateRunner, the whole slate in
-        # launches of all its matchups
+        # the game layout: each rank builds and holds a block of the
+        # matchups' tables and plays the block in launches of all of them
         from .api import SlateRunner
 
         ms, heads = _slate_contexts(args, games)
-        sr = SlateRunner(ms, heads, quality=args.quality, game_shard=True,
-                         device=args.device)
+        sr = SlateRunner(ms, heads, quality=args.quality, game_shard=True, device=args.device)
         rows, summaries = sr.run_summary_rows(args.n)
     elif args.batched:
         from .api import SlateRunner
@@ -367,7 +371,8 @@ def _cmd_slate(args) -> int:
             games, sp_path=args.sp, props_csv=args.props, year=args.year,
             week=args.week, n_pairs=args.props_n, mode=args.mode,
             artifact_dir=args.artifacts, table_quality=args.quality,
-            focus_csv=args.focus, min_abs_edge_pct=args.min_edge, device=args.device))
+            focus_csv=args.focus, min_abs_edge_pct=args.min_edge,
+            shard=args.shard == "trial", device=args.device))
     return 0
 
 
@@ -377,7 +382,6 @@ def _cmd_season(args) -> int:
     from .api import project_season_rows
     from .edge import print_season_readable
 
-    _no_trial_sharding(args)
     if (args.opponents is None) == (args.games is None):
         print("pass exactly one of --opponents or --games; no simulation run")
         return 2
@@ -389,7 +393,7 @@ def _cmd_season(args) -> int:
         args.team, opponents=opps, games=games, line=args.line,
         sp_path=args.sp, year=args.year, week=args.week, n_pairs=args.n,
         artifact_dir=args.artifacts, mode=args.mode,
-        table_quality=args.quality, seed=args.seed, device=args.device)
+        table_quality=args.quality, seed=args.seed, shard=args.shard, device=args.device)
     dt = time.perf_counter() - t0
     sched = res["schedule"]
     for row in sched:
@@ -408,7 +412,6 @@ def _cmd_serve(args) -> int:
     """Run the resident simulation service (see serve.py)."""
     from .serve import ServeConfig, serve_forever
 
-    _no_trial_sharding(args)
     warm_games = _read_games(args.warm) if args.warm else None
     serve_forever(
         ServeConfig(sp_path=args.sp, artifact_dir=args.artifacts,
@@ -516,7 +519,6 @@ def _cmd_edges_device(args) -> int:
                        print_prop_table, scan_props_rows)
     from .parallel import summarize_scores
 
-    _no_trial_sharding(args)
     if not args.sp:
         print("edges --device needs --sp (it simulates in-process)",
               file=sys.stderr)
@@ -525,7 +527,7 @@ def _cmd_edges_device(args) -> int:
     runner, a, b, _ = _prepared_runner(
         args.team_a, args.team_b, sp_path=args.sp, year=args.year, week=args.week,
         artifact_dir=args.artifacts, focus_csv=args.focus, mode=args.mode,
-        table_quality=args.quality, cfg=None, shard=False, device=args.device)
+        table_quality=args.quality, cfg=None, shard=args.shard, device=args.device)
     want_players = bool(args.props)
     t0 = time.perf_counter()
     if args.n > 65536 and not want_players:
@@ -567,7 +569,6 @@ def _cmd_backtest(args) -> int:
     from .backtest import backtest_slate_report, print_backtest_readable
     from .data.columns import read_csv_columns, records_of
 
-    _no_trial_sharding(args)
     table = read_csv_columns(args.results)
     need = {"team_a", "team_b", "score_a", "score_b"}
     if not need <= set(table):
@@ -579,7 +580,7 @@ def _cmd_backtest(args) -> int:
     rep = backtest_slate_report(
         games, results, sp_path=args.sp, year=args.year, week=args.week,
         n_pairs=args.n, artifact_dir=args.artifacts, mode=args.mode,
-        table_quality=args.quality, seed=args.seed, bins=args.bins,
+        table_quality=args.quality, seed=args.seed, shard=args.shard, bins=args.bins,
         device=args.device)
     print_backtest_readable(rep)
     return 0
@@ -634,7 +635,7 @@ def main(argv=None) -> int:
     ps.add_argument("--players", action="store_true", help="collect player stats")
     ps.add_argument("--save", action="store_true")
     ps.add_argument("--shard", action="store_true",
-                    help="shard the trial axis over all devices (not ported)")
+                    help="shard the trial axis over all devices")
     ps.add_argument("--reconstructed", action="store_true",
                     help="full-fidelity reconstructed mode: recovered ML "
                          "play policy + repo-trained stage-2 + non-unit "
@@ -681,7 +682,7 @@ def main(argv=None) -> int:
     pg.add_argument("--focus", default=None)
     pg.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
     pg.add_argument("--shard", action="store_true",
-                    help="shard the trial axis over all devices (not ported)")
+                    help="shard the trial axis over all devices")
     _add_device(pg)
     pg.set_defaults(fn=_cmd_live)
 
@@ -743,7 +744,7 @@ def main(argv=None) -> int:
                     help="focus-players csv (needed for prop legs)")
     pp.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
     pp.add_argument("--shard", action="store_true",
-                    help="shard the trial axis over all devices (not ported)")
+                    help="shard the trial axis over all devices")
     pp.add_argument("--json", action="store_true",
                     help="also print the raw result dict as JSON")
     pp.add_argument("--tease", type=float, default=None,
@@ -783,7 +784,7 @@ def main(argv=None) -> int:
     pe.add_argument("--focus", default=None)
     pe.add_argument("--shard", action="store_true",
                     help="with --device: shard the trial axis over all "
-                         "devices (not ported)")
+                         "devices")
     pe.add_argument("--alt", action="store_true",
                     help="print alternate spread/total ladders around the "
                          "quoted lines (same distribution, zero extra sim)")
@@ -832,9 +833,10 @@ def main(argv=None) -> int:
     pl.add_argument("--quality", default="nano")
     pl.add_argument("--shard", default="none",
                     choices=["none", "trial", "game"],
-                    help="'game': every matchup's tables in one runner, "
-                         "the slate in launches of all its matchups; "
-                         "'trial' (trial sharding) is not ported")
+                    help="'trial': each matchup's launches split over the "
+                         "ranks; 'game': each rank holds a block of the "
+                         "matchups' tables and plays them in launches of "
+                         "all its matchups (one rank: the whole slate)")
     pl.add_argument("--batched", action="store_true",
                     help="run the whole slate in one launch")
     pl.add_argument("--lines", default=None,
@@ -879,7 +881,7 @@ def main(argv=None) -> int:
     pn.add_argument("--quality", default="nano")
     pn.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
     pn.add_argument("--shard", action="store_true",
-                    help="shard each matchup's trial axis over the mesh (not ported)")
+                    help="shard each matchup's trial axis over the mesh")
     _add_device(pn)
     pn.set_defaults(fn=_cmd_season)
 
@@ -905,11 +907,11 @@ def main(argv=None) -> int:
     pk.add_argument("--quality", default="nano")
     pk.add_argument("--artifacts", default=DEFAULT_ARTIFACT_DIR)
     pk.add_argument("--shard", action="store_true",
-                    help="shard each matchup's trial axis over the mesh (not ported)")
+                    help="shard each matchup's trial axis over the mesh")
     _add_device(pk)
     pk.set_defaults(fn=_cmd_backtest)
 
-    pb = sub.add_parser("bench", help="run the benchmark harness (not ported)")
+    pb = sub.add_parser("bench", help="run the benchmark harness")
     pb.add_argument("--mode", default="table")
     pb.add_argument("-n", type=int, default=100000)
     pb.set_defaults(fn=_cmd_bench)
@@ -937,7 +939,7 @@ def main(argv=None) -> int:
     pv.add_argument("--quality", default="nano")
     pv.add_argument("--focus", default=None)
     pv.add_argument("--shard", action="store_true",
-                    help="default requests to trial-sharded launches (not ported)")
+                    help="default requests to trial-sharded launches")
     pv.add_argument("--warm", default=None,
                     help="games csv to build tables for at startup")
     pv.add_argument("--max-pairs", type=int, default=2_000_000,
@@ -955,7 +957,28 @@ def main(argv=None) -> int:
     pv.set_defaults(fn=_cmd_serve)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.mesh import process_rank
+
+    if ("LOCAL_RANK" in os.environ and getattr(args, "device", None) == "cuda"
+            and torch.cuda.is_available()):   # a bare 'cuda' is the rank's own card
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    formed, done = not dist.is_initialized(), False
+    try:
+        if process_rank() == 0:
+            rc = args.fn(args)
+        else:   # every rank runs the same calls; only rank 0 prints
+            with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+                rc = args.fn(args)
+        done = True
+        return rc
+    finally:
+        if formed and dist.is_initialized():   # a group this command formed
+            if done:        # every rank done before any tears the group down
+                dist.barrier()
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@
 // (philox.cuh).  Key = the 64-bit launch seed; counter = (row, absolute step,
 // block 0..4, 0).  A game's draws therefore depend only on (seed, absolute
 // step, row): the chunked stream equals the per-step stream, the contract
-// stated in rng_pallas.py:8-12.
+// stated in rng_pallas.py:8-12.  A launch draws rows row0 .. row0 + n - 1,
+// so a rank that plays a block of a launch's games draws exactly the rows
+// the unsharded launch gives them (one add to the counter's row word).
 //
 // Bound on the H100: a launch writes ch * n * 68 bytes (107 MB at
 // (24, 65,536), 0.0319 ms at 3.35 TB/s).  Per item it needs about 357
@@ -43,8 +45,9 @@ static_assert(kTile % 4 == 0, "a tile's u region must start 16-byte aligned");
 constexpr int kTileFloats = kTile * philox::kUniforms;
 
 __global__ void __launch_bounds__(kTile)
-    philox_draws_kernel(uint32_t k0, uint32_t k1, uint32_t step_base, uint32_t n,
-                        uint32_t total, float* __restrict__ u, float4* __restrict__ z) {
+    philox_draws_kernel(uint32_t k0, uint32_t k1, uint32_t step_base, uint32_t row0,
+                        uint32_t n, uint32_t total, float* __restrict__ u,
+                        float4* __restrict__ z) {
   __shared__ float4 tile4[kTileFloats / 4];
   float* tile = reinterpret_cast<float*>(tile4);
   const uint32_t t0 = blockIdx.x * kTile;
@@ -53,7 +56,7 @@ __global__ void __launch_bounds__(kTile)
   if (threadIdx.x < items) {
     const uint32_t j = t / n;
     float uu[philox::kUniforms], zz[philox::kNormals];
-    philox::step_draws(k0, k1, step_base + j, t - j * n, uu, zz);
+    philox::step_draws(k0, k1, step_base + j, row0 + t - j * n, uu, zz);
 #pragma unroll
     for (int i = 0; i < philox::kUniforms; ++i) tile[threadIdx.x * philox::kUniforms + i] = uu[i];
     __stcs(z + t, make_float4(zz[0], zz[1], zz[2], zz[3]));
@@ -71,14 +74,15 @@ __global__ void __launch_bounds__(kTile)
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // u: (ch, n, 13) f32 contiguous; z: (ch, n, 4) f32 contiguous; both 16-byte
-// aligned, and ch * n < 2^31 (the wrapper checks).
+// aligned, ch * n < 2^31 and row0 + n <= 2^32 (the wrapper checks).
 extern "C" int philox_draws_launch(uint32_t k0, uint32_t k1, uint32_t step_base,
-                                   int ch, int n, void* u, void* z, void* stream) {
+                                   uint32_t row0, int ch, int n, void* u, void* z,
+                                   void* stream) {
   const long long total = static_cast<long long>(ch) * n;
   if (total <= 0) return 0;
   const unsigned blocks = static_cast<unsigned>((total + kTile - 1) / kTile);
   philox_draws_kernel<<<blocks, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      k0, k1, step_base, static_cast<uint32_t>(n), static_cast<uint32_t>(total),
+      k0, k1, step_base, row0, static_cast<uint32_t>(n), static_cast<uint32_t>(total),
       static_cast<float*>(u), static_cast<float4*>(z));
   return static_cast<int>(cudaGetLastError());
 }

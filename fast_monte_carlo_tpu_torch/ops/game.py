@@ -44,6 +44,7 @@ to int64 only where they index.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -641,9 +642,18 @@ def simulate_games(
     collect_stats: bool = True,
     situation: Optional[Situation] = None,
     init_state: Optional[GameState] = None,
+    row0: int = 0,
+    antithetic: Optional[bool] = None,
 ) -> GameState:
     """Run n independent games to completion on the pack's device; returns
     the final GameState.  `key` is a 64-bit launch key (ops/rng.fold_in).
+    The games are games row0 .. row0 + n - 1 of a launch under `key` and
+    draw that launch's rows, so a block of a launch played alone
+    (`parallel.mesh`, the slate's game layout) plays what the whole launch
+    gives its games.  `antithetic` is that launch's choice of antithetic
+    draws (default engine.antithetic and n % 4 == 0); where it is on, the
+    block draws from row0 / 2 and must keep the mirrored blocks of four
+    whole (n % 4 == 0 and row0 % 4 == 0, else ValueError).
 
     Games start at the opening kickoff with `first_offense` (an int or an
     (n,) tensor); `situation` resumes them from a mid-game state instead
@@ -679,8 +689,15 @@ def simulate_games(
     else:
         s = initial_state(n, first_offense, cfg, dev, game_id, pack.k,
                           collect_players, collect_stats)
-    anti = cfg.engine.antithetic and n % 4 == 0
+    local = cfg.engine.antithetic and n % 4 == 0
+    anti = local if antithetic is None else bool(antithetic)
+    if anti and (n % 4 or row0 % 4):
+        raise ValueError(f"antithetic draws for games {row0}..{row0 + n - 1} split a "
+                         "mirrored block of four")
+    if anti != local:    # play_step mirrors by the block's own count
+        cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, antithetic=anti))
     rows = n // 2 if anti else n
+    r0 = row0 // 2 if anti else row0
     ch = cfg.engine.play_chunk
     n_chunks = -(-cfg.engine.max_plays // ch)
     buf = None
@@ -692,10 +709,10 @@ def simulate_games(
             break
         step0 = ci * ch
         if buf is not None:
-            chunk_draws(key, step0, ch, rows, dev, out=buf)
+            chunk_draws(key, step0, ch, rows, dev, out=buf, row0=r0)
         for j in range(ch):
             draws = ((buf[0][j], buf[1][j]) if buf is not None
-                     else step_draws(key, step0 + j, rows, dev))
+                     else step_draws(key, step0 + j, rows, dev, row0=r0))
             s = play_step(s, draws, pack, cfg, heads_eval, heads_state,
                           collect_players, collect_stats)
     if collect_stats:

@@ -7,7 +7,9 @@ axis of 1 or of a whole play chunk.  The stream is counter-based: key = the
 draws depend only on (key, absolute step, row) and the chunked stream equals
 the per-step stream.  The TPU kernels draw from the chip's hardware PRNG, so
 the two packages agree in distribution only (the same contract the JAX
-package states for its rbg and pallas paths).
+package states for its rbg and pallas paths).  A launch may start at row
+`row0`: a rank that plays games row0 .. row0 + n - 1 of a wider launch
+draws exactly their rows (`parallel.mesh`).
 
 `philox_draws_reference` is the same function in plain torch: the CPU path
 and the tests use it, and `chip_smoke.py` holds the kernel to it on the
@@ -124,7 +126,7 @@ def _launcher():
 
     lib = load_kernel_library(_KERNEL)
     fn = lib.philox_draws_launch
-    fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+    fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -145,9 +147,10 @@ def _check_out(t: torch.Tensor, shape, dev: torch.device) -> None:
 
 
 def philox_draws(key: int, step_base: int, ch: int, n: int, device,
-                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(u (ch, n, 13), z (ch, n, 4)) for absolute steps step_base..+ch-1.
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u (ch, n, 13), z (ch, n, 4)) for absolute steps step_base..+ch-1
+    and rows row0..row0+n-1.
 
     On CUDA this launches the hand-written kernel on the current stream
     (into `out` when given, so a launch reuses one buffer; each buffer
@@ -158,8 +161,10 @@ def philox_draws(key: int, step_base: int, ch: int, n: int, device,
     dev = torch.device(device)
     if ch < 0 or n < 0 or ch * n >= 2 ** 31:
         raise ValueError(f"bad draw shape ch={ch}, n={n}")
+    if row0 < 0 or row0 + n > 2 ** 32:
+        raise ValueError(f"rows {row0}..{row0 + n - 1} outside the 32-bit row counter")
     if dev.type == "cpu":
-        u, z = philox_draws_reference(key, step_base, ch, n, dev)
+        u, z = philox_draws_reference(key, step_base, ch, n, dev, row0)
         if out is not None:
             out[0].copy_(u)
             out[1].copy_(z)
@@ -177,7 +182,7 @@ def philox_draws(key: int, step_base: int, ch: int, n: int, device,
     launch = _launcher()
     with torch.cuda.device(dev):
         err = launch(key & _MASK32, (key >> 32) & _MASK32,
-                     step_base & _MASK32, ch, n, out[0].data_ptr(),
+                     step_base & _MASK32, row0, ch, n, out[0].data_ptr(),
                      out[1].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"philox_draws kernel launch failed: CUDA error {err}")
@@ -190,14 +195,15 @@ philox_draws.launches = 0
 philox_draws.launches_by_ch = Counter()
 
 
-def step_draws(key: int, step: int, n: int, device):
+def step_draws(key: int, step: int, n: int, device, row0: int = 0):
     """One play step's draws (port of rng_pallas.step_draws, K3):
-    (u (n, 13), z (n, 4))."""
-    u, z = philox_draws(key, step, 1, n, device)
+    (u (n, 13), z (n, 4)) of rows row0..row0+n-1."""
+    u, z = philox_draws(key, step, 1, n, device, row0=row0)
     return u[0], z[0]
 
 
-def chunk_draws(key: int, step_base: int, ch: int, n: int, device, out=None):
+def chunk_draws(key: int, step_base: int, ch: int, n: int, device, out=None,
+                row0: int = 0):
     """A whole play chunk's draws (port of rng_pallas.chunk_draws, K4):
-    (u (ch, n, 13), z (ch, n, 4))."""
-    return philox_draws(key, step_base, ch, n, device, out=out)
+    (u (ch, n, 13), z (ch, n, 4)) of rows row0..row0+n-1."""
+    return philox_draws(key, step_base, ch, n, device, out=out, row0=row0)

@@ -5,6 +5,10 @@ Each launch's (B, 2) scores reduce on the device to additive counts, sums
 and histograms (`ScoreMoments`); launches accumulate there and
 `summary_from_moments` finishes once.  Counts are f32 as in the JAX
 package: exact integers up to 2^24 per launch.  Histograms are int32.
+The counts and sums are taken exactly in int64 (`exact_moments`) and
+rounded once to f32, where the JAX package sums in f32 in XLA's order; so
+moments of the parts of a batch, added as integers, give the whole batch's
+bit for bit (the trial-sharded reduction, `parallel.mesh`).
 
 Scores with leading axes, (S, B, 2), reduce to moments with those axes in
 front, one set of histograms per group from one `bincount` (group g's
@@ -72,20 +76,33 @@ def _histograms(score: torch.Tensor):
             _hist(s0 + s1, 2 * MAX_PTS))
 
 
-def score_moments(score: torch.Tensor) -> ScoreMoments:
-    """Counts/sums/histograms of one (..., B, 2) int score batch; leading
-    axes stay in front of every field."""
-    s = score.to(F32)
+def exact_moments(score: torch.Tensor) -> ScoreMoments:
+    """`score_moments` before the rounding: the counts and sums as int64,
+    exact, the histograms int32."""
+    s = score.to(torch.int64)
     s0, s1 = score[..., 0], score[..., 1]
     pts_hist, margin_hist, total_hist = _histograms(score)
     return ScoreMoments(
-        n=torch.full(score.shape[:-2], float(score.shape[-2]), dtype=F32,
+        n=torch.full(score.shape[:-2], score.shape[-2], dtype=torch.int64,
                      device=score.device),
-        wins=torch.stack([(s0 > s1).sum(-1), (s1 > s0).sum(-1)], dim=-1).to(F32),
-        ties=(s0 == s1).sum(-1).to(F32),
+        wins=torch.stack([(s0 > s1).sum(-1), (s1 > s0).sum(-1)], dim=-1),
+        ties=(s0 == s1).sum(-1),
         s_sum=s.sum(dim=-2), s_sumsq=(s * s).sum(dim=-2),
         pts_hist=pts_hist, margin_hist=margin_hist, total_hist=total_hist,
     )
+
+
+def rounded_moments(m: ScoreMoments) -> ScoreMoments:
+    """Exact moments as `score_moments` gives them: counts and sums rounded
+    once to f32, histograms int32."""
+    return ScoreMoments(*(f.to(torch.int32) if "hist" in name else f.to(F32)
+                          for name, f in zip(ScoreMoments._fields, m)))
+
+
+def score_moments(score: torch.Tensor) -> ScoreMoments:
+    """Counts/sums/histograms of one (..., B, 2) int score batch; leading
+    axes stay in front of every field."""
+    return rounded_moments(exact_moments(score))
 
 
 def summary_from_moments(m: ScoreMoments) -> ScoreSummary:

@@ -15,6 +15,9 @@ play states, and their sum over the 11 forests a play evaluates at the
 default config; a DIR whose forest_eval.cu has the first K5's launcher (one
 f32 node table) gets its inputs packed for that launcher.  `--forests-only`
 times K5 alone.  The last line is one JSON object of the times.
+philox_draws is timed at row offset `DRAW_ROW0` (the rows a second rank
+plays); a DIR whose philox_draws.cu predates the row offset (its launcher
+takes no row0) has its draws left out.
 
 `held_ms` is the timer, and `kernel_times` the kernel times, that
 `chip_smoke.py` reports: CUDA events around back-to-back calls that the
@@ -43,6 +46,9 @@ SOURCES = ("philox_draws", "fused_step", "row_gather", "forest_eval")
 RUNS = {"philox_draws ch=24": 50, "philox_draws ch=1": 200, "fused_step ch=24": 50,
         "fused_step ch=1": 200, "fused_step_tab": 200, "row_gather_sum B3": 200,
         f"row_gather_sum B6 B={gather.B6_BS[-1]}": 200}
+# philox_draws' first row in kernel_times: rank 1's rows of a two-rank
+# launch of 131,072 games
+DRAW_ROW0 = 65_536
 # what path_times times: steps of each probe loop in one held run, about
 # 530 and 260 launches, within the card's launch queue
 PATH_STEPS = {"hybrid-tab step": 16, "B3 loop step": 64}
@@ -109,7 +115,8 @@ def launch_gap_ms() -> float:
 
 def kernel_times(dev: torch.device, names: Sequence[str] = tuple(RUNS)) -> Dict[str, float]:
     """Held ms per call of each kernel of `names` (keys of RUNS):
-    philox_draws at (24, 65,536) into a held buffer and at (1, 65,536);
+    philox_draws at (24, 65,536) into a held buffer and at (1, 65,536),
+    from row DRAW_ROW0;
     fused_step at B = 131,072, ch = 24 and 1, from kick-off; fused_step_tab
     at B = 131,072; row_gather_sum at B3's shape and at B6's 8,192 rows of
     128.  Each kernel runs back to back after itself, a launch order no
@@ -124,8 +131,9 @@ def kernel_times(dev: torch.device, names: Sequence[str] = tuple(RUNS)) -> Dict[
     if any(n.startswith("philox") for n in names):
         buf = (torch.empty((24, 65536, rng.N_UNIFORMS), device=dev),
                torch.empty((24, 65536, rng.N_NORMALS), device=dev))
-        calls["philox_draws ch=24"] = lambda: rng.chunk_draws(key, 0, 24, 65536, dev, out=buf)
-        calls["philox_draws ch=1"] = lambda: rng.step_draws(key, 0, 65536, dev)
+        calls["philox_draws ch=24"] = lambda: rng.chunk_draws(key, 0, 24, 65536, dev, out=buf,
+                                                              row0=DRAW_ROW0)
+        calls["philox_draws ch=1"] = lambda: rng.step_draws(key, 0, 65536, dev, row0=DRAW_ROW0)
     if any(n.startswith("fused") for n in names):
         s0 = sa.init_state(sa.B_DEFAULT, dev)
         heads = sa.heads_of(s0, sa.make_table(dev))
@@ -301,7 +309,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     csrc = args.csrc.resolve()
     libs = dict(zip(SOURCES, cuda_build.load_kernel_libraries(*SOURCES, csrc=csrc)))
     dev = torch.device("cuda")
-    times = {} if args.forests_only else {**kernel_times(dev), **path_times(dev)}
+    names = [n for n in RUNS if "row0" in (csrc / "philox_draws.cu").read_text()
+             or not n.startswith("philox")]
+    times = {} if args.forests_only else {**kernel_times(dev, names), **path_times(dev)}
     times.update(forest_times(dev, libs["forest_eval"]))
     times["launch gap"] = launch_gap_ms()
     for name, ms in times.items():

@@ -45,6 +45,22 @@ when it is built.  A kernel that fails to build or launch reaches the
 client as a 500 with its message: nothing falls back to a plain version or
 to the CPU.
 
+A request's `"shard": true` splits its launches over the ranks of
+`parallel.mesh.trial_group` (in a process of one rank, a world of one).  A
+server started as several ranks (`torchrun`, `cli serve --shard`) answers
+HTTP on rank 0 only; every other rank runs `SimService.follow`: rank 0
+sends it each entry-point call that reaches device work, under the service
+lock that orders the calls (`_call`, `broadcast_object_list` on a gloo
+group of its own, whose long timeout lets a server idle), and every rank
+runs the call, so the collectives inside it meet.  After each call the
+ranks agree on its outcome (`parallel.mesh.agree` on that group): where
+any rank failed, rank 0 answers an error, never a result.  The sharded
+launches inside a call agree the same way before their data's
+collectives, so a launch that fails on one card (out of memory, a kernel
+that does not build) fails on every rank instead of hanging the others.
+A rank that fails in host code between those points still leaves the
+others waiting until the process group's timeout.
+
 Coalesced /sim requests differ from the JAX module on purpose.  There the
 leader plays a batch of distinct matchups as one slate, so matchup gi's key
 is folded from its position in the batch and an answer depends on which
@@ -57,6 +73,7 @@ too, so no launch is added.
 from __future__ import annotations
 
 import collections
+import datetime
 import json
 import math
 import threading
@@ -168,9 +185,20 @@ class SimService:
     first use and stay) and serializes device work behind one lock."""
 
     def __init__(self, cfg: ServeConfig):
+        from .parallel.mesh import TrialGroup, trial_group, world_size
+
         self.cfg = cfg
-        # raises here, before any request, for CUDA where there is none
-        self.device = resolve_device(cfg.device)
+        # raises here, before any request, for CUDA where there is none; a
+        # server of several ranks plays on each rank's card
+        self.group = trial_group(cfg.device) if world_size() > 1 else None
+        self.device = self.group.device if self.group else resolve_device(cfg.device)
+        self.rank = self.group.rank if self.group else 0
+        # rank 0's channel to the followers: entry-point calls, in order
+        self._cmd = None
+        if self.group is not None:
+            import torch.distributed as dist
+            self._cmd = TrialGroup(self.rank, self.group.world, dist.new_group(
+                backend="gloo", timeout=datetime.timedelta(days=365)), torch.device("cpu"))
         self._device_name = (torch.cuda.get_device_name(self.device)
                              if self.device.type == "cuda" else "cpu")
         self._lock = threading.Lock()
@@ -253,6 +281,51 @@ class SimService:
         out = dict(item.out)
         out["elapsed_s"] = round(time.perf_counter() - t0, 3)
         return out
+
+    def _call(self, name: str, *args, **kw):
+        """`api.<name>(*args, **kw)` on this rank.  In a server of several
+        ranks rank 0 first sends the call (without its device) to the
+        followers, which run it on their own cards, and the ranks then
+        agree on its outcome: where any rank failed, this raises.  Callers
+        hold the service lock, so every rank sees the calls in one order."""
+        from . import api
+        from .parallel.mesh import agree
+
+        if self._cmd is None:
+            return getattr(api, name)(*args, **kw)
+        import torch.distributed as dist
+        dist.broadcast_object_list(
+            [(name, args, {k: v for k, v in kw.items() if k != "device"})],
+            src=0, group=self._cmd.group)
+        return agree(self._cmd, lambda: getattr(api, name)(*args, **kw))
+
+    def follow(self) -> None:
+        """A follower rank's loop: run each call rank 0 sends, on this
+        rank's device, and agree on its outcome with the other ranks (rank
+        0 answers its client, with an error where any rank failed), until
+        rank 0 sends None (`close`)."""
+        import torch.distributed as dist
+        from . import api
+        from .parallel.mesh import agree
+
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0, group=self._cmd.group)
+            if msg[0] is None:
+                return
+            name, args, kw = msg[0]
+            try:
+                agree(self._cmd, lambda: getattr(api, name)(*args, device=self.device, **kw))
+            except Exception:  # noqa: BLE001 — rank 0 reports it
+                pass
+
+    def close(self) -> None:
+        """Rank 0 of a server of several ranks releases the followers."""
+        if self._cmd is not None and self.rank == 0:
+            import torch.distributed as dist
+            with self._lock:
+                dist.broadcast_object_list([None], src=0, group=self._cmd.group)
+            self._cmd = None
 
     def _route_kw(self, mode: str) -> dict:
         """The keywords every entry point takes from the configuration, and
@@ -353,15 +426,14 @@ class SimService:
     def slate(self, body: dict) -> dict:
         """Slate summaries (+ market pricing when `lines` rows are given):
         the per-matchup launch loop with one end transfer."""
-        from .api import simulate_slate_summary_rows
         from .edge import slate_market_rows
 
         games = self._games(body)
         lines = body.get("lines")
         t0 = time.perf_counter()
         with self._admit("slate", t0):
-            rows, summaries = simulate_slate_summary_rows(
-                games, n_pairs=self._n_pairs(body, 32768),
+            rows, summaries = self._call(
+                "simulate_slate_summary_rows", games, n_pairs=self._n_pairs(body, 32768),
                 shard=bool(body.get("shard", self.cfg.shard)),
                 seed=int(body.get("seed", 0)), **self._route_kw(self._mode(body)))
             out = {"summaries": jsonable(_frame_records(rows))}
@@ -453,11 +525,9 @@ class SimService:
         key), distribute results.  A matchup that fails fails alone; a
         failure outside them (an admission shed) fails the whole batch —
         followers re-raise the same exception."""
-        from .api import simulate_slate_summary_rows
-
         def run(game):
-            rows, summaries = simulate_slate_summary_rows(
-                [game], n_pairs=n_pairs, shard=shard, seed=seed,
+            rows, summaries = self._call(
+                "simulate_slate_summary_rows", [game], n_pairs=n_pairs, shard=shard, seed=seed,
                 **self._route_kw(mode))
             return jsonable(rows[0]), summaries[0]
 
@@ -518,7 +588,6 @@ class SimService:
         situation objects with the same fields — instead of inline fields;
         all of them price in ONE launch (api.simulate_live_curve_columns)
         and the response carries one headline row per situation."""
-        from .api import simulate_live_game
         from .edge import market_odds_from_summary, summary_moneyline
 
         ta, tb = body["team_a"], body["team_b"]
@@ -532,8 +601,8 @@ class SimService:
                 f"got {n_games}")
         t0 = time.perf_counter()
         with self._admit("live", t0):
-            row, summary = simulate_live_game(
-                ta, tb, sit, n_games=n_games,
+            row, summary = self._call(
+                "simulate_live_game", ta, tb, sit, n_games=n_games,
                 shard=bool(body.get("shard", self.cfg.shard)),
                 seed=int(body.get("seed", 0)), **self._route_kw(self._mode(body)))
             out = {
@@ -551,8 +620,6 @@ class SimService:
 
     def _live_curve(self, ta: str, tb: str, body: dict) -> dict:
         """Batch form of /live: S situations in one launch."""
-        from .api import simulate_live_curve_columns
-
         raw = body["situations"]
         if not isinstance(raw, list) or not 0 < len(raw) <= 64:
             raise ValueError(
@@ -566,8 +633,8 @@ class SimService:
                 f"got {len(sits)} * {n_per}")
         t0 = time.perf_counter()
         with self._admit("live_curve", t0):
-            cols, _ = simulate_live_curve_columns(
-                ta, tb, sits, n_games_per=n_per, seed=int(body.get("seed", 0)),
+            cols, _ = self._call(
+                "simulate_live_curve_columns", ta, tb, sits, n_games_per=n_per, seed=int(body.get("seed", 0)),
                 **self._route_kw(self._mode(body)))
         return {"curve": jsonable(_columns_records(cols)),
                 "elapsed_s": round(time.perf_counter() - t0, 3)}
@@ -584,8 +651,6 @@ class SimService:
         win probability per forced choice (go/fg/punt) next to the sampled
         policy, plus the best choice and its CRN-paired delta
         (api.evaluate_fourth_down)."""
-        from .api import evaluate_fourth_down
-
         if int(body.get("down", 4)) != 4:
             raise ValueError("/fourth prices 4th downs (down must be 4)")
         sit = _situation_from_body({**body, "down": 4})
@@ -597,8 +662,8 @@ class SimService:
                 f"got {n_games}")
         t0 = time.perf_counter()
         with self._admit("fourth", t0):
-            res = evaluate_fourth_down(
-                body["team_a"], body["team_b"], sit, n_games=n_games,
+            res = self._call(
+                "evaluate_fourth_down", body["team_a"], body["team_b"], sit, n_games=n_games,
                 seed=int(body.get("seed", 0)), **self._route_kw(self._mode(body)))
         return {"fourth": jsonable(res),
                 "elapsed_s": round(time.perf_counter() - t0, 3)}
@@ -614,8 +679,6 @@ class SimService:
 
         Returns the pmf, the P(>=k) alternate-line ladder, the over/under
         market at `line`, and the per-game schedule rows."""
-        from .api import project_season_rows
-
         team = body["team"]
         opponents = body.get("opponents")
         games = body.get("games")
@@ -629,8 +692,8 @@ class SimService:
         line = body.get("line")
         t0 = time.perf_counter()
         with self._admit("season", t0):
-            res = project_season_rows(
-                team, opponents=opponents, games=games,
+            res = self._call(
+                "project_season_rows", team, opponents=opponents, games=games,
                 line=None if line is None else float(line),
                 n_pairs=self._n_pairs(body, 32768),
                 shard=bool(body.get("shard", self.cfg.shard)),
@@ -642,13 +705,11 @@ class SimService:
     def props(self, body: dict) -> dict:
         """Slate-wide prop scan over inline prop rows (the prop-sheet CSV
         schema as JSON records)."""
-        from .api import simulate_slate_prop_rows
-
         games = self._games(body)
         t0 = time.perf_counter()
         with self._admit("props", t0):
-            rows = simulate_slate_prop_rows(
-                games, props_csv=_frame_records(body["props"]),
+            rows = self._call(
+                "simulate_slate_prop_rows", games, props_csv=_frame_records(body["props"]),
                 n_pairs=self._n_pairs(body, 8192),
                 min_abs_edge_pct=float(body.get("min_abs_edge_pct", 0.0)),
                 shard=bool(body.get("shard", self.cfg.shard)),
@@ -673,8 +734,6 @@ class SimService:
         `"round_robin": 2` (or a list of sizes) adds the round-robin card
         — every size-k leg combination as its own ticket — under
         `parlay.round_robin`."""
-        from .api import simulate_parlay_core
-
         legs = body["legs"]
         if not isinstance(legs, list) or not 0 < len(legs) <= 20:
             raise ValueError("legs must be a JSON array of 1..20 leg objects")
@@ -692,8 +751,8 @@ class SimService:
                              "a non-empty list of integers (e.g. 2 or [2, 3])")
         t0 = time.perf_counter()
         with self._admit("parlay", t0):
-            res = simulate_parlay_core(
-                body["team_a"], body["team_b"], legs,
+            res = self._call(
+                "simulate_parlay_core", body["team_a"], body["team_b"], legs,
                 n_pairs=self._n_pairs(body, 32768),
                 shard=bool(body.get("shard", self.cfg.shard)),
                 seed=int(body.get("seed", 0)),
@@ -812,7 +871,12 @@ def make_server(service: SimService, host: str = "127.0.0.1",
 
 def serve_forever(cfg: ServeConfig, host: str = "127.0.0.1",
                   port: int = 8787, warm_games=None) -> None:
+    """Serve HTTP until interrupted; in a server of several ranks rank 0
+    serves and every other rank follows it (`SimService.follow`)."""
     service = SimService(cfg)
+    if service.rank != 0:
+        service.follow()
+        return
     # bind BEFORE warming: the warm slate builds tables for seconds, and a
     # bad --warm CSV must not kill the process with the port never bound —
     # early clients connect and queue (or hit /health) while warm runs
@@ -832,3 +896,4 @@ def serve_forever(cfg: ServeConfig, host: str = "127.0.0.1",
         pass
     finally:
         srv.server_close()
+        service.close()

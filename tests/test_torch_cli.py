@@ -8,7 +8,9 @@ once, which shapes only XLA's loop, so that its programs compile in
 seconds.  Over the same saved sim files `edges` and `prop` print the JAX
 CLI's lines exactly; `edges --device` keeps the JAX CLI's branches and
 launch shapes.  `sim --sd-mode cachewarm` plays its oracle warm-up and
-reads it back from the disk cache.  The subcommands not ported raise
+reads it back from the disk cache.  `--shard` runs in a world of one
+and prints what the same command prints without it, and under two gloo
+ranks only rank 0 prints.  The subcommands not ported raise
 NotImplementedError naming their ROADMAP.md queue item before any game is
 played; `serve` binds and answers /health."""
 import contextlib
@@ -29,8 +31,9 @@ import torch
 
 from fast_monte_carlo_tpu_torch import api, cli, fixtures, serve
 from fast_monte_carlo_tpu_torch.ops import game
+from fast_monte_carlo_tpu_torch.parallel import mesh
 
-from test_torch_support import jax_readable_copy, within, write_focus
+from test_torch_support import jax_readable_copy, run_ranks, within, write_focus
 from test_torch_support import table_cache_off  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -283,16 +286,6 @@ def test_slate_game_shard_and_batched_branches(capsys, files):
 NOT_PORTED = {
     "bench": (["bench"], "queue 1 item 1"),
     "train": (["train", "--data", "d.csv", "--out", "o"], "outside the port's scope"),
-    "slate --shard trial": (["slate", "--games", "GAMES", "--sp", "SP", "--shard", "trial"],
-                            "queue 1 item 6"),
-    "sim --shard": (["sim", "Team A", "Team B", "--sp", "SP", "--shard"], "queue 1 item 6"),
-    "live --shard": (["live", "Team A", "Team B", "--sp", "SP", "--ytg", "40", "--shard"],
-                     "queue 1 item 6"),
-    "parlay --shard": (["parlay", "Team A", "Team B", "--sp", "SP", "--legs", LEGS,
-                        "--shard"], "queue 1 item 6"),
-    "season --shard": (["season", "Team A", "--opponents", "Team B", "--sp", "SP",
-                        "--shard"], "queue 1 item 6"),
-    "serve --shard": (["serve", "--sp", "SP", "--shard"], "queue 1 item 6"),
 }
 
 
@@ -303,11 +296,115 @@ def test_unported_subcommands_raise_before_any_game(name, files, monkeypatch):
 
     monkeypatch.setattr(api, "simulate_games", launched)
     monkeypatch.setattr(game, "simulate_games", launched)
+    monkeypatch.setattr(mesh, "simulate_games", launched)
     argv, item = NOT_PORTED[name]
     argv = [{"SP": files["sp"], "GAMES": files["games"]}.get(a, a) for a in argv]
     with pytest.raises(NotImplementedError, match=re.escape(item)):
-        cli.main(argv + (["--device", "cpu"] if name.split()[0] not in
-                         ("bench", "train") else []))
+        cli.main(argv)
+
+
+# each --shard command beside the same command without it (for `slate
+# --shard trial`, the summary loop that --lines routes the default to): in a
+# world of one both print the same lines, once timings are left out
+SHARDED = {
+    "slate --shard trial": (["slate", "--games", "GAMES", "--shard", "trial"],
+                            ["slate", "--games", "GAMES", "--lines", "LINES"]),
+    "sim --shard": (["sim", "Team A", "Team B", "--shard"], ["sim", "Team A", "Team B"]),
+    "live --shard": (["live", "Team A", "Team B", "--ytg", "40", "--shard"],
+                     ["live", "Team A", "Team B", "--ytg", "40"]),
+    "parlay --shard": (["parlay", "Team A", "Team B", "--legs", LEGS, "--corr", "--shard"],
+                       ["parlay", "Team A", "Team B", "--legs", LEGS, "--corr"]),
+    "season --shard": (["season", "Team A", "--opponents", "Team B", "--shard"],
+                       ["season", "Team A", "--opponents", "Team B"]),
+}
+TIMED = re.compile(r"Timing:|games in |games/s|\] *$")
+
+
+def _untimed(text: str, n_lines=None) -> list:
+    return [x for x in text.splitlines()[:n_lines] if not TIMED.search(x)]
+
+
+@pytest.mark.parametrize("name", list(SHARDED) + ["serve --shard"])
+def test_shard_flags_run_in_a_world_of_one(name, files, capsys):
+    """Each --shard flag runs in a world of one (no process group) and
+    prints what the same command prints unsharded: the sharded games are
+    the unsharded ones bit for bit.  A server started with --shard answers
+    a request that leaves "shard" to it (a sharded run) as it answers
+    "shard": false."""
+    if name == "serve --shard":
+        return _serve_shard_equals_unsharded(files)
+    rest = ["--sp", files["sp"], "--artifacts", ART, "--mode", "analytic", "-n", "256",
+            "--device", "cpu"]
+    sub = {"GAMES": files["games"], "LINES": files["lines"]}
+    sharded, plain = ([sub.get(a, a) for a in argv] + rest for argv in SHARDED[name])
+    got, want = _out(cli.main, sharded, capsys), _out(cli.main, plain, capsys)
+    # slate: the rows' table (--lines prints the markets after it)
+    n = 3 if name.startswith("slate") else None
+    assert _untimed(got, n) == _untimed(want, n) and _untimed(got, n), (got, want)
+
+
+def _serve_shard_equals_unsharded(files):
+    made = []
+    real = serve.make_server
+
+    def capture(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
+
+    rc = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(serve, "make_server", capture)
+        t = threading.Thread(target=lambda: rc.append(cli.main([
+            "serve", "--sp", files["sp"], "--artifacts", ART, "--mode", "analytic",
+            "--port", "0", "--device", "cpu", "--shard"])))
+        t.start()
+        try:
+            t0 = time.perf_counter()
+            while not made and time.perf_counter() - t0 < 60:
+                time.sleep(0.02)
+            url = f"http://127.0.0.1:{made[0].server_address[1]}/sim"
+            answers = []
+            for extra in ({}, {"shard": False}):
+                body = json.dumps({"team_a": "Team A", "team_b": "Team B", "n_pairs": 256,
+                                   "spread": -3.5, **extra}).encode()
+                req = urllib.request.Request(url, data=body,
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    answers.append({k: v for k, v in json.loads(r.read()).items()
+                                    if k != "elapsed_s"})
+        finally:
+            if made:
+                made[0].shutdown()
+            t.join(timeout=60)
+    assert rc == [0]
+    assert answers[0] == answers[1] and answers[0]["summary"]["n_games"] == 512
+
+
+def test_sim_shard_over_two_ranks_prints_on_rank_0(files, tmp_path):
+    """`sim --shard` under two gloo ranks on the CPU: every rank runs the
+    command, only rank 0 prints, and what it prints (the summary and the
+    saved file's name) is what one process prints; only rank 0 writes the
+    files."""
+    argv = ["sim", "Team A", "Team B", "--sp", files["sp"], "--artifacts", ART, "--mode",
+            "analytic", "-n", "256", "--device", "cpu", "--shard", "--save"]
+    code = ("import contextlib, io, os\n"
+            "from fast_monte_carlo_tpu_torch import cli\n"
+            f"os.chdir(os.path.join({str(tmp_path)!r}, str(RANK)))\n"
+            f"assert cli.main({argv!r}) == 0\n")
+    for r in (0, 1):
+        (tmp_path / str(r)).mkdir()
+    outs = run_ranks(code, 2, tmp_path)
+    assert outs[1] == "" and "Timing:" in outs[0]
+    assert os.listdir(tmp_path / "0") == ["scores_teama_teamb_wk1_sims.csv"]
+    assert os.listdir(tmp_path / "1") == []
+    here = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as one:
+            assert cli.main([a for a in argv if a != "--shard"]) == 0
+    finally:
+        os.chdir(here)
+    assert _untimed(outs[0]) == _untimed(one.getvalue())
 
 
 def test_device_defaults_to_the_card(files):
@@ -463,23 +560,26 @@ def test_edges_device_launch_shapes(props, files, capsys, monkeypatch):
 
 
 def test_edges_device_refusals(files, monkeypatch, capsys):
-    """`edges --device --shard` raises naming queue 1 item 6 before any
-    game; a bare `--device` asks for the card, which raises where there is
-    none; without --sp nothing runs (exit 2)."""
+    """`edges --device cpu --shard` runs in a world of one and prints what
+    `edges --device cpu` prints; a bare `--device` (with --shard too) asks
+    for the card, which raises where there is none, before any game;
+    without --sp nothing runs (exit 2)."""
+    argv = ["edges", "--team-a", "Team A", "--team-b", "Team B", "--sp", files["sp"],
+            "--artifacts", ART, "--spread", "1.5", "--mode", "analytic", "-n", "256"]
+    got = _out(cli.main, argv + ["--shard", "--device", "cpu"], capsys)
+    want = _out(cli.main, argv + ["--device", "cpu"], capsys)
+    assert _untimed(got) == _untimed(want) and "Spread" in got
+
     def launched(*a, **k):
         raise AssertionError("a game was played")
 
     monkeypatch.setattr(api, "simulate_games", launched)
     monkeypatch.setattr(game, "simulate_games", launched)
-    argv = ["edges", "--team-a", "Team A", "--team-b", "Team B", "--sp", files["sp"],
-            "--artifacts", ART, "--spread", "1.5"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        cli.main(argv + ["--device", "--shard"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        cli.main(argv + ["--shard", "--device", "cpu"])
+    monkeypatch.setattr(mesh, "simulate_games", launched)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="never falls back to the CPU"):
-            cli.main(argv + ["--device"])
+        for extra in (["--device"], ["--device", "--shard"]):
+            with pytest.raises(RuntimeError, match="never falls back to the CPU"):
+                cli.main(argv + extra)
     assert cli.main(["edges", "--team-a", "A", "--team-b", "B", "--device", "cpu"]) == 2
     assert "needs --sp" in capsys.readouterr().err
 

@@ -277,10 +277,15 @@ def test_run_live_batch_validation_and_shard():
         r.run_live_batch([Q4], n_games_per=0)
     with pytest.raises(ValueError, match="down"):
         r.run_live_batch([Q4, Q4._replace(down=5)])
-    with pytest.raises(NotImplementedError, match="P9"):
-        dataclasses.replace(r, shard=True)
-    with pytest.raises(NotImplementedError, match="P9"):
-        api.simulate_live_game("A", "B", Q4, runner=r, shard=True)
+    # trial sharding in a world of one: the same games, bit for bit
+    rs = dataclasses.replace(r, shard=True)
+    assert rs.group.world == 1 and rs.device == r.device
+    want = r.run_live(Q4, n_games=512, seed=3, chunk_games=256)
+    got = rs.run_live(Q4, n_games=512, seed=3, chunk_games=256)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    row, s = api.simulate_live_game("A", "B", Q4, runner=r, shard=True, n_games=512, seed=3)
+    row0, s0 = api.simulate_live_game("A", "B", Q4, runner=r, n_games=512, seed=3)
+    assert row == row0 and all(np.array_equal(g, w, equal_nan=True) for g, w in zip(s, s0))
 
 
 def _shared_summary(stacked: bool):

@@ -540,8 +540,15 @@ def test_simulate_parlay_needs_a_runner(focus_run):
             api.simulate_parlay("Team A", "Team B", legs, runner=focus_run["runner"], **kw)
     with pytest.raises(ValueError, match="runner="):
         api.simulate_parlay("Team A", "Team B", legs)
-    with pytest.raises(NotImplementedError, match="P9"):
-        api.simulate_parlay("Team A", "Team B", legs, runner=focus_run["runner"], shard=True)
+    # trial sharding in a world of one prices the same games
+    got = api.simulate_parlay_core("Team A", "Team B", legs, runner=focus_run["runner"],
+                                   shard=True, n_pairs=256, seed=2, correlations=True)
+    want = api.simulate_parlay_core("Team A", "Team B", legs, runner=focus_run["runner"],
+                                    n_pairs=256, seed=2, correlations=True)
+    from fast_monte_carlo_tpu_torch.serve import jsonable
+
+    assert got.keys() == want.keys()
+    assert repr(jsonable(got)) == repr(jsonable(want))
     with pytest.raises(ValueError, match="the runner plays Team A vs Team B"):
         api.simulate_parlay("Team B", "Team A", legs, runner=focus_run["runner"])
 

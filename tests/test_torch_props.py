@@ -188,8 +188,10 @@ def test_simulate_matchup_equals_its_parts(props_run):
     pd.testing.assert_frame_equal(players, api.players_frame(out, a, b))
     cols, none, _ = api.simulate_matchup_columns(a, b, n=64, seed=5, runner=runner)
     assert none is None and len(cols["pts"]) == 128
-    with pytest.raises(NotImplementedError, match="P9"):
-        api.simulate_matchup(a, b, n=8, shard=True, runner=runner)
+    # trial sharding in a world of one: the same frames, the runner's tables shared
+    sharded, _, rs = api.simulate_matchup(a, b, n=64, seed=5, shard=True, runner=runner)
+    assert rs.shard and rs.heads_state is runner.heads_state
+    pd.testing.assert_frame_equal(sharded, sims)
     # no runner: the default device (the card, raising where there is none),
     # then table mode without nano_tables
     with pytest.raises(ValueError if torch.cuda.is_available() else RuntimeError):

@@ -362,15 +362,19 @@ def test_slate_props_route_equals_hand_built(files, hand):
 
 
 def test_route_refusals(files, hand, tmp_path):
-    """What still raises on the routes: trial sharding (NotImplementedError
-    naming ROADMAP.md queue 1); heads without stage 1 (an empty artifact
-    directory) and a missing sheet.  sd_mode 'cachewarm' no longer raises:
-    it is held to the JAX package in test_torch_cachewarm.py."""
+    """What still raises on the routes: heads without stage 1 (an empty
+    artifact directory) and a missing sheet.  Trial sharding no longer
+    raises: in a world of one it plays the unsharded games bit for bit.
+    sd_mode 'cachewarm' no longer raises: it is held to the JAX package in
+    test_torch_cachewarm.py."""
     kw = dict(sp_path=files["sp"], artifact_dir=ART, **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        api.simulate_live_game("Team A", "Team B", Q4, n_games=64, **kw, shard=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        api.simulate_upcoming_matchup_columns("Team A", "Team B", n=8, shard=True, **kw)
+    row, s = api.simulate_live_game("Team A", "Team B", Q4, n_games=64, **kw, shard=True)
+    row0, s0 = api.simulate_live_game("Team A", "Team B", Q4, n_games=64, **kw)
+    assert row == row0 and all(np.array_equal(x, y, equal_nan=True) for x, y in zip(s, s0))
+    got = api.simulate_upcoming_matchup_columns("Team A", "Team B", n=8, shard=True, **kw)
+    want = api.simulate_upcoming_matchup_columns("Team A", "Team B", n=8, **kw)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.keys() == w.keys() and all(np.array_equal(g[c], w[c]) for c in g)
     with pytest.raises(ValueError, match="stage 1"):
         api.simulate_live_game("Team A", "Team B", Q4, sp_path=files["sp"],
                                artifact_dir=str(tmp_path), **CPU)

@@ -176,9 +176,10 @@ def test_project_season_argument_errors_equal_jax(args, monkeypatch):
     assert str(got.value) == str(want.value)
 
 
-def test_project_season_needs_built_inputs():
+def test_project_season_needs_built_inputs(season_run):
     """A season needs contexts or an SP+ sheet, not both (the sheet route:
-    tests/test_torch_routes.py)."""
+    tests/test_torch_routes.py); trial sharding in a world of one projects
+    the unsharded season."""
     games, kw = _season_kw()
     for extra in (dict(sp_path="sp.csv"), dict(focus_csv="f.csv")):
         with pytest.raises(ValueError, match="not both"):
@@ -187,5 +188,7 @@ def test_project_season_needs_built_inputs():
         api.project_season("Team 000", games=games)
     with pytest.raises(ValueError, match="3 games need as many context pairs"):
         api.project_season("Team 000", games=games, **dict(kw, contexts=kw["contexts"][:2]))
-    with pytest.raises(NotImplementedError, match="P9"):
-        api.project_season("Team 000", games=games, shard=True, **kw)
+    got = api.project_season("Team 000", games=games, line=1.5, price=-120, shard=True, **kw)
+    want = season_run[2]
+    pd.testing.assert_frame_equal(got.pop("schedule"), want["schedule"])
+    assert repr(got) == repr({k: v for k, v in want.items() if k != "schedule"})

@@ -306,15 +306,20 @@ def test_request_cost_guards(server):
 
 @pytest.mark.parametrize("route", ["/sim", "/slate", "/live", "/season", "/parlay"])
 def test_shard_requests_raise_not_ported(server, route):
-    """shard=true: trial sharding is not ported, reported as the JAX module
-    reports a NotImplementedError (500), with the queue item named."""
+    """shard=true, which raised before trial sharding was ported, now runs
+    the sharded route in the server's world of one (no process group) and
+    answers 200 with what "shard": false answers, bit for bit."""
     base, _ = server
     body = {"/sim": AB, "/slate": {"games": [["Team A", "Team B"]]},
             "/live": {**Q4, "n_games": 64}, "/season": {"team": "Team A",
                                                         "opponents": ["Team B"]},
             "/parlay": {**AB, "legs": [{"kind": "moneyline", "team": "Team A"}]}}[route]
-    code, out = _post(base + route, {**body, "n_pairs": 64, "shard": True})
-    assert code == 500 and out["error"] == f"NotImplementedError: {api.SHARD_NOT_PORTED}"
+    answers = []
+    for shard in (True, False):
+        code, out = _post(base + route, {**body, "n_pairs": 64, "shard": shard})
+        assert code == 200, out
+        answers.append(_bare(out))
+    assert answers[0] == answers[1]
 
 
 def test_concurrent_requests_serialize_cleanly(server):

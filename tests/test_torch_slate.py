@@ -299,15 +299,21 @@ def test_slate_layout_errors_match_jax():
             call(port)
         assert str(got.value) == str(want.value)
     sr = _runner(game_shard=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         sr.run_summaries(8, mesh=object())
+    # a world of one: the one-card summaries, bit for bit
+    from fast_monte_carlo_tpu_torch.parallel.mesh import trial_group
+    pd.testing.assert_frame_equal(sr.run_summaries(8, mesh=trial_group("cpu")),
+                                  sr.run_summaries(8))
     with pytest.raises(ValueError, match="positive"):
         sr.run_summaries(0)
     matchups, tables = _slate()
     with pytest.raises(ValueError, match="nano_tables are nano-layout tables"):
         api.SlateRunner(matchups, nano_tables=tables, quality="turbo", device="cpu")
-    with pytest.raises(NotImplementedError, match="P9"):
-        api.SlateRunner(matchups, nano_tables=tables, device="cpu", shard=True)
+    # trial sharding in a world of one plays the one-launch games
+    shard_run = api.SlateRunner(matchups, nano_tables=tables, device="cpu", shard=True).run(8)
+    one_run = api.SlateRunner(matchups, nano_tables=tables, device="cpu").run(8)
+    assert all(torch.equal(x, y) for x, y in zip(shard_run, one_run))
     with pytest.raises(ValueError, match="nano_tables or heads, not both"):
         api.SlateRunner(matchups, heads=fixtures.heads(0), nano_tables=tables, device="cpu")
     with pytest.raises(ValueError, match="one nano table pair per matchup"):
@@ -460,9 +466,10 @@ def test_simulate_slate_summaries_validation_matches_jax(monkeypatch, kw):
 
 def test_slate_entry_points_need_built_inputs():
     """(g) contexts with sp_path= or focus_csv= (which build contexts from
-    an SP+ sheet), or neither contexts nor a sheet, raise ValueError; trial
-    sharding raises naming P9, a context list of the wrong length
-    ValueError.  (The sheet route: tests/test_torch_routes.py.)"""
+    an SP+ sheet), or neither contexts nor a sheet, raise ValueError, and a
+    context list of the wrong length; trial sharding in a world of one
+    gives the unsharded summaries.  (The sheet route:
+    tests/test_torch_routes.py.)"""
     matchups, tables = _slate()
     for fn in (api.simulate_slate_summaries, api.simulate_slate):
         for kw in (dict(sp_path="sp.csv"), dict(focus_csv="f.csv")):
@@ -472,9 +479,11 @@ def test_slate_entry_points_need_built_inputs():
             fn(GAMES)
         with pytest.raises(ValueError, match="3 games need as many context pairs"):
             fn(GAMES, contexts=matchups[:2], nano_tables=tables, device="cpu")
-    with pytest.raises(NotImplementedError, match="P9"):
+    pd.testing.assert_frame_equal(
         api.simulate_slate_summaries(GAMES, contexts=matchups, nano_tables=tables,
-                                     n_pairs=8, device="cpu", shard=True)
+                                     n_pairs=8, device="cpu", shard=True),
+        api.simulate_slate_summaries(GAMES, contexts=matchups, nano_tables=tables,
+                                     n_pairs=8, device="cpu"))
 
 
 def test_simulate_slate_rows_match_jax_on_the_same_scores(monkeypatch):

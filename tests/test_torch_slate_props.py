@@ -122,14 +122,17 @@ def test_skipped_matchups_launch_nothing(slate, monkeypatch, tmp_path):
     """Three launches for three priced matchups; a sheet that resolves in
     no matchup launches nothing and returns no row.  A CSV path and a
     DataFrame give the same rows as row dicts."""
+    from fast_monte_carlo_tpu_torch.parallel import mesh
+
     calls = []
-    real = api.simulate_games
+    real = mesh.simulate_games
 
     def spy(*args, **kw):
         calls.append(kw)
         return real(*args, **kw)
 
-    monkeypatch.setattr(api, "simulate_games", spy)
+    # a runner's launches go through parallel.mesh (on its group)
+    monkeypatch.setattr(mesh, "simulate_games", spy)
     sheet = tmp_path / "props.csv"
     fixtures.write_csv(sheet, slate["props"], fixtures.PROP_COLS)
     for props in (str(sheet), sheet, pd.DataFrame(slate["props"])):
@@ -210,7 +213,8 @@ def test_simulate_slate_props_matches_jax_up_to_ties(slate, monkeypatch, min_edg
 
 def test_slate_props_needs_built_inputs(slate):
     """Contexts or an SP+ sheet, not both (the sheet route:
-    tests/test_torch_routes.py)."""
+    tests/test_torch_routes.py); trial sharding in a world of one scans the
+    unsharded games."""
     games, props = slate["games"], slate["props"]
     for kw in (dict(sp_path="sp.csv"), dict(focus_csv="f.csv")):
         with pytest.raises(ValueError, match="not both"):
@@ -220,5 +224,5 @@ def test_slate_props_needs_built_inputs(slate):
     with pytest.raises(ValueError, match="5 games need as many context pairs"):
         api.simulate_slate_props(games, props_csv=props,
                                  **dict(slate["kw"], contexts=slate["matchups"][:4]))
-    with pytest.raises(NotImplementedError, match="P9"):
-        api.simulate_slate_props(games, props_csv=props, shard=True, **slate["kw"])
+    got = api.simulate_slate_prop_rows(games, props_csv=props, shard=True, **slate["kw"])
+    assert [_key(r) for r in got] == [_key(r) for r in slate["rows"][2.0]]

@@ -174,6 +174,10 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " edge.infer_role_from_stat))\n"
         "from fast_monte_carlo_tpu_torch import backtest, store\n"
         "from fast_monte_carlo_tpu_torch.parallel import player_stat_probs\n"
+        "from fast_monte_carlo_tpu_torch.parallel import mesh\n"
+        "assert all(callable(f) for f in (mesh.trial_group, mesh.game_group,"
+        " mesh.simulate_games_sharded, mesh.simulate_moments_sharded, mesh.all_gather_rows,"
+        " mesh.all_reduce_sum, mesh.world_size, mesh.process_rank))\n"
         "from fast_monte_carlo_tpu_torch.utils import profiling\n"
         "assert all(callable(f) for f in (store.make_signature, store.save_sim_bundle,"
         " store.load_sim_bundle, backtest.join_results, backtest.calibration_report,"
@@ -245,15 +249,17 @@ def test_summary_path_runs_score_only(monkeypatch):
     collectors off), as the JAX package does; run_pairs takes its defaults,
     both collectors on."""
     from fast_monte_carlo_tpu_torch import api
+    from fast_monte_carlo_tpu_torch.parallel import mesh
 
     calls = []
-    real = api.simulate_games
+    real = mesh.simulate_games
 
     def spy(*args, **kw):
         calls.append(kw)
         return real(*args, **kw)
 
-    monkeypatch.setattr(api, "simulate_games", spy)
+    # a runner's launches go through parallel.mesh (on its group)
+    monkeypatch.setattr(mesh, "simulate_games", spy)
     a, b = fixtures.teams()
     r = MatchupRunner(a, b, None, _cfg(SimConfig), mode="analytic", device="cpu")
     r.run_pairs_summary(64, seed=1, chunk_pairs=32)

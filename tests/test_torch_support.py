@@ -5,6 +5,10 @@ arrays: the JAX package (the reference, on the CPU) and its PyTorch port
 `fast_monte_carlo_tpu_torch` (here on the CPU, where each kernel wrapper
 runs its plain PyTorch version)."""
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +50,48 @@ def table_cache_off():
 
 
 FOCUS_SEED = 3
+REPO = Path(__file__).resolve().parents[1]
+
+
+def run_ranks(code: str, world: int, tmp_path, timeout: float = 150) -> list:
+    """`code` run by `world` child processes on the CPU, rank RANK of WORLD
+    in a gloo group that meets through a FileStore under `tmp_path` (no TCP
+    port to collide on between test workers; gloo's own links stay on the
+    loopback interface).  The children import the port only, never this
+    module.  Returns each rank's stdout; raises with every rank's output if
+    one fails or the ranks outlast `timeout`."""
+    pre = ("import sys, torch\n"
+           "torch.set_num_threads(1)\n"
+           f"sys.path.insert(0, {str(REPO)!r})\n"
+           "import torch.distributed as dist\n"
+           f"RANK, WORLD = int(sys.argv[1]), {world}\n"
+           f"STORE = dist.FileStore({str(tmp_path / 'store')!r}, WORLD)\n"
+           "dist.init_process_group('gloo', store=STORE, rank=RANK, world_size=WORLD)\n")
+    # every rank done with every collective before any tears the group
+    # down (a gloo peer torn down while the other still runs has aborted
+    # at exit); the store, not a collective, says so, since a rank leaving
+    # a barrier does not mean its peer has left it too
+    post = ("\nSTORE.set(f'done{RANK}', '1')\n"
+            "STORE.wait([f'done{r}' for r in range(WORLD)])\n"
+            "dist.destroy_process_group()\n")
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen([sys.executable, "-c", pre + code + post, str(r)], cwd=tmp_path,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        outs += [p.communicate() for p in procs[len(outs):]]
+        raise AssertionError(f"ranks outlasted {timeout} s: {outs}")
+    if any(p.returncode for p in procs):
+        raise AssertionError("a rank failed: " + "\n".join(
+            f"rank {r} rc {p.returncode}:\n{o}\n{e[-3000:]}"
+            for r, (p, (o, e)) in enumerate(zip(procs, outs))))
+    return [o for o, _ in outs]
 
 
 def jax_teams(k: int = 8, focus_csv=None):
