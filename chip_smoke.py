@@ -33,9 +33,9 @@ Phases, in order (any failure raises and exits non-zero):
     CPU: integer state equal, floats allclose(rtol=1e-5, atol=1e-5);
  5. the main path: MatchupRunner(mode="table", rng_impl="pallas_chunk",
     device="cuda") with the fixture nano table, `run_pairs_summary` over
-    1,048,576 games in 65,536-game launches (524,288 if the warm-up
-    launch predicts more than 120 s; 4,194,304 before phase 14 came,
-    2,097,152 before phase 17);
+    524,288 games in 65,536-game launches (262,144 if the warm-up
+    launch predicts more than 60 s; 4,194,304 before phase 14 came,
+    2,097,152 before phase 17, 1,048,576 before phase 19);
     summary checks; games/s;
  6. the fused play-step kernels (B1 fused_step, B2 fused_step_tab) against
     their plain versions at B = 131,072 for 3 keys: one step equal on
@@ -265,18 +265,28 @@ Phases, in order (any failure raises and exits non-zero):
     unsharded runs, each rank launching philox_draws and importing no jax
     or fast_monte_carlo_tpu; (c) `cli sim --shard` (analytic) in a world of
     one printing what `cli sim` prints, and a server's /sim with "shard":
-    true answered 200 and equal to "shard": false.
+    true answered 200 and equal to "shard": false;
+19. the bench entry, each run a subprocess on the card: (a) `python -m
+    fast_monte_carlo_tpu_torch.bench -n 262144 --repeats 1 --no-lanes
+    --budget 180` (table mode, nano tables built from the fixture heads)
+    and (b) `python -m fast_monte_carlo_tpu_torch.cli bench --mode exact -n
+    65536`: exactly one stdout line with the contract's keys, device
+    platform "gpu", emit "complete", games/s > 0, philox_draws launched,
+    forest_eval none in (a) and 11 a play in (b) (11 x 24 a philox_draws
+    launch), the stderr sanity line's mean points in (10, 50); the
+    bench's games/s printed beside phase 5's.
 Every phase prints its seconds, and a line before the JSON lines lists
 them with the whole smoke's.
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
 9, 10, 11, 12, 13, 14, 15, 16, 17) and read just after it (phase 18 counts
-the sharded runs' own launches, its ranks' included); a path that
-launched one of its kernels no time fails.  forest_eval's launches in the JSON line are
-exact mode's, phase 13's, phase 14's and phase 15's; its times are per play
-(11 launches), the bound too.  The JSON line's philox_draws launches are
-the main path's, the live queries', the slate path's, phase 11's, phase
-13's, phase 14's, phase 15's, phase 16's, phase 17's (its child
-process's included) and phase 18's (its ranks' included).
+the sharded runs' own launches, its ranks' included; phase 19 the bench's
+own, from its JSON line); a path that launched one of its kernels no time
+fails.  forest_eval's launches in the JSON line are
+exact mode's, phase 13's, phase 14's, phase 15's and phase 19's; its times
+are per play (11 launches), the bound too.  The JSON line's philox_draws
+launches are the main path's, the live queries', the slate path's, phase
+11's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's (its child
+process's included), phase 18's (its ranks' included) and phase 19's.
 Kernel times are device time per call: CUDA events around back-to-back
 calls that the host enqueued while a spin kernel held the stream
 (`probes.kernels.held_ms`; `kernel_times` for philox_draws, the fused
@@ -307,9 +317,10 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 CH, N = 24, 65536                  # the main path's draw launch shape
-# cut from 4,194,304 for phase 14, from 2,097,152 for phase 17
-GAMES, LAUNCH_GAMES = 1_048_576, 65_536
-CUT_GAMES = 524_288                # used if the full run would pass ~120 s
+# cut from 4,194,304 for phase 14, from 2,097,152 for phase 17, from
+# 1,048,576 for phase 19, whose bench entry times the same workload
+GAMES, LAUNCH_GAMES = 524_288, 65_536
+CUT_GAMES = 262_144                # used if the full run would pass ~60 s
 TABLE_SEED = 7
 FOCUS_SEED, PROP_SEED = 3, 4       # fixtures.focus_rows / prop_rows
 PROPS_PAIRS = 8192                 # the JAX package's simulate_slate_props n_pairs
@@ -422,6 +433,14 @@ SHARD_LIVE_GAMES = 65_536
 SHARD_SLATE_GAMES, SHARD_SLATE_PAIRS = 8, 8_192
 SHARD_CLI_PAIRS = 8_192            # cli sim --shard and the server's /sim, analytic
 SHARD_CHILD_S = 300                # the two ranks' time limit
+# phase 19: the bench entry as a user runs it, each a subprocess
+BENCH_RUNS = (("table", ["-m", "fast_monte_carlo_tpu_torch.bench", "-n", "262144",
+                         "--repeats", "1", "--no-lanes", "--budget", "180"]),
+              ("exact", ["-m", "fast_monte_carlo_tpu_torch.cli", "bench", "--mode", "exact",
+                         "-n", "65536"]))
+BENCH_RUN_S = 300                  # each run's time limit
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "meta"}
+BENCH_SANITY = re.compile(r"# sanity: mean \[([-\d.]+), ([-\d.]+)\] winA ([\d.]+)")
 # each kernel of the JSON line and its source in csrc/
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
@@ -737,7 +756,7 @@ def phase_main_path(card: str, profile_dir: Optional[Path]) -> dict:
                              collect_stats=False)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    games = GAMES if warm_s * GAMES / LAUNCH_GAMES <= 120 else CUT_GAMES
+    games = GAMES if warm_s * GAMES / LAUNCH_GAMES <= 60 else CUT_GAMES
     print(f"  warm-up launch {warm_s:.3f} s; timing {games:,} games "
           f"in {games // LAUNCH_GAMES} launches of {LAUNCH_GAMES:,}")
 
@@ -3621,6 +3640,52 @@ def phase_shard(card: str) -> dict:
     return out
 
 
+def phase_bench(card: str, main_gps: float) -> dict:
+    """The bench entry on the card (BENCH_RUNS), each run a subprocess as a
+    user starts it: one JSON line with the contract's keys, on the gpu,
+    complete, its launches (the bench's own counters over its timed runs)
+    and its stderr sanity line checked; its games/s beside phase 5's.
+    Returns the runs' philox_draws and forest_eval launches."""
+    counts = {"philox_draws": 0, "forest_eval": 0}
+    for mode, argv in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=REPO, capture_output=True,
+                              text=True, timeout=BENCH_RUN_S)
+        dt = time.perf_counter() - t0
+        what = f"({mode}) {' '.join(argv[1:])}"
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:])
+        check(proc.returncode == 0, f"{what}: exit {proc.returncode} in {dt:.1f} s")
+        lines = [line for line in proc.stdout.splitlines() if line.strip()]
+        check(len(lines) == 1, f"{what}: one stdout line (got {len(lines)})")
+        rec = json.loads(lines[0])
+        meta = rec["meta"]
+        check(set(rec) == BENCH_KEYS and rec["unit"] == "games/sec" and rec["value"] > 0,
+              f"{what}: the contract's keys, {rec['value']:,.1f} games/s > 0")
+        check(meta["device"]["platform"] == "gpu" and meta["emit"] == "complete"
+              and meta["mode"] == mode,
+              f"{what}: on {meta['device']['kind']} ({meta['card']}), emit "
+              f"{meta['emit']}, mode {meta['mode']}")
+        k4, k5 = meta["launches"]["philox_draws"], meta["launches"]["forest_eval"]
+        check(k4 > 0 and k5 == (11 * 24 * k4 if mode == "exact" else 0),
+              f"{what}: philox_draws {k4} launches, forest_eval {k5} "
+              f"({'11 a play' if mode == 'exact' else 'none'})")
+        m = BENCH_SANITY.search(proc.stderr)
+        check(m is not None and all(10 < float(v) < 50 for v in m.groups()[:2])
+              and 0 < float(m.group(3)) < 1,
+              f"{what}: sanity {m.group(0) if m else 'missing'}: mean points in (10, 50)")
+        counts["philox_draws"] += k4
+        counts["forest_eval"] += k5
+        print(f"  ({mode}) {rec['metric']}: {rec['value']:,.1f} games/s over "
+              f"{meta['n_games']:,} games (runs {meta['runs']}), setup {meta['setup_s']} s, "
+              f"compile {meta['compile_s']} s, {dt:.1f} s in all ({card})")
+        if mode == "table":
+            print(f"  bench table mode {rec['value']:,.1f} games/s beside phase 5's "
+                  f"{main_gps:,.1f} (ratio {rec['value'] / main_gps:.3f}; nano tables from "
+                  "the fixture heads here, the seed-7 fixture table there)")
+    return counts
+
+
 def _lookup_obs(seed: int, dev):
     """N StepObs on `dev` from play_states rows, random slots and score
     differences."""
@@ -3787,6 +3852,9 @@ def main() -> int:
     shard = phase(18, "trial sharding on cuda: a world of one over NCCL, two ranks, the game "
                   "layout over them, cli sim --shard and a sharded server request",
                   phase_shard, card)
+    benched = phase(19, "the bench entry on cuda: python -m fast_monte_carlo_tpu_torch.bench "
+                    "(table mode) and cli bench --mode exact, each a subprocess",
+                    phase_bench, card, mp["games_per_s"])
     layout_k4 = layouts["launches"]["philox_draws"]
     del layouts
     cache_root.cleanup()
@@ -3796,16 +3864,18 @@ def main() -> int:
           f"inputs from files {files['launches']['philox_draws']}, server "
           f"{served['launches']['philox_draws']}, saved sims {saved['launches']['philox_draws']}, "
           f"other table layouts {layout_k4}, disk cache and cachewarm "
-          f"{cache['launches']['philox_draws']}, trial sharding {shard['launches']}")
+          f"{cache['launches']['philox_draws']}, trial sharding {shard['launches']}, bench "
+          f"entry {benched['philox_draws']}")
     print(f"  forest_eval launches: exact mode {exact['launches']}, inputs from files "
           f"{files['launches']['forest_eval']}, server {served['launches']['forest_eval']}, "
-          f"saved sims {saved['launches']['forest_eval']}")
+          f"saved sims {saved['launches']['forest_eval']}, bench entry {benched['forest_eval']}")
     k["launches"] += (live["launches"] + slate["launches"] + multi["launches"]
                       + files["launches"]["philox_draws"] + served["launches"]["philox_draws"]
                       + saved["launches"]["philox_draws"]
-                      + layout_k4 + cache["launches"]["philox_draws"] + shard["launches"])
+                      + layout_k4 + cache["launches"]["philox_draws"] + shard["launches"]
+                      + benched["philox_draws"])
     exact["launches"] += (files["launches"]["forest_eval"] + served["launches"]["forest_eval"]
-                          + saved["launches"]["forest_eval"])
+                          + saved["launches"]["forest_eval"] + benched["forest_eval"])
     k["max_abs_err"] = max(k["max_abs_err"], slate["draw_err"], served["draw_err"])
     print("  seconds by phase: " + ", ".join(f"{n} {v:.1f}" for n, v in sorted(secs.items()))
           + f"; the whole smoke {time.perf_counter() - t_start:.1f} s")

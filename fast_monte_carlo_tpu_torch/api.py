@@ -183,6 +183,13 @@ class MatchupRunner:
     def __post_init__(self):
         self.group = (trial_group if self.shard else local_group)(self.device)
         self.device = self.group.device
+        # where the build fails on one rank (its tables, its card's memory),
+        # every rank raises here
+        agree(self.group, self._build)
+
+    def _build(self) -> None:
+        """The matchup's pack and heads (tables, forests or none) on the
+        device."""
         self.pack = pack_matchup(
             build_direction(self.team_a, self.team_b, self.cfg, self.heads, self.coach_map),
             build_direction(self.team_b, self.team_a, self.cfg, self.heads, self.coach_map),
@@ -727,6 +734,14 @@ def _one_of(what: str, built: str, given: bool, sp_path, focus_csv) -> None:
                          f"artifact_dir=) or {built}=")
 
 
+def _agreed(sharded: bool, device, fn):
+    """fn(), a sharded route's host set-up before its first launch (its
+    sheet, heads and runner), under one `agree` over the ranks of
+    `trial_group(device)`, so that a rank whose set-up fails fails every
+    rank there; unsharded, fn() alone."""
+    return agree(trial_group(device), fn) if sharded else fn()
+
+
 def simulate_upcoming_matchup_columns(
     team_a: str,
     team_b: str,
@@ -754,9 +769,13 @@ def simulate_upcoming_matchup_columns(
     columns or None, summary columns, ctx_a, ctx_b, meta), meta with the
     simulation's and the write's host seconds."""
     cfg = cfg or SimConfig()
-    a, b = _sheet_contexts((team_a, team_b), load_sp_flex(sp_path), year, week, focus_csv, cfg)
-    heads = heads if heads is not None else load_heads(artifact_dir)
 
+    def setup():
+        ab = _sheet_contexts((team_a, team_b), load_sp_flex(sp_path), year, week, focus_csv,
+                             cfg)
+        return ab, heads if heads is not None else load_heads(artifact_dir)
+
+    (a, b), heads = _agreed(shard, device, setup)
     t0 = time.perf_counter()
     scores, players, _ = simulate_matchup_columns(
         a, b, heads, n, cfg=cfg, seed=seed, collect_players=collect_players, mode=mode,
@@ -846,12 +865,15 @@ def _prepared_contexts(team_a, team_b, *, sp_path, year, week, artifact_dir,
 def _prepared_runner(team_a, team_b, *, sp_path, year, week, artifact_dir,
                      focus_csv, mode, table_quality, cfg, shard, device):
     """`_prepared_contexts` plus the runner memo (which builds the matchup's
-    tables).  Returns (runner, ctx_a, ctx_b, cfg)."""
-    heads, a, b, cfg = _prepared_contexts(
-        team_a, team_b, sp_path=sp_path, year=year, week=week,
-        artifact_dir=artifact_dir, focus_csv=focus_csv, cfg=cfg)
-    return (_runner_for(a, b, None, cfg, mode, table_quality, shard, device, heads),
-            a, b, cfg)
+    tables), agreed over the ranks where sharded.  Returns (runner, ctx_a,
+    ctx_b, cfg)."""
+    def setup():
+        heads, a, b, c = _prepared_contexts(
+            team_a, team_b, sp_path=sp_path, year=year, week=week,
+            artifact_dir=artifact_dir, focus_csv=focus_csv, cfg=cfg)
+        return _runner_for(a, b, None, c, mode, table_quality, shard, device, heads), a, b, c
+
+    return _agreed(shard, device, setup)
 
 
 def _route_runner(what: str, runner, team_a: str, team_b: str, **kw) -> "MatchupRunner":
@@ -1459,12 +1481,12 @@ def simulate_slate_summary_rows(
                 f"layout='game_shard' supports table_quality in "
                 f"{GAME_SHARD_QUALITIES} (got {table_quality!r}); other "
                 f"presets would silently degrade to a coarse fused table")
-    contexts, heads = _slate_inputs(games, contexts, nano_tables, sp_path, year, week,
-                                    artifact_dir, focus_csv, cfg, mode,
-                                    "simulate_slate_summaries")
     want_game_shard = layout == "game_shard" or (
         layout == "auto" and world_size() > 1 and not shard and len(games) > 1
         and focus_csv is None and mode == "table" and table_quality in GAME_SHARD_QUALITIES)
+    contexts, heads = _agreed(shard or want_game_shard, device, lambda: _slate_inputs(
+        games, contexts, nano_tables, sp_path, year, week, artifact_dir, focus_csv, cfg, mode,
+        "simulate_slate_summaries"))
     if want_game_shard:
         sr = None
         try:
@@ -1577,21 +1599,28 @@ def simulate_parlay_core(team_a: str, team_b: str, legs, *,
     shard=True splits the games over the ranks (`MatchupRunner.run_pairs`:
     2*n_pairs a multiple of the world size)."""
     _one_of("simulate_parlay", "runner", runner is not None, sp_path, focus_csv)
-    if runner is None:
-        heads, a, b, cfg = _prepared_contexts(
-            team_a, team_b, sp_path=sp_path, year=year, week=week,
-            artifact_dir=artifact_dir, focus_csv=focus_csv, cfg=cfg)
-    else:
-        a, b = runner.team_a, runner.team_b
-        if [edge._norm_team(t) for t in (team_a, team_b)] != \
-                [edge._norm_team(t.name) for t in (a, b)]:
-            raise ValueError(f"the runner plays {a.name} vs {b.name}, not {team_a} vs {team_b}")
-    # a bad leg or size spec fails before the runner's build or any launch
-    resolved = edge.resolve_parlay_legs(a, b, legs)
-    if round_robin is not None:
-        edge._rr_sizes(round_robin, len(legs))
-    runner = (_runner_for(a, b, None, cfg, mode, table_quality, shard, device, heads)
-              if runner is None else runner.sharded(shard))
+
+    def setup(runner=runner, cfg=cfg):
+        if runner is None:
+            heads, a, b, cfg = _prepared_contexts(
+                team_a, team_b, sp_path=sp_path, year=year, week=week,
+                artifact_dir=artifact_dir, focus_csv=focus_csv, cfg=cfg)
+        else:
+            a, b = runner.team_a, runner.team_b
+            if [edge._norm_team(t) for t in (team_a, team_b)] != \
+                    [edge._norm_team(t.name) for t in (a, b)]:
+                raise ValueError(f"the runner plays {a.name} vs {b.name}, not "
+                                 f"{team_a} vs {team_b}")
+        # a bad leg or size spec fails before the runner's build or any launch
+        resolved = edge.resolve_parlay_legs(a, b, legs)
+        if round_robin is not None:
+            edge._rr_sizes(round_robin, len(legs))
+        runner = (_runner_for(a, b, None, cfg, mode, table_quality, shard, device, heads)
+                  if runner is None else runner.sharded(shard))
+        return runner, a, b, resolved
+
+    runner, a, b, resolved = _agreed(shard, device if runner is None else runner.device,
+                                     setup)
     want_players = any(m["kind"] == "prop" for m in resolved[1])
     out = runner.run_pairs(n_pairs, seed=seed, collect_players=want_players,
                            collect_stats=False)
@@ -1730,11 +1759,11 @@ def simulate_slate_prop_rows(
     matchup's games over the ranks, n_pairs rounded up to a multiple of the
     world size as in the JAX package."""
     cfg = cfg or SimConfig()
-    contexts, heads = _slate_inputs(games, contexts, nano_tables, sp_path, year, week,
-                                    artifact_dir, focus_csv, cfg, mode, "simulate_slate_props")
+    contexts, heads, props = _agreed(shard, device, lambda: (*_slate_inputs(
+        games, contexts, nano_tables, sp_path, year, week, artifact_dir, focus_csv, cfg, mode,
+        "simulate_slate_props"), _prop_sheet(props_csv)))
     if shard:
         n_pairs = -(-n_pairs // world_size()) * world_size()
-    props = _prop_sheet(props_csv)
     root = root_key(seed)
     pending = []
     for gi, ((ta, tb), (a, b)) in enumerate(zip(games, contexts)):

@@ -35,9 +35,9 @@ of one, and
 runs N ranks, one a card.  Every rank runs the same calls; only rank 0
 prints and writes files (`--save`), and a server's rank 0 answers HTTP.
 
-Not ported yet, raising NotImplementedError before any simulation: `bench`
-(the port's bench entry, ROADMAP.md queue 1 item 1).  `train` is outside
-the port's scope.
+`bench` runs the port's bench entry (`fast_monte_carlo_tpu_torch/bench.py`)
+in a subprocess.  `train` is not ported: it raises (ROADMAP.md,
+`train/pipeline.py`).
 """
 from __future__ import annotations
 
@@ -144,6 +144,18 @@ def _rows_text(rows: list) -> str:
     return _frame_text({c: [r.get(c, math.nan) for r in rows] for c in cols})
 
 
+def _agreed_reads(args, fn):
+    """fn(), a command's reads of its input files before its first launch,
+    under one `agree` over the ranks where the command runs as several
+    (`torchrun`; `parallel.mesh.agree`): a rank that fails to read fails
+    every rank there instead of leaving the others waiting in the first
+    collective.  In a world of one, fn() alone."""
+    from .api import _agreed
+    from .parallel.mesh import world_size
+
+    return _agreed(world_size() > 1, args.device, fn)
+
+
 def _cmd_sim(args) -> int:
     from .api import csv_base_from, simulate_upcoming_matchup_columns
     from .parallel.mesh import process_rank
@@ -156,7 +168,7 @@ def _cmd_sim(args) -> int:
         from .config import reconstructed_config
         from .models.heads import load_reconstructed_heads
         cfg = reconstructed_config()
-        heads = load_reconstructed_heads(args.artifacts)
+        heads = _agreed_reads(args, lambda: load_reconstructed_heads(args.artifacts))
     if args.sd_mode != "axis":
         import dataclasses
 
@@ -259,11 +271,13 @@ def _cmd_parlay(args) -> int:
     from .edge import print_parlay_readable
     from .serve import corr_records, jsonable
 
-    raw = args.legs
-    if raw.startswith("@"):
-        with open(raw[1:]) as f:
-            raw = f.read()
-    legs = json.loads(raw)
+    def read_legs():
+        if not args.legs.startswith("@"):
+            return args.legs
+        with open(args.legs[1:]) as f:
+            return f.read()
+
+    legs = json.loads(_agreed_reads(args, read_legs))
     if not isinstance(legs, list):
         raise SystemExit("--legs must be a JSON array of leg objects "
                          "(or @path to one)")
@@ -321,8 +335,8 @@ def _cmd_slate(args) -> int:
         print("--lines needs a summary slate path (drop --batched, or use "
               "--shard trial|game); no simulation run")
         return 2
-    games = _read_games(args.games)
-    lines = _read_rows(args.lines) if args.lines else None
+    games, lines = _agreed_reads(args, lambda: (
+        _read_games(args.games), _read_rows(args.lines) if args.lines else None))
     summaries = None
     t0 = time.perf_counter()
     if args.shard == "trial" or (lines is not None and not args.batched
@@ -340,7 +354,7 @@ def _cmd_slate(args) -> int:
         # matchups' tables and plays the block in launches of all of them
         from .api import SlateRunner
 
-        ms, heads = _slate_contexts(args, games)
+        ms, heads = _agreed_reads(args, lambda: _slate_contexts(args, games))
         sr = SlateRunner(ms, heads, quality=args.quality, game_shard=True, device=args.device)
         rows, summaries = sr.run_summary_rows(args.n)
     elif args.batched:
@@ -387,7 +401,7 @@ def _cmd_season(args) -> int:
         return 2
     opps = ([s.strip() for s in args.opponents.split(",") if s.strip()]
             if args.opponents else None)
-    games = _read_games(args.games) if args.games else None
+    games = _agreed_reads(args, lambda: _read_games(args.games) if args.games else None)
     t0 = time.perf_counter()
     res = project_season_rows(
         args.team, opponents=opps, games=games, line=args.line,
@@ -412,7 +426,7 @@ def _cmd_serve(args) -> int:
     """Run the resident simulation service (see serve.py)."""
     from .serve import ServeConfig, serve_forever
 
-    warm_games = _read_games(args.warm) if args.warm else None
+    warm_games = _agreed_reads(args, lambda: _read_games(args.warm) if args.warm else None)
     serve_forever(
         ServeConfig(sp_path=args.sp, artifact_dir=args.artifacts,
                     year=args.year, week=args.week, mode=args.mode,
@@ -569,14 +583,15 @@ def _cmd_backtest(args) -> int:
     from .backtest import backtest_slate_report, print_backtest_readable
     from .data.columns import read_csv_columns, records_of
 
-    table = read_csv_columns(args.results)
+    table, games = _agreed_reads(args, lambda: (
+        read_csv_columns(args.results), _read_games(args.games) if args.games else None))
     need = {"team_a", "team_b", "score_a", "score_b"}
     if not need <= set(table):
         print(f"--results needs columns {sorted(need)}, got {list(table)}")
         return 2
     results = records_of(table)
-    games = (_read_games(args.games) if args.games else
-             [(r["team_a"], r["team_b"]) for r in results])
+    if not args.games:
+        games = [(r["team_a"], r["team_b"]) for r in results]
     rep = backtest_slate_report(
         games, results, sp_path=args.sp, year=args.year, week=args.week,
         n_pairs=args.n, artifact_dir=args.artifacts, mode=args.mode,
@@ -587,8 +602,12 @@ def _cmd_backtest(args) -> int:
 
 
 def _cmd_bench(args) -> int:
-    raise NotImplementedError("bench: the port's bench entry is not written yet "
-                              "(ROADMAP.md queue 1 item 1)")
+    """`python -m fast_monte_carlo_tpu_torch.bench --mode M -n N --device D`
+    in a subprocess, as the JAX CLI runs `bench.py`: its one JSON line on
+    stdout, its exit code returned."""
+    import subprocess
+    return subprocess.call([sys.executable, "-m", "fast_monte_carlo_tpu_torch.bench",
+                            "--mode", args.mode, "-n", str(args.n), "--device", args.device])
 
 
 def _cmd_train(args) -> int:
@@ -914,6 +933,7 @@ def main(argv=None) -> int:
     pb = sub.add_parser("bench", help="run the benchmark harness")
     pb.add_argument("--mode", default="table")
     pb.add_argument("-n", type=int, default=100000)
+    _add_device(pb)
     pb.set_defaults(fn=_cmd_bench)
 
     pt = sub.add_parser("train", help="train model heads (outside the port's scope)")

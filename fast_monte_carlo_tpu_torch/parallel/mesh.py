@@ -36,7 +36,11 @@ A rank's failure is every rank's: each sharded launch runs its local games
 under `agree`, one small all_reduce of a failure flag before the data's
 collective, so a rank that fails (an out-of-memory, a kernel that does not
 build) raises on every rank instead of leaving the others waiting in a
-collective it never joins.
+collective it never joins.  The host set-up before a sharded entry point's
+first launch agrees the same way: a sharded runner's construction (its
+table build), a route's reads of its sheet and heads, a command's reads of
+its input files.  An `agree` inside another on the same group runs its
+function alone, so one `agree` can hold a whole set-up.
 
 Under the gloo backend a collective's CUDA tensors go through the host:
 copied there for it and back.  That is chosen by the group's backend, not
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import numbers
 import os
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -166,18 +171,30 @@ def all_gather_rows(tg: TrialGroup, t: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts).to(t.device)
 
 
+# the process groups this thread is inside an `agree` of
+_AGREEING = threading.local()
+
+
 def agree(tg: TrialGroup, fn):
     """fn() on this rank, then one all_reduce of a failure flag: where fn
     raised on any rank, every rank raises (the failing rank its own error,
     the others a RuntimeError naming how many failed); else fn's result.
-    Call it where every rank of the group calls it."""
+    Call it where every rank of the group calls it, with no collective of
+    the group inside fn.  Inside another `agree` of the same group fn runs
+    alone, and the outer call shares its failure."""
     if tg.world == 1:
         return fn()
+    inside = _AGREEING.__dict__.setdefault("groups", set())
+    if id(tg.group) in inside:
+        return fn()
+    inside.add(id(tg.group))
     err = None
     try:
         out = fn()
     except Exception as e:  # noqa: BLE001 — raised again below, on every rank
         err = e
+    finally:
+        inside.discard(id(tg.group))
     flag = torch.tensor([err is not None], dtype=torch.int32,
                         device=tg.device if tg.backend == "nccl" else "cpu")
     failed = int(all_reduce_sum(tg, flag).item())

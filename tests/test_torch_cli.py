@@ -283,14 +283,17 @@ def test_slate_game_shard_and_batched_branches(capsys, files):
     assert code == 2 and "no simulation run" in capsys.readouterr().out
 
 
+# the subcommands that play no game here: `train` is not ported and raises;
+# `bench` (ported) asks for the card by default, and on a host without one
+# its subprocess refuses before any game, with no fallback to the CPU
 NOT_PORTED = {
-    "bench": (["bench"], "queue 1 item 1"),
+    "bench": (["bench", "--mode", "analytic", "-n", "512"], "never falls back to the CPU"),
     "train": (["train", "--data", "d.csv", "--out", "o"], "outside the port's scope"),
 }
 
 
 @pytest.mark.parametrize("name", list(NOT_PORTED))
-def test_unported_subcommands_raise_before_any_game(name, files, monkeypatch):
+def test_unported_subcommands_raise_before_any_game(name, files, monkeypatch, capfd):
     def launched(*a, **k):
         raise AssertionError("a game was played")
 
@@ -299,6 +302,13 @@ def test_unported_subcommands_raise_before_any_game(name, files, monkeypatch):
     monkeypatch.setattr(mesh, "simulate_games", launched)
     argv, item = NOT_PORTED[name]
     argv = [{"SP": files["sp"], "GAMES": files["games"]}.get(a, a) for a in argv]
+    if name == "bench":
+        if torch.cuda.is_available():
+            pytest.skip("this host has a card: the bench would run on it")
+        assert cli.main(argv) != 0
+        out, err = capfd.readouterr()
+        assert not out.strip() and item in err and "Traceback" in err
+        return
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         cli.main(argv)
 

@@ -10,6 +10,7 @@ one (no process group), in this process.  Against the JAX package's
 2-rank run agrees within 4 standard errors: the JAX package folds a key per
 device, so the two streams differ."""
 import json
+import time
 
 import numpy as np
 import pytest
@@ -279,6 +280,88 @@ print(json.dumps([after, auto]))
                                               chunk_pairs=4, seed=3, device="cpu",
                                               layout="loop")
     assert outs[0][1] == json.loads(json.dumps(loop))
+
+
+# a host set-up that fails on rank 1 alone, case by case: a sharded runner's
+# table build, a route's heads, a slate route's sheet, a command's input file
+SETUP_FAILURE_CODE = '''
+import json
+import time
+from fast_monte_carlo_tpu_torch import api, cli, fixtures
+from fast_monte_carlo_tpu_torch.ops import table_lookup
+
+table_lookup.TABLE_CACHE_DIR = None
+sheet = fixtures.write_sp_sheet(f"sp{RANK}.csv", 136, 0)
+fixtures.write_csv(f"games{RANK}.csv", [{"team_a": "Team A", "team_b": "Team B"}],
+                   ("team_a", "team_b"))
+missing = "absent.csv" if RANK else sheet
+route = dict(artifact_dir=fixtures.ARTIFACT_DIR, mode="analytic", shard=True, device="cpu")
+q4 = api.situation_from_fields(ytg=40, quarter=4, clock="05:00")
+
+
+def broken(what):
+    def fail(*a, **k):
+        raise RuntimeError(what)
+    return fail
+
+
+cases = {
+    "runner build": (lambda: setattr(api, "build_table_heads", broken("table build failed")),
+                     lambda: api.MatchupRunner(*fixtures.teams(), fixtures.heads(0),
+                                               shard=True, device="cpu")),
+    "route heads": (lambda: setattr(api, "load_heads", broken("no heads on this host")),
+                    lambda: api.simulate_live_game("Team A", "Team B", q4,
+                                                   sp_path=sheet, n_games=512, **route)),
+    "slate sheet": (lambda: None,
+                    lambda: api.simulate_slate_summary_rows(
+                        [("Team A", "Team B")], sp_path=missing, n_pairs=256, **route)),
+    "cli games file": (lambda: None,
+                       lambda: cli.main(["season", "Team A", "--games",
+                                         "absent.csv" if RANK else f"games{RANK}.csv",
+                                         "--sp", sheet, "--artifacts", fixtures.ARTIFACT_DIR,
+                                         "--mode", "analytic", "-n", "256", "--device", "cpu",
+                                         "--shard"])),
+}
+real = {"build_table_heads": api.build_table_heads, "load_heads": api.load_heads}
+out = []
+for name, (breakit, call) in cases.items():
+    if RANK == 1:
+        breakit()
+    t0 = time.perf_counter()
+    try:
+        call()
+        got = "passed"
+    except Exception as e:
+        got = f"{type(e).__name__}: {e}"
+    out.append([name, got, time.perf_counter() - t0])
+    for k, v in real.items():
+        setattr(api, k, v)
+row, _ = api.simulate_live_game("Team A", "Team B", q4, sp_path=sheet, n_games=512, **route)
+print(json.dumps([out, row]))
+'''
+
+
+def test_a_set_up_failure_on_one_rank_fails_every_rank(tmp_path):
+    """A host set-up that raises on rank 1 alone, before any launch (a
+    sharded runner's table build, a route's heads, a slate route's SP+
+    sheet, a command's games file), raises on both ranks within seconds:
+    rank 1 its own error, rank 0 that 1 of 2 ranks failed.  No rank waits
+    in a collective for the group's timeout, and the ranks go on together
+    (a sharded live query after them equal on both)."""
+    t0 = time.perf_counter()
+    outs = [json.loads(o) for o in run_ranks(SETUP_FAILURE_CODE, 2, tmp_path, timeout=30)]
+    assert time.perf_counter() - t0 < 30
+    want = {"runner build": "RuntimeError: table build failed",
+            "route heads": "RuntimeError: no heads on this host",
+            "slate sheet": "FileNotFoundError",
+            "cli games file": "FileNotFoundError"}
+    for rank, (cases, _) in enumerate(outs):
+        assert [c[0] for c in cases] == list(want)
+        for name, got, secs in cases:
+            assert got.startswith(want[name] if rank else
+                                  "RuntimeError: 1 of 2 ranks failed this call"), (rank, got)
+            assert secs < 10, (rank, name, secs)
+    assert outs[0][1] == outs[1][1]
 
 
 def test_two_rank_runs_agree_with_jax_sharded_within_mc_error(tmp_path):

@@ -129,7 +129,8 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " 'fast_monte_carlo_tpu_torch.models.wrappers', 'fast_monte_carlo_tpu_torch.serve',"
         " 'fast_monte_carlo_tpu_torch.cli', 'fast_monte_carlo_tpu_torch.store',"
         " 'fast_monte_carlo_tpu_torch.backtest', 'fast_monte_carlo_tpu_torch.utils.profiling',"
-        " 'fast_monte_carlo_tpu_torch.data.columns', 'fast_monte_carlo_tpu_torch.parallel']\n"
+        " 'fast_monte_carlo_tpu_torch.data.columns', 'fast_monte_carlo_tpu_torch.parallel',"
+        " 'fast_monte_carlo_tpu_torch.bench']\n"
         "from fast_monte_carlo_tpu_torch import api, edge, fixtures\n"
         "from fast_monte_carlo_tpu_torch.ops import game\n"
         "from fast_monte_carlo_tpu_torch.parallel import aggregate\n"
@@ -172,7 +173,7 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " edge.alt_lines_from_sims, edge.middles_from_sims, edge.print_game_market_readable,"
         " edge.print_moneyline_readable, edge.print_prop_table, edge.find_edges,"
         " edge.infer_role_from_stat))\n"
-        "from fast_monte_carlo_tpu_torch import backtest, store\n"
+        "from fast_monte_carlo_tpu_torch import backtest, bench, store\n"
         "from fast_monte_carlo_tpu_torch.parallel import player_stat_probs\n"
         "from fast_monte_carlo_tpu_torch.parallel import mesh\n"
         "assert all(callable(f) for f in (mesh.trial_group, mesh.game_group,"
@@ -184,7 +185,8 @@ def test_import_leaves_jax_pandas_sklearn_out():
         " backtest.fit_calibration, backtest.backtest_slate, backtest.win_calibration,"
         " backtest.point_metrics, backtest.pit_values, backtest.ks_uniform,"
         " backtest.print_backtest_readable, player_stat_probs, profiling.SimMeter,"
-        " profiling.trace_context, profiling.device_memory_stats))\n"
+        " profiling.trace_context, profiling.device_memory_stats, bench.main,"
+        " bench.sim_config, bench.load_inputs, bench.workload))\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in ('jax', 'pandas', 'pyarrow', 'sklearn', 'joblib', 'xgboost',"
         " 'fast_monte_carlo_tpu')"
