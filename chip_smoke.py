@@ -18,8 +18,8 @@ Runs from the root of a checkout on a machine with one NVIDIA H100:
 Phases, in order (any failure raises and exits non-zero):
  1. versions, `nvidia-smi` name and power limit; exit 1 without CUDA;
  2. build every kernel source (csrc/philox_draws.cu, fused_step.cu,
-    row_gather.cu, forest_eval.cu) with nvcc, one process each, all started
-    together;
+    row_gather.cu, forest_eval.cu, nano_game.cu, score_moments.cu) with
+    nvcc, one process each, all started together;
  3. the kernel against its plain version on the card at the main path's
     shape (ch=24 plays x 65,536 games) and at ragged ones (ch 1, 3, 24 x
     n 1, 255, 257, 65,573) for 3 keys: uniforms bitwise, normals within
@@ -36,7 +36,10 @@ Phases, in order (any failure raises and exits non-zero):
     524,288 games in 65,536-game launches (262,144 if the warm-up
     launch predicts more than 60 s; 4,194,304 before phase 14 came,
     2,097,152 before phase 17, 1,048,576 before phase 19);
-    summary checks; games/s;
+    summary checks; games/s; since phase 21 each launch is one K1 launch
+    (nano_game) and one K2 (score_moments), and philox_draws is launched
+    no time (`--profile`: the launch's device kernels, a play of the eager
+    loop on the same games, and the busy share);
  6. the fused play-step kernels (B1 fused_step, B2 fused_step_tab) against
     their plain versions at B = 131,072 for 3 keys: one step equal on
     integer state and within 1e-5 on floats, a 24-step chunk equal to 24
@@ -89,11 +92,11 @@ Phases, in order (any failure raises and exits non-zero):
     moneyline (`edge`).  Then `run_live` (65,536 games, from Q4 05:00 and
     from the kickoff), `run_live_batch` (16 x 8,192) and
     `run_fourth_decision` (65,536 games x 4 choices) timed, 1 call each
-    after a warm-up (3 before phase 16, then 2), with their philox_draws launches
-    split by ch.  The
+    after a warm-up (3 before phase 16, then 2), with the engine's launches
+    (K4 play chunks, K1 launches, K3 forced plays; `engine_launches`).  The
     launch counts are set to 0 just before these queries, so the live
-    path's philox_draws launches are the queries' own (warm-ups included),
-    not those of the checks before them;
+    path's launches are the queries' own (warm-ups included), not those of
+    the checks before them;
 10. the slate path: a 60-matchup fixture slate (`fixtures.slate`, the
     default SimConfig()) through `SlateRunner(game_shard=True)
     .run_summary_rows` at BASELINE.md config #3's size, 98,304 games a
@@ -304,14 +307,30 @@ Phases, in order (any failure raises and exits non-zero):
     plain walk's on the card and to the CPU's, the temperature equal to the
     one fitted on the CPU's margins, the overlay's directory inside the
     port's package; the oracle's seconds and states, K5's launches and
-    held ms on the play forest, and the temperature printed.
+    held ms on the play forest, and the temperature printed;
+21. K1 and K2 against their plain versions on the card: K1 (`simulate_games`
+    on a covered launch, `ops.game.nano_game`) against the eager loop
+    (`simulate_games_eager`) on the same key at 65,536 games from the
+    kickoff, antithetic, from a Q4 `Situation`, from an `init_state` after
+    a forced go, from row0 65,536 and on nano tables with stage-2 and
+    fumble channels (enable_fumbles), and one launch of the 60-matchup
+    fixture slate at 16,384 games a matchup: the games differing on each
+    field printed, none allowed (K1 is bitwise equal by design);
+    `nano_game_plain` on the card against K1 at 4,096 games, none allowed; K2 (`exact_moments_cuda`) bitwise
+    equal to the torch body at (1, 65,536) on K1's scores, (60, 32,768) and
+    on scores past every clamp; K1's held ms a 65,536-game launch and a
+    slate launch (60 x 32,768 games) beside its bound counted on the
+    launch's plays (`nano_bound`), the plain version's and the eager loop's
+    times, and K2's held ms, bound and torch body's time.
 Every phase prints its seconds, and a line before the JSON lines lists
 them with the whole smoke's.
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
 9, 10, 11, 12, 13, 14, 15, 16, 17, 20) and read just after it (phase 18
 counts the sharded runs' own launches, its ranks' included; phase 19 the
 bench's own, from its JSON line); a path that launched one of its kernels
-no time fails.  forest_eval's launches in the JSON line are exact mode's,
+no time fails.  nano_game's and score_moments' launches in the JSON line
+are every path's (`PATH_LAUNCHES`), phase 18's and phase 19's; phase 21's
+comparisons count none.  forest_eval's launches in the JSON line are exact mode's,
 phase 13's, phase 14's, phase 15's, phase 19's and phase 20's; its times
 are per play (11 launches), the bound too.  The JSON line's philox_draws
 launches are the main path's, the live queries', the slate path's, phase
@@ -500,7 +519,8 @@ BENCH_SANITY = re.compile(r"# sanity: mean \[([-\d.]+), ([-\d.]+)\] winA ([\d.]+
 # each kernel of the JSON line and its source in csrc/
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
-                  "row_gather_sum": "row_gather", "forest_eval": "forest_eval"}
+                  "row_gather_sum": "row_gather", "forest_eval": "forest_eval",
+                  "nano_game": "nano_game", "score_moments": "score_moments"}
 SOURCES = tuple(dict.fromkeys(KERNEL_SOURCES.values()))
 # the Pallas kernel each replaces (the timed shape's; PERF.md lists them all)
 REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
@@ -508,8 +528,10 @@ REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
             "fused_step_tab": "benchmarks/pallas_step_arith.py:383",
             "row_gather": "benchmarks/pallas_dma_gather.py:9",
             "row_gather_sum": "benchmarks/pallas_gather_probe.py:33",
-            # XLA on the TPU, not a Pallas kernel
-            "forest_eval": "fast_monte_carlo_tpu/ops/forest_eval.py:96 eval_margin"}
+            # XLA on the TPU, not Pallas kernels
+            "forest_eval": "fast_monte_carlo_tpu/ops/forest_eval.py:96 eval_margin",
+            "nano_game": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games",
+            "score_moments": "fast_monte_carlo_tpu/parallel/aggregate.py:76 score_moments"}
 
 # The H100 SXM's rates by class, on 132 SMs at 1.98 GHz: HBM bytes/s
 # (NVIDIA's data sheet); per SM and clock, 64 on the ALU pipe (integer
@@ -545,6 +567,44 @@ DRAW_COUNTS = {"alu": 138, "imad": 83, "mufu_cvt": 25, "dispatch": 357}
 # sqrtf, sincosf, a floor); with 240 f32 and 42 integer adds, 714
 # dispatched.
 STEP_COUNTS = {"alu": 313, "imad": 85, "mufu_cvt": 33, "dispatch": 714}
+# nano_game (K1), per play of a game, on the SASS of its step loop by the
+# same rules, and for the timed launches' tables and config: no stage-2 or
+# fumble channels (their three loads and the fumble channel's index left
+# out, the analytic stage 2's 5 divisions counted), taper, red-zone damping
+# and antithetic mirroring off, and the two red-zone finish branches (taken
+# on red-zone plays only) left out; also the row's and the go-for-it cell's
+# index, the (down, sd) block, a second computation of sd and the loop
+# counter.  The rest: Philox's 76 products and 102 XOR and mask LOP3s, the
+# decision, punt, pass, sack, INT, run and state machine (the per-direction
+# tilts and explosive base come in precomputed), 7 row loads, 20
+# int->float conversions, 2 rsqrt, 5 reciprocals, 3 F2I and the punt's
+# trunc, less the padded search slots (1 ytg and 4 dist edges, 4 FG
+# points).  The SASS evaluates all 8 segments of every profile axis (256
+# instructions); binning needs one compare and one select per segment
+# boundary of the profile (4 dist, 7 ytg, 7 sec, 0 score-diff at nsd = 3),
+# then one evaluation an axis (subtract, multiply, rint, F2I, min, max, the
+# base's add): 44 ALU, 8 conversions, 64 dispatched.  In all 334 ALU, 80
+# IMAD, 39 MUFU and conversions, 713 dispatched.
+NANO_COUNTS = {"alu": 334, "imad": 80, "mufu_cvt": 39, "dispatch": 713}
+# score_moments (K2), per game: the pair's load, 3 compares (wins, ties)
+# and 8 clamps (ALU 11), 2 squares (IMAD.WIDE), 4 shared-memory atomic
+# adds, the 64-bit sums' and the counts' adds and the bins' offsets: 35
+# dispatched.
+MOMENT_COUNTS = {"alu": 11, "imad": 2, "mufu_cvt": 0, "dispatch": 35}
+# K1's state bytes a game: gid, off, sec, down, dist, ytg, period, the
+# two bools and the score read; the same less gid written
+NANO_STATE_IN, NANO_STATE_OUT = 38, 34
+# K2's histogram bins a matchup (2 x 128 + 256 + 256) and its 8 counts
+MOMENT_BINS, MOMENT_FIELDS = 768, 8
+# the launches of K1 and K2 in every path window (`read_counts`), summed:
+# the JSON line's counts of those two kernels, with phase 18's ranks' and
+# phase 19's bench processes' added
+PATH_LAUNCHES: dict = {}
+# phase 21: the antithetic, situation, init_state, row0 and stage-2 variants
+# at LAUNCH_GAMES; the slate variant at the fixture slate's G matchups x
+# NANO_SLATE_GAMES; the plain version on the card at NANO_PLAIN_GAMES
+NANO_SLATE_GAMES = 16_384
+NANO_PLAIN_GAMES = 4_096
 # forest_eval (K5): what any walk of this run's rows must do, whatever its
 # layout (the plain walk's leaves give each row's path; the same bound
 # holds any kernel of the walk): per internal node visited, one
@@ -563,6 +623,20 @@ def card_name_and_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def engine_launches() -> dict:
+    """The game engine's launches so far: K4 (philox_draws, a play chunk of
+    the eager loop), K1 (nano_game, a whole launch of games) and K3
+    (philox_draws at ch = 1, a forced play or a per-step draw)."""
+    from fast_monte_carlo_tpu_torch.ops import game, rng
+
+    return {"K4": rng.philox_draws.launches_by_ch[CH], "K1": game.nano_game_cuda.launches,
+            "K3": rng.philox_draws.launches_by_ch[1]}
+
+
+def launches_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in engine_launches().items()}
 
 
 def per(counts: dict, items: float) -> dict:
@@ -648,13 +722,15 @@ def bound(nbytes: float, counts: dict) -> dict:
 
 
 def kernel_counts() -> dict:
-    from fast_monte_carlo_tpu_torch.ops import forest_eval, rng
+    from fast_monte_carlo_tpu_torch.ops import forest_eval, game, rng
+    from fast_monte_carlo_tpu_torch.parallel import aggregate
     from fast_monte_carlo_tpu_torch.probes import gather, step_arith
 
     return {"philox_draws": rng.philox_draws, "fused_step": step_arith.fused_step,
             "fused_step_tab": step_arith.fused_step_tab, "row_gather": gather.row_gather,
             "row_gather_sum": gather.row_gather_sum,
-            "forest_eval": forest_eval.eval_margin_cuda}
+            "forest_eval": forest_eval.eval_margin_cuda,
+            "nano_game": game.nano_game_cuda, "score_moments": aggregate.exact_moments_cuda}
 
 
 def zero_counts() -> None:
@@ -665,6 +741,8 @@ def zero_counts() -> None:
 def read_counts(path: str, needed) -> dict:
     counts = {name: fn.launches for name, fn in kernel_counts().items()}
     print(f"  launches in the {path}: {counts}")
+    for name in ("nano_game", "score_moments"):
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + counts[name]
     for name in needed:
         check(counts[name] > 0, f"{path} launched {name} {counts[name]} times")
     return counts
@@ -825,7 +903,11 @@ def phase_main_path(card: str, profile_dir: Optional[Path]) -> dict:
                                        collect_stats=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = read_counts("main path", ["philox_draws"])
+    counts = read_counts("main path", ["nano_game", "score_moments"])
+    check(counts["philox_draws"] == 0 and counts["nano_game"] == games // LAUNCH_GAMES,
+          f"main path: one K1 launch a launch of games ({counts['nano_game']}), no draw "
+          f"buffer: philox_draws {counts['philox_draws']} launches (the eager loop's 8 a "
+          "launch before K1)")
 
     n = float(summary.n)
     wins = summary.win_rate.cpu().numpy()
@@ -1292,6 +1374,12 @@ def phase_props(card: str, profile_dir: Optional[Path]) -> dict:
             k, dev_ms, wall_ms, table = profile_kernels(
                 lambda: runner.run_pairs(pairs, seed=14, **kw))
             plays = (rng.philox_draws.launches - launches0) * cfg.engine.play_chunk
+            if plays == 0:       # score-only: K1, one launch and no play chunk
+                lines += [f"{v}: {k} device kernels a launch (K1), {dev_ms:.3f} ms device "
+                          f"time, {wall_ms:.3f} ms wall profiled", table]
+                print(f"  profile, {v}: {k} device kernels a launch (K1), {dev_ms:.4f} ms "
+                      "device time")
+                continue
             res[f"kernels_per_play_{v}"] = k / plays
             lines += [f"{v}: {k} device kernels over {plays} plays ({k / plays:.1f} a play), "
                       f"{dev_ms:.3f} ms device time, {wall_ms:.3f} ms wall profiled", table]
@@ -1372,10 +1460,10 @@ def phase_live(card: str, profile_dir: Optional[Path]) -> dict:
 
     # the forced field goal with one play left: a closed form
     n = LIVE_GAMES
-    before = dict(rng.philox_draws.launches_by_ch)
+    before = engine_launches()
     fg = runner.run_fourth_decision(game.Situation(0, 5, 4, 10.0, 20.0, 0, 0), n_games=n,
                                     seed=3, choices=("fg",))["fg"]
-    used = {c: rng.philox_draws.launches_by_ch[c] - before.get(c, 0) for c in (1, CH)}
+    used = launches_since(before)
     p_fg = float(analytic.field_goal_prob(torch.tensor(20.0 + cfg.st.fg_snap_plus_endzone),
                                           cfg))
     win_a, tie = float(fg.win_rate[0]), float(fg.tie_rate)
@@ -1384,8 +1472,8 @@ def phase_live(card: str, profile_dir: Optional[Path]) -> dict:
           f"P(make) {p_fg:.4f} within 4 s.e. {se:.5f}")
     check(abs(tie - (1 - win_a)) < 1e-6 and float(fg.mean_pts[1]) == 0.0,
           f"forced FG: tie {tie:.5f} == 1 - win_a, B scores 0")
-    check(used == {1: 1, CH: 0}, f"forced FG: one ch=1 launch (the forced play) and no play "
-          f"chunk after it ({used}): no game outlasts one play")
+    check(used == {"K3": 1, "K4": 0, "K1": 1}, f"forced FG: one ch=1 launch (the forced "
+          f"play), then the rest of the games in one K1 launch and no play chunk ({used})")
 
     # the win-probability curve against each situation alone
     curve = live_curve_situations(cfg)
@@ -1457,18 +1545,17 @@ def phase_live(card: str, profile_dir: Optional[Path]) -> dict:
     zero_counts()
     for what, fn in queries.items():
         res[what] = timed_query(what, fn, LIVE_REPS, card)[1]
-    counts = read_counts("live queries", ["philox_draws"])
+    counts = read_counts("live queries", ["nano_game", "score_moments", "philox_draws"])
     res["launches"] = counts["philox_draws"]
     if profile_dir is not None:
         lines = [card]
         for what, fn in list(queries.items())[:2]:
-            before = rng.philox_draws.launches_by_ch[CH]
+            before = engine_launches()
             k, dev_ms, wall_ms, table = profile_kernels(fn)
-            plays = (rng.philox_draws.launches_by_ch[CH] - before) * CH
-            line = (f"{what}: {k} device kernels over {plays} plays ({k / plays:.1f} a "
-                    f"play), {dev_ms:.3f} ms device time ({dev_ms / plays:.4f} a play), "
-                    f"busy share {dev_ms / min(res[what]['ms']):.4f} of the fastest "
-                    f"unprofiled query")
+            used = launches_since(before)
+            line = (f"{what}: {k} device kernels ({used}), {dev_ms:.3f} ms device time, "
+                    f"busy share {dev_ms / min(res[what]['ms']):.4f} "
+                    f"of the fastest unprofiled query")
             lines += [line, table]
             print(f"  profile, {line}")
         profile_dir.mkdir(parents=True, exist_ok=True)
@@ -1529,12 +1616,10 @@ def phase_slate(card: str, profile_dir: Optional[Path]) -> dict:
     torch.cuda.synchronize()
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    by_ch = dict(rng.philox_draws.launches_by_ch)
     t0 = time.perf_counter()
     rows, per_game = sr.run_summary_rows(pairs, seed=0, chunk_pairs=SLATE_CHUNK)
     dt = time.perf_counter() - t0            # ends in the host copy of the summaries
-    counts = read_counts("slate path", ["philox_draws"])
-    ch24 = rng.philox_draws.launches_by_ch[CH] - by_ch.get(CH, 0)
+    counts = read_counts("slate path", ["nano_game", "score_moments"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     check_slate_summaries(per_game, n, f"slate, {SLATE_GAMES} x {n:,} games")
     check(all(r["n_games"] == n for r in rows) and len(rows) == SLATE_GAMES,
@@ -1542,8 +1627,9 @@ def phase_slate(card: str, profile_dir: Optional[Path]) -> dict:
     gps = SLATE_GAMES * n / dt
     print(f"  slate (one launch a chunk): {SLATE_GAMES * n:,} games in {dt:.3f} s -> "
           f"{gps:,.0f} games/s, {1000 * dt / launches:.1f} ms per "
-          f"{SLATE_GAMES * 2 * SLATE_CHUNK:,}-game launch, {ch24 * CH / launches:.0f} plays a "
-          f"launch, peak device memory {peak:,.1f} MiB ({card})")
+          f"{SLATE_GAMES * 2 * SLATE_CHUNK:,}-game launch, "
+          f"{counts['nano_game'] / launches:.0f} K1 launch(es) a launch, peak device memory "
+          f"{peak:,.1f} MiB ({card})")
     res = {"launches": counts["philox_draws"], "games_per_s": gps, "seconds": dt,
            "peak_mib": peak, "launch_ms": 1000 * dt / launches}
 
@@ -1652,20 +1738,17 @@ def phase_slate(card: str, profile_dir: Optional[Path]) -> dict:
     res["price_ms"] = price_ms
 
     if profile_dir is not None:
-        before = rng.philox_draws.launches_by_ch[CH]
+        before = engine_launches()
         k, dev_ms, wall_ms, tab = profile_kernels(
             lambda: sr.run_summary_rows(SLATE_CHUNK, seed=5, chunk_pairs=SLATE_CHUNK))
-        plays = (rng.philox_draws.launches_by_ch[CH] - before) * CH
         line = (f"one slate launch ({SLATE_GAMES} x {2 * SLATE_CHUNK:,} games): {k} device "
-                f"kernels over {plays} plays ({k / plays:.1f} a play), {dev_ms:.3f} ms device "
-                f"time ({dev_ms / plays:.4f} a play), {wall_ms:.3f} ms wall profiled, busy "
-                f"share {dev_ms / res['launch_ms']:.4f} of an unprofiled launch "
-                f"({res['launch_ms']:.1f} ms)")
+                f"kernels ({launches_since(before)}), {dev_ms:.3f} ms device time, "
+                f"{wall_ms:.3f} ms wall profiled, busy share {dev_ms / res['launch_ms']:.4f} "
+                f"of an unprofiled launch ({res['launch_ms']:.1f} ms)")
         print(f"  profile, {line}")
         profile_dir.mkdir(parents=True, exist_ok=True)
         (profile_dir / "profile_slate.txt").write_text(f"{card}\n{line}\n\n{tab}\n")
-        res.update(kernels_per_play=k / plays, device_ms_per_play=dev_ms / plays,
-                   busy=dev_ms / res["launch_ms"])
+        res.update(kernels_per_launch=k, device_ms=dev_ms, busy=dev_ms / res["launch_ms"])
     return res
 
 
@@ -1684,37 +1767,30 @@ def np_settle(score: np.ndarray, pstats: np.ndarray, arrays):
 
 def timed_query(what: str, fn, reps: int, card: str):
     """One warm-up call of fn, then `reps` timed calls: ms a call on the
-    host clock ending in a synchronize, and philox_draws launches a call
-    split by ch (the warm-up's where reps is 0).  Fails if any call
-    launched philox_draws no time.  Returns the warm-up's result and the
-    record."""
+    host clock ending in a synchronize, and the engine's launches a call
+    (`engine_launches`: K4 play chunks, K1 launches, K3 forced plays; the
+    warm-up's where reps is 0).  Fails if any call launched neither K4 nor
+    K1.  Returns the warm-up's result and the record."""
     import torch
-    from fast_monte_carlo_tpu_torch.ops import rng
-
-    by_ch = rng.philox_draws.launches_by_ch
-
-    def split(before):
-        return {f"ch={c}": by_ch[c] - before.get(c, 0) for c in (CH, 1)}
 
     torch.cuda.synchronize()
-    n0, before, t0 = rng.philox_draws.launches, dict(by_ch), time.perf_counter()
+    before, t0 = engine_launches(), time.perf_counter()
     first = fn()
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
-    calls, ms, launches = [rng.philox_draws.launches - n0], [], split(before)
+    calls, ms = [launches_since(before)], []
     for _ in range(reps):
-        n0, before = rng.philox_draws.launches, dict(by_ch)
-        t0 = time.perf_counter()
+        before, t0 = engine_launches(), time.perf_counter()
         fn()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        calls.append(rng.philox_draws.launches - n0)
-        launches = split(before)
-    check(min(calls) > 0, f"{what}: every call launched philox_draws ({calls})")
+        calls.append(launches_since(before))
+    check(all(c["K4"] + c["K1"] > 0 for c in calls),
+          f"{what}: every call launched the engine (K4 or K1) ({calls})")
     timed = (f"{', '.join(f'{x:.1f}' for x in ms)} ms per query after a {warm_ms:.1f} ms "
              "warm-up" if reps else f"one call, {warm_ms:.1f} ms")
-    print(f"  {what}: {timed}; philox_draws launches per query {launches} ({card})")
-    return first, {"ms": ms, "warm_ms": warm_ms, "launches": launches}
+    print(f"  {what}: {timed}; engine launches per query {calls[-1]} ({card})")
+    return first, {"ms": ms, "warm_ms": warm_ms, "launches": calls[-1]}
 
 
 def phase_multi(card: str, profile_dir: Optional[Path]) -> dict:
@@ -1781,7 +1857,8 @@ def phase_multi(card: str, profile_dir: Optional[Path]) -> dict:
         t0 = time.perf_counter()
         first[key], res[key] = timed_query(what, fn, reps, card)
         part_s[key] = time.perf_counter() - t0
-    counts = read_counts("multi-leg, season and slate-props queries", ["philox_draws"])
+    counts = read_counts("multi-leg, season and slate-props queries",
+                         ["philox_draws", "nano_game", "score_moments"])
     res["launches"] = counts["philox_draws"]
     t_part = time.perf_counter()
 
@@ -2118,7 +2195,7 @@ def phase_exact(card: str) -> dict:
             print(f"  {what}: mean pts {sm.mean_pts.cpu().numpy().round(3).tolist()}, "
                   f"win {sm.win_rate.cpu().numpy().round(4).tolist()}")
         counts = read_counts("exact mode and the table path from heads",
-                             ["philox_draws", "forest_eval"])
+                             ["philox_draws", "forest_eval", "nano_game", "score_moments"])
     finally:
         fe.eval_margin_reference = plain
     check(not plain_calls and k5["exact"] == counts["forest_eval"]
@@ -2301,7 +2378,8 @@ def phase_files(card: str) -> dict:
             games, sp_path=sp_path, artifact_dir=fixtures.ARTIFACT_DIR,
             n_pairs=FILE_SLATE_PAIRS, chunk_pairs=FILE_SLATE_PAIRS, layout="game_shard")
         torch.cuda.synchronize()
-        launches = read_counts("inputs-from-files path", ["philox_draws", "forest_eval"])
+        launches = read_counts("inputs-from-files path",
+                               ["philox_draws", "forest_eval", "nano_game", "score_moments"])
     finally:
         fe.eval_margin_reference = plain
     check(not plain_calls and k5_route["exact"] > 0 and k5_route["exact"] % len(play) == 0
@@ -2521,7 +2599,8 @@ def phase_serve(card: str) -> dict:
                                        "props": fixtures.prop_rows(PROP_SEED)})
         health_ms = [1e3 * _http(exact_base, "/health")[2] for _ in range(HEALTH_GETS)]
         torch.cuda.synchronize()
-        launches = read_counts("server path", ["philox_draws", "forest_eval"])
+        launches = read_counts("server path",
+                               ["philox_draws", "forest_eval", "nano_game", "score_moments"])
         k3 = rng.philox_draws.launches_by_ch[1] - by_ch.get(1, 0)
         k4 = rng.philox_draws.launches_by_ch[CH] - by_ch.get(CH, 0)
         check(k3 > 0 and k4 > 0, f"server path: philox_draws ch=24 (K4) {k4} launches, "
@@ -2690,16 +2769,17 @@ def phase_saved(card: str) -> dict:
     ab = ["--team-a", "Team A", "--team-b", "Team B"]
     base = api.csv_base_from("Team A", "Team B", 1)
     meter = SimMeter()
-    ms, k4, k5, out_text, step_games = {}, {}, {}, {}, {}
+    ms, k4, k1, k5, out_text, step_games = {}, {}, {}, {}, {}, {}
     plain_calls = []
     plain = fe.eval_margin_reference
     fe.eval_margin_reference = lambda *a, **k: plain_calls.append(1) or plain(*a, **k)
 
     def step(name, fn, games=0):
         """fn() timed on the host clock ending in a synchronize, with its K4
-        (philox_draws ch=24) and K5 (forest_eval) launches."""
+        (philox_draws ch=24), K1 (nano_game) and K5 (forest_eval) launches."""
         torch.cuda.synchronize()
         n4 = rng.philox_draws.launches_by_ch[CH]
+        n1 = engine_launches()["K1"]
         n5 = fe.eval_margin_cuda.launches
         t0 = time.perf_counter()
         if games:     # a simulated step: one "simulate" record with its games
@@ -2712,9 +2792,11 @@ def phase_saved(card: str) -> dict:
         ms[name] = 1e3 * (time.perf_counter() - t0)
         step_games[name] = games
         k4[name] = rng.philox_draws.launches_by_ch[CH] - n4
+        k1[name] = engine_launches()["K1"] - n1
         k5[name] = fe.eval_margin_cuda.launches - n5
         if games:
-            check(k4[name] > 0, f"{name}: K4 launched {k4[name]} times")
+            check(k4[name] + k1[name] > 0, f"{name}: K4 launched {k4[name]} times, K1 "
+                  f"{k1[name]}")
         return res
 
     try:
@@ -2768,13 +2850,14 @@ def phase_saved(card: str) -> dict:
 
         def sweep(done=()):
             got = {}
-            n4 = rng.philox_draws.launches_by_ch[CH]
+            before = engine_launches()
             for ci, cols, _ in api.simulate_matchup_batched_chunks(
                     a, b, heads, SWEEP_CHUNKS * SWEEP_PAIRS, SWEEP_PAIRS, seed=SWEEP_SEED,
                     runner=runner, done=done):
                 got[ci] = cols
-                chunk_k4[(done, ci)] = rng.philox_draws.launches_by_ch[CH] - n4
-                n4 = rng.philox_draws.launches_by_ch[CH]
+                used = launches_since(before)
+                chunk_k4[(done, ci)] = used["K4"] + used["K1"]
+                before = engine_launches()
             return got
 
         chunks = step("batched sweep (3 chunks)", sweep, games=2 * SWEEP_CHUNKS * SWEEP_PAIRS)
@@ -2801,7 +2884,8 @@ def phase_saved(card: str) -> dict:
         out_text["slate"] = step("slate --props (2 matchups)", lambda: _cli(slate_argv),
                                  games=2 * (1024 + EDGES_SMALL_PAIRS) * len(SAVED_SLATE_GAMES))
         torch.cuda.synchronize()
-        launches = read_counts("saved-sims path", ["philox_draws", "forest_eval"])
+        launches = read_counts("saved-sims path",
+                               ["philox_draws", "forest_eval", "nano_game", "score_moments"])
     finally:
         fe.eval_margin_reference = plain
         os.chdir(home)
@@ -2845,8 +2929,9 @@ def phase_saved(card: str) -> dict:
             check(last.startswith(f"[{2 * pairs} games simulated + reduced on cuda in"),
                   f"edges --device ({name}): {last}")
         check(k5["edges --device (market-only)"] == 0,
-              f"the market-only query (table mode): {k4['edges --device (market-only)']} K4 "
-              f"launches over {EDGES_PAIRS // 32_768} launches of 65,536 games, no forest walk")
+              f"the market-only query (table mode): {k1['edges --device (market-only)']} K1 "
+              f"and {k4['edges --device (market-only)']} K4 launches over "
+              f"{EDGES_PAIRS // 32_768} launches of 65,536 games, no forest walk")
         for name in ("sim --save", "edges --device (props, exact)", "edges --device (exact)",
                      "slate --props (2 matchups)"):
             check(k5[name] == 11 * CH * k4[name], f"{name} (exact mode): K5 {k5[name]} "
@@ -2903,8 +2988,8 @@ def phase_saved(card: str) -> dict:
             _same_columns(cols, want, f"sweep chunk {ci} == simulate_matchup_columns(key="
                                       f"fold_in(root_key({SWEEP_SEED}), {ci}))")
         check(sorted(resumed) == [2] and chunk_k4[((0, 1), 2)] == chunk_k4[((), 2)] > 0,
-              f"the resumed sweep played chunk 2 alone: {chunk_k4[((0, 1), 2)]} K4 launches, "
-              f"as chunk 2 the first time")
+              f"the resumed sweep played chunk 2 alone: {chunk_k4[((0, 1), 2)]} engine "
+              f"launches (K4 or K1), as chunk 2 the first time")
         _same_columns(resumed[2], chunks[2], "the resumed chunk 2")
 
         # 4. the signature
@@ -3439,7 +3524,8 @@ def phase_cache(card: str, layouts: dict, phase16_dir: str, cache_root: str,
                           LAYOUT_SLATE_BAND)
     torch.cuda.synchronize()
     out["slate"] = dict(first_s=first_s, second_s=second_s)
-    out["launches"] = read_counts("table disk cache and cachewarm", ["philox_draws"])
+    out["launches"] = read_counts("table disk cache and cachewarm",
+                                  ["nano_game", "score_moments"])
     check(not plain_calls, "(c) the plain draw path was never taken on the card")
     out["launches"]["philox_draws"] += got["launches"]
     tmp.cleanup()
@@ -3534,7 +3620,8 @@ out = chip_smoke.shard_runs(runner, slate, q4, group)
 torch.cuda.synchronize()
 bad = [m for m in ("jax", "fast_monte_carlo_tpu") if m in sys.modules]
 print(json.dumps(dict(out, rank=rank, block=list(slate.block), held=held, imported=bad,
-                      launches=chip_smoke.kernel_counts()["philox_draws"].launches)))
+                      launches={{k: fn.launches for k, fn in
+                                 chip_smoke.kernel_counts().items()}})))
 dist.barrier()          # both ranks done before either tears the group down
 dist.destroy_process_group()
 """
@@ -3561,13 +3648,15 @@ def phase_shard(card: str) -> dict:
 
     out = {}
     tmp = tempfile.TemporaryDirectory()
-    k4 = kernel_counts()["philox_draws"]
-    own = [0]       # K4 launches of this process's sharded runs (not the references)
+    counted = ("philox_draws", "nano_game", "score_moments")
+    # launches of this process's sharded runs (not the references)
+    own = dict.fromkeys(counted, 0)
 
     def sharded_run(fn):
-        before = k4.launches
+        before = {k: kernel_counts()[k].launches for k in counted}
         res = fn()
-        own[0] += k4.launches - before
+        for k in counted:
+            own[k] += kernel_counts()[k].launches - before[k]
         return res
 
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
@@ -3654,9 +3743,11 @@ def phase_shard(card: str) -> dict:
           f"{got[0]['block']} and {got[1]['block']}: {got[0]['held'] / 1e6:,.1f} and "
           f"{got[1]['held'] / 1e6:,.1f} MB on its card against {whole / 1e6:,.1f} MB for the "
           "whole slate on one card")
-    check(all(g["launches"] > 0 and g["imported"] == [] for g in got),
-          f"(b) each rank launched philox_draws ({got[0]['launches']} and "
-          f"{got[1]['launches']} times) and imported no jax or fast_monte_carlo_tpu")
+    check(all(g["launches"]["nano_game"] > 0 and g["launches"]["score_moments"] > 0
+              and g["imported"] == [] for g in got),
+          f"(b) each rank launched nano_game ({got[0]['launches']['nano_game']} and "
+          f"{got[1]['launches']['nano_game']} times) and score_moments, and imported no jax "
+          "or fast_monte_carlo_tpu")
     pair_gps = 2 * SHARD_PAIRS / max(g["pairs_s"] for g in got)
     slate_gps = 2 * SHARD_SLATE_PAIRS * SHARD_SLATE_GAMES / max(g["slate_s"] for g in got)
     print(f"  (b) {backend} pair: run_pairs_summary {pair_gps:,.0f} games/s (the slower rank's "
@@ -3692,10 +3783,10 @@ def phase_shard(card: str) -> dict:
     srv.shutdown()
     srv.server_close()
     check(answers[0] == answers[1], "(c) the server's sharded /sim equals its unsharded one")
-    children = sum(g["launches"] for g in got)
-    check(own[0] > 0, f"the sharded runs of this process launched philox_draws {own[0]} times "
-          f"(the ranks {children}; the unsharded references not counted)")
-    out["launches"] = own[0] + children
+    children = {k: sum(g["launches"][k] for g in got) for k in counted}
+    check(own["nano_game"] > 0, f"the sharded runs of this process launched {own} (the ranks "
+          f"{children}; the unsharded references not counted)")
+    out["launches"] = {k: own[k] + children[k] for k in counted}
     tmp.cleanup()
     return out
 
@@ -3705,8 +3796,9 @@ def phase_bench(card: str, main_gps: float) -> dict:
     user starts it: one JSON line with the contract's keys, on the gpu,
     complete, its launches (the bench's own counters over its timed runs)
     and its stderr sanity line checked; its games/s beside phase 5's.
-    Returns the runs' philox_draws and forest_eval launches."""
-    counts = {"philox_draws": 0, "forest_eval": 0}
+    Returns the runs' philox_draws, forest_eval, nano_game and score_moments
+    launches."""
+    counts = dict.fromkeys(("philox_draws", "forest_eval", "nano_game", "score_moments"), 0)
     for mode, argv in BENCH_RUNS:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, *argv], cwd=REPO, capture_output=True,
@@ -3726,16 +3818,22 @@ def phase_bench(card: str, main_gps: float) -> dict:
               and meta["mode"] == mode,
               f"{what}: on {meta['device']['kind']} ({meta['card']}), emit "
               f"{meta['emit']}, mode {meta['mode']}")
-        k4, k5 = meta["launches"]["philox_draws"], meta["launches"]["forest_eval"]
-        check(k4 > 0 and k5 == (11 * 24 * k4 if mode == "exact" else 0),
-              f"{what}: philox_draws {k4} launches, forest_eval {k5} "
-              f"({'11 a play' if mode == 'exact' else 'none'})")
+        got = meta["launches"]
+        k4, k5, k1 = got["philox_draws"], got["forest_eval"], got["nano_game"]
+        if mode == "exact":      # the eager loop: K4 a chunk, K5 11 a play
+            check(k4 > 0 and k5 == 11 * 24 * k4 and k1 == 0,
+                  f"{what}: philox_draws {k4} launches, forest_eval {k5} (11 a play), "
+                  f"nano_game {k1}")
+        else:                    # K1 a launch, no draw buffer, no forest
+            check(k1 > 0 and k4 == 0 and k5 == 0 and got["score_moments"] > 0,
+                  f"{what}: nano_game {k1} launches, score_moments {got['score_moments']}, "
+                  f"philox_draws {k4}, forest_eval {k5}")
         m = BENCH_SANITY.search(proc.stderr)
         check(m is not None and all(10 < float(v) < 50 for v in m.groups()[:2])
               and 0 < float(m.group(3)) < 1,
               f"{what}: sanity {m.group(0) if m else 'missing'}: mean points in (10, 50)")
-        counts["philox_draws"] += k4
-        counts["forest_eval"] += k5
+        for k in counts:
+            counts[k] += got[k]
         print(f"  ({mode}) {rec['metric']}: {rec['value']:,.1f} games/s over "
               f"{meta['n_games']:,} games (runs {meta['runs']}), setup {meta['setup_s']} s, "
               f"compile {meta['compile_s']} s, {dt:.1f} s in all ({card})")
@@ -3772,6 +3870,198 @@ def write_train_csv(path: str) -> None:
         "play_category": rng.choice(["pass", "run"], n)}
     rows = [{k: v[i] for k, v in cols.items()} for i in range(n)]
     fixtures.write_csv(path, rows, tuple(cols))
+
+
+def nano_diff(want, got, what: str) -> float:
+    """Games whose final state differs between a plain version (`want`: the
+    eager loop or `nano_game_plain`) and K1 (`got`), printed by field.  K1
+    is bitwise equal to both by design (the same f32 operations in the same
+    order, the same Philox stream), so one differing game fails the phase.
+    Returns the largest absolute difference on any field."""
+    import torch
+
+    n = want.off.shape[0]
+    bad = torch.zeros(n, dtype=torch.bool, device=got.off.device)
+    by_field, err = {}, 0.0
+    for f in ("off", "sec", "down", "dist", "ytg", "period", "in_rz", "going", "score"):
+        x, y = getattr(want, f), getattr(got, f)
+        m = x != y
+        m = m.any(dim=1) if m.dim() > 1 else m
+        by_field[f] = int(m.sum())
+        bad |= m
+        err = max(err, float((x.double() - y.double()).abs().max()))
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} of {n:,} games differ (0 allowed); "
+          f"by field {by_field}")
+    return err
+
+
+def nano_bound(games: int, plays: int, table_bytes: int) -> dict:
+    """`bound` of one K1 launch: the games' state read and written once, the
+    nano table read once, NANO_COUNTS a play over the plays the games took."""
+    return bound(games * (NANO_STATE_IN + NANO_STATE_OUT) + table_bytes,
+                 per(NANO_COUNTS, plays))
+
+
+def moment_bound(groups: int, n: int) -> dict:
+    """`bound` of one K2 launch: 8 bytes a game read, the counts and the
+    histograms written once, MOMENT_COUNTS a game."""
+    return bound(groups * n * 8 + groups * (MOMENT_FIELDS * 8 + MOMENT_BINS * 4),
+                 per(MOMENT_COUNTS, groups * n))
+
+
+def phase_nano_game(card: str) -> dict:
+    """K1 (nano_game) against the eager loop (`simulate_games_eager`, its
+    plain version at the level of a launch) on the same keys at 65,536
+    games, in each variant; `nano_game_plain` on the card against K1 on a
+    smaller launch; K2 (score_moments) bit for bit against the torch body;
+    both kernels timed beside their bounds and their plain versions.  The
+    comparisons' launches are no path's: the counts are not read here."""
+    import torch
+    from fast_monte_carlo_tpu_torch import api, fixtures
+    from fast_monte_carlo_tpu_torch.config import SimConfig
+    from fast_monte_carlo_tpu_torch.matchup import build_direction
+    from fast_monte_carlo_tpu_torch.ops import game, rng
+    from fast_monte_carlo_tpu_torch.ops import table_lookup as tl
+    from fast_monte_carlo_tpu_torch.ops.pack import pack_matchup
+    from fast_monte_carlo_tpu_torch.parallel import aggregate as agg
+
+    dev = torch.device("cuda")
+    cfg = SimConfig()
+    a, b = fixtures.teams()
+    pack = pack_matchup(build_direction(a, b, cfg), build_direction(b, a, cfg), dev)
+    th = tl.pack_tables(*fixtures.nano_tables(TABLE_SEED), device=dev)
+    he = tl.make_table_heads_eval(cfg)
+    n = LAUNCH_GAMES
+    fo = torch.arange(n, dtype=torch.int32, device=dev) % 2
+    score_only = dict(collect_players=False, collect_stats=False)
+    anti_cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, antithetic=True))
+    fum_cfg = cfg.replace(model=dataclasses.replace(cfg.model, enable_fumbles=True))
+    th_s2 = tl.pack_tables(*fixtures.nano_tables(TABLE_SEED, s2_fumble=True), device=dev)
+    q4 = game.Situation(1, 300, 2, 7.0, 40.0, 17, 21)
+    cfg_go = cfg.replace(fourth=dataclasses.replace(cfg.fourth, force="go"))
+    forced = game.play_step(
+        game.state_from_situation(n, q4._replace(down=4, dist=2.0), cfg, dev, **score_only),
+        rng.step_draws(rng.fold_in(rng.root_key(62), 1), 0, n, dev), pack, cfg_go, he, th)
+    variants = [
+        ("kickoff", cfg, th, dict(first_offense=fo)),
+        ("antithetic", anti_cfg, th, dict(first_offense=fo)),
+        ("situation Q4 05:00 2nd-and-7", cfg, th, dict(first_offense=0, situation=q4)),
+        ("init_state after a forced go", cfg, th, dict(first_offense=0, init_state=forced)),
+        (f"row0 {n:,}", cfg, th, dict(first_offense=fo, row0=n)),
+        ("stage-2 and fumble channels", fum_cfg, th_s2, dict(first_offense=fo)),
+    ]
+    errs, eager_ms = {}, None
+    key = rng.root_key(61)
+    for what, c, t, kw in variants:
+        fo_kw = kw.pop("first_offense")
+        got = game.simulate_games(pack, c, he, t, key, n, fo_kw, **score_only, **kw)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = game.simulate_games_eager(pack, c, he, t, key, n, fo_kw, **score_only, **kw)
+        t1.record()
+        torch.cuda.synchronize()
+        eager_ms = eager_ms or t0.elapsed_time(t1)        # the kickoff's, K1's timed launch
+        errs[what] = nano_diff(want, got, f"K1 against the eager loop, {what}")
+
+    # the fixture slate in the game layout, one launch
+    matchups, tables = fixtures.slate(SLATE_GAMES, SLATE_SEED)
+    sr = api.SlateRunner(matchups, None, cfg, game_shard=True, nano_tables=tables, device=dev)
+    g_n = SLATE_GAMES * NANO_SLATE_GAMES
+    t = torch.arange(g_n, dtype=torch.int32, device=dev)
+    slate_kw = dict(collect_players=False, collect_stats=False,
+                    game_id=t // NANO_SLATE_GAMES)
+    got = game.simulate_games(sr.pack, cfg, he, sr.heads_state, key, g_n, t % 2, **slate_kw)
+    want = game.simulate_games_eager(sr.pack, cfg, he, sr.heads_state, key, g_n, t % 2,
+                                     **slate_kw)
+    errs["slate"] = nano_diff(want, got, f"K1 against the eager loop, one slate launch "
+                                f"({SLATE_GAMES} x {NANO_SLATE_GAMES:,} games)")
+    del got, want
+
+    # the plain version on the card against K1
+    args = game.pack_nano_game(pack, cfg, th)
+    m = NANO_PLAIN_GAMES
+    s_small = game.initial_state(m, fo[:m], cfg, dev, **score_only)
+    plain = game.nano_game_plain(args, s_small, rng.root_key(63))
+    got = game.nano_game_cuda(args, s_small, rng.root_key(63))
+    errs["plain"] = nano_diff(plain, got, f"K1 against nano_game_plain on the card, "
+                                f"{m:,} games")
+
+    # K2 against the torch body, bit for bit
+    gen = torch.Generator(device=dev).manual_seed(64)
+    k1_scores = game.nano_game_cuda(args, game.initial_state(n, fo, cfg, dev, **score_only),
+                                    key).score
+    cases = [("(1, 65,536) K1 scores", k1_scores.view(1, n, 2)),
+             ("(60, 32,768)", torch.randint(0, 70, (60, 32_768, 2), generator=gen,
+                                            device=dev, dtype=torch.int32)),
+             ("(3, 4,096) past every clamp", torch.randint(-300, 400, (3, 4_096, 2),
+                                                           generator=gen, device=dev,
+                                                           dtype=torch.int32))]
+    k2_err = 0.0
+    for what, sc in cases:
+        mk, mp = agg.exact_moments_cuda(sc), agg.exact_moments_plain(sc)
+        same = [f for f, x, y in zip(agg.ScoreMoments._fields, mk, mp)
+                if x.dtype == y.dtype and torch.equal(x, y)]
+        k2_err = max([k2_err] + [float((x.double() - y.double()).abs().max())
+                                 for x, y in zip(mk, mp)])
+        check(len(same) == len(mk), f"K2 {what}: every field bitwise equal to the torch "
+              f"body ({len(same)} of {len(mk)})")
+
+    # timing: K1 a 65,536-game launch and a slate launch, K2, their plain
+    # versions (K2's time is its wrapper's: the two zero fills and the kernel)
+    s0 = game.initial_state(n, fo, cfg, dev, **score_only)
+    plays = torch.zeros(1, dtype=torch.int64, device=dev)
+    game.nano_game_cuda(args, s0, key, plays=plays)
+    k1_ms, _, k1_how = times(lambda: game.nano_game_cuda(args, s0, key), 10)
+    k1_bd = nano_bound(n, int(plays), th.nano_values.numel() * 4)
+    # the plain version is thousands of kernels a play: one profiled call
+    # for its device time, one between events for its time on the stream
+    prof = device_profile(lambda: game.nano_game_plain(args, s0, key), 1)
+    k1_plain, plain_how = (prof[0], "profiler") if prof else (float("nan"), "not recorded")
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    game.nano_game_plain(args, s0, key)
+    t1.record()
+    torch.cuda.synchronize()
+    k1_plain_ev = t0.elapsed_time(t1)
+    print(f"  nano_game at {n:,} games ({int(plays):,} plays, {int(plays) / n:.1f} a game): "
+          f"K1 {k1_ms:.4f} ms ({k1_how}), bound {k1_bd['bound_ms']:.4f} ms "
+          f"({k1_bd['bound_class']}; {k1_bd['bound_ms'] / k1_ms:.1%} of it); nano_game_plain "
+          f"{k1_plain:.2f} ms device ({plain_how}; {k1_plain_ev:.1f} by events), the eager "
+          f"loop {eager_ms:.1f} ms by events ({card})")
+    per_slate = 2 * SLATE_CHUNK
+    sn = SLATE_GAMES * per_slate
+    t = torch.arange(sn, dtype=torch.int32, device=dev)
+    s_slate = game.initial_state(sn, t % 2, cfg, dev, t // per_slate, **score_only)
+    slate_args = game.pack_nano_game(sr.pack, cfg, sr.heads_state)
+    plays.zero_()
+    game.nano_game_cuda(slate_args, s_slate, key, plays=plays)
+    slate_ms, _, slate_how = times(lambda: game.nano_game_cuda(slate_args, s_slate, key), 3)
+    slate_bd = nano_bound(sn, int(plays), sr.heads_state.nano_values.numel() * 4)
+    print(f"  nano_game, one slate launch ({SLATE_GAMES} x {per_slate:,} = {sn:,} games, "
+          f"{int(plays):,} plays, a {sr.heads_state.nano_values.numel() * 4 / 1e6:,.1f} MB "
+          f"table): {slate_ms:.3f} ms ({slate_how}), bound {slate_bd['bound_ms']:.3f} ms "
+          f"({slate_bd['bound_class']}; {slate_bd['bound_ms'] / slate_ms:.1%} of it) ({card})")
+    del s_slate, slate_args
+    sc = k1_scores.view(1, n, 2)
+    k2_ms, _, k2_how = times(lambda: agg.exact_moments_cuda(sc), 20)
+    k2_plain, _, k2_plain_how = times(lambda: agg.exact_moments_plain(sc), 10)
+    k2_bd = moment_bound(1, n)
+    sc60 = cases[1][1]
+    k2_60, _, _ = times(lambda: agg.exact_moments_cuda(sc60), 20)
+    k2_60_plain, _, _ = times(lambda: agg.exact_moments_plain(sc60), 10)
+    bd60 = moment_bound(60, 32_768)
+    print(f"  score_moments (1, {n:,}): K2 {k2_ms:.4f} ms ({k2_how}; the wrapper's two "
+          f"zero fills included), bound {k2_bd['bound_ms']:.5f} ms ({k2_bd['bound_class']}), "
+          f"torch body {k2_plain:.4f} ms ({k2_plain_how}); (60, 32,768): K2 {k2_60:.4f} ms, "
+          f"bound {bd60['bound_ms']:.5f} ms ({bd60['bound_class']}), torch body "
+          f"{k2_60_plain:.4f} ms ({card})")
+    worst = max(errs.values())
+    return {
+        "nano_game": {"max_abs_err": worst, "ms": k1_ms, "plain_ms": k1_plain,
+                      "library_ms": None, **k1_bd, "slate_ms": slate_ms, "eager_ms": eager_ms},
+        "score_moments": {"max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
+                          "library_ms": None, **k2_bd},
+    }
 
 
 def phase_train(card: str, device: str = "cuda") -> dict:
@@ -3950,6 +4240,13 @@ def live_curve_situations(cfg):
     return sits
 
 
+def torch_fo_alternating(n: int):
+    """The runners' first offense of n games on the card: 0, 1, 0, 1, ..."""
+    import torch
+
+    return torch.arange(n, dtype=torch.int32, device="cuda") % 2
+
+
 def profile_kernels(fn):
     """torch.profiler over fn(): (device kernels, device ms, wall ms
     profiled, the kernel table)."""
@@ -3973,12 +4270,24 @@ def write_profile(runner, pairs: int, card: str, launch_ms: float,
     """torch.profiler over one launch: device time by kernel, written to
     out/profile_launch.txt.  The profiler slows the host's enqueue
     many times over, so the busy share is the profiled device time over the
-    unprofiled wall time of a launch (`launch_ms`)."""
+    unprofiled wall time of a launch (`launch_ms`).  Kernels a play are the
+    launch's over the plays the eager loop runs for the same games (its K4
+    launches times the chunk: the longest game's plays, in whole chunks)."""
+    from fast_monte_carlo_tpu_torch.ops import game, rng
+
     n_kernels, dev_ms, wall_ms, table = profile_kernels(
         lambda: runner.run_pairs_summary(pairs, seed=5, chunk_pairs=pairs,
                                          collect_stats=False))
+    before = rng.philox_draws.launches_by_ch[CH]
+    n = 2 * pairs
+    game.simulate_games_eager(runner.pack, runner.cfg, runner.heads_fn, runner.heads_state,
+                              rng.fold_in(rng.root_key(5), 0), n,
+                              torch_fo_alternating(n), collect_players=False,
+                              collect_stats=False)
+    plays = (rng.philox_draws.launches_by_ch[CH] - before) * CH
     out.mkdir(parents=True, exist_ok=True)
-    summary = (f"{n_kernels} device kernels, {dev_ms:.3f} ms device time; "
+    summary = (f"{n_kernels} device kernels ({n_kernels / plays:.3f} a play over the eager "
+               f"loop's {plays} plays of the same games), {dev_ms:.3f} ms device time; "
                f"wall {wall_ms:.3f} ms profiled, {launch_ms:.3f} ms "
                f"unprofiled (busy share {dev_ms / launch_ms:.4f})")
     (out / "profile_launch.txt").write_text(f"{card}\n{summary}\n\n{table}\n")
@@ -4030,7 +4339,6 @@ def main() -> int:
     phase(4, "one play step, CUDA vs CPU", phase_step)
     mp = phase(5, "main path: MatchupRunner.run_pairs_summary on cuda", phase_main_path, card,
                args.profile)
-    k["launches"] = mp["launches"]["philox_draws"]
     fused = phase(6, f"fused play-step kernels vs plain torch, B={PROBE_B:,}, then the probes "
                   "path", phase_fused, card)
     gathers = phase(7, "row-gather kernels vs plain torch, then the gather probes path",
@@ -4073,17 +4381,28 @@ def main() -> int:
     train = phase(20, "training on the card's host: cli train without scikit-learn, "
                   "build_reconstructed --calibration-only (K5 on the play forest), the port's "
                   "overlay in one exact launch", phase_train, card)
+    nano = phase(21, "K1 (nano_game) against the eager loop and nano_game_plain, K2 "
+                 "(score_moments) against the torch body, on cuda; both timed",
+                 phase_nano_game, card)
+    cache_root.cleanup()
+    k["launches"] = mp["launches"]["philox_draws"]
     layout_k4 = layouts["launches"]["philox_draws"]
     del layouts
-    cache_root.cleanup()
     print(f"  philox_draws launches: main path {k['launches']}, props path "
           f"{props['launches']}, live queries {live['launches']}, slate path "
           f"{slate['launches']}, multi-leg/season/slate props {multi['launches']}, "
           f"inputs from files {files['launches']['philox_draws']}, server "
           f"{served['launches']['philox_draws']}, saved sims {saved['launches']['philox_draws']}, "
           f"other table layouts {layout_k4}, disk cache and cachewarm "
-          f"{cache['launches']['philox_draws']}, trial sharding {shard['launches']}, bench "
-          f"entry {benched['philox_draws']}, training {train['k4']}")
+          f"{cache['launches']['philox_draws']}, trial sharding "
+          f"{shard['launches']['philox_draws']}, bench entry {benched['philox_draws']}, "
+          f"training {train['k4']} (0 on the main path and every score-only nano launch "
+          "since K1: the draws are made in the kernel)")
+    for name in ("nano_game", "score_moments"):
+        nano[name]["launches"] = (PATH_LAUNCHES[name] + shard["launches"][name]
+                                  + benched[name])
+        print(f"  {name} launches: the paths' {PATH_LAUNCHES[name]}, trial sharding's "
+              f"{shard['launches'][name]}, the bench entry's {benched[name]}")
     print(f"  forest_eval launches: exact mode {exact['launches']}, inputs from files "
           f"{files['launches']['forest_eval']}, server {served['launches']['forest_eval']}, "
           f"saved sims {saved['launches']['forest_eval']}, bench entry {benched['forest_eval']}, "
@@ -4091,8 +4410,9 @@ def main() -> int:
     k["launches"] += (live["launches"] + slate["launches"] + multi["launches"]
                       + files["launches"]["philox_draws"] + served["launches"]["philox_draws"]
                       + saved["launches"]["philox_draws"]
-                      + layout_k4 + cache["launches"]["philox_draws"] + shard["launches"]
-                      + benched["philox_draws"] + train["k4"])
+                      + layout_k4 + cache["launches"]["philox_draws"]
+                      + shard["launches"]["philox_draws"] + benched["philox_draws"]
+                      + train["k4"])
     exact["launches"] += (files["launches"]["forest_eval"] + served["launches"]["forest_eval"]
                           + saved["launches"]["forest_eval"] + benched["forest_eval"]
                           + train["launches"])
@@ -4101,7 +4421,7 @@ def main() -> int:
     print("  seconds by phase: " + ", ".join(f"{n} {v:.1f}" for n, v in sorted(secs.items()))
           + f"; the whole smoke {time.perf_counter() - t_start:.1f} s")
 
-    rows = {"philox_draws": k, **fused, **gathers, "forest_eval": exact}
+    rows = {"philox_draws": k, **fused, **gathers, "forest_eval": exact, **nano}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"fast_monte_carlo_tpu_torch/csrc/{src}.cu",
          "replaces": REPLACES[name],

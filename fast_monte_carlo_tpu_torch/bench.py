@@ -169,10 +169,14 @@ def card_name_and_limit(dev: torch.device):
 
 
 def kernel_counters() -> dict:
-    """The launch counters of the kernels a run can take (`chip_smoke.kernel_counts`)."""
-    from .ops import forest_eval, rng
+    """The launch counters of the kernels a run can take (`chip_smoke.kernel_counts`):
+    which engine ran shows in them (K1 `nano_game` for a score-only nano-table
+    launch, else the eager loop's `philox_draws` play chunks)."""
+    from .ops import forest_eval, game, rng
+    from .parallel import aggregate
 
-    return {"philox_draws": rng.philox_draws, "forest_eval": forest_eval.eval_margin_cuda}
+    return {"philox_draws": rng.philox_draws, "forest_eval": forest_eval.eval_margin_cuda,
+            "nano_game": game.nano_game_cuda, "score_moments": aggregate.exact_moments_cuda}
 
 
 def load_inputs(args: argparse.Namespace, sp_path: str):

@@ -195,23 +195,33 @@ def fused_grid(rng: np.random.Generator) -> np.ndarray:
     return np.stack(chans, axis=-1).astype(np.float32)
 
 
-def fused_tables(seed: int) -> Tuple[HostTable, HostTable]:
-    """Fused HostTables for (team A on offense, team B on offense)."""
+def fused_tables(seed: int, s2_fumble: bool = False) -> Tuple[HostTable, HostTable]:
+    """Fused HostTables for (team A on offense, team B on offense).  With
+    `s2_fumble` each cell also holds the stage-2 and fumble channels
+    (FUSED_CHANNELS[7:]: P(inc) in [0.55, 0.8), P(inc) + P(sack) 0.05-0.15
+    above it, P(fumble) in [0.005, 0.03)), drawn after the seven, so the
+    seven are the same as without."""
     rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(2):
-        g = fused_grid(rng)
-        out.append(HostTable(values=g.reshape(-1, g.shape[-1]),
-                             shape=g.shape[:-1], row_map=np.zeros(1, np.int64),
-                             profile="fused", channels=g.shape[-1],
-                             has_sd=True))
-    return out[0], out[1]
+    grids = [fused_grid(rng) for _ in range(2)]
+    if s2_fumble:
+        extra = []
+        for g in grids:
+            inc = rng.uniform(0.55, 0.8, g.shape[:-1])
+            extra.append(np.stack([inc, inc + rng.uniform(0.05, 0.15, inc.shape),
+                                   rng.uniform(0.005, 0.03, inc.shape)], axis=-1))
+        grids = [np.concatenate([g, e.astype(np.float32)], axis=-1)
+                 for g, e in zip(grids, extra)]
+    return tuple(HostTable(values=g.reshape(-1, g.shape[-1]), shape=g.shape[:-1],
+                           row_map=np.zeros(1, np.int64), profile="fused",
+                           channels=g.shape[-1], has_sd=True, fused_has_s2=s2_fumble,
+                           fused_has_fumble=s2_fumble) for g in grids)
 
 
-def nano_tables(seed: int) -> Tuple[HostTable, HostTable]:
-    """The fused fixture re-laid out for the nano path."""
+def nano_tables(seed: int, s2_fumble: bool = False) -> Tuple[HostTable, HostTable]:
+    """The fused fixture re-laid out for the nano path (with `s2_fumble`,
+    the stage-2 and fumble channels too: `fused_tables`)."""
     prof = nano_profile()
-    a, b = fused_tables(seed)
+    a, b = fused_tables(seed, s2_fumble)
     return nano_from_fused(a, prof), nano_from_fused(b, prof)
 
 

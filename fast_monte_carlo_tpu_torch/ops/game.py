@@ -44,7 +44,9 @@ to int64 only where they index.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -629,6 +631,66 @@ def initial_state(n: int, first_offense, cfg: SimConfig, device, game_id=0,
                                 collect_stats)
 
 
+def _launch_state(pack: MatchupPack, cfg: SimConfig, n: int, first_offense,
+                  collect_players: bool, game_id, collect_stats: bool,
+                  situation: Optional[Situation], init_state: Optional[GameState],
+                  row0: int, antithetic: Optional[bool]) -> Tuple[GameState, SimConfig, bool]:
+    """A launch's starting state, its config (engine.antithetic set to the
+    launch's choice) and that choice, after `simulate_games`' checks."""
+    rng = cfg.engine.rng_impl
+    if rng not in RNG_IMPLS:
+        raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got {rng!r}")
+    dev = pack.device
+    if init_state is not None:
+        if init_state.off.shape[0] != n:
+            raise ValueError(f"init_state holds {init_state.off.shape[0]} games, not n={n}")
+        s = init_state
+    elif situation is not None:
+        s = state_from_situation(n, situation, cfg, dev, game_id, pack.k,
+                                 collect_players, collect_stats)
+    else:
+        s = initial_state(n, first_offense, cfg, dev, game_id, pack.k,
+                          collect_players, collect_stats)
+    local = cfg.engine.antithetic and n % 4 == 0
+    anti = local if antithetic is None else bool(antithetic)
+    if anti and (n % 4 or row0 % 4):
+        raise ValueError(f"antithetic draws for games {row0}..{row0 + n - 1} split a "
+                         "mirrored block of four")
+    if anti != local:    # play_step mirrors by the block's own count
+        cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, antithetic=anti))
+    return s, cfg, anti
+
+
+def _play_loop(s: GameState, pack: MatchupPack, cfg: SimConfig, heads_eval: HeadsEvalFn,
+               heads_state, key: int, row0: int, anti: bool, collect_players: bool,
+               collect_stats: bool) -> GameState:
+    """The eager game loop: chunks of play_chunk eager play steps."""
+    dev = pack.device
+    n = s.off.shape[0]
+    rows = n // 2 if anti else n
+    r0 = row0 // 2 if anti else row0
+    ch = cfg.engine.play_chunk
+    n_chunks = -(-cfg.engine.max_plays // ch)
+    buf = None
+    if cfg.engine.rng_impl != "pallas":
+        buf = (torch.empty((ch, rows, N_UNIFORMS), dtype=F32, device=dev),
+               torch.empty((ch, rows, N_NORMALS), dtype=F32, device=dev))
+    for ci in range(n_chunks):
+        if cfg.engine.early_exit and not bool((s.sec > 0).any()):
+            break
+        step0 = ci * ch
+        if buf is not None:
+            chunk_draws(key, step0, ch, rows, dev, out=buf, row0=r0)
+        for j in range(ch):
+            draws = ((buf[0][j], buf[1][j]) if buf is not None
+                     else step_draws(key, step0 + j, rows, dev, row0=r0))
+            s = play_step(s, draws, pack, cfg, heads_eval, heads_state,
+                          collect_players, collect_stats)
+    if collect_stats:
+        s.stats[:, :, TS["points"]] = s.score.to(F32)
+    return s
+
+
 def simulate_games(
     pack: MatchupPack,
     cfg: SimConfig,
@@ -662,59 +724,607 @@ def simulate_games(
     plays one forced play, then continues here).  Either way the draws
     start at absolute step 0.
 
-    Plays run in chunks of `play_chunk`; before each chunk the host asks
-    once whether any game is still running (with early_exit), as the JAX
-    package's while_loop cond does, so resumed late-game states stop after
-    a chunk or two.  Draws come from the Philox kernel, keyed on (key,
-    absolute step, row): with rng_impl "pallas_chunk", "threefry" or "rbg"
-    one launch fills the chunk's whole draw buffer, allocated once per
-    call; with "pallas" one launch per play.  The JAX package's threefry
-    and rbg generators are not reproduced: their names map onto this one
-    stream, which per-step and chunked launches draw alike, so the four
-    names play the same games for one key.  With engine.antithetic and
-    n % 4 == 0 a launch draws n/2 rows, which each play mirrors as the
+    On the card a launch that `nano_game_covers` (table heads on a nano
+    table, no play-policy lookup, both collectors off, no forced 4th-down
+    choice) runs K1, the whole launch in one kernel launch (`nano_game`);
+    a failure to build or launch it raises.  Every other launch, and every
+    launch on the CPU, runs the eager loop of `simulate_games_eager`, which
+    plays the same games: plays run in chunks of `play_chunk`; before each
+    chunk the host asks once whether any game is still running (with
+    early_exit), as the JAX package's while_loop cond does, so resumed
+    late-game states stop after a chunk or two.  Draws come from the Philox
+    kernel, keyed on (key, absolute step, row): with rng_impl
+    "pallas_chunk", "threefry" or "rbg" one launch fills the chunk's whole
+    draw buffer, allocated once per call; with "pallas" one launch per
+    play; K1 draws the same stream in the kernel.  The JAX package's
+    threefry and rbg generators are not reproduced: their names map onto
+    this one stream, which per-step and chunked launches draw alike, so the
+    four names play the same games for one key.  With engine.antithetic
+    and n % 4 == 0 a launch draws n/2 rows, which each play mirrors as the
     JAX step does.  With collect_stats the final score is written into the
     `points` column after the loop."""
-    rng = cfg.engine.rng_impl
-    if rng not in RNG_IMPLS:
-        raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got {rng!r}")
-    dev = pack.device
-    if init_state is not None:
-        if init_state.off.shape[0] != n:
-            raise ValueError(f"init_state holds {init_state.off.shape[0]} games, not n={n}")
-        s = init_state
-    elif situation is not None:
-        s = state_from_situation(n, situation, cfg, dev, game_id, pack.k,
-                                 collect_players, collect_stats)
+    s, cfg, anti = _launch_state(pack, cfg, n, first_offense, collect_players, game_id,
+                                 collect_stats, situation, init_state, row0, antithetic)
+    if pack.device.type == "cuda" and nano_game_covers(cfg, heads_eval, heads_state,
+                                                       collect_players, collect_stats):
+        return nano_game(pack_nano_game(pack, cfg, heads_state), s, key, row0, anti)
+    return _play_loop(s, pack, cfg, heads_eval, heads_state, key, row0, anti,
+                      collect_players, collect_stats)
+
+
+def simulate_games_eager(
+    pack: MatchupPack,
+    cfg: SimConfig,
+    heads_eval: HeadsEvalFn,
+    heads_state,
+    key: int,
+    n: int,
+    first_offense,
+    collect_players: bool = True,
+    game_id=0,
+    collect_stats: bool = True,
+    situation: Optional[Situation] = None,
+    init_state: Optional[GameState] = None,
+    row0: int = 0,
+    antithetic: Optional[bool] = None,
+) -> GameState:
+    """`simulate_games` on the eager loop alone, on any device: one eager
+    `play_step` a play (some 630-670 device kernels a play on the card).
+    K1's plain version at the level of a launch, and the path of every
+    launch K1 does not cover."""
+    s, cfg, anti = _launch_state(pack, cfg, n, first_offense, collect_players, game_id,
+                                 collect_stats, situation, init_state, row0, antithetic)
+    return _play_loop(s, pack, cfg, heads_eval, heads_state, key, row0, anti,
+                      collect_players, collect_stats)
+
+
+# ---------------------------------------------------------------------------
+# K1: a whole launch of nano-table games in one kernel (csrc/nano_game.cu)
+# ---------------------------------------------------------------------------
+
+_SLOTS = 8          # go-for-it edges an axis, FG points (padded)
+_SEGS = 8           # segments an axis of the nano profile (padded)
+_GRID_CELLS = 81
+_INF = float("inf")
+_KERNEL = "nano_game"
+
+
+class _Segs(ctypes.Structure):
+    """One axis of `table_lookup._seg_bin`, as `Segs` in csrc/nano_game.cu."""
+    _fields_ = [("enter", ctypes.c_float * _SEGS), ("start", ctypes.c_float * _SEGS),
+                ("inv_step", ctypes.c_float * _SEGS), ("top", ctypes.c_float * _SEGS),
+                ("base", ctypes.c_int * _SEGS)]
+
+
+def _floats(*names):
+    return [(name, ctypes.c_float) for name in names]
+
+
+def _ints(*names):
+    return [(name, ctypes.c_int) for name in names]
+
+
+class NanoConsts(ctypes.Structure):
+    """What K1 reads of the config and the nano profile, as `NanoConsts` in
+    csrc/nano_game.cu (field for field; the launcher checks the size).
+    Every float is the f32 the eager step's torch kernels compute with."""
+    _fields_ = (
+        [("go_ytg_edges", ctypes.c_float * _SLOTS), ("go_dist_edges", ctypes.c_float * _SLOTS),
+         ("go_grid", ctypes.c_float * _GRID_CELLS)]
+        + _ints("go_row", "go_cells", "late_seconds")
+        + _floats("late_leading_scale", "late_trailing_long_fg_ytg", "late_trailing_go_long",
+                  "late_trailing_go_short", "go_multiplier")
+        + [("fg_bounds", ctypes.c_float * _SLOTS), ("fg_probs", ctypes.c_float * _SLOTS)]
+        + _floats("fg_long_prob", "fg_snap_plus_endzone", "fg_attempt_max_ytg",
+                  "punt_gross_mean", "punt_gross_sd", "punt_gross_min", "punt_return_mean",
+                  "punt_return_sd", "punt_tb_gate_ytg", "punt_tb_lo", "punt_tb_hi",
+                  "punt_tb_own_spot", "punt_net_min",
+                  "s2_inc", "s2_int", "s2_sck", "stage2_int_scale", "stage2_int_add",
+                  "stage2_sack_scale", "heuristic_clip_lo", "heuristic_clip_hi")
+        + _ints("half_seconds")
+        + _floats("pass_clip_lo", "rush_clip_lo", "sack_clip_lo", "sack_clip_hi",
+                  "int_return_mean", "int_return_sd", "pass_sigma_floor")
+        + _ints("taper_enabled", "rz_pass_damping", "enable_fumbles")
+        + [("pass_taper", ctypes.c_float * 5), ("rush_taper", ctypes.c_float * 5)]
+        + _floats("explosive_gate_ytg", "explosive_bonus_60", "explosive_bonus_40",
+                  "explosive_lo", "explosive_hi")
+        + [("explosive_pass", ctypes.c_float * 4), ("explosive_run", ctypes.c_float * 4),
+           ("rz_pass", ctypes.c_float * 6), ("rz_run", ctypes.c_float * 6)]
+        + _floats("r7", "r10", "r15", "r60",
+                  "t_field_goal", "t_punt", "t_td_pass", "t_pass_complete",
+                  "t_pass_incomplete", "t_sack", "t_interception", "t_run")
+        + _ints("quarter_seconds")
+        + _floats("kickoff_spot")
+        + _ints("td_points", "fg_points")
+        + [("dist", _Segs), ("ytg", _Segs), ("sec", _Segs), ("sd", _Segs)]
+        + _ints("ny", "ns", "nsd", "c", "cols", "per_dir", "has_s2", "has_fumble", "cap"))
+
+
+class NanoGameArgs(NamedTuple):
+    """K1's packed inputs, built by `pack_nano_game`: what the launcher
+    passes, and all `nano_game_plain` reads."""
+    consts: NanoConsts
+    dirs: torch.Tensor      # (2G, 5) f32: ymult, mz, the red-zone tilts (pass,
+                            # run) and the explosive base of each direction
+    table: torch.Tensor     # (rows, 5 * nsd * c) f32 nano table
+    early_exit: bool        # the eager loop stops once no game is running
+
+
+def _segs(segs) -> _Segs:
+    """`segments_of`'s (enter, start, step, base, count) as the kernel's
+    f32 arithmetic of `_seg_bin`; past the last, segments no value enters."""
+    if len(segs) > _SEGS:
+        raise ValueError(f"a profile axis of {len(segs)} segments; K1 takes {_SEGS}")
+    g = _Segs()
+    for k in range(_SEGS):
+        if k < len(segs):
+            enter, start, step, base, count = segs[k]
+            g.enter[k], g.start[k], g.inv_step[k] = enter, start, analytic.recip(step)
+            g.top[k], g.base[k] = count - 1, base
+        else:
+            g.enter[k] = _INF
+    return g
+
+
+def _nano_consts(cfg: SimConfig, th) -> NanoConsts:
+    c = NanoConsts()
+    ytg_edges, dist_edges, grid = (t.numpy() for t in
+                                   analytic.go_lookup(cfg.fourth.table, torch.device("cpu")))
+    if ytg_edges.size > _SLOTS or dist_edges.size > _SLOTS:
+        raise ValueError(f"the go-for-it table has more than {_SLOTS} edges on an axis")
+    c.go_ytg_edges[:] = ytg_edges.tolist() + [_INF] * (_SLOTS - ytg_edges.size)
+    c.go_dist_edges[:] = dist_edges.tolist() + [_INF] * (_SLOTS - dist_edges.size)
+    c.go_grid[:grid.size] = grid.reshape(-1).tolist()
+    c.go_row, c.go_cells = dist_edges.size + 1, grid.size
+    f = cfg.fourth
+    c.late_seconds = f.late_seconds
+    c.late_leading_scale = f.late_leading_scale
+    c.late_trailing_long_fg_ytg = f.late_trailing_long_fg_ytg
+    c.late_trailing_go_long = f.late_trailing_go_long
+    c.late_trailing_go_short = f.late_trailing_go_short
+    c.go_multiplier = f.go_multiplier
+    st = cfg.st
+    if len(st.fg_curve) > _SLOTS:
+        raise ValueError(f"the FG curve has more than {_SLOTS} points")
+    for k in range(_SLOTS):
+        c.fg_bounds[k], c.fg_probs[k] = st.fg_curve[k] if k < len(st.fg_curve) else (-_INF, 0.0)
+    c.fg_long_prob, c.fg_snap_plus_endzone = st.fg_long_prob, st.fg_snap_plus_endzone
+    c.fg_attempt_max_ytg = st.fg_attempt_max_ytg
+    c.punt_gross_mean, c.punt_gross_sd = st.punt_gross_mean, st.punt_gross_sd
+    c.punt_gross_min = st.punt_gross_min
+    c.punt_return_mean, c.punt_return_sd = st.punt_return_mean, st.punt_return_sd
+    c.punt_tb_gate_ytg, c.punt_tb_lo = st.punt_touchback_gate_ytg, st.punt_tb_lo
+    c.punt_tb_hi, c.punt_tb_own_spot = st.punt_tb_hi, st.punt_tb_own_spot
+    c.punt_net_min = st.punt_net_min
+    base = analytic.STAGE2_FALLBACK_BASE
+    c.s2_inc, c.s2_int, c.s2_sck = base["incomplete"], base["intercepted"], base["sack"]
+    m = cfg.model
+    c.stage2_int_scale, c.stage2_int_add = m.stage2_int_scale, m.stage2_int_add
+    c.stage2_sack_scale = m.stage2_sack_scale
+    c.heuristic_clip_lo, c.heuristic_clip_hi = m.heuristic_clip_lo, m.heuristic_clip_hi
+    c.half_seconds = cfg.clock.half_seconds
+    c.pass_clip_lo, c.rush_clip_lo = m.pass_clip_lo, m.rush_clip_lo
+    c.sack_clip_lo, c.sack_clip_hi = m.sack_clip_lo, m.sack_clip_hi
+    c.int_return_mean, c.int_return_sd = m.int_return_mean, m.int_return_sd
+    c.pass_sigma_floor = m.pass_sigma_floor
+    c.taper_enabled, c.rz_pass_damping = m.taper_enabled, m.rz_pass_damping
+    c.enable_fumbles = m.enable_fumbles
+    for name in ("pass_taper", "rush_taper"):
+        t1, t2, r1, r2 = getattr(m, name)
+        # _taper's `t1 + (t2 - t1) * r1` is Python arithmetic, rounded once
+        getattr(c, name)[:] = [t1, t2, r1, r2, t1 + (t2 - t1) * r1]
+    mc = cfg.matchup
+    c.explosive_gate_ytg = mc.explosive_gate_ytg
+    c.explosive_bonus_60, c.explosive_bonus_40 = mc.explosive_bonus_60, mc.explosive_bonus_40
+    c.explosive_lo, c.explosive_hi = mc.explosive_lo, mc.explosive_hi
+    # (scale, boost low end, boost span in double as the step writes it, z factor)
+    c.explosive_pass[:] = [mc.explosive_pass_scale, mc.explosive_pass_boost_lo,
+                           mc.explosive_pass_boost_hi - mc.explosive_pass_boost_lo,
+                           mc.explosive_pass_z_k]
+    c.explosive_run[:] = [mc.explosive_run_scale, mc.explosive_run_boost_lo,
+                          mc.explosive_run_boost_hi - mc.explosive_run_boost_lo,
+                          mc.explosive_run_z_k]
+    # (gate, base, slope, down bonus, lo, hi)
+    c.rz_pass[:] = [mc.rz_pass_gate_ytg, mc.rz_pass_base, mc.rz_pass_slope,
+                    mc.rz_pass_down_bonus, mc.rz_pass_lo, mc.rz_pass_hi]
+    c.rz_run[:] = [mc.rz_run_gate_ytg, mc.rz_run_base, mc.rz_run_slope,
+                   mc.rz_run_down_bonus, mc.rz_run_lo, mc.rz_run_hi]
+    c.r7, c.r10 = analytic.recip(7.0), analytic.recip(10.0)
+    c.r15, c.r60 = analytic.recip(15.0), analytic.recip(60.0)
+    k = cfg.clock
+    c.t_field_goal, c.t_punt, c.t_td_pass = k.field_goal, k.punt, k.td_pass
+    c.t_pass_complete, c.t_pass_incomplete = k.pass_complete, k.pass_incomplete
+    c.t_sack, c.t_interception, c.t_run = k.sack, k.interception, k.run
+    c.quarter_seconds = k.quarter_seconds
+    c.kickoff_spot = cfg.kickoff_spot
+    c.td_points, c.fg_points = m.td_points, m.fg_points
+    prof = th.nano_prof
+    c.dist, c.ytg, c.sec = _segs(prof.dist_segs), _segs(prof.ytg_segs), _segs(prof.sec_segs)
+    c.sd = _segs(prof.sd_segs if th.nano_nsd > 1 else ())
+    c.ny, c.ns, c.nsd, c.c = prof.ny, prof.ns, th.nano_nsd, th.nano_c
+    c.cols, c.per_dir = th.nano.values.shape[1], th.per_dir
+    c.has_s2, c.has_fumble = th.fused_has_s2, th.fused_has_fumble
+    ch = cfg.engine.play_chunk
+    c.cap = -(-cfg.engine.max_plays // ch) * ch    # whole chunks, as the eager loop
+    return c
+
+
+def pack_nano_game(pack: MatchupPack, cfg: SimConfig, th) -> NanoGameArgs:
+    """K1's inputs for `pack`'s matchups on the nano table of the
+    TableHeads `th`: the constants, and per direction what the eager step
+    computes from the direction alone, by its own torch expressions on the
+    pack's device (the same bits as the step's per-game copies)."""
+    if th.nano.row_map.shape[0] != pack.bias.shape[0]:
+        raise ValueError(f"the nano table holds {th.nano.row_map.shape[0]} directions, "
+                         f"the pack {pack.bias.shape[0]}")
+    mc = cfg.matchup
+    gap = pack.off_offense - pack.def_defense
+    tilt_pass = mc.rz_pass_tilt * torch.tanh(gap * analytic.recip(mc.rz_pass_tilt_denom))
+    tilt_run = mc.rz_run_tilt * torch.tanh(gap * analytic.recip(mc.rz_run_tilt_denom))
+    exp_base = mc.explosive_base + mc.explosive_z_k * (gap * analytic.recip(mc.mismatch_denom))
+    dirs = torch.stack([pack.ymult, pack.mz, tilt_pass, tilt_run, exp_base], dim=1)
+    return NanoGameArgs(_nano_consts(cfg, th), dirs.to(F32).contiguous(),
+                        th.nano.values, cfg.engine.early_exit)
+
+
+def nano_game_covers(cfg: SimConfig, heads_eval: HeadsEvalFn, heads_state,
+                     collect_players: bool, collect_stats: bool) -> bool:
+    """Whether K1 plays a launch of these settings: table heads
+    (`heads_eval.table_heads`) on a TableHeads with a nano table, no
+    play-policy lookup, both collectors off and no forced 4th-down choice."""
+    return bool(getattr(heads_eval, "table_heads", False)
+                and getattr(heads_state, "nano", None) is not None
+                and (heads_state.play is None or not cfg.model.use_play_model)
+                and not collect_players and not collect_stats
+                and cfg.fourth.force is None)
+
+
+def _seg_bin_packed(v: torch.Tensor, g: _Segs) -> torch.Tensor:
+    """`table_lookup._seg_bin` on packed segments."""
+    idx = torch.zeros(v.shape, dtype=I32, device=v.device)
+    for k in range(_SEGS):
+        if g.enter[k] == _INF:
+            break
+        local = torch.clamp(torch.round((v - g.start[k]) * g.inv_step[k]),
+                            0, g.top[k]).to(I32) + g.base[k]
+        idx = local if g.enter[k] == -_INF else torch.where(v > g.enter[k], local, idx)
+    return idx
+
+
+def _nano_play(c: NanoConsts, go: Tuple[torch.Tensor, ...], dirs: torch.Tensor,
+               table: torch.Tensor, s: GameState, u: torch.Tensor,
+               n: torch.Tensor) -> GameState:
+    """One masked play of every game from the packed inputs: `play_step`
+    with the nano heads, score-only, as K1 plays it."""
+    ytg_edges, dist_edges, grid = go
+    active = s.sec > 0
+    off, down0, dist0, ytg0, sec0 = s.off, s.down, s.dist, s.ytg, s.sec
+    dirx = s.gid * 2 + off
+    sd = (s.score[:, 0] - s.score[:, 1]) * (1 - 2 * off)
+    ymult, mz, tilt_pass, tilt_run, exp_base = dirs[dirx.long()].unbind(1)
+
+    # ---- 4th-down decision
+    yi = (ytg0[:, None] > ytg_edges).sum(dim=1)
+    di = (dist0[:, None] > dist_edges).sum(dim=1)
+    p = grid[yi * c.go_row + di]
+    late = sec0 < c.late_seconds
+    p = torch.where(late & (sd > 0), p * c.late_leading_scale, p)
+    p = torch.where(late & (sd < 0), torch.where(ytg0 > c.late_trailing_long_fg_ytg,
+                                                 c.late_trailing_go_long,
+                                                 c.late_trailing_go_short), p)
+    p_go = torch.clamp_max(torch.clamp(p, 0.0, 1.0) * c.go_multiplier, 1.0)
+    is4 = down0 == 4
+    go = active & is4 & (u[:, U_GO] < p_go)
+    st_play = active & is4 & ~go
+    fg_att = st_play & (ytg0 <= c.fg_attempt_max_ytg)
+    punt = st_play & ~fg_att
+    scrim = active & ~st_play
+
+    # FG
+    att = ytg0 + c.fg_snap_plus_endzone
+    p_fg = torch.full_like(att, c.fg_long_prob)
+    for k in reversed(range(_SLOTS)):
+        if c.fg_bounds[k] != -_INF:
+            p_fg = torch.where(att < c.fg_bounds[k], c.fg_probs[k], p_fg)
+    fg_good = fg_att & (u[:, U_FG] < p_fg)
+    fg_miss = fg_att & ~fg_good
+
+    # punt
+    gross = torch.clamp_min(c.punt_gross_mean + c.punt_gross_sd * n[:, N_PUNT_GROSS],
+                            c.punt_gross_min)
+    pret = torch.clamp_min(c.punt_return_mean + c.punt_return_sd * n[:, N_PUNT_RET], 0.0)
+    net = gross - pret
+    tb_p = torch.clamp((c.punt_tb_gate_ytg - ytg0) * c.r60, c.punt_tb_lo, c.punt_tb_hi)
+    tb = (ytg0 <= c.punt_tb_gate_ytg) & (u[:, U_TB] < tb_p)
+    net = torch.where(tb, ytg0 - c.punt_tb_own_spot, net)
+    net = torch.trunc(_clip(net, c.punt_net_min, ytg0 - 1.0))
+    punt_spot = torch.clamp(100.0 - (ytg0 - net), 1.0, 99.0)
+
+    # ---- scrimmage play
+    trip1 = scrim & ~s.in_rz & (ytg0 <= 20)
+    di = _seg_bin_packed(dist0, c.dist)
+    yi = _seg_bin_packed(ytg0, c.ytg)
+    si = _seg_bin_packed(sec0.to(F32), c.sec)
+    row = dirx * c.per_dir + (di * c.ny + yi) * c.ns + si
+    blk = torch.clamp(down0 - 1, 0, 4) * c.nsd
+    if c.nsd > 1:
+        blk = blk + _seg_bin_packed(sd.to(F32), c.sd)
+    start = row.long() * c.cols + (blk * c.c).long()
+    h = table.view(-1)[start[:, None] + torch.arange(c.c, dtype=torch.int64,
+                                                     device=start.device)]
+    p_c = h[:, 0]
+    if c.has_s2:
+        s2c0, s2c1 = h[:, 7], h[:, 8]
     else:
-        s = initial_state(n, first_offense, cfg, dev, game_id, pack.k,
-                          collect_players, collect_stats)
-    local = cfg.engine.antithetic and n % 4 == 0
-    anti = local if antithetic is None else bool(antithetic)
+        long_d = torch.clamp_min(dist0 - 7.0, 0.0) * c.r10
+        p_sck = c.s2_sck * (1.0 + 0.25 * torch.where(down0.to(F32) >= 3, 1.0, 0.0)
+                            + 0.15 * long_d)
+        p_int = c.s2_int * (1.0 + 0.10 * long_d)
+        p_inc = torch.full_like(p_sck, c.s2_inc)
+        tot = p_inc + p_int + p_sck
+        p_inc, p_int, p_sck = p_inc / tot, p_int / tot, p_sck / tot
+        p_inc = torch.clamp_min(p_inc, 0.0)
+        p_int = torch.clamp_min(p_int, 0.0) * c.stage2_int_scale + c.stage2_int_add
+        p_sck = torch.clamp_min(p_sck, 0.0) * c.stage2_sack_scale
+        tot = p_inc + p_int + p_sck
+        tot = torch.where(tot == 0.0, 1.0, tot)
+        s2c0 = p_inc / tot
+        s2c1 = s2c0 + p_sck / tot
+    p_f = h[:, 9 if c.has_s2 else 7] if c.has_fumble else torch.zeros_like(p_c)
+
+    r10 = c.r10
+    base = 0.53 + torch.where(
+        down0 == 1, 0.02 + 0.010 * torch.clamp_min(dist0 - 10, 0.0) * r10, 0.0)
+    base = base + torch.where(
+        down0 == 2, 0.12 + 0.020 * torch.clamp_min(dist0 - 7, 0.0) * r10, 0.0)
+    base = base + torch.where(
+        down0 == 3, 0.28 + 0.030 * torch.clamp_min(dist0 - 5, 0.0) * r10, 0.0)
+    base = base + torch.where(
+        down0 == 4, 0.45 + 0.035 * torch.clamp_min(dist0 - 3, 0.0) * r10, 0.0)
+    base = base - torch.where(ytg0 <= 10, 0.05, 0.0)
+    base = base - torch.where(ytg0 <= 5, 0.03, 0.0)
+    two_min = (sec0 % c.half_seconds) <= 120
+    base = base + torch.where(two_min & (sd < 0), 0.22, 0.0)
+    base = base + torch.where((sec0 < 600) & (sd < 0), 0.06, 0.0)
+    p_pass = torch.clamp(base, c.heuristic_clip_lo, c.heuristic_clip_hi)
+    is_pass = scrim & (u[:, U_CALL] < p_pass)
+    is_run = scrim & ~is_pass
+    complete = is_pass & (u[:, U_COMPLETE] < p_c)
+    notc = is_pass & ~complete
+    u2 = u[:, U_S2]
+    o_inc = notc & (u2 < s2c0)
+    o_sck = notc & ~o_inc & (u2 < s2c1)
+    o_int = notc & ~o_inc & ~o_sck
+
+    pass_mu, pass_sg = h[:, 1], h[:, 2]
+    if c.rz_pass_damping:
+        rz_scale = torch.where(ytg0 < 15.0, 0.8 + 0.2 * (ytg0 * c.r15), 1.0)
+        pass_mu = pass_mu * rz_scale
+        pass_sg = torch.clamp_min(pass_sg * rz_scale, c.pass_sigma_floor)
+    py_raw = pass_mu + pass_sg * n[:, N_YARDS]
+    if c.taper_enabled:
+        py_raw = _taper_packed(py_raw, c.pass_taper)
+    yards_p = _clip(py_raw, c.pass_clip_lo, ytg0) * ymult
+    ep = exp_base + torch.where(ytg0 > 60, c.explosive_bonus_60, 0.0)
+    ep = torch.clamp(ep + torch.where(ytg0 > 40, c.explosive_bonus_40, 0.0),
+                     c.explosive_lo, c.explosive_hi)
+
+    def gain(yards, e, rz, tilt):
+        """The explosive boost and the red-zone finish of one branch."""
+        gate = (ytg0 > c.explosive_gate_ytg) & (u[:, U_EXP] < e[0] * ep)
+        boost = e[1] + u[:, U_BOOST] * e[2]
+        yards = torch.where(gate, torch.minimum(yards * (1.0 + boost * (1.0 + e[3] * mz)),
+                                                ytg0), yards)
+        prob = rz[1] + rz[2] * torch.clamp_min(7.0 - ytg0, 0.0) * c.r7
+        prob = torch.clamp(prob + rz[3] * torch.clamp_min(4 - down0, 0) + tilt, rz[4], rz[5])
+        finish = (ytg0 <= rz[0]) & (down0 <= 3) & (u[:, U_RZ] < prob)
+        return torch.where(finish, ytg0, yards)
+
+    yards_p = gain(yards_p, c.explosive_pass, c.rz_pass, tilt_pass)
+    pass_td = complete & (yards_p + 1e-9 >= ytg0)
+    pass_gain = complete & ~pass_td
+    sy = torch.clamp(h[:, 5] + h[:, 6] * n[:, N_YARDS], c.sack_clip_lo, c.sack_clip_hi)
+    loss = torch.minimum(torch.clamp_min(-sy, 0.0), ytg0)
+    ret = _clip(c.int_return_mean + c.int_return_sd * n[:, N_INT_RET], 0.0, ytg0)
+    int_spot = 100.0 - (ytg0 - ret)
+    ry_raw = h[:, 3] + h[:, 4] * n[:, N_YARDS]
+    if c.taper_enabled:
+        ry_raw = _taper_packed(ry_raw, c.rush_taper)
+    yards_r = gain(_clip(ry_raw, c.rush_clip_lo, ytg0) * ymult, c.explosive_run, c.rz_run,
+                   tilt_run)
+    fum = is_run & (u[:, U_FUM] < p_f) if c.enable_fumbles else torch.zeros_like(is_run)
+    run_active = is_run & ~fum
+    run_td = run_active & (yards_r + 1e-9 >= ytg0)
+    run_gain = run_active & ~run_td
+    fum_spot_ytg = torch.clamp_min(ytg0 - _clip(yards_r, c.rush_clip_lo, ytg0), 0.0)
+
+    # ---- phase a: pre-tick state updates
+    adv = pass_gain | run_gain
+    gained = torch.where(pass_gain, yards_p, 0.0) + torch.where(run_gain, yards_r, 0.0)
+    ytg_a = torch.where(adv, torch.clamp_min(ytg0 - gained, 0.0), ytg0)
+    first = adv & (gained + 1e-6 >= dist0)
+    down_a = torch.where(adv, torch.where(first, 1, down0 + 1), down0)
+    dist_a = torch.where(adv, torch.where(first, 10.0, dist0 - gained), dist0)
+    downs_to = adv & ~first & (down_a > 4)
+    ytg_a = torch.where(o_sck, ytg0 + loss, ytg_a)
+    dist_a = torch.where(o_sck, dist0 + loss, dist_a)
+    down_a = torch.where(o_sck | o_inc, down0 + 1, down_a)
+    flip_a = downs_to | o_int | fum
+    spot_a = torch.where(o_int, int_spot,
+                         torch.where(fum, 100.0 - fum_spot_ytg, 100.0 - ytg_a))
+    off_a = torch.where(flip_a, 1 - off, off)
+    ytg_a = torch.where(flip_a, spot_a, ytg_a)
+    down_a = torch.where(flip_a, 1, down_a)
+    dist_a = torch.where(flip_a, 10.0, dist_a)
+    in_rz_a = ~flip_a & (s.in_rz | trip1)
+
+    # ---- phase b: tick (+ halftime flip)
+    t = (fg_att * c.t_field_goal + punt * c.t_punt + pass_td * c.t_td_pass
+         + pass_gain * c.t_pass_complete + o_inc * c.t_pass_incomplete
+         + o_sck * c.t_sack + o_int * c.t_interception
+         + (run_td | run_gain | fum) * c.t_run).to(I32)
+    sec_b = torch.clamp_min(sec0 - t, 0)
+    period_b = torch.where(
+        sec_b > 0, 4 - torch.div(sec_b - 1, c.quarter_seconds, rounding_mode="floor"),
+        4).to(I32)
+    halftime = active & (period_b != s.period) & (period_b == 3)
+    off_b = torch.where(halftime, 1 - off_a, off_a)
+    ytg_b = torch.where(halftime, c.kickoff_spot, ytg_a)
+    down_b = torch.where(halftime, 1, down_a)
+    dist_b = torch.where(halftime, 10.0, dist_a)
+    in_rz_b = ~halftime & in_rz_a
+
+    # ---- phase c: post-tick possession flips
+    flip_c = fg_good | fg_miss | punt | pass_td | run_td
+    spot_c = torch.where(fg_miss, 100.0 - ytg0, torch.where(punt, punt_spot, c.kickoff_spot))
+    ytg_c = torch.where(flip_c, spot_c, ytg_b)
+    in_rz_c = ~flip_c & in_rz_b
+    trip2 = run_gain & ~in_rz_c & (ytg_c <= 20)
+    pts = (pass_td | run_td) * c.td_points + fg_good * c.fg_points
+    side = torch.stack([off == 0, off == 1], dim=1)
+    return GameState(
+        gid=s.gid, fo=s.fo, off=torch.where(flip_c, 1 - off_b, off_b).to(I32),
+        sec=sec_b.to(I32), down=torch.where(flip_c, 1, down_b).to(I32),
+        dist=torch.where(flip_c, 10.0, dist_b).to(F32), ytg=ytg_c.to(F32), period=period_b,
+        in_rz=in_rz_c | trip2, going=~active & s.going,
+        score=s.score + (side * pts[:, None]).to(I32), stats=s.stats, pstats=s.pstats)
+
+
+def _taper_packed(y: torch.Tensor, t) -> torch.Tensor:
+    """`_taper` on packed (t1, t2, r1, r2, t1 + (t2 - t1) * r1)."""
+    mid = t[0] + (y - t[0]) * t[2]
+    hi = t[4] + (y - t[1]) * t[3]
+    return torch.where(y <= t[0], y, torch.where(y <= t[1], mid, hi))
+
+
+def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
+                    anti: bool = False,
+                    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> GameState:
+    """K1's specification in plain torch, on the device of `s`: the packed
+    inputs of `args`, one masked play of every game (`sec > 0`) at a time
+    until no game is running or the cap.  Game b draws row row0 + b of
+    (key, absolute step) (`step_draws`), or with `anti` row row0 / 2 + 2 (b
+    // 4) + b % 2, mirrored where b % 4 >= 2; `draws`, a (steps, rows, 13)
+    and a (steps, rows, 4) table, stands in for the stream (row r of step
+    j for the launch's draw row r).  As the eager loop, it plays at all
+    only where some game is running or early_exit is off."""
+    c = args.consts
+    dev = s.sec.device
+    n = s.off.shape[0]
+    rows = n // 2 if anti else n
+    r0 = row0 // 2 if anti else row0
+    go = (torch.tensor(list(c.go_ytg_edges), dtype=F32, device=dev),
+          torch.tensor(list(c.go_dist_edges), dtype=F32, device=dev),
+          torch.tensor(list(c.go_grid)[:c.go_cells], dtype=F32, device=dev))
+    cap = c.cap if draws is None else min(c.cap, draws[0].shape[0])
+    if not args.early_exit or bool((s.sec > 0).any()):
+        for j in range(cap):
+            if j and not bool((s.sec > 0).any()):
+                break      # every game ended: the rest of the loop is a fixed point
+            u, z = (step_draws(key, j, rows, dev, row0=r0) if draws is None
+                    else (draws[0][j], draws[1][j]))
+            if anti:
+                u, z = mirror_draws(u, z)
+            s = _nano_play(c, go, args.dirs, args.table, s, u, z)
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _nano_launcher():
+    from ..utils.cuda_build import load_kernel_library
+
+    lib = load_kernel_library(_KERNEL)
+    size = lib.nano_game_consts_size
+    size.argtypes, size.restype = [], ctypes.c_int
+    if size() != ctypes.sizeof(NanoConsts):
+        raise RuntimeError(f"NanoConsts is {size()} bytes in nano_game.cu, "
+                           f"{ctypes.sizeof(NanoConsts)} in ops/game.py")
+    fn = lib.nano_game_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# the state fields K1 reads, in the launcher's order, and their dtypes
+_NANO_IN = (("gid", I32), ("off", I32), ("sec", I32), ("down", I32), ("dist", F32),
+            ("ytg", F32), ("period", I32), ("in_rz", torch.bool), ("going", torch.bool),
+            ("score", I32))
+
+
+def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
+                   anti: bool = False, plays: Optional[torch.Tensor] = None) -> GameState:
+    """K1 on the card: the games of `s` to their end in one launch of
+    csrc/nano_game.cu on the current stream, drawing as `nano_game_plain`
+    draws.  Raises ValueError for tensors off the card (the CPU runs
+    `nano_game_plain`) and RuntimeError where the kernel does not build or
+    launch.  `plays`, a (1,) int64 tensor on the card, has the games' plays
+    added to it.  `nano_game_cuda.launches` counts kernel launches and
+    nothing else."""
+    n = s.off.shape[0]
+    dev = s.sec.device
+    tensors = [getattr(s, f) for f, _ in _NANO_IN] + [args.table, args.dirs]
+    if any(t.device != dev for t in tensors) or dev.type != "cuda":
+        raise ValueError("nano_game_cuda takes a state and packed inputs on one CUDA "
+                         f"device; got {sorted({str(t.device) for t in tensors})} "
+                         "(the CPU runs nano_game_plain)")
+    ins = []
+    for f, dtype in _NANO_IN:
+        t = getattr(s, f)
+        want = (n, 2) if f == "score" else (n,)
+        if t.dtype != dtype or tuple(t.shape) != want:
+            raise ValueError(f"state field {f} must be {dtype} of shape {want}; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        ins.append(t.contiguous())
+    if args.table.dtype != F32 or args.dirs.dtype != F32 or not args.table.is_contiguous():
+        raise ValueError("the nano table and the direction constants must be contiguous f32")
+    if plays is not None and (plays.dtype != torch.int64 or plays.device != dev):
+        raise ValueError(f"plays must be an int64 tensor on {dev}")
     if anti and (n % 4 or row0 % 4):
         raise ValueError(f"antithetic draws for games {row0}..{row0 + n - 1} split a "
                          "mirrored block of four")
-    if anti != local:    # play_step mirrors by the block's own count
-        cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, antithetic=anti))
-    rows = n // 2 if anti else n
-    r0 = row0 // 2 if anti else row0
-    ch = cfg.engine.play_chunk
-    n_chunks = -(-cfg.engine.max_plays // ch)
-    buf = None
-    if rng != "pallas":
-        buf = (torch.empty((ch, rows, N_UNIFORMS), dtype=F32, device=dev),
-               torch.empty((ch, rows, N_NORMALS), dtype=F32, device=dev))
-    for ci in range(n_chunks):
-        if cfg.engine.early_exit and not bool((s.sec > 0).any()):
-            break
-        step0 = ci * ch
-        if buf is not None:
-            chunk_draws(key, step0, ch, rows, dev, out=buf, row0=r0)
-        for j in range(ch):
-            draws = ((buf[0][j], buf[1][j]) if buf is not None
-                     else step_draws(key, step0 + j, rows, dev, row0=r0))
-            s = play_step(s, draws, pack, cfg, heads_eval, heads_state,
-                          collect_players, collect_stats)
-    if collect_stats:
-        s.stats[:, :, TS["points"]] = s.score.to(F32)
-    return s
+    rows, r0 = (n // 2, row0 // 2) if anti else (n, row0)
+    if r0 < 0 or r0 + rows > 2 ** 32:
+        raise ValueError(f"draw rows {r0}..{r0 + rows - 1} outside the 32-bit row counter")
+    if n == 0:
+        return s
+    outs = [torch.empty_like(t) for t in ins[1:]]
+    run_flag = (ins[2] > 0).any() if args.early_exit else None
+    launch = _nano_launcher()
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+    with torch.cuda.device(dev):
+        err = launch(ctypes.addressof(args.consts), args.table.data_ptr(),
+                     args.dirs.data_ptr(), args.dirs.shape[0] // 2, ptrs(ins), ptrs(outs),
+                     key & 0xFFFFFFFF, (key >> 32) & 0xFFFFFFFF, r0, int(anti),
+                     None if run_flag is None else run_flag.data_ptr(),
+                     None if plays is None else plays.data_ptr(), n,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nano_game kernel launch failed: CUDA error {err}")
+    nano_game_cuda.launches += 1
+    off, sec, down, dist, ytg, period, in_rz, going, score = outs
+    return GameState(gid=s.gid, fo=s.fo, off=off, sec=sec, down=down, dist=dist, ytg=ytg,
+                     period=period, in_rz=in_rz, going=going, score=score, stats=s.stats,
+                     pstats=s.pstats)
+
+
+nano_game_cuda.launches = 0
+
+
+def nano_game(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
+              anti: bool = False) -> GameState:
+    """K1: the games of `s` played to their end from the packed inputs
+    (`pack_nano_game`), game b drawing row row0 + b of (key, absolute step)
+    (antithetic: `nano_game_plain`).  A state on the card launches the
+    kernel (`nano_game_cuda`), one on the CPU runs `nano_game_plain`."""
+    dev = s.sec.device
+    if dev.type == "cuda":
+        return nano_game_cuda(args, s, key, row0, anti)
+    if dev.type == "cpu":
+        return nano_game_plain(args, s, key, row0, anti)
+    raise ValueError(f"nano_game: unsupported device {dev}")

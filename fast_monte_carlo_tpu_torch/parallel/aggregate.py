@@ -8,7 +8,11 @@ package: exact integers up to 2^24 per launch.  Histograms are int32.
 The counts and sums are taken exactly in int64 (`exact_moments`) and
 rounded once to f32, where the JAX package sums in f32 in XLA's order; so
 moments of the parts of a batch, added as integers, give the whole batch's
-bit for bit (the trial-sharded reduction, `parallel.mesh`).
+bit for bit (the trial-sharded reduction, `parallel.mesh`).  On the card
+int32 scores reduce in one launch of K2 (`exact_moments_cuda`,
+csrc/score_moments.cu: shared-memory histograms, integer atomics), the
+counterpart of the JAX package's XLA `score_moments`; elsewhere the torch
+body `exact_moments_plain` runs, which K2 equals bit for bit.
 
 Scores with leading axes, (S, B, 2), reduce to moments with those axes in
 front, one set of histograms per group from one `bincount` (group g's
@@ -20,6 +24,8 @@ on the device of their input.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Dict, NamedTuple
 
@@ -78,7 +84,16 @@ def _histograms(score: torch.Tensor):
 
 def exact_moments(score: torch.Tensor) -> ScoreMoments:
     """`score_moments` before the rounding: the counts and sums as int64,
-    exact, the histograms int32."""
+    exact, the histograms int32.  int32 scores on the card go through K2
+    (`exact_moments_cuda`), any other through the torch body
+    (`exact_moments_plain`); the two agree bit for bit."""
+    if score.device.type == "cuda" and score.dtype == torch.int32:
+        return exact_moments_cuda(score)
+    return exact_moments_plain(score)
+
+
+def exact_moments_plain(score: torch.Tensor) -> ScoreMoments:
+    """`exact_moments` in torch on any device: K2's plain version."""
     s = score.to(torch.int64)
     s0, s1 = score[..., 0], score[..., 1]
     pts_hist, margin_hist, total_hist = _histograms(score)
@@ -90,6 +105,67 @@ def exact_moments(score: torch.Tensor) -> ScoreMoments:
         s_sum=s.sum(dim=-2), s_sumsq=(s * s).sum(dim=-2),
         pts_hist=pts_hist, margin_hist=margin_hist, total_hist=total_hist,
     )
+
+
+_KERNEL = "score_moments"
+_THREADS = 256                  # score_moments.cu's block
+_FILL_BLOCKS = 4 * 132          # blocks a launch aims for: 4 an H100 SM
+_N_COUNTS = 8                   # n, wins 2, ties, sums 2, squares 2 a matchup
+_N_BINS = 2 * MAX_PTS + 2 * MARGIN_OFF + 2 * MAX_PTS
+
+
+@functools.lru_cache(maxsize=None)
+def _moments_launcher():
+    from ..utils.cuda_build import load_kernel_library
+
+    fn = load_kernel_library(_KERNEL).score_moments_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def exact_moments_cuda(score: torch.Tensor) -> ScoreMoments:
+    """K2 (csrc/score_moments.cu): `exact_moments` of (..., n, 2) int32
+    scores on the card in one launch on the current stream, the moments of
+    each leading index.  Raises ValueError for scores off the card or of
+    another dtype (`exact_moments_plain` takes those) and RuntimeError
+    where the kernel does not build or launch.  `exact_moments_cuda.
+    launches` counts kernel launches and nothing else."""
+    if score.device.type != "cuda":
+        raise ValueError(f"exact_moments_cuda takes scores on the card, got {score.device} "
+                         "(exact_moments_plain takes the others)")
+    if score.dtype != torch.int32 or score.dim() < 2 or score.shape[-1] != 2:
+        raise ValueError(f"exact_moments_cuda takes (..., n, 2) int32 scores, got "
+                         f"{score.dtype} {tuple(score.shape)}")
+    lead, n = score.shape[:-2], score.shape[-2]
+    groups = math.prod(lead)
+    s = score.reshape(groups, n, 2).contiguous()
+    if s.data_ptr() % 8:
+        s = s.clone()        # the kernel reads a game's two scores as one int2
+    counts = torch.zeros(groups * _N_COUNTS, dtype=torch.int64, device=score.device)
+    hist = torch.zeros(groups * _N_BINS, dtype=torch.int32, device=score.device)
+    if n > 0 and groups > 0:
+        blocks = max(1, min(-(-n // (8 * _THREADS)), -(-_FILL_BLOCKS // groups)))
+        with torch.cuda.device(score.device):
+            err = _moments_launcher()(s.data_ptr(), n, groups, blocks, counts.data_ptr(),
+                                      hist.data_ptr(),
+                                      torch.cuda.current_stream(score.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"score_moments kernel launch failed: CUDA error {err}")
+        exact_moments_cuda.launches += 1
+    g = groups
+    pts = 2 * MAX_PTS * g
+    return ScoreMoments(
+        n=counts[:g].view(lead), wins=counts[g:3 * g].view(*lead, 2),
+        ties=counts[3 * g:4 * g].view(lead), s_sum=counts[4 * g:6 * g].view(*lead, 2),
+        s_sumsq=counts[6 * g:8 * g].view(*lead, 2),
+        pts_hist=hist[:pts].view(*lead, 2, MAX_PTS),
+        margin_hist=hist[pts:pts + 2 * MARGIN_OFF * g].view(*lead, 2 * MARGIN_OFF),
+        total_hist=hist[pts + 2 * MARGIN_OFF * g:].view(*lead, 2 * MAX_PTS))
+
+
+exact_moments_cuda.launches = 0
 
 
 def rounded_moments(m: ScoreMoments) -> ScoreMoments:

@@ -25,11 +25,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
-# per-source flags on top of NVCC_FLAGS.  fused_step must round every f32
-# multiply and add on its own, as the eager torch step it is held to does
-# (one elementwise kernel per operation), so nvcc may not contract them
-# into FMAs.
-EXTRA_FLAGS = {"fused_step": ("--fmad=false",)}
+# per-source flags on top of NVCC_FLAGS.  fused_step and nano_game must
+# round every f32 multiply and add on its own, as the eager torch step they
+# are held to does (one elementwise kernel per operation), so nvcc may not
+# contract them into FMAs.
+EXTRA_FLAGS = {"fused_step": ("--fmad=false",), "nano_game": ("--fmad=false",)}
 
 _LOADED: dict = {}
 

@@ -85,7 +85,8 @@ def test_bench_smoke_json_contract():
     assert meta["device"] == {"platform": "cpu", "kind": meta["device"]["kind"], "count": 1}
     assert meta["inputs"]["team_a"] == "Team A" and meta["inputs"]["team_b"] == "Team B"
     assert meta["inputs"]["sp_source"].startswith("fixtures.write_sp_sheet(")
-    assert meta["launches"] == {"philox_draws": 0, "forest_eval": 0}   # plain versions here
+    assert meta["launches"] == {"philox_draws": 0, "forest_eval": 0, "nano_game": 0,
+                                "score_moments": 0}   # plain versions here
     assert meta["ignored"] == {"unroll": 0, "tail_chunk": 0, "tail_after": 144}
     assert "sanity" in proc.stderr
 

@@ -13,7 +13,8 @@ from fast_monte_carlo_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
 
-SOURCES = ("philox_draws", "fused_step", "row_gather", "forest_eval")
+SOURCES = ("philox_draws", "fused_step", "row_gather", "forest_eval", "nano_game",
+           "score_moments")
 
 
 @pytest.fixture
@@ -50,7 +51,9 @@ def test_digest_follows_source_headers_and_flags(csrc, name, monkeypatch):
 
 def test_fused_step_is_built_without_fma_contraction():
     assert "--fmad=false" in cuda_build.nvcc_flags("fused_step")
+    assert "--fmad=false" in cuda_build.nvcc_flags("nano_game")
     assert "--fmad=false" not in cuda_build.nvcc_flags("philox_draws")
+    assert "--fmad=false" not in cuda_build.nvcc_flags("score_moments")
 
 
 def test_libraries_build_from_the_given_sources(csrc, tmp_path, monkeypatch):
