@@ -600,11 +600,9 @@ MOMENT_BINS, MOMENT_FIELDS = 768, 8
 # the JSON line's counts of those two kernels, with phase 18's ranks' and
 # phase 19's bench processes' added
 PATH_LAUNCHES: dict = {}
-# phase 21: the antithetic, situation, init_state, row0 and stage-2 variants
-# at LAUNCH_GAMES; the slate variant at the fixture slate's G matchups x
-# NANO_SLATE_GAMES; the plain version on the card at NANO_PLAIN_GAMES
+# phase 21: the variants at LAUNCH_GAMES (the ragged ones at 1,000 and 4);
+# the slate variants at the fixture slate's G matchups x NANO_SLATE_GAMES
 NANO_SLATE_GAMES = 16_384
-NANO_PLAIN_GAMES = 4_096
 # forest_eval (K5): what any walk of this run's rows must do, whatever its
 # layout (the plain walk's leaves give each row's path; the same bound
 # holds any kernel of the walk): per internal node visited, one
@@ -3911,15 +3909,22 @@ def moment_bound(groups: int, n: int) -> dict:
 
 def phase_nano_game(card: str) -> dict:
     """K1 (nano_game) against the eager loop (`simulate_games_eager`, its
-    plain version at the level of a launch) on the same keys at 65,536
-    games, in each variant; `nano_game_plain` on the card against K1 on a
-    smaller launch; K2 (score_moments) bit for bit against the torch body;
-    both kernels timed beside their bounds and their plain versions.  The
-    comparisons' launches are no path's: the counts are not read here."""
+    plain version at the level of a launch) and against `nano_game_plain`
+    on the same start states and keys, in each variant (every branch of
+    K1: the default config, antithetic, resumed and forced starts, a row
+    offset, stage-2 and fumble channels, the classic config's taper and
+    red-zone damping, a collapsed score-diff axis, fumbles without a
+    channel, early_exit off, ragged launches) and over the fixture slate in
+    one launch, plain and antithetic; K2 (score_moments) bit for bit
+    against the torch body, ragged shapes too; both kernels timed beside
+    their bounds and their plain versions.  The comparisons' launches are
+    no path's: the counts are not read here."""
     import torch
     from fast_monte_carlo_tpu_torch import api, fixtures
-    from fast_monte_carlo_tpu_torch.config import SimConfig
+    from fast_monte_carlo_tpu_torch.config import SimConfig, classic_config
     from fast_monte_carlo_tpu_torch.matchup import build_direction
+    from fast_monte_carlo_tpu_torch.models.tables import (marginalize_sd, nano_from_fused,
+                                                          nano_profile)
     from fast_monte_carlo_tpu_torch.ops import game, rng
     from fast_monte_carlo_tpu_torch.ops import table_lookup as tl
     from fast_monte_carlo_tpu_torch.ops.pack import pack_matchup
@@ -3937,54 +3942,69 @@ def phase_nano_game(card: str) -> dict:
     anti_cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, antithetic=True))
     fum_cfg = cfg.replace(model=dataclasses.replace(cfg.model, enable_fumbles=True))
     th_s2 = tl.pack_tables(*fixtures.nano_tables(TABLE_SEED, s2_fumble=True), device=dev)
+    prof = nano_profile()
+    # the tables `sim --sd-mode frozen` plays: the score-diff axis collapsed
+    th_nsd1 = tl.pack_tables(*(nano_from_fused(marginalize_sd(t, prof, "frozen"), prof)
+                               for t in fixtures.fused_tables(TABLE_SEED)), device=dev)
+    check(th_nsd1.nano_nsd == 1, "the frozen tables have one score-diff bin")
     q4 = game.Situation(1, 300, 2, 7.0, 40.0, 17, 21)
     cfg_go = cfg.replace(fourth=dataclasses.replace(cfg.fourth, force="go"))
     forced = game.play_step(
         game.state_from_situation(n, q4._replace(down=4, dist=2.0), cfg, dev, **score_only),
         rng.step_draws(rng.fold_in(rng.root_key(62), 1), 0, n, dev), pack, cfg_go, he, th)
+    no_exit = cfg.replace(engine=dataclasses.replace(cfg.engine, early_exit=False))
+    # (what, config, tables, games, first offense, start)
     variants = [
-        ("kickoff", cfg, th, dict(first_offense=fo)),
-        ("antithetic", anti_cfg, th, dict(first_offense=fo)),
-        ("situation Q4 05:00 2nd-and-7", cfg, th, dict(first_offense=0, situation=q4)),
-        ("init_state after a forced go", cfg, th, dict(first_offense=0, init_state=forced)),
-        (f"row0 {n:,}", cfg, th, dict(first_offense=fo, row0=n)),
-        ("stage-2 and fumble channels", fum_cfg, th_s2, dict(first_offense=fo)),
+        ("kickoff", cfg, th, n, fo, {}),
+        ("antithetic", anti_cfg, th, n, fo, {}),
+        ("situation Q4 05:00 2nd-and-7", cfg, th, n, 0, dict(situation=q4)),
+        ("init_state after a forced go", cfg, th, n, 0, dict(init_state=forced)),
+        (f"row0 {n:,}", cfg, th, n, fo, dict(row0=n)),
+        ("stage-2 and fumble channels", fum_cfg, th_s2, n, fo, {}),
+        ("classic config (taper, red-zone damping)", classic_config(), th, n, fo, {}),
+        ("score-diff axis collapsed (nsd 1)", cfg, th_nsd1, n, fo, {}),
+        ("fumbles on, no fumble channel", fum_cfg, th, n, fo, {}),
+        ("early_exit off, from Q4 05:00", no_exit, th, n, 0, dict(situation=q4)),
+        ("ragged, 1,000 games", cfg, th, 1_000, fo[:1_000], {}),
+        ("ragged, 4 antithetic games", anti_cfg, th, 4, fo[:4], {}),
     ]
     errs, eager_ms = {}, None
     key = rng.root_key(61)
-    for what, c, t, kw in variants:
-        fo_kw = kw.pop("first_offense")
-        got = game.simulate_games(pack, c, he, t, key, n, fo_kw, **score_only, **kw)
+
+    def held(what, pk, c, t, games, first, start, timed=False):
+        """K1's launch against the eager loop and against nano_game_plain
+        on the same start state; the eager loop's ms by events where
+        `timed`."""
+        before = game.nano_game_cuda.launches
+        got = game.simulate_games(pk, c, he, t, key, games, first, **score_only, **start)
+        check(game.nano_game_cuda.launches == before + 1, f"{what}: one K1 launch")
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0.record()
-        want = game.simulate_games_eager(pack, c, he, t, key, n, fo_kw, **score_only, **kw)
+        want = game.simulate_games_eager(pk, c, he, t, key, games, first, **score_only, **start)
         t1.record()
+        row0 = start.get("row0", 0)
+        s, c2, anti = game._launch_state(pk, c, games, first, False, start.get("game_id", 0),
+                                         False, start.get("situation"), start.get("init_state"),
+                                         row0, None)
+        plain = game.nano_game_plain(game.pack_nano_game(pk, c2, t), s, key, row0, anti)
         torch.cuda.synchronize()
-        eager_ms = eager_ms or t0.elapsed_time(t1)        # the kickoff's, K1's timed launch
-        errs[what] = nano_diff(want, got, f"K1 against the eager loop, {what}")
+        errs[what] = max(nano_diff(want, got, f"K1 against the eager loop, {what}"),
+                         nano_diff(plain, got, f"K1 against nano_game_plain, {what}"))
+        return t0.elapsed_time(t1) if timed else None
 
-    # the fixture slate in the game layout, one launch
+    for what, c, t, games, first, start in variants:
+        ms = held(what, pack, c, t, games, first, start, timed=eager_ms is None)
+        eager_ms = eager_ms or ms                # the kickoff's, K1's timed launch
+
+    # the fixture slate in the game layout, one launch, plain and antithetic
     matchups, tables = fixtures.slate(SLATE_GAMES, SLATE_SEED)
     sr = api.SlateRunner(matchups, None, cfg, game_shard=True, nano_tables=tables, device=dev)
     g_n = SLATE_GAMES * NANO_SLATE_GAMES
     t = torch.arange(g_n, dtype=torch.int32, device=dev)
-    slate_kw = dict(collect_players=False, collect_stats=False,
-                    game_id=t // NANO_SLATE_GAMES)
-    got = game.simulate_games(sr.pack, cfg, he, sr.heads_state, key, g_n, t % 2, **slate_kw)
-    want = game.simulate_games_eager(sr.pack, cfg, he, sr.heads_state, key, g_n, t % 2,
-                                     **slate_kw)
-    errs["slate"] = nano_diff(want, got, f"K1 against the eager loop, one slate launch "
-                                f"({SLATE_GAMES} x {NANO_SLATE_GAMES:,} games)")
-    del got, want
-
-    # the plain version on the card against K1
+    for what, c in (("one slate launch", cfg), ("one antithetic slate launch", anti_cfg)):
+        held(f"{what} ({SLATE_GAMES} x {NANO_SLATE_GAMES:,} games)", sr.pack, c,
+             sr.heads_state, g_n, t % 2, dict(game_id=t // NANO_SLATE_GAMES))
     args = game.pack_nano_game(pack, cfg, th)
-    m = NANO_PLAIN_GAMES
-    s_small = game.initial_state(m, fo[:m], cfg, dev, **score_only)
-    plain = game.nano_game_plain(args, s_small, rng.root_key(63))
-    got = game.nano_game_cuda(args, s_small, rng.root_key(63))
-    errs["plain"] = nano_diff(plain, got, f"K1 against nano_game_plain on the card, "
-                                f"{m:,} games")
 
     # K2 against the torch body, bit for bit
     gen = torch.Generator(device=dev).manual_seed(64)
@@ -3995,7 +4015,12 @@ def phase_nano_game(card: str) -> dict:
                                             device=dev, dtype=torch.int32)),
              ("(3, 4,096) past every clamp", torch.randint(-300, 400, (3, 4_096, 2),
                                                            generator=gen, device=dev,
-                                                           dtype=torch.int32))]
+                                                           dtype=torch.int32)),
+             ("(5, 3,001) ragged", torch.randint(0, 70, (5, 3_001, 2), generator=gen,
+                                                 device=dev, dtype=torch.int32)),
+             ("(1, 100) under one block", torch.randint(0, 70, (1, 100, 2), generator=gen,
+                                                        device=dev, dtype=torch.int32)),
+             ("(2, 0) no games", torch.zeros((2, 0, 2), device=dev, dtype=torch.int32))]
     k2_err = 0.0
     for what, sc in cases:
         mk, mp = agg.exact_moments_cuda(sc), agg.exact_moments_plain(sc)
@@ -4007,10 +4032,12 @@ def phase_nano_game(card: str) -> dict:
               f"body ({len(same)} of {len(mk)})")
 
     # timing: K1 a 65,536-game launch and a slate launch, K2, their plain
-    # versions (K2's time is its wrapper's: the two zero fills and the kernel)
+    # versions; K1's lane share (plays over 32 lanes x its warps' loop trips)
     s0 = game.initial_state(n, fo, cfg, dev, **score_only)
     plays = torch.zeros(1, dtype=torch.int64, device=dev)
-    game.nano_game_cuda(args, s0, key, plays=plays)
+    iters = torch.zeros(1, dtype=torch.int64, device=dev)
+    game.nano_game_cuda(args, s0, key, plays=plays, iters=iters)
+    k1_share = int(plays) / (32 * int(iters))
     k1_ms, _, k1_how = times(lambda: game.nano_game_cuda(args, s0, key), 10)
     k1_bd = nano_bound(n, int(plays), th.nano_values.numel() * 4)
     # the plain version is thousands of kernels a play: one profiled call
@@ -4023,8 +4050,8 @@ def phase_nano_game(card: str) -> dict:
     t1.record()
     torch.cuda.synchronize()
     k1_plain_ev = t0.elapsed_time(t1)
-    print(f"  nano_game at {n:,} games ({int(plays):,} plays, {int(plays) / n:.1f} a game): "
-          f"K1 {k1_ms:.4f} ms ({k1_how}), bound {k1_bd['bound_ms']:.4f} ms "
+    print(f"  nano_game at {n:,} games ({int(plays):,} plays, {int(plays) / n:.1f} a game, "
+          f"lane share {k1_share:.4f}): K1 {k1_ms:.4f} ms ({k1_how}), bound {k1_bd['bound_ms']:.4f} ms "
           f"({k1_bd['bound_class']}; {k1_bd['bound_ms'] / k1_ms:.1%} of it); nano_game_plain "
           f"{k1_plain:.2f} ms device ({plain_how}; {k1_plain_ev:.1f} by events), the eager "
           f"loop {eager_ms:.1f} ms by events ({card})")
@@ -4034,12 +4061,14 @@ def phase_nano_game(card: str) -> dict:
     s_slate = game.initial_state(sn, t % 2, cfg, dev, t // per_slate, **score_only)
     slate_args = game.pack_nano_game(sr.pack, cfg, sr.heads_state)
     plays.zero_()
-    game.nano_game_cuda(slate_args, s_slate, key, plays=plays)
+    iters.zero_()
+    game.nano_game_cuda(slate_args, s_slate, key, plays=plays, iters=iters)
+    slate_share = int(plays) / (32 * int(iters))
     slate_ms, _, slate_how = times(lambda: game.nano_game_cuda(slate_args, s_slate, key), 3)
     slate_bd = nano_bound(sn, int(plays), sr.heads_state.nano_values.numel() * 4)
     print(f"  nano_game, one slate launch ({SLATE_GAMES} x {per_slate:,} = {sn:,} games, "
-          f"{int(plays):,} plays, a {sr.heads_state.nano_values.numel() * 4 / 1e6:,.1f} MB "
-          f"table): {slate_ms:.3f} ms ({slate_how}), bound {slate_bd['bound_ms']:.3f} ms "
+          f"{int(plays):,} plays, lane share {slate_share:.4f}, a "
+          f"{sr.heads_state.nano_values.numel() * 4 / 1e6:,.1f} MB table): {slate_ms:.3f} ms ({slate_how}), bound {slate_bd['bound_ms']:.3f} ms "
           f"({slate_bd['bound_class']}; {slate_bd['bound_ms'] / slate_ms:.1%} of it) ({card})")
     del s_slate, slate_args
     sc = k1_scores.view(1, n, 2)
@@ -4050,8 +4079,7 @@ def phase_nano_game(card: str) -> dict:
     k2_60, _, _ = times(lambda: agg.exact_moments_cuda(sc60), 20)
     k2_60_plain, _, _ = times(lambda: agg.exact_moments_plain(sc60), 10)
     bd60 = moment_bound(60, 32_768)
-    print(f"  score_moments (1, {n:,}): K2 {k2_ms:.4f} ms ({k2_how}; the wrapper's two "
-          f"zero fills included), bound {k2_bd['bound_ms']:.5f} ms ({k2_bd['bound_class']}), "
+    print(f"  score_moments (1, {n:,}): K2 {k2_ms:.4f} ms ({k2_how}; one launch), bound {k2_bd['bound_ms']:.5f} ms ({k2_bd['bound_class']}), "
           f"torch body {k2_plain:.4f} ms ({k2_plain_how}); (60, 32,768): K2 {k2_60:.4f} ms, "
           f"bound {bd60['bound_ms']:.5f} ms ({bd60['bound_class']}), torch body "
           f"{k2_60_plain:.4f} ms ({card})")

@@ -9,16 +9,16 @@
 // ops/game.nano_game_plain; the eager loop it stands in for on the card is
 // ops/game.simulate_games_eager.
 //
-// One thread per game.  The state (off, sec, down, dist, ytg, period, in_rz,
-// going, score) stays in registers from the starting state to the game's
-// end; gid and the game's two directions' constants are read once.  The
-// thread plays until sec == 0 or the eager loop's cap, whole chunks of
-// play_chunk plays (360 at the defaults).  A game that has ended is a fixed
-// point of the masked eager step (sec 0, period 4, nothing else moves), so
-// stopping it early leaves the state the eager loop leaves; a game that
-// starts with sec <= 0 gets the one masked step's sec = 0, period = 4 where
-// the eager loop runs a play at all (`run_flag`: some game active, or
-// early_exit off).
+// One lane plays one game at a time.  The state (off, sec, down, dist, ytg,
+// period, in_rz, going, score) stays in registers from the starting state to
+// the game's end; gid and the game's two directions' constants are read when
+// the lane takes the game.  The lane plays until sec == 0 or the eager
+// loop's cap, whole chunks of play_chunk plays (360 at the defaults).  A
+// game that has ended is a fixed point of the masked eager step (sec 0,
+// period 4, nothing else moves), so stopping it early leaves the state the
+// eager loop leaves; a game that starts with sec <= 0 gets the one masked
+// step's sec = 0, period = 4 where the eager loop runs a play at all
+// (`run_flag`: some game active, or early_exit off).
 //
 // Each play follows ops/game.play_step's order, operation for operation:
 // draw the 13 uniforms and 4 normals of (key, absolute step, row) with
@@ -49,16 +49,50 @@
 // 60-matchup slate's 413 MB does not, and a play's 28-40 bytes are then a
 // sector-sized read from HBM.
 //
-// Design: 128 threads a block, no register cap (__launch_bounds__ only sets
-// the block size): a 65,536-game launch is 512 blocks, all resident at once
-// on 132 SMs, so the occupancy is the games' and not the registers'.  The
-// go-for-it grid, indexed per lane, sits in shared memory; the searches
-// over the padded edges, FG points and segments unroll into compares
-// against kernel-parameter constants.  Games in a warp end at different
-// plays: a warp runs until its longest game ends, its finished lanes idle,
-// which costs the spread of game lengths within a warp.  Each thread adds its plays to a block
-// count in shared memory and one thread a block adds that to `plays`, when
-// given: what the measurement's bound counts.
+// Design (the first version, 11985e6, ran one thread a game in a grid of
+// n / 128 blocks):
+// - A persistent grid: as many blocks of kThreads as the card holds at once
+//   (the occupancy API x the SMs, asked once by the wrapper), and no more
+//   than n games fill.  Lane t takes game t; when games of a warp end, one
+//   lane claims as many next games from the launch's work counter with one
+//   atomicAdd (the __popc of the warp's ballot of ended games), so a warp
+//   stays full until the queue drains.  Games are taken in index order, so
+//   a slate's matchups in flight are a few consecutive ones.  A game draws
+//   on its own row (r0 + i, or the antithetic map) from absolute step 0,
+//   so its result does not depend on the lane that plays it or when.
+//   The counter is the stream's (ops/game._nano_work); the last block to
+//   finish resets it, so each launch finds it 0 without a fill.
+// - Each play bins the state, issues the nano row's loads, then draws its
+//   13 uniforms and 4 normals (Philox and Box-Muller) under their latency,
+//   and only then plays (the SASS shows the row's LDGs ahead of the
+//   Philox IMADs).  Binning counts the segment boundaries a value is past
+//   and evaluates that one segment from shared memory: the first version's select over
+//   all 8 segments of 4 axes, once moved ahead of the draws, compiled into
+//   divergent branches (0.824 ms a 65,536-game launch against the first
+//   version's 0.695, on the card below).
+// - The go-for-it grid and the segments' values sit in shared memory; the
+//   other searches unroll into compares against kernel-parameter constants.
+// - Block size, held ms on an NVIDIA H100 80GB HBM3 at 700 W
+//   (probes/kernels.py --games-only on copies of this file; a 65,536-game
+//   launch / a 60-matchup slate launch of 1,966,080 games; the first version 0.695 /
+//   17.30 ms in the same call): 64 threads 0.646 / 15.11 ms (75
+//   registers); 128 threads 0.642-0.645 / 15.03 (71); 256 threads 0.627 /
+//   15.18 (71; 3 blocks an SM, 24 warps, against 7 of 128 threads, 28
+//   warps); __launch_bounds__ with a minimum of blocks capped the
+//   registers and spilled or ran slower (128 x 8: 64 registers, 42 bytes
+//   spilled, 0.668 / 15.25; 128 x 6: 0.651 / 15.41; 256 x 4: 64 registers,
+//   spilled, 0.643 / 15.19).  256 threads, no minimum: the main path's
+//   65,536-game launches are the most launched.  At 65,536 games the grid
+//   holds every game in its first round (15.5 warps an SM: the games, not
+//   the registers, bound the warps), so the queue never refills there.
+// - The lane share, plays over 32 lanes x the loop trips of every warp
+//   (the `iters` counter): 0.946 at 65,536 games in both layouts, so games
+//   of one warp end within about 5% of each other's plays and the first version's gap
+//   to the bound was not the warps' spread; on the slate launch 0.979
+//   against 0.946 for one game a thread.
+// Each thread adds its games' plays to a block count in shared memory and
+// one thread a block adds that to `plays`, when given: what the
+// measurement's bound counts.
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -70,7 +104,8 @@ constexpr int kSlots = 8;       // go-for-it edges an axis, FG points
 constexpr int kSegs = 8;        // segments an axis of the nano profile
 constexpr int kGridCells = 81;  // (8 + 1) x (8 + 1) go-for-it cells
 constexpr int kDirVals = 5;     // per-direction constants (DirVals)
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 }  // namespace
 
 // One axis of _seg_bin (ops/table_lookup.py): segment k maps v to
@@ -151,6 +186,7 @@ struct Game {
   int off, sec, down, period, sa, sb;
   float dist, ytg;
   bool in_rz;
+  int gid;
 };
 
 // one direction's constants, DirVals order of ops/game.pack_nano_game
@@ -171,6 +207,13 @@ struct InPtrs {
   const int* score;   // (n, 2)
 };
 
+// the launch's optional counts (null: not counted)
+struct Counters {
+  unsigned long long* plays;   // plays of every game
+  unsigned long long* iters;   // loop trips of every warp
+  int* game_plays;             // plays of each game
+};
+
 struct OutPtrs {
   int* off;
   int* sec;
@@ -188,15 +231,26 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-// ops/table_lookup._seg_bin for one value
-__device__ __forceinline__ int seg_bin(const Segs& g, float v) {
-  int idx = 0;
+// What seg_bin reads of a segment once it is chosen, in shared memory
+// (indexed by the lane's segment).
+struct SegVals {
+  float start[kSegs];
+  float inv_step[kSegs];
+  float top[kSegs];
+  int base[kSegs];
+};
+
+// ops/table_lookup._seg_bin for one value: the last segment k with v >
+// enter[k] bins it.  enter rises along the segments (ops/game._segs checks)
+// and enter[0] is -inf, so the segments v enters are 0 .. k: k counts the
+// boundaries v is past, and only segment k is evaluated.  (A NaN enters
+// none and bins to 0, as segment 0 gives it: base[0] = 0.)
+__device__ __forceinline__ int seg_bin(const Segs& g, const SegVals& s, float v) {
+  int k = 0;
 #pragma unroll
-  for (int k = 0; k < kSegs; ++k) {
-    const float local = clip(rintf((v - g.start[k]) * g.inv_step[k]), 0.0f, g.top[k]);
-    idx = v > g.enter[k] ? static_cast<int>(local) + g.base[k] : idx;
-  }
-  return idx;
+  for (int b = 1; b < kSegs; ++b) k += v > g.enter[b] ? 1 : 0;
+  const float local = clip(rintf((v - s.start[k]) * s.inv_step[k]), 0.0f, s.top[k]);
+  return static_cast<int>(local) + s.base[k];
 }
 
 // analytic.go_for_it_prob; `grid` is NanoConsts::go_grid in shared memory
@@ -285,13 +339,49 @@ __device__ __forceinline__ float taper(float y, const float* t) {
   return y <= t[0] ? y : (y <= t[1] ? mid : hi);
 }
 
+// The nano row a play of state `s` reads: its direction's row at the
+// state's (dist, ytg, sec) cell, at the (down, sd) block (ops/table_lookup.
+// _nano_eval's index, binned by _seg_bin's segment arithmetic).
+__device__ __forceinline__ const float* row_of(const NanoConsts& c, const SegVals* sv,
+                                               const float* __restrict__ table, const Game& s) {
+  const int sd = (s.sa - s.sb) * (1 - 2 * s.off);
+  const int di = seg_bin(c.dist, sv[0], s.dist);
+  const int yi = seg_bin(c.ytg, sv[1], s.ytg);
+  const int si = seg_bin(c.sec, sv[2], static_cast<float>(s.sec));
+  const int dirx = s.gid * 2 + s.off;
+  int blk = min(max(s.down - 1, 0), 4) * c.nsd;
+  if (c.nsd > 1) blk += seg_bin(c.sd, sv[3], static_cast<float>(sd));
+  return table + (static_cast<long long>(dirx) * c.per_dir + (di * c.ny + yi) * c.ns + si) * c.cols
+         + blk * c.c;
+}
+
+// One play's nano channels: the 7 always there, stage 2's cumulative pair
+// and the fumble probability where the table has them (else the analytic
+// stage 2 and no fumble, filled in by `play`).
+struct Row {
+  float p_c, pass_mu, pass_sg, rush_mu, rush_sg, sack_mu, sack_sg, s2c0, s2c1, p_f;
+};
+
+__device__ __forceinline__ Row load_row(const NanoConsts& c, const float* h) {
+  Row r;
+  r.p_c = __ldg(h);
+  r.pass_mu = __ldg(h + 1);
+  r.pass_sg = __ldg(h + 2);
+  r.rush_mu = __ldg(h + 3);
+  r.rush_sg = __ldg(h + 4);
+  r.sack_mu = __ldg(h + 5);
+  r.sack_sg = __ldg(h + 6);
+  r.s2c0 = c.has_s2 ? __ldg(h + 7) : 0.0f;
+  r.s2c1 = c.has_s2 ? __ldg(h + 8) : 0.0f;
+  r.p_f = c.has_fumble ? __ldg(h + (c.has_s2 ? 9 : 7)) : 0.0f;
+  return r;
+}
+
 // One play of an active game (sec > 0): game.play_step with the nano heads,
-// score-only.  `row` is the game's nano table at its direction's first row
-// less the direction's offset (table + gid * 2 * per_dir * cols).
-__device__ __forceinline__ void play(const NanoConsts& c, const float* grid,
-                                     const float* __restrict__ table, int gid, const DirVals& d0,
-                                     const DirVals& d1, Game& s, const float* u,
-                                     const float* n) {
+// score-only, on the row `row_of` gave for this state.
+__device__ __forceinline__ void play(const NanoConsts& c, const float* grid, const Row& r,
+                                     const DirVals& d0, const DirVals& d1, Game& s,
+                                     const float* u, const float* n) {
   const int off = s.off, down0 = s.down, sec0 = s.sec;
   const float dist0 = s.dist, ytg0 = s.ytg;
   const int sd = (s.sa - s.sb) * (1 - 2 * off);
@@ -328,29 +418,14 @@ __device__ __forceinline__ void play(const NanoConsts& c, const float* grid,
   // ---- scrimmage play
   const bool trip1 = scrim && !s.in_rz && ytg0 <= 20.0f;
 
-  // the nano heads: bin the state, read the (down, sd) block of one row
-  const int di = seg_bin(c.dist, dist0);
-  const int yi = seg_bin(c.ytg, ytg0);
-  const int si = seg_bin(c.sec, static_cast<float>(sec0));
-  const int dirx = gid * 2 + off;
-  int blk = min(max(down0 - 1, 0), 4) * c.nsd;
-  if (c.nsd > 1) blk += seg_bin(c.sd, static_cast<float>(sd));
-  const float* h = table
-                   + (static_cast<long long>(dirx) * c.per_dir + (di * c.ny + yi) * c.ns + si)
-                         * c.cols
-                   + blk * c.c;
-  const float p_c = __ldg(h);
-  float pass_mu = __ldg(h + 1), pass_sg = __ldg(h + 2);
-  const float rush_mu = __ldg(h + 3), rush_sg = __ldg(h + 4);
-  const float sack_mu = __ldg(h + 5), sack_sg = __ldg(h + 6);
-  float s2c0, s2c1;
-  if (c.has_s2) {
-    s2c0 = __ldg(h + 7);
-    s2c1 = __ldg(h + 8);
-  } else {
-    stage2_fallback(c, down0, dist0, &s2c0, &s2c1);
-  }
-  const float p_f = c.has_fumble ? __ldg(h + (c.has_s2 ? 9 : 7)) : 0.0f;
+  // the nano heads
+  const float p_c = r.p_c;
+  float pass_mu = r.pass_mu, pass_sg = r.pass_sg;
+  const float rush_mu = r.rush_mu, rush_sg = r.rush_sg;
+  const float sack_mu = r.sack_mu, sack_sg = r.sack_sg;
+  float s2c0 = r.s2c0, s2c1 = r.s2c1;
+  if (!c.has_s2) stage2_fallback(c, down0, dist0, &s2c0, &s2c1);
+  const float p_f = r.p_f;
 
   const float p_pass = pass_prob_v1(c, down0, dist0, ytg0, sec0, sd);
   const bool is_pass = scrim && u[U_CALL] < p_pass;
@@ -473,66 +548,153 @@ __device__ __forceinline__ void play(const NanoConsts& c, const float* grid,
   s.sb += off == 1 ? pts : 0;
 }
 
+// One lane's game: its index, state, draw row and plays so far.
+struct Lane {
+  long long i;        // the game; >= n: none
+  Game s;
+  DirVals d0, d1;
+  bool going, live;   // live: plays are left (sec > 0, under the cap)
+  int j;              // plays played, the absolute step of the next
+  uint32_t row;
+  bool mirror;
+};
+
+// Lane `g` takes game i: its state and its directions' constants read, and
+// what the eager loop does before its first play (`run`: it plays at all).
+__device__ __forceinline__ void start(Lane& g, long long i, const InPtrs& in,
+                                      const float* __restrict__ dirs, int n_matchups, uint32_t r0,
+                                      int anti, bool run) {
+  g.i = i;
+  // gid clamped into the packed matchups: an out-of-range gid reads no
+  // memory outside the inputs
+  const int gid = min(max(in.gid[i], 0), n_matchups - 1);
+  const float* dv = dirs + gid * 2 * kDirVals;
+  g.d0 = DirVals{dv[0], dv[1], dv[2], dv[3], dv[4]};
+  g.d1 = DirVals{dv[5], dv[6], dv[7], dv[8], dv[9]};
+  g.s = Game{in.off[i], in.sec[i], in.down[i], in.period[i], in.score[2 * i],
+             in.score[2 * i + 1], in.dist[i], in.ytg[i], in.in_rz[i]};
+  g.s.gid = gid;
+  g.going = in.going[i];
+  g.j = 0;
+  g.live = run && g.s.sec > 0;
+  if (run && g.s.sec <= 0) {
+    // the masked step of a finished game: sec clamped at 0, period 4
+    g.s.sec = 0;
+    g.s.period = 4;
+  } else if (run) {
+    g.going = false;
+  }
+  const uint32_t b = static_cast<uint32_t>(i);
+  g.row = anti ? r0 + 2u * (b >> 2) + (b & 1u) : r0 + b;
+  g.mirror = anti && (b & 3u) >= 2u;
+}
+
+__device__ __forceinline__ void finish(const Lane& g, const OutPtrs& out) {
+  const long long i = g.i;
+  out.off[i] = g.s.off;
+  out.sec[i] = g.s.sec;
+  out.down[i] = g.s.down;
+  out.dist[i] = g.s.dist;
+  out.ytg[i] = g.s.ytg;
+  out.period[i] = g.s.period;
+  out.in_rz[i] = g.s.in_rz;
+  out.going[i] = g.going;
+  out.score[2 * i] = g.s.sa;
+  out.score[2 * i + 1] = g.s.sb;
+}
+
+// The persistent grid: lane t of the launch's `lanes` takes game t, then,
+// each time its game ends, the next game of the queue (work[0] counts the
+// games handed out past the first lanes, one atomicAdd a warp for all its
+// lanes whose games ended at that play).  work[1] counts the blocks done;
+// the last resets both, so the next launch on the stream finds them 0.
 __global__ void __launch_bounds__(kThreads)
     nano_game_kernel(const NanoConsts c, const float* __restrict__ table,
                      const float* __restrict__ dirs, int n_matchups, const InPtrs in,
                      const OutPtrs out, uint32_t k0, uint32_t k1, uint32_t r0, int anti,
-                     const bool* run_flag, unsigned long long* plays, int n) {
+                     const bool* run_flag, unsigned int* work, const Counters cnt, int n) {
   __shared__ float grid[kGridCells];
-  __shared__ unsigned int block_plays;
+  __shared__ SegVals sv[4];          // dist, ytg, sec, sd
+  __shared__ unsigned long long block_plays, block_iters;
   for (int k = threadIdx.x; k < c.go_cells; k += kThreads) grid[k] = c.go_grid[k];
-  if (threadIdx.x == 0) block_plays = 0;
+  if (threadIdx.x == 0) {
+    block_plays = 0;
+    block_iters = 0;
+#pragma unroll
+    for (int k = 0; k < kSegs; ++k) {
+      sv[0].start[k] = c.dist.start[k], sv[0].inv_step[k] = c.dist.inv_step[k];
+      sv[0].top[k] = c.dist.top[k], sv[0].base[k] = c.dist.base[k];
+      sv[1].start[k] = c.ytg.start[k], sv[1].inv_step[k] = c.ytg.inv_step[k];
+      sv[1].top[k] = c.ytg.top[k], sv[1].base[k] = c.ytg.base[k];
+      sv[2].start[k] = c.sec.start[k], sv[2].inv_step[k] = c.sec.inv_step[k];
+      sv[2].top[k] = c.sec.top[k], sv[2].base[k] = c.sec.base[k];
+      sv[3].start[k] = c.sd.start[k], sv[3].inv_step[k] = c.sd.inv_step[k];
+      sv[3].top[k] = c.sd.top[k], sv[3].base[k] = c.sd.base[k];
+    }
+  }
   __syncthreads();
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < n) {
-    // gid clamped into the packed matchups: an out-of-range gid reads no
-    // memory outside the inputs
-    const int gid = min(max(in.gid[i], 0), n_matchups - 1);
-    const float* dv = dirs + gid * 2 * kDirVals;
-    const DirVals d0{dv[0], dv[1], dv[2], dv[3], dv[4]};
-    const DirVals d1{dv[5], dv[6], dv[7], dv[8], dv[9]};
-    Game s{in.off[i], in.sec[i], in.down[i], in.period[i], in.score[2 * i],
-           in.score[2 * i + 1], in.dist[i], in.ytg[i], in.in_rz[i]};
-    bool going = in.going[i];
-    int played = 0;
-    const bool run = c.cap > 0 && (run_flag == nullptr || *run_flag);
-    if (run && s.sec <= 0) {
-      // the masked step of a finished game: sec clamped at 0, period 4
-      s.sec = 0;
-      s.period = 4;
-    } else if (run) {
-      going = false;
-      const uint32_t row = anti ? r0 + 2u * (static_cast<uint32_t>(i) >> 2) + (i & 1)
-                                : r0 + static_cast<uint32_t>(i);
-      const bool mirror = anti && (i & 3) >= 2;
-      for (int j = 0; j < c.cap && s.sec > 0; ++j) {
-        float u[philox::kUniforms], z[philox::kNormals];
-        philox::step_draws(k0, k1, static_cast<uint32_t>(j), row, u, z);
-        if (mirror) {
+  const bool run = c.cap > 0 && (run_flag == nullptr || *run_flag);
+  const unsigned lane = threadIdx.x & 31u;
+  const long long lanes = static_cast<long long>(gridDim.x) * kThreads;
+  Lane g;
+  g.i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  g.live = false;
+  if (g.i < n) start(g, g.i, in, dirs, n_matchups, r0, anti, run);
+  bool open = lanes < n;             // the queue has games to hand out (warp-uniform)
+  unsigned long long played = 0;     // plays of this lane's finished games
+  unsigned int iters = 0;            // this warp's loop trips
+  while (__any_sync(kFull, g.i < n)) {
+    ++iters;
+    if (g.live) {
+      // the row's loads first, the draws under their latency, then the play
+      const Row r = load_row(c, row_of(c, sv, table, g.s));
+      float u[philox::kUniforms], z[philox::kNormals];
+      philox::step_draws(k0, k1, static_cast<uint32_t>(g.j), g.row, u, z);
+      if (g.mirror) {
 #pragma unroll
-          for (int k = 0; k < philox::kUniforms; ++k) u[k] = 1.0f - u[k];
+        for (int k = 0; k < philox::kUniforms; ++k) u[k] = 1.0f - u[k];
 #pragma unroll
-          for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
-        }
-        play(c, grid, table, gid, d0, d1, s, u, z);
-        ++played;
+        for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
+      }
+      play(c, grid, r, g.d0, g.d1, g.s, u, z);
+      ++g.j;
+      g.live = g.s.sec > 0 && g.j < c.cap;
+    }
+    const bool done = g.i < n && !g.live;
+    if (done) {
+      finish(g, out);
+      played += static_cast<unsigned long long>(g.j);
+      if (cnt.game_plays != nullptr) cnt.game_plays[g.i] = g.j;
+    }
+    const unsigned m = __ballot_sync(kFull, done);
+    if (m != 0u) {
+      long long next = n;
+      if (open) {
+        const int leader = __ffs(static_cast<int>(m)) - 1;
+        unsigned int base = 0;
+        if (static_cast<int>(lane) == leader) base = atomicAdd(work, static_cast<unsigned int>(__popc(m)));
+        base = __shfl_sync(kFull, base, leader);
+        next = lanes + base;
+        open = next + __popc(m) < n;
+      }
+      if (done) {
+        g.i = next + __popc(m & ((1u << lane) - 1u));
+        g.live = false;
+        if (g.i < n) start(g, g.i, in, dirs, n_matchups, r0, anti, run);
       }
     }
-    out.off[i] = s.off;
-    out.sec[i] = s.sec;
-    out.down[i] = s.down;
-    out.dist[i] = s.dist;
-    out.ytg[i] = s.ytg;
-    out.period[i] = s.period;
-    out.in_rz[i] = s.in_rz;
-    out.going[i] = going;
-    out.score[2 * i] = s.sa;
-    out.score[2 * i + 1] = s.sb;
-    if (plays != nullptr) atomicAdd(&block_plays, static_cast<unsigned int>(played));
   }
-  if (plays != nullptr) {
-    __syncthreads();
-    if (threadIdx.x == 0) atomicAdd(plays, static_cast<unsigned long long>(block_plays));
+  if (cnt.plays != nullptr) atomicAdd(&block_plays, played);
+  if (cnt.iters != nullptr && lane == 0) atomicAdd(&block_iters, static_cast<unsigned long long>(iters));
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (cnt.plays != nullptr) atomicAdd(cnt.plays, block_plays);
+    if (cnt.iters != nullptr) atomicAdd(cnt.iters, block_iters);
+    // every claim of this block has returned; the last block resets
+    if (atomicAdd(&work[1], 1u) == gridDim.x - 1) {
+      atomicExch(&work[0], 0u);
+      atomicExch(&work[1], 0u);
+    }
   }
 }
 
@@ -540,18 +702,36 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int nano_game_consts_size() { return static_cast<int>(sizeof(NanoConsts)); }
 
+// Threads a block of K1.
+extern "C" int nano_game_threads() { return kThreads; }
+
+// Blocks of K1 one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// on the current device), or minus the CUDA error.
+extern "C" int nano_game_blocks_per_sm() {
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, nano_game_kernel, kThreads, 0);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 // The games of one launch to their end.  table: (rows, cols) f32; dirs:
 // (2 * n_matchups, 5) f32; in: 10 device pointers (gid, off, sec, down,
 // dist, ytg, period, in_rz, going, score), out: 9 (the same less gid), each
 // a contiguous vector of n (score (n, 2)) of the GameState's dtype.  Game b
 // draws row r0 + b, or r0 + 2 (b / 4) + b % 2 with `anti`.  run_flag: a
 // device bool saying whether the eager loop runs a play at all, or null for
-// yes; plays: a device uint64 the plays are added to, or null.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// yes.  work: 2 device uint32, 0 before the launch and left 0 after it
+// (the stream's own: two launches in flight at once may not share them).
+// plays, iters: device uint64s the games' plays and the warps' loop trips
+// are added to, or null; game_plays: a device int32 vector of n given each
+// game's plays, or null.  `blocks` blocks of kThreads (at most the resident
+// blocks, `nano_game_blocks_per_sm` x the SMs).  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const void* dirs,
                                 int n_matchups, void* const* in, void* const* out, uint32_t k0,
                                 uint32_t k1, uint32_t r0, int anti, const void* run_flag,
-                                void* plays, int n, void* stream) {
+                                void* work, void* plays, void* iters, void* game_plays, int n,
+                                int blocks, void* stream) {
   if (n <= 0) return 0;
   const InPtrs ip{static_cast<const int*>(in[0]),   static_cast<const int*>(in[1]),
                   static_cast<const int*>(in[2]),   static_cast<const int*>(in[3]),
@@ -563,10 +743,11 @@ extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const vo
                    static_cast<float*>(out[4]), static_cast<int*>(out[5]),
                    static_cast<bool*>(out[6]),  static_cast<bool*>(out[7]),
                    static_cast<int*>(out[8])};
-  nano_game_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const Counters cnt{static_cast<unsigned long long*>(plays),
+                     static_cast<unsigned long long*>(iters), static_cast<int*>(game_plays)};
+  nano_game_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       *c, static_cast<const float*>(table), static_cast<const float*>(dirs), n_matchups, ip,
       op, k0, k1, r0, anti, static_cast<const bool*>(run_flag),
-      static_cast<unsigned long long*>(plays), n);
+      static_cast<unsigned int*>(work), cnt, n);
   return static_cast<int>(cudaGetLastError());
 }

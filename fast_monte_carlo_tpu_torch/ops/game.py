@@ -855,6 +855,10 @@ def _segs(segs) -> _Segs:
     f32 arithmetic of `_seg_bin`; past the last, segments no value enters."""
     if len(segs) > _SEGS:
         raise ValueError(f"a profile axis of {len(segs)} segments; K1 takes {_SEGS}")
+    enters = [s[0] for s in segs]
+    if enters and (enters[0] != -_INF or enters != sorted(enters)):
+        raise ValueError("K1 bins a value by the segment boundaries it is past: their entry "
+                         f"points must rise from -inf, got {enters}")
     g = _Segs()
     for k in range(_SEGS):
         if k < len(segs):
@@ -1229,8 +1233,18 @@ def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     return s
 
 
+# nano_game_launch's parameters in csrc/nano_game.cu, in order
+_NANO_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,    # consts, table, dirs, G
+     ctypes.c_void_p, ctypes.c_void_p,                                   # in, out
+     ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,    # k0, k1, r0, anti
+     ctypes.c_void_p, ctypes.c_void_p,                                   # run_flag, work
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                  # plays, iters, game_plays
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                       # n, blocks, stream
+
+
 @functools.lru_cache(maxsize=None)
-def _nano_launcher():
+def _nano_lib():
     from ..utils.cuda_build import load_kernel_library
 
     lib = load_kernel_library(_KERNEL)
@@ -1239,13 +1253,43 @@ def _nano_launcher():
     if size() != ctypes.sizeof(NanoConsts):
         raise RuntimeError(f"NanoConsts is {size()} bytes in nano_game.cu, "
                            f"{ctypes.sizeof(NanoConsts)} in ops/game.py")
-    fn = lib.nano_game_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
-                   ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.nano_game_launch.argtypes = _NANO_ARGTYPES
+    lib.nano_game_launch.restype = ctypes.c_int
+    for fn in (lib.nano_game_threads, lib.nano_game_blocks_per_sm):
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def nano_geometry(index: int) -> Tuple[int, int]:
+    """(K1's blocks that card `index` holds at once, threads a block): the
+    occupancy API's blocks an SM times the SMs, asked once a card."""
+    lib = _nano_lib()
+    with torch.cuda.device(index):
+        per_sm = lib.nano_game_blocks_per_sm()
+    if per_sm <= 0:
+        raise RuntimeError(f"nano_game occupancy query failed: CUDA error {-per_sm}")
+    return (per_sm * torch.cuda.get_device_properties(index).multi_processor_count,
+            lib.nano_game_threads())
+
+
+def nano_grid(n: int, resident_blocks: int, threads: int) -> int:
+    """K1's blocks for n games: the persistent grid, as many blocks of
+    `threads` as the card holds at once (`resident_blocks`), and no more
+    than n games fill."""
+    return max(1, min(resident_blocks, -(-n // threads)))
+
+
+# each stream's work counter (2 uint32: games handed out, blocks done),
+# which K1 leaves at 0 after every launch
+_NANO_WORK: dict = {}
+
+
+def _nano_work(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _NANO_WORK:
+        _NANO_WORK[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _NANO_WORK[key]
 
 
 # the state fields K1 reads, in the launcher's order, and their dtypes
@@ -1255,14 +1299,18 @@ _NANO_IN = (("gid", I32), ("off", I32), ("sec", I32), ("down", I32), ("dist", F3
 
 
 def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
-                   anti: bool = False, plays: Optional[torch.Tensor] = None) -> GameState:
+                   anti: bool = False, plays: Optional[torch.Tensor] = None,
+                   iters: Optional[torch.Tensor] = None,
+                   game_plays: Optional[torch.Tensor] = None) -> GameState:
     """K1 on the card: the games of `s` to their end in one launch of
     csrc/nano_game.cu on the current stream, drawing as `nano_game_plain`
     draws.  Raises ValueError for tensors off the card (the CPU runs
     `nano_game_plain`) and RuntimeError where the kernel does not build or
-    launch.  `plays`, a (1,) int64 tensor on the card, has the games' plays
-    added to it.  `nano_game_cuda.launches` counts kernel launches and
-    nothing else."""
+    launch.  `plays` and `iters`, (1,) int64 tensors on the card, have the
+    games' plays and the warps' loop trips added to them (plays / (32 x
+    iters) is the share of lanes that played); `game_plays`, an (n,) int32
+    tensor, is given each game's plays.  `nano_game_cuda.launches` counts
+    kernel launches and nothing else."""
     n = s.off.shape[0]
     dev = s.sec.device
     tensors = [getattr(s, f) for f, _ in _NANO_IN] + [args.table, args.dirs]
@@ -1280,8 +1328,13 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
         ins.append(t.contiguous())
     if args.table.dtype != F32 or args.dirs.dtype != F32 or not args.table.is_contiguous():
         raise ValueError("the nano table and the direction constants must be contiguous f32")
-    if plays is not None and (plays.dtype != torch.int64 or plays.device != dev):
-        raise ValueError(f"plays must be an int64 tensor on {dev}")
+    for name, t, dtype, shape in (("plays", plays, torch.int64, (1,)),
+                                  ("iters", iters, torch.int64, (1,)),
+                                  ("game_plays", game_plays, I32, (n,))):
+        if t is not None and (t.dtype != dtype or t.device != dev or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape} "
+                             f"on {dev}")
     if anti and (n % 4 or row0 % 4):
         raise ValueError(f"antithetic draws for games {row0}..{row0 + n - 1} split a "
                          "mirrored block of four")
@@ -1292,18 +1345,23 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
         return s
     outs = [torch.empty_like(t) for t in ins[1:]]
     run_flag = (ins[2] > 0).any() if args.early_exit else None
-    launch = _nano_launcher()
+    lib = _nano_lib()
+    blocks = nano_grid(n, *nano_geometry(dev.index))
 
     def ptrs(ts):
         return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
-        err = launch(ctypes.addressof(args.consts), args.table.data_ptr(),
-                     args.dirs.data_ptr(), args.dirs.shape[0] // 2, ptrs(ins), ptrs(outs),
-                     key & 0xFFFFFFFF, (key >> 32) & 0xFFFFFFFF, r0, int(anti),
-                     None if run_flag is None else run_flag.data_ptr(),
-                     None if plays is None else plays.data_ptr(), n,
-                     torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nano_game_launch(
+            ctypes.addressof(args.consts), args.table.data_ptr(), args.dirs.data_ptr(),
+            args.dirs.shape[0] // 2, ptrs(ins), ptrs(outs), key & 0xFFFFFFFF,
+            (key >> 32) & 0xFFFFFFFF, r0, int(anti), ptr(run_flag),
+            _nano_work(dev, stream).data_ptr(), ptr(plays), ptr(iters), ptr(game_plays), n,
+            blocks, stream)
     if err != 0:
         raise RuntimeError(f"nano_game kernel launch failed: CUDA error {err}")
     nano_game_cuda.launches += 1

@@ -10,7 +10,8 @@ rounded once to f32, where the JAX package sums in f32 in XLA's order; so
 moments of the parts of a batch, added as integers, give the whole batch's
 bit for bit (the trial-sharded reduction, `parallel.mesh`).  On the card
 int32 scores reduce in one launch of K2 (`exact_moments_cuda`,
-csrc/score_moments.cu: shared-memory histograms, integer atomics), the
+csrc/score_moments.cu: a thread-block cluster a matchup, reduced through
+distributed shared memory), the
 counterpart of the JAX package's XLA `score_moments`; elsewhere the torch
 body `exact_moments_plain` runs, which K2 equals bit for bit.
 
@@ -108,10 +109,26 @@ def exact_moments_plain(score: torch.Tensor) -> ScoreMoments:
 
 
 _KERNEL = "score_moments"
-_THREADS = 256                  # score_moments.cu's block
-_FILL_BLOCKS = 4 * 132          # blocks a launch aims for: 4 an H100 SM
+_THREADS = 256                  # score_moments.cu's kThreads
+_CLUSTER = 8                    # score_moments.cu's kCluster: blocks a matchup
+_MAX_GROUPS = 65_535            # the grid's y extent: one cluster a matchup
 _N_COUNTS = 8                   # n, wins 2, ties, sums 2, squares 2 a matchup
 _N_BINS = 2 * MAX_PTS + 2 * MARGIN_OFF + 2 * MAX_PTS
+# score_moments_launch's parameters in csrc/score_moments.cu, in order:
+# score, n, groups, counts, hist, stream
+_MOMENTS_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p]
+
+
+def moments_grid(groups: int):
+    """K2's launch geometry for `groups` matchups: ((grid x, grid y),
+    cluster blocks, threads a block); one cluster of _CLUSTER blocks a
+    matchup, block r of it striding over games r * _THREADS + t + k *
+    _CLUSTER * _THREADS.  Raises ValueError past the grid's y extent."""
+    if groups > _MAX_GROUPS:
+        raise ValueError(f"score_moments takes at most {_MAX_GROUPS:,} matchups a launch, "
+                         f"got {groups:,}")
+    return (_CLUSTER, groups), _CLUSTER, _THREADS
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,8 +136,7 @@ def _moments_launcher():
     from ..utils.cuda_build import load_kernel_library
 
     fn = load_kernel_library(_KERNEL).score_moments_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = _MOMENTS_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -128,10 +144,11 @@ def _moments_launcher():
 def exact_moments_cuda(score: torch.Tensor) -> ScoreMoments:
     """K2 (csrc/score_moments.cu): `exact_moments` of (..., n, 2) int32
     scores on the card in one launch on the current stream, the moments of
-    each leading index.  Raises ValueError for scores off the card or of
-    another dtype (`exact_moments_plain` takes those) and RuntimeError
-    where the kernel does not build or launch.  `exact_moments_cuda.
-    launches` counts kernel launches and nothing else."""
+    each leading index, into uninitialised outputs that the kernel stores
+    whole.  Raises ValueError for scores off the card or of another dtype
+    (`exact_moments_plain` takes those) and RuntimeError where the kernel
+    does not build or launch.  `exact_moments_cuda.launches` counts kernel
+    launches and nothing else."""
     if score.device.type != "cuda":
         raise ValueError(f"exact_moments_cuda takes scores on the card, got {score.device} "
                          "(exact_moments_plain takes the others)")
@@ -140,15 +157,15 @@ def exact_moments_cuda(score: torch.Tensor) -> ScoreMoments:
                          f"{score.dtype} {tuple(score.shape)}")
     lead, n = score.shape[:-2], score.shape[-2]
     groups = math.prod(lead)
+    moments_grid(groups)
     s = score.reshape(groups, n, 2).contiguous()
     if s.data_ptr() % 8:
         s = s.clone()        # the kernel reads a game's two scores as one int2
-    counts = torch.zeros(groups * _N_COUNTS, dtype=torch.int64, device=score.device)
-    hist = torch.zeros(groups * _N_BINS, dtype=torch.int32, device=score.device)
-    if n > 0 and groups > 0:
-        blocks = max(1, min(-(-n // (8 * _THREADS)), -(-_FILL_BLOCKS // groups)))
+    counts = torch.empty(groups * _N_COUNTS, dtype=torch.int64, device=score.device)
+    hist = torch.empty(groups * _N_BINS, dtype=torch.int32, device=score.device)
+    if groups > 0:
         with torch.cuda.device(score.device):
-            err = _moments_launcher()(s.data_ptr(), n, groups, blocks, counts.data_ptr(),
+            err = _moments_launcher()(s.data_ptr(), n, groups, counts.data_ptr(),
                                       hist.data_ptr(),
                                       torch.cuda.current_stream(score.device).cuda_stream)
         if err != 0:

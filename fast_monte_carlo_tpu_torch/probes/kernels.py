@@ -1,11 +1,15 @@
 """The CUDA kernels alone, timed by held CUDA events.
 
-    python -m fast_monte_carlo_tpu_torch.probes.kernels [--csrc DIR] [--forests-only]
+    python -m fast_monte_carlo_tpu_torch.probes.kernels [--csrc DIR]
+        [--forests-only | --games-only] [--sass DIR]
 
-builds the draw, fused-step, row-gather and forest-walk sources of `csrc/`
-(or of DIR, a copy of another commit's `csrc/`, so that two versions are
-timed in one call, one process each) and prints the device time per call
-of each of their kernels at the shapes `chip_smoke.py` times, of a step of
+builds every source of `csrc/` (or of DIR, a copy of another commit's
+`csrc/`, so that two versions are timed in one call, one process each),
+prints the registers and spill bytes of each kernel it times (`nvcc
+-Xptxas -v`;
+`--sass DIR` also writes the game kernels' `cuobjdump -sass` there) and
+the device time per call of each kernel at the shapes `chip_smoke.py`
+times, of a step of
 the probe loops that launch fused_step_tab and row_gather_sum, in their own
 launch order (`path_times`), and of a near-empty launch
 (`torch.cuda._sleep(1)`): the gap between back-to-back kernels that every
@@ -14,7 +18,15 @@ shapes: each forest of `fixtures.heads(0, "reference")` on 65,536 rows of
 play states, and their sum over the 11 forests a play evaluates at the
 default config; a DIR whose forest_eval.cu has the first K5's launcher (one
 f32 node table) gets its inputs packed for that launcher.  `--forests-only`
-times K5 alone.  The last line is one JSON object of the times.
+times K5 alone.  K1 and K2 (`game_times`) are timed at phase 21's shapes:
+K1 a 65,536-game launch and a 60-matchup slate launch of 1,966,080 games,
+K2 at (1, 65,536) and (60, 32,768), each beside its bound; K1's lane share
+(plays over 32 lanes x the loop trips its warps ran) is printed for the
+persistent layout (its own counter) and for one game a thread, the first K1's layout
+(each 32 consecutive games' longest, from the per-game plays).  A DIR
+with the first K1's and K2's launchers (11985e6: one thread a game; K2
+into zeroed outputs) is called through them as their wrappers called them.  `--games-only`
+times K1 and K2 alone.  The last line is one JSON object of the times.
 philox_draws is timed at row offset `DRAW_ROW0` (the rows a second rank
 plays); a DIR whose philox_draws.cu predates the row offset (its launcher
 takes no row0) has its draws left out.
@@ -41,7 +53,8 @@ import torch
 from ..utils import cuda_build
 from . import gather
 
-SOURCES = ("philox_draws", "fused_step", "row_gather", "forest_eval")
+GAME_SOURCES = ("nano_game", "score_moments")
+SOURCES = ("philox_draws", "fused_step", "row_gather", "forest_eval") + GAME_SOURCES
 # what kernel_times times, with the calls of each held run
 RUNS = {"philox_draws ch=24": 50, "philox_draws ch=1": 200, "fused_step ch=24": 50,
         "fused_step ch=1": 200, "fused_step_tab": 200, "row_gather_sum B3": 200,
@@ -55,6 +68,11 @@ PATH_STEPS = {"hybrid-tab step": 16, "B3 loop step": 64}
 # K5's inputs: fixtures.heads(HEADS_SEED, "reference") on the focus-roster
 # teams of FOCUS_SEED, K5_B rows a launch, K5_REPS calls a held run
 HEADS_SEED, FOCUS_SEED, K5_B, K5_REPS = 0, 3, 65_536, 20
+# calls of each held run of K1 (a 65,536-game launch, a slate launch) and K2
+GAME_REPS = {"nano_game": 10, "nano_game slate": 3, "score_moments": 20,
+             "score_moments G=60": 20}
+# games the plain version plays on the card to check K1's launch
+GAME_CHECK = 4_096
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,11 +312,184 @@ def forest_times(dev: torch.device, lib) -> Dict[str, float]:
     return out
 
 
+def _old_nano_call(lib, args, s, key: int, plays: Optional[torch.Tensor]):
+    """A call of the first K1's launcher (11985e6) as its wrapper made it (one thread a
+    game: no work counter, no grid argument), the run flag's reduction
+    and the outputs' allocation included."""
+    import ctypes
+
+    from ..ops import game
+
+    fn = lib.nano_game_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ins = [getattr(s, f).contiguous() for f, _ in game._NANO_IN]
+    n = ins[0].shape[0]
+    outs = [torch.empty_like(t) for t in ins[1:]]
+    run_flag = (ins[2] > 0).any() if args.early_exit else None
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+    err = fn(ctypes.addressof(args.consts), args.table.data_ptr(), args.dirs.data_ptr(),
+             args.dirs.shape[0] // 2, ptrs(ins), ptrs(outs), key & 0xFFFFFFFF,
+             (key >> 32) & 0xFFFFFFFF, 0, 0, None if run_flag is None else run_flag.data_ptr(),
+             None if plays is None else plays.data_ptr(), n,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the first nano_game_launch failed: CUDA error {err}")
+    return outs[-1]
+
+
+def _old_moments_call(lib, sc: torch.Tensor):
+    """A call of the first K2 (11985e6) as its wrapper made it: the two zero fills and
+    the atomics kernel (about 4 blocks an SM)."""
+    import ctypes
+
+    fn = lib.score_moments_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    groups, n = sc.shape[0], sc.shape[1]
+    counts = torch.zeros(groups * 8, dtype=torch.int64, device=sc.device)
+    hist = torch.zeros(groups * 768, dtype=torch.int32, device=sc.device)
+    blocks = max(1, min(-(-n // (8 * 256)), -(-4 * 132 // groups)))
+    err = fn(sc.data_ptr(), n, groups, blocks, counts.data_ptr(), hist.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the first score_moments_launch failed: CUDA error {err}")
+    return counts, hist
+
+
+def lane_share_one_a_thread(game_plays: torch.Tensor) -> float:
+    """K1's lane share under one thread a game (the first K1's layout): the plays
+    over 32 lanes x each warp's trips, a warp being 32 consecutive games
+    and its trips its longest game's plays."""
+    n = game_plays.shape[0]
+    gp = torch.nn.functional.pad(game_plays.long(), (0, -n % 32)).view(-1, 32)
+    return float(gp.sum()) / (32 * float(gp.max(dim=1).values.sum()))
+
+
+def game_times(dev: torch.device, libs: dict) -> Dict[str, dict]:
+    """K1 and K2 at phase 21's shapes, through `libs`' launchers (the
+    package's wrappers, or the first versions' as their wrappers called them): held ms,
+    the bound (`chip_smoke.nano_bound` on the launch's plays,
+    `moment_bound`) and its share, and K1's lane shares.  K1's 65,536-game
+    launch is first held to `nano_game_plain` on its first GAME_CHECK games
+    (played alone at their own rows) and K2 to the torch body, bit for
+    bit; raises where they differ or where the hold did not cover the
+    enqueue."""
+    import chip_smoke as cs    # the smoke's shapes and bounds (run from the repo root)
+
+    from .. import api, fixtures
+    from ..config import SimConfig
+    from ..matchup import build_direction
+    from ..ops import game, rng
+    from ..ops import table_lookup as tl
+    from ..ops.pack import pack_matchup
+    from ..parallel import aggregate as agg
+
+    new = hasattr(libs["nano_game"], "nano_game_blocks_per_sm")
+    cfg = SimConfig()
+    key = rng.root_key(61)
+    a, b = fixtures.teams()
+    pack = pack_matchup(build_direction(a, b, cfg), build_direction(b, a, cfg), dev)
+    th = tl.pack_tables(*fixtures.nano_tables(cs.TABLE_SEED), device=dev)
+    n = cs.LAUNCH_GAMES
+    fo = torch.arange(n, dtype=torch.int32, device=dev) % 2
+    s0 = game.initial_state(n, fo, cfg, dev, collect_players=False, collect_stats=False)
+    args = game.pack_nano_game(pack, cfg, th)
+    matchups, tables = fixtures.slate(cs.SLATE_GAMES, cs.SLATE_SEED)
+    sr = api.SlateRunner(matchups, None, cfg, game_shard=True, nano_tables=tables, device=dev)
+    per = 2 * cs.SLATE_CHUNK
+    sn = cs.SLATE_GAMES * per
+    t = torch.arange(sn, dtype=torch.int32, device=dev)
+    s_slate = game.initial_state(sn, t % 2, cfg, dev, t // per, collect_players=False,
+                                 collect_stats=False)
+    slate_args = game.pack_nano_game(sr.pack, cfg, sr.heads_state)
+
+    def k1(a_, s_, plays=None):
+        if new:
+            return game.nano_game_cuda(a_, s_, key, plays=plays).score
+        return _old_nano_call(libs["nano_game"], a_, s_, key, plays)
+
+    scores = k1(args, s0).view(1, n, 2)
+    m = GAME_CHECK
+    plain = game.nano_game_plain(args, game.initial_state(m, fo[:m], cfg, dev,
+                                                          collect_players=False,
+                                                          collect_stats=False), key)
+    if not torch.equal(plain.score, scores[0, :m]):
+        raise RuntimeError(f"nano_game: {int((plain.score != scores[0, :m]).any(1).sum())} of "
+                           f"the first {m:,} games differ from nano_game_plain")
+    gen = torch.Generator(device=dev).manual_seed(64)
+    sc60 = torch.randint(0, 70, (60, 32_768, 2), generator=gen, device=dev, dtype=torch.int32)
+
+    def k2(sc):
+        if new:
+            return agg.exact_moments_cuda(sc)
+        return _old_moments_call(libs["score_moments"], sc)
+
+    for sc in (scores, sc60):
+        want = agg.exact_moments_plain(sc)
+        got = k2(sc)
+        got = (torch.cat([f.reshape(-1) for f in got[:5]]),
+               torch.cat([f.reshape(-1) for f in got[5:]])) if new else got
+        g = sc.shape[0]
+        want_counts = torch.cat([want.n.reshape(-1), want.wins.reshape(-1),
+                                 want.ties.reshape(-1), want.s_sum.reshape(-1),
+                                 want.s_sumsq.reshape(-1)])
+        want_hist = torch.cat([f.reshape(-1) for f in want[5:]]).int()
+        if not (torch.equal(got[0], want_counts) and torch.equal(got[1], want_hist)):
+            raise RuntimeError(f"score_moments at ({g}, {sc.shape[1]:,}): off the torch body")
+
+    out = {}
+    for name, a_, s_, games, table in (("nano_game", args, s0, n, th),
+                                       ("nano_game slate", slate_args, s_slate, sn,
+                                        sr.heads_state)):
+        plays = torch.zeros(1, dtype=torch.int64, device=dev)
+        rec = {}
+        if new:
+            iters = torch.zeros(1, dtype=torch.int64, device=dev)
+            gp = torch.empty(games, dtype=torch.int32, device=dev)
+            game.nano_game_cuda(a_, s_, key, plays=plays, iters=iters, game_plays=gp)
+            rec["lane_share"] = float(plays) / (32 * float(iters))
+            rec["lane_share_one_a_thread"] = lane_share_one_a_thread(gp)
+            resident, threads = game.nano_geometry(dev.index)
+            rec["blocks"], rec["threads"] = game.nano_grid(games, resident, threads), threads
+        else:
+            k1(a_, s_, plays)
+        bd = cs.nano_bound(games, int(plays), table.nano_values.numel() * 4)
+        ms = _held(lambda: k1(a_, s_), GAME_REPS[name], name)
+        out[name] = {"ms": ms, "plays": int(plays), "bound_ms": bd["bound_ms"],
+                     "bound_class": bd["bound_class"], "share": bd["bound_ms"] / ms, **rec}
+    for name, sc in (("score_moments", scores), ("score_moments G=60", sc60)):
+        bd = cs.moment_bound(sc.shape[0], sc.shape[1])
+        ms = _held(lambda: k2(sc), GAME_REPS[name], name)
+        out[name] = {"ms": ms, "bound_ms": bd["bound_ms"], "bound_class": bd["bound_class"],
+                     "share": bd["bound_ms"] / ms}
+    return out
+
+
+def _held(fn, reps: int, name: str) -> float:
+    for _ in range(HELD_TRIES):
+        ms, held = held_ms(fn, reps)
+        if held:
+            return ms
+    raise RuntimeError(f"{name}: the hold did not cover the enqueue")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", type=Path, default=cuda_build.CSRC, metavar="DIR",
                     help="build from DIR instead of the package's csrc/")
-    ap.add_argument("--forests-only", action="store_true", help="time K5 alone")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--forests-only", action="store_true", help="time K5 alone")
+    only.add_argument("--games-only", action="store_true", help="time K1 and K2 alone")
+    ap.add_argument("--sass", type=Path, metavar="DIR",
+                    help="write the SASS of nano_game.cu and score_moments.cu into DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernels: this probe needs an NVIDIA card", file=sys.stderr)
@@ -307,16 +498,40 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     csrc = args.csrc.resolve()
-    libs = dict(zip(SOURCES, cuda_build.load_kernel_libraries(*SOURCES, csrc=csrc)))
+    timed = (("forest_eval",) if args.forests_only
+             else GAME_SOURCES if args.games_only else SOURCES)
+    libs = dict(zip(timed, cuda_build.load_kernel_libraries(*timed, csrc=csrc)))
+    usage = {}
+    for name in timed:
+        sass = None
+        if args.sass is not None and name in GAME_SOURCES:
+            args.sass.mkdir(parents=True, exist_ok=True)
+            sass = args.sass / f"{name}.sass"
+        usage.update(cuda_build.ptxas_usage(name, csrc, sass))
+    for kernel, u in usage.items():
+        print(f"  {kernel}: {u['registers']} registers, spill stores {u['spill_stores']} B, "
+              f"spill loads {u['spill_loads']} B")
     dev = torch.device("cuda")
     names = [n for n in RUNS if "row0" in (csrc / "philox_draws.cu").read_text()
              or not n.startswith("philox")]
-    times = {} if args.forests_only else {**kernel_times(dev, names), **path_times(dev)}
-    times.update(forest_times(dev, libs["forest_eval"]))
+    times, games = {}, {}
+    if not (args.forests_only or args.games_only):
+        times.update({**kernel_times(dev, names), **path_times(dev)})
+    if not args.games_only:
+        times.update(forest_times(dev, libs["forest_eval"]))
+    if not args.forests_only:
+        games = game_times(dev, libs)
+        times.update({name: g["ms"] for name, g in games.items()})
     times["launch gap"] = launch_gap_ms()
     for name, ms in times.items():
         print(f"  {name}: {ms:.5f} ms held ({card})")
-    print(json.dumps({"csrc": str(csrc), "card": card, "held_ms": times}))
+    for name, g in games.items():
+        extra = "".join(f", {k} {g[k]:.4f}" for k in ("lane_share", "lane_share_one_a_thread")
+                        if k in g)
+        print(f"  {name}: bound {g['bound_ms']:.5f} ms ({g['bound_class']}), "
+              f"{g['share']:.1%} of it{extra} ({card})")
+    print(json.dumps({"csrc": str(csrc), "card": card, "held_ms": times, "games": games,
+                      "registers": usage}))
     return 0
 
 

@@ -15,11 +15,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
@@ -101,3 +102,36 @@ def load_kernel_libraries(*names: str, csrc: Path = CSRC) -> List[ctypes.CDLL]:
 def load_kernel_library(name: str) -> ctypes.CDLL:
     """ctypes handle of `csrc/<name>.cu`, compiled for sm_90a on first use."""
     return load_kernel_libraries(name)[0]
+
+
+def ptxas_usage(name: str, csrc: Path = CSRC,
+                sass_out: Optional[Path] = None) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel of `csrc/<name>.cu`, as
+    `nvcc -cubin -Xptxas -v` reports them under the library's flags (less
+    the shared-library ones): {mangled kernel: {"registers", "spill_stores",
+    "spill_loads"}}.  With `sass_out`, `cuobjdump -sass` of that cubin is
+    written there too."""
+    flags = [f for f in nvcc_flags(name) if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = Path(tmp) / f"{name}.cubin"
+        proc = subprocess.run([_nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", str(cubin),
+                               str(csrc / f"{name}.cu")], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -cubin failed for {csrc / name}.cu:\n{proc.stderr}")
+        if sass_out is not None:
+            dump = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass",
+                                   str(cubin)], capture_output=True, text=True, check=True)
+            Path(sass_out).write_text(dump.stdout)
+    out, kernel = {}, None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+            out[kernel] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and kernel:
+            out[kernel].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out[kernel]["registers"] = int(m.group(1))
+    return out

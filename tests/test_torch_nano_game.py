@@ -7,8 +7,14 @@ which reads exactly the packed inputs the launcher passes, is held bit for
 bit to the eager game loop (`simulate_games_eager`) on every GameState
 field, and within the 98%-of-games standard of tests/test_torch_game.py to
 the JAX package's `play_step` scanned over one draw table; the predicate
-that picks K1 is checked over a table of cases; the packed constants are
-checked against the kernel's struct in the source."""
+that picks K1 is checked over a table of cases; the packed constants and
+the launchers' parameters are checked against the kernels' sources.  K1's
+work queue hands games to lanes in any order, so a game's result must
+depend on its start state and its draw row alone: pieces of a launch
+played alone at their own row offsets, in a shuffled order, give the
+launch's games; the grid and cluster geometry are checked on shapes the
+CPU can count."""
+import ctypes
 import dataclasses
 import re
 
@@ -257,6 +263,135 @@ def test_packed_constants_follow_the_kernel_struct():
     assert c.sec.base[7] == 14 and c.sec.top[7] == 1.0
     assert args.dirs.shape == (2, 5) and args.table is th.nano.values
     assert tg.pack_nano_game(pack, _cfg(play_chunk=32), th).consts.cap == 384
+
+
+def _cut(s, a: int, b: int):
+    """Games a..b-1 of a GameState."""
+    return tg.GameState(*(f[a:b] for f in s))
+
+
+def _join(parts):
+    return tg.GameState(*(torch.cat(fs) for fs in zip(*parts)))
+
+
+@pytest.mark.parametrize("anti", [False, True], ids=["plain", "antithetic"])
+def test_nano_game_games_do_not_depend_on_their_launch(anti):
+    """What K1's work queue rests on: each game of a 3-matchup launch,
+    played by `nano_game_plain` in a piece of the launch alone at the
+    piece's own row offset, ends as it ends in the whole launch, and the
+    pieces played in a shuffled order and put back in game order give the
+    whole launch on every field.  Antithetic pieces are whole blocks of
+    four."""
+    cfg = _cfg(antithetic=True) if anti else SimConfig()
+    pack, th = _pack_and_tables(3)
+    n = 64 * 3
+    fo = torch.arange(n, dtype=torch.int32) % 2
+    gid = torch.arange(n, dtype=torch.int32) // 64
+    s0 = tg.initial_state(n, fo, cfg, "cpu", gid, collect_players=False, collect_stats=False)
+    args = tg.pack_nano_game(pack, cfg, th)
+    key = root_key(5)
+    whole = tg.nano_game_plain(args, s0, key, 0, anti)
+    cuts = [0, 20, 88, 132, n]          # ragged pieces across the matchups' edges
+    parts = {}
+    for k in np.random.default_rng(4).permutation(len(cuts) - 1):
+        a, b = cuts[k], cuts[k + 1]
+        parts[k] = tg.nano_game_plain(args, _cut(s0, a, b), key, a, anti)
+        for f in FIELDS:
+            assert torch.equal(getattr(parts[k], f), getattr(_cut(whole, a, b), f)), (a, b, f)
+    joined = _join([parts[k] for k in range(len(cuts) - 1)])
+    for f in FIELDS:
+        assert torch.equal(getattr(joined, f), getattr(whole, f)), f
+    assert (whole.sec == 0).all()
+
+
+def _queue_handout(n: int, blocks: int, threads: int, seed: int):
+    """Each game's lane handouts under K1's queue: lane t takes game t,
+    then warps whose games end claim popc(ended) games at once from the
+    counter, each ended lane taking lanes + base + its rank among them;
+    the warps end games in a random order."""
+    lanes = blocks * threads
+    rng = np.random.default_rng(seed)
+    given = list(range(min(n, lanes)))
+    games = [list(range(w * 32, w * 32 + 32)) for w in range(lanes // 32)]
+    counter = 0
+    while True:
+        live = [w for w, g in enumerate(games) if any(i < n for i in g)]
+        if not live:
+            return given
+        w = live[rng.integers(len(live))]
+        ended = sorted(set(rng.choice(32, rng.integers(1, 33), replace=False)))
+        ended = [k for k in ended if games[w][k] < n]
+        if not ended:
+            continue
+        base, counter = counter, counter + len(ended)
+        for rank, k in enumerate(ended):
+            games[w][k] = lanes + base + rank
+            if games[w][k] < n:
+                given.append(games[w][k])
+
+
+@pytest.mark.parametrize("n,resident,blocks", [(100, 792, 1), (1_000, 792, 8),
+                                               (65_536, 792, 512), (1_966_080, 792, 792),
+                                               (4, 1_188, 1)])
+def test_nano_grid_and_queue_cover_every_game_once(n, resident, blocks):
+    """K1's persistent grid: no more blocks than the card holds at once,
+    none that n games leave empty; the queue over that grid hands every
+    game out exactly once (counted here at the small sizes)."""
+    assert tg.nano_grid(n, resident, 128) == blocks
+    if n <= 2_000:
+        given = _queue_handout(n, blocks, 128, seed=n)
+        assert sorted(given) == list(range(n))
+    assert tg.nano_grid(0, resident, 128) == 1
+    assert tg.nano_grid(n, resident, 64) == min(resident, -(-n // 64))
+
+
+@pytest.mark.parametrize("n,groups", [(100, 1), (3_001, 5), (32_768, 60), (0, 2)])
+def test_moments_grid_covers_every_game_once(n, groups):
+    """K2's geometry: a cluster of _CLUSTER blocks a matchup, its blocks'
+    strides covering each of the matchup's games exactly once, with n
+    under one block and n ragged; past the grid's y extent it raises."""
+    (gx, gy), cluster, threads = tagg.moments_grid(groups)
+    assert (gx, gy, cluster, threads) == (tagg._CLUSTER, groups, tagg._CLUSTER, tagg._THREADS)
+    seen = np.zeros(n, dtype=np.int64)
+    for r in range(cluster):
+        for t in range(threads):
+            seen[r * threads + t:n:cluster * threads] += 1
+    assert (seen == 1).all()
+    with pytest.raises(ValueError, match="65,535"):
+        tagg.moments_grid(65_536)
+
+
+_CTYPES = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32}
+
+
+def _launcher_params(src: str, name: str):
+    """The ctypes type of each parameter of `extern "C" int name(...)` in a
+    CUDA source: pointers of any kind a c_void_p."""
+    body = re.search(r'extern "C" int %s\((.*?)\)' % name, src, re.S).group(1)
+    out = []
+    for decl in body.split(","):
+        decl = " ".join(decl.split())
+        ctype = decl.rsplit(" ", 1)[0]
+        out.append(ctypes.c_void_p if "*" in decl else _CTYPES[ctype])
+    return out
+
+
+def _constant(src: str, name: str) -> int:
+    return int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
+
+
+def test_launchers_follow_the_kernel_sources():
+    """The wrappers' argtypes are the launchers' parameters in the .cu
+    files, in order; K2's block and cluster sizes are the kernel's (K1's
+    the wrapper asks the library), and K1's library exports its queries."""
+    nano = (CSRC / "nano_game.cu").read_text()
+    moments = (CSRC / "score_moments.cu").read_text()
+    assert _launcher_params(nano, "nano_game_launch") == tg._NANO_ARGTYPES
+    assert _launcher_params(moments, "score_moments_launch") == tagg._MOMENTS_ARGTYPES
+    assert _constant(moments, "kThreads") == tagg._THREADS
+    assert _constant(moments, "kCluster") == tagg._CLUSTER
+    for fn in ("nano_game_threads", "nano_game_blocks_per_sm", "nano_game_consts_size"):
+        assert f'extern "C" int {fn}()' in nano
 
 
 def test_moments_dispatch_on_the_cpu():
