@@ -63,13 +63,15 @@ Phases, in order (any failure raises and exits non-zero):
  8. the props path: MatchupRunner(mode="table", rng_impl="pallas_chunk",
     device="cuda") with the focus-roster fixture teams, `run_pairs(8,192,
     collect_players=True, collect_stats=True)` (16,384 games, the JAX
-    package's `simulate_slate_props` default); points equal the score,
+    package's `simulate_slate_props` default): one K1 launch with both
+    collectors and no philox_draws launch; points equal the score,
     box-score and player identities, no NaN; 4,096 games on CUDA and on the
     CPU agree in >= 99.5% of games on integer state and every count, yards
     allclose; the prop reduction on the card against the CPU; a scan of the
     fixture prop sheet prices every resolvable row; 65,536-game launches of
     the props path and of score-only `run_pairs` timed in turns, with peak
-    device memory (and eager kernels per play with --profile);
+    device memory, one K1 launch each and no philox_draws launch (device
+    kernels a launch with --profile);
  9. the live path: MatchupRunner(mode="table", device="cuda") with the
     fixture nano table and the default SimConfig() (rng_impl "threefry",
     which the port draws from its Philox stream, as "rbg" too): the kickoff
@@ -138,7 +140,8 @@ Phases, in order (any failure raises and exits non-zero):
     a warm-up and 1 timed call (3 before phase 16, then 2; the season its
     one call alone since the smoke outgrew its limit), between setting the
     launch
-    counts to 0 and reading them, and each call must launch philox_draws;
+    counts to 0 and reading them, and each call must launch K1 and no
+    philox_draws (every launch of games on K1);
     the checks run after, on each warm-up's result (`--profile` adds
     `DIR/profile_parlay.txt`);
 12. exact mode and tables from heads, on `fixtures.heads(0, "reference")`
@@ -314,14 +317,21 @@ Phases, in order (any failure raises and exits non-zero):
     kickoff, antithetic, from a Q4 `Situation`, from an `init_state` after
     a forced go, from row0 65,536 and on nano tables with stage-2 and
     fumble channels (enable_fumbles), and one launch of the 60-matchup
-    fixture slate at 16,384 games a matchup: the games differing on each
-    field printed, none allowed (K1 is bitwise equal by design);
+    fixture slate at 16,384 games a matchup; with the collectors (box
+    score only, player stats only on the focus roster, both with no tracked
+    slot, both on the focus roster, antithetic, and resumed after 40 eager
+    plays with both on, its stats nonzero), stats and pstats compared too:
+    the games differing on each field printed, none allowed (K1 is bitwise
+    equal by design);
     `nano_game_plain` on the card against K1 at 4,096 games, none allowed; K2 (`exact_moments_cuda`) bitwise
     equal to the torch body at (1, 65,536) on K1's scores, (60, 32,768) and
     on scores past every clamp; K1's held ms a 65,536-game launch and a
     slate launch (60 x 32,768 games) beside its bound counted on the
     launch's plays (`nano_bound`), the plain version's and the eager loop's
-    times, and K2's held ms, bound and torch body's time.
+    times; the props instantiation (both collectors, the focus roster,
+    65,536 games) beside its bound on the launch's plays, slots sampled and
+    player rows added (`accrual_work`) and the score-only K1's held ms in
+    the same call; and K2's held ms, bound and torch body's time.
 Every phase prints its seconds, and a line before the JSON lines lists
 them with the whole smoke's.
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
@@ -330,7 +340,8 @@ counts the sharded runs' own launches, its ranks' included; phase 19 the
 bench's own, from its JSON line); a path that launched one of its kernels
 no time fails.  nano_game's and score_moments' launches in the JSON line
 are every path's (`PATH_LAUNCHES`), phase 18's and phase 19's; phase 21's
-comparisons count none.  forest_eval's launches in the JSON line are exact mode's,
+comparisons count none.  nano_game_props is K1's instantiation with both
+collectors: its launches are the paths' K1 launches with a collector on.  forest_eval's launches in the JSON line are exact mode's,
 phase 13's, phase 14's, phase 15's, phase 19's and phase 20's; its times
 are per play (11 launches), the bound too.  The JSON line's philox_draws
 launches are the main path's, the live queries', the slate path's, phase
@@ -517,10 +528,12 @@ TRAIN_MODULES = ("pandas", "sklearn", "joblib")   # what cli train needs
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "meta"}
 BENCH_SANITY = re.compile(r"# sanity: mean \[([-\d.]+), ([-\d.]+)\] winA ([\d.]+)")
 # each kernel of the JSON line and its source in csrc/
+# (nano_game_props: K1's instantiation with both collectors, the props path's)
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
                   "row_gather_sum": "row_gather", "forest_eval": "forest_eval",
-                  "nano_game": "nano_game", "score_moments": "score_moments"}
+                  "nano_game": "nano_game", "nano_game_props": "nano_game",
+                  "score_moments": "score_moments"}
 SOURCES = tuple(dict.fromkeys(KERNEL_SOURCES.values()))
 # the Pallas kernel each replaces (the timed shape's; PERF.md lists them all)
 REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
@@ -531,6 +544,8 @@ REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
             # XLA on the TPU, not Pallas kernels
             "forest_eval": "fast_monte_carlo_tpu/ops/forest_eval.py:96 eval_margin",
             "nano_game": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games",
+            "nano_game_props": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games "
+                               "(collect_players, collect_stats: :309, :586-653)",
             "score_moments": "fast_monte_carlo_tpu/parallel/aggregate.py:76 score_moments"}
 
 # The H100 SXM's rates by class, on 132 SMs at 1.98 GHz: HBM bytes/s
@@ -591,6 +606,25 @@ NANO_COUNTS = {"alu": 334, "imad": 80, "mufu_cvt": 39, "dispatch": 713}
 # adds, the 64-bit sums' and the counts' adds and the bins' offsets: 35
 # dispatched.
 MOMENT_COUNTS = {"alu": 11, "imad": 2, "mufu_cvt": 0, "dispatch": 35}
+# K1's collectors, by the same rules, beyond NANO_COUNTS, checked against
+# the SASS of the instantiation with both collectors
+# (nano_game_kernel<true, true>), which runs more: per play, the team
+# stats' 19 f32 adds (18 columns and rz_trips' trip1 + trip2), fourth_conv's
+# two yards + 1e-6 adds and two compares, rz_TD's compare, and 4 predicate
+# ops to combine them (flags enter as adds of 1.0, so no conversion is
+# counted; where the accumulators live, the lane's stripe of shared memory,
+# is the design's cost, not the work's, and its loads and stores are left
+# out); per slot sampled (the QB and the target on a pass play, the rusher
+# on a run), K = 8 share loads, compares and count adds, the clamp, the
+# tracked flag's load and test; per player row added (a tracked slot), the
+# 24-byte row read and written with 8-byte accesses (3 LDG.64 and 3
+# STG.64, as the kernel issues) and its 6 adds.  f32 adds run on the FMA
+# pipes at the dispatch rate, so they count in dispatch only, as in
+# STEP_COUNTS.  The slot loop's unrolled address arithmetic is index
+# arithmetic.
+NANO_TEAM_COUNTS = {"alu": 7, "imad": 0, "mufu_cvt": 0, "dispatch": 28}
+NANO_SLOT_COUNTS = {"alu": 10, "imad": 0, "mufu_cvt": 0, "dispatch": 27}
+NANO_ROW_COUNTS = {"alu": 0, "imad": 0, "mufu_cvt": 0, "dispatch": 12}
 # K1's state bytes a game: gid, off, sec, down, dist, ytg, period, the
 # two bools and the score read; the same less gid written
 NANO_STATE_IN, NANO_STATE_OUT = 38, 34
@@ -601,8 +635,10 @@ MOMENT_BINS, MOMENT_FIELDS = 768, 8
 # phase 19's bench processes' added
 PATH_LAUNCHES: dict = {}
 # phase 21: the variants at LAUNCH_GAMES (the ragged ones at 1,000 and 4);
-# the slate variants at the fixture slate's G matchups x NANO_SLATE_GAMES
+# the slate variants at the fixture slate's G matchups x NANO_SLATE_GAMES;
+# the resumed collector variant after NANO_RESUMED_PLAYS eager plays
 NANO_SLATE_GAMES = 16_384
+NANO_RESUMED_PLAYS = 40
 # forest_eval (K5): what any walk of this run's rows must do, whatever its
 # layout (the plain walk's leaves give each row's path; the same bound
 # holds any kernel of the walk): per internal node visited, one
@@ -720,26 +756,35 @@ def bound(nbytes: float, counts: dict) -> dict:
 
 
 def kernel_counts() -> dict:
+    """Each kernel of the JSON line: (its wrapper, the wrapper's attribute
+    counting its launches)."""
     from fast_monte_carlo_tpu_torch.ops import forest_eval, game, rng
     from fast_monte_carlo_tpu_torch.parallel import aggregate
     from fast_monte_carlo_tpu_torch.probes import gather, step_arith
 
-    return {"philox_draws": rng.philox_draws, "fused_step": step_arith.fused_step,
-            "fused_step_tab": step_arith.fused_step_tab, "row_gather": gather.row_gather,
-            "row_gather_sum": gather.row_gather_sum,
-            "forest_eval": forest_eval.eval_margin_cuda,
-            "nano_game": game.nano_game_cuda, "score_moments": aggregate.exact_moments_cuda}
+    fns = {"philox_draws": rng.philox_draws, "fused_step": step_arith.fused_step,
+           "fused_step_tab": step_arith.fused_step_tab, "row_gather": gather.row_gather,
+           "row_gather_sum": gather.row_gather_sum,
+           "forest_eval": forest_eval.eval_margin_cuda,
+           "nano_game": game.nano_game_cuda, "score_moments": aggregate.exact_moments_cuda}
+    return {**{name: (fn, "launches") for name, fn in fns.items()},
+            "nano_game_props": (game.nano_game_cuda, "launches_collecting")}
+
+
+def launch_count(name: str) -> int:
+    fn, attr = kernel_counts()[name]
+    return getattr(fn, attr)
 
 
 def zero_counts() -> None:
-    for fn in kernel_counts().values():
-        fn.launches = 0
+    for fn, attr in kernel_counts().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts(path: str, needed) -> dict:
-    counts = {name: fn.launches for name, fn in kernel_counts().items()}
+    counts = {name: launch_count(name) for name in kernel_counts()}
     print(f"  launches in the {path}: {counts}")
-    for name in ("nano_game", "score_moments"):
+    for name in ("nano_game", "nano_game_props", "score_moments"):
         PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + counts[name]
     for name in needed:
         check(counts[name] > 0, f"{path} launched {name} {counts[name]} times")
@@ -758,12 +803,18 @@ def phase_kernel(card: str) -> dict:
         # ragged shapes: tiles that end inside a row of uniforms, n below,
         # just above and 37 past a tile multiple
         shapes = [(ch, n) for ch in (1, 3, CH) for n in (1, 255, 257, N + 37)]
-        equal, err = [], 0.0
+        equal, err, differ = [], 0.0, []
         for ch, n in shapes:
             u, z = rng.chunk_draws(key, base, ch, n, dev)
             ur, zr = rng.philox_draws_reference(key, base, ch, n, dev)
             equal.append(torch.equal(u, ur))
             err = max(err, float((z - zr).abs().max()))
+            if not equal[-1]:
+                # where they differ, for a fault that has not come back
+                d = (u != ur).nonzero()
+                i = tuple(d[0].tolist())
+                differ.append(f"({ch}, {n}): {d.shape[0]} differ, first {i} "
+                              f"{float(u[i])!r} against {float(ur[i])!r}")
             if (ch, n) == (3, 257):
                 per_step = [rng.step_draws(key, base + j, n, dev) for j in range(ch)]
                 check(all(torch.equal(us, u[j]) and torch.equal(zs, z[j])
@@ -772,7 +823,8 @@ def phase_kernel(card: str) -> dict:
         worst = max(worst, err)
         check(all(equal) and err <= 1e-5,
               f"key {key:#x} base {base}: uniforms bitwise at all {len(shapes)} ragged "
-              f"shapes ({sum(equal)} equal), normals max|d| {err:.3g} <= 1e-5")
+              f"shapes ({sum(equal)} equal), normals max|d| {err:.3g} <= 1e-5"
+              + "".join(f"; {x}" for x in differ))
         u, z = rng.chunk_draws(key, base, CH, N, dev)
         ur, zr = rng.philox_draws_reference(key, base, CH, N, dev)
         torch.cuda.synchronize()
@@ -1252,7 +1304,10 @@ def phase_props(card: str, profile_dir: Optional[Path]) -> dict:
     out = runner.run_pairs(PROPS_PAIRS, seed=11, collect_players=True, collect_stats=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = read_counts("props path", ["philox_draws"])
+    counts = read_counts("props path", ["nano_game", "nano_game_props"])
+    check(counts["nano_game_props"] == 1 and counts["philox_draws"] == 0,
+          f"props path: one K1 launch with the collectors ({counts['nano_game_props']}) and "
+          f"no philox_draws launch ({counts['philox_draws']})")
     n = 2 * PROPS_PAIRS
     st, ps = out.stats, out.pstats
     print(f"  props path: run_pairs({PROPS_PAIRS:,}) -> {n:,} games in {dt:.3f} s, "
@@ -1330,6 +1385,7 @@ def phase_props(card: str, profile_dir: Optional[Path]) -> dict:
                 "score-only": dict(collect_players=False, collect_stats=False)}
     secs = {v: [] for v in variants}
     peak = {}
+    before = engine_launches()
     for i, v in enumerate(("score-only", "props", "props", "score-only")):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1348,6 +1404,9 @@ def phase_props(card: str, profile_dir: Optional[Path]) -> dict:
                   "card == CPU")
             del red_g, red_c
         del big            # so no launch's peak holds the one before it
+    used = launches_since(before)
+    check(used == {"K4": 0, "K1": 4, "K3": 0}, f"the timed turns: one K1 launch each and no "
+          f"philox_draws launch ({used})")
     # whether torch takes a quantile call past 2^24 elements on the card
     wide = torch.rand(LAUNCH_GAMES, 257, device="cuda")
     try:
@@ -1372,7 +1431,7 @@ def phase_props(card: str, profile_dir: Optional[Path]) -> dict:
             k, dev_ms, wall_ms, table = profile_kernels(
                 lambda: runner.run_pairs(pairs, seed=14, **kw))
             plays = (rng.philox_draws.launches - launches0) * cfg.engine.play_chunk
-            if plays == 0:       # score-only: K1, one launch and no play chunk
+            if plays == 0:       # K1, one launch and no play chunk, props too
                 lines += [f"{v}: {k} device kernels a launch (K1), {dev_ms:.3f} ms device "
                           f"time, {wall_ms:.3f} ms wall profiled", table]
                 print(f"  profile, {v}: {k} device kernels a launch (K1), {dev_ms:.4f} ms "
@@ -1856,7 +1915,11 @@ def phase_multi(card: str, profile_dir: Optional[Path]) -> dict:
         first[key], res[key] = timed_query(what, fn, reps, card)
         part_s[key] = time.perf_counter() - t0
     counts = read_counts("multi-leg, season and slate-props queries",
-                         ["philox_draws", "nano_game", "score_moments"])
+                         ["nano_game", "nano_game_props", "score_moments"])
+    # the parlay's and the scan's launches with player stats, and the
+    # season's, all on K1: no eager play chunk
+    check(counts["philox_draws"] == 0, "the queries launched philox_draws no time "
+          f"({counts['philox_draws']}): every launch of games on K1")
     res["launches"] = counts["philox_draws"]
     t_part = time.perf_counter()
 
@@ -1995,19 +2058,16 @@ def phase_multi(card: str, profile_dir: Optional[Path]) -> dict:
     print(f"  the parlay's pricing: {res['settle_share']:.4f} of the fastest query")
 
     if profile_dir is not None:
-        n0 = rng.philox_draws.launches
         k, dev_ms, wall_ms, tab = profile_kernels(
             lambda: api.simulate_parlay_core(a.name, b.name, PARLAY_LEGS, seed=34, **pkw))
-        plays = (rng.philox_draws.launches - n0) * CH
         line = (f"one simulate_parlay query ({n:,} games, {len(PARLAY_LEGS)} legs, "
-                f"correlations, round robin by 2/3): {k} device kernels over {plays} plays "
-                f"({k / plays:.1f} a play), {dev_ms:.3f} ms device time ({dev_ms / plays:.4f} a "
-                f"play), {wall_ms:.3f} ms wall profiled, busy share "
-                f"{dev_ms / min(res['parlay']['ms']):.4f} of the fastest unprofiled query")
+                f"correlations, round robin by 2/3; its games one K1 launch): {k} device "
+                f"kernels, {dev_ms:.3f} ms device time, {wall_ms:.3f} ms wall profiled, busy "
+                f"share {dev_ms / min(res['parlay']['ms']):.4f} of the fastest unprofiled query")
         print(f"  profile, {line}")
         profile_dir.mkdir(parents=True, exist_ok=True)
         (profile_dir / "profile_parlay.txt").write_text(f"{card}\n{line}\n\n{tab}\n")
-        res.update(kernels_per_play=k / plays, device_ms_per_play=dev_ms / plays)
+        res.update(kernels_per_query=k, device_ms_per_query=dev_ms)
     return res
 
 
@@ -3356,7 +3416,7 @@ th = ttl.build_table_heads(ca, cb, heads, SimConfig(), nano=nano_profile(), devi
 bad = [m for m in ("jax", "fast_monte_carlo_tpu") if m in sys.modules]
 print(json.dumps(dict(summary_s=summary_s, cache_hit=th.cache_hit,
                       load_s=th.cache_seconds, digest=chip_smoke.tables_digest(th),
-                      launches=chip_smoke.kernel_counts()["philox_draws"].launches,
+                      launches=chip_smoke.launch_count("philox_draws"),
                       players=len(players["sim"]), imported=bad)))
 """
 
@@ -3618,8 +3678,8 @@ out = chip_smoke.shard_runs(runner, slate, q4, group)
 torch.cuda.synchronize()
 bad = [m for m in ("jax", "fast_monte_carlo_tpu") if m in sys.modules]
 print(json.dumps(dict(out, rank=rank, block=list(slate.block), held=held, imported=bad,
-                      launches={{k: fn.launches for k, fn in
-                                 chip_smoke.kernel_counts().items()}})))
+                      launches={{k: chip_smoke.launch_count(k)
+                                 for k in chip_smoke.kernel_counts()}})))
 dist.barrier()          # both ranks done before either tears the group down
 dist.destroy_process_group()
 """
@@ -3651,10 +3711,10 @@ def phase_shard(card: str) -> dict:
     own = dict.fromkeys(counted, 0)
 
     def sharded_run(fn):
-        before = {k: kernel_counts()[k].launches for k in counted}
+        before = {k: launch_count(k) for k in counted}
         res = fn()
         for k in counted:
-            own[k] += kernel_counts()[k].launches - before[k]
+            own[k] += launch_count(k) - before[k]
         return res
 
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
@@ -3881,10 +3941,10 @@ def nano_diff(want, got, what: str) -> float:
     n = want.off.shape[0]
     bad = torch.zeros(n, dtype=torch.bool, device=got.off.device)
     by_field, err = {}, 0.0
-    for f in ("off", "sec", "down", "dist", "ytg", "period", "in_rz", "going", "score"):
+    for f in ("off", "sec", "down", "dist", "ytg", "period", "in_rz", "going", "score",
+              "stats", "pstats"):
         x, y = getattr(want, f), getattr(got, f)
-        m = x != y
-        m = m.any(dim=1) if m.dim() > 1 else m
+        m = (x != y).reshape(n, -1).any(dim=1)
         by_field[f] = int(m.sum())
         bad |= m
         err = max(err, float((x.double() - y.double()).abs().max()))
@@ -3893,11 +3953,39 @@ def nano_diff(want, got, what: str) -> float:
     return err
 
 
-def nano_bound(games: int, plays: int, table_bytes: int) -> dict:
+def nano_bound(games: int, plays: int, table_bytes: int,
+               accrual: Optional[dict] = None) -> dict:
     """`bound` of one K1 launch: the games' state read and written once, the
-    nano table read once, NANO_COUNTS a play over the plays the games took."""
-    return bound(games * (NANO_STATE_IN + NANO_STATE_OUT) + table_bytes,
-                 per(NANO_COUNTS, plays))
+    nano table read once, NANO_COUNTS a play over the plays the games took;
+    with the collectors' work of the launch (`accrual_work`), the team
+    stats read and written once and each player row the launch touched
+    read and written once, NANO_TEAM_COUNTS a play, NANO_SLOT_COUNTS a slot
+    sampled and NANO_ROW_COUNTS a player row added."""
+    nbytes = games * (NANO_STATE_IN + NANO_STATE_OUT) + table_bytes
+    counts = per(NANO_COUNTS, plays)
+    if accrual is not None:
+        nbytes += 2 * (accrual["stats_bytes"] + accrual["rows_touched"] * 6 * 4)
+        for c, items in ((NANO_TEAM_COUNTS, plays), (NANO_SLOT_COUNTS, accrual["sampled"]),
+                         (NANO_ROW_COUNTS, accrual["rows_added"])):
+            for k, v in per(c, items).items():
+                counts[k] += v
+    return bound(nbytes, counts)
+
+
+def accrual_work(out) -> dict:
+    """What K1's collectors did in a launch from zero stats with both on,
+    read off its box score and player stats: the slots sampled (the QB and
+    the target a pass play, the rusher a run), the player rows added (one
+    a tracked slot: a QB row's attempt or sack, a rusher's attempt, a
+    target's target each count 1), the distinct player rows touched, and
+    the team stats' bytes."""
+    from fast_monte_carlo_tpu_torch.stats import PC_ATT, PC_SACKS, ROLE_PASS, TS
+
+    st, ps = out.stats, out.pstats
+    pass_plays = float((st[..., TS["pass_att"]] + st[..., TS["sacks"]]).sum())
+    return {"sampled": 2 * pass_plays + float(st[..., TS["rush_att"]].sum()),
+            "rows_added": float(ps[..., PC_ATT].sum() + ps[:, :, ROLE_PASS, :, PC_SACKS].sum()),
+            "rows_touched": int((ps != 0).any(-1).sum()), "stats_bytes": st.numel() * 4}
 
 
 def moment_bound(groups: int, n: int) -> dict:
@@ -3914,11 +4002,13 @@ def phase_nano_game(card: str) -> dict:
     K1: the default config, antithetic, resumed and forced starts, a row
     offset, stage-2 and fumble channels, the classic config's taper and
     red-zone damping, a collapsed score-diff axis, fumbles without a
-    channel, early_exit off, ragged launches) and over the fixture slate in
-    one launch, plain and antithetic; K2 (score_moments) bit for bit
-    against the torch body, ragged shapes too; both kernels timed beside
-    their bounds and their plain versions.  The comparisons' launches are
-    no path's: the counts are not read here."""
+    channel, early_exit off, ragged launches; each combination of the
+    collectors, antithetic, on the focus roster and from a resumed state
+    with nonzero stats) and over the fixture slate in one launch, plain
+    and antithetic; K2 (score_moments) bit for bit against the torch body,
+    ragged shapes too; both kernels timed beside their bounds and their
+    plain versions, K1's props instantiation (both collectors) too.  The
+    comparisons' launches are no path's: the counts are not read here."""
     import torch
     from fast_monte_carlo_tpu_torch import api, fixtures
     from fast_monte_carlo_tpu_torch.config import SimConfig, classic_config
@@ -3971,22 +4061,29 @@ def phase_nano_game(card: str) -> dict:
     errs, eager_ms = {}, None
     key = rng.root_key(61)
 
-    def held(what, pk, c, t, games, first, start, timed=False):
+    def held(what, pk, c, t, games, first, start, timed=False, coll=score_only):
         """K1's launch against the eager loop and against nano_game_plain
-        on the same start state; the eager loop's ms by events where
-        `timed`."""
+        on the same start state (each run on its own copy of a given
+        init_state: the collectors add in place); the eager loop's ms by
+        events where `timed`."""
+        def fresh():
+            if "init_state" not in start:
+                return start
+            return {**start, "init_state": game.GameState(*(f.clone()
+                                                            for f in start["init_state"]))}
+
         before = game.nano_game_cuda.launches
-        got = game.simulate_games(pk, c, he, t, key, games, first, **score_only, **start)
+        got = game.simulate_games(pk, c, he, t, key, games, first, **coll, **fresh())
         check(game.nano_game_cuda.launches == before + 1, f"{what}: one K1 launch")
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0.record()
-        want = game.simulate_games_eager(pk, c, he, t, key, games, first, **score_only, **start)
+        want = game.simulate_games_eager(pk, c, he, t, key, games, first, **coll, **fresh())
         t1.record()
-        row0 = start.get("row0", 0)
-        s, c2, anti = game._launch_state(pk, c, games, first, False, start.get("game_id", 0),
-                                         False, start.get("situation"), start.get("init_state"),
-                                         row0, None)
-        plain = game.nano_game_plain(game.pack_nano_game(pk, c2, t), s, key, row0, anti)
+        row0, st = start.get("row0", 0), fresh()
+        s, c2, anti = game._launch_state(pk, c, games, first, coll["collect_players"],
+                                         start.get("game_id", 0), coll["collect_stats"],
+                                         st.get("situation"), st.get("init_state"), row0, None)
+        plain = game.nano_game_plain(game.pack_nano_game(pk, c2, t), s, key, row0, anti, **coll)
         torch.cuda.synchronize()
         errs[what] = max(nano_diff(want, got, f"K1 against the eager loop, {what}"),
                          nano_diff(plain, got, f"K1 against nano_game_plain, {what}"))
@@ -3995,6 +4092,34 @@ def phase_nano_game(card: str) -> dict:
     for what, c, t, games, first, start in variants:
         ms = held(what, pack, c, t, games, first, start, timed=eager_ms is None)
         eager_ms = eager_ms or ms                # the kickoff's, K1's timed launch
+
+    # the collectors: each combination, antithetic, the focus roster (whose
+    # tracked slots take player rows; the fixture teams track none) and a
+    # state resumed after eager plays with both on, its stats nonzero
+    fa, fb = fixtures.focus_teams(FOCUS_SEED)
+    fpack = pack_matchup(build_direction(fa, fb, cfg), build_direction(fb, fa, cfg), dev)
+    both = dict(collect_players=True, collect_stats=True)
+    resumed = game.initial_state(n, fo, cfg, dev, **both)
+    for j in range(NANO_RESUMED_PLAYS):
+        resumed = game.play_step(resumed, rng.step_draws(rng.fold_in(key, 7), j, n, dev), fpack,
+                                 cfg, he, th, True, True)
+    check(bool((resumed.stats[..., 0] > 0).any(dim=1).all()) and float(resumed.pstats.sum()) > 0,
+          f"the resumed start: every game's stats and the player stats nonzero after "
+          f"{NANO_RESUMED_PLAYS} plays")
+    props_eager_ms, collecting = None, []
+    for what, c, pk, start, coll in (
+            ("box score only", cfg, pack, {}, dict(collect_players=False, collect_stats=True)),
+            ("player stats only, focus roster", cfg, fpack, {},
+             dict(collect_players=True, collect_stats=False)),
+            ("both collectors, no tracked slot", cfg, pack, {}, both),
+            ("both collectors, focus roster", cfg, fpack, {}, both),
+            ("both collectors, antithetic, focus roster", anti_cfg, fpack, {}, both),
+            (f"both collectors, resumed after {NANO_RESUMED_PLAYS} plays, focus roster", cfg,
+             fpack, dict(init_state=resumed), both)):
+        ms = held(what, pk, c, th, n, fo, start, timed=what.endswith("collectors, focus roster"),
+                  coll=coll)
+        props_eager_ms = props_eager_ms or ms
+        collecting.append(what)
 
     # the fixture slate in the game layout, one launch, plain and antithetic
     matchups, tables = fixtures.slate(SLATE_GAMES, SLATE_SEED)
@@ -4055,6 +4180,29 @@ def phase_nano_game(card: str) -> dict:
           f"({k1_bd['bound_class']}; {k1_bd['bound_ms'] / k1_ms:.1%} of it); nano_game_plain "
           f"{k1_plain:.2f} ms device ({plain_how}; {k1_plain_ev:.1f} by events), the eager "
           f"loop {eager_ms:.1f} ms by events ({card})")
+    # the props instantiation (both collectors) on the focus roster, from
+    # zero stats; its work read off the first launch, before the timed
+    # launches add onto the same stats
+    fargs = game.pack_nano_game(fpack, cfg, th)
+    s_props = game.initial_state(n, fo, cfg, dev, **both)
+    plays.zero_()
+    first = game.nano_game_cuda(fargs, s_props, key, plays=plays, **both)
+    props_bd = nano_bound(n, int(plays), th.nano_values.numel() * 4, accrual_work(first))
+    work = accrual_work(first)
+    props_ms, _, props_how = times(lambda: game.nano_game_cuda(fargs, s_props, key, **both), 10)
+    k1_again, _, _ = times(lambda: game.nano_game_cuda(args, s0, key), 10)
+    s_plain = game.initial_state(n, fo, cfg, dev, **both)
+    prof = device_profile(lambda: game.nano_game_plain(fargs, s_plain, key, **both), 1)
+    props_plain, props_plain_how = (prof[0], "profiler") if prof else (float("nan"),
+                                                                        "not recorded")
+    print(f"  nano_game props (both collectors, focus roster) at {n:,} games ({int(plays):,} "
+          f"plays, {work['sampled']:,.0f} slots sampled, {work['rows_added']:,.0f} player rows "
+          f"added, {work['rows_touched']:,} touched): K1 {props_ms:.4f} ms ({props_how}), bound "
+          f"{props_bd['bound_ms']:.4f} ms ({props_bd['bound_class']}; "
+          f"{props_bd['bound_ms'] / props_ms:.1%} of it); score-only K1 in the same call "
+          f"{k1_ms:.4f} and {k1_again:.4f} ms; nano_game_plain {props_plain:.2f} ms device "
+          f"({props_plain_how}), the eager loop {props_eager_ms:.1f} ms by events ({card})")
+    del s_props, s_plain, first, resumed
     per_slate = 2 * SLATE_CHUNK
     sn = SLATE_GAMES * per_slate
     t = torch.arange(sn, dtype=torch.int32, device=dev)
@@ -4084,9 +4232,12 @@ def phase_nano_game(card: str) -> dict:
           f"bound {bd60['bound_ms']:.5f} ms ({bd60['bound_class']}), torch body "
           f"{k2_60_plain:.4f} ms ({card})")
     worst = max(errs.values())
+    props_err = max(errs[what] for what in collecting)
     return {
         "nano_game": {"max_abs_err": worst, "ms": k1_ms, "plain_ms": k1_plain,
                       "library_ms": None, **k1_bd, "slate_ms": slate_ms, "eager_ms": eager_ms},
+        "nano_game_props": {"max_abs_err": props_err, "ms": props_ms, "plain_ms": props_plain,
+                            "library_ms": None, **props_bd, "eager_ms": props_eager_ms},
         "score_moments": {"max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
                           "library_ms": None, **k2_bd},
     }
@@ -4431,6 +4582,10 @@ def main() -> int:
                                   + benched[name])
         print(f"  {name} launches: the paths' {PATH_LAUNCHES[name]}, trial sharding's "
               f"{shard['launches'][name]}, the bench entry's {benched[name]}")
+    # trial sharding and the bench entry run score-only launches
+    nano["nano_game_props"]["launches"] = PATH_LAUNCHES["nano_game_props"]
+    print(f"  nano_game launches with a collector on (nano_game_props): the paths' "
+          f"{PATH_LAUNCHES['nano_game_props']}")
     print(f"  forest_eval launches: exact mode {exact['launches']}, inputs from files "
           f"{files['launches']['forest_eval']}, server {served['launches']['forest_eval']}, "
           f"saved sims {saved['launches']['forest_eval']}, bench entry {benched['forest_eval']}, "

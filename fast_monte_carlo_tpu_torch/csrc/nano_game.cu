@@ -1,12 +1,14 @@
-// K1: a whole launch of nano-table games, score-only, in one kernel launch.
+// K1: a whole launch of nano-table games in one kernel launch, score-only or
+// with the box score, the player stats or both.
 //
 // Replaces the compiled game loop of the JAX package (XLA on the TPU, not a
 // Pallas kernel): fast_monte_carlo_tpu/ops/game.py:844 simulate_games (its
 // while_loop over chunks of a scan over :337 play_step, the draws made
 // inside it) with the nano table heads of
-// fast_monte_carlo_tpu/ops/table_lookup.py:661 _nano_eval, for score-only
-// games (no box score, no player stats).  Its plain version is
-// ops/game.nano_game_plain; the eager loop it stands in for on the card is
+// fast_monte_carlo_tpu/ops/table_lookup.py:661 _nano_eval, and its
+// collectors: :309 _sample_slot, the team box score (:586-620) and the
+// player stats (:622-653).  Its plain version is ops/game.nano_game_plain;
+// the eager loop it stands in for on the card is
 // ops/game.simulate_games_eager.
 //
 // One lane plays one game at a time.  The state (off, sec, down, dist, ytg,
@@ -29,10 +31,10 @@
 // (dist, ytg, sec and score diff binned by _seg_bin's segment arithmetic,
 // then the c floats of the state's (down, sd) block of one row), unpacked
 // with or without stage-2 and fumble channels (the analytic stage 2 where
-// there are none); phases a-c, the halftime flip and the score.  The slot
-// draws (QB, target, rusher) are drawn and not sampled: no nano head and no
-// score reads a slot, so the eager step's slot indices are dead on this
-// path.  The file is compiled with --fmad=false (utils/cuda_build.py) and
+// there are none); phases a-c, the halftime flip and the score.  No nano
+// head reads a player slot, so the slot draws (QB, target, rusher) are
+// sampled only by the instantiation with the player stats, and there only
+// for the roles the play involves.  The file is compiled with --fmad=false (utils/cuda_build.py) and
 // writes every literal as f32, so each multiply and add rounds on its own as
 // the eager step's one torch kernel a operation does.  What the eager step
 // computes per direction only (the explosive base, the two red-zone tanh
@@ -45,7 +47,13 @@
 // Bound on the H100: the games' state read and written once (40 bytes in,
 // 36 out a game) and the nano table read once (6.9 MB a matchup) are far
 // under the instructions a play takes, about 713 dispatched (counted on the
-// SASS in chip_smoke.NANO_COUNTS), so K1 is bound by issue.  The nano table of one matchup stays in the 50 MB L2; a
+// SASS in chip_smoke.NANO_COUNTS), so K1 is bound by issue; with the
+// collectors also their stats and the player rows they touch, and the work
+// they need: 28 instructions more a play (the team stats' adds and
+// fourth_conv's and rz_TD's tests, not the stripe's loads and stores), 27 a
+// slot sampled and 12 a player row added (3 8-byte loads, 6 adds, 3
+// 8-byte stores; chip_smoke.NANO_TEAM_COUNTS, _SLOT_, _ROW_), still bound by
+// issue.  The nano table of one matchup stays in the 50 MB L2; a
 // 60-matchup slate's 413 MB does not, and a play's 28-40 bytes are then a
 // sector-sized read from HBM.
 //
@@ -90,6 +98,25 @@
 //   of one warp end within about 5% of each other's plays and the first version's gap
 //   to the bound was not the warps' spread; on the slate launch 0.979
 //   against 0.946 for one game a thread.
+// - The collectors: one instantiation a combination (`template <bool kStats,
+//   bool kPlayers>`); the score-only one compiles to the same SASS as the
+//   kernel before them, instruction for instruction.  Held ms at 65,536
+//   games of the focus-roster fixture on an NVIDIA H100 80GB HBM3 at 700 W
+//   (probes/kernels.py --games-only --csrc on copies of this file, one
+//   process each, each comparison's versions in one call; score-only
+//   0.626-0.632 throughout):
+//   - Team stats in a stripe of shared memory, 38 floats a lane (38.9 KB a
+//     block, dynamic), read when the lane takes its game and written when
+//     it ends: box score alone 0.690-0.696 ms.  The same adds read and
+//     written in the game's global stats every play: 3.488-3.528 ms (a
+//     warp's games 152 bytes apart; props 4.703-4.747 against 1.286-1.296).
+//   - Player rows read, added to and written in the game's own pstats (a
+//     lane owns its game: no atomics).  With 4-byte accesses, player stats
+//     alone 1.216-1.223 ms, props 1.286-1.296; with 8-byte ones 1.157 and
+//     1.229; sampling the slots and their flags ahead of the play, the rows
+//     read after it: 1.165 and 1.228 (no gain; 10 bytes spilled); the
+//     tracked rows read ahead of the play too, into registers (the props
+//     instantiation at 128, no spills): 1.063 and 1.129, kept.
 // Each thread adds its games' plays to a block count in shared memory and
 // one thread a block adds that to `plays`, when given: what the
 // measurement's bound counts.
@@ -106,6 +133,10 @@ constexpr int kGridCells = 81;  // (8 + 1) x (8 + 1) go-for-it cells
 constexpr int kDirVals = 5;     // per-direction constants (DirVals)
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTeamStats = 19;  // stats.TEAM_STAT_FIELDS
+constexpr int kPoints = 17;     // its "points" column
+constexpr int kPlayerStats = 6; // stats.N_PLAYER_STATS
+constexpr int kRoles = 3;       // QB, rusher, target: pstats' role axis
 }  // namespace
 
 // One axis of _seg_bin (ops/table_lookup.py): segment k maps v to
@@ -178,8 +209,8 @@ struct NanoConsts {
 namespace {
 
 // draw slots (ops/game.py U_*, N_*)
-constexpr int U_GO = 0, U_FG = 1, U_TB = 2, U_CALL = 3, U_COMPLETE = 7, U_EXP = 8,
-              U_BOOST = 9, U_RZ = 10, U_S2 = 11, U_FUM = 12;
+constexpr int U_GO = 0, U_FG = 1, U_TB = 2, U_CALL = 3, U_QB = 4, U_WR = 5, U_RB = 6,
+              U_COMPLETE = 7, U_EXP = 8, U_BOOST = 9, U_RZ = 10, U_S2 = 11, U_FUM = 12;
 constexpr int N_PUNT_GROSS = 0, N_PUNT_RET = 1, N_YARDS = 2, N_INT_RET = 3;
 
 struct Game {
@@ -224,6 +255,19 @@ struct OutPtrs {
   bool* in_rz;
   bool* going;
   int* score;
+};
+
+// The collectors' tensors, read and written in place (null where off).
+// cum and tracked hold the pack's per-direction slot tables of the three
+// roles in pstats' role order (QB: qb_cum, rusher: rb_cum, target: wr_cum),
+// each (2 x n_matchups, k).
+struct Accrual {
+  float* stats;         // (n, 2, kTeamStats)
+  float* pstats;        // (n, 2, kRoles, k, kPlayerStats)
+  const float* cum;     // (kRoles, 2 x n_matchups, k) cumulative shares
+  const bool* tracked;  // (kRoles, 2 x n_matchups, k)
+  int k;
+  int dirs;             // 2 x n_matchups
 };
 
 // torch.clamp(x, lo, hi): hi where lo > hi
@@ -377,11 +421,82 @@ __device__ __forceinline__ Row load_row(const NanoConsts& c, const float* h) {
   return r;
 }
 
+// game._sample_slot for one game: the shares of direction `dirx` that u is
+// at or past, at most k - 1; one slot reads no share.
+__device__ __forceinline__ int sample_slot(const float* __restrict__ cum, int k, int dirx,
+                                           float u) {
+  if (k == 1) return 0;
+  const float* row = cum + static_cast<long long>(dirx) * k;
+  int slot = 0;
+  for (int j = 0; j < k; ++j) slot += u >= __ldg(row + j) ? 1 : 0;
+  return min(slot, k - 1);
+}
+
+// A play's sampled slot of each role, in pstats' role order (QB: U_QB,
+// rusher: U_RB, target: U_WR), or -1 where that slot is not tracked, and
+// the tracked slots' rows of game i's pstats as they were before the play.
+struct Slots {
+  int slot[kRoles];
+  float2 row[kRoles][kPlayerStats / 2];
+};
+
+// The three roles' slots of a play of game i by direction `dirx` and
+// offense `off`, sampled ahead of the play, and their rows read: the
+// shares', flags' and rows' loads are then under the play's latency, and no
+// lane waits on them behind a branch of the roles its play involves.  A
+// play adds to at most these rows, so they are read as the play starts.
+__device__ __forceinline__ Slots sample_slots(const Accrual& a, int dirx, const float* u,
+                                              long long i, int off) {
+  const float draw[kRoles] = {u[U_QB], u[U_RB], u[U_WR]};
+  Slots s;
+#pragma unroll
+  for (int r = 0; r < kRoles; ++r) {
+    const long long dir_row = static_cast<long long>(r) * a.dirs + dirx;
+    const int slot = sample_slot(a.cum + static_cast<long long>(r) * a.dirs * a.k, a.k, dirx,
+                                 draw[r]);
+    s.slot[r] = a.tracked[dir_row * a.k + slot] ? slot : -1;
+    if (s.slot[r] >= 0) {
+      const float2* cell = reinterpret_cast<const float2*>(
+          a.pstats + (((i * 2 + off) * kRoles + r) * a.k + slot) * kPlayerStats);
+#pragma unroll
+      for (int q = 0; q < kPlayerStats / 2; ++q) s.row[r][q] = cell[q];
+    }
+  }
+  return s;
+}
+
+// One role's row of play_step's player deltas added to the sampled slot's
+// row `pre` (as `sample_slots` read it) and written back, where that slot
+// is tracked (slot >= 0; the eager step's gate of 0 adds +-0.0 elsewhere,
+// which leaves the cell as it is).
+__device__ __forceinline__ void add_player_row(const Accrual& a, int role, long long i, int off,
+                                               int slot, const float (&v)[kPlayerStats],
+                                               const float2 (&pre)[kPlayerStats / 2]) {
+  if (slot < 0) return;
+  // 8-byte loads and stores (a row is 24 bytes, pstats 8-byte aligned): a
+  // warp's rows are 32 scattered addresses, so each access instruction
+  // costs the load-store unit a pass per row
+  float2* cell = reinterpret_cast<float2*>(
+      a.pstats + (((i * 2 + off) * kRoles + role) * a.k + slot) * kPlayerStats);
+#pragma unroll
+  for (int q = 0; q < kPlayerStats / 2; ++q) {
+    const float2 x = pre[q];
+    cell[q] = make_float2(x.x + v[2 * q], x.y + v[2 * q + 1]);
+  }
+}
+
 // One play of an active game (sec > 0): game.play_step with the nano heads,
-// score-only, on the row `row_of` gave for this state.
+// on the row `row_of` gave for this state.  With kStats the play's 19 team
+// stats (less `points`, written when the game ends) are added to the
+// offense's side of the lane's stripe `team` (column q of side o at
+// (o * kTeamStats + q) * kThreads); with kPlayers each role the play
+// involves (QB and target on a pass play, rusher on a run: the roles whose
+// eager delta is not all +0.0) adds its row to game i's pstats.
+template <bool kStats, bool kPlayers>
 __device__ __forceinline__ void play(const NanoConsts& c, const float* grid, const Row& r,
                                      const DirVals& d0, const DirVals& d1, Game& s,
-                                     const float* u, const float* n) {
+                                     const float* u, const float* n, float* team,
+                                     const Accrual& acc, const Slots& sl, long long i) {
   const int off = s.off, down0 = s.down, sec0 = s.sec;
   const float dist0 = s.dist, ytg0 = s.ytg;
   const int sd = (s.sa - s.sb) * (1 - 2 * off);
@@ -536,6 +651,42 @@ __device__ __forceinline__ void play(const NanoConsts& c, const float* grid, con
   // run-branch red-zone recheck (quirk: the old offense credited)
   const bool trip2 = run_gain && !in_rz_c && ytg_c <= 20.0f;
 
+  if constexpr (kStats || kPlayers) {
+    const float pass_yds = pass_td ? ytg0 : (pass_gain ? yards_p : 0.0f);
+    const float rush_yds = run_td ? ytg0 : (run_gain ? yards_r : 0.0f);
+    const float pass_att = complete || o_inc || o_int ? 1.0f : 0.0f;
+    const auto f = [](bool b) { return b ? 1.0f : 0.0f; };
+    if constexpr (kStats) {
+      // going_for_it is true on the go play itself only
+      const bool conv = go && (pass_td || run_td || (pass_gain && yards_p + 1e-6f >= dist0)
+                               || (run_gain && yards_r + 1e-6f >= dist0));
+      // TEAM_STAT_FIELDS order; rz_TD counts rushing TDs only (the quirk)
+      const float v[kTeamStats] = {
+          f(scrim),   pass_att,          f(complete), pass_yds, f(pass_td), f(o_int),
+          f(o_sck),   f(is_run),         rush_yds,    f(run_td), f(fg_good), f(fg_att),
+          f(punt),    f(trip1) + f(trip2), f(run_td && ytg0 <= 20.0f), f(go), f(conv), 0.0f,
+          f(fum)};
+      float* t = team + off * kTeamStats * kThreads;
+#pragma unroll
+      for (int q = 0; q < kTeamStats; ++q) {
+        if (q != kPoints) t[q * kThreads] = t[q * kThreads] + v[q];
+      }
+    }
+    if constexpr (kPlayers) {
+      // columns att comp yds td INT sacks (stats.PC_*)
+      if (is_pass) {
+        const float qb[kPlayerStats] = {pass_att, f(complete), pass_yds, f(pass_td), f(o_int),
+                                        f(o_sck)};
+        const float wr[kPlayerStats] = {1.0f, f(complete), pass_yds, f(pass_td), 0.0f, 0.0f};
+        add_player_row(acc, 0, i, off, sl.slot[0], qb, sl.row[0]);
+        add_player_row(acc, 2, i, off, sl.slot[2], wr, sl.row[2]);
+      } else if (is_run) {
+        const float rb[kPlayerStats] = {1.0f, 0.0f, rush_yds, f(run_td), 0.0f, 0.0f};
+        add_player_row(acc, 1, i, off, sl.slot[1], rb, sl.row[1]);
+      }
+    }
+  }
+
   const int pts = (pass_td || run_td) * c.td_points + fg_good * c.fg_points;
   s.off = flip_c ? 1 - off_b : off_b;
   s.sec = sec_b;
@@ -560,11 +711,17 @@ struct Lane {
 };
 
 // Lane `g` takes game i: its state and its directions' constants read, and
-// what the eager loop does before its first play (`run`: it plays at all).
+// what the eager loop does before its first play (`run`: it plays at all);
+// with kStats its incoming team stats into the lane's stripe `team`.
+template <bool kStats>
 __device__ __forceinline__ void start(Lane& g, long long i, const InPtrs& in,
                                       const float* __restrict__ dirs, int n_matchups, uint32_t r0,
-                                      int anti, bool run) {
+                                      int anti, bool run, float* team, const Accrual& acc) {
   g.i = i;
+  if constexpr (kStats) {
+#pragma unroll
+    for (int q = 0; q < 2 * kTeamStats; ++q) team[q * kThreads] = acc.stats[i * 2 * kTeamStats + q];
+  }
   // gid clamped into the packed matchups: an out-of-range gid reads no
   // memory outside the inputs
   const int gid = min(max(in.gid[i], 0), n_matchups - 1);
@@ -589,8 +746,19 @@ __device__ __forceinline__ void start(Lane& g, long long i, const InPtrs& in,
   g.mirror = anti && (b & 3u) >= 2u;
 }
 
-__device__ __forceinline__ void finish(const Lane& g, const OutPtrs& out) {
+// Lane `g`'s game written out; with kStats its stripe's team stats, the
+// final score in `points` (as the eager loop writes it after its last play).
+template <bool kStats>
+__device__ __forceinline__ void finish(const Lane& g, const OutPtrs& out, const float* team,
+                                       const Accrual& acc) {
   const long long i = g.i;
+  if constexpr (kStats) {
+#pragma unroll
+    for (int q = 0; q < 2 * kTeamStats; ++q) {
+      const float pts = static_cast<float>(q < kTeamStats ? g.s.sa : g.s.sb);
+      acc.stats[i * 2 * kTeamStats + q] = q % kTeamStats == kPoints ? pts : team[q * kThreads];
+    }
+  }
   out.off[i] = g.s.off;
   out.sec[i] = g.s.sec;
   out.down[i] = g.s.down;
@@ -608,11 +776,17 @@ __device__ __forceinline__ void finish(const Lane& g, const OutPtrs& out) {
 // games handed out past the first lanes, one atomicAdd a warp for all its
 // lanes whose games ended at that play).  work[1] counts the blocks done;
 // the last resets both, so the next launch on the stream finds them 0.
+// One instantiation a combination of the collectors; with kStats the block
+// holds a stripe of 2 x kTeamStats floats a lane in dynamic shared memory.
+template <bool kStats, bool kPlayers>
 __global__ void __launch_bounds__(kThreads)
     nano_game_kernel(const NanoConsts c, const float* __restrict__ table,
                      const float* __restrict__ dirs, int n_matchups, const InPtrs in,
                      const OutPtrs out, uint32_t k0, uint32_t k1, uint32_t r0, int anti,
-                     const bool* run_flag, unsigned int* work, const Counters cnt, int n) {
+                     const bool* run_flag, unsigned int* work, const Counters cnt,
+                     const Accrual acc, int n) {
+  extern __shared__ float stripes[];
+  float* const team = stripes + threadIdx.x;
   __shared__ float grid[kGridCells];
   __shared__ SegVals sv[4];          // dist, ytg, sec, sd
   __shared__ unsigned long long block_plays, block_iters;
@@ -639,7 +813,7 @@ __global__ void __launch_bounds__(kThreads)
   Lane g;
   g.i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   g.live = false;
-  if (g.i < n) start(g, g.i, in, dirs, n_matchups, r0, anti, run);
+  if (g.i < n) start<kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, team, acc);
   bool open = lanes < n;             // the queue has games to hand out (warp-uniform)
   unsigned long long played = 0;     // plays of this lane's finished games
   unsigned int iters = 0;            // this warp's loop trips
@@ -656,13 +830,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
       }
-      play(c, grid, r, g.d0, g.d1, g.s, u, z);
+      Slots sl{};
+      if constexpr (kPlayers) sl = sample_slots(acc, g.s.gid * 2 + g.s.off, u, g.i, g.s.off);
+      play<kStats, kPlayers>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl, g.i);
       ++g.j;
       g.live = g.s.sec > 0 && g.j < c.cap;
     }
     const bool done = g.i < n && !g.live;
     if (done) {
-      finish(g, out);
+      finish<kStats>(g, out, team, acc);
       played += static_cast<unsigned long long>(g.j);
       if (cnt.game_plays != nullptr) cnt.game_plays[g.i] = g.j;
     }
@@ -680,7 +856,7 @@ __global__ void __launch_bounds__(kThreads)
       if (done) {
         g.i = next + __popc(m & ((1u << lane) - 1u));
         g.live = false;
-        if (g.i < n) start(g, g.i, in, dirs, n_matchups, r0, anti, run);
+        if (g.i < n) start<kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, team, acc);
       }
     }
   }
@@ -698,6 +874,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+using KernelFn = void (*)(NanoConsts, const float*, const float*, int, InPtrs, OutPtrs, uint32_t,
+                         uint32_t, uint32_t, int, const bool*, unsigned int*, Counters, Accrual,
+                         int);
+
+// The instantiation of the collectors `stats` and `players`.
+KernelFn kernel_of(bool stats, bool players) {
+  if (stats) return players ? nano_game_kernel<true, true> : nano_game_kernel<true, false>;
+  return players ? nano_game_kernel<false, true> : nano_game_kernel<false, false>;
+}
+
+// Its dynamic shared memory: the lanes' team-stat stripes.
+size_t stripe_bytes(bool stats) { return stats ? 2 * kTeamStats * kThreads * sizeof(float) : 0; }
+
 }  // namespace
 
 extern "C" int nano_game_consts_size() { return static_cast<int>(sizeof(NanoConsts)); }
@@ -705,12 +894,14 @@ extern "C" int nano_game_consts_size() { return static_cast<int>(sizeof(NanoCons
 // Threads a block of K1.
 extern "C" int nano_game_threads() { return kThreads; }
 
-// Blocks of K1 one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// on the current device), or minus the CUDA error.
-extern "C" int nano_game_blocks_per_sm() {
+// Blocks of K1's instantiation for the collectors `stats` and `players`
+// (0 or 1) that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device), or
+// minus the CUDA error.
+extern "C" int nano_game_blocks_per_sm(int stats, int players) {
   int blocks = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, nano_game_kernel, kThreads, 0);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel_of(stats, players), kThreads, stripe_bytes(stats));
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -724,14 +915,21 @@ extern "C" int nano_game_blocks_per_sm() {
 // (the stream's own: two launches in flight at once may not share them).
 // plays, iters: device uint64s the games' plays and the warps' loop trips
 // are added to, or null; game_plays: a device int32 vector of n given each
-// game's plays, or null.  `blocks` blocks of kThreads (at most the resident
-// blocks, `nano_game_blocks_per_sm` x the SMs).  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// game's plays, or null.  The collectors, each on where its tensor is
+// given: stats, a contiguous (n, 2, 19) f32 tensor of the games' team
+// stats, and pstats, a contiguous (n, 2, 3, k, 6) f32 tensor of their
+// player stats, both added to in place; with pstats, cum and tracked, the
+// (3, 2 x n_matchups, k) f32 cumulative shares and bool tracked flags of
+// the QB, rusher and target slots.  `blocks` blocks of kThreads (at most
+// the resident blocks, `nano_game_blocks_per_sm` of the instantiation x
+// the SMs).  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const void* dirs,
                                 int n_matchups, void* const* in, void* const* out, uint32_t k0,
                                 uint32_t k1, uint32_t r0, int anti, const void* run_flag,
-                                void* work, void* plays, void* iters, void* game_plays, int n,
-                                int blocks, void* stream) {
+                                void* work, void* plays, void* iters, void* game_plays,
+                                void* stats, void* pstats, const void* cum, const void* tracked,
+                                int k, int n, int blocks, void* stream) {
   if (n <= 0) return 0;
   const InPtrs ip{static_cast<const int*>(in[0]),   static_cast<const int*>(in[1]),
                   static_cast<const int*>(in[2]),   static_cast<const int*>(in[3]),
@@ -745,9 +943,14 @@ extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const vo
                    static_cast<int*>(out[8])};
   const Counters cnt{static_cast<unsigned long long*>(plays),
                      static_cast<unsigned long long*>(iters), static_cast<int*>(game_plays)};
-  nano_game_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const Accrual acc{static_cast<float*>(stats), static_cast<float*>(pstats),
+                    static_cast<const float*>(cum), static_cast<const bool*>(tracked), k,
+                    2 * n_matchups};
+  const bool with_stats = stats != nullptr, with_players = pstats != nullptr;
+  kernel_of(with_stats, with_players)<<<blocks, kThreads, stripe_bytes(with_stats),
+                                        static_cast<cudaStream_t>(stream)>>>(
       *c, static_cast<const float*>(table), static_cast<const float*>(dirs), n_matchups, ip,
       op, k0, k1, r0, anti, static_cast<const bool*>(run_flag),
-      static_cast<unsigned int*>(work), cnt, n);
+      static_cast<unsigned int*>(work), cnt, acc, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,7 +37,9 @@ is tracked.  Each is one indexed add on a flat view, in place: the JAX
 package's dense one-hot add (its `ops/game.py:649-653`) gives the same bits,
 since every other cell adds +-0, but reads and writes the whole
 (B, 2, 3, K, 6) carry every play.  A disabled collector carries the JAX
-package's 1-element dummy.
+package's 1-element dummy.  On the card K1 (`nano_game`) accrues both in
+its launch for nano-table launches, adding in play order onto the
+incoming values as the eager step does.
 
 Game state keeps the JAX package's int32/f32/bool dtypes; indices are cast
 to int64 only where they index.
@@ -725,9 +727,10 @@ def simulate_games(
     start at absolute step 0.
 
     On the card a launch that `nano_game_covers` (table heads on a nano
-    table, no play-policy lookup, both collectors off, no forced 4th-down
-    choice) runs K1, the whole launch in one kernel launch (`nano_game`);
-    a failure to build or launch it raises.  Every other launch, and every
+    table, no play-policy lookup, no forced 4th-down choice; either
+    collector, both or none) runs K1, the whole launch in one kernel launch
+    (`nano_game`, the collectors' instantiation); a failure to build or
+    launch it raises.  Every other launch, and every
     launch on the CPU, runs the eager loop of `simulate_games_eager`, which
     plays the same games: plays run in chunks of `play_chunk`; before each
     chunk the host asks once whether any game is still running (with
@@ -741,13 +744,14 @@ def simulate_games(
     this one stream, which per-step and chunked launches draw alike, so the
     four names play the same games for one key.  With engine.antithetic
     and n % 4 == 0 a launch draws n/2 rows, which each play mirrors as the
-    JAX step does.  With collect_stats the final score is written into the
-    `points` column after the loop."""
+    JAX step does.  The collectors add to the state's stats and pstats in
+    place, and with collect_stats the final score is written into the
+    `points` column when the games end."""
     s, cfg, anti = _launch_state(pack, cfg, n, first_offense, collect_players, game_id,
                                  collect_stats, situation, init_state, row0, antithetic)
-    if pack.device.type == "cuda" and nano_game_covers(cfg, heads_eval, heads_state,
-                                                       collect_players, collect_stats):
-        return nano_game(pack_nano_game(pack, cfg, heads_state), s, key, row0, anti)
+    if pack.device.type == "cuda" and nano_game_covers(cfg, heads_eval, heads_state):
+        return nano_game(pack_nano_game(pack, cfg, heads_state), s, key, row0, anti,
+                         collect_players, collect_stats)
     return _play_loop(s, pack, cfg, heads_eval, heads_state, key, row0, anti,
                       collect_players, collect_stats)
 
@@ -848,6 +852,10 @@ class NanoGameArgs(NamedTuple):
                             # run) and the explosive base of each direction
     table: torch.Tensor     # (rows, 5 * nsd * c) f32 nano table
     early_exit: bool        # the eager loop stops once no game is running
+    slot_cum: torch.Tensor      # (3, 2G, K) f32: the pack's qb_cum, rb_cum, wr_cum
+                                # (pstats' role order: QB, rusher, target)
+    slot_tracked: torch.Tensor  # (3, 2G, K) bool: qb_, rb_, wr_tracked
+    k: int                      # player slots (pack.k)
 
 
 def _segs(segs) -> _Segs:
@@ -955,9 +963,10 @@ def _nano_consts(cfg: SimConfig, th) -> NanoConsts:
 
 def pack_nano_game(pack: MatchupPack, cfg: SimConfig, th) -> NanoGameArgs:
     """K1's inputs for `pack`'s matchups on the nano table of the
-    TableHeads `th`: the constants, and per direction what the eager step
+    TableHeads `th`: the constants, per direction what the eager step
     computes from the direction alone, by its own torch expressions on the
-    pack's device (the same bits as the step's per-game copies)."""
+    pack's device (the same bits as the step's per-game copies), and the
+    player slots' cumulative shares and tracked flags by role."""
     if th.nano.row_map.shape[0] != pack.bias.shape[0]:
         raise ValueError(f"the nano table holds {th.nano.row_map.shape[0]} directions, "
                          f"the pack {pack.bias.shape[0]}")
@@ -968,18 +977,21 @@ def pack_nano_game(pack: MatchupPack, cfg: SimConfig, th) -> NanoGameArgs:
     exp_base = mc.explosive_base + mc.explosive_z_k * (gap * analytic.recip(mc.mismatch_denom))
     dirs = torch.stack([pack.ymult, pack.mz, tilt_pass, tilt_run, exp_base], dim=1)
     return NanoGameArgs(_nano_consts(cfg, th), dirs.to(F32).contiguous(),
-                        th.nano.values, cfg.engine.early_exit)
+                        th.nano.values, cfg.engine.early_exit,
+                        torch.stack([pack.qb_cum, pack.rb_cum, pack.wr_cum]).to(F32).contiguous(),
+                        torch.stack([pack.qb_tracked, pack.rb_tracked,
+                                     pack.wr_tracked]).to(torch.bool).contiguous(),
+                        pack.k)
 
 
-def nano_game_covers(cfg: SimConfig, heads_eval: HeadsEvalFn, heads_state,
-                     collect_players: bool, collect_stats: bool) -> bool:
+def nano_game_covers(cfg: SimConfig, heads_eval: HeadsEvalFn, heads_state) -> bool:
     """Whether K1 plays a launch of these settings: table heads
     (`heads_eval.table_heads`) on a TableHeads with a nano table, no
-    play-policy lookup, both collectors off and no forced 4th-down choice."""
+    play-policy lookup and no forced 4th-down choice, with either collector,
+    both or none."""
     return bool(getattr(heads_eval, "table_heads", False)
                 and getattr(heads_state, "nano", None) is not None
                 and (heads_state.play is None or not cfg.model.use_play_model)
-                and not collect_players and not collect_stats
                 and cfg.fourth.force is None)
 
 
@@ -995,11 +1007,16 @@ def _seg_bin_packed(v: torch.Tensor, g: _Segs) -> torch.Tensor:
     return idx
 
 
-def _nano_play(c: NanoConsts, go: Tuple[torch.Tensor, ...], dirs: torch.Tensor,
-               table: torch.Tensor, s: GameState, u: torch.Tensor,
-               n: torch.Tensor) -> GameState:
+def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
+               u: torch.Tensor, n: torch.Tensor, collect_players: bool,
+               collect_stats: bool) -> GameState:
     """One masked play of every game from the packed inputs: `play_step`
-    with the nano heads, score-only, as K1 plays it."""
+    with the nano heads, as K1 plays it.  A collector adds only what K1
+    adds: the team stats of the games still running, and per role the row
+    of the games whose play involves it (QB and target on a pass play,
+    rusher on a run) on a tracked slot; every add it leaves out is one of
+    the eager step's +0.0."""
+    c, dirs, table = args.consts, args.dirs, args.table
     ytg_edges, dist_edges, grid = go
     active = s.sec > 0
     off, down0, dist0, ytg0, sec0 = s.off, s.down, s.dist, s.ytg, s.sec
@@ -1184,6 +1201,33 @@ def _nano_play(c: NanoConsts, go: Tuple[torch.Tensor, ...], dirs: torch.Tensor,
     ytg_c = torch.where(flip_c, spot_c, ytg_b)
     in_rz_c = ~flip_c & in_rz_b
     trip2 = run_gain & ~in_rz_c & (ytg_c <= 20)
+    if collect_stats or collect_players:
+        pass_yds = torch.where(pass_td, ytg0, torch.where(pass_gain, yards_p, 0.0))
+        rush_yds = torch.where(run_td, ytg0, torch.where(run_gain, yards_r, 0.0))
+        pass_att = complete | o_inc | o_int
+        side_row = torch.arange(off.shape[0], device=off.device) * 2 + off
+    if collect_stats:
+        conv = go & (pass_td | run_td | (pass_gain & (yards_p + 1e-6 >= dist0))
+                     | (run_gain & (yards_r + 1e-6 >= dist0)))
+        cols = (scrim, pass_att, complete, pass_yds, pass_td, o_int, o_sck, is_run, rush_yds,
+                run_td, fg_good, fg_att, punt, trip1.to(F32) + trip2.to(F32),
+                run_td & (ytg0 <= 20), go, conv,
+                torch.zeros_like(dist0),   # points: the final score, written after the loop
+                fum)
+        delta = torch.stack([v.to(F32) for v in cols], dim=1)
+        s.stats.view(-1, N_TEAM_STATS).index_add_(0, side_row[active], delta[active])
+    if collect_players:
+        no = torch.zeros_like(dist0)
+        roles = ((U_QB, is_pass, (pass_att, complete, pass_yds, pass_td, o_int, o_sck)),
+                 (U_RB, is_run, (is_run, no, rush_yds, run_td, no, no)),
+                 (U_WR, is_pass, (is_pass, complete, pass_yds, pass_td, no, no)))
+        for r, (draw, involved, row) in enumerate(roles):
+            slot = _sample_slot(args.slot_cum[r], dirx, u[:, draw])
+            add = involved & args.slot_tracked[r].reshape(-1)[dirx.long() * args.k + slot]
+            cell = (side_row * 3 + r) * args.k + slot
+            delta = torch.stack([v.to(F32) for v in row], dim=1)
+            s.pstats.view(-1, N_PLAYER_STATS).index_add_(0, cell[add], delta[add])
+
     pts = (pass_td | run_td) * c.td_points + fg_good * c.fg_points
     side = torch.stack([off == 0, off == 1], dim=1)
     return GameState(
@@ -1203,7 +1247,8 @@ def _taper_packed(y: torch.Tensor, t) -> torch.Tensor:
 
 def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                     anti: bool = False,
-                    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> GameState:
+                    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    collect_players: bool = False, collect_stats: bool = False) -> GameState:
     """K1's specification in plain torch, on the device of `s`: the packed
     inputs of `args`, one masked play of every game (`sec > 0`) at a time
     until no game is running or the cap.  Game b draws row row0 + b of
@@ -1211,7 +1256,9 @@ def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     // 4) + b % 2, mirrored where b % 4 >= 2; `draws`, a (steps, rows, 13)
     and a (steps, rows, 4) table, stands in for the stream (row r of step
     j for the launch's draw row r).  As the eager loop, it plays at all
-    only where some game is running or early_exit is off."""
+    only where some game is running or early_exit is off.  The collectors
+    add to `s.stats` and `s.pstats` in place, as the eager loop does, and
+    `points` takes the final score."""
     c = args.consts
     dev = s.sec.device
     n = s.off.shape[0]
@@ -1229,7 +1276,9 @@ def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                     else (draws[0][j], draws[1][j]))
             if anti:
                 u, z = mirror_draws(u, z)
-            s = _nano_play(c, go, args.dirs, args.table, s, u, z)
+            s = _nano_play(args, go, s, u, z, collect_players, collect_stats)
+    if collect_stats:
+        s.stats[:, :, TS["points"]] = s.score.to(F32)
     return s
 
 
@@ -1240,6 +1289,8 @@ _NANO_ARGTYPES = (
      ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,    # k0, k1, r0, anti
      ctypes.c_void_p, ctypes.c_void_p,                                   # run_flag, work
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                  # plays, iters, game_plays
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # stats, pstats, cum,
+     ctypes.c_int,                                                       # tracked, k
      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                       # n, blocks, stream
 
 
@@ -1255,18 +1306,21 @@ def _nano_lib():
                            f"{ctypes.sizeof(NanoConsts)} in ops/game.py")
     lib.nano_game_launch.argtypes = _NANO_ARGTYPES
     lib.nano_game_launch.restype = ctypes.c_int
-    for fn in (lib.nano_game_threads, lib.nano_game_blocks_per_sm):
-        fn.argtypes, fn.restype = [], ctypes.c_int
+    lib.nano_game_threads.argtypes, lib.nano_game_threads.restype = [], ctypes.c_int
+    lib.nano_game_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nano_game_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def nano_geometry(index: int) -> Tuple[int, int]:
-    """(K1's blocks that card `index` holds at once, threads a block): the
-    occupancy API's blocks an SM times the SMs, asked once a card."""
+def nano_geometry(index: int, collect_stats: bool = False,
+                  collect_players: bool = False) -> Tuple[int, int]:
+    """(blocks of K1's instantiation for these collectors that card `index`
+    holds at once, threads a block): the occupancy API's blocks an SM times
+    the SMs, asked once a card and instantiation."""
     lib = _nano_lib()
     with torch.cuda.device(index):
-        per_sm = lib.nano_game_blocks_per_sm()
+        per_sm = lib.nano_game_blocks_per_sm(int(collect_stats), int(collect_players))
     if per_sm <= 0:
         raise RuntimeError(f"nano_game occupancy query failed: CUDA error {-per_sm}")
     return (per_sm * torch.cuda.get_device_properties(index).multi_processor_count,
@@ -1301,19 +1355,27 @@ _NANO_IN = (("gid", I32), ("off", I32), ("sec", I32), ("down", I32), ("dist", F3
 def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                    anti: bool = False, plays: Optional[torch.Tensor] = None,
                    iters: Optional[torch.Tensor] = None,
-                   game_plays: Optional[torch.Tensor] = None) -> GameState:
+                   game_plays: Optional[torch.Tensor] = None, collect_players: bool = False,
+                   collect_stats: bool = False) -> GameState:
     """K1 on the card: the games of `s` to their end in one launch of
     csrc/nano_game.cu on the current stream, drawing as `nano_game_plain`
-    draws.  Raises ValueError for tensors off the card (the CPU runs
-    `nano_game_plain`) and RuntimeError where the kernel does not build or
-    launch.  `plays` and `iters`, (1,) int64 tensors on the card, have the
-    games' plays and the warps' loop trips added to them (plays / (32 x
-    iters) is the share of lanes that played); `game_plays`, an (n,) int32
-    tensor, is given each game's plays.  `nano_game_cuda.launches` counts
-    kernel launches and nothing else."""
+    draws, with the collectors asked for added in place to `s.stats` and
+    `s.pstats` (contiguous f32 of the collectors' shapes, K = args.k
+    slots).  Raises ValueError for tensors off the card (the CPU runs
+    `nano_game_plain`) or of another dtype or shape, and RuntimeError where
+    the kernel does not build or launch.  `plays` and `iters`, (1,) int64
+    tensors on the card, have the games' plays and the warps' loop trips
+    added to them (plays / (32 x iters) is the share of lanes that played);
+    `game_plays`, an (n,) int32 tensor, is given each game's plays.
+    `nano_game_cuda.launches` counts kernel launches and nothing else,
+    `nano_game_cuda.launches_collecting` those with a collector on."""
     n = s.off.shape[0]
     dev = s.sec.device
-    tensors = [getattr(s, f) for f, _ in _NANO_IN] + [args.table, args.dirs]
+    collected = ([("stats", s.stats, (n, 2, N_TEAM_STATS))] if collect_stats else []) + (
+        [("pstats", s.pstats, (n, 2, 3, args.k, N_PLAYER_STATS))] if collect_players else [])
+    tensors = ([getattr(s, f) for f, _ in _NANO_IN] + [args.table, args.dirs]
+               + [t for _, t, _ in collected]
+               + ([args.slot_cum, args.slot_tracked] if collect_players else []))
     if any(t.device != dev for t in tensors) or dev.type != "cuda":
         raise ValueError("nano_game_cuda takes a state and packed inputs on one CUDA "
                          f"device; got {sorted({str(t.device) for t in tensors})} "
@@ -1330,11 +1392,21 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
         raise ValueError("the nano table and the direction constants must be contiguous f32")
     for name, t, dtype, shape in (("plays", plays, torch.int64, (1,)),
                                   ("iters", iters, torch.int64, (1,)),
-                                  ("game_plays", game_plays, I32, (n,))):
+                                  ("game_plays", game_plays, I32, (n,)),
+                                  *[(name, t, F32, shape) for name, t, shape in collected]):
         if t is not None and (t.dtype != dtype or t.device != dev or tuple(t.shape) != shape
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape} "
                              f"on {dev}")
+    if collect_players and s.pstats.data_ptr() % 8:
+        raise ValueError("pstats must be 8-byte aligned (K1 adds a player row as 8-byte words)")
+    if collect_players and (args.slot_cum.dtype != F32 or args.slot_tracked.dtype != torch.bool
+                            or tuple(args.slot_cum.shape) != (3, args.dirs.shape[0], args.k)
+                            or args.slot_tracked.shape != args.slot_cum.shape
+                            or not (args.slot_cum.is_contiguous()
+                                    and args.slot_tracked.is_contiguous())):
+        raise ValueError("the slot tables must be contiguous (3, 2G, K) f32 shares and bool "
+                         "tracked flags")
     if anti and (n % 4 or row0 % 4):
         raise ValueError(f"antithetic draws for games {row0}..{row0 + n - 1} split a "
                          "mirrored block of four")
@@ -1346,7 +1418,7 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     outs = [torch.empty_like(t) for t in ins[1:]]
     run_flag = (ins[2] > 0).any() if args.early_exit else None
     lib = _nano_lib()
-    blocks = nano_grid(n, *nano_geometry(dev.index))
+    blocks = nano_grid(n, *nano_geometry(dev.index, collect_stats, collect_players))
 
     def ptrs(ts):
         return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
@@ -1360,11 +1432,14 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
             ctypes.addressof(args.consts), args.table.data_ptr(), args.dirs.data_ptr(),
             args.dirs.shape[0] // 2, ptrs(ins), ptrs(outs), key & 0xFFFFFFFF,
             (key >> 32) & 0xFFFFFFFF, r0, int(anti), ptr(run_flag),
-            _nano_work(dev, stream).data_ptr(), ptr(plays), ptr(iters), ptr(game_plays), n,
-            blocks, stream)
+            _nano_work(dev, stream).data_ptr(), ptr(plays), ptr(iters), ptr(game_plays),
+            ptr(s.stats if collect_stats else None), ptr(s.pstats if collect_players else None),
+            ptr(args.slot_cum if collect_players else None),
+            ptr(args.slot_tracked if collect_players else None), args.k, n, blocks, stream)
     if err != 0:
         raise RuntimeError(f"nano_game kernel launch failed: CUDA error {err}")
     nano_game_cuda.launches += 1
+    nano_game_cuda.launches_collecting += collect_players or collect_stats
     off, sec, down, dist, ytg, period, in_rz, going, score = outs
     return GameState(gid=s.gid, fo=s.fo, off=off, sec=sec, down=down, dist=dist, ytg=ytg,
                      period=period, in_rz=in_rz, going=going, score=score, stats=s.stats,
@@ -1372,17 +1447,21 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
 
 
 nano_game_cuda.launches = 0
+nano_game_cuda.launches_collecting = 0     # those with a collector on
 
 
 def nano_game(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
-              anti: bool = False) -> GameState:
+              anti: bool = False, collect_players: bool = False,
+              collect_stats: bool = False) -> GameState:
     """K1: the games of `s` played to their end from the packed inputs
     (`pack_nano_game`), game b drawing row row0 + b of (key, absolute step)
-    (antithetic: `nano_game_plain`).  A state on the card launches the
+    (antithetic: `nano_game_plain`), the collectors asked for added in
+    place to `s.stats` and `s.pstats`.  A state on the card launches the
     kernel (`nano_game_cuda`), one on the CPU runs `nano_game_plain`."""
     dev = s.sec.device
+    kw = dict(collect_players=collect_players, collect_stats=collect_stats)
     if dev.type == "cuda":
-        return nano_game_cuda(args, s, key, row0, anti)
+        return nano_game_cuda(args, s, key, row0, anti, **kw)
     if dev.type == "cpu":
-        return nano_game_plain(args, s, key, row0, anti)
+        return nano_game_plain(args, s, key, row0, anti, **kw)
     raise ValueError(f"nano_game: unsupported device {dev}")

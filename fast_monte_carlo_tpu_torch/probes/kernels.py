@@ -3,8 +3,10 @@
     python -m fast_monte_carlo_tpu_torch.probes.kernels [--csrc DIR]
         [--forests-only | --games-only] [--sass DIR]
 
-builds every source of `csrc/` (or of DIR, a copy of another commit's
-`csrc/`, so that two versions are timed in one call, one process each),
+builds every source of `csrc/` (or of DIR, a variant of this commit's
+`csrc/` whose K1 and K2 launchers take the package's parameters, so that
+two versions are timed in one call, one process each; an earlier commit is
+timed by its own copy of this probe, from its `git archive`),
 prints the registers and spill bytes of each kernel it times (`nvcc
 -Xptxas -v`;
 `--sass DIR` also writes the game kernels' `cuobjdump -sass` there) and
@@ -23,10 +25,10 @@ K1 a 65,536-game launch and a 60-matchup slate launch of 1,966,080 games,
 K2 at (1, 65,536) and (60, 32,768), each beside its bound; K1's lane share
 (plays over 32 lanes x the loop trips its warps ran) is printed for the
 persistent layout (its own counter) and for one game a thread, the first K1's layout
-(each 32 consecutive games' longest, from the per-game plays).  A DIR
-with the first K1's and K2's launchers (11985e6: one thread a game; K2
-into zeroed outputs) is called through them as their wrappers called them.  `--games-only`
-times K1 and K2 alone.  The last line is one JSON object of the times.
+(each 32 consecutive games' longest, from the per-game plays).  K1 is
+also timed with each combination of the collectors at 65,536 games of the
+focus-roster fixture (`COLLECTORS`).  `--games-only` times K1 and K2
+alone.  The last line is one JSON object of the times.
 philox_draws is timed at row offset `DRAW_ROW0` (the rows a second rank
 plays); a DIR whose philox_draws.cu predates the row offset (its launcher
 takes no row0) has its draws left out.
@@ -312,58 +314,6 @@ def forest_times(dev: torch.device, lib) -> Dict[str, float]:
     return out
 
 
-def _old_nano_call(lib, args, s, key: int, plays: Optional[torch.Tensor]):
-    """A call of the first K1's launcher (11985e6) as its wrapper made it (one thread a
-    game: no work counter, no grid argument), the run flag's reduction
-    and the outputs' allocation included."""
-    import ctypes
-
-    from ..ops import game
-
-    fn = lib.nano_game_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
-                   ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ins = [getattr(s, f).contiguous() for f, _ in game._NANO_IN]
-    n = ins[0].shape[0]
-    outs = [torch.empty_like(t) for t in ins[1:]]
-    run_flag = (ins[2] > 0).any() if args.early_exit else None
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-
-    err = fn(ctypes.addressof(args.consts), args.table.data_ptr(), args.dirs.data_ptr(),
-             args.dirs.shape[0] // 2, ptrs(ins), ptrs(outs), key & 0xFFFFFFFF,
-             (key >> 32) & 0xFFFFFFFF, 0, 0, None if run_flag is None else run_flag.data_ptr(),
-             None if plays is None else plays.data_ptr(), n,
-             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"the first nano_game_launch failed: CUDA error {err}")
-    return outs[-1]
-
-
-def _old_moments_call(lib, sc: torch.Tensor):
-    """A call of the first K2 (11985e6) as its wrapper made it: the two zero fills and
-    the atomics kernel (about 4 blocks an SM)."""
-    import ctypes
-
-    fn = lib.score_moments_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    groups, n = sc.shape[0], sc.shape[1]
-    counts = torch.zeros(groups * 8, dtype=torch.int64, device=sc.device)
-    hist = torch.zeros(groups * 768, dtype=torch.int32, device=sc.device)
-    blocks = max(1, min(-(-n // (8 * 256)), -(-4 * 132 // groups)))
-    err = fn(sc.data_ptr(), n, groups, blocks, counts.data_ptr(), hist.data_ptr(),
-             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"the first score_moments_launch failed: CUDA error {err}")
-    return counts, hist
-
-
 def lane_share_one_a_thread(game_plays: torch.Tensor) -> float:
     """K1's lane share under one thread a game (the first K1's layout): the plays
     over 32 lanes x each warp's trips, a warp being 32 consecutive games
@@ -373,15 +323,15 @@ def lane_share_one_a_thread(game_plays: torch.Tensor) -> float:
     return float(gp.sum()) / (32 * float(gp.max(dim=1).values.sum()))
 
 
-def game_times(dev: torch.device, libs: dict) -> Dict[str, dict]:
-    """K1 and K2 at phase 21's shapes, through `libs`' launchers (the
-    package's wrappers, or the first versions' as their wrappers called them): held ms,
-    the bound (`chip_smoke.nano_bound` on the launch's plays,
+def game_times(dev: torch.device) -> Dict[str, dict]:
+    """K1 and K2 at phase 21's shapes, through the package's wrappers: held
+    ms, the bound (`chip_smoke.nano_bound` on the launch's plays,
     `moment_bound`) and its share, and K1's lane shares.  K1's 65,536-game
     launch is first held to `nano_game_plain` on its first GAME_CHECK games
     (played alone at their own rows) and K2 to the torch body, bit for
     bit; raises where they differ or where the hold did not cover the
-    enqueue."""
+    enqueue.  K1 is also timed with each combination of the collectors
+    (`_collector_times`)."""
     import chip_smoke as cs    # the smoke's shapes and bounds (run from the repo root)
 
     from .. import api, fixtures
@@ -392,7 +342,6 @@ def game_times(dev: torch.device, libs: dict) -> Dict[str, dict]:
     from ..ops.pack import pack_matchup
     from ..parallel import aggregate as agg
 
-    new = hasattr(libs["nano_game"], "nano_game_blocks_per_sm")
     cfg = SimConfig()
     key = rng.root_key(61)
     a, b = fixtures.teams()
@@ -411,10 +360,9 @@ def game_times(dev: torch.device, libs: dict) -> Dict[str, dict]:
                                  collect_stats=False)
     slate_args = game.pack_nano_game(sr.pack, cfg, sr.heads_state)
 
-    def k1(a_, s_, plays=None):
-        if new:
-            return game.nano_game_cuda(a_, s_, key, plays=plays).score
-        return _old_nano_call(libs["nano_game"], a_, s_, key, plays)
+    def k1(a_, s_, plays=None, iters=None, game_plays=None):
+        return game.nano_game_cuda(a_, s_, key, plays=plays, iters=iters,
+                                   game_plays=game_plays).score
 
     scores = k1(args, s0).view(1, n, 2)
     m = GAME_CHECK
@@ -428,15 +376,13 @@ def game_times(dev: torch.device, libs: dict) -> Dict[str, dict]:
     sc60 = torch.randint(0, 70, (60, 32_768, 2), generator=gen, device=dev, dtype=torch.int32)
 
     def k2(sc):
-        if new:
-            return agg.exact_moments_cuda(sc)
-        return _old_moments_call(libs["score_moments"], sc)
+        return agg.exact_moments_cuda(sc)
 
     for sc in (scores, sc60):
         want = agg.exact_moments_plain(sc)
         got = k2(sc)
         got = (torch.cat([f.reshape(-1) for f in got[:5]]),
-               torch.cat([f.reshape(-1) for f in got[5:]])) if new else got
+               torch.cat([f.reshape(-1) for f in got[5:]]))
         g = sc.shape[0]
         want_counts = torch.cat([want.n.reshape(-1), want.wins.reshape(-1),
                                  want.ties.reshape(-1), want.s_sum.reshape(-1),
@@ -450,26 +396,67 @@ def game_times(dev: torch.device, libs: dict) -> Dict[str, dict]:
                                        ("nano_game slate", slate_args, s_slate, sn,
                                         sr.heads_state)):
         plays = torch.zeros(1, dtype=torch.int64, device=dev)
-        rec = {}
-        if new:
-            iters = torch.zeros(1, dtype=torch.int64, device=dev)
-            gp = torch.empty(games, dtype=torch.int32, device=dev)
-            game.nano_game_cuda(a_, s_, key, plays=plays, iters=iters, game_plays=gp)
-            rec["lane_share"] = float(plays) / (32 * float(iters))
-            rec["lane_share_one_a_thread"] = lane_share_one_a_thread(gp)
-            resident, threads = game.nano_geometry(dev.index)
-            rec["blocks"], rec["threads"] = game.nano_grid(games, resident, threads), threads
-        else:
-            k1(a_, s_, plays)
+        iters = torch.zeros(1, dtype=torch.int64, device=dev)
+        gp = torch.empty(games, dtype=torch.int32, device=dev)
+        k1(a_, s_, plays, iters, gp)
+        rec = {"lane_share": float(plays) / (32 * float(iters)),
+               "lane_share_one_a_thread": lane_share_one_a_thread(gp)}
         bd = cs.nano_bound(games, int(plays), table.nano_values.numel() * 4)
         ms = _held(lambda: k1(a_, s_), GAME_REPS[name], name)
         out[name] = {"ms": ms, "plays": int(plays), "bound_ms": bd["bound_ms"],
                      "bound_class": bd["bound_class"], "share": bd["bound_ms"] / ms, **rec}
+    out.update(_collector_times(dev, cs, cfg, key, th, fo))
     for name, sc in (("score_moments", scores), ("score_moments G=60", sc60)):
         bd = cs.moment_bound(sc.shape[0], sc.shape[1])
         ms = _held(lambda: k2(sc), GAME_REPS[name], name)
         out[name] = {"ms": ms, "bound_ms": bd["bound_ms"], "bound_class": bd["bound_class"],
                      "share": bd["bound_ms"] / ms}
+    return out
+
+
+# K1's instantiations with collectors that `_collector_times` times
+COLLECTORS = {"nano_game props": (True, True), "nano_game box score": (False, True),
+              "nano_game player stats": (True, False)}
+
+
+def _collector_times(dev: torch.device, cs, cfg, key: int, th, fo) -> Dict[str, dict]:
+    """K1 with each combination of collectors (`COLLECTORS`: (players,
+    stats)) at LAUNCH_GAMES games of the focus-roster fixture, first held
+    to `nano_game_plain` on GAME_CHECK games bit for bit on every field;
+    held ms, and for the props instantiation its bound on this launch's
+    work (`chip_smoke.accrual_work` of a launch from zero stats)."""
+    from .. import fixtures
+    from ..matchup import build_direction
+    from ..ops import game
+    from ..ops.pack import pack_matchup
+
+    fa, fb = fixtures.focus_teams(cs.FOCUS_SEED)
+    pack = pack_matchup(build_direction(fa, fb, cfg), build_direction(fb, fa, cfg), dev)
+    args = game.pack_nano_game(pack, cfg, th)
+    n, m = fo.shape[0], GAME_CHECK
+    out = {}
+    for name, (players, stats) in COLLECTORS.items():
+        coll = dict(collect_players=players, collect_stats=stats)
+        small = game.initial_state(m, fo[:m], cfg, dev, **coll)
+        want = game.nano_game_plain(args, game.initial_state(m, fo[:m], cfg, dev, **coll), key,
+                                    **coll)
+        got = game.nano_game_cuda(args, small, key, **coll)
+        for f in game.GameState._fields:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise RuntimeError(f"{name}: field {f} of the first {m:,} games differs from "
+                                   "nano_game_plain")
+        s = game.initial_state(n, fo, cfg, dev, **coll)
+        plays = torch.zeros(1, dtype=torch.int64, device=dev)
+        first = game.nano_game_cuda(args, s, key, plays=plays, **coll)
+        # the work of this launch from zero stats, before the held calls add on
+        bd = (cs.nano_bound(n, int(plays), th.nano_values.numel() * 4,
+                            cs.accrual_work(first)) if players and stats else None)
+        rec = {"ms": _held(lambda: game.nano_game_cuda(args, s, key, **coll),
+                           GAME_REPS["nano_game"], name), "plays": int(plays)}
+        if bd is not None:
+            rec.update(bound_ms=bd["bound_ms"], bound_class=bd["bound_class"],
+                       share=bd["bound_ms"] / rec["ms"])
+        out[name] = rec
     return out
 
 
@@ -520,12 +507,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if not args.games_only:
         times.update(forest_times(dev, libs["forest_eval"]))
     if not args.forests_only:
-        games = game_times(dev, libs)
+        games = game_times(dev)
         times.update({name: g["ms"] for name, g in games.items()})
     times["launch gap"] = launch_gap_ms()
     for name, ms in times.items():
         print(f"  {name}: {ms:.5f} ms held ({card})")
     for name, g in games.items():
+        if "bound_ms" not in g:
+            continue
         extra = "".join(f", {k} {g[k]:.4f}" for k in ("lane_share", "lane_share_one_a_thread")
                         if k in g)
         print(f"  {name}: bound {g['bound_ms']:.5f} ms ({g['bound_class']}), "

@@ -5,8 +5,9 @@ The kernels run only on the card (`chip_smoke.py` phase 21 holds them to
 their plain versions there).  Here K1's plain version, `nano_game_plain`,
 which reads exactly the packed inputs the launcher passes, is held bit for
 bit to the eager game loop (`simulate_games_eager`) on every GameState
-field, and within the 98%-of-games standard of tests/test_torch_game.py to
-the JAX package's `play_step` scanned over one draw table; the predicate
+field, the collectors' box score and player stats included, and within the
+98%-of-games standard of tests/test_torch_game.py to the JAX package's
+`play_step` scanned over one draw table; the predicate
 that picks K1 is checked over a table of cases; the packed constants and
 the launchers' parameters are checked against the kernels' sources.  K1's
 work queue hands games to lanes in any order, so a game's result must
@@ -36,10 +37,11 @@ from fast_monte_carlo_tpu_torch.ops import table_lookup as ttl
 from fast_monte_carlo_tpu_torch.ops.pack import pack_matchups
 from fast_monte_carlo_tpu_torch.ops.rng import fold_in, root_key, step_draws
 from fast_monte_carlo_tpu_torch.parallel import aggregate as tagg
+from fast_monte_carlo_tpu_torch.stats import PC_ATT, PC_YDS, TEAM_STAT_FIELDS, TS
 from fast_monte_carlo_tpu_torch.utils.cuda_build import CSRC
 
-from test_torch_support import (TABLE_SEED, heads_pair, jax_pack, port_pack,
-                                table_cache_off)  # noqa: F401  (autouse fixture)
+from test_torch_support import (FOCUS_SEED, TABLE_SEED, heads_pair, jax_pack, port_pack,
+                                table_cache_off, write_focus)  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -141,41 +143,145 @@ def test_nano_game_plain_equals_eager_loop(case):
     assert tg.nano_game_cuda.launches == 0
 
 
-def test_nano_game_plain_matches_jax_on_one_draw_table():
+def _focus_pack(kind: str, tmp_path):
+    """(pack, nano tables, matchups) with rosters: the fixture teams with
+    `fixtures.focus_teams`' rosters at 8 player slots ("focus") or 1
+    ("focus_k1"), the JAX package's pack of the same focus sheet
+    ("jax_focus"), or `fixtures.focus_slate(3, ...)` ("focus_slate")."""
+    cfg = SimConfig()
+    if kind == "jax_focus":
+        jpack = jax_pack(focus_csv=write_focus(tmp_path / "focus.csv"))
+        return port_pack(jpack), ttl.pack_tables_multi([fixtures.nano_tables(TABLE_SEED)],
+                                                       "cpu"), 1
+    if kind == "focus_slate":
+        ms, tables = fixtures.focus_slate(3, 11)
+    else:
+        ms = [fixtures.focus_teams(FOCUS_SEED, player_slots=1 if kind == "focus_k1" else 8)]
+        tables = [fixtures.nano_tables(TABLE_SEED)]
+    dirs = []
+    for a, b in ms:
+        dirs += [build_direction(a, b, cfg), build_direction(b, a, cfg)]
+    return pack_matchups(dirs, "cpu"), ttl.pack_tables_multi(tables, "cpu"), len(ms)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A field as its bits: f32 seen as int32, so -0.0 and +0.0 differ."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+RESUMED_PLAYS = 40     # eager plays with the collectors on before the resumed launch
+# case: (pack, config, start, collect_players, collect_stats)
+COLLECT_CASES = {
+    "stats": ("focus", SimConfig(), "kickoff", False, True),
+    "players": ("focus", SimConfig(), "kickoff", True, False),
+    "both": ("focus", SimConfig(), "kickoff", True, True),
+    "both_antithetic": ("focus", _cfg(antithetic=True), "kickoff", True, True),
+    "both_jax_focus_pack": ("jax_focus", SimConfig(), "kickoff", True, True),
+    "both_slate": ("focus_slate", SimConfig(), "kickoff", True, True),
+    "both_one_slot": ("focus_k1", SimConfig(), "kickoff", True, True),
+    "both_nonzero_init_state": ("focus", SimConfig(), "resumed", True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(COLLECT_CASES))
+def test_nano_game_plain_accrues_as_the_eager_loop(case, tmp_path):
+    """With the collectors on, `nano_game` on the CPU plays and accrues what
+    `simulate_games_eager` does, bit for bit on every field (f32 compared
+    as bits), `stats` and `pstats` included, in place on the start state's
+    tensors: the box score, the player rows of the sampled slots, `points`
+    set to the final score.  K1 and its plain version add nothing for a
+    game that has ended, nor a row for an untracked slot or a role the
+    play does not involve, where the eager step adds +0.0: these runs show
+    the adds it leaves out change no bit, from a kickoff and from a state
+    whose stats and pstats are already nonzero."""
+    kind, cfg, start, players, stats = COLLECT_CASES[case]
+    pack, th, g = _focus_pack(kind, tmp_path)
+    he = ttl.make_table_heads_eval(cfg)
+    n = N if g == 1 else 64 * g
+    fo = torch.arange(n, dtype=torch.int32) % 2
+    gid = torch.arange(n, dtype=torch.int32) // (n // g)
+    coll = dict(collect_players=players, collect_stats=stats)
+    key = root_key(23)
+    s0 = tg.initial_state(n, fo, cfg, "cpu", gid, pack.k, **coll)
+    if start == "resumed":
+        for j in range(RESUMED_PLAYS):
+            s0 = tg.play_step(s0, step_draws(fold_in(key, 7), j, n, "cpu"), pack, cfg, he, th,
+                              players, stats)
+        assert float(s0.stats.abs().sum()) > 0 and float(s0.pstats.abs().sum()) > 0
+        assert bool((s0.sec > 0).all())
+    a, b = (tg.GameState(*(f.clone() for f in s0)) for _ in range(2))
+    want = tg.simulate_games_eager(pack, cfg, he, th, key, n, 0, init_state=a, **coll)
+    anti = cfg.engine.antithetic and n % 4 == 0
+    got = tg.nano_game(tg.pack_nano_game(pack, cfg, th), b, key, 0, anti, **coll)
+    assert got.stats is b.stats and got.pstats is b.pstats and want.stats is a.stats
+    for f in FIELDS:
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
+    assert (got.sec == 0).all() and tg.nano_game_cuda.launches == 0
+    if stats:
+        assert torch.equal(got.stats[:, :, TS["points"]], got.score.float())
+        assert got.stats.shape == (n, 2, len(TEAM_STAT_FIELDS))
+        assert float(got.stats[..., TS["pass_yds"]].sum()) > 0
+    if players:
+        assert got.pstats.shape == (n, 2, 3, pack.k, 6)
+        assert float(got.pstats[..., PC_ATT].sum()) > 0
+    if start == "resumed":
+        grew = got.stats[..., TS["plays"]] > s0.stats[..., TS["plays"]]
+        assert bool(grew.any(dim=1).all())
+
+
+def test_nano_game_plain_matches_jax_on_one_draw_table(tmp_path):
     """512 games fed one (max_plays, B, 17) draw table: `nano_game_plain`
-    on the fixture nano table against the JAX package's `play_step`
-    scanned over the same table, the whole-game standard of
-    tests/test_torch_game.py (>= 98% of final scores equal; the rest sit
-    within an ulp of a threshold, where XLA's FMAs round otherwise)."""
+    on the fixture nano table and the focus roster, both collectors on,
+    against the JAX package's `play_step` scanned over the same table with
+    both collectors on, the whole-game standard of tests/test_torch_game.py
+    (>= 98% of final scores equal; the rest sit within an ulp of a
+    threshold, where XLA's FMAs round otherwise).  On the games whose final
+    scores are equal, every count column of the box score and the player
+    stats is equal and the yards agree within rtol 1e-5, atol 1e-3 (XLA's
+    FMAs again); `points` is the final score, as the JAX package's
+    `simulate_games` writes it after the scan."""
     b = 512
     cfg, jcfg = SimConfig(), JaxSimConfig()
     steps = cfg.engine.max_plays
     rng = np.random.default_rng(12)
     u, z = fixtures.play_draws(rng, (steps, b))
-    jpack = jax_pack()
+    jpack = jax_pack(focus_csv=write_focus(tmp_path / "focus.csv"))
     pack = port_pack(jpack)
+    assert bool(pack.qb_tracked.any()) and pack.k == 8
     jhe, jhs, _, th = heads_pair("table")
     fo = np.arange(b) % 2
 
     def run_jax(h, uu, zz):
         s0 = jg.initial_state(b, jnp.asarray(fo, jnp.int32), jcfg, 8,
-                              collect_players=False, collect_stats=False)
+                              collect_players=True, collect_stats=True)
 
         def body(s, xs):
             return jg.play_step(s, jax.random.PRNGKey(0), jpack, jcfg, jhe, h,
-                                False, False, draws=xs), None
+                                True, True, draws=xs), None
 
         return jax.lax.scan(body, s0, (uu, zz))[0]
 
-    want = np.asarray(jax.jit(run_jax)(jhs, jnp.asarray(u), jnp.asarray(z)).score)
-    s0 = tg.initial_state(b, torch.from_numpy(fo), cfg, "cpu", collect_players=False,
-                          collect_stats=False)
+    jout = jax.jit(run_jax)(jhs, jnp.asarray(u), jnp.asarray(z))
+    want = np.asarray(jout.score)
+    s0 = tg.initial_state(b, torch.from_numpy(fo), cfg, "cpu")
     got = tg.nano_game_plain(tg.pack_nano_game(pack, cfg, th), s0, 0,
-                             draws=(torch.from_numpy(u), torch.from_numpy(z)))
+                             draws=(torch.from_numpy(u), torch.from_numpy(z)),
+                             collect_players=True, collect_stats=True)
     assert (got.sec == 0).all()
     same = (got.score.numpy() == want).all(axis=1)
     assert same.mean() >= 0.98, f"{(~same).sum()} of {b} games differ"
     assert 10 < want.mean() < 50
+    st, jst = got.stats.numpy()[same], np.asarray(jout.stats)[same]
+    ps, jps = got.pstats.numpy()[same], np.asarray(jout.pstats)[same]
+    yards = [TS["pass_yds"], TS["rush_yds"]]
+    counts = [i for i in range(len(TEAM_STAT_FIELDS)) if i not in yards + [TS["points"]]]
+    assert np.array_equal(st[..., counts], jst[..., counts])
+    assert np.array_equal(st[..., TS["points"]], want[same].astype(np.float32))
+    assert np.allclose(st[..., yards], jst[..., yards], rtol=1e-5, atol=1e-3)
+    pcounts = [c for c in range(6) if c != PC_YDS]
+    assert np.array_equal(ps[..., pcounts], jps[..., pcounts])
+    assert np.allclose(ps[..., PC_YDS], jps[..., PC_YDS], rtol=1e-5, atol=1e-3)
+    assert ps[..., PC_ATT].sum() > 0 and st[..., TS["plays"]].sum() > 0
 
 
 def _nano_th():
@@ -191,8 +297,11 @@ COVER_CASES = {
     "play_table_unused": ("table", {"play": "nano"}, None, False, False, True),
     "play_table_used": ("table", {"play": "nano"}, _PLAY, False, False, False),
     "play_model_without_table": ("table", {}, _PLAY, False, False, True),
-    "players": ("table", {}, None, True, False, False),
-    "box_score": ("table", {}, None, False, True, False),
+    "players": ("table", {}, None, True, False, True),
+    "box_score": ("table", {}, None, False, True, True),
+    "both_collectors": ("table", {}, None, True, True, True),
+    "players_play_table_used": ("table", {"play": "nano"}, _PLAY, True, False, False),
+    "box_score_forced_go": ("table", {}, "go", False, True, False),
     "forced_go": ("table", {}, "go", False, False, False),
     "fused_layout": ("table", {"nano": None, "fused": "nano"}, None, False, False, False),
     "analytic": ("analytic", {}, None, False, False, False),
@@ -202,9 +311,12 @@ COVER_CASES = {
 
 @pytest.mark.parametrize("case", list(COVER_CASES))
 def test_nano_game_covers_exactly_the_score_only_nano_launches(case):
-    """K1 takes table heads on a nano table, with no play-policy lookup,
-    both collectors off and no forced 4th-down choice; everything else
-    stays on the eager loop."""
+    """K1 takes table heads on a nano table, with no play-policy lookup
+    and no forced 4th-down choice, whichever collectors the launch asks
+    for (K1 has an instantiation for each); everything else stays on the
+    eager loop.  The collectors decide the instantiation, never whether
+    K1 plays.  Where it plays, its plain version on the launch's settings
+    gives what the eager loop gives."""
     heads, change, cfg_change, players, stats, covered = COVER_CASES[case]
     cfg = SimConfig()
     if cfg_change == "go":
@@ -217,7 +329,15 @@ def test_nano_game_covers_exactly_the_score_only_nano_launches(case):
     he = {"table": ttl.make_table_heads_eval, "analytic": tg.make_analytic_heads_eval,
           "exact": tg.make_exact_heads_eval}[heads](cfg)
     hs = th if heads == "table" else None
-    assert tg.nano_game_covers(cfg, he, hs, players, stats) is covered
+    assert tg.nano_game_covers(cfg, he, hs) is covered
+    if covered:
+        pack, _ = _pack_and_tables()
+        coll = dict(collect_players=players, collect_stats=stats)
+        a, b = (tg.initial_state(8, 0, cfg, "cpu", **coll) for _ in range(2))
+        want = tg.simulate_games_eager(pack, cfg, he, hs, 3, 8, 0, init_state=a, **coll)
+        got = tg.nano_game(tg.pack_nano_game(pack, cfg, hs), b, 3, **coll)
+        for f in FIELDS:
+            assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
 
 
 def _struct_fields(src: str, name: str):
@@ -241,7 +361,8 @@ def test_packed_constants_follow_the_kernel_struct():
     """`NanoConsts` and `_Segs` name the kernel's fields in its order, with
     its array lengths (the launcher checks the total size on the card);
     the defaults pack as the eager loop runs: 360 plays, the padded edges,
-    the nano profile's segments."""
+    the nano profile's segments; the slot tables stack the pack's in
+    pstats' role order (QB, rusher, target), as the kernel reads them."""
     src = (CSRC / "nano_game.cu").read_text()
     consts = {"kSlots": tg._SLOTS, "kSegs": tg._SEGS, "kGridCells": tg._GRID_CELLS}
 
@@ -263,6 +384,13 @@ def test_packed_constants_follow_the_kernel_struct():
     assert c.sec.base[7] == 14 and c.sec.top[7] == 1.0
     assert args.dirs.shape == (2, 5) and args.table is th.nano.values
     assert tg.pack_nano_game(pack, _cfg(play_chunk=32), th).consts.cap == 384
+    assert args.k == pack.k == 8 and args.slot_cum.shape == (3, 2, 8)
+    assert args.slot_cum.dtype == torch.float32 and args.slot_tracked.dtype == torch.bool
+    for r, role in enumerate(("qb", "rb", "wr")):
+        assert torch.equal(args.slot_cum[r], getattr(pack, f"{role}_cum"))
+        assert torch.equal(args.slot_tracked[r], getattr(pack, f"{role}_tracked"))
+    assert "kRoles = 3" in src and "kTeamStats = 19" in src and "kPlayerStats = 6" in src
+    assert re.search(r"constexpr int kPoints = %d;" % TS["points"], src)
 
 
 def _cut(s, a: int, b: int):
@@ -390,8 +518,10 @@ def test_launchers_follow_the_kernel_sources():
     assert _launcher_params(moments, "score_moments_launch") == tagg._MOMENTS_ARGTYPES
     assert _constant(moments, "kThreads") == tagg._THREADS
     assert _constant(moments, "kCluster") == tagg._CLUSTER
-    for fn in ("nano_game_threads", "nano_game_blocks_per_sm", "nano_game_consts_size"):
+    for fn in ("nano_game_threads", "nano_game_consts_size"):
         assert f'extern "C" int {fn}()' in nano
+    # the occupancy of the instantiation for (collect_stats, collect_players)
+    assert _launcher_params(nano, "nano_game_blocks_per_sm") == [ctypes.c_int, ctypes.c_int]
 
 
 def test_moments_dispatch_on_the_cpu():
@@ -446,3 +576,43 @@ def test_smoke_bounds_of_k1_and_k2():
         assert c["alu"] + c["imad"] + c["mufu_cvt"] <= c["dispatch"]
     assert {"nano_game", "score_moments"} <= set(chip_smoke.KERNEL_SOURCES)
     assert all(name in chip_smoke.REPLACES for name in chip_smoke.KERNEL_SOURCES)
+
+
+def test_smoke_bound_of_k1_props():
+    """chip_smoke's bound of K1's props instantiation: the score-only
+    bound's work plus the collectors' (the team stats a play, a count a
+    slot sampled and a player row added, the stats and the touched player
+    rows read and written once), the work read off a launch's box score
+    and player stats by `accrual_work`; every class counted, none above
+    dispatch."""
+    import chip_smoke
+
+    pack, th = _focus_pack("focus", None)[:2]
+    cfg = SimConfig()
+    coll = dict(collect_players=True, collect_stats=True)
+    n = 64
+    s0 = tg.initial_state(n, torch.arange(n, dtype=torch.int32) % 2, cfg, "cpu", **coll)
+    out = tg.nano_game_plain(tg.pack_nano_game(pack, cfg, th), s0, root_key(2), **coll)
+    work = chip_smoke.accrual_work(out)
+    st = out.stats
+    pass_plays = float((st[..., TS["pass_att"]] + st[..., TS["sacks"]]).sum())
+    assert work["sampled"] == 2 * pass_plays + float(st[..., TS["rush_att"]].sum()) > 0
+    # every player row added holds one attempt (target, carry) or one QB
+    # attempt or sack, on a tracked slot
+    assert 0 < work["rows_touched"] <= work["rows_added"] <= work["sampled"]
+    assert work["stats_bytes"] == n * 2 * 19 * 4
+    plays = 160 * n
+    base = chip_smoke.nano_bound(n, plays, 1_000)
+    props = chip_smoke.nano_bound(n, plays, 1_000, work)
+    assert props["bound_ms"] > base["bound_ms"] and props["bound_class"] == "dispatch"
+    counts = {k: chip_smoke.NANO_COUNTS[k] * plays + chip_smoke.NANO_TEAM_COUNTS[k] * plays
+              + chip_smoke.NANO_SLOT_COUNTS[k] * work["sampled"]
+              + chip_smoke.NANO_ROW_COUNTS[k] * work["rows_added"] for k in chip_smoke.NANO_COUNTS}
+    assert props["bound_ms"] == pytest.approx(
+        counts["dispatch"] / chip_smoke.RATES["dispatch"] * 1e3)
+    for c in (chip_smoke.NANO_TEAM_COUNTS, chip_smoke.NANO_SLOT_COUNTS,
+              chip_smoke.NANO_ROW_COUNTS):
+        assert set(c) == set(chip_smoke.RATES) - {"bytes"}
+        assert c["alu"] + c["imad"] + c["mufu_cvt"] <= c["dispatch"]
+    assert chip_smoke.KERNEL_SOURCES["nano_game_props"] == "nano_game"
+    assert "nano_game_props" in chip_smoke.REPLACES

@@ -71,9 +71,18 @@ def run_ranks(code: str, world: int, tmp_path, timeout: float = 150) -> list:
     # down (a gloo peer torn down while the other still runs has aborted
     # at exit); the store, not a collective, says so, since a rank leaving
     # a barrier does not mean its peer has left it too
+    # then the rank leaves without the interpreter's teardown: after
+    # destroy_process_group, torch's gloo has aborted a rank at exit under
+    # load ("terminate called without an active exception", rc -6), its
+    # work done and printed; a rank that fails before this point still
+    # exits nonzero
     post = ("\nSTORE.set(f'done{RANK}', '1')\n"
             "STORE.wait([f'done{r}' for r in range(WORLD)])\n"
-            "dist.destroy_process_group()\n")
+            "dist.destroy_process_group()\n"
+            "import os\n"
+            "sys.stdout.flush()\n"
+            "sys.stderr.flush()\n"
+            "os._exit(0)\n")
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
     procs = [subprocess.Popen([sys.executable, "-c", pre + code + post, str(r)], cwd=tmp_path,
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
