@@ -491,6 +491,9 @@ PRESET_LAYOUT = {"nano": "nano", "default": "per-head", "coarse": "per-head",
                  "slate": "fused", "fused": "fused", "turbo": "fused"}
 LAYOUT_SLATE = [("Team A", "Team B"), ("Team 000", "Team 001"), ("Team 002", "Team 003"),
                 ("Team 004", "Team 005")]
+# the preset whose tables phase 21 reuses (fused from heads, on the turbo
+# profile; the per-head and play tables come from phase 16's own runs)
+K1_PRESETS = ("turbo",)
 LAYOUT_SLATE_PAIRS = 16_384        # 32,768 games a matchup: one 131,072-game launch
 # (quality, game_shard, heads) of phase 16 (d); from the artifact heads
 # the coarse fused grid takes about 24 s a matchup to build, turbo 5 s
@@ -528,12 +531,21 @@ TRAIN_MODULES = ("pandas", "sklearn", "joblib")   # what cli train needs
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "meta"}
 BENCH_SANITY = re.compile(r"# sanity: mean \[([-\d.]+), ([-\d.]+)\] winA ([\d.]+)")
 # each kernel of the JSON line and its source in csrc/
-# (nano_game_props: K1's instantiation with both collectors, the props path's)
+# (nano_game_props: K1's instantiation with both collectors, the props path's;
+# nano_game_fused and _per_head: K1 on those table layouts, the one-row and
+# the per-head instantiation; nano_game_play: K1 reading the play-policy
+# table; nano_game_forced: K1 with the 4th-down evaluator's forced first play)
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
                   "row_gather_sum": "row_gather", "forest_eval": "forest_eval",
                   "nano_game": "nano_game", "nano_game_props": "nano_game",
+                  "nano_game_fused": "nano_game", "nano_game_per_head": "nano_game",
+                  "nano_game_play": "nano_game", "nano_game_forced": "nano_game",
                   "score_moments": "score_moments"}
+# K1's rows past the nano score-only one: the wrapper's count of each
+K1_ROWS = {"nano_game_props": "launches_collecting", "nano_game_fused": "launches_fused",
+           "nano_game_per_head": "launches_per_head", "nano_game_play": "launches_play",
+           "nano_game_forced": "launches_forced"}
 SOURCES = tuple(dict.fromkeys(KERNEL_SOURCES.values()))
 # the Pallas kernel each replaces (the timed shape's; PERF.md lists them all)
 REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
@@ -546,6 +558,14 @@ REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
             "nano_game": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games",
             "nano_game_props": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games "
                                "(collect_players, collect_stats: :309, :586-653)",
+            "nano_game_fused": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games "
+                               "(fused heads: ops/table_lookup.py:644 _fused_eval)",
+            "nano_game_per_head": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games "
+                                  "(per-head heads: ops/table_lookup.py:540-605)",
+            "nano_game_play": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games "
+                              "(play-policy lookup: ops/table_lookup.py:588-597, :627-639)",
+            "nano_game_forced": "fast_monte_carlo_tpu/api.py:478 _forced_live_moments_jit "
+                                "(ops/game.py:392-415 forced play, then :844 simulate_games)",
             "score_moments": "fast_monte_carlo_tpu/parallel/aggregate.py:76 score_moments"}
 
 # The H100 SXM's rates by class, on 132 SMs at 1.98 GHz: HBM bytes/s
@@ -625,6 +645,30 @@ MOMENT_COUNTS = {"alu": 11, "imad": 2, "mufu_cvt": 0, "dispatch": 35}
 NANO_TEAM_COUNTS = {"alu": 7, "imad": 0, "mufu_cvt": 0, "dispatch": 28}
 NANO_SLOT_COUNTS = {"alu": 10, "imad": 0, "mufu_cvt": 0, "dispatch": 27}
 NANO_ROW_COUNTS = {"alu": 0, "imad": 0, "mufu_cvt": 0, "dispatch": 12}
+# K1 past the nano layout (the one-row and per-head instantiations, the
+# play-policy lookup), by the same rules, as NANO_COUNTS with the layout's
+# own binning and lookups in place of the nano table's
+# (`layout_counts`).  Binning, per profile axis binned: one compare and one
+# select a segment boundary and one evaluation (subtract, multiply, rint,
+# F2I, min, max, the base's add: 2 ALU, 2 conversions, 7 dispatched;
+# `bin_counts`): NANO_COUNTS holds the nano profile's (4, 7, 7 and 0
+# boundaries: 44 ALU, 8 conversions, 64 dispatched).  The play-policy
+# lookup: the coarse cell's three axes binned, the score diff's bin among
+# the 26 edges (26 compares and 26 adds) and the P(pass) load.  The
+# per-head lookups: per slot sampled (QB, target and rusher, every play),
+# NANO_SLOT_COUNTS less the tracked flag's load and test; per table read,
+# its key and row index clamped (4 ALU), its row-map entry's load and its
+# channels' loads, in place of the nano row's 7 loads.  A forced first play
+# is a play (the kernel's `plays` count holds it).
+PLAY_SEARCH_COUNTS = {"alu": 26, "imad": 0, "mufu_cvt": 0, "dispatch": 53}
+HEAD_SLOT_COUNTS = {"alu": 9, "imad": 0, "mufu_cvt": 0, "dispatch": 25}
+NANO_ROW_LOADS = 7
+# the channels each per-head table's row holds (game.HEAD_TABLES' order)
+HEAD_CHANNELS = (1, 2, 2, 2, 2, 1)
+# the H100 SXM's L2 and its sector: a matchup's tables larger than the L2
+# are read a sector a lookup (a focus roster's per-head tables, 150-620 MB),
+# smaller ones once
+L2_BYTES, SECTOR_BYTES = 50 * 2 ** 20, 32
 # K1's state bytes a game: gid, off, sec, down, dist, ytg, period, the
 # two bools and the score read; the same less gid written
 NANO_STATE_IN, NANO_STATE_OUT = 38, 34
@@ -673,6 +717,22 @@ def launches_since(before: dict) -> dict:
     return {k: v - before[k] for k, v in engine_launches().items()}
 
 
+def engine_record() -> dict:
+    """`engine_launches` with K1's launches on the fused and per-head
+    layouts, with the play table and with a forced first play."""
+    from fast_monte_carlo_tpu_torch.ops import game
+
+    f = game.nano_game_cuda
+    return {**engine_launches(), "K1 fused": f.launches_fused,
+            "K1 per-head": f.launches_per_head, "K1 play": f.launches_play,
+            "K1 forced": f.launches_forced}
+
+
+def engine_since(before: dict) -> dict:
+    """`engine_record` since `before`, the kinds that launched."""
+    return {k: v - before[k] for k, v in engine_record().items() if v != before[k]}
+
+
 def per(counts: dict, items: float) -> dict:
     """Per-item instruction counts of each class times `items`."""
     return {k: v * items for k, v in counts.items()}
@@ -702,14 +762,16 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_profile(fn, reps: int):
+def device_profile(fn, reps: int, warm: bool = True):
     """(device ms per call, device kernels and copies per call) by
-    torch.profiler over `reps` calls after a warm-up, or None where the
+    torch.profiler over `reps` calls after a warm-up (where `warm`: a
+    function whose kernels have run before needs none), or None where the
     profiler recorded no device time (it does so now and then)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -768,7 +830,7 @@ def kernel_counts() -> dict:
            "forest_eval": forest_eval.eval_margin_cuda,
            "nano_game": game.nano_game_cuda, "score_moments": aggregate.exact_moments_cuda}
     return {**{name: (fn, "launches") for name, fn in fns.items()},
-            "nano_game_props": (game.nano_game_cuda, "launches_collecting")}
+            **{name: (game.nano_game_cuda, attr) for name, attr in K1_ROWS.items()}}
 
 
 def launch_count(name: str) -> int:
@@ -784,7 +846,7 @@ def zero_counts() -> None:
 def read_counts(path: str, needed) -> dict:
     counts = {name: launch_count(name) for name in kernel_counts()}
     print(f"  launches in the {path}: {counts}")
-    for name in ("nano_game", "nano_game_props", "score_moments"):
+    for name in ("nano_game", *K1_ROWS, "score_moments"):
         PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + counts[name]
     for name in needed:
         check(counts[name] > 0, f"{path} launched {name} {counts[name]} times")
@@ -1529,8 +1591,8 @@ def phase_live(card: str, profile_dir: Optional[Path]) -> dict:
           f"P(make) {p_fg:.4f} within 4 s.e. {se:.5f}")
     check(abs(tie - (1 - win_a)) < 1e-6 and float(fg.mean_pts[1]) == 0.0,
           f"forced FG: tie {tie:.5f} == 1 - win_a, B scores 0")
-    check(used == {"K3": 1, "K4": 0, "K1": 1}, f"forced FG: one ch=1 launch (the forced "
-          f"play), then the rest of the games in one K1 launch and no play chunk ({used})")
+    check(used == {"K3": 0, "K4": 0, "K1": 1}, f"forced FG: the forced play and the rest of "
+          f"the games in one K1 launch, no philox_draws launch ({used})")
 
     # the win-probability curve against each situation alone
     curve = live_curve_situations(cfg)
@@ -1602,7 +1664,11 @@ def phase_live(card: str, profile_dir: Optional[Path]) -> dict:
     zero_counts()
     for what, fn in queries.items():
         res[what] = timed_query(what, fn, LIVE_REPS, card)[1]
-    counts = read_counts("live queries", ["nano_game", "score_moments", "philox_draws"])
+    counts = read_counts("live queries", ["nano_game", "nano_game_forced", "score_moments"])
+    check(counts["philox_draws"] == 0 and counts["nano_game_forced"] == 3 * (LIVE_REPS + 1),
+          f"live queries: the three forced 4th-down choices ran in K1 "
+          f"({counts['nano_game_forced']} forced launches), philox_draws launched "
+          f"{counts['philox_draws']} times (0 allowed: no eager forced play)")
     res["launches"] = counts["philox_draws"]
     if profile_dir is not None:
         lines = [card]
@@ -2661,8 +2727,10 @@ def phase_serve(card: str) -> dict:
                                ["philox_draws", "forest_eval", "nano_game", "score_moments"])
         k3 = rng.philox_draws.launches_by_ch[1] - by_ch.get(1, 0)
         k4 = rng.philox_draws.launches_by_ch[CH] - by_ch.get(CH, 0)
-        check(k3 > 0 and k4 > 0, f"server path: philox_draws ch=24 (K4) {k4} launches, "
-              f"ch=1 (K3, the forced 4th-down plays) {k3}")
+        check(k3 == 0 and k4 > 0 and launches["nano_game_forced"] > 0,
+              f"server path: philox_draws ch=24 (K4, exact mode's play chunks) {k4} launches, "
+              f"ch=1 (K3) {k3} (0 allowed: /fourth's forced plays run in K1, "
+              f"{launches['nano_game_forced']} forced launches)")
 
         check(warm == {"heads": "loaded", "sp": "loaded", "compiled": "2 matchups @ 256 pairs"},
               f"warm: {warm}")
@@ -3189,6 +3257,7 @@ def phase_layouts(card: str, device: str = "cuda") -> dict:
     zero_counts()
 
     # (a) the focus-roster fallback: the route cold, its build included
+    before = engine_record()
     t0 = time.perf_counter()
     scores, players, summary, ca, cb, meta = api.simulate_upcoming_matchup_columns(
         "Team A", "Team B", sp_path=sp_path, heads=small, focus_csv=focus_csv,
@@ -3204,6 +3273,7 @@ def phase_layouts(card: str, device: str = "cuda") -> dict:
           "the route built its tables cold: nothing read from the table disk cache")
     check_summary(_columns_summary(scores, "Team A", dev), 2 * LAYOUT_PAIRS,
                   "simulate_upcoming_matchup, focus roster, table mode")
+    engines = {"focus route": engine_since(before)}
     check(len(players["sim"]) > 0, f"its player rows: {len(players['sim']):,}")
     mb = {name: t.nbytes / 1e6 for name, t in th.tables()}
     print(f"  (a) focus roster, small heads: the route took {route_s:.1f} s cold, "
@@ -3214,19 +3284,25 @@ def phase_layouts(card: str, device: str = "cuda") -> dict:
     runner = api.MatchupRunner(ca, cb, small, cfg, "table", **on)
     check(runner.heads_state is th, "a runner on the same contexts reuses the built tables")
     torch.cuda.synchronize()
+    before = engine_record()
     t0 = time.perf_counter()
     for i in range(LAYOUT_LAUNCHES):
         runner.run_pairs(LAYOUT_PAIRS, seed=LAYOUT_SEED + i, collect_players=True,
                          collect_stats=True)
     torch.cuda.synchronize()
     both = 2 * LAYOUT_PAIRS * LAYOUT_LAUNCHES / (time.perf_counter() - t0)
+    engines["focus, both collectors"] = engine_since(before)
+    before = engine_record()
     score_only = _timed_summary(runner, "focus roster, per-head tables, score-only", card)
+    engines["focus, score-only"] = engine_since(before)
     print(f"  (a) per-head tables: {both:,.0f} games/s with both collectors, {score_only:,.0f} "
           f"score-only, {2 * LAYOUT_PAIRS:,}-game launches ({card})")
     out["focus"] = dict(build_s=list(th.build_seconds), mb=mb, both_gps=both,
                         score_gps=score_only, route_s=route_s, write_s=th.cache_seconds,
                         disk_mb=th.cache_bytes / 1e6)
     out["focus_tables"] = th
+    # phase 21 holds K1 to the eager loop on these tables and times it on them
+    out["k1_inputs"] = {"per-head, focus roster": (runner.pack, th, cfg)}
 
     # one play step on the per-head tables, CUDA against the CPU
     rng = np.random.default_rng(161)
@@ -3294,10 +3370,13 @@ def phase_layouts(card: str, device: str = "cuda") -> dict:
         shares[label] = _pass_share(rr.run_pairs(LAYOUT_PAIRS // 2, seed=LAYOUT_SEED,
                                                  collect_players=False))
     rr.heads_state = rth
+    out["k1_inputs"]["nano + play table, reconstructed_config()"] = (rr.pack, rth, rcfg)
     check(shares["low"] < shares["table"] < shares["high"],
           f"the pass share moves with the play table: {shares['low']:.4f} with every P(pass) "
           f"at {lo}, {shares['table']:.4f} on the table, {shares['high']:.4f} at {hi}")
+    before = engine_record()
     gps = _timed_summary(rr, "reconstructed_config(), table mode", card)
+    engines["reconstructed_config()"] = engine_since(before)
     print(f"  (b) play-policy table (small heads): built in {rth.play_seconds[0]:.1f} s and "
           f"{rth.play_seconds[1]:.1f} s of host numpy (directions A, B; each direction's whole "
           f"build {rth.build_seconds[0]:.1f} and {rth.build_seconds[1]:.1f} s), "
@@ -3316,12 +3395,16 @@ def phase_layouts(card: str, device: str = "cuda") -> dict:
         t = r.heads_state
         layout = "nano" if t.nano is not None else "fused" if t.fused is not None else "per-head"
         check(layout == PRESET_LAYOUT[q], f"table_quality={q!r}: the {layout} layout")
+        before = engine_record()
         g = _timed_summary(r, f"table_quality={q!r}", card, launches=1)   # its first launch
+        engines[f"preset {q}"] = engine_since(before)
         eval_ms, step_ms = _lookup_ms(r, t, 181)
         print(f"  (c) {q} ({which} heads): built in {build_s:.2f} s, {layout} tables "
               f"{t.nbytes / 1e6:,.1f} MB; {g:,.0f} games/s score-only; heads eval "
               f"{eval_ms:.4f} ms and play step {step_ms:.3f} ms of device time at {N:,} "
               f"states ({card})")
+        if q in K1_PRESETS:
+            out["k1_inputs"][f"preset {q}"] = (r.pack, t, r.cfg)
         out["presets"][q] = dict(heads=which, build_s=build_s, mb=t.nbytes / 1e6, gps=g,
                                  eval_ms=eval_ms, step_ms=step_ms)
     eval_ms, step_ms = _lookup_ms(runner, th, 181)
@@ -3342,6 +3425,7 @@ def phase_layouts(card: str, device: str = "cuda") -> dict:
         check(sr.heads_state.fused is not None and sr.heads_state.nano is None,
               f"SlateRunner(quality={q!r}): fused tables, {sr.heads_state.nbytes / 1e6:,.1f} MB")
         torch.cuda.reset_peak_memory_stats()
+        before = engine_record()
         t0 = time.perf_counter()
         if shard:
             rows, per_game = sr.run_summary_rows(LAYOUT_SLATE_PAIRS, seed=LAYOUT_SEED,
@@ -3362,14 +3446,26 @@ def phase_layouts(card: str, device: str = "cuda") -> dict:
               f"SlateRunner(quality={q!r}): {len(rows)} summary rows, "
               f"{2 * LAYOUT_SLATE_PAIRS:,} games each")
         g = len(rows) * 2 * LAYOUT_SLATE_PAIRS / dt
+        engines[f"SlateRunner {q}"] = engine_since(before)
         print(f"  (d) SlateRunner(quality={q!r}, game_shard={shard}, {which} heads): built in "
               f"{build_s:.2f} s, "
               f"{len(rows)} x {2 * LAYOUT_SLATE_PAIRS:,} games in {dt:.3f} s -> {g:,.0f} "
               f"games/s, peak device memory {peak:,.1f} MiB ({card})")
         out["slate"][q] = dict(build_s=build_s, gps=g, peak_mib=peak)
     torch.cuda.synchronize()
-    out["launches"] = read_counts("other table layouts", ["philox_draws"])
+    for what, used in engines.items():
+        print(f"  engine of {what}: {used}")
+    if dev.type == "cuda":
+        check(all(used.get("K1", 0) > 0 and "K4" not in used for used in engines.values()),
+              "every table-mode run of the phase ran on K1 and launched no eager play chunk")
+    out["engines"] = engines
+    out["launches"] = read_counts("other table layouts",
+                                  ["nano_game", "nano_game_fused", "nano_game_per_head",
+                                   "nano_game_play", "score_moments"])
     check(out["launches"]["forest_eval"] == 0, "table mode walked no forest on the card")
+    check(out["launches"]["philox_draws"] == 0,
+          f"the table layouts launched philox_draws {out['launches']['philox_draws']} times "
+          "(0 allowed: every table-mode launch on K1)")
     tmp.cleanup()
     return out
 
@@ -3417,6 +3513,8 @@ bad = [m for m in ("jax", "fast_monte_carlo_tpu") if m in sys.modules]
 print(json.dumps(dict(summary_s=summary_s, cache_hit=th.cache_hit,
                       load_s=th.cache_seconds, digest=chip_smoke.tables_digest(th),
                       launches=chip_smoke.launch_count("philox_draws"),
+                      k1=chip_smoke.launch_count("nano_game"),
+                      k1_per_head=chip_smoke.launch_count("nano_game_per_head"),
                       players=len(players["sim"]), imported=bad)))
 """
 
@@ -3476,8 +3574,12 @@ def phase_cache(card: str, layouts: dict, phase16_dir: str, cache_root: str,
           "no jax imported")
     check(got["digest"] == tables_digest(th16),
           f"(b) its packed tables equal the cold build's bitwise (sha256 {got['digest'][:16]})")
-    check(got["launches"] > 0, f"(b) the warm process launched philox_draws "
-          f"{got['launches']} times")
+    check(got["launches"] == 0 and got["k1_per_head"] > 0,
+          f"(b) the warm process ran the focus roster on K1's per-head instantiation "
+          f"({got['k1_per_head']} launches) and launched philox_draws {got['launches']} times "
+          "(0 allowed)")
+    for name, key in (("nano_game", "k1"), ("nano_game_per_head", "k1_per_head")):
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + got[key]
     print(f"  (b) focus roster route: {got['summary_s']:.1f} s from the warm process's start "
           f"to its summary ({wall:.1f} s wall for the whole process), against "
           f"{focus['route_s']:.1f} s cold in phase 16 ({card})")
@@ -3961,15 +4063,90 @@ def nano_bound(games: int, plays: int, table_bytes: int,
     stats read and written once and each player row the launch touched
     read and written once, NANO_TEAM_COUNTS a play, NANO_SLOT_COUNTS a slot
     sampled and NANO_ROW_COUNTS a player row added."""
-    nbytes = games * (NANO_STATE_IN + NANO_STATE_OUT) + table_bytes
-    counts = per(NANO_COUNTS, plays)
+    return _k1_bound(games * (NANO_STATE_IN + NANO_STATE_OUT) + table_bytes,
+                     per(NANO_COUNTS, plays), plays, accrual)
+
+
+def _k1_bound(nbytes: float, counts: dict, plays: int, accrual: Optional[dict]) -> dict:
+    """`bound` of a K1 launch's bytes and counts, with the collectors' work
+    (`accrual_work`) where given."""
     if accrual is not None:
         nbytes += 2 * (accrual["stats_bytes"] + accrual["rows_touched"] * 6 * 4)
-        for c, items in ((NANO_TEAM_COUNTS, plays), (NANO_SLOT_COUNTS, accrual["sampled"]),
-                         (NANO_ROW_COUNTS, accrual["rows_added"])):
-            for k, v in per(c, items).items():
-                counts[k] += v
+        for cl, items in ((NANO_TEAM_COUNTS, plays), (NANO_SLOT_COUNTS, accrual["sampled"]),
+                          (NANO_ROW_COUNTS, accrual["rows_added"])):
+            _add(counts, cl, items)
     return bound(nbytes, counts)
+
+
+def bin_counts(axes) -> dict:
+    """The instructions binning takes a play: `axes` holds each binned
+    axis's segment count."""
+    b, a = sum(max(k - 1, 0) for k in axes), len(axes)
+    return {"alu": 2 * b + 2 * a, "imad": 0, "mufu_cvt": 2 * a, "dispatch": 2 * b + 7 * a}
+
+
+def _add(counts: dict, more: dict, times: float = 1.0) -> None:
+    for k, v in more.items():
+        counts[k] += v * times
+
+
+def layout_counts(args) -> dict:
+    """K1's instructions a play on the packed inputs `args` (any layout),
+    by LAYOUT rules above: NANO_COUNTS less the nano profile's binning,
+    plus the layout's binning and lookups."""
+    import math
+
+    def nsegs(g):
+        return sum(1 for e in g.enter if not math.isinf(e) or e < 0)
+
+    c, lay = args.consts, args.layout
+    counts = dict(NANO_COUNTS)
+    _add(counts, bin_counts([5, 8, 8, 1]), -1)
+    sd1 = lay.sd1 if args.kind else c.nsd > 1
+    _add(counts, bin_counts([nsegs(c.dist), nsegs(c.ytg), nsegs(c.sec)]
+                            + ([nsegs(c.sd)] if sd1 else [])))
+    per_head = args.table_layout == "per_head"
+    if lay.has_play or per_head:
+        coarse_sd = per_head and any(lay.heads[i].has_sd and lay.heads[i].profile
+                                     for i, t in enumerate(args.heads) if t is not None)
+        _add(counts, bin_counts([nsegs(lay.dist2), nsegs(lay.ytg2), nsegs(lay.sec2)]
+                                + ([nsegs(lay.sd2)] if coarse_sd else [])))
+    if lay.has_play:
+        _add(counts, PLAY_SEARCH_COUNTS)
+    if per_head:
+        _add(counts, HEAD_SLOT_COUNTS, 3)
+        read = [i for i, t in enumerate(args.heads) if t is not None
+                and (i != 5 or lay.use_fumble)]
+        counts["alu"] += 4 * len(read)
+        counts["dispatch"] += (5 * len(read) + sum(HEAD_CHANNELS[i] for i in read)
+                               - NANO_ROW_LOADS)
+    return counts
+
+
+def table_read_bytes(args, plays: int) -> float:
+    """The table bytes a K1 launch must read, table by table: a table
+    whose bytes a matchup fit in the L2 once, a larger one a sector a
+    lookup a play (a row of the nano or fused table: the sectors its
+    channels span; a per-head table read and the play table: one)."""
+    tables = []       # (bytes, sectors a play)
+    if args.table_layout == "per_head":
+        tables += [(t[0].numel() * 4 + t[1].numel() * 4, 1) for i, t in enumerate(args.heads)
+                   if t is not None and (i != 5 or args.layout.use_fumble)]
+    else:
+        nch = 7 + 2 * args.consts.has_s2 + args.consts.has_fumble
+        tables.append((args.table.numel() * 4, -(-nch * 4 // SECTOR_BYTES)))
+    if args.play is not None:
+        tables.append((args.play.numel() * 4, 1))
+    matchups = args.dirs.shape[0] // 2
+    return sum(nbytes if nbytes / matchups <= L2_BYTES else plays * sectors * SECTOR_BYTES
+               for nbytes, sectors in tables)
+
+
+def layout_bound(args, games: int, plays: int, accrual: Optional[dict] = None) -> dict:
+    """`bound` of one K1 launch on any layout (`nano_bound`'s terms with
+    `layout_counts` a play and `table_read_bytes`)."""
+    return _k1_bound(games * (NANO_STATE_IN + NANO_STATE_OUT) + table_read_bytes(args, plays),
+                     per(layout_counts(args), plays), plays, accrual)
 
 
 def accrual_work(out) -> dict:
@@ -3995,7 +4172,7 @@ def moment_bound(groups: int, n: int) -> dict:
                  per(MOMENT_COUNTS, groups * n))
 
 
-def phase_nano_game(card: str) -> dict:
+def phase_nano_game(card: str, layouts: Optional[dict] = None) -> dict:
     """K1 (nano_game) against the eager loop (`simulate_games_eager`, its
     plain version at the level of a launch) and against `nano_game_plain`
     on the same start states and keys, in each variant (every branch of
@@ -4005,10 +4182,14 @@ def phase_nano_game(card: str) -> dict:
     channel, early_exit off, ragged launches; each combination of the
     collectors, antithetic, on the focus roster and from a resumed state
     with nonzero stats) and over the fixture slate in one launch, plain
-    and antithetic; K2 (score_moments) bit for bit against the torch body,
-    ragged shapes too; both kernels timed beside their bounds and their
-    plain versions, K1's props instantiation (both collectors) too.  The
-    comparisons' launches are no path's: the counts are not read here."""
+    and antithetic; then the other layouts (`phase_k1_layouts`: fused
+    tables, the forced first play, fourth.force on every play, and on
+    phase 16's tables (`layouts["k1_inputs"]`) the focus roster's per-head
+    tables, the play-policy table and the presets); K2 (score_moments) bit
+    for bit against the torch body, ragged shapes too; both kernels timed
+    beside their bounds and their plain versions, K1's props instantiation
+    (both collectors) and each other layout too.  The comparisons' launches
+    are no path's: the counts are not read here."""
     import torch
     from fast_monte_carlo_tpu_torch import api, fixtures
     from fast_monte_carlo_tpu_torch.config import SimConfig, classic_config
@@ -4064,14 +4245,19 @@ def phase_nano_game(card: str) -> dict:
     def held(what, pk, c, t, games, first, start, timed=False, coll=score_only):
         """K1's launch against the eager loop and against nano_game_plain
         on the same start state (each run on its own copy of a given
-        init_state: the collectors add in place); the eager loop's ms by
-        events where `timed`."""
-        def fresh():
-            if "init_state" not in start:
-                return start
-            return {**start, "init_state": game.GameState(*(f.clone()
-                                                            for f in start["init_state"]))}
+        init_state: the collectors add in place; a forced first play on
+        the evaluator's stream of `key`); the eager loop's ms by events
+        where `timed`."""
+        force = start.get("first_play_force")
+        fk = rng.fold_in(key, api.FORCED_PLAY_STREAM) if force else None
 
+        def fresh():
+            out = dict(start, first_play_key=fk) if force else dict(start)
+            if "init_state" in start:
+                out["init_state"] = game.GameState(*(f.clone() for f in start["init_state"]))
+            return out
+
+        he = tl.make_table_heads_eval(c)
         before = game.nano_game_cuda.launches
         got = game.simulate_games(pk, c, he, t, key, games, first, **coll, **fresh())
         check(game.nano_game_cuda.launches == before + 1, f"{what}: one K1 launch")
@@ -4083,7 +4269,8 @@ def phase_nano_game(card: str) -> dict:
         s, c2, anti = game._launch_state(pk, c, games, first, coll["collect_players"],
                                          start.get("game_id", 0), coll["collect_stats"],
                                          st.get("situation"), st.get("init_state"), row0, None)
-        plain = game.nano_game_plain(game.pack_nano_game(pk, c2, t), s, key, row0, anti, **coll)
+        plain = game.nano_game_plain(game.pack_nano_game(pk, c2, t), s, key, row0, anti,
+                                     force=force, force_key=fk, **coll)
         torch.cuda.synchronize()
         errs[what] = max(nano_diff(want, got, f"K1 against the eager loop, {what}"),
                          nano_diff(plain, got, f"K1 against nano_game_plain, {what}"))
@@ -4130,6 +4317,7 @@ def phase_nano_game(card: str) -> dict:
         held(f"{what} ({SLATE_GAMES} x {NANO_SLATE_GAMES:,} games)", sr.pack, c,
              sr.heads_state, g_n, t % 2, dict(game_id=t // NANO_SLATE_GAMES))
     args = game.pack_nano_game(pack, cfg, th)
+    layout_rows = phase_k1_layouts(card, layouts, held, errs, pack, fpack, th, key)
 
     # K2 against the torch body, bit for bit
     gen = torch.Generator(device=dev).manual_seed(64)
@@ -4240,7 +4428,186 @@ def phase_nano_game(card: str) -> dict:
                             "library_ms": None, **props_bd, "eager_ms": props_eager_ms},
         "score_moments": {"max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
                           "library_ms": None, **k2_bd},
+        **layout_rows,
     }
+
+
+def _k1_timed(card: str, what: str, args, s, key: int, coll: dict, force=None, reps: int = 10,
+              anti: bool = False, plain: bool = True) -> dict:
+    """One K1 launch on the packed inputs `args` from state `s`: held ms
+    (`times`, `reps` calls), the bound on this launch's plays
+    (`layout_bound`; with both collectors on, from zero stats, their work
+    too), the plain version's device time (one profiled call, where
+    `plain`), printed beside the card."""
+    import torch
+    from fast_monte_carlo_tpu_torch import api
+    from fast_monte_carlo_tpu_torch.ops import game, rng
+
+    fk = rng.fold_in(key, api.FORCED_PLAY_STREAM) if force else None
+    kw = dict(coll, force=force, force_key=fk)
+    n = s.off.shape[0]
+
+    def fresh():
+        return game.GameState(*(f.clone() for f in s))
+
+    plays = torch.zeros(1, dtype=torch.int64, device=s.sec.device)
+    first = game.nano_game_cuda(args, fresh(), key, 0, anti, plays=plays, **kw)
+    both = coll.get("collect_players") and coll.get("collect_stats")
+    bd = layout_bound(args, n, int(plays), accrual_work(first) if both else None)
+    start = fresh()
+    ms, _, how = times(lambda: game.nano_game_cuda(args, start, key, 0, anti, **kw), reps)
+    plain_ms, plain_how = float("nan"), "not run"
+    if plain:
+        prof = device_profile(lambda: game.nano_game_plain(args, fresh(), key, 0, anti, **kw), 1,
+                              warm=False)     # its kernels ran in phase 21's variants
+        plain_ms, plain_how = (prof[0], "profiler") if prof else (float("nan"), "not recorded")
+    print(f"  {what} at {n:,} games ({int(plays):,} plays, {int(plays) / n:.1f} a game): K1 "
+          f"{ms:.4f} ms ({how}), bound {bd['bound_ms']:.4f} ms ({bd['bound_class']}; "
+          f"{bd['bound_ms'] / ms:.1%} of it); nano_game_plain {plain_ms:.2f} ms device "
+          f"({plain_how}) ({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "plays": int(plays), **bd}
+
+
+def phase_k1_layouts(card: str, layouts: Optional[dict], held, errs: dict, pack, fpack, th,
+                     key: int) -> dict:
+    """Phase 21's other layouts: K1 against the eager loop and
+    nano_game_plain (`held`, 0 differing games allowed) on fixture fused
+    tables (with stage-2 and fumble channels, both collectors on the focus
+    roster, antithetic), the forced first play (go, fg antithetic, punt with
+    the box score), fourth.force on every play, and on phase 16's tables
+    (`layouts["k1_inputs"]`): the focus roster's per-head tables (score-only,
+    both collectors, a forced punt antithetic), the play-policy table (and a
+    forced fg beside it) and the K1_PRESETS; then each instantiation's
+    registers and local bytes, and the JSON rows of the fused, per-head,
+    play-table and forced launches timed at LAUNCH_GAMES beside their
+    bounds (a 60-matchup fused slate launch too)."""
+    import torch
+    from fast_monte_carlo_tpu_torch import fixtures
+    from fast_monte_carlo_tpu_torch.config import SimConfig
+    from fast_monte_carlo_tpu_torch.matchup import build_direction
+    from fast_monte_carlo_tpu_torch.models.tables import nano_profile
+    from fast_monte_carlo_tpu_torch.ops import game
+    from fast_monte_carlo_tpu_torch.ops import table_lookup as tl
+    from fast_monte_carlo_tpu_torch.ops.pack import pack_matchups
+
+    dev = torch.device("cuda")
+    cfg = SimConfig()
+    n = LAUNCH_GAMES
+    fo = torch.arange(n, dtype=torch.int32, device=dev) % 2
+    score_only = dict(collect_players=False, collect_stats=False)
+    both = dict(collect_players=True, collect_stats=True)
+    box = dict(collect_players=False, collect_stats=True)
+
+    def with_engine(c, **kw):
+        return c.replace(engine=dataclasses.replace(c.engine, **kw))
+
+    anti_cfg = with_engine(cfg, antithetic=True)
+    fum_cfg = cfg.replace(model=dataclasses.replace(cfg.model, enable_fumbles=True))
+    go_cfg = cfg.replace(fourth=dataclasses.replace(cfg.fourth, force="go"))
+    prof = nano_profile()
+    fused = tl.pack_tables(*fixtures.fused_tables(TABLE_SEED), device=dev, fused_prof=prof)
+    fused_s2 = tl.pack_tables(*fixtures.fused_tables(TABLE_SEED, s2_fumble=True), device=dev,
+                              fused_prof=prof)
+    fourth = game.Situation(0, 1500, 4, 2.0, 45.0, 10, 14)
+    # Q2 10:00, 7-3: about two thirds of a game's plays, the halftime flip
+    # among them, for the variants past the first (a variant costs the
+    # eager loop's launch rate a play chunk)
+    q2 = dict(situation=game.Situation(0, 2400, 1, 10.0, 75.0, 7, 3))
+    forced = {"fg": dict(situation=fourth, first_play_force="fg"),
+              "go": dict(situation=fourth, first_play_force="go"),
+              "punt": dict(situation=fourth, first_play_force="punt")}
+    # (what, row of the JSON line, pack, config, tables, first offense, start, collectors)
+    # (each variant is an eager launch and a plain run, about 5 s of the
+    # host's launch rate: branches share variants where they can)
+    variants = [
+        ("fused, fixture tables on the nano profile", "fused", pack, cfg, fused, fo, {},
+         score_only),
+        ("fused, stage-2 and fumble channels, both collectors, antithetic, focus roster, "
+         "from Q2 10:00", "fused", fpack, with_engine(fum_cfg, antithetic=True), fused_s2, 0,
+         q2, both),
+        ("forced go from a 4th-and-2", "forced", pack, cfg, th, 0, forced["go"], score_only),
+        ("forced fg, antithetic, box score", "forced", pack, anti_cfg, th, 0, forced["fg"],
+         box),
+        ("fourth.force go on every play, from Q2 10:00", "forced", pack, go_cfg, th, 0, q2,
+         score_only),
+    ]
+    inputs = (layouts or {}).get("k1_inputs", {})
+    for name, (pk, t, c) in inputs.items():
+        row = ("per_head" if t.stage1 is not None else "play" if t.play is not None
+               else "fused")
+        variants.append((f"{name}, from Q2 10:00", row, pk, c, t, 0, q2, score_only))
+        if name.startswith("per-head"):
+            variants.append((f"{name}, forced punt, antithetic, both collectors", row, pk,
+                             with_engine(c, antithetic=True), t, 0, forced["punt"], both))
+        if row == "play":
+            variants.append((f"{name}, forced fg", row, pk, c, t, 0, forced["fg"], score_only))
+    by_row = {}
+    for what, row, pk, c, t, first, start, coll in variants:
+        held(what, pk, c, t, n, first, start, coll=coll)
+        by_row.setdefault(row, []).append(what)
+    check({"fused", "per_head", "play", "forced"} <= set(by_row),
+          f"K1 held to the eager loop on every layout: {sorted(by_row)} (phase 16's tables "
+          f"{sorted(inputs)})")
+
+    # registers and local bytes of every instantiation
+    for kind, layout in enumerate(game.LAYOUT_KINDS):
+        for stats, players in ((False, False), (True, False), (False, True), (True, True)):
+            regs, local = game.nano_game_usage(kind, stats, players)
+            print(f"  K1 instantiation {layout}, stats {stats}, players {players}: {regs} "
+                  f"registers, {local} bytes of local memory a thread (its stack frame and "
+                  "any spills; ptxas' spill counts: probes.kernels --sass)")
+
+    # timing: each row's launch at LAUNCH_GAMES, and a 60-matchup fused slate
+    def state(pk, c, first, start, coll):
+        s, c2, anti = game._launch_state(pk, c, n, first, coll["collect_players"], 0,
+                                         coll["collect_stats"], start.get("situation"), None,
+                                         0, None)
+        return s, c2, anti
+
+    rows = {}
+    timed = {"fused": ("fused, fixture tables on the nano profile", pack, cfg, fused, fo, {},
+                       score_only),
+             "forced": ("forced go from the 4th-and-2", pack, cfg, th, 0, forced["go"],
+                        score_only)}
+    for name, (pk, t, c) in inputs.items():
+        row = ("per_head" if t.stage1 is not None else "play" if t.play is not None
+               else None)
+        if row is not None and row not in timed:
+            timed[row] = (name, pk, c, t, fo, {}, score_only)
+    for row, (what, pk, c, t, first, start, coll) in timed.items():
+        s, c2, anti = state(pk, c, first, start, coll)
+        rec = _k1_timed(card, f"nano_game {row}: {what}", game.pack_nano_game(pk, c2, t), s,
+                        key, coll, start.get("first_play_force"), anti=anti)
+        rows[f"nano_game_{row}"] = {"max_abs_err": max(errs[w] for w in by_row[row]),
+                                    "library_ms": None, **rec}
+    for name, (pk, t, c) in inputs.items():
+        if name.startswith("per-head"):
+            s, c2, anti = state(pk, c, fo, {}, both)
+            rows["nano_game_per_head"]["both_collectors_ms"] = _k1_timed(
+                card, f"nano_game per_head: {name}, both collectors",
+                game.pack_nano_game(pk, c2, t), s, key, both, plain=False)["ms"]
+        elif name.startswith("preset") and t.fused is not None:
+            s, c2, anti = state(pk, c, fo, {}, score_only)
+            rows["nano_game_fused"][f"{name} ms"] = _k1_timed(
+                card, f"nano_game fused: {name}", game.pack_nano_game(pk, c2, t), s, key,
+                score_only, plain=False)["ms"]
+    # the fused layout over a 60-matchup slate: one matchup's fixture tables
+    # packed 60 times, each matchup a game-layout block
+    slate = tl.pack_tables_multi([fixtures.fused_tables(TABLE_SEED)] * SLATE_GAMES, dev,
+                                 fused_prof=prof)
+    a, b = fixtures.teams()
+    spack = pack_matchups([build_direction(a, b, cfg), build_direction(b, a, cfg)] * SLATE_GAMES,
+                          dev)
+    per_game = 2 * SLATE_CHUNK
+    sn = SLATE_GAMES * per_game
+    t = torch.arange(sn, dtype=torch.int32, device=dev)
+    s = game.initial_state(sn, t % 2, cfg, dev, t // per_game, **score_only)
+    rows["nano_game_fused"]["slate_ms"] = _k1_timed(
+        card, f"nano_game fused: one slate launch ({SLATE_GAMES} x {per_game:,} games, "
+        f"{slate.nbytes / 1e6:,.1f} MB of tables)", game.pack_nano_game(spack, cfg, slate), s,
+        key, score_only, reps=3, plain=False)["ms"]
+    del slate, s
+    return rows
 
 
 def phase_train(card: str, device: str = "cuda") -> dict:
@@ -4560,9 +4927,10 @@ def main() -> int:
     train = phase(20, "training on the card's host: cli train without scikit-learn, "
                   "build_reconstructed --calibration-only (K5 on the play forest), the port's "
                   "overlay in one exact launch", phase_train, card)
-    nano = phase(21, "K1 (nano_game) against the eager loop and nano_game_plain, K2 "
+    nano = phase(21, "K1 (nano_game) against the eager loop and nano_game_plain on every "
+                 "table layout, the play-policy table and the forced play, K2 "
                  "(score_moments) against the torch body, on cuda; both timed",
-                 phase_nano_game, card)
+                 phase_nano_game, card, layouts)
     cache_root.cleanup()
     k["launches"] = mp["launches"]["philox_draws"]
     layout_k4 = layouts["launches"]["philox_draws"]
@@ -4582,10 +4950,11 @@ def main() -> int:
                                   + benched[name])
         print(f"  {name} launches: the paths' {PATH_LAUNCHES[name]}, trial sharding's "
               f"{shard['launches'][name]}, the bench entry's {benched[name]}")
-    # trial sharding and the bench entry run score-only launches
-    nano["nano_game_props"]["launches"] = PATH_LAUNCHES["nano_game_props"]
-    print(f"  nano_game launches with a collector on (nano_game_props): the paths' "
-          f"{PATH_LAUNCHES['nano_game_props']}")
+    # trial sharding and the bench entry run score-only nano launches
+    for name, attr in K1_ROWS.items():
+        nano[name]["launches"] = PATH_LAUNCHES[name]
+        print(f"  {name} launches ({attr}): the paths' {PATH_LAUNCHES[name]}")
+        check(PATH_LAUNCHES[name] > 0, f"the paths launched {name}")
     print(f"  forest_eval launches: exact mode {exact['launches']}, inputs from files "
           f"{files['launches']['forest_eval']}, server {served['launches']['forest_eval']}, "
           f"saved sims {saved['launches']['forest_eval']}, bench entry {benched['forest_eval']}, "

@@ -74,7 +74,6 @@ from __future__ import annotations
 
 import copy
 import csv
-import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
@@ -94,10 +93,9 @@ from .models.heads import DEFAULT_ARTIFACT_DIR, ModelHeads, load_heads
 from .models.tables import (HostTable, coarse_profile, nano_profile, slate_profile,
                             turbo_profile)
 from .ops.game import (GameState, Situation, make_analytic_heads_eval,
-                       make_exact_heads_eval, play_step, simulate_games,
-                       state_from_situation)
+                       make_exact_heads_eval, simulate_games)
 from .ops.pack import pack_heads, pack_matchup, pack_matchups
-from .ops.rng import fold_in, root_key, step_draws
+from .ops.rng import fold_in, root_key
 from .ops import table_lookup
 from .ops.table_lookup import (TableHeads, build_table_heads, fused_tables_from_heads,
                                make_table_heads_eval, nano_tables_from_heads, pack_tables,
@@ -311,8 +309,8 @@ class MatchupRunner:
                             key: Optional[int] = None) -> Dict[str, ScoreSummary]:
         """Win probability of each 4th-down choice from one down-4
         situation: {choice: ScoreSummary}.  'go', 'fg' and 'punt' force the
-        first play that way (one play_step under fourth.force, drawing from
-        its own stream), after which the game goes on under the runner's
+        first play that way (one play under fourth.force, drawing from its
+        own stream), after which the game goes on under the runner's
         config; 'policy' is the unforced live run.  Every choice's
         continuation draws the same chunk keys from absolute step 0 (common
         random numbers), so the differences between choices carry far less
@@ -368,19 +366,13 @@ class MatchupRunner:
     def _forced_moments(self, key: int, sit: Situation, n: int, force: str) -> ScoreMoments:
         """ScoreMoments of n score-only games resumed from `sit` under
         launch key `key`, the first play under fourth.force = force on
-        draws of its own, step_draws(fold_in(key, FORCED_PLAY_STREAM), 0,
-        ...); the game continues from there on the same draws as the
-        unforced run."""
-        cfg_f = dataclasses.replace(
-            self.cfg, fourth=dataclasses.replace(self.cfg.fourth, force=force))
-        init = state_from_situation(n, sit, self.cfg, self.device, 0, self.pack.k,
-                                    collect_players=False, collect_stats=False)
-        rows = n // 2 if self.cfg.engine.antithetic and n % 4 == 0 else n
-        draws = step_draws(fold_in(key, FORCED_PLAY_STREAM), 0, rows, self.device)
-        init = play_step(init, draws, self.pack, cfg_f, self.heads_fn, self.heads_state)
+        draws of its own, step 0 of fold_in(key, FORCED_PLAY_STREAM); the
+        game continues from there on the same draws as the unforced run.
+        One launch of the engine (K1 on the card for table heads)."""
         out = simulate_games(self.pack, self.cfg, self.heads_fn, self.heads_state, key, n, 0,
                              collect_players=False, collect_stats=False, situation=sit,
-                             init_state=init)
+                             first_play_force=force,
+                             first_play_key=fold_in(key, FORCED_PLAY_STREAM))
         return score_moments(out.score)
 
 

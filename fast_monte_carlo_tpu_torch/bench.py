@@ -170,8 +170,8 @@ def card_name_and_limit(dev: torch.device):
 
 def kernel_counters() -> dict:
     """The launch counters of the kernels a run can take (`chip_smoke.kernel_counts`):
-    which engine ran shows in them (K1 `nano_game` for a score-only nano-table
-    launch, else the eager loop's `philox_draws` play chunks)."""
+    which engine ran shows in them (K1 `nano_game` for a table-mode launch,
+    else the eager loop's `philox_draws` play chunks)."""
     from .ops import forest_eval, game, rng
     from .parallel import aggregate
 
@@ -435,6 +435,11 @@ def main(argv=None) -> int:
         import torch.distributed as dist
         dist.barrier()      # every rank done before any tears the group down
         dist.destroy_process_group()
+        # leave without the interpreter's teardown, where gloo has aborted a
+        # rank after destroy_process_group (rc -6), its line printed
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
     return 0
 
 

@@ -1033,7 +1033,7 @@ def main(argv=None) -> int:
     if ("LOCAL_RANK" in os.environ and getattr(args, "device", None) == "cuda"
             and torch.cuda.is_available()):   # a bare 'cuda' is the rank's own card
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    formed, done = not dist.is_initialized(), False
+    formed, done, rc = not dist.is_initialized(), False, None
     try:
         if process_rank() == 0:
             rc = args.fn(args)
@@ -1047,6 +1047,14 @@ def main(argv=None) -> int:
             if done:        # every rank done before any tears the group down
                 dist.barrier()
             dist.destroy_process_group()
+            if done:
+                # leave without the interpreter's teardown: after
+                # destroy_process_group, gloo has aborted a rank at exit
+                # ("terminate called without an active exception", rc -6),
+                # its work done and printed
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(rc if isinstance(rc, int) else 0)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,18 @@
-// K1: a whole launch of nano-table games in one kernel launch, score-only or
-// with the box score, the player stats or both.
+// K1: a whole launch of table-mode games in one kernel launch, score-only or
+// with the box score, the player stats or both, on any table layout.
 //
 // Replaces the compiled game loop of the JAX package (XLA on the TPU, not a
 // Pallas kernel): fast_monte_carlo_tpu/ops/game.py:844 simulate_games (its
 // while_loop over chunks of a scan over :337 play_step, the draws made
-// inside it) with the nano table heads of
-// fast_monte_carlo_tpu/ops/table_lookup.py:661 _nano_eval, and its
-// collectors: :309 _sample_slot, the team box score (:586-620) and the
-// player stats (:622-653).  Its plain version is ops/game.nano_game_plain;
-// the eager loop it stands in for on the card is
-// ops/game.simulate_games_eager.
+// inside it) with the table heads of fast_monte_carlo_tpu/ops/
+// table_lookup.py (:661 _nano_eval, :644 _fused_eval with :607
+// _unpack_head_row, the per-head lookups :540-605 and the play-policy
+// lookup :588-597, :627-639), the forced first play of the 4th-down
+// evaluator (game.py:392-415 under fast_monte_carlo_tpu/api.py:478-500
+// _forced_live_moments_jit), and its collectors: :309 _sample_slot, the
+// team box score (:586-620) and the player stats (:622-653).  Its plain
+// version is ops/game.nano_game_plain; the eager loop it stands in for on
+// the card is ops/game.simulate_games_eager.
 //
 // One lane plays one game at a time.  The state (off, sec, down, dist, ytg,
 // period, in_rz, going, score) stays in registers from the starting state to
@@ -27,22 +30,45 @@
 // Philox (philox.cuh, the stream philox_draws writes), mirrored for
 // antithetic games (game b plays draw row r0 + 2 (b / 4) + b % 2, as 1 - u
 // and -n where b % 4 >= 2); the 4th-down decision, the FG curve, the punt,
-// the pass, sack, INT and run branches with their quirks; the nano lookup
-// (dist, ytg, sec and score diff binned by _seg_bin's segment arithmetic,
-// then the c floats of the state's (down, sd) block of one row), unpacked
-// with or without stage-2 and fumble channels (the analytic stage 2 where
-// there are none); phases a-c, the halftime flip and the score.  No nano
-// head reads a player slot, so the slot draws (QB, target, rusher) are
-// sampled only by the instantiation with the player stats, and there only
-// for the roles the play involves.  The file is compiled with --fmad=false (utils/cuda_build.py) and
-// writes every literal as f32, so each multiply and add rounds on its own as
-// the eager step's one torch kernel a operation does.  What the eager step
-// computes per direction only (the explosive base, the two red-zone tanh
-// tilts, the SP+ yard multiplier and mismatch z) comes in per direction,
-// computed on the device by the same torch expressions (ops/game.
-// pack_nano_game), so this kernel never evaluates tanhf.  The SimConfig
-// constants, the padded go-for-it edges and grid, the FG curve and the
-// segments come in NanoConsts, built on the host from the config.
+// the pass, sack, INT and run branches with their quirks; the heads' lookup;
+// phases a-c, the halftime flip and the score.  The file is compiled with
+// --fmad=false (utils/cuda_build.py) and writes every literal as f32, so
+// each multiply and add rounds on its own as the eager step's one torch
+// kernel a operation does.  What the eager step computes per direction only
+// (the explosive base, the two red-zone tanh tilts, the SP+ yard multiplier
+// and mismatch z) comes in per direction, computed on the device by the
+// same torch expressions (ops/game.pack_nano_game), so this kernel never
+// evaluates tanhf.  The SimConfig constants, the padded go-for-it edges and
+// grid, the FG curve and the segments come in NanoConsts and LayoutConsts,
+// built on the host from the config and the tables.
+//
+// The layouts, one template instantiation each (kLayout) for each
+// combination of the collectors:
+// - kLayoutNano, the nano table with no play-policy lookup and no forced
+//   play (the instantiations the nano path had alone, compiled as before): dist,
+//   ytg, sec and score diff binned by _seg_bin's segment arithmetic, then
+//   the c floats of the state's (down, sd) block of one row, unpacked with
+//   or without stage-2 and fumble channels (the analytic stage 2 where
+//   there are none).  No nano head reads a player slot, so the slot draws
+//   (QB, target, rusher) are sampled only by the instantiation with the
+//   player stats, and there only for the roles the play involves.
+// - kLayoutRow, one row a play by strides (LayoutConsts): the fused layout
+//   (the row at (down, dist, ytg, sec[, sd]) of the fused profile, clamped
+//   into the table as jnp.take's mode="clip"), or the nano layout where the
+//   launch has the play-policy table or a forced play.
+// - kLayoutHeads, the per-head tables of a focus roster: the state binned
+//   on the fine and the coarse profile, the QB, target and rusher slots
+//   sampled every play, and each head's block through its row map by slot
+//   key (stage 1, the sack quantiles: QB; the rush quantiles and fumble:
+//   rusher) or pair key (QB x target: the pass quantiles, and stage 2
+//   where its table keys on pairs), each index clamped as _take's.
+// In the last two the play-policy table (the coach's P(pass) on the coarse
+// profile's cell and the score diff's bin among 26 edges) and the forced
+// 4th-down decision are branches uniform across the grid: the forced first
+// play (force_first, on the forced stream fk0, fk1 at step 0 of the game's
+// draw row, outside the play cap, as the eager composition plays it), then
+// the plays from step 0 of the launch key, each under force_every (the
+// config's fourth.force).
 //
 // Bound on the H100: the games' state read and written once (40 bytes in,
 // 36 out a game) and the nano table read once (6.9 MB a matchup) are far
@@ -117,6 +143,19 @@
 //     read after it: 1.165 and 1.228 (no gain; 10 bytes spilled); the
 //     tracked rows read ahead of the play too, into registers (the props
 //     instantiation at 128, no spills): 1.063 and 1.129, kept.
+// - The other layouts (held ms at 65,536 games on the same card, in turns
+//   with the nano score-only launch at 0.630-0.632; probes/kernels.py
+//   --games-only): the layout, the play table and the forced play are
+//   template and uniform branches kept out of the kLayoutNano
+//   instantiations, whose SASS is the same, instruction for instruction,
+//   as before the other layouts came in.  The fused row 0.668-0.669; the
+//   nano row with a play table 0.678; a forced go 0.295-0.296 (68.7 plays
+//   a game).  Per-head (a focus roster's default-profile tables, about
+//   620 MB, so each lookup is a sector from HBM): the slots' Philox block
+//   drawn first and the lookups issued under the rest of the draws,
+//   1.123-1.126 ms score-only and 1.877-1.878 with both collectors,
+//   against 1.162-1.164 and 1.946-1.960 with the lookups after the draws
+//   (103 registers against 109).
 // Each thread adds its games' plays to a block count in shared memory and
 // one thread a block adds that to `plays`, when given: what the
 // measurement's bound counts.
@@ -137,6 +176,12 @@ constexpr int kTeamStats = 19;  // stats.TEAM_STAT_FIELDS
 constexpr int kPoints = 17;     // its "points" column
 constexpr int kPlayerStats = 6; // stats.N_PLAYER_STATS
 constexpr int kRoles = 3;       // QB, rusher, target: pstats' role axis
+// the layouts (ops/game.LAYOUT_KINDS)
+constexpr int kLayoutNano = 0, kLayoutRow = 1, kLayoutHeads = 2;
+constexpr int kHeadTables = 6;  // stage1, stage2, pq, rq, sq, fumble (game.HEAD_TABLES)
+constexpr int kPlayEdges = 32;  // the play table's score-diff edges (26), padded
+// fourth.force codes (game.FORCE_CODES)
+constexpr int kForceGo = 1, kForceFg = 2;
 }  // namespace
 
 // One axis of _seg_bin (ops/table_lookup.py): segment k maps v to
@@ -206,12 +251,62 @@ struct NanoConsts {
   int cap;
 };
 
+// One per-head table (ops/table_lookup.DeviceTable): its (rows, cols)
+// values, its flat row map, the profile its state cell is on (0 the first,
+// NanoConsts' segments: fine; 1 the second, LayoutConsts': coarse), whether
+// the cell folds the score diff in, and its key (0 the QB slot, 1 the
+// rusher slot, 2 the QB x target pair).  values null: the table is absent.
+struct HeadTable {
+  const float* values;
+  const int* row_map;
+  int64_t rows;
+  int map_len;
+  int cols;
+  int profile;
+  int has_sd;
+  int key;
+};
+
+// What the layouts past kLayoutNano read, field for field as LayoutConsts
+// in ops/game.py (the launcher checks the size).  The pointers are filled
+// by the wrapper at launch.
+struct LayoutConsts {
+  // fourth.force codes of the forced first play and of every other play
+  // (0 none, 1 go, 2 fg, 3 punt), and the forced play's stream key
+  int force_first, force_every;
+  uint32_t fk0, fk1;
+  // kLayoutRow: row dirx * per_dir + down_i * s_down + di * s_dist + yi * s_ytg
+  // + si * s_sec + sdi * s_sd, clamped into [0, rows); its floats from
+  // down_i * b_down + sdi * b_sd; sd1: the first profile bins the score diff
+  int64_t rows;
+  int s_down, s_dist, s_ytg, s_sec, s_sd, b_down, b_sd, sd1;
+  // the first profile's dist axis (kLayoutHeads: fine), the second profile
+  // (coarse: per-head tables on it and the play table) and whether it bins
+  // the score diff
+  int nd1;
+  Segs dist2, ytg2, sec2, sd2;
+  int nd2, ny2, ns2, nsd2, sd2_on;
+  // the play-policy table: (rows, play_cols), each direction's first row,
+  // play_nsd score-diff bins at the edges (padded with +inf)
+  int has_play, play_nsd, play_cols;
+  const float* play;
+  const int64_t* play_base;
+  int64_t play_rows;
+  float play_edges[kPlayEdges];
+  // kLayoutHeads: stage1, stage2, pq, rq, sq, fumble; the slots a direction
+  // of the tables' keys; whether the fumble head is read
+  HeadTable heads[kHeadTables];
+  int k_heads, use_fumble;
+};
+
 namespace {
 
 // draw slots (ops/game.py U_*, N_*)
 constexpr int U_GO = 0, U_FG = 1, U_TB = 2, U_CALL = 3, U_QB = 4, U_WR = 5, U_RB = 6,
               U_COMPLETE = 7, U_EXP = 8, U_BOOST = 9, U_RZ = 10, U_S2 = 11, U_FUM = 12;
 constexpr int N_PUNT_GROSS = 0, N_PUNT_RET = 1, N_YARDS = 2, N_INT_RET = 3;
+static_assert(U_QB / 4 == U_WR / 4 && U_QB / 4 == U_RB / 4,
+              "the slot uniforms share one Philox block (draw_block)");
 
 struct Game {
   int off, sec, down, period, sa, sb;
@@ -485,18 +580,175 @@ __device__ __forceinline__ void add_player_row(const Accrual& a, int role, long 
   }
 }
 
+// The three roles' slots of a play in pstats' role order (QB, rusher,
+// target) from their uniforms (U_QB, U_RB, U_WR), as game._sample_slot
+// samples them: what the per-head lookups key on.
+__device__ __forceinline__ void sample_roles(const Accrual& a, int dirx, float u_qb, float u_rb,
+                                             float u_wr, int (&slot)[kRoles]) {
+  const float draw[kRoles] = {u_qb, u_rb, u_wr};
+#pragma unroll
+  for (int r = 0; r < kRoles; ++r) {
+    slot[r] = sample_slot(a.cum + static_cast<long long>(r) * a.dirs * a.k, a.k, dirx, draw[r]);
+  }
+}
+
+// `sample_slots` on slots sampled already: -1 where a slot is not tracked,
+// and the tracked slots' rows of game i's pstats as they were before the play.
+__device__ __forceinline__ Slots tracked_rows(const Accrual& a, int dirx, const int (&slot)[kRoles],
+                                              long long i, int off) {
+  Slots s;
+#pragma unroll
+  for (int r = 0; r < kRoles; ++r) {
+    const long long dir_row = static_cast<long long>(r) * a.dirs + dirx;
+    s.slot[r] = a.tracked[dir_row * a.k + slot[r]] ? slot[r] : -1;
+    if (s.slot[r] >= 0) {
+      const float2* cell = reinterpret_cast<const float2*>(
+          a.pstats + (((i * 2 + off) * kRoles + r) * a.k + slot[r]) * kPlayerStats);
+#pragma unroll
+      for (int q = 0; q < kPlayerStats / 2; ++q) s.row[r][q] = cell[q];
+    }
+  }
+  return s;
+}
+
+// Philox block b of (key, step, row): its 4 words as uniforms, mirrored
+// where `mirror` (philox.cuh's transform; block 1 holds U_QB, U_WR, U_RB).
+__device__ __forceinline__ void draw_block(uint32_t k0, uint32_t k1, uint32_t step, uint32_t row,
+                                           uint32_t b, bool mirror, float (&w)[4]) {
+  uint32_t c[4] = {row, step, b, 0u};
+  philox::philox4x32_10(c, k0, k1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x = static_cast<float>(c[i] & 0x00FFFFFFu) * 5.9604644775390625e-8f;
+    w[i] = mirror ? 1.0f - x : x;
+  }
+}
+
+__device__ __forceinline__ long long clamp_index(long long x, long long n) {
+  return x < 0 ? 0 : (x >= n ? n - 1 : x);
+}
+
+// The state's cells in the layouts past kLayoutNano: the score diff, the
+// down's class (down >= 5 is one), the bins on the first profile
+// (NanoConsts' segments) and, where `second`, on the second (LayoutConsts').
+struct Bins {
+  int sd, down_i, di, yi, si, sdi, di2, yi2, si2, sdi2;
+};
+
+__device__ __forceinline__ Bins bins(const NanoConsts& c, const LayoutConsts& lay,
+                                     const SegVals* sv, const Game& s, bool second) {
+  Bins b;
+  b.sd = (s.sa - s.sb) * (1 - 2 * s.off);
+  const float sdf = static_cast<float>(b.sd);
+  const float secf = static_cast<float>(s.sec);
+  b.down_i = min(max(s.down - 1, 0), 4);
+  b.di = seg_bin(c.dist, sv[0], s.dist);
+  b.yi = seg_bin(c.ytg, sv[1], s.ytg);
+  b.si = seg_bin(c.sec, sv[2], secf);
+  b.sdi = lay.sd1 ? seg_bin(c.sd, sv[3], sdf) : 0;
+  b.di2 = b.yi2 = b.si2 = b.sdi2 = 0;
+  if (second) {
+    b.di2 = seg_bin(lay.dist2, sv[4], s.dist);
+    b.yi2 = seg_bin(lay.ytg2, sv[5], s.ytg);
+    b.si2 = seg_bin(lay.sec2, sv[6], secf);
+    b.sdi2 = lay.sd2_on ? seg_bin(lay.sd2, sv[7], sdf) : 0;
+  }
+  return b;
+}
+
+// kLayoutRow: the floats of the state's row (table_lookup._fused_eval's
+// index, clamped as _take's; _nano_eval's row and (down, sd) block where the
+// strides are the nano table's, the clamp then a no-op).
+__device__ __forceinline__ const float* row_at(const NanoConsts& c, const LayoutConsts& lay,
+                                               const float* __restrict__ table, const Bins& b,
+                                               int dirx) {
+  const long long row = static_cast<long long>(dirx) * c.per_dir
+                        + static_cast<long long>(b.down_i) * lay.s_down
+                        + static_cast<long long>(b.di) * lay.s_dist
+                        + static_cast<long long>(b.yi) * lay.s_ytg
+                        + static_cast<long long>(b.si) * lay.s_sec
+                        + static_cast<long long>(b.sdi) * lay.s_sd;
+  return table + clamp_index(row, lay.rows) * c.cols + b.down_i * lay.b_down + b.sdi * lay.b_sd;
+}
+
+// The state's cell on the second (coarse) profile: table_lookup._state_idx.
+__device__ __forceinline__ int cell2(const LayoutConsts& lay, const Bins& b) {
+  return ((b.down_i * lay.nd2 + b.di2) * lay.ny2 + b.yi2) * lay.ns2 + b.si2;
+}
+
+// The play-policy table's P(pass) of the state (table_lookup.py's play
+// lookup): the direction's first row, the coarse cell's play_nsd bins and
+// the score diff's bin, the count of edges below it (_bin), clamped.
+__device__ __forceinline__ const float* play_at(const LayoutConsts& lay, const Bins& b, int dirx) {
+  const float sdf = static_cast<float>(b.sd);
+  int bin = 0;
+#pragma unroll
+  for (int e = 0; e < kPlayEdges; ++e) bin += sdf > lay.play_edges[e] ? 1 : 0;
+  const long long idx = __ldg(lay.play_base + dirx) + cell2(lay, b) * lay.play_nsd + bin;
+  return lay.play + clamp_index(idx, lay.play_rows) * lay.play_cols;
+}
+
+// kLayoutHeads: head table t's row of the state (table_lookup._per_head_eval's
+// lookup): the block of its key through the row map, plus the state's cell
+// on its profile with the score diff folded in where the table has it, each
+// index clamped.
+__device__ __forceinline__ const float* head_at(const HeadTable& t, long long key, int cell1,
+                                                int cell2_, int sdi1, int sdi2, int nsd1,
+                                                int nsd2) {
+  const int base = __ldg(t.row_map + clamp_index(key, t.map_len));
+  int st = t.profile ? cell2_ : cell1;
+  if (t.has_sd) st = st * (t.profile ? nsd2 : nsd1) + (t.profile ? sdi2 : sdi1);
+  return t.values + clamp_index(static_cast<long long>(base) + st, t.rows) * t.cols;
+}
+
+// kLayoutHeads: the play's head channels from the per-head tables, keyed on
+// the play's slots (QB, rusher, target): stage 1 (p_c), stage 2's
+// cumulative pair where the table exists, the pass, rush and sack
+// quantiles' (mu, sigma), the fumble probability where it is read.
+__device__ __forceinline__ Row head_rows(const NanoConsts& c, const LayoutConsts& lay, const Bins& b,
+                                         int dirx, const int (&slot)[kRoles]) {
+  const long long kk = lay.k_heads;
+  const long long qb = static_cast<long long>(dirx) * kk + slot[0];
+  const long long keys[3] = {qb, static_cast<long long>(dirx) * kk + slot[1], qb * kk + slot[2]};
+  const int cell1 = ((b.down_i * lay.nd1 + b.di) * c.ny + b.yi) * c.ns + b.si;
+  const int c2 = cell2(lay, b);
+  const float* h[kHeadTables];
+#pragma unroll
+  for (int t = 0; t < kHeadTables; ++t) {
+    const HeadTable& ht = lay.heads[t];
+    h[t] = ht.values == nullptr ? nullptr
+                                : head_at(ht, keys[ht.key], cell1, c2, b.sdi, b.sdi2, c.nsd, lay.nsd2);
+  }
+  Row r;
+  r.p_c = __ldg(h[0]);
+  r.s2c0 = c.has_s2 ? __ldg(h[1]) : 0.0f;
+  r.s2c1 = c.has_s2 ? __ldg(h[1] + 1) : 0.0f;
+  r.pass_mu = __ldg(h[2]);
+  r.pass_sg = __ldg(h[2] + 1);
+  r.rush_mu = __ldg(h[3]);
+  r.rush_sg = __ldg(h[3] + 1);
+  r.sack_mu = __ldg(h[4]);
+  r.sack_sg = __ldg(h[4] + 1);
+  r.p_f = lay.use_fumble ? __ldg(h[5]) : 0.0f;
+  return r;
+}
+
 // One play of an active game (sec > 0): game.play_step with the nano heads,
 // on the row `row_of` gave for this state.  With kStats the play's 19 team
 // stats (less `points`, written when the game ends) are added to the
 // offense's side of the lane's stripe `team` (column q of side o at
 // (o * kTeamStats + q) * kThreads); with kPlayers each role the play
 // involves (QB and target on a pass play, rusher on a run: the roles whose
-// eager delta is not all +0.0) adds its row to game i's pstats.
-template <bool kStats, bool kPlayers>
+// eager delta is not all +0.0) adds its row to game i's pstats.  With
+// kGeneral (the layouts past kLayoutNano) the 4th-down decision is forced
+// where `force` is a fourth.force code, and the play-policy table's P(pass)
+// `p_ml` replaces pass_prob_v1 where `use_ml`.
+template <bool kStats, bool kPlayers, bool kGeneral = false>
 __device__ __forceinline__ void play(const NanoConsts& c, const float* grid, const Row& r,
                                      const DirVals& d0, const DirVals& d1, Game& s,
                                      const float* u, const float* n, float* team,
-                                     const Accrual& acc, const Slots& sl, long long i) {
+                                     const Accrual& acc, const Slots& sl, long long i,
+                                     int force = 0, bool use_ml = false, float p_ml = 0.0f) {
   const int off = s.off, down0 = s.down, sec0 = s.sec;
   const float dist0 = s.dist, ytg0 = s.ytg;
   const int sd = (s.sa - s.sb) * (1 - 2 * off);
@@ -509,9 +761,18 @@ __device__ __forceinline__ void play(const NanoConsts& c, const float* grid, con
   // ---- 4th-down decision
   const float p_go = fminf(go_for_it_prob(c, grid, ytg0, dist0, sd, sec0) * c.go_multiplier, 1.0f);
   const bool is4 = down0 == 4;
-  const bool go = is4 && u[U_GO] < p_go;
-  const bool st_play = is4 && !go;
-  const bool fg_att = st_play && ytg0 <= c.fg_attempt_max_ytg;
+  bool go, st_play, fg_att;
+  if constexpr (kGeneral) {
+    // fourth.force: the decision overridden, the draws used as ever
+    const bool forced = force != 0;
+    go = forced ? is4 && force == kForceGo : is4 && u[U_GO] < p_go;
+    st_play = forced ? is4 && force != kForceGo : is4 && !go;
+    fg_att = forced ? st_play && force == kForceFg : st_play && ytg0 <= c.fg_attempt_max_ytg;
+  } else {
+    go = is4 && u[U_GO] < p_go;
+    st_play = is4 && !go;
+    fg_att = st_play && ytg0 <= c.fg_attempt_max_ytg;
+  }
   const bool punt = st_play && !fg_att;
   const bool scrim = !st_play;
 
@@ -542,7 +803,12 @@ __device__ __forceinline__ void play(const NanoConsts& c, const float* grid, con
   if (!c.has_s2) stage2_fallback(c, down0, dist0, &s2c0, &s2c1);
   const float p_f = r.p_f;
 
-  const float p_pass = pass_prob_v1(c, down0, dist0, ytg0, sec0, sd);
+  float p_pass;
+  if constexpr (kGeneral) {
+    p_pass = use_ml ? p_ml : pass_prob_v1(c, down0, dist0, ytg0, sec0, sd);
+  } else {
+    p_pass = pass_prob_v1(c, down0, dist0, ytg0, sec0, sd);
+  }
   const bool is_pass = scrim && u[U_CALL] < p_pass;
   const bool is_run = scrim && !is_pass;
   const bool complete = is_pass && u[U_COMPLETE] < p_c;
@@ -708,6 +974,8 @@ struct Lane {
   int j;              // plays played, the absolute step of the next
   uint32_t row;
   bool mirror;
+  bool forced;        // the forced first play is next (layouts past kLayoutNano)
+  int extra;          // 1 once the forced play is played (outside the cap and j)
 };
 
 // Lane `g` takes game i: its state and its directions' constants read, and
@@ -746,6 +1014,23 @@ __device__ __forceinline__ void start(Lane& g, long long i, const InPtrs& in,
   g.mirror = anti && (b & 3u) >= 2u;
 }
 
+// `start`, and in the layouts past kLayoutNano the launch's forced first
+// play: a game with sec > 0 plays it outside the cap, one with sec <= 0
+// gets its masked step (the forced play_step runs whatever the run flag).
+template <int kLayout, bool kStats>
+__device__ __forceinline__ void take(Lane& g, long long i, const InPtrs& in,
+                                     const float* __restrict__ dirs, int n_matchups, uint32_t r0,
+                                     int anti, bool run, bool forced, float* team,
+                                     const Accrual& acc) {
+  if constexpr (kLayout == kLayoutNano) {
+    start<kStats>(g, i, in, dirs, n_matchups, r0, anti, run, team, acc);
+  } else {
+    start<kStats>(g, i, in, dirs, n_matchups, r0, anti, run || forced, team, acc);
+    g.forced = forced && g.live;
+    g.extra = 0;
+  }
+}
+
 // Lane `g`'s game written out; with kStats its stripe's team stats, the
 // final score in `points` (as the eager loop writes it after its last play).
 template <bool kStats>
@@ -776,19 +1061,22 @@ __device__ __forceinline__ void finish(const Lane& g, const OutPtrs& out, const 
 // games handed out past the first lanes, one atomicAdd a warp for all its
 // lanes whose games ended at that play).  work[1] counts the blocks done;
 // the last resets both, so the next launch on the stream finds them 0.
-// One instantiation a combination of the collectors; with kStats the block
-// holds a stripe of 2 x kTeamStats floats a lane in dynamic shared memory.
-template <bool kStats, bool kPlayers>
+// One instantiation a layout and combination of the collectors; with kStats
+// the block holds a stripe of 2 x kTeamStats floats a lane in dynamic shared
+// memory.  `lay` is read only past kLayoutNano.
+template <int kLayout, bool kStats, bool kPlayers>
 __global__ void __launch_bounds__(kThreads)
     nano_game_kernel(const NanoConsts c, const float* __restrict__ table,
                      const float* __restrict__ dirs, int n_matchups, const InPtrs in,
                      const OutPtrs out, uint32_t k0, uint32_t k1, uint32_t r0, int anti,
                      const bool* run_flag, unsigned int* work, const Counters cnt,
-                     const Accrual acc, int n) {
+                     const Accrual acc, int n, const LayoutConsts lay) {
+  constexpr bool kGeneral = kLayout != kLayoutNano;
   extern __shared__ float stripes[];
   float* const team = stripes + threadIdx.x;
   __shared__ float grid[kGridCells];
-  __shared__ SegVals sv[4];          // dist, ytg, sec, sd
+  // dist, ytg, sec, sd; past kLayoutNano the second profile's too
+  __shared__ SegVals sv[kGeneral ? 8 : 4];
   __shared__ unsigned long long block_plays, block_iters;
   for (int k = threadIdx.x; k < c.go_cells; k += kThreads) grid[k] = c.go_grid[k];
   if (threadIdx.x == 0) {
@@ -804,43 +1092,107 @@ __global__ void __launch_bounds__(kThreads)
       sv[2].top[k] = c.sec.top[k], sv[2].base[k] = c.sec.base[k];
       sv[3].start[k] = c.sd.start[k], sv[3].inv_step[k] = c.sd.inv_step[k];
       sv[3].top[k] = c.sd.top[k], sv[3].base[k] = c.sd.base[k];
+      if constexpr (kGeneral) {
+        const Segs* second[4] = {&lay.dist2, &lay.ytg2, &lay.sec2, &lay.sd2};
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          sv[4 + a].start[k] = second[a]->start[k], sv[4 + a].inv_step[k] = second[a]->inv_step[k];
+          sv[4 + a].top[k] = second[a]->top[k], sv[4 + a].base[k] = second[a]->base[k];
+        }
+      }
     }
   }
   __syncthreads();
   const bool run = c.cap > 0 && (run_flag == nullptr || *run_flag);
+  const bool forced_launch = kGeneral && lay.force_first != 0;
+  // the second profile's bins: the per-head tables on it, or the play table
+  const bool second = kLayout == kLayoutHeads || (kGeneral && lay.has_play);
   const unsigned lane = threadIdx.x & 31u;
   const long long lanes = static_cast<long long>(gridDim.x) * kThreads;
   Lane g;
   g.i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   g.live = false;
-  if (g.i < n) start<kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, team, acc);
+  if (g.i < n) take<kLayout, kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, forced_launch, team, acc);
   bool open = lanes < n;             // the queue has games to hand out (warp-uniform)
   unsigned long long played = 0;     // plays of this lane's finished games
   unsigned int iters = 0;            // this warp's loop trips
   while (__any_sync(kFull, g.i < n)) {
     ++iters;
-    if (g.live) {
-      // the row's loads first, the draws under their latency, then the play
-      const Row r = load_row(c, row_of(c, sv, table, g.s));
-      float u[philox::kUniforms], z[philox::kNormals];
-      philox::step_draws(k0, k1, static_cast<uint32_t>(g.j), g.row, u, z);
-      if (g.mirror) {
+    if constexpr (!kGeneral) {
+      if (g.live) {
+        // the row's loads first, the draws under their latency, then the play
+        const Row r = load_row(c, row_of(c, sv, table, g.s));
+        float u[philox::kUniforms], z[philox::kNormals];
+        philox::step_draws(k0, k1, static_cast<uint32_t>(g.j), g.row, u, z);
+        if (g.mirror) {
 #pragma unroll
-        for (int k = 0; k < philox::kUniforms; ++k) u[k] = 1.0f - u[k];
+          for (int k = 0; k < philox::kUniforms; ++k) u[k] = 1.0f - u[k];
 #pragma unroll
-        for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
+          for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
+        }
+        Slots sl{};
+        if constexpr (kPlayers) sl = sample_slots(acc, g.s.gid * 2 + g.s.off, u, g.i, g.s.off);
+        play<kStats, kPlayers>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl, g.i);
+        ++g.j;
+        g.live = g.s.sec > 0 && g.j < c.cap;
       }
-      Slots sl{};
-      if constexpr (kPlayers) sl = sample_slots(acc, g.s.gid * 2 + g.s.off, u, g.i, g.s.off);
-      play<kStats, kPlayers>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl, g.i);
-      ++g.j;
-      g.live = g.s.sec > 0 && g.j < c.cap;
+    } else {
+      if (g.live) {
+        // the lookups that need no draw issued first (the row, the play
+        // table); per-head, the slots' Philox block, the slots and the
+        // lookups keyed on them next; then the play's draws (the forced
+        // play's on its own stream) under their latency, then the play
+        const int dirx = g.s.gid * 2 + g.s.off;
+        const Bins b = bins(c, lay, sv, g.s, second);
+        Row r{};
+        if constexpr (kLayout == kLayoutRow) r = load_row(c, row_at(c, lay, table, b, dirx));
+        const float p_ml = lay.has_play ? __ldg(play_at(lay, b, dirx)) : 0.0f;
+        const bool forced = g.forced;
+        const uint32_t dk0 = forced ? lay.fk0 : k0, dk1 = forced ? lay.fk1 : k1;
+        const uint32_t step = forced ? 0u : static_cast<uint32_t>(g.j);
+        int slot[kRoles] = {0, 0, 0};
+        if constexpr (kLayout == kLayoutHeads) {
+          float w[4];
+          draw_block(dk0, dk1, step, g.row, U_QB / 4, g.mirror, w);
+          sample_roles(acc, dirx, w[U_QB % 4], w[U_RB % 4], w[U_WR % 4], slot);
+          r = head_rows(c, lay, b, dirx, slot);
+        }
+        float u[philox::kUniforms], z[philox::kNormals];
+        philox::step_draws(dk0, dk1, step, g.row, u, z);
+        if (g.mirror) {
+#pragma unroll
+          for (int k = 0; k < philox::kUniforms; ++k) u[k] = 1.0f - u[k];
+#pragma unroll
+          for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
+        }
+        if constexpr (kLayout != kLayoutHeads && kPlayers) {
+          sample_roles(acc, dirx, u[U_QB], u[U_RB], u[U_WR], slot);
+        }
+        Slots sl{};
+        if constexpr (kPlayers) sl = tracked_rows(acc, dirx, slot, g.i, g.s.off);
+        play<kStats, kPlayers, true>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl, g.i,
+                                     forced ? lay.force_first : lay.force_every, lay.has_play,
+                                     p_ml);
+        if (forced) {
+          g.forced = false;
+          g.extra = 1;
+        } else {
+          ++g.j;
+        }
+        g.live = g.s.sec > 0 && g.j < c.cap;
+      }
     }
     const bool done = g.i < n && !g.live;
     if (done) {
       finish<kStats>(g, out, team, acc);
-      played += static_cast<unsigned long long>(g.j);
-      if (cnt.game_plays != nullptr) cnt.game_plays[g.i] = g.j;
+      if constexpr (!kGeneral) {
+        played += static_cast<unsigned long long>(g.j);
+        if (cnt.game_plays != nullptr) cnt.game_plays[g.i] = g.j;
+      } else {
+        // the forced play counts as a play
+        played += static_cast<unsigned long long>(g.j + g.extra);
+        if (cnt.game_plays != nullptr) cnt.game_plays[g.i] = g.j + g.extra;
+      }
     }
     const unsigned m = __ballot_sync(kFull, done);
     if (m != 0u) {
@@ -856,7 +1208,7 @@ __global__ void __launch_bounds__(kThreads)
       if (done) {
         g.i = next + __popc(m & ((1u << lane) - 1u));
         g.live = false;
-        if (g.i < n) start<kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, team, acc);
+        if (g.i < n) take<kLayout, kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, forced_launch, team, acc);
       }
     }
   }
@@ -876,12 +1228,25 @@ __global__ void __launch_bounds__(kThreads)
 
 using KernelFn = void (*)(NanoConsts, const float*, const float*, int, InPtrs, OutPtrs, uint32_t,
                          uint32_t, uint32_t, int, const bool*, unsigned int*, Counters, Accrual,
-                         int);
+                         int, LayoutConsts);
 
-// The instantiation of the collectors `stats` and `players`.
-KernelFn kernel_of(bool stats, bool players) {
-  if (stats) return players ? nano_game_kernel<true, true> : nano_game_kernel<true, false>;
-  return players ? nano_game_kernel<false, true> : nano_game_kernel<false, false>;
+template <int kLayout>
+KernelFn kernel_of_layout(bool stats, bool players) {
+  if (stats) {
+    return players ? nano_game_kernel<kLayout, true, true> : nano_game_kernel<kLayout, true, false>;
+  }
+  return players ? nano_game_kernel<kLayout, false, true> : nano_game_kernel<kLayout, false, false>;
+}
+
+// The instantiation of the layout and the collectors `stats` and
+// `players`; null for an unknown layout.
+KernelFn kernel_of(int layout, bool stats, bool players) {
+  switch (layout) {
+    case kLayoutNano: return kernel_of_layout<kLayoutNano>(stats, players);
+    case kLayoutRow: return kernel_of_layout<kLayoutRow>(stats, players);
+    case kLayoutHeads: return kernel_of_layout<kLayoutHeads>(stats, players);
+    default: return nullptr;
+  }
 }
 
 // Its dynamic shared memory: the lanes' team-stat stripes.
@@ -891,18 +1256,37 @@ size_t stripe_bytes(bool stats) { return stats ? 2 * kTeamStats * kThreads * siz
 
 extern "C" int nano_game_consts_size() { return static_cast<int>(sizeof(NanoConsts)); }
 
+extern "C" int nano_game_layout_size() { return static_cast<int>(sizeof(LayoutConsts)); }
+
 // Threads a block of K1.
 extern "C" int nano_game_threads() { return kThreads; }
 
-// Blocks of K1's instantiation for the collectors `stats` and `players`
-// (0 or 1) that one SM holds at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device), or
-// minus the CUDA error.
-extern "C" int nano_game_blocks_per_sm(int stats, int players) {
+// Blocks of K1's instantiation for the layout (kLayoutNano, kLayoutRow,
+// kLayoutHeads) and the collectors `stats` and `players` (0 or 1) that one
+// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
+// current device), or minus the CUDA error.
+extern "C" int nano_game_blocks_per_sm(int layout, int stats, int players) {
+  const KernelFn fn = kernel_of(layout, stats, players);
+  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel_of(stats, players), kThreads, stripe_bytes(stats));
+      &blocks, fn, kThreads, stripe_bytes(stats));
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Registers a thread and local-memory bytes a thread (register spills and
+// local arrays) of the instantiation for the layout and collectors, by
+// cudaFuncGetAttributes on the current device: 0, or the CUDA error.
+extern "C" int nano_game_attributes(int layout, int stats, int players, int* regs,
+                                    int* local_bytes) {
+  const KernelFn fn = kernel_of(layout, stats, players);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 // The games of one launch to their end.  table: (rows, cols) f32; dirs:
@@ -920,16 +1304,20 @@ extern "C" int nano_game_blocks_per_sm(int stats, int players) {
 // stats, and pstats, a contiguous (n, 2, 3, k, 6) f32 tensor of their
 // player stats, both added to in place; with pstats, cum and tracked, the
 // (3, 2 x n_matchups, k) f32 cumulative shares and bool tracked flags of
-// the QB, rusher and target slots.  `blocks` blocks of kThreads (at most
-// the resident blocks, `nano_game_blocks_per_sm` of the instantiation x
-// the SMs).  Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// the QB, rusher and target slots (cum also for kLayoutHeads, whose lookups
+// key on the slots).  `layout` picks the instantiation, `lay` its
+// LayoutConsts (past kLayoutNano: the force codes and key, the strides, the
+// second profile, the play table and the per-head tables).  `blocks` blocks
+// of kThreads (at most the resident blocks, `nano_game_blocks_per_sm` of the
+// instantiation x the SMs).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const void* dirs,
                                 int n_matchups, void* const* in, void* const* out, uint32_t k0,
                                 uint32_t k1, uint32_t r0, int anti, const void* run_flag,
                                 void* work, void* plays, void* iters, void* game_plays,
                                 void* stats, void* pstats, const void* cum, const void* tracked,
-                                int k, int n, int blocks, void* stream) {
+                                int k, int layout, const LayoutConsts* lay, int n, int blocks,
+                                void* stream) {
   if (n <= 0) return 0;
   const InPtrs ip{static_cast<const int*>(in[0]),   static_cast<const int*>(in[1]),
                   static_cast<const int*>(in[2]),   static_cast<const int*>(in[3]),
@@ -947,10 +1335,11 @@ extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const vo
                     static_cast<const float*>(cum), static_cast<const bool*>(tracked), k,
                     2 * n_matchups};
   const bool with_stats = stats != nullptr, with_players = pstats != nullptr;
-  kernel_of(with_stats, with_players)<<<blocks, kThreads, stripe_bytes(with_stats),
-                                        static_cast<cudaStream_t>(stream)>>>(
+  const KernelFn fn = kernel_of(layout, with_stats, with_players);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  fn<<<blocks, kThreads, stripe_bytes(with_stats), static_cast<cudaStream_t>(stream)>>>(
       *c, static_cast<const float*>(table), static_cast<const float*>(dirs), n_matchups, ip,
       op, k0, k1, r0, anti, static_cast<const bool*>(run_flag),
-      static_cast<unsigned int*>(work), cnt, acc, n);
+      static_cast<unsigned int*>(work), cnt, acc, n, *lay);
   return static_cast<int>(cudaGetLastError());
 }

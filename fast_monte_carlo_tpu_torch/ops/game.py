@@ -38,7 +38,7 @@ package's dense one-hot add (its `ops/game.py:649-653`) gives the same bits,
 since every other cell adds +-0, but reads and writes the whole
 (B, 2, 3, K, 6) carry every play.  A disabled collector carries the JAX
 package's 1-element dummy.  On the card K1 (`nano_game`) accrues both in
-its launch for nano-table launches, adding in play order onto the
+its launch for table-mode launches, adding in play order onto the
 incoming values as the eager step does.
 
 Game state keeps the JAX package's int32/f32/bool dtypes; indices are cast
@@ -636,12 +636,18 @@ def initial_state(n: int, first_offense, cfg: SimConfig, device, game_id=0,
 def _launch_state(pack: MatchupPack, cfg: SimConfig, n: int, first_offense,
                   collect_players: bool, game_id, collect_stats: bool,
                   situation: Optional[Situation], init_state: Optional[GameState],
-                  row0: int, antithetic: Optional[bool]) -> Tuple[GameState, SimConfig, bool]:
+                  row0: int, antithetic: Optional[bool], first_play_force: Optional[str] = None,
+                  first_play_key: Optional[int] = None) -> Tuple[GameState, SimConfig, bool]:
     """A launch's starting state, its config (engine.antithetic set to the
     launch's choice) and that choice, after `simulate_games`' checks."""
     rng = cfg.engine.rng_impl
     if rng not in RNG_IMPLS:
         raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got {rng!r}")
+    if first_play_force is not None and (first_play_force not in FORCE_CODES
+                                         or first_play_key is None):
+        raise ValueError("a forced first play takes first_play_force 'go', 'fg' or 'punt' and "
+                         f"its stream's first_play_key; got {first_play_force!r}, "
+                         f"{first_play_key!r}")
     dev = pack.device
     if init_state is not None:
         if init_state.off.shape[0] != n:
@@ -665,12 +671,19 @@ def _launch_state(pack: MatchupPack, cfg: SimConfig, n: int, first_offense,
 
 def _play_loop(s: GameState, pack: MatchupPack, cfg: SimConfig, heads_eval: HeadsEvalFn,
                heads_state, key: int, row0: int, anti: bool, collect_players: bool,
-               collect_stats: bool) -> GameState:
-    """The eager game loop: chunks of play_chunk eager play steps."""
+               collect_stats: bool, first_play_force: Optional[str] = None,
+               first_play_key: Optional[int] = None) -> GameState:
+    """The eager game loop: with `first_play_force`, one eager play step
+    under that fourth.force on step 0 of `first_play_key`'s stream; then
+    chunks of play_chunk eager play steps."""
     dev = pack.device
     n = s.off.shape[0]
     rows = n // 2 if anti else n
     r0 = row0 // 2 if anti else row0
+    if first_play_force is not None:
+        cfg_f = cfg.replace(fourth=dataclasses.replace(cfg.fourth, force=first_play_force))
+        s = play_step(s, step_draws(first_play_key, 0, rows, dev, row0=r0), pack, cfg_f,
+                      heads_eval, heads_state, collect_players, collect_stats)
     ch = cfg.engine.play_chunk
     n_chunks = -(-cfg.engine.max_plays // ch)
     buf = None
@@ -708,6 +721,8 @@ def simulate_games(
     init_state: Optional[GameState] = None,
     row0: int = 0,
     antithetic: Optional[bool] = None,
+    first_play_force: Optional[str] = None,
+    first_play_key: Optional[int] = None,
 ) -> GameState:
     """Run n independent games to completion on the pack's device; returns
     the final GameState.  `key` is a 64-bit launch key (ops/rng.fold_in).
@@ -722,16 +737,19 @@ def simulate_games(
     Games start at the opening kickoff with `first_offense` (an int or an
     (n,) tensor); `situation` resumes them from a mid-game state instead
     (possession comes from it), and `init_state`, a GameState of n games
-    with the collectors' shapes, overrides both (the 4th-down evaluator
-    plays one forced play, then continues here).  Either way the draws
-    start at absolute step 0.
+    with the collectors' shapes, overrides both.  Either way the draws
+    start at absolute step 0.  `first_play_force` ('go', 'fg' or 'punt',
+    the 4th-down evaluator's choice) plays one play first under that
+    fourth.force, on the same rows of step 0 of `first_play_key`'s stream,
+    outside the play cap; the games go on from there under `cfg`.
 
-    On the card a launch that `nano_game_covers` (table heads on a nano
-    table, no play-policy lookup, no forced 4th-down choice; either
-    collector, both or none) runs K1, the whole launch in one kernel launch
-    (`nano_game`, the collectors' instantiation); a failure to build or
-    launch it raises.  Every other launch, and every
-    launch on the CPU, runs the eager loop of `simulate_games_eager`, which
+    On the card a launch that `nano_game_covers` (table heads of any
+    layout, with or without the play-policy table, any fourth.force and
+    forced first play; either collector, both or none) runs K1, the whole
+    launch in one kernel launch (`nano_game`, the layout's and the
+    collectors' instantiation); a failure to build or launch it raises.
+    Every other launch (exact and analytic heads), and every launch on the
+    CPU, runs the eager loop of `simulate_games_eager`, which
     plays the same games: plays run in chunks of `play_chunk`; before each
     chunk the host asks once whether any game is still running (with
     early_exit), as the JAX package's while_loop cond does, so resumed
@@ -748,12 +766,13 @@ def simulate_games(
     place, and with collect_stats the final score is written into the
     `points` column when the games end."""
     s, cfg, anti = _launch_state(pack, cfg, n, first_offense, collect_players, game_id,
-                                 collect_stats, situation, init_state, row0, antithetic)
+                                 collect_stats, situation, init_state, row0, antithetic,
+                                 first_play_force, first_play_key)
     if pack.device.type == "cuda" and nano_game_covers(cfg, heads_eval, heads_state):
         return nano_game(pack_nano_game(pack, cfg, heads_state), s, key, row0, anti,
-                         collect_players, collect_stats)
+                         collect_players, collect_stats, first_play_force, first_play_key)
     return _play_loop(s, pack, cfg, heads_eval, heads_state, key, row0, anti,
-                      collect_players, collect_stats)
+                      collect_players, collect_stats, first_play_force, first_play_key)
 
 
 def simulate_games_eager(
@@ -771,19 +790,22 @@ def simulate_games_eager(
     init_state: Optional[GameState] = None,
     row0: int = 0,
     antithetic: Optional[bool] = None,
+    first_play_force: Optional[str] = None,
+    first_play_key: Optional[int] = None,
 ) -> GameState:
     """`simulate_games` on the eager loop alone, on any device: one eager
-    `play_step` a play (some 630-670 device kernels a play on the card).
+    `play_step` a play (some 630-750 device kernels a play on the card).
     K1's plain version at the level of a launch, and the path of every
     launch K1 does not cover."""
     s, cfg, anti = _launch_state(pack, cfg, n, first_offense, collect_players, game_id,
-                                 collect_stats, situation, init_state, row0, antithetic)
+                                 collect_stats, situation, init_state, row0, antithetic,
+                                 first_play_force, first_play_key)
     return _play_loop(s, pack, cfg, heads_eval, heads_state, key, row0, anti,
-                      collect_players, collect_stats)
+                      collect_players, collect_stats, first_play_force, first_play_key)
 
 
 # ---------------------------------------------------------------------------
-# K1: a whole launch of nano-table games in one kernel (csrc/nano_game.cu)
+# K1: a whole launch of table-mode games in one kernel (csrc/nano_game.cu)
 # ---------------------------------------------------------------------------
 
 _SLOTS = 8          # go-for-it edges an axis, FG points (padded)
@@ -809,9 +831,10 @@ def _ints(*names):
 
 
 class NanoConsts(ctypes.Structure):
-    """What K1 reads of the config and the nano profile, as `NanoConsts` in
-    csrc/nano_game.cu (field for field; the launcher checks the size).
-    Every float is the f32 the eager step's torch kernels compute with."""
+    """What K1 reads of the config and the table's first profile (nano,
+    fused or fine), as `NanoConsts` in csrc/nano_game.cu (field for field;
+    the launcher checks the size).  Every float is the f32 the eager step's
+    torch kernels compute with."""
     _fields_ = (
         [("go_ytg_edges", ctypes.c_float * _SLOTS), ("go_dist_edges", ctypes.c_float * _SLOTS),
          ("go_grid", ctypes.c_float * _GRID_CELLS)]
@@ -844,18 +867,69 @@ class NanoConsts(ctypes.Structure):
         + _ints("ny", "ns", "nsd", "c", "cols", "per_dir", "has_s2", "has_fumble", "cap"))
 
 
+class _HeadTable(ctypes.Structure):
+    """One per-head table, as `HeadTable` in csrc/nano_game.cu: the values'
+    and row map's pointers (filled at launch), rows, the row map's length,
+    channels, the profile of its cell (0 fine, 1 coarse), whether the cell
+    folds the score diff in, and its key (0 QB slot, 1 rusher slot, 2 QB x
+    target pair)."""
+    _fields_ = ([("values", ctypes.c_void_p), ("row_map", ctypes.c_void_p),
+                 ("rows", ctypes.c_int64)]
+                + _ints("map_len", "cols", "profile", "has_sd", "key"))
+
+
+_PLAY_EDGES = 32    # the play table's score-diff edges (26), padded
+HEAD_TABLES = ("stage1", "stage2", "pq", "rq", "sq", "fumble")
+
+
+class LayoutConsts(ctypes.Structure):
+    """What K1 reads past the nano layout, as `LayoutConsts` in
+    csrc/nano_game.cu (field for field; the launcher checks the size): the
+    force codes and the forced play's key, the one-row layout's strides,
+    the second (coarse) profile, the play-policy table and the per-head
+    tables.  `pack_nano_game` fills all but the pointers and the forced
+    play, which `nano_game_cuda` sets on its copy at launch."""
+    _fields_ = (
+        _ints("force_first", "force_every")
+        + [("fk0", ctypes.c_uint32), ("fk1", ctypes.c_uint32), ("rows", ctypes.c_int64)]
+        + _ints("s_down", "s_dist", "s_ytg", "s_sec", "s_sd", "b_down", "b_sd", "sd1", "nd1")
+        + [("dist2", _Segs), ("ytg2", _Segs), ("sec2", _Segs), ("sd2", _Segs)]
+        + _ints("nd2", "ny2", "ns2", "nsd2", "sd2_on", "has_play", "play_nsd", "play_cols")
+        + [("play", ctypes.c_void_p), ("play_base", ctypes.c_void_p),
+           ("play_rows", ctypes.c_int64), ("play_edges", ctypes.c_float * _PLAY_EDGES),
+           ("heads", _HeadTable * len(HEAD_TABLES))]
+        + _ints("k_heads", "use_fumble"))
+
+
+# K1's instantiations by layout (kLayout in csrc/nano_game.cu): the nano
+# table with no play-policy lookup and no forced play; one row a play (the
+# fused layout, or the nano one with the play table or a forced play); the
+# per-head tables
+LAYOUT_KINDS = ("nano", "row", "heads")
+# fourth.force and the forced first play's decision, as K1's codes
+FORCE_CODES = {None: 0, "go": 1, "fg": 2, "punt": 3}
+# the key of each per-head table (stage 2's where its table keys on slots)
+_HEAD_KEYS = {"stage1": 0, "stage2": 0, "pq": 2, "rq": 1, "sq": 0, "fumble": 1}
+
+
 class NanoGameArgs(NamedTuple):
     """K1's packed inputs, built by `pack_nano_game`: what the launcher
     passes, and all `nano_game_plain` reads."""
     consts: NanoConsts
     dirs: torch.Tensor      # (2G, 5) f32: ymult, mz, the red-zone tilts (pass,
                             # run) and the explosive base of each direction
-    table: torch.Tensor     # (rows, 5 * nsd * c) f32 nano table
+    table: torch.Tensor     # (rows, cols) f32 nano or fused table; empty: per-head
     early_exit: bool        # the eager loop stops once no game is running
     slot_cum: torch.Tensor      # (3, 2G, K) f32: the pack's qb_cum, rb_cum, wr_cum
                                 # (pstats' role order: QB, rusher, target)
     slot_tracked: torch.Tensor  # (3, 2G, K) bool: qb_, rb_, wr_tracked
     k: int                      # player slots (pack.k)
+    layout: LayoutConsts        # past the nano layout: strides, profile, tables
+    kind: int                   # LAYOUT_KINDS index of the instantiation
+    table_layout: str           # "nano", "fused" or "per_head"
+    heads: tuple                # per HEAD_TABLES: (values, row_map) or None
+    play: Optional[torch.Tensor] = None       # (rows, C) play-policy table, when read
+    play_base: Optional[torch.Tensor] = None  # (2G,) int64: each direction's first row
 
 
 def _segs(segs) -> _Segs:
@@ -878,7 +952,8 @@ def _segs(segs) -> _Segs:
     return g
 
 
-def _nano_consts(cfg: SimConfig, th) -> NanoConsts:
+def _config_consts(cfg: SimConfig) -> NanoConsts:
+    """NanoConsts' config fields (all but the table's)."""
     c = NanoConsts()
     ytg_edges, dist_edges, grid = (t.numpy() for t in
                                    analytic.go_lookup(cfg.fourth.table, torch.device("cpu")))
@@ -950,49 +1025,147 @@ def _nano_consts(cfg: SimConfig, th) -> NanoConsts:
     c.quarter_seconds = k.quarter_seconds
     c.kickoff_spot = cfg.kickoff_spot
     c.td_points, c.fg_points = m.td_points, m.fg_points
-    prof = th.nano_prof
-    c.dist, c.ytg, c.sec = _segs(prof.dist_segs), _segs(prof.ytg_segs), _segs(prof.sec_segs)
-    c.sd = _segs(prof.sd_segs if th.nano_nsd > 1 else ())
-    c.ny, c.ns, c.nsd, c.c = prof.ny, prof.ns, th.nano_nsd, th.nano_c
-    c.cols, c.per_dir = th.nano.values.shape[1], th.per_dir
-    c.has_s2, c.has_fumble = th.fused_has_s2, th.fused_has_fumble
     ch = cfg.engine.play_chunk
     c.cap = -(-cfg.engine.max_plays // ch) * ch    # whole chunks, as the eager loop
     return c
 
 
+def _force_code(force) -> int:
+    if force not in FORCE_CODES:
+        raise ValueError(f"fourth.force must be None|'go'|'fg'|'punt', got {force!r}")
+    return FORCE_CODES[force]
+
+
+def _check_dirs(t, d: int, what: str) -> None:
+    if t.row_map.shape[0] != d:
+        raise ValueError(f"the {what} table holds {t.row_map.shape[0]} directions, the pack {d}")
+
+
+def _first_profile(c: NanoConsts, prof, sd: bool) -> None:
+    """NanoConsts' segments and (ny, ns) of the first profile; its score
+    diff binned where `sd`."""
+    c.dist, c.ytg, c.sec = _segs(prof.dist_segs), _segs(prof.ytg_segs), _segs(prof.sec_segs)
+    c.sd = _segs(prof.sd_segs if sd else ())
+    c.ny, c.ns = prof.ny, prof.ns
+
+
 def pack_nano_game(pack: MatchupPack, cfg: SimConfig, th) -> NanoGameArgs:
-    """K1's inputs for `pack`'s matchups on the nano table of the
-    TableHeads `th`: the constants, per direction what the eager step
-    computes from the direction alone, by its own torch expressions on the
-    pack's device (the same bits as the step's per-game copies), and the
-    player slots' cumulative shares and tracked flags by role."""
-    if th.nano.row_map.shape[0] != pack.bias.shape[0]:
-        raise ValueError(f"the nano table holds {th.nano.row_map.shape[0]} directions, "
-                         f"the pack {pack.bias.shape[0]}")
+    """K1's inputs for `pack`'s matchups on the TableHeads `th`, in the
+    layout a play reads (`make_table_heads_eval`'s: nano, then fused, then
+    per-head): the constants, per direction what the eager step computes
+    from the direction alone, by its own torch expressions on the pack's
+    device (the same bits as the step's per-game copies), and the player
+    slots' cumulative shares and tracked flags by role.  Under
+    `use_play_model` with a play table, the play-policy lookup on the
+    coarse profile beside any layout."""
+    d = pack.bias.shape[0]
+    c, lay = _config_consts(cfg), LayoutConsts()
+    lay.force_every = _force_code(cfg.fourth.force)
+    heads = (None,) * len(HEAD_TABLES)
+    if th.nano is not None:
+        _check_dirs(th.nano, d, "nano")
+        layout, table, prof, nsd, cc = "nano", th.nano.values, th.nano_prof, th.nano_nsd, th.nano_c
+        _first_profile(c, prof, nsd > 1)
+        c.nsd, c.c, c.cols, c.per_dir = nsd, cc, table.shape[1], th.per_dir
+        # the nano table's row and (down, sd) block by strides
+        lay.s_dist, lay.s_ytg, lay.s_sec = prof.ny * prof.ns, prof.ns, 1
+        lay.b_down, lay.b_sd, lay.sd1 = nsd * cc, cc if nsd > 1 else 0, nsd > 1
+    elif th.fused is not None:
+        _check_dirs(th.fused, d, "fused")
+        layout, table, prof, has_sd = "fused", th.fused.values, th.fused_prof, th.fused.has_sd
+        _first_profile(c, prof, has_sd)
+        nsd = prof.nsd if has_sd else 1
+        c.nsd, c.cols = nsd, table.shape[1]
+        c.per_dir = table.shape[0] // th.fused.row_map.numel()
+        lay.s_sec, lay.s_ytg = nsd, prof.ns * nsd
+        lay.s_dist, lay.s_down = prof.ny * prof.ns * nsd, prof.nd * prof.ny * prof.ns * nsd
+        lay.s_sd, lay.sd1 = int(has_sd), has_sd
+    else:
+        missing = [n for n in ("stage1", "pq", "rq", "sq", "fine", "coarse")
+                   if getattr(th, n) is None]
+        if missing:
+            raise ValueError(f"per-head tables without {', '.join(missing)}")
+        _check_dirs(th.stage1, d, "stage 1")
+        layout, table, fine = "per_head", th.stage1.values.new_empty(0), th.fine
+        _first_profile(c, fine, bool(fine.sd_segs))
+        c.nsd, lay.sd1, lay.nd1 = fine.nsd, bool(fine.sd_segs), fine.nd
+        c.has_s2 = th.stage2 is not None
+        heads = []
+        for i, name in enumerate(HEAD_TABLES):
+            t = getattr(th, name)
+            heads.append(None if t is None else (t.values, t.row_map))
+            if t is None:
+                continue
+            ht = lay.heads[i]
+            ht.rows, ht.map_len, ht.cols = t.values.shape[0], t.row_map.numel(), t.values.shape[1]
+            ht.profile, ht.has_sd = int(t.profile != "fine"), t.has_sd
+            ht.key = 2 if name == "stage2" and t.is_pair else _HEAD_KEYS[name]
+            if t.has_sd and not (th.coarse if ht.profile else fine).sd_segs:
+                raise ValueError(f"the {name} table has a score-diff axis its profile lacks")
+        heads = tuple(heads)
+        lay.k_heads = th.k
+        lay.use_fumble = th.fumble is not None and cfg.model.enable_fumbles
+    if layout != "per_head":
+        lay.rows = table.shape[0]
+        c.has_s2, c.has_fumble = th.fused_has_s2, th.fused_has_fumble
+    has_play = th.play is not None and cfg.model.use_play_model
+    play = play_base = None
+    if has_play or layout == "per_head":
+        if th.coarse is None:
+            raise ValueError("the play-policy table is on the coarse profile, which the "
+                             "TableHeads lacks")
+        cp = th.coarse
+        lay.dist2, lay.ytg2, lay.sec2 = (_segs(cp.dist_segs), _segs(cp.ytg_segs),
+                                         _segs(cp.sec_segs))
+        lay.sd2, lay.sd2_on = _segs(cp.sd_segs), bool(cp.sd_segs)
+        lay.nd2, lay.ny2, lay.ns2, lay.nsd2 = cp.nd, cp.ny, cp.ns, cp.nsd
+    if has_play:
+        t, edges = th.play, th.play_sd_edges.tolist()
+        if len(edges) > _PLAY_EDGES:
+            raise ValueError(f"{len(edges)} play-table score-diff edges; K1 takes {_PLAY_EDGES}")
+        lay.has_play, lay.play_nsd, lay.play_cols = 1, th.play_nsd, t.values.shape[1]
+        lay.play_rows = t.values.shape[0]
+        lay.play_edges[:] = edges + [_INF] * (_PLAY_EDGES - len(edges))
+        dirx = torch.arange(d, device=t.values.device)
+        if layout == "per_head":      # the direction's entry of the row map, clamped
+            base = t.row_map.reshape(-1)[dirx.clamp(0, t.row_map.numel() - 1)].long()
+        else:                         # direction d's block of equal-sized blocks
+            base = dirx * (t.values.shape[0] // t.row_map.numel())
+        play, play_base = t.values, base.to(torch.int64).contiguous()
+    if layout == "per_head":
+        kind = "heads"
+    else:
+        kind = "row" if layout == "fused" or has_play or lay.force_every else "nano"
     mc = cfg.matchup
     gap = pack.off_offense - pack.def_defense
     tilt_pass = mc.rz_pass_tilt * torch.tanh(gap * analytic.recip(mc.rz_pass_tilt_denom))
     tilt_run = mc.rz_run_tilt * torch.tanh(gap * analytic.recip(mc.rz_run_tilt_denom))
     exp_base = mc.explosive_base + mc.explosive_z_k * (gap * analytic.recip(mc.mismatch_denom))
     dirs = torch.stack([pack.ymult, pack.mz, tilt_pass, tilt_run, exp_base], dim=1)
-    return NanoGameArgs(_nano_consts(cfg, th), dirs.to(F32).contiguous(),
-                        th.nano.values, cfg.engine.early_exit,
+    return NanoGameArgs(c, dirs.to(F32).contiguous(), table, cfg.engine.early_exit,
                         torch.stack([pack.qb_cum, pack.rb_cum, pack.wr_cum]).to(F32).contiguous(),
                         torch.stack([pack.qb_tracked, pack.rb_tracked,
                                      pack.wr_tracked]).to(torch.bool).contiguous(),
-                        pack.k)
+                        pack.k, lay, LAYOUT_KINDS.index(kind), layout, heads, play, play_base)
 
 
 def nano_game_covers(cfg: SimConfig, heads_eval: HeadsEvalFn, heads_state) -> bool:
     """Whether K1 plays a launch of these settings: table heads
-    (`heads_eval.table_heads`) on a TableHeads with a nano table, no
-    play-policy lookup and no forced 4th-down choice, with either collector,
-    both or none."""
-    return bool(getattr(heads_eval, "table_heads", False)
-                and getattr(heads_state, "nano", None) is not None
-                and (heads_state.play is None or not cfg.model.use_play_model)
-                and cfg.fourth.force is None)
+    (`heads_eval.table_heads`) on a TableHeads of any layout (nano, fused,
+    or per-head tables on the fine and coarse profiles), with the
+    play-policy table or not (it needs the coarse profile), any fourth.force
+    and either collector, both or none.  Exact and analytic heads stay on
+    the eager loop."""
+    th = heads_state
+    if not getattr(heads_eval, "table_heads", False) or th is None:
+        return False
+    per_head = all(getattr(th, n, None) is not None
+                   for n in ("stage1", "pq", "rq", "sq", "fine", "coarse"))
+    if th.nano is None and th.fused is None and not per_head:
+        return False
+    if th.play is not None and cfg.model.use_play_model and th.coarse is None:
+        return False
+    return cfg.fourth.force in FORCE_CODES
 
 
 def _seg_bin_packed(v: torch.Tensor, g: _Segs) -> torch.Tensor:
@@ -1007,16 +1180,75 @@ def _seg_bin_packed(v: torch.Tensor, g: _Segs) -> torch.Tensor:
     return idx
 
 
+def _packed_heads(args: NanoGameArgs, dirx, sd, down0, dist0, ytg0, sec0, u):
+    """The play's head channels from the packed tables, as K1 reads them:
+    (p_c, pass (mu, sigma), rush, sack, stage 2's cumulative pair or None
+    where the analytic stage 2 applies, p_fumble or None, the play table's
+    P(pass) or None).  One row by strides (nano, fused), or a lookup a head
+    through its row map keyed on the play's sampled slots (per-head)."""
+    c, lay = args.consts, args.layout
+    down_i = torch.clamp(down0 - 1, 0, 4)
+    sdf = sd.to(F32)
+    di = _seg_bin_packed(dist0, c.dist)
+    yi = _seg_bin_packed(ytg0, c.ytg)
+    si = _seg_bin_packed(sec0.to(F32), c.sec)
+    sdi = _seg_bin_packed(sdf, c.sd) if lay.sd1 else torch.zeros_like(di)
+    cell2 = None
+    if lay.has_play or args.table_layout == "per_head":
+        di2 = _seg_bin_packed(dist0, lay.dist2)
+        yi2 = _seg_bin_packed(ytg0, lay.ytg2)
+        si2 = _seg_bin_packed(sec0.to(F32), lay.sec2)
+        sdi2 = _seg_bin_packed(sdf, lay.sd2) if lay.sd2_on else torch.zeros_like(di)
+        cell2 = ((down_i * lay.nd2 + di2) * lay.ny2 + yi2) * lay.ns2 + si2
+    p_ml = None
+    if lay.has_play:
+        sdp = (sdf[:, None] > torch.tensor(list(lay.play_edges), dtype=F32,
+                                          device=sdf.device)).sum(dim=1, dtype=I32)
+        idx = args.play_base[dirx.long()] + cell2 * lay.play_nsd + sdp
+        p_ml = args.play[idx.clamp(0, lay.play_rows - 1), 0]
+    if args.table_layout != "per_head":
+        row = (dirx.long() * c.per_dir + down_i * lay.s_down + di * lay.s_dist
+               + yi * lay.s_ytg + si * lay.s_sec + sdi * lay.s_sd).clamp(0, lay.rows - 1)
+        start = row * c.cols + (down_i * lay.b_down + sdi * lay.b_sd).long()
+        nch = 7 + 2 * c.has_s2 + c.has_fumble
+        h = args.table.view(-1)[start[:, None] + torch.arange(nch, dtype=torch.int64,
+                                                              device=start.device)]
+        s2 = (h[:, 7], h[:, 8]) if c.has_s2 else None
+        p_f = h[:, 9 if c.has_s2 else 7] if c.has_fumble else None
+        return h[:, 0], h[:, 1:3], h[:, 3:5], h[:, 5:7], s2, p_f, p_ml
+    qb, rb, wr = (_sample_slot(args.slot_cum[r], dirx, u[:, draw])
+                  for r, draw in enumerate((U_QB, U_RB, U_WR)))
+    kk = lay.k_heads
+    keys = (dirx * kk + qb, dirx * kk + rb, (dirx * kk + qb) * kk + wr)
+    cells = (((down_i * lay.nd1 + di) * c.ny + yi) * c.ns + si, cell2)
+    sds = ((sdi, c.nsd), (sdi2 if cell2 is not None else None, lay.nsd2))
+
+    def look(i):
+        values, row_map = args.heads[i]
+        t = lay.heads[i]
+        base = row_map.reshape(-1)[keys[t.key].long().clamp(0, t.map_len - 1)]
+        st = cells[t.profile]
+        if t.has_sd:
+            st = st * sds[t.profile][1] + sds[t.profile][0]
+        return values[(base.long() + st).clamp(0, t.rows - 1)]
+
+    st1, pq, rq, sq = look(0), look(2), look(3), look(4)
+    s2 = look(1) if c.has_s2 else None
+    return (st1[:, 0], pq, rq, sq, None if s2 is None else (s2[:, 0], s2[:, 1]),
+            look(5)[:, 0] if lay.use_fumble else None, p_ml)
+
+
 def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
                u: torch.Tensor, n: torch.Tensor, collect_players: bool,
-               collect_stats: bool) -> GameState:
+               collect_stats: bool, force: int = 0) -> GameState:
     """One masked play of every game from the packed inputs: `play_step`
-    with the nano heads, as K1 plays it.  A collector adds only what K1
+    with the table heads, as K1 plays it, the 4th-down decision forced
+    where `force` is a FORCE_CODES code.  A collector adds only what K1
     adds: the team stats of the games still running, and per role the row
     of the games whose play involves it (QB and target on a pass play,
     rusher on a run) on a tracked slot; every add it leaves out is one of
     the eager step's +0.0."""
-    c, dirs, table = args.consts, args.dirs, args.table
+    c, dirs = args.consts, args.dirs
     ytg_edges, dist_edges, grid = go
     active = s.sec > 0
     off, down0, dist0, ytg0, sec0 = s.off, s.down, s.dist, s.ytg, s.sec
@@ -1035,9 +1267,15 @@ def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
                                                  c.late_trailing_go_short), p)
     p_go = torch.clamp_max(torch.clamp(p, 0.0, 1.0) * c.go_multiplier, 1.0)
     is4 = down0 == 4
-    go = active & is4 & (u[:, U_GO] < p_go)
-    st_play = active & is4 & ~go
-    fg_att = st_play & (ytg0 <= c.fg_attempt_max_ytg)
+    if force:
+        # the decision overridden (FourthDownConfig.force); the draws as ever
+        go = active & is4 & (force == FORCE_CODES["go"])
+        st_play = active & is4 & (force != FORCE_CODES["go"])
+        fg_att = st_play & (force == FORCE_CODES["fg"])
+    else:
+        go = active & is4 & (u[:, U_GO] < p_go)
+        st_play = active & is4 & ~go
+        fg_att = st_play & (ytg0 <= c.fg_attempt_max_ytg)
     punt = st_play & ~fg_att
     scrim = active & ~st_play
 
@@ -1063,19 +1301,10 @@ def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
 
     # ---- scrimmage play
     trip1 = scrim & ~s.in_rz & (ytg0 <= 20)
-    di = _seg_bin_packed(dist0, c.dist)
-    yi = _seg_bin_packed(ytg0, c.ytg)
-    si = _seg_bin_packed(sec0.to(F32), c.sec)
-    row = dirx * c.per_dir + (di * c.ny + yi) * c.ns + si
-    blk = torch.clamp(down0 - 1, 0, 4) * c.nsd
-    if c.nsd > 1:
-        blk = blk + _seg_bin_packed(sd.to(F32), c.sd)
-    start = row.long() * c.cols + (blk * c.c).long()
-    h = table.view(-1)[start[:, None] + torch.arange(c.c, dtype=torch.int64,
-                                                     device=start.device)]
-    p_c = h[:, 0]
-    if c.has_s2:
-        s2c0, s2c1 = h[:, 7], h[:, 8]
+    p_c, pass_ms, rush_ms, sack_ms, s2, p_f, p_ml = _packed_heads(
+        args, dirx, sd, down0, dist0, ytg0, sec0, u)
+    if s2 is not None:
+        s2c0, s2c1 = s2
     else:
         long_d = torch.clamp_min(dist0 - 7.0, 0.0) * c.r10
         p_sck = c.s2_sck * (1.0 + 0.25 * torch.where(down0.to(F32) >= 3, 1.0, 0.0)
@@ -1091,7 +1320,8 @@ def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
         tot = torch.where(tot == 0.0, 1.0, tot)
         s2c0 = p_inc / tot
         s2c1 = s2c0 + p_sck / tot
-    p_f = h[:, 9 if c.has_s2 else 7] if c.has_fumble else torch.zeros_like(p_c)
+    if p_f is None:
+        p_f = torch.zeros_like(p_c)
 
     r10 = c.r10
     base = 0.53 + torch.where(
@@ -1108,6 +1338,8 @@ def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
     base = base + torch.where(two_min & (sd < 0), 0.22, 0.0)
     base = base + torch.where((sec0 < 600) & (sd < 0), 0.06, 0.0)
     p_pass = torch.clamp(base, c.heuristic_clip_lo, c.heuristic_clip_hi)
+    if p_ml is not None:
+        p_pass = p_ml
     is_pass = scrim & (u[:, U_CALL] < p_pass)
     is_run = scrim & ~is_pass
     complete = is_pass & (u[:, U_COMPLETE] < p_c)
@@ -1117,7 +1349,7 @@ def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
     o_sck = notc & ~o_inc & (u2 < s2c1)
     o_int = notc & ~o_inc & ~o_sck
 
-    pass_mu, pass_sg = h[:, 1], h[:, 2]
+    pass_mu, pass_sg = pass_ms[:, 0], pass_ms[:, 1]
     if c.rz_pass_damping:
         rz_scale = torch.where(ytg0 < 15.0, 0.8 + 0.2 * (ytg0 * c.r15), 1.0)
         pass_mu = pass_mu * rz_scale
@@ -1144,11 +1376,12 @@ def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
     yards_p = gain(yards_p, c.explosive_pass, c.rz_pass, tilt_pass)
     pass_td = complete & (yards_p + 1e-9 >= ytg0)
     pass_gain = complete & ~pass_td
-    sy = torch.clamp(h[:, 5] + h[:, 6] * n[:, N_YARDS], c.sack_clip_lo, c.sack_clip_hi)
+    sy = torch.clamp(sack_ms[:, 0] + sack_ms[:, 1] * n[:, N_YARDS], c.sack_clip_lo,
+                     c.sack_clip_hi)
     loss = torch.minimum(torch.clamp_min(-sy, 0.0), ytg0)
     ret = _clip(c.int_return_mean + c.int_return_sd * n[:, N_INT_RET], 0.0, ytg0)
     int_spot = 100.0 - (ytg0 - ret)
-    ry_raw = h[:, 3] + h[:, 4] * n[:, N_YARDS]
+    ry_raw = rush_ms[:, 0] + rush_ms[:, 1] * n[:, N_YARDS]
     if c.taper_enabled:
         ry_raw = _taper_packed(ry_raw, c.rush_taper)
     yards_r = gain(_clip(ry_raw, c.rush_clip_lo, ytg0) * ymult, c.explosive_run, c.rz_run,
@@ -1248,16 +1481,24 @@ def _taper_packed(y: torch.Tensor, t) -> torch.Tensor:
 def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                     anti: bool = False,
                     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                    collect_players: bool = False, collect_stats: bool = False) -> GameState:
+                    collect_players: bool = False, collect_stats: bool = False,
+                    force: Optional[str] = None, force_key: Optional[int] = None,
+                    force_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> GameState:
     """K1's specification in plain torch, on the device of `s`: the packed
     inputs of `args`, one masked play of every game (`sec > 0`) at a time
     until no game is running or the cap.  Game b draws row row0 + b of
     (key, absolute step) (`step_draws`), or with `anti` row row0 / 2 + 2 (b
     // 4) + b % 2, mirrored where b % 4 >= 2; `draws`, a (steps, rows, 13)
     and a (steps, rows, 4) table, stands in for the stream (row r of step
-    j for the launch's draw row r).  As the eager loop, it plays at all
-    only where some game is running or early_exit is off.  The collectors
-    add to `s.stats` and `s.pstats` in place, as the eager loop does, and
+    j for the launch's draw row r).  With `force` ('go', 'fg' or 'punt')
+    every game first plays one masked play under that 4th-down decision on
+    the same row of step 0 of `force_key` (or of `force_draws`, a (rows,
+    13) and a (rows, 4) pair), whatever the cap and the run flag, as the
+    4th-down evaluator's eager composition plays it; the plays after it
+    draw from step 0 of `key`.  As the eager loop, it plays at all only
+    where some game is running or early_exit is off.  The collectors add
+    to `s.stats` and `s.pstats` in place, as the eager loop does, and
     `points` takes the final score."""
     c = args.consts
     dev = s.sec.device
@@ -1267,6 +1508,13 @@ def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     go = (torch.tensor(list(c.go_ytg_edges), dtype=F32, device=dev),
           torch.tensor(list(c.go_dist_edges), dtype=F32, device=dev),
           torch.tensor(list(c.go_grid)[:c.go_cells], dtype=F32, device=dev))
+    coll = (collect_players, collect_stats)
+    if force is not None:
+        u, z = (step_draws(force_key, 0, rows, dev, row0=r0) if force_draws is None
+                else force_draws)
+        if anti:
+            u, z = mirror_draws(u, z)
+        s = _nano_play(args, go, s, u, z, *coll, force=_force_code(force))
     cap = c.cap if draws is None else min(c.cap, draws[0].shape[0])
     if not args.early_exit or bool((s.sec > 0).any()):
         for j in range(cap):
@@ -1276,7 +1524,7 @@ def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                     else (draws[0][j], draws[1][j]))
             if anti:
                 u, z = mirror_draws(u, z)
-            s = _nano_play(args, go, s, u, z, collect_players, collect_stats)
+            s = _nano_play(args, go, s, u, z, *coll, force=args.layout.force_every)
     if collect_stats:
         s.stats[:, :, TS["points"]] = s.score.to(F32)
     return s
@@ -1291,6 +1539,7 @@ _NANO_ARGTYPES = (
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                  # plays, iters, game_plays
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # stats, pstats, cum,
      ctypes.c_int,                                                       # tracked, k
+     ctypes.c_int, ctypes.c_void_p,                                      # layout, lay
      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                       # n, blocks, stream
 
 
@@ -1299,32 +1548,51 @@ def _nano_lib():
     from ..utils.cuda_build import load_kernel_library
 
     lib = load_kernel_library(_KERNEL)
-    size = lib.nano_game_consts_size
-    size.argtypes, size.restype = [], ctypes.c_int
-    if size() != ctypes.sizeof(NanoConsts):
-        raise RuntimeError(f"NanoConsts is {size()} bytes in nano_game.cu, "
-                           f"{ctypes.sizeof(NanoConsts)} in ops/game.py")
+    for name, cls in (("nano_game_consts_size", NanoConsts),
+                      ("nano_game_layout_size", LayoutConsts)):
+        size = getattr(lib, name)
+        size.argtypes, size.restype = [], ctypes.c_int
+        if size() != ctypes.sizeof(cls):
+            raise RuntimeError(f"{cls.__name__} is {size()} bytes in nano_game.cu, "
+                               f"{ctypes.sizeof(cls)} in ops/game.py")
     lib.nano_game_launch.argtypes = _NANO_ARGTYPES
     lib.nano_game_launch.restype = ctypes.c_int
     lib.nano_game_threads.argtypes, lib.nano_game_threads.restype = [], ctypes.c_int
-    lib.nano_game_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nano_game_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.nano_game_blocks_per_sm.restype = ctypes.c_int
+    lib.nano_game_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib.nano_game_attributes.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def nano_geometry(index: int, collect_stats: bool = False,
-                  collect_players: bool = False) -> Tuple[int, int]:
-    """(blocks of K1's instantiation for these collectors that card `index`
-    holds at once, threads a block): the occupancy API's blocks an SM times
-    the SMs, asked once a card and instantiation."""
+                  collect_players: bool = False, kind: int = 0) -> Tuple[int, int]:
+    """(blocks of K1's instantiation for the layout `kind` (a LAYOUT_KINDS
+    index) and these collectors that card `index` holds at once, threads a
+    block): the occupancy API's blocks an SM times the SMs, asked once a
+    card and instantiation."""
     lib = _nano_lib()
     with torch.cuda.device(index):
-        per_sm = lib.nano_game_blocks_per_sm(int(collect_stats), int(collect_players))
+        per_sm = lib.nano_game_blocks_per_sm(kind, int(collect_stats), int(collect_players))
     if per_sm <= 0:
         raise RuntimeError(f"nano_game occupancy query failed: CUDA error {-per_sm}")
     return (per_sm * torch.cuda.get_device_properties(index).multi_processor_count,
             lib.nano_game_threads())
+
+
+def nano_game_usage(kind: int, collect_stats: bool = False,
+                    collect_players: bool = False) -> Tuple[int, int]:
+    """(registers a thread, local-memory bytes a thread: spills and local
+    arrays) of K1's instantiation for the layout `kind` and the
+    collectors, as the runtime reports them for the current card."""
+    lib = _nano_lib()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib.nano_game_attributes(kind, int(collect_stats), int(collect_players),
+                                   ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"nano_game attribute query failed: CUDA error {err}")
+    return regs.value, local.value
 
 
 def nano_grid(n: int, resident_blocks: int, threads: int) -> int:
@@ -1352,30 +1620,67 @@ _NANO_IN = (("gid", I32), ("off", I32), ("sec", I32), ("down", I32), ("dist", F3
             ("score", I32))
 
 
+def _launch_layout(args: NanoGameArgs, dev: torch.device, force: Optional[str],
+                   force_key: Optional[int]) -> LayoutConsts:
+    """A copy of `args.layout` with the tables' pointers and the forced
+    play set, after checking the tables K1 reads past the nano layout."""
+    lay = LayoutConsts.from_buffer_copy(args.layout)
+    lay.force_first = _force_code(force)
+    if force is not None:
+        if force_key is None:
+            raise ValueError("a forced first play needs its stream's key (force_key)")
+        lay.fk0, lay.fk1 = force_key & 0xFFFFFFFF, (force_key >> 32) & 0xFFFFFFFF
+    tables = [(f"{name} values", t[0], F32) for name, t in zip(HEAD_TABLES, args.heads)
+              if t is not None] + [(f"{name} row map", t[1], I32)
+                                   for name, t in zip(HEAD_TABLES, args.heads) if t is not None]
+    if args.play is not None:
+        tables += [("play values", args.play, F32), ("play rows", args.play_base, torch.int64)]
+    for what, t, dtype in tables:
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"the {what} must be a contiguous {dtype} tensor on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    for i, t in enumerate(args.heads):
+        if t is not None:
+            lay.heads[i].values, lay.heads[i].row_map = t[0].data_ptr(), t[1].data_ptr()
+    if args.play is not None:
+        lay.play, lay.play_base = args.play.data_ptr(), args.play_base.data_ptr()
+    return lay
+
+
 def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                    anti: bool = False, plays: Optional[torch.Tensor] = None,
                    iters: Optional[torch.Tensor] = None,
                    game_plays: Optional[torch.Tensor] = None, collect_players: bool = False,
-                   collect_stats: bool = False) -> GameState:
+                   collect_stats: bool = False, force: Optional[str] = None,
+                   force_key: Optional[int] = None) -> GameState:
     """K1 on the card: the games of `s` to their end in one launch of
     csrc/nano_game.cu on the current stream, drawing as `nano_game_plain`
-    draws, with the collectors asked for added in place to `s.stats` and
+    draws (the forced first play with `force` on `force_key`'s stream
+    too), with the collectors asked for added in place to `s.stats` and
     `s.pstats` (contiguous f32 of the collectors' shapes, K = args.k
-    slots).  Raises ValueError for tensors off the card (the CPU runs
-    `nano_game_plain`) or of another dtype or shape, and RuntimeError where
-    the kernel does not build or launch.  `plays` and `iters`, (1,) int64
-    tensors on the card, have the games' plays and the warps' loop trips
-    added to them (plays / (32 x iters) is the share of lanes that played);
+    slots).  The instantiation is the layout's (`args.kind`; a forced
+    play on the nano layout takes the one-row one).  Raises ValueError for
+    tensors off the card (the CPU runs `nano_game_plain`) or of another
+    dtype or shape, and RuntimeError where the kernel does not build or
+    launch.  `plays` and `iters`, (1,) int64 tensors on the card, have the
+    games' plays (the forced one included) and the warps' loop trips added
+    to them (plays / (32 x iters) is the share of lanes that played);
     `game_plays`, an (n,) int32 tensor, is given each game's plays.
-    `nano_game_cuda.launches` counts kernel launches and nothing else,
-    `nano_game_cuda.launches_collecting` those with a collector on."""
+    `nano_game_cuda.launches` counts kernel launches and nothing else;
+    `launches_collecting` those with a collector on, `launches_fused` and
+    `launches_per_head` those on those table layouts, `launches_play` those
+    reading the play-policy table, `launches_forced` those with a forced
+    first play."""
     n = s.off.shape[0]
     dev = s.sec.device
     collected = ([("stats", s.stats, (n, 2, N_TEAM_STATS))] if collect_stats else []) + (
         [("pstats", s.pstats, (n, 2, 3, args.k, N_PLAYER_STATS))] if collect_players else [])
+    per_head = args.table_layout == "per_head"
+    with_cum = collect_players or per_head
     tensors = ([getattr(s, f) for f, _ in _NANO_IN] + [args.table, args.dirs]
                + [t for _, t, _ in collected]
-               + ([args.slot_cum, args.slot_tracked] if collect_players else []))
+               + ([args.slot_cum] if with_cum else [])
+               + ([args.slot_tracked] if collect_players else []))
     if any(t.device != dev for t in tensors) or dev.type != "cuda":
         raise ValueError("nano_game_cuda takes a state and packed inputs on one CUDA "
                          f"device; got {sorted({str(t.device) for t in tensors})} "
@@ -1389,7 +1694,7 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                              f"got {t.dtype} {tuple(t.shape)}")
         ins.append(t.contiguous())
     if args.table.dtype != F32 or args.dirs.dtype != F32 or not args.table.is_contiguous():
-        raise ValueError("the nano table and the direction constants must be contiguous f32")
+        raise ValueError("the table and the direction constants must be contiguous f32")
     for name, t, dtype, shape in (("plays", plays, torch.int64, (1,)),
                                   ("iters", iters, torch.int64, (1,)),
                                   ("game_plays", game_plays, I32, (n,)),
@@ -1400,11 +1705,11 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                              f"on {dev}")
     if collect_players and s.pstats.data_ptr() % 8:
         raise ValueError("pstats must be 8-byte aligned (K1 adds a player row as 8-byte words)")
-    if collect_players and (args.slot_cum.dtype != F32 or args.slot_tracked.dtype != torch.bool
-                            or tuple(args.slot_cum.shape) != (3, args.dirs.shape[0], args.k)
-                            or args.slot_tracked.shape != args.slot_cum.shape
-                            or not (args.slot_cum.is_contiguous()
-                                    and args.slot_tracked.is_contiguous())):
+    if with_cum and (args.slot_cum.dtype != F32 or args.slot_tracked.dtype != torch.bool
+                     or tuple(args.slot_cum.shape) != (3, args.dirs.shape[0], args.k)
+                     or args.slot_tracked.shape != args.slot_cum.shape
+                     or not (args.slot_cum.is_contiguous()
+                             and args.slot_tracked.is_contiguous())):
         raise ValueError("the slot tables must be contiguous (3, 2G, K) f32 shares and bool "
                          "tracked flags")
     if anti and (n % 4 or row0 % 4):
@@ -1413,12 +1718,16 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     rows, r0 = (n // 2, row0 // 2) if anti else (n, row0)
     if r0 < 0 or r0 + rows > 2 ** 32:
         raise ValueError(f"draw rows {r0}..{r0 + rows - 1} outside the 32-bit row counter")
+    lay = _launch_layout(args, dev, force, force_key)
+    kind = max(args.kind, LAYOUT_KINDS.index("row")) if force is not None else args.kind
     if n == 0:
         return s
     outs = [torch.empty_like(t) for t in ins[1:]]
-    run_flag = (ins[2] > 0).any() if args.early_exit else None
+    # after a forced play every further masked step of an ended game is a
+    # fixed point, so whether the loop runs at all matters only unforced
+    run_flag = (ins[2] > 0).any() if args.early_exit and force is None else None
     lib = _nano_lib()
-    blocks = nano_grid(n, *nano_geometry(dev.index, collect_stats, collect_players))
+    blocks = nano_grid(n, *nano_geometry(dev.index, collect_stats, collect_players, kind))
 
     def ptrs(ts):
         return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
@@ -1434,32 +1743,45 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
             (key >> 32) & 0xFFFFFFFF, r0, int(anti), ptr(run_flag),
             _nano_work(dev, stream).data_ptr(), ptr(plays), ptr(iters), ptr(game_plays),
             ptr(s.stats if collect_stats else None), ptr(s.pstats if collect_players else None),
-            ptr(args.slot_cum if collect_players else None),
-            ptr(args.slot_tracked if collect_players else None), args.k, n, blocks, stream)
+            ptr(args.slot_cum if with_cum else None),
+            ptr(args.slot_tracked if collect_players else None), args.k, kind,
+            ctypes.addressof(lay), n, blocks, stream)
     if err != 0:
         raise RuntimeError(f"nano_game kernel launch failed: CUDA error {err}")
-    nano_game_cuda.launches += 1
-    nano_game_cuda.launches_collecting += collect_players or collect_stats
+    f = nano_game_cuda
+    f.launches += 1
+    f.launches_collecting += collect_players or collect_stats
+    f.launches_fused += args.table_layout == "fused"
+    f.launches_per_head += per_head
+    f.launches_play += args.play is not None
+    f.launches_forced += force is not None
     off, sec, down, dist, ytg, period, in_rz, going, score = outs
     return GameState(gid=s.gid, fo=s.fo, off=off, sec=sec, down=down, dist=dist, ytg=ytg,
                      period=period, in_rz=in_rz, going=going, score=score, stats=s.stats,
                      pstats=s.pstats)
 
 
-nano_game_cuda.launches = 0
-nano_game_cuda.launches_collecting = 0     # those with a collector on
+# the launch counts (`nano_game_cuda`'s docstring), set to 0 by the smoke
+NANO_COUNTERS = ("launches", "launches_collecting", "launches_fused", "launches_per_head",
+                 "launches_play", "launches_forced")
+for _name in NANO_COUNTERS:
+    setattr(nano_game_cuda, _name, 0)
 
 
 def nano_game(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
               anti: bool = False, collect_players: bool = False,
-              collect_stats: bool = False) -> GameState:
+              collect_stats: bool = False, force: Optional[str] = None,
+              force_key: Optional[int] = None) -> GameState:
     """K1: the games of `s` played to their end from the packed inputs
     (`pack_nano_game`), game b drawing row row0 + b of (key, absolute step)
-    (antithetic: `nano_game_plain`), the collectors asked for added in
-    place to `s.stats` and `s.pstats`.  A state on the card launches the
-    kernel (`nano_game_cuda`), one on the CPU runs `nano_game_plain`."""
+    (antithetic: `nano_game_plain`), after a first play under `force` on
+    `force_key`'s stream where `force` is given, the collectors asked for
+    added in place to `s.stats` and `s.pstats`.  A state on the card
+    launches the kernel (`nano_game_cuda`), one on the CPU runs
+    `nano_game_plain`."""
     dev = s.sec.device
-    kw = dict(collect_players=collect_players, collect_stats=collect_stats)
+    kw = dict(collect_players=collect_players, collect_stats=collect_stats, force=force,
+              force_key=force_key)
     if dev.type == "cuda":
         return nano_game_cuda(args, s, key, row0, anti, **kw)
     if dev.type == "cpu":

@@ -489,7 +489,7 @@ def make_table_heads_eval(cfg: SimConfig) -> HeadsEvalFn:
         return _per_head_eval(th, obs, cfg)
 
     heads_eval.needs_x = False  # tables key on scalar state fields only
-    heads_eval.table_heads = True  # K1 plays its nano launches (game.nano_game_covers)
+    heads_eval.table_heads = True  # K1 plays its launches on the card (game.nano_game_covers)
     return heads_eval
 
 

@@ -27,8 +27,14 @@ K2 at (1, 65,536) and (60, 32,768), each beside its bound; K1's lane share
 persistent layout (its own counter) and for one game a thread, the first K1's layout
 (each 32 consecutive games' longest, from the per-game plays).  K1 is
 also timed with each combination of the collectors at 65,536 games of the
-focus-roster fixture (`COLLECTORS`).  `--games-only` times K1 and K2
-alone.  The last line is one JSON object of the times.
+focus-roster fixture (`COLLECTORS`), and on each other layout
+(`layout_times`: fused tables, the play-policy table, a focus roster's
+per-head tables score-only and with both collectors, a forced first play)
+in turns with the nano score-only launch (nano, layout, layout, nano).
+`--games-only` times K1 and K2 alone.  `--sass-against FILE` compares the
+nano instantiations' SASS with FILE's (another commit's `--sass` output),
+instruction for instruction.  The last line is one JSON object of the
+times.
 philox_draws is timed at row offset `DRAW_ROW0` (the rows a second rank
 plays); a DIR whose philox_draws.cu predates the row offset (its launcher
 takes no row0) has its draws left out.
@@ -406,6 +412,7 @@ def game_times(dev: torch.device) -> Dict[str, dict]:
         out[name] = {"ms": ms, "plays": int(plays), "bound_ms": bd["bound_ms"],
                      "bound_class": bd["bound_class"], "share": bd["bound_ms"] / ms, **rec}
     out.update(_collector_times(dev, cs, cfg, key, th, fo))
+    out.update(layout_times(dev, cs, cfg, key, pack, th, fo))
     for name, sc in (("score_moments", scores), ("score_moments G=60", sc60)):
         bd = cs.moment_bound(sc.shape[0], sc.shape[1])
         ms = _held(lambda: k2(sc), GAME_REPS[name], name)
@@ -460,6 +467,136 @@ def _collector_times(dev: torch.device, cs, cfg, key: int, th, fo) -> Dict[str, 
     return out
 
 
+# K1's other layouts that `layout_times` times, in turns with the nano one
+LAYOUT_RUNS = ("nano_game fused", "nano_game play table", "nano_game per-head",
+               "nano_game per-head props", "nano_game forced go")
+LAYOUT_HEADS_SEED = 13      # fixtures.heads(13, "small"), as the table-layout tests build
+
+
+def layout_times(dev: torch.device, cs, cfg, key: int, pack, th, fo) -> Dict[str, dict]:
+    """K1 on each other layout at LAUNCH_GAMES games (`LAYOUT_RUNS`): the
+    fixture's fused tables on the nano profile, the nano table of
+    `fixtures.heads(13, "small")` with its play-policy table, the focus
+    roster's per-head tables on the default profiles (score-only and with
+    both collectors), a forced go from a 4th-and-2 on the fixture's nano
+    table; each first held to `nano_game_plain` on GAME_CHECK games bit for
+    bit, then timed in turns with the nano score-only launch (nano,
+    layout, layout, nano), beside its bound (`chip_smoke.layout_bound`)."""
+    import dataclasses
+
+    from .. import api, fixtures
+    from ..matchup import build_direction
+    from ..models.tables import nano_profile
+    from ..ops import game, rng
+    from ..ops import table_lookup as tl
+    from ..ops.pack import pack_matchup
+
+    n, m = fo.shape[0], GAME_CHECK
+    heads = fixtures.heads(LAYOUT_HEADS_SEED, "small")
+    pcfg = cfg.replace(model=dataclasses.replace(cfg.model, use_play_model=True))
+    a, b = fixtures.teams()
+    fa, fb = fixtures.focus_teams(cs.FOCUS_SEED)
+    cm = fixtures.COACH_MAP
+    fused = tl.pack_tables(*fixtures.fused_tables(cs.TABLE_SEED), device=dev,
+                           fused_prof=nano_profile())
+    play = tl.build_table_heads(a, b, heads, pcfg, cm, nano=nano_profile(), device=dev,
+                                cache_dir=None)
+    ppack = pack_matchup(build_direction(a, b, pcfg, heads, cm),
+                         build_direction(b, a, pcfg, heads, cm), dev)
+    focus = tl.build_table_heads(fa, fb, heads, cfg, cm, nano=nano_profile(), device=dev,
+                                 cache_dir=None)
+    fpack = pack_matchup(build_direction(fa, fb, cfg, heads, cm),
+                         build_direction(fb, fa, cfg, heads, cm), dev)
+    none = dict(collect_players=False, collect_stats=False)
+    both = dict(collect_players=True, collect_stats=True)
+    fourth = game.Situation(0, 1500, 4, 2.0, 45.0, 10, 14)
+    # name: (pack, tables, config, collectors, start situation, force)
+    runs = {"nano_game fused": (pack, fused, cfg, none, None, None),
+            "nano_game play table": (ppack, play, pcfg, none, None, None),
+            "nano_game per-head": (fpack, focus, cfg, none, None, None),
+            "nano_game per-head props": (fpack, focus, cfg, both, None, None),
+            "nano_game forced go": (pack, th, cfg, none, fourth, "go")}
+    nano_args = game.pack_nano_game(pack, cfg, th)
+    s_nano = game.initial_state(n, fo, cfg, dev, **none)
+    fk = rng.fold_in(key, api.FORCED_PLAY_STREAM)
+    out = {}
+    for name, (pk, t, c, coll, sit, force) in runs.items():
+        args = game.pack_nano_game(pk, c, t)
+        kw = dict(coll, force=force, force_key=fk if force else None)
+
+        def start(k):
+            if sit is None:
+                return game.initial_state(k, fo[:k], c, dev, 0, pk.k, **coll)
+            return game.state_from_situation(k, sit, c, dev, 0, pk.k, **coll)
+
+        want = game.nano_game_plain(args, start(m), key, **kw)
+        got = game.nano_game_cuda(args, start(m), key, **kw)
+        for f in game.GameState._fields:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise RuntimeError(f"{name}: field {f} of the first {m:,} games differs from "
+                                   "nano_game_plain")
+        s = start(n)
+        plays = torch.zeros(1, dtype=torch.int64, device=dev)
+        first = game.nano_game_cuda(args, start(n), key, plays=plays, **kw)
+        bd = cs.layout_bound(args, n, int(plays), cs.accrual_work(first)
+                             if coll["collect_players"] and coll["collect_stats"] else None)
+        turns = {}
+        for which in ("nano", name, name, "nano"):
+            fn = ((lambda: game.nano_game_cuda(nano_args, s_nano, key)) if which == "nano"
+                  else (lambda: game.nano_game_cuda(args, s, key, **kw)))
+            turns.setdefault(which, []).append(_held(fn, GAME_REPS["nano_game"], which))
+        out[name] = {"ms": min(turns[name]), "turns": turns[name], "nano_turns": turns["nano"],
+                     "plays": int(plays), "bound_ms": bd["bound_ms"],
+                     "bound_class": bd["bound_class"], "share": bd["bound_ms"] / min(turns[name]),
+                     "kind": game.LAYOUT_KINDS[max(args.kind, int(force is not None))]}
+        print(f"  {name} ({out[name]['kind']} instantiation): {turns[name]} ms held, nano "
+              f"score-only {turns['nano']} in turns; {int(plays) / n:.1f} plays a game")
+    return out
+
+
+def sass_functions(text: str) -> Dict[str, list]:
+    """{kernel: [instruction text]} of a `cuobjdump -sass` dump."""
+    import re
+
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append(m.group(1))
+    return funcs
+
+
+def compare_nano_sass(new: Path, old: Path) -> Dict[str, dict]:
+    """The nano layout's four instantiations (kLayoutNano x the collectors)
+    in the SASS dump `new`, each against its counterpart in `old` (a
+    dump of a commit whose kernel took the collectors alone as template
+    arguments): instructions each and the lines that differ."""
+    import difflib
+    import re
+
+    nf, of = sass_functions(new.read_text()), sass_functions(old.read_text())
+    out = {}
+    for oname, oins in of.items():
+        m = re.search(r"nano_game_kernelI(?:Li0E)?Lb(\d)ELb(\d)E", oname)
+        if not m:
+            continue
+        key = f"ILi0ELb{m.group(1)}ELb{m.group(2)}E"
+        match = [k for k in nf if key in k]
+        if not match:
+            continue
+        nins = nf[match[0]]
+        diff = [ln for ln in difflib.unified_diff(oins, nins, lineterm="", n=0)
+                if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+        out[f"stats {m.group(1)}, players {m.group(2)}"] = {
+            "instructions": len(nins), "old_instructions": len(oins),
+            "differing_lines": len(diff), "identical": nins == oins}
+    return out
+
+
 def _held(fn, reps: int, name: str) -> float:
     for _ in range(HELD_TRIES):
         ms, held = held_ms(fn, reps)
@@ -477,6 +614,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     only.add_argument("--games-only", action="store_true", help="time K1 and K2 alone")
     ap.add_argument("--sass", type=Path, metavar="DIR",
                     help="write the SASS of nano_game.cu and score_moments.cu into DIR")
+    ap.add_argument("--sass-against", type=Path, metavar="FILE",
+                    help="compare the nano instantiations' SASS with FILE's (needs --sass)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernels: this probe needs an NVIDIA card", file=sys.stderr)
@@ -498,6 +637,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for kernel, u in usage.items():
         print(f"  {kernel}: {u['registers']} registers, spill stores {u['spill_stores']} B, "
               f"spill loads {u['spill_loads']} B")
+    sass_cmp = {}
+    if args.sass is not None and args.sass_against is not None:
+        sass_cmp = compare_nano_sass(args.sass / "nano_game.sass", args.sass_against)
+        for what, c in sass_cmp.items():
+            print(f"  nano_game nano layout, {what}: {c['instructions']} instructions against "
+                  f"{c['old_instructions']}, {'identical' if c['identical'] else 'differing'} "
+                  f"({c['differing_lines']} lines of the diff)")
     dev = torch.device("cuda")
     names = [n for n in RUNS if "row0" in (csrc / "philox_draws.cu").read_text()
              or not n.startswith("philox")]
@@ -520,7 +666,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"  {name}: bound {g['bound_ms']:.5f} ms ({g['bound_class']}), "
               f"{g['share']:.1%} of it{extra} ({card})")
     print(json.dumps({"csrc": str(csrc), "card": card, "held_ms": times, "games": games,
-                      "registers": usage}))
+                      "registers": usage, "sass": sass_cmp}))
     return 0
 
 

@@ -24,6 +24,7 @@ import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -366,6 +367,41 @@ def test_shard_flags_run_in_a_world_of_one(name, files, capsys):
     # slate: the rows' table (--lines prints the markets after it)
     n = 3 if name.startswith("slate") else None
     assert _untimed(got, n) == _untimed(want, n) and _untimed(got, n), (got, want)
+
+
+def test_sim_over_two_gloo_ranks_ends_both_ranks_cleanly(files, tmp_path, capsys):
+    """`cli sim --shard` as two processes with torchrun's environment (a
+    gloo group on the CPU over the loopback): both ranks exit 0 after the
+    group's teardown (the command ends its own ranks with os._exit, as the
+    test ranks do), rank 0 prints the summary of the unsharded command,
+    rank 1 prints nothing."""
+    import socket
+    import subprocess
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["sim", "Team A", "Team B", "--sp", files["sp"], "--artifacts", ART, "--mode",
+            "analytic", "-n", "256", "--device", "cpu"]
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    env.pop("LOCAL_WORLD_SIZE", None)
+    procs = [subprocess.Popen([sys.executable, "-m", "fast_monte_carlo_tpu_torch.cli", *argv,
+                               "--shard"], cwd=str(tmp_path),
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
+                                       PYTHONPATH=str(Path(__file__).resolve().parents[1])),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=150) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert outs[1][0] == "", outs[1]
+    want = _out(cli.main, argv, capsys)
+    assert _untimed(outs[0][0]) == _untimed(want) and _untimed(want), (outs[0], want)
 
 
 def _serve_shard_equals_unsharded(files):

@@ -31,7 +31,9 @@ from fast_monte_carlo_tpu_torch import fixtures
 from fast_monte_carlo_tpu_torch.api import MatchupRunner
 from fast_monte_carlo_tpu_torch.config import SimConfig, classic_config
 from fast_monte_carlo_tpu_torch.matchup import build_direction
-from fast_monte_carlo_tpu_torch.models.tables import marginalize_sd, nano_from_fused, nano_profile
+from fast_monte_carlo_tpu_torch.models.tables import (TableProfile, edges_from_reps,
+                                                      marginalize_sd, nano_from_fused,
+                                                      nano_profile, sd_reps_default)
 from fast_monte_carlo_tpu_torch.ops import game as tg
 from fast_monte_carlo_tpu_torch.ops import table_lookup as ttl
 from fast_monte_carlo_tpu_torch.ops.pack import pack_matchups
@@ -288,22 +290,47 @@ def _nano_th():
     return ttl.pack_tables(*fixtures.nano_tables(TABLE_SEED), device="cpu")
 
 
+# a small coarse profile for a synthetic play-policy table
+SMALL_COARSE = TableProfile(
+    dist=np.asarray([0.5, 1.5, 3.0, 6.0, 10.0, 20.0, 64.0]),
+    ytg=np.asarray([0.0, 2.0, 6.0, 12.0, 25.0, 50.0, 90.0, 120.0]),
+    sec=np.asarray([45.0, 600.0, 1790.0, 2400.0, 3600.0]),
+    sd=np.asarray([-8.0, 0.0, 8.0]))
+
+
+def with_play_table(th, seed: int = 5):
+    """th with a play-policy table of random P(pass) in [0.2, 0.8) beside
+    its tables: both directions on SMALL_COARSE's cells x the 27 score-diff
+    bins of `sd_reps_default`, as `build_play_table` lays it out."""
+    cp = ttl.profile_idx(SMALL_COARSE)
+    nsd = len(sd_reps_default())
+    per_dir = 5 * cp.nd * cp.ny * cp.ns * nsd
+    vals = np.random.default_rng(seed).uniform(0.2, 0.8, (2 * per_dir, 1)).astype(np.float32)
+    play = ttl.DeviceTable(values=torch.from_numpy(vals),
+                           row_map=torch.tensor([[0], [per_dir]], dtype=torch.int32),
+                           n_slots=1, profile="play", channels=1, has_sd=True)
+    edges = torch.tensor(edges_from_reps(sd_reps_default()), dtype=torch.float32)
+    return dataclasses.replace(th, play=play, coarse=cp, play_sd_edges=edges, play_nsd=nsd)
+
+
 # case: (heads, heads state change, config change, collect_players,
 # collect_stats, K1 covers it)
 _PLAY = SimConfig().replace(model=dataclasses.replace(
     SimConfig().model, use_play_model=True))
 COVER_CASES = {
     "nano_score_only": ("table", {}, None, False, False, True),
-    "play_table_unused": ("table", {"play": "nano"}, None, False, False, True),
-    "play_table_used": ("table", {"play": "nano"}, _PLAY, False, False, False),
+    "play_table_unused": ("table", {"play": "play"}, None, False, False, True),
+    "play_table_used": ("table", {"play": "play"}, _PLAY, False, False, True),
     "play_model_without_table": ("table", {}, _PLAY, False, False, True),
     "players": ("table", {}, None, True, False, True),
     "box_score": ("table", {}, None, False, True, True),
     "both_collectors": ("table", {}, None, True, True, True),
-    "players_play_table_used": ("table", {"play": "nano"}, _PLAY, True, False, False),
-    "box_score_forced_go": ("table", {}, "go", False, True, False),
-    "forced_go": ("table", {}, "go", False, False, False),
-    "fused_layout": ("table", {"nano": None, "fused": "nano"}, None, False, False, False),
+    "players_play_table_used": ("table", {"play": "play"}, _PLAY, True, False, True),
+    "box_score_forced_go": ("table", {}, "go", False, True, True),
+    "forced_go": ("table", {}, "go", False, False, True),
+    "fused_layout": ("table", {"nano": None, "fused": "fused"}, None, False, False, True),
+    "play_table_without_coarse": ("table", {"play": "play", "coarse": None}, _PLAY, False,
+                                  False, False),
     "analytic": ("analytic", {}, None, False, False, False),
     "exact": ("exact", {}, None, False, False, False),
 }
@@ -311,12 +338,14 @@ COVER_CASES = {
 
 @pytest.mark.parametrize("case", list(COVER_CASES))
 def test_nano_game_covers_exactly_the_score_only_nano_launches(case):
-    """K1 takes table heads on a nano table, with no play-policy lookup
-    and no forced 4th-down choice, whichever collectors the launch asks
-    for (K1 has an instantiation for each); everything else stays on the
-    eager loop.  The collectors decide the instantiation, never whether
-    K1 plays.  Where it plays, its plain version on the launch's settings
-    gives what the eager loop gives."""
+    """K1 takes every table-mode launch: a nano or fused table (the
+    per-head tables' cases are tests/test_torch_k1_layouts.py's), with or
+    without the play-policy lookup, under any fourth.force, whichever
+    collectors the launch asks for (K1 has an instantiation for each);
+    exact and analytic heads, and a play table without the coarse profile
+    its cells are on, stay on the eager loop.  The collectors decide the
+    instantiation, never whether K1 plays.  Where it plays, its plain
+    version on the launch's settings gives what the eager loop gives."""
     heads, change, cfg_change, players, stats, covered = COVER_CASES[case]
     cfg = SimConfig()
     if cfg_change == "go":
@@ -324,8 +353,13 @@ def test_nano_game_covers_exactly_the_score_only_nano_launches(case):
     elif cfg_change is not None:
         cfg = cfg_change
     th = _nano_th()
-    th = dataclasses.replace(th, **{k: (th.nano if v == "nano" else v)
-                                    for k, v in change.items()})
+    if change.get("play") == "play":
+        th = with_play_table(th)
+    if change.get("fused") == "fused":
+        th = ttl.pack_tables(*fixtures.fused_tables(TABLE_SEED), device="cpu",
+                             fused_prof=nano_profile())
+    th = dataclasses.replace(th, **{k: v for k, v in change.items()
+                                    if v not in ("play", "fused")})
     he = {"table": ttl.make_table_heads_eval, "analytic": tg.make_analytic_heads_eval,
           "exact": tg.make_exact_heads_eval}[heads](cfg)
     hs = th if heads == "table" else None
@@ -347,10 +381,10 @@ def _struct_fields(src: str, name: str):
     body = re.sub(r"//[^\n]*", "", body)
     out = []
     for decl in body.split(";"):
-        decl = " ".join(decl.split())
+        decl = " ".join(decl.replace("*", " ").split())
         if not decl:
             continue
-        names = decl.split(" ", 1)[1]
+        names = decl.removeprefix("const ").split(" ", 1)[1]
         for v in names.split(","):
             m = re.fullmatch(r"\s*(\w+)(?:\[(\w+)\])?\s*", v)
             out.append((m.group(1), m.group(2) or 0))
@@ -369,10 +403,15 @@ def test_packed_constants_follow_the_kernel_struct():
     def ctypes_fields(cls):
         return [(n, getattr(t, "_length_", 0)) for n, t in cls._fields_]
 
-    for cls, name in ((tg.NanoConsts, "NanoConsts"), (tg._Segs, "Segs")):
+    consts.update(kPlayEdges=tg._PLAY_EDGES, kHeadTables=len(tg.HEAD_TABLES))
+    for cls, name in ((tg.NanoConsts, "NanoConsts"), (tg._Segs, "Segs"),
+                      (tg.LayoutConsts, "LayoutConsts"), (tg._HeadTable, "HeadTable")):
         want = [(n, (consts[k] if k in consts else int(k)) if k else 0)
                 for n, k in _struct_fields(src, name)]
         assert ctypes_fields(cls) == want, name
+    for i, kind in enumerate(tg.LAYOUT_KINDS):
+        assert re.search(r"kLayout%s = %d" % (kind.capitalize(), i), src), kind
+    assert "kForceGo = %d, kForceFg = %d" % (tg.FORCE_CODES["go"], tg.FORCE_CODES["fg"]) in src
     pack, th = _pack_and_tables()
     args = tg.pack_nano_game(pack, SimConfig(), th)
     c = args.consts
@@ -384,6 +423,7 @@ def test_packed_constants_follow_the_kernel_struct():
     assert c.sec.base[7] == 14 and c.sec.top[7] == 1.0
     assert args.dirs.shape == (2, 5) and args.table is th.nano.values
     assert tg.pack_nano_game(pack, _cfg(play_chunk=32), th).consts.cap == 384
+    assert args.kind == 0 and args.table_layout == "nano" and args.play is None
     assert args.k == pack.k == 8 and args.slot_cum.shape == (3, 2, 8)
     assert args.slot_cum.dtype == torch.float32 and args.slot_tracked.dtype == torch.bool
     for r, role in enumerate(("qb", "rb", "wr")):
@@ -518,10 +558,10 @@ def test_launchers_follow_the_kernel_sources():
     assert _launcher_params(moments, "score_moments_launch") == tagg._MOMENTS_ARGTYPES
     assert _constant(moments, "kThreads") == tagg._THREADS
     assert _constant(moments, "kCluster") == tagg._CLUSTER
-    for fn in ("nano_game_threads", "nano_game_consts_size"):
+    for fn in ("nano_game_threads", "nano_game_consts_size", "nano_game_layout_size"):
         assert f'extern "C" int {fn}()' in nano
-    # the occupancy of the instantiation for (collect_stats, collect_players)
-    assert _launcher_params(nano, "nano_game_blocks_per_sm") == [ctypes.c_int, ctypes.c_int]
+    # the occupancy of the instantiation for (layout, collect_stats, collect_players)
+    assert _launcher_params(nano, "nano_game_blocks_per_sm") == [ctypes.c_int] * 3
 
 
 def test_moments_dispatch_on_the_cpu():
