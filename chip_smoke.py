@@ -683,6 +683,11 @@ PATH_LAUNCHES: dict = {}
 # the resumed collector variant after NANO_RESUMED_PLAYS eager plays
 NANO_SLATE_GAMES = 16_384
 NANO_RESUMED_PLAYS = 40
+# the start of the variants added for the slot-sampling redesign: Q4 10:00,
+# 21-17, about a sixth of a game's plays (the eager loop's cost), and of the
+# per-head resumed variant after PER_HEAD_RESUMED_PLAYS eager plays from it
+Q4_LATE_SITUATION = (0, 600, 1, 10.0, 75.0, 21, 17)
+PER_HEAD_RESUMED_PLAYS = 4
 # forest_eval (K5): what any walk of this run's rows must do, whatever its
 # layout (the plain walk's leaves give each row's path; the same bound
 # holds any kernel of the walk): per internal node visited, one
@@ -856,15 +861,15 @@ def read_counts(path: str, needed) -> dict:
 def phase_kernel(card: str) -> dict:
     import torch
     from fast_monte_carlo_tpu_torch.ops import rng
+    from fast_monte_carlo_tpu_torch.probes.draws import RAGGED_KEYS, ragged_shapes
     from fast_monte_carlo_tpu_torch.probes.kernels import kernel_times, launch_gap_ms
 
     dev = torch.device("cuda")
     worst = 0.0
-    for key, base in ((rng.root_key(0), 0), (rng.fold_in(rng.root_key(1), 5), 192),
-                      ((1 << 64) - 1, (1 << 32) - 12)):
+    for key, base in RAGGED_KEYS:
         # ragged shapes: tiles that end inside a row of uniforms, n below,
         # just above and 37 past a tile multiple
-        shapes = [(ch, n) for ch in (1, 3, CH) for n in (1, 255, 257, N + 37)]
+        shapes = ragged_shapes(CH, N)
         equal, err, differ = [], 0.0, []
         for ch, n in shapes:
             u, z = rng.chunk_draws(key, base, ch, n, dev)
@@ -4181,11 +4186,15 @@ def phase_nano_game(card: str, layouts: Optional[dict] = None) -> dict:
     red-zone damping, a collapsed score-diff axis, fumbles without a
     channel, early_exit off, ragged launches; each combination of the
     collectors, antithetic, on the focus roster and from a resumed state
-    with nonzero stats) and over the fixture slate in one launch, plain
-    and antithetic; then the other layouts (`phase_k1_layouts`: fused
-    tables, the forced first play, fourth.force on every play, and on
-    phase 16's tables (`layouts["k1_inputs"]`) the focus roster's per-head
-    tables, the play-policy table and the presets); K2 (score_moments) bit
+    with nonzero stats; the player-stat instantiations in ragged launches
+    of 1,000 and 4 games)
+    and over the fixture slate in one launch, plain and antithetic; then
+    the other layouts (`phase_k1_layouts`: fused tables with each
+    combination of the collectors, the forced first play, fourth.force on
+    every play, and on phase 16's tables (`layouts["k1_inputs"]`) the focus
+    roster's per-head tables with each combination, ragged and resumed,
+    the play-policy table and the
+    presets); K2 (score_moments) bit
     for bit against the torch body, ragged shapes too; both kernels timed
     beside their bounds and their plain versions, K1's props instantiation
     (both collectors) and each other layout too.  The comparisons' launches
@@ -4306,6 +4315,16 @@ def phase_nano_game(card: str, layouts: Optional[dict] = None) -> dict:
         ms = held(what, pk, c, th, n, fo, start, timed=what.endswith("collectors, focus roster"),
                   coll=coll)
         props_eager_ms = props_eager_ms or ms
+        collecting.append(what)
+    # the redesigned player-stat instantiations in ragged launches, late in
+    # the game (a variant costs the eager loop's launch rate a play chunk)
+    players = dict(collect_players=True, collect_stats=False)
+    for what, c, games, coll in (
+            ("both collectors, focus roster, 1,000 games from Q4 10:00", cfg, 1_000, both),
+            ("player stats only, focus roster, 4 antithetic games from Q4 10:00", anti_cfg, 4,
+             players)):
+        held(what, fpack, c, th, games, 0, dict(situation=game.Situation(*Q4_LATE_SITUATION)),
+             coll=coll)
         collecting.append(what)
 
     # the fixture slate in the game layout, one launch, plain and antithetic
@@ -4468,16 +4487,40 @@ def _k1_timed(card: str, what: str, args, s, key: int, coll: dict, force=None, r
     return {"ms": ms, "plain_ms": plain_ms, "plays": int(plays), **bd}
 
 
+def per_head_resumed(pk, c, t, n: int, key: int):
+    """A start with nonzero box scores and player stats on per-head tables:
+    n games from Q4 10:00 after PER_HEAD_RESUMED_PLAYS eager plays with
+    both collectors on."""
+    from fast_monte_carlo_tpu_torch.ops import game, rng
+    from fast_monte_carlo_tpu_torch.ops import table_lookup as tl
+
+    dev = t.stage1.values.device
+    he = tl.make_table_heads_eval(c)
+    s = game.state_from_situation(n, game.Situation(*Q4_LATE_SITUATION), c, dev, 0, pk.k,
+                                  collect_players=True, collect_stats=True)
+    for j in range(PER_HEAD_RESUMED_PLAYS):
+        s = game.play_step(s, rng.step_draws(rng.fold_in(key, 9), j, n, dev), pk, c, he, t,
+                           True, True)
+    check(bool((s.stats[..., 0] > 0).any(dim=1).all()) and float(s.pstats.sum()) > 0,
+          f"the per-head resumed start: every game's stats and the player stats nonzero after "
+          f"{PER_HEAD_RESUMED_PLAYS} plays")
+    return s
+
+
 def phase_k1_layouts(card: str, layouts: Optional[dict], held, errs: dict, pack, fpack, th,
                      key: int) -> dict:
     """Phase 21's other layouts: K1 against the eager loop and
     nano_game_plain (`held`, 0 differing games allowed) on fixture fused
     tables (with stage-2 and fumble channels, both collectors on the focus
-    roster, antithetic), the forced first play (go, fg antithetic, punt with
-    the box score), fourth.force on every play, and on phase 16's tables
-    (`layouts["k1_inputs"]`): the focus roster's per-head tables (score-only,
-    both collectors, a forced punt antithetic), the play-policy table (and a
-    forced fg beside it) and the K1_PRESETS; then each instantiation's
+    roster, antithetic; the player stats alone; the box score alone), the
+    forced first play (go, fg
+    antithetic, punt with the box score), fourth.force on every play, and on
+    phase 16's tables (`layouts["k1_inputs"]`): the focus roster's per-head
+    tables (score-only, both collectors in a forced punt antithetic and
+    from a resumed start with nonzero stats, the box score alone in 4
+    antithetic games, the player stats alone in 1,000 games), the
+    play-policy table (and a forced fg beside
+    it) and the K1_PRESETS; then each instantiation's
     registers and local bytes, and the JSON rows of the fused, per-head,
     play-table and forced launches timed at LAUNCH_GAMES beside their
     bounds (a 60-matchup fused slate launch too)."""
@@ -4516,15 +4559,21 @@ def phase_k1_layouts(card: str, layouts: Optional[dict], held, errs: dict, pack,
     forced = {"fg": dict(situation=fourth, first_play_force="fg"),
               "go": dict(situation=fourth, first_play_force="go"),
               "punt": dict(situation=fourth, first_play_force="punt")}
-    # (what, row of the JSON line, pack, config, tables, first offense, start, collectors)
-    # (each variant is an eager launch and a plain run, about 5 s of the
-    # host's launch rate: branches share variants where they can)
+    players = dict(collect_players=True, collect_stats=False)
+    q4 = dict(situation=game.Situation(*Q4_LATE_SITUATION))
+    # (what, row of the JSON line, pack, config, tables, first offense, start, collectors[,
+    # games]) (each variant is an eager launch and a plain run, about 5 s of the host's
+    # launch rate from Q2 10:00: branches share variants where they can, and those
+    # added for the slot-sampling redesign start at Q4 10:00)
     variants = [
         ("fused, fixture tables on the nano profile", "fused", pack, cfg, fused, fo, {},
          score_only),
         ("fused, stage-2 and fumble channels, both collectors, antithetic, focus roster, "
          "from Q2 10:00", "fused", fpack, with_engine(fum_cfg, antithetic=True), fused_s2, 0,
          q2, both),
+        ("fused, player stats only, focus roster, from Q4 10:00", "fused", fpack, cfg, fused,
+         0, q4, players),
+        ("fused, box score only, from Q4 10:00", "fused", pack, cfg, fused, 0, q4, box),
         ("forced go from a 4th-and-2", "forced", pack, cfg, th, 0, forced["go"], score_only),
         ("forced fg, antithetic, box score", "forced", pack, anti_cfg, th, 0, forced["fg"],
          box),
@@ -4537,13 +4586,22 @@ def phase_k1_layouts(card: str, layouts: Optional[dict], held, errs: dict, pack,
                else "fused")
         variants.append((f"{name}, from Q2 10:00", row, pk, c, t, 0, q2, score_only))
         if name.startswith("per-head"):
-            variants.append((f"{name}, forced punt, antithetic, both collectors", row, pk,
-                             with_engine(c, antithetic=True), t, 0, forced["punt"], both))
+            anti_c = with_engine(c, antithetic=True)
+            variants += [
+                (f"{name}, forced punt, antithetic, both collectors", row, pk, anti_c, t, 0,
+                 forced["punt"], both),
+                (f"{name}, box score only, 4 antithetic games from Q4 10:00", row, pk, anti_c,
+                 t, 0, q4, box, 4),
+                (f"{name}, player stats only, 1,000 games from Q4 10:00", row, pk, c, t, 0, q4,
+                 players, 1_000),
+                (f"{name}, both collectors, resumed after {PER_HEAD_RESUMED_PLAYS} plays "
+                 "from Q4 10:00", row, pk, c, t, 0,
+                 dict(init_state=per_head_resumed(pk, c, t, n, key)), both)]
         if row == "play":
             variants.append((f"{name}, forced fg", row, pk, c, t, 0, forced["fg"], score_only))
     by_row = {}
-    for what, row, pk, c, t, first, start, coll in variants:
-        held(what, pk, c, t, n, first, start, coll=coll)
+    for what, row, pk, c, t, first, start, coll, *rest in variants:
+        held(what, pk, c, t, rest[0] if rest else n, first, start, coll=coll)
         by_row.setdefault(row, []).append(what)
     check({"fused", "per_head", "play", "forced"} <= set(by_row),
           f"K1 held to the eager loop on every layout: {sorted(by_row)} (phase 16's tables "

@@ -156,6 +156,26 @@
 //   1.123-1.126 ms score-only and 1.877-1.878 with both collectors,
 //   against 1.162-1.164 and 1.946-1.960 with the lookups after the draws
 //   (103 registers against 109).
+// - Where a play samples slots (the player stats; the per-head tables) it
+//   draws the slots' Philox block first (philox::step_draws_given draws the
+//   other four after it, none twice), samples the slots, issues the
+//   per-head lookups and the tracked player rows together, then the other
+//   draws under their latency.  With the player stats the launch's slot
+//   shares and tracked flags are copied into shared memory past the stripe,
+//   once a block (240 bytes a matchup at k = 8).  Held ms at 65,536 games,
+//   in turns in one call (probes/kernels.py --games-only): props 1.123-1.129
+//   before, 1.088-1.095 with the slots' block first, 1.077-1.080 with the
+//   shares, flags and per-head row maps staged too; player stats alone
+//   1.055-1.062, 0.991-0.997, 0.977-0.981; per-head score-only 1.119-1.126,
+//   1.123-1.126, 1.118-1.127, where staging bought nothing, so the kept
+//   design stages the shares and flags with the player stats alone (its
+//   own times and every design's: PERF.md section 6, PR 24).
+//   Tried and dropped, each slower in turns: the player rows in a workspace
+//   interleaved by warp ([warp][side][role][slot][pair of stats][lane],
+//   props 1.304-1.312) or by lane ([warp][side][role][slot][lane][pair],
+//   1.261-1.263), copied in from pstats when a lane takes a game and back
+//   when it ends; the next play's slots sampled ahead for both offenses
+//   (props 1.323-1.326, per-head 1.499-1.500).
 // Each thread adds its games' plays to a block count in shared memory and
 // one thread a block adds that to `plays`, when given: what the
 // measurement's bound counts.
@@ -306,7 +326,7 @@ constexpr int U_GO = 0, U_FG = 1, U_TB = 2, U_CALL = 3, U_QB = 4, U_WR = 5, U_RB
               U_COMPLETE = 7, U_EXP = 8, U_BOOST = 9, U_RZ = 10, U_S2 = 11, U_FUM = 12;
 constexpr int N_PUNT_GROSS = 0, N_PUNT_RET = 1, N_YARDS = 2, N_INT_RET = 3;
 static_assert(U_QB / 4 == U_WR / 4 && U_QB / 4 == U_RB / 4,
-              "the slot uniforms share one Philox block (draw_block)");
+              "the slot uniforms share one Philox block (philox::block_uniforms)");
 
 struct Game {
   int off, sec, down, period, sa, sb;
@@ -516,111 +536,99 @@ __device__ __forceinline__ Row load_row(const NanoConsts& c, const float* h) {
   return r;
 }
 
-// game._sample_slot for one game: the shares of direction `dirx` that u is
-// at or past, at most k - 1; one slot reads no share.
-__device__ __forceinline__ int sample_slot(const float* __restrict__ cum, int k, int dirx,
-                                           float u) {
-  if (k == 1) return 0;
-  const float* row = cum + static_cast<long long>(dirx) * k;
+// game._sample_slot for one game: the shares of role r and direction dirx
+// that u is at or past, at most k - 1; one slot reads no share.  `a.cum` is
+// the block's copy in shared memory where kStaged, else global memory.
+template <bool kStaged>
+__device__ __forceinline__ int sample_slot(const Accrual& a, int r, int dirx, float u) {
+  if (a.k == 1) return 0;
+  const float* row = a.cum + (static_cast<long long>(r) * a.dirs + dirx) * a.k;
   int slot = 0;
-  for (int j = 0; j < k; ++j) slot += u >= __ldg(row + j) ? 1 : 0;
-  return min(slot, k - 1);
-}
-
-// A play's sampled slot of each role, in pstats' role order (QB: U_QB,
-// rusher: U_RB, target: U_WR), or -1 where that slot is not tracked, and
-// the tracked slots' rows of game i's pstats as they were before the play.
-struct Slots {
-  int slot[kRoles];
-  float2 row[kRoles][kPlayerStats / 2];
-};
-
-// The three roles' slots of a play of game i by direction `dirx` and
-// offense `off`, sampled ahead of the play, and their rows read: the
-// shares', flags' and rows' loads are then under the play's latency, and no
-// lane waits on them behind a branch of the roles its play involves.  A
-// play adds to at most these rows, so they are read as the play starts.
-__device__ __forceinline__ Slots sample_slots(const Accrual& a, int dirx, const float* u,
-                                              long long i, int off) {
-  const float draw[kRoles] = {u[U_QB], u[U_RB], u[U_WR]};
-  Slots s;
-#pragma unroll
-  for (int r = 0; r < kRoles; ++r) {
-    const long long dir_row = static_cast<long long>(r) * a.dirs + dirx;
-    const int slot = sample_slot(a.cum + static_cast<long long>(r) * a.dirs * a.k, a.k, dirx,
-                                 draw[r]);
-    s.slot[r] = a.tracked[dir_row * a.k + slot] ? slot : -1;
-    if (s.slot[r] >= 0) {
-      const float2* cell = reinterpret_cast<const float2*>(
-          a.pstats + (((i * 2 + off) * kRoles + r) * a.k + slot) * kPlayerStats);
-#pragma unroll
-      for (int q = 0; q < kPlayerStats / 2; ++q) s.row[r][q] = cell[q];
+  for (int j = 0; j < a.k; ++j) {
+    if constexpr (kStaged) {
+      slot += u >= row[j] ? 1 : 0;
+    } else {
+      slot += u >= __ldg(row + j) ? 1 : 0;
     }
   }
-  return s;
-}
-
-// One role's row of play_step's player deltas added to the sampled slot's
-// row `pre` (as `sample_slots` read it) and written back, where that slot
-// is tracked (slot >= 0; the eager step's gate of 0 adds +-0.0 elsewhere,
-// which leaves the cell as it is).
-__device__ __forceinline__ void add_player_row(const Accrual& a, int role, long long i, int off,
-                                               int slot, const float (&v)[kPlayerStats],
-                                               const float2 (&pre)[kPlayerStats / 2]) {
-  if (slot < 0) return;
-  // 8-byte loads and stores (a row is 24 bytes, pstats 8-byte aligned): a
-  // warp's rows are 32 scattered addresses, so each access instruction
-  // costs the load-store unit a pass per row
-  float2* cell = reinterpret_cast<float2*>(
-      a.pstats + (((i * 2 + off) * kRoles + role) * a.k + slot) * kPlayerStats);
-#pragma unroll
-  for (int q = 0; q < kPlayerStats / 2; ++q) {
-    const float2 x = pre[q];
-    cell[q] = make_float2(x.x + v[2 * q], x.y + v[2 * q + 1]);
-  }
+  return min(slot, a.k - 1);
 }
 
 // The three roles' slots of a play in pstats' role order (QB, rusher,
-// target) from their uniforms (U_QB, U_RB, U_WR), as game._sample_slot
-// samples them: what the per-head lookups key on.
-__device__ __forceinline__ void sample_roles(const Accrual& a, int dirx, float u_qb, float u_rb,
-                                             float u_wr, int (&slot)[kRoles]) {
-  const float draw[kRoles] = {u_qb, u_rb, u_wr};
+// target), as game._sample_slot samples them from their uniforms (U_QB,
+// U_RB, U_WR) in the slots' Philox block `w`, mirrored where the game's
+// draws are: what the per-head lookups key on and the player rows a play
+// may add to.
+template <bool kStaged>
+__device__ __forceinline__ void sample_roles(const Accrual& a, int dirx,
+                                             const float (&w)[4], bool mirror,
+                                             int (&slot)[kRoles]) {
+  const int word[kRoles] = {U_QB % 4, U_RB % 4, U_WR % 4};
 #pragma unroll
   for (int r = 0; r < kRoles; ++r) {
-    slot[r] = sample_slot(a.cum + static_cast<long long>(r) * a.dirs * a.k, a.k, dirx, draw[r]);
+    const float u = mirror ? 1.0f - w[word[r]] : w[word[r]];
+    slot[r] = sample_slot<kStaged>(a, r, dirx, u);
   }
 }
 
-// `sample_slots` on slots sampled already: -1 where a slot is not tracked,
-// and the tracked slots' rows of game i's pstats as they were before the play.
-__device__ __forceinline__ Slots tracked_rows(const Accrual& a, int dirx, const int (&slot)[kRoles],
-                                              long long i, int off) {
+constexpr int kPairs = kPlayerStats / 2;   // float2s a player row
+
+// The player row (side, role, slot) in `rows`, a game's block of pstats
+// ((2, kRoles, k, kPlayerStats) f32, 8-byte aligned) as float2s.
+__device__ __forceinline__ float2* player_row(float2* rows, int k, int side, int role, int slot) {
+  return rows + ((side * kRoles + role) * k + slot) * kPairs;
+}
+
+// Game i's block of pstats as float2s.
+__device__ __forceinline__ float2* game_rows(const Accrual& a, long long i) {
+  return reinterpret_cast<float2*>(a.pstats) + i * (2 * kRoles * a.k * kPairs);
+}
+
+// A play's sampled slot of each role, in pstats' role order, or -1 where
+// that slot is not tracked; the game's block of pstats, and the tracked
+// slots' rows as they were before the play.
+struct Slots {
+  int slot[kRoles];
+  float2* rows;
+  float2 row[kRoles][kPairs];
+};
+
+// The play's tracked slots and their rows, read as the play starts (a play
+// adds to at most these rows): issued ahead of the play's other draws, so
+// their latency is under the draws and no lane waits on them behind a
+// branch of the roles its play involves.
+__device__ __forceinline__ Slots tracked_rows(const Accrual& a, float2* rows, int dirx,
+                                              const int (&slot)[kRoles], int off) {
   Slots s;
+  s.rows = rows;
 #pragma unroll
   for (int r = 0; r < kRoles; ++r) {
-    const long long dir_row = static_cast<long long>(r) * a.dirs + dirx;
-    s.slot[r] = a.tracked[dir_row * a.k + slot[r]] ? slot[r] : -1;
-    if (s.slot[r] >= 0) {
-      const float2* cell = reinterpret_cast<const float2*>(
-          a.pstats + (((i * 2 + off) * kRoles + r) * a.k + slot[r]) * kPlayerStats);
+    const bool t = a.tracked[(static_cast<long long>(r) * a.dirs + dirx) * a.k + slot[r]];
+    s.slot[r] = t ? slot[r] : -1;
+    if (t) {
+      const float2* cell = player_row(rows, a.k, off, r, slot[r]);
 #pragma unroll
-      for (int q = 0; q < kPlayerStats / 2; ++q) s.row[r][q] = cell[q];
+      for (int q = 0; q < kPairs; ++q) s.row[r][q] = cell[q];
     }
   }
   return s;
 }
 
-// Philox block b of (key, step, row): its 4 words as uniforms, mirrored
-// where `mirror` (philox.cuh's transform; block 1 holds U_QB, U_WR, U_RB).
-__device__ __forceinline__ void draw_block(uint32_t k0, uint32_t k1, uint32_t step, uint32_t row,
-                                           uint32_t b, bool mirror, float (&w)[4]) {
-  uint32_t c[4] = {row, step, b, 0u};
-  philox::philox4x32_10(c, k0, k1);
+// One role's row of play_step's player deltas added to its slot's row as
+// `tracked_rows` read it, and written back, where that slot is tracked
+// (slot >= 0; the eager step's gate of 0 adds +-0.0 elsewhere, which leaves
+// the cell as it is).  8-byte accesses: a warp's rows are 32 scattered
+// addresses, so each access instruction costs the load-store unit a pass
+// per row (a workspace interleaving a warp's rows cost more: PERF.md).
+__device__ __forceinline__ void add_player_row(const Slots& sl, int k, int role, int off,
+                                               const float (&v)[kPlayerStats]) {
+  const int slot = sl.slot[role];
+  if (slot < 0) return;
+  float2* cell = player_row(sl.rows, k, off, role, slot);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float x = static_cast<float>(c[i] & 0x00FFFFFFu) * 5.9604644775390625e-8f;
-    w[i] = mirror ? 1.0f - x : x;
+  for (int q = 0; q < kPairs; ++q) {
+    const float2 x = sl.row[role][q];
+    cell[q] = make_float2(x.x + v[2 * q], x.y + v[2 * q + 1]);
   }
 }
 
@@ -739,16 +747,16 @@ __device__ __forceinline__ Row head_rows(const NanoConsts& c, const LayoutConsts
 // offense's side of the lane's stripe `team` (column q of side o at
 // (o * kTeamStats + q) * kThreads); with kPlayers each role the play
 // involves (QB and target on a pass play, rusher on a run: the roles whose
-// eager delta is not all +0.0) adds its row to game i's pstats.  With
-// kGeneral (the layouts past kLayoutNano) the 4th-down decision is forced
-// where `force` is a fourth.force code, and the play-policy table's P(pass)
-// `p_ml` replaces pass_prob_v1 where `use_ml`.
+// eager delta is not all +0.0) adds its row to the game's pstats (`sl`).
+// With kGeneral (the layouts past kLayoutNano) the 4th-down decision is
+// forced where `force` is a fourth.force code, and the play-policy table's
+// P(pass) `p_ml` replaces pass_prob_v1 where `use_ml`.
 template <bool kStats, bool kPlayers, bool kGeneral = false>
 __device__ __forceinline__ void play(const NanoConsts& c, const float* grid, const Row& r,
                                      const DirVals& d0, const DirVals& d1, Game& s,
                                      const float* u, const float* n, float* team,
-                                     const Accrual& acc, const Slots& sl, long long i,
-                                     int force = 0, bool use_ml = false, float p_ml = 0.0f) {
+                                     const Accrual& acc, const Slots& sl, int force = 0,
+                                     bool use_ml = false, float p_ml = 0.0f) {
   const int off = s.off, down0 = s.down, sec0 = s.sec;
   const float dist0 = s.dist, ytg0 = s.ytg;
   const int sd = (s.sa - s.sb) * (1 - 2 * off);
@@ -944,11 +952,11 @@ __device__ __forceinline__ void play(const NanoConsts& c, const float* grid, con
         const float qb[kPlayerStats] = {pass_att, f(complete), pass_yds, f(pass_td), f(o_int),
                                         f(o_sck)};
         const float wr[kPlayerStats] = {1.0f, f(complete), pass_yds, f(pass_td), 0.0f, 0.0f};
-        add_player_row(acc, 0, i, off, sl.slot[0], qb, sl.row[0]);
-        add_player_row(acc, 2, i, off, sl.slot[2], wr, sl.row[2]);
+        add_player_row(sl, acc.k, 0, off, qb);
+        add_player_row(sl, acc.k, 2, off, wr);
       } else if (is_run) {
         const float rb[kPlayerStats] = {1.0f, 0.0f, rush_yds, f(run_td), 0.0f, 0.0f};
-        add_player_row(acc, 1, i, off, sl.slot[1], rb, sl.row[1]);
+        add_player_row(sl, acc.k, 1, off, rb);
       }
     }
   }
@@ -1063,7 +1071,9 @@ __device__ __forceinline__ void finish(const Lane& g, const OutPtrs& out, const 
 // the last resets both, so the next launch on the stream finds them 0.
 // One instantiation a layout and combination of the collectors; with kStats
 // the block holds a stripe of 2 x kTeamStats floats a lane in dynamic shared
-// memory.  `lay` is read only past kLayoutNano.
+// memory; with kPlayers the launch's slot shares and tracked flags follow
+// it, copied once a block (`dynamic_bytes`).  `lay` is read only past
+// kLayoutNano.
 template <int kLayout, bool kStats, bool kPlayers>
 __global__ void __launch_bounds__(kThreads)
     nano_game_kernel(const NanoConsts c, const float* __restrict__ table,
@@ -1072,6 +1082,7 @@ __global__ void __launch_bounds__(kThreads)
                      const bool* run_flag, unsigned int* work, const Counters cnt,
                      const Accrual acc, int n, const LayoutConsts lay) {
   constexpr bool kGeneral = kLayout != kLayoutNano;
+  constexpr bool kSampled = kPlayers || kLayout == kLayoutHeads;   // plays sample slots
   extern __shared__ float stripes[];
   float* const team = stripes + threadIdx.x;
   __shared__ float grid[kGridCells];
@@ -1079,6 +1090,21 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ SegVals sv[kGeneral ? 8 : 4];
   __shared__ unsigned long long block_plays, block_iters;
   for (int k = threadIdx.x; k < c.go_cells; k += kThreads) grid[k] = c.go_grid[k];
+  // with the player stats, the slot shares and tracked flags copied past
+  // the stripe in coalesced loads: each play's slot samples and flags then
+  // read shared memory
+  Accrual sa = acc;
+  if constexpr (kPlayers) {
+    float* const cum = stripes + (kStats ? 2 * kTeamStats * kThreads : 0);
+    const int entries = kRoles * acc.dirs * acc.k;
+    bool* const tracked = reinterpret_cast<bool*>(cum + entries);
+    for (int j = threadIdx.x; j < entries; j += kThreads) {
+      cum[j] = acc.cum[j];
+      tracked[j] = acc.tracked[j];
+    }
+    sa.cum = cum;
+    sa.tracked = tracked;
+  }
   if (threadIdx.x == 0) {
     block_plays = 0;
     block_iters = 0;
@@ -1120,28 +1146,41 @@ __global__ void __launch_bounds__(kThreads)
     ++iters;
     if constexpr (!kGeneral) {
       if (g.live) {
-        // the row's loads first, the draws under their latency, then the play
+        // the row's loads first; with kPlayers the slots' Philox block, the
+        // slots and the tracked rows' loads next; the (other) draws under
+        // their latency, then the play
         const Row r = load_row(c, row_of(c, sv, table, g.s));
         float u[philox::kUniforms], z[philox::kNormals];
-        philox::step_draws(k0, k1, static_cast<uint32_t>(g.j), g.row, u, z);
+        Slots sl{};
+        if constexpr (kPlayers) {
+          const int dirx = g.s.gid * 2 + g.s.off;
+          float w[4];
+          philox::block_uniforms(k0, k1, static_cast<uint32_t>(g.j), g.row, U_QB / 4, w);
+          int slot[kRoles];
+          sample_roles<true>(sa, dirx, w, g.mirror, slot);
+          sl = tracked_rows(sa, game_rows(acc, g.i), dirx, slot, g.s.off);
+          philox::step_draws_given<U_QB / 4>(k0, k1, static_cast<uint32_t>(g.j), g.row, w, u, z);
+        } else {
+          philox::step_draws(k0, k1, static_cast<uint32_t>(g.j), g.row, u, z);
+        }
         if (g.mirror) {
 #pragma unroll
           for (int k = 0; k < philox::kUniforms; ++k) u[k] = 1.0f - u[k];
 #pragma unroll
           for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
         }
-        Slots sl{};
-        if constexpr (kPlayers) sl = sample_slots(acc, g.s.gid * 2 + g.s.off, u, g.i, g.s.off);
-        play<kStats, kPlayers>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl, g.i);
+        play<kStats, kPlayers>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl);
         ++g.j;
         g.live = g.s.sec > 0 && g.j < c.cap;
       }
     } else {
       if (g.live) {
         // the lookups that need no draw issued first (the row, the play
-        // table); per-head, the slots' Philox block, the slots and the
-        // lookups keyed on them next; then the play's draws (the forced
-        // play's on its own stream) under their latency, then the play
+        // table); where the play samples slots, the slots' Philox block,
+        // the slots, and the per-head lookups and the tracked player rows
+        // keyed on them issued together next; then the play's other draws
+        // (the forced play's on its own stream) under their latency, then
+        // the play
         const int dirx = g.s.gid * 2 + g.s.off;
         const Bins b = bins(c, lay, sv, g.s, second);
         Row r{};
@@ -1150,27 +1189,26 @@ __global__ void __launch_bounds__(kThreads)
         const bool forced = g.forced;
         const uint32_t dk0 = forced ? lay.fk0 : k0, dk1 = forced ? lay.fk1 : k1;
         const uint32_t step = forced ? 0u : static_cast<uint32_t>(g.j);
-        int slot[kRoles] = {0, 0, 0};
-        if constexpr (kLayout == kLayoutHeads) {
-          float w[4];
-          draw_block(dk0, dk1, step, g.row, U_QB / 4, g.mirror, w);
-          sample_roles(acc, dirx, w[U_QB % 4], w[U_RB % 4], w[U_WR % 4], slot);
-          r = head_rows(c, lay, b, dirx, slot);
-        }
         float u[philox::kUniforms], z[philox::kNormals];
-        philox::step_draws(dk0, dk1, step, g.row, u, z);
+        Slots sl{};
+        if constexpr (kSampled) {
+          float w[4];
+          philox::block_uniforms(dk0, dk1, step, g.row, U_QB / 4, w);
+          int slot[kRoles];
+          sample_roles<kPlayers>(sa, dirx, w, g.mirror, slot);
+          if constexpr (kLayout == kLayoutHeads) r = head_rows(c, lay, b, dirx, slot);
+          if constexpr (kPlayers) sl = tracked_rows(sa, game_rows(acc, g.i), dirx, slot, g.s.off);
+          philox::step_draws_given<U_QB / 4>(dk0, dk1, step, g.row, w, u, z);
+        } else {
+          philox::step_draws(dk0, dk1, step, g.row, u, z);
+        }
         if (g.mirror) {
 #pragma unroll
           for (int k = 0; k < philox::kUniforms; ++k) u[k] = 1.0f - u[k];
 #pragma unroll
           for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
         }
-        if constexpr (kLayout != kLayoutHeads && kPlayers) {
-          sample_roles(acc, dirx, u[U_QB], u[U_RB], u[U_WR], slot);
-        }
-        Slots sl{};
-        if constexpr (kPlayers) sl = tracked_rows(acc, dirx, slot, g.i, g.s.off);
-        play<kStats, kPlayers, true>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl, g.i,
+        play<kStats, kPlayers, true>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl,
                                      forced ? lay.force_first : lay.force_every, lay.has_play,
                                      p_ml);
         if (forced) {
@@ -1249,8 +1287,22 @@ KernelFn kernel_of(int layout, bool stats, bool players) {
   }
 }
 
-// Its dynamic shared memory: the lanes' team-stat stripes.
-size_t stripe_bytes(bool stats) { return stats ? 2 * kTeamStats * kThreads * sizeof(float) : 0; }
+// Its dynamic shared memory: the lanes' team-stat stripes, then with the
+// player stats the slot tables of `entries` shares (f32) and as many
+// tracked flags (a byte each), in 16-byte units.
+size_t dynamic_bytes(bool stats, bool players, int entries) {
+  const size_t stripes = stats ? 2 * kTeamStats * kThreads * sizeof(float) : 0;
+  const size_t slot_tables = players ? (static_cast<size_t>(entries) * 5 + 15) / 16 * 16 : 0;
+  return stripes + slot_tables;
+}
+
+// Lets `fn` take `bytes` of dynamic shared memory (past the 48 KB a launch
+// may take without asking).
+cudaError_t allow_dynamic(KernelFn fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
 
 }  // namespace
 
@@ -1263,14 +1315,19 @@ extern "C" int nano_game_threads() { return kThreads; }
 
 // Blocks of K1's instantiation for the layout (kLayoutNano, kLayoutRow,
 // kLayoutHeads) and the collectors `stats` and `players` (0 or 1) that one
-// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
-// current device), or minus the CUDA error.
-extern "C" int nano_game_blocks_per_sm(int layout, int stats, int players) {
+// SM holds at once, with the player stats staging slot tables of `entries`
+// shares (kRoles x the launch's directions x k)
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device), or
+// minus the CUDA error.
+extern "C" int nano_game_blocks_per_sm(int layout, int stats, int players, int entries) {
   const KernelFn fn = kernel_of(layout, stats, players);
   if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = dynamic_bytes(stats, players, entries);
+  cudaError_t err = allow_dynamic(fn, bytes);
   int blocks = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fn, kThreads, stripe_bytes(stats));
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, bytes);
+  }
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -1309,8 +1366,8 @@ extern "C" int nano_game_attributes(int layout, int stats, int players, int* reg
 // LayoutConsts (past kLayoutNano: the force codes and key, the strides, the
 // second profile, the play table and the per-head tables).  `blocks` blocks
 // of kThreads (at most the resident blocks, `nano_game_blocks_per_sm` of the
-// instantiation x the SMs).  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// instantiation and its slot tables x the SMs).  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const void* dirs,
                                 int n_matchups, void* const* in, void* const* out, uint32_t k0,
                                 uint32_t k1, uint32_t r0, int anti, const void* run_flag,
@@ -1337,7 +1394,10 @@ extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const vo
   const bool with_stats = stats != nullptr, with_players = pstats != nullptr;
   const KernelFn fn = kernel_of(layout, with_stats, with_players);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  fn<<<blocks, kThreads, stripe_bytes(with_stats), static_cast<cudaStream_t>(stream)>>>(
+  const size_t bytes = dynamic_bytes(with_stats, with_players, kRoles * acc.dirs * k);
+  const cudaError_t err = allow_dynamic(fn, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fn<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       *c, static_cast<const float*>(table), static_cast<const float*>(dirs), n_matchups, ip,
       op, k0, k1, r0, anti, static_cast<const bool*>(run_flag),
       static_cast<unsigned int*>(work), cnt, acc, n, *lay);

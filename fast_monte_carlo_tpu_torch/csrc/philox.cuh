@@ -1,5 +1,5 @@
 // Philox4x32-10 and the play-step draw transform, shared by every kernel that
-// draws (philox_draws.cu, fused_step.cu).
+// draws (philox_draws.cu, fused_step.cu, nano_game.cu).
 //
 // Philox4x32-10: Salmon et al., "Parallel random numbers: as easy as 1, 2, 3",
 // SC'11.  A play step of a game uses 5 blocks with counter (row, step,
@@ -41,21 +41,21 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32
   }
 }
 
-// The 13 uniforms and 4 normals of one (key, step, row).
-__device__ __forceinline__ void step_draws(uint32_t k0, uint32_t k1, uint32_t step,
-                                           uint32_t row, float u[kUniforms],
-                                           float z[kNormals]) {
-  float w[20];
+// Block b of (key, step, row): its 4 words as uniforms.
+__device__ __forceinline__ void block_uniforms(uint32_t k0, uint32_t k1, uint32_t step,
+                                               uint32_t row, uint32_t b, float w[4]) {
+  uint32_t c[4] = {row, step, b, 0u};
+  philox4x32_10(c, k0, k1);
 #pragma unroll
-  for (int b = 0; b < 5; ++b) {
-    uint32_t c[4] = {row, step, static_cast<uint32_t>(b), 0u};
-    philox4x32_10(c, k0, k1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // 24 bits are exact in f32; the scale is a power of two
-      w[4 * b + i] = static_cast<float>(c[i] & 0x00FFFFFFu) * 5.9604644775390625e-8f;
-    }
+  for (int i = 0; i < 4; ++i) {
+    // 24 bits are exact in f32; the scale is a power of two
+    w[i] = static_cast<float>(c[i] & 0x00FFFFFFu) * 5.9604644775390625e-8f;
   }
+}
+
+// The 13 uniforms and 4 normals of a step from its 5 blocks' 20 uniforms.
+__device__ __forceinline__ void words_to_draws(const float w[20], float u[kUniforms],
+                                               float z[kNormals]) {
 #pragma unroll
   for (int i = 0; i < kUniforms; ++i) u[i] = w[i];
 
@@ -74,6 +74,36 @@ __device__ __forceinline__ void step_draws(uint32_t k0, uint32_t k1, uint32_t st
   z[1] = r0 * s0;
   z[2] = r1 * c1;
   z[3] = r1 * s1;
+}
+
+// The 13 uniforms and 4 normals of one (key, step, row).
+__device__ __forceinline__ void step_draws(uint32_t k0, uint32_t k1, uint32_t step,
+                                           uint32_t row, float u[kUniforms],
+                                           float z[kNormals]) {
+  float w[20];
+#pragma unroll
+  for (int b = 0; b < 5; ++b) block_uniforms(k0, k1, step, row, b, w + 4 * b);
+  words_to_draws(w, u, z);
+}
+
+// step_draws with block kGiven's uniforms already drawn (`given`, as
+// block_uniforms makes them): a kernel that draws one block first
+// (nano_game.cu: the player slots' uniforms) draws the other four here.
+template <int kGiven>
+__device__ __forceinline__ void step_draws_given(uint32_t k0, uint32_t k1, uint32_t step,
+                                                 uint32_t row, const float (&given)[4],
+                                                 float u[kUniforms], float z[kNormals]) {
+  float w[20];
+#pragma unroll
+  for (int b = 0; b < 5; ++b) {
+    if (b == kGiven) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[4 * b + i] = given[i];
+    } else {
+      block_uniforms(k0, k1, step, row, b, w + 4 * b);
+    }
+  }
+  words_to_draws(w, u, z);
 }
 
 }  // namespace philox

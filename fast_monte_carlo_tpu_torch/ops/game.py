@@ -1558,7 +1558,7 @@ def _nano_lib():
     lib.nano_game_launch.argtypes = _NANO_ARGTYPES
     lib.nano_game_launch.restype = ctypes.c_int
     lib.nano_game_threads.argtypes, lib.nano_game_threads.restype = [], ctypes.c_int
-    lib.nano_game_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.nano_game_blocks_per_sm.argtypes = [ctypes.c_int] * 4
     lib.nano_game_blocks_per_sm.restype = ctypes.c_int
     lib.nano_game_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     lib.nano_game_attributes.restype = ctypes.c_int
@@ -1566,15 +1566,17 @@ def _nano_lib():
 
 
 @functools.lru_cache(maxsize=None)
-def nano_geometry(index: int, collect_stats: bool = False,
-                  collect_players: bool = False, kind: int = 0) -> Tuple[int, int]:
+def nano_geometry(index: int, collect_stats: bool = False, collect_players: bool = False,
+                  kind: int = 0, slot_entries: int = 0) -> Tuple[int, int]:
     """(blocks of K1's instantiation for the layout `kind` (a LAYOUT_KINDS
     index) and these collectors that card `index` holds at once, threads a
     block): the occupancy API's blocks an SM times the SMs, asked once a
-    card and instantiation."""
+    card, instantiation and size of the slot tables (`slot_entries`, the
+    shares a launch with the player stats copies into shared memory)."""
     lib = _nano_lib()
     with torch.cuda.device(index):
-        per_sm = lib.nano_game_blocks_per_sm(kind, int(collect_stats), int(collect_players))
+        per_sm = lib.nano_game_blocks_per_sm(kind, int(collect_stats), int(collect_players),
+                                             slot_entries)
     if per_sm <= 0:
         raise RuntimeError(f"nano_game occupancy query failed: CUDA error {-per_sm}")
     return (per_sm * torch.cuda.get_device_properties(index).multi_processor_count,
@@ -1727,7 +1729,8 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     # fixed point, so whether the loop runs at all matters only unforced
     run_flag = (ins[2] > 0).any() if args.early_exit and force is None else None
     lib = _nano_lib()
-    blocks = nano_grid(n, *nano_geometry(dev.index, collect_stats, collect_players, kind))
+    entries = args.slot_cum.numel() if collect_players else 0
+    blocks = nano_grid(n, *nano_geometry(dev.index, collect_stats, collect_players, kind, entries))
 
     def ptrs(ts):
         return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])

@@ -10,8 +10,9 @@ passes (`pack_nano_game`), is held bit for bit to the eager game loop
 player stats included: fused tables on the coarse, turbo and slate
 profiles, per-head tables of a focus roster on small and on the default
 profiles, the play table beside nano, fused and per-head tables, each
-forced 4th-down choice with and without antithetic draws, and resumed
-states.  The tables are `tests/test_torch_table_layouts.py`'s (`LAYOUTS`,
+forced 4th-down choice with and without antithetic draws, resumed
+states, and each collector alone from a late start in ragged and
+antithetic launches.  The tables are `tests/test_torch_table_layouts.py`'s (`LAYOUTS`,
 built from `fixtures.heads(13, "small")`).  A forced first play on
 injected draws is held to the JAX package's `play_step` under
 fourth.force, integer state equal in at least 98% of rows, as the table
@@ -49,16 +50,20 @@ BOTH = dict(collect_players=True, collect_stats=True)
 SCORE_ONLY = dict(collect_players=False, collect_stats=False)
 # a 4th-and-2 at midfield, 25:00 left, 10-14: the evaluator's kind of start
 FOURTH = tg.Situation(0, 1500, 4, 2.0, 45.0, 10, 14)
+# Q4 10:00, 1st-and-10 at the 25, 21-17: a short rest of a game
+Q4_LATE = tg.Situation(0, 600, 1, 10.0, 75.0, 21, 17)
 
 
 def _clone(s):
     return tg.GameState(*(f.clone() for f in s))
 
 
-def _port_layout(env, layout):
+def _port_layout(env, layout, teams=None):
     """(pack, TableHeads, config) of a LAYOUTS entry, the port's build
-    alone, with the pack of its teams and heads."""
-    teams, kw, model = LAYOUTS[layout]
+    alone, with the pack of its teams (or of `teams`, an `env` entry) and
+    heads."""
+    own, kw, model = LAYOUTS[layout]
+    teams = teams or own
     model = dict(model)
     sd_mode = model.pop("sd_mode", "axis")
     cfg = SimConfig()
@@ -204,6 +209,24 @@ def test_resumed_state_equals_eager(env, force):
                          th, True, True)
     assert float(s.stats.abs().sum()) > 0 and float(s.pstats.abs().sum()) > 0
     _held_to_eager(pack, th, cfg, BOTH, force=force, init_state=s)
+
+
+@pytest.mark.parametrize("anti", [False, True], ids=["plain_37", "antithetic_4"])
+@pytest.mark.parametrize("collector", ["box_score", "player_stats"])
+@pytest.mark.parametrize("layout", ["fused_coarse", "per_head"])
+def test_one_collector_from_a_late_start_equals_eager(env, layout, collector, anti):
+    """Each collector alone (the box score, the player stats), on fused and
+    per-head tables of the focus roster (whose tracked slots give nonzero
+    player rows), from Q4 10:00 at 21-17, in a launch of 37 games (not a
+    warp's multiple) and of 4 with antithetic draws: bit for bit, and what
+    the collector gathers is nonzero."""
+    pack, th, cfg = _port_layout(env, layout, teams="focus")
+    if anti:
+        cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, antithetic=True))
+    players = collector == "player_stats"
+    coll = dict(collect_players=players, collect_stats=not players)
+    got, _ = _held_to_eager(pack, th, cfg, coll, n=4 if anti else 37, situation=Q4_LATE)
+    assert float((got.pstats if players else got.stats).abs().sum()) > 0
 
 
 def test_every_play_forced_equals_eager():

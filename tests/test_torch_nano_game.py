@@ -560,8 +560,9 @@ def test_launchers_follow_the_kernel_sources():
     assert _constant(moments, "kCluster") == tagg._CLUSTER
     for fn in ("nano_game_threads", "nano_game_consts_size", "nano_game_layout_size"):
         assert f'extern "C" int {fn}()' in nano
-    # the occupancy of the instantiation for (layout, collect_stats, collect_players)
-    assert _launcher_params(nano, "nano_game_blocks_per_sm") == [ctypes.c_int] * 3
+    # the occupancy of the instantiation for (layout, collect_stats,
+    # collect_players) with the slot tables it stages
+    assert _launcher_params(nano, "nano_game_blocks_per_sm") == [ctypes.c_int] * 4
 
 
 def test_moments_dispatch_on_the_cpu():
