@@ -654,13 +654,18 @@ NANO_ROW_COUNTS = {"alu": 0, "imad": 0, "mufu_cvt": 0, "dispatch": 12}
 # `bin_counts`): NANO_COUNTS holds the nano profile's (4, 7, 7 and 0
 # boundaries: 44 ALU, 8 conversions, 64 dispatched).  The play-policy
 # lookup: the coarse cell's three axes binned, the score diff's bin among
-# the 26 edges (26 compares and 26 adds) and the P(pass) load.  The
+# the 26 edges and the P(pass) load.  The bin counts the least work that
+# binning an integer among sorted edges needs, whatever the kernel does: a
+# clamp into a table of the integers the edges span (2 ALU) and one load
+# from it (PLAY_SEARCH_COUNTS: 3 dispatched; a binary search would take 5
+# compares and their selects, the first kernel's scan 26 compares and 26
+# adds).  The
 # per-head lookups: per slot sampled (QB, target and rusher, every play),
 # NANO_SLOT_COUNTS less the tracked flag's load and test; per table read,
 # its key and row index clamped (4 ALU), its row-map entry's load and its
 # channels' loads, in place of the nano row's 7 loads.  A forced first play
 # is a play (the kernel's `plays` count holds it).
-PLAY_SEARCH_COUNTS = {"alu": 26, "imad": 0, "mufu_cvt": 0, "dispatch": 53}
+PLAY_SEARCH_COUNTS = {"alu": 2, "imad": 0, "mufu_cvt": 0, "dispatch": 3}
 HEAD_SLOT_COUNTS = {"alu": 9, "imad": 0, "mufu_cvt": 0, "dispatch": 25}
 NANO_ROW_LOADS = 7
 # the channels each per-head table's row holds (game.HEAD_TABLES' order)
@@ -724,13 +729,14 @@ def launches_since(before: dict) -> dict:
 
 def engine_record() -> dict:
     """`engine_launches` with K1's launches on the fused and per-head
-    layouts, with the play table and with a forced first play."""
+    layouts, with the play table, with a forced first play, and of the
+    score-only one-row layouts whose options are fixed at compile time."""
     from fast_monte_carlo_tpu_torch.ops import game
 
     f = game.nano_game_cuda
     return {**engine_launches(), "K1 fused": f.launches_fused,
             "K1 per-head": f.launches_per_head, "K1 play": f.launches_play,
-            "K1 forced": f.launches_forced}
+            "K1 forced": f.launches_forced, "K1 options compiled": f.launches_compiled}
 
 
 def engine_since(before: dict) -> dict:
@@ -4608,12 +4614,11 @@ def phase_k1_layouts(card: str, layouts: Optional[dict], held, errs: dict, pack,
           f"{sorted(inputs)})")
 
     # registers and local bytes of every instantiation
-    for kind, layout in enumerate(game.LAYOUT_KINDS):
-        for stats, players in ((False, False), (True, False), (False, True), (True, True)):
-            regs, local = game.nano_game_usage(kind, stats, players)
-            print(f"  K1 instantiation {layout}, stats {stats}, players {players}: {regs} "
-                  f"registers, {local} bytes of local memory a thread (its stack frame and "
-                  "any spills; ptxas' spill counts: probes.kernels --sass)")
+    for kind, stats, players in game.NANO_INSTANTIATIONS:
+        regs, local = game.nano_game_usage(kind, stats, players)
+        print(f"  K1 instantiation {game.LAYOUT_KINDS[kind]}, stats {stats}, players {players}: "
+              f"{regs} registers, {local} bytes of local memory a thread (its stack frame and "
+              "any spills; ptxas' spill counts: probes.kernels --sass)")
 
     # timing: each row's launch at LAUNCH_GAMES, and a 60-matchup fused slate
     def state(pk, c, first, start, coll):

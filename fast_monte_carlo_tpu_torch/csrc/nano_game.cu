@@ -62,13 +62,20 @@
 //   key (stage 1, the sack quantiles: QB; the rush quantiles and fumble:
 //   rusher) or pair key (QB x target: the pass quantiles, and stage 2
 //   where its table keys on pairs), each index clamped as _take's.
-// In the last two the play-policy table (the coach's P(pass) on the coarse
-// profile's cell and the score diff's bin among 26 edges) and the forced
-// 4th-down decision are branches uniform across the grid: the forced first
-// play (force_first, on the forced stream fk0, fk1 at step 0 of the game's
-// draw row, outside the play cap, as the eager composition plays it), then
-// the plays from step 0 of the launch key, each under force_every (the
-// config's fourth.force).
+// - kLayoutRowBare, kLayoutRowPlay, kLayoutRowForced: kLayoutRow score-only
+//   with neither the play table nor a forced first play (a fused or slate
+//   launch, fourth.force on every play), with the play table, with a forced
+//   first play: the launches the paths make past the nano layout
+//   (ops/game.nano_kind picks; Opts says what each reads).
+// In kLayoutRow and kLayoutHeads the play-policy table (the coach's P(pass)
+// on the coarse profile's cell and the score diff's bin among 26 edges) and
+// the forced 4th-down decision are branches uniform across the grid: the
+// forced first play (force_first, on the forced stream fk0, fk1 at step 0
+// of the game's draw row, outside the play cap, as the eager composition
+// plays it), then the plays from step 0 of the launch key, each under
+// force_every (the config's fourth.force, a uniform code in every layout
+// past the nano one).  In the three score-only ones they are fixed at
+// compile time.
 //
 // Bound on the H100: the games' state read and written once (40 bytes in,
 // 36 out a game) and the nano table read once (6.9 MB a matchup) are far
@@ -176,6 +183,31 @@
 //   1.261-1.263), copied in from pstats when a lane takes a game and back
 //   when it ends; the next play's slots sampled ahead for both offenses
 //   (props 1.323-1.326, per-head 1.499-1.500).
+// - The one-row layouts (PR 25; held ms at 65,536 games on an NVIDIA H100
+//   80GB HBM3 at 700 W, in turns with the earlier design in one call,
+//   probes/kernels.py --games-only; PERF.md section 6): the score-only
+//   launches take an instantiation whose play table and forced play are
+//   fixed at compile time, so a fused launch compiles to nano's loop with
+//   the row's strides (71 registers, 2,168 SASS instructions against the
+//   general one-row instantiation's 90 and 2,920); the lane takes its
+//   game's two directions' first rows, in the table and in the play table,
+//   when it takes the game, and a play picks one by `off` and adds 32-bit
+//   strides (no dependent load ahead of P(pass)); the play table's score
+//   diff is binned by one load from a table of every integer's bin that the
+//   block builds from the edges (`sd_bins`) in place of a 26-edge scan; the
+//   forced play's stream and code are the lane's for its game's first play
+//   only (kLayoutRowForced; one call site of `play`, not a second inlined
+//   copy); past the nano layout the block's segment values are copied a
+//   word a thread.  Fused 0.6325-0.6328 ms against 0.6640-0.6692; the play
+//   table 0.5868-0.5875 against 0.6727-0.6777; a forced go 0.2761-0.2765
+//   against 0.2914-0.2937; the 60-matchup fused slate launch 15.29-15.30 ms
+//   against 17.23-17.39 (three blocks an SM at 71 registers, two at 90).
+//   The per-head instantiations share the prologue and the play table's
+//   bins: score-only 1.0864-1.0913 against 1.1172-1.1260, with both
+//   collectors 1.8145-1.8179 against 1.7896-1.7946; a variant keeping the
+//   earlier scan and step select for them traded the two (1.1135-1.1142
+//   and 1.8051-1.8064, in turns with this design's 1.0901-1.0973 and
+//   1.8254-1.8276), so it was not kept.
 // Each thread adds its games' plays to a block count in shared memory and
 // one thread a block adds that to `plays`, when given: what the
 // measurement's bound counts.
@@ -196,10 +228,17 @@ constexpr int kTeamStats = 19;  // stats.TEAM_STAT_FIELDS
 constexpr int kPoints = 17;     // its "points" column
 constexpr int kPlayerStats = 6; // stats.N_PLAYER_STATS
 constexpr int kRoles = 3;       // QB, rusher, target: pstats' role axis
-// the layouts (ops/game.LAYOUT_KINDS)
-constexpr int kLayoutNano = 0, kLayoutRow = 1, kLayoutHeads = 2;
+// the layouts (ops/game.LAYOUT_KINDS): the nano table, one row a play with
+// the play table and the forced first play read from LayoutConsts, the
+// per-head tables; and one row a play, score-only, with neither, with the
+// play table, with a forced first play
+constexpr int kLayoutNano = 0, kLayoutRow = 1, kLayoutHeads = 2, kLayoutRowBare = 3,
+              kLayoutRowPlay = 4, kLayoutRowForced = 5;
 constexpr int kHeadTables = 6;  // stage1, stage2, pq, rq, sq, fumble (game.HEAD_TABLES)
 constexpr int kPlayEdges = 32;  // the play table's score-diff edges (26), padded
+// the play table's score-diff bins, a table of the integer score diffs
+// kPlaySdLo .. kPlaySdLo + kPlaySdBins - 1 (game.PLAY_SD_LO, PLAY_SD_BINS)
+constexpr int kPlaySdLo = -128, kPlaySdBins = 256;
 // fourth.force codes (game.FORCE_CODES)
 constexpr int kForceGo = 1, kForceFg = 2;
 }  // namespace
@@ -643,8 +682,12 @@ struct Bins {
   int sd, down_i, di, yi, si, sdi, di2, yi2, si2, sdi2;
 };
 
+// `second`: the coarse cell's three axes binned too; `sd2`: its score diff
+// too (the per-head tables read it, the play table bins the score diff by
+// its own edges).  Both fold away where the caller knows them at compile
+// time.
 __device__ __forceinline__ Bins bins(const NanoConsts& c, const LayoutConsts& lay,
-                                     const SegVals* sv, const Game& s, bool second) {
+                                     const SegVals* sv, const Game& s, bool second, bool sd2) {
   Bins b;
   b.sd = (s.sa - s.sb) * (1 - 2 * s.off);
   const float sdf = static_cast<float>(b.sd);
@@ -659,24 +702,23 @@ __device__ __forceinline__ Bins bins(const NanoConsts& c, const LayoutConsts& la
     b.di2 = seg_bin(lay.dist2, sv[4], s.dist);
     b.yi2 = seg_bin(lay.ytg2, sv[5], s.ytg);
     b.si2 = seg_bin(lay.sec2, sv[6], secf);
-    b.sdi2 = lay.sd2_on ? seg_bin(lay.sd2, sv[7], sdf) : 0;
+    b.sdi2 = sd2 ? seg_bin(lay.sd2, sv[7], sdf) : 0;
   }
   return b;
 }
 
-// kLayoutRow: the floats of the state's row (table_lookup._fused_eval's
-// index, clamped as _take's; _nano_eval's row and (down, sd) block where the
-// strides are the nano table's, the clamp then a no-op).
+// The one-row layouts: the floats of the state's row (table_lookup.
+// _fused_eval's index, clamped as _take's; _nano_eval's row and (down, sd)
+// block where the strides are the nano table's, the clamp then a no-op),
+// from its direction's first row `base`.  The index is 32-bit, as JAX's
+// int32 (ops/game.pack_nano_game checks rows < 2^31), widened once.
 __device__ __forceinline__ const float* row_at(const NanoConsts& c, const LayoutConsts& lay,
                                                const float* __restrict__ table, const Bins& b,
-                                               int dirx) {
-  const long long row = static_cast<long long>(dirx) * c.per_dir
-                        + static_cast<long long>(b.down_i) * lay.s_down
-                        + static_cast<long long>(b.di) * lay.s_dist
-                        + static_cast<long long>(b.yi) * lay.s_ytg
-                        + static_cast<long long>(b.si) * lay.s_sec
-                        + static_cast<long long>(b.sdi) * lay.s_sd;
-  return table + clamp_index(row, lay.rows) * c.cols + b.down_i * lay.b_down + b.sdi * lay.b_sd;
+                                               int base) {
+  const int row = base + b.down_i * lay.s_down + b.di * lay.s_dist + b.yi * lay.s_ytg
+                  + b.si * lay.s_sec + b.sdi * lay.s_sd;
+  const int clamped = min(max(row, 0), static_cast<int>(lay.rows) - 1);
+  return table + static_cast<long long>(clamped) * c.cols + (b.down_i * lay.b_down + b.sdi * lay.b_sd);
 }
 
 // The state's cell on the second (coarse) profile: table_lookup._state_idx.
@@ -685,15 +727,19 @@ __device__ __forceinline__ int cell2(const LayoutConsts& lay, const Bins& b) {
 }
 
 // The play-policy table's P(pass) of the state (table_lookup.py's play
-// lookup): the direction's first row, the coarse cell's play_nsd bins and
-// the score diff's bin, the count of edges below it (_bin), clamped.
-__device__ __forceinline__ const float* play_at(const LayoutConsts& lay, const Bins& b, int dirx) {
-  const float sdf = static_cast<float>(b.sd);
-  int bin = 0;
-#pragma unroll
-  for (int e = 0; e < kPlayEdges; ++e) bin += sdf > lay.play_edges[e] ? 1 : 0;
-  const long long idx = __ldg(lay.play_base + dirx) + cell2(lay, b) * lay.play_nsd + bin;
-  return lay.play + clamp_index(idx, lay.play_rows) * lay.play_cols;
+// lookup): the direction's first row `base`, the coarse cell's play_nsd
+// bins and the score diff's bin, clamped (32-bit, as row_at).  The bin,
+// the count of edges below the score diff (_bin), is read from the block's
+// table `sd_bins` (every integer score diff in kPlaySdLo .. kPlaySdLo +
+// kPlaySdBins - 1; one outside takes its nearest end's bin, its own since
+// every edge lies inside: pack_nano_game checks).
+__device__ __forceinline__ const float* play_at(const LayoutConsts& lay,
+                                                const unsigned char* sd_bins, const Bins& b,
+                                                int base) {
+  const int bin = sd_bins[min(max(b.sd, kPlaySdLo), kPlaySdLo + kPlaySdBins - 1) - kPlaySdLo];
+  const int idx = base + cell2(lay, b) * lay.play_nsd + bin;
+  const int clamped = min(max(idx, 0), static_cast<int>(lay.play_rows) - 1);
+  return lay.play + static_cast<long long>(clamped) * lay.play_cols;
 }
 
 // kLayoutHeads: head table t's row of the state (table_lookup._per_head_eval's
@@ -984,6 +1030,31 @@ struct Lane {
   bool mirror;
   bool forced;        // the forced first play is next (layouts past kLayoutNano)
   int extra;          // 1 once the forced play is played (outside the cap and j)
+  // Opts::bases: the first row of each direction of the game (off 0, 1) in
+  // the table and in the play table
+  int rb0, rb1, pb0, pb1;
+  // kLayoutRowForced: the next play's stream and fourth.force code, the
+  // forced play's until it is played, then the launch's
+  uint32_t dk0, dk1;
+  int code;
+};
+
+// What an instantiation past kLayoutNano reads, fixed by its layout: whether
+// a play reads one row by strides (else the per-head tables); whether it
+// reads the play-policy table and whether a forced first play may come,
+// each kNo, kYes or kLaid (as LayoutConsts says, a branch uniform across the
+// grid); whether the lane takes its game's row and play bases with the game
+// (else a play computes them: the instantiations with collectors, whose
+// registers are at the two-blocks-an-SM limit).
+constexpr int kNo = 0, kYes = 1, kLaid = 2;
+
+template <int kLayout>
+struct Opts {
+  static constexpr bool general = kLayout == kLayoutRow || kLayout == kLayoutHeads;
+  static constexpr bool row = kLayout != kLayoutHeads;
+  static constexpr int play = general ? kLaid : kLayout == kLayoutRowPlay ? kYes : kNo;
+  static constexpr int forced = general ? kLaid : kLayout == kLayoutRowForced ? kYes : kNo;
+  static constexpr bool bases = !general;
 };
 
 // Lane `g` takes game i: its state and its directions' constants read, and
@@ -1025,17 +1096,36 @@ __device__ __forceinline__ void start(Lane& g, long long i, const InPtrs& in,
 // `start`, and in the layouts past kLayoutNano the launch's forced first
 // play: a game with sec > 0 plays it outside the cap, one with sec <= 0
 // gets its masked step (the forced play_step runs whatever the run flag).
+// With Opts::bases the game's two directions' first rows (gid * 2 + off)
+// in the table and the play table are taken here, once a game; in
+// kLayoutRowForced the first play's stream and code.
 template <int kLayout, bool kStats>
 __device__ __forceinline__ void take(Lane& g, long long i, const InPtrs& in,
                                      const float* __restrict__ dirs, int n_matchups, uint32_t r0,
                                      int anti, bool run, bool forced, float* team,
-                                     const Accrual& acc) {
+                                     const Accrual& acc, const NanoConsts& c,
+                                     const LayoutConsts& lay, uint32_t k0, uint32_t k1) {
   if constexpr (kLayout == kLayoutNano) {
     start<kStats>(g, i, in, dirs, n_matchups, r0, anti, run, team, acc);
   } else {
+    using O = Opts<kLayout>;
     start<kStats>(g, i, in, dirs, n_matchups, r0, anti, run || forced, team, acc);
     g.forced = forced && g.live;
     g.extra = 0;
+    if constexpr (O::bases) {
+      const int d0 = g.s.gid * 2;
+      g.rb0 = d0 * c.per_dir;
+      g.rb1 = g.rb0 + c.per_dir;
+      if constexpr (O::play != kNo) {
+        g.pb0 = static_cast<int>(__ldg(lay.play_base + d0));
+        g.pb1 = static_cast<int>(__ldg(lay.play_base + d0 + 1));
+      }
+    }
+    if constexpr (O::forced == kYes) {
+      g.dk0 = g.forced ? lay.fk0 : k0;
+      g.dk1 = g.forced ? lay.fk1 : k1;
+      g.code = g.forced ? lay.force_first : lay.force_every;
+    }
   }
 }
 
@@ -1064,6 +1154,21 @@ __device__ __forceinline__ void finish(const Lane& g, const OutPtrs& out, const 
   out.score[2 * i + 1] = g.s.sb;
 }
 
+// Past kLayoutNano, the block's segment values are copied in parallel, one
+// word a thread: word w (of SegVals' 32) of axis a (of `axes`), from its
+// Segs (the first profile's four axes in NanoConsts, the second's in
+// LayoutConsts), whose words follow `enter`'s 8.
+__device__ __forceinline__ void copy_segs(const NanoConsts& c, const LayoutConsts& lay,
+                                          SegVals* sv, int axes) {
+  constexpr int kWords = sizeof(SegVals) / sizeof(uint32_t);
+  static_assert(kWords * 8 == kThreads, "one word of the 8 axes' SegVals a thread");
+  const int a = threadIdx.x / kWords, w = threadIdx.x % kWords;
+  if (a >= axes) return;
+  const Segs& g = a == 0 ? c.dist : a == 1 ? c.ytg : a == 2 ? c.sec : a == 3 ? c.sd
+                  : a == 4 ? lay.dist2 : a == 5 ? lay.ytg2 : a == 6 ? lay.sec2 : lay.sd2;
+  reinterpret_cast<uint32_t*>(sv + a)[w] = reinterpret_cast<const uint32_t*>(&g)[kSegs + w];
+}
+
 // The persistent grid: lane t of the launch's `lanes` takes game t, then,
 // each time its game ends, the next game of the queue (work[0] counts the
 // games handed out past the first lanes, one atomicAdd a warp for all its
@@ -1073,7 +1178,9 @@ __device__ __forceinline__ void finish(const Lane& g, const OutPtrs& out, const 
 // the block holds a stripe of 2 x kTeamStats floats a lane in dynamic shared
 // memory; with kPlayers the launch's slot shares and tracked flags follow
 // it, copied once a block (`dynamic_bytes`).  `lay` is read only past
-// kLayoutNano.
+// kLayoutNano, where Opts<kLayout> says what a play reads: where the play
+// table may be read, the block first builds the score diff's bins
+// (`sd_bins`, one a thread) from its edges with _bin's compare.
 template <int kLayout, bool kStats, bool kPlayers>
 __global__ void __launch_bounds__(kThreads)
     nano_game_kernel(const NanoConsts c, const float* __restrict__ table,
@@ -1082,12 +1189,17 @@ __global__ void __launch_bounds__(kThreads)
                      const bool* run_flag, unsigned int* work, const Counters cnt,
                      const Accrual acc, int n, const LayoutConsts lay) {
   constexpr bool kGeneral = kLayout != kLayoutNano;
+  using O = Opts<kLayout>;
   constexpr bool kSampled = kPlayers || kLayout == kLayoutHeads;   // plays sample slots
+  // the second profile's bins: the per-head tables on it, or the play table
+  constexpr bool kSecond = kLayout == kLayoutHeads || O::play != kNo;
+  static_assert(kPlaySdBins == kThreads, "one score diff's bin a thread");
   extern __shared__ float stripes[];
   float* const team = stripes + threadIdx.x;
   __shared__ float grid[kGridCells];
-  // dist, ytg, sec, sd; past kLayoutNano the second profile's too
-  __shared__ SegVals sv[kGeneral ? 8 : 4];
+  // dist, ytg, sec, sd; with the second profile its four too
+  __shared__ SegVals sv[kSecond ? 8 : 4];
+  __shared__ unsigned char sd_bins[O::play != kNo ? kPlaySdBins : 1];
   __shared__ unsigned long long block_plays, block_iters;
   for (int k = threadIdx.x; k < c.go_cells; k += kThreads) grid[k] = c.go_grid[k];
   // with the player stats, the slot shares and tracked flags copied past
@@ -1105,40 +1217,50 @@ __global__ void __launch_bounds__(kThreads)
     sa.cum = cum;
     sa.tracked = tracked;
   }
-  if (threadIdx.x == 0) {
-    block_plays = 0;
-    block_iters = 0;
+  if constexpr (!kGeneral) {
+    if (threadIdx.x == 0) {
+      block_plays = 0;
+      block_iters = 0;
 #pragma unroll
-    for (int k = 0; k < kSegs; ++k) {
-      sv[0].start[k] = c.dist.start[k], sv[0].inv_step[k] = c.dist.inv_step[k];
-      sv[0].top[k] = c.dist.top[k], sv[0].base[k] = c.dist.base[k];
-      sv[1].start[k] = c.ytg.start[k], sv[1].inv_step[k] = c.ytg.inv_step[k];
-      sv[1].top[k] = c.ytg.top[k], sv[1].base[k] = c.ytg.base[k];
-      sv[2].start[k] = c.sec.start[k], sv[2].inv_step[k] = c.sec.inv_step[k];
-      sv[2].top[k] = c.sec.top[k], sv[2].base[k] = c.sec.base[k];
-      sv[3].start[k] = c.sd.start[k], sv[3].inv_step[k] = c.sd.inv_step[k];
-      sv[3].top[k] = c.sd.top[k], sv[3].base[k] = c.sd.base[k];
-      if constexpr (kGeneral) {
-        const Segs* second[4] = {&lay.dist2, &lay.ytg2, &lay.sec2, &lay.sd2};
+      for (int k = 0; k < kSegs; ++k) {
+        sv[0].start[k] = c.dist.start[k], sv[0].inv_step[k] = c.dist.inv_step[k];
+        sv[0].top[k] = c.dist.top[k], sv[0].base[k] = c.dist.base[k];
+        sv[1].start[k] = c.ytg.start[k], sv[1].inv_step[k] = c.ytg.inv_step[k];
+        sv[1].top[k] = c.ytg.top[k], sv[1].base[k] = c.ytg.base[k];
+        sv[2].start[k] = c.sec.start[k], sv[2].inv_step[k] = c.sec.inv_step[k];
+        sv[2].top[k] = c.sec.top[k], sv[2].base[k] = c.sec.base[k];
+        sv[3].start[k] = c.sd.start[k], sv[3].inv_step[k] = c.sd.inv_step[k];
+        sv[3].top[k] = c.sd.top[k], sv[3].base[k] = c.sd.base[k];
+      }
+    }
+  } else {
+    if (threadIdx.x == 0) {
+      block_plays = 0;
+      block_iters = 0;
+    }
+    copy_segs(c, lay, sv, kSecond ? 8 : 4);
+    if constexpr (O::play != kNo) {
+      if (O::play == kYes || lay.has_play) {
+        const float sdf = static_cast<float>(kPlaySdLo + static_cast<int>(threadIdx.x));
+        int bin = 0;
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          sv[4 + a].start[k] = second[a]->start[k], sv[4 + a].inv_step[k] = second[a]->inv_step[k];
-          sv[4 + a].top[k] = second[a]->top[k], sv[4 + a].base[k] = second[a]->base[k];
-        }
+        for (int e = 0; e < kPlayEdges; ++e) bin += sdf > lay.play_edges[e] ? 1 : 0;
+        sd_bins[threadIdx.x] = static_cast<unsigned char>(bin);
       }
     }
   }
   __syncthreads();
   const bool run = c.cap > 0 && (run_flag == nullptr || *run_flag);
   const bool forced_launch = kGeneral && lay.force_first != 0;
-  // the second profile's bins: the per-head tables on it, or the play table
-  const bool second = kLayout == kLayoutHeads || (kGeneral && lay.has_play);
   const unsigned lane = threadIdx.x & 31u;
   const long long lanes = static_cast<long long>(gridDim.x) * kThreads;
   Lane g;
   g.i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   g.live = false;
-  if (g.i < n) take<kLayout, kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, forced_launch, team, acc);
+  if (g.i < n) {
+    take<kLayout, kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, forced_launch, team, acc,
+                          c, lay, k0, k1);
+  }
   bool open = lanes < n;             // the queue has games to hand out (warp-uniform)
   unsigned long long played = 0;     // plays of this lane's finished games
   unsigned int iters = 0;            // this warp's loop trips
@@ -1180,15 +1302,35 @@ __global__ void __launch_bounds__(kThreads)
         // the slots, and the per-head lookups and the tracked player rows
         // keyed on them issued together next; then the play's other draws
         // (the forced play's on its own stream) under their latency, then
-        // the play
+        // the play.  The forced play and the first unforced one are both
+        // step 0 (j stays 0 over the forced play).
         const int dirx = g.s.gid * 2 + g.s.off;
-        const Bins b = bins(c, lay, sv, g.s, second);
+        const bool a = g.s.off == 0;
+        const bool use_ml = O::play == kYes || (O::play == kLaid && lay.has_play);
+        const Bins b = bins(c, lay, sv, g.s, kLayout == kLayoutHeads || use_ml,
+                            kLayout == kLayoutHeads && lay.sd2_on);
         Row r{};
-        if constexpr (kLayout == kLayoutRow) r = load_row(c, row_at(c, lay, table, b, dirx));
-        const float p_ml = lay.has_play ? __ldg(play_at(lay, b, dirx)) : 0.0f;
-        const bool forced = g.forced;
-        const uint32_t dk0 = forced ? lay.fk0 : k0, dk1 = forced ? lay.fk1 : k1;
-        const uint32_t step = forced ? 0u : static_cast<uint32_t>(g.j);
+        if constexpr (O::row) {
+          r = load_row(c, row_at(c, lay, table, b, O::bases ? (a ? g.rb0 : g.rb1) : dirx * c.per_dir));
+        }
+        float p_ml = 0.0f;
+        if (use_ml) {
+          const int base = O::bases ? (a ? g.pb0 : g.pb1)
+                                    : static_cast<int>(__ldg(lay.play_base + dirx));
+          p_ml = __ldg(play_at(lay, sd_bins, b, base));
+        }
+        uint32_t dk0 = k0, dk1 = k1;
+        int code = lay.force_every;
+        if constexpr (O::forced == kLaid) {
+          dk0 = g.forced ? lay.fk0 : k0;
+          dk1 = g.forced ? lay.fk1 : k1;
+          code = g.forced ? lay.force_first : lay.force_every;
+        } else if constexpr (O::forced == kYes) {
+          dk0 = g.dk0;
+          dk1 = g.dk1;
+          code = g.code;
+        }
+        const uint32_t step = static_cast<uint32_t>(g.j);
         float u[philox::kUniforms], z[philox::kNormals];
         Slots sl{};
         if constexpr (kSampled) {
@@ -1208,12 +1350,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
         }
-        play<kStats, kPlayers, true>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl,
-                                     forced ? lay.force_first : lay.force_every, lay.has_play,
-                                     p_ml);
-        if (forced) {
+        play<kStats, kPlayers, true>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl, code,
+                                     use_ml, p_ml);
+        if constexpr (O::forced == kNo) {
+          ++g.j;
+        } else if (g.forced) {
+          // the forced play, played: the launch's stream and code from now on
           g.forced = false;
           g.extra = 1;
+          if constexpr (O::forced == kYes) {
+            g.dk0 = k0;
+            g.dk1 = k1;
+            g.code = lay.force_every;
+          }
         } else {
           ++g.j;
         }
@@ -1223,7 +1372,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool done = g.i < n && !g.live;
     if (done) {
       finish<kStats>(g, out, team, acc);
-      if constexpr (!kGeneral) {
+      if constexpr (!kGeneral || O::forced == kNo) {
         played += static_cast<unsigned long long>(g.j);
         if (cnt.game_plays != nullptr) cnt.game_plays[g.i] = g.j;
       } else {
@@ -1246,7 +1395,10 @@ __global__ void __launch_bounds__(kThreads)
       if (done) {
         g.i = next + __popc(m & ((1u << lane) - 1u));
         g.live = false;
-        if (g.i < n) take<kLayout, kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, forced_launch, team, acc);
+        if (g.i < n) {
+          take<kLayout, kStats>(g, g.i, in, dirs, n_matchups, r0, anti, run, forced_launch, team,
+                                acc, c, lay, k0, k1);
+        }
       }
     }
   }
@@ -1256,7 +1408,7 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) {
     if (cnt.plays != nullptr) atomicAdd(cnt.plays, block_plays);
     if (cnt.iters != nullptr) atomicAdd(cnt.iters, block_iters);
-    // every claim of this block has returned; the last block resets
+    // every claim of this block has returned; the last resets
     if (atomicAdd(&work[1], 1u) == gridDim.x - 1) {
       atomicExch(&work[0], 0u);
       atomicExch(&work[1], 0u);
@@ -1277,13 +1429,33 @@ KernelFn kernel_of_layout(bool stats, bool players) {
 }
 
 // The instantiation of the layout and the collectors `stats` and
-// `players`; null for an unknown layout.
+// `players`; null for an unknown layout, or a score-only one with a
+// collector.  The score-only one-row layouts are what the paths launch
+// past the nano layout (a fused or slate launch, the play-policy table, a
+// forced first play); every other combination takes kLayoutRow's.
 KernelFn kernel_of(int layout, bool stats, bool players) {
+  const bool score_only = !stats && !players;
   switch (layout) {
     case kLayoutNano: return kernel_of_layout<kLayoutNano>(stats, players);
     case kLayoutRow: return kernel_of_layout<kLayoutRow>(stats, players);
     case kLayoutHeads: return kernel_of_layout<kLayoutHeads>(stats, players);
+    case kLayoutRowBare: return score_only ? nano_game_kernel<kLayoutRowBare, false, false> : nullptr;
+    case kLayoutRowPlay: return score_only ? nano_game_kernel<kLayoutRowPlay, false, false> : nullptr;
+    case kLayoutRowForced:
+      return score_only ? nano_game_kernel<kLayoutRowForced, false, false> : nullptr;
     default: return nullptr;
+  }
+}
+
+// Whether the launch's LayoutConsts are what the layout's instantiation
+// reads: the play table and the forced first play present where it reads
+// them and absent where it does not.
+bool layout_takes(int layout, const LayoutConsts& lay) {
+  switch (layout) {
+    case kLayoutRowBare: return !lay.has_play && lay.force_first == 0;
+    case kLayoutRowPlay: return lay.has_play && lay.force_first == 0;
+    case kLayoutRowForced: return !lay.has_play && lay.force_first != 0;
+    default: return true;
   }
 }
 
@@ -1313,8 +1485,8 @@ extern "C" int nano_game_layout_size() { return static_cast<int>(sizeof(LayoutCo
 // Threads a block of K1.
 extern "C" int nano_game_threads() { return kThreads; }
 
-// Blocks of K1's instantiation for the layout (kLayoutNano, kLayoutRow,
-// kLayoutHeads) and the collectors `stats` and `players` (0 or 1) that one
+// Blocks of K1's instantiation for the layout (kLayoutNano .. kLayoutRowForced,
+// ops/game.LAYOUT_KINDS) and the collectors `stats` and `players` (0 or 1) that one
 // SM holds at once, with the player stats staging slot tables of `entries`
 // shares (kRoles x the launch's directions x k)
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device), or
@@ -1364,7 +1536,9 @@ extern "C" int nano_game_attributes(int layout, int stats, int players, int* reg
 // the QB, rusher and target slots (cum also for kLayoutHeads, whose lookups
 // key on the slots).  `layout` picks the instantiation, `lay` its
 // LayoutConsts (past kLayoutNano: the force codes and key, the strides, the
-// second profile, the play table and the per-head tables).  `blocks` blocks
+// second profile, the play table and the per-head tables); a score-only
+// one-row layout takes no collector, and the play table and the forced
+// play as it reads them (`layout_takes`), else cudaErrorInvalidValue.  `blocks` blocks
 // of kThreads (at most the resident blocks, `nano_game_blocks_per_sm` of the
 // instantiation and its slot tables x the SMs).  Launches on `stream` and
 // returns cudaGetLastError() (0 on success).
@@ -1393,7 +1567,7 @@ extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const vo
                     2 * n_matchups};
   const bool with_stats = stats != nullptr, with_players = pstats != nullptr;
   const KernelFn fn = kernel_of(layout, with_stats, with_players);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (fn == nullptr || !layout_takes(layout, *lay)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = dynamic_bytes(with_stats, with_players, kRoles * acc.dirs * k);
   const cudaError_t err = allow_dynamic(fn, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -49,6 +49,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -903,9 +904,25 @@ class LayoutConsts(ctypes.Structure):
 
 # K1's instantiations by layout (kLayout in csrc/nano_game.cu): the nano
 # table with no play-policy lookup and no forced play; one row a play (the
-# fused layout, or the nano one with the play table or a forced play); the
-# per-head tables
-LAYOUT_KINDS = ("nano", "row", "heads")
+# fused layout, or the nano one with the play table or a forced play), the
+# play table and the forced play read as LayoutConsts says; the per-head
+# tables; and three score-only one-row layouts with their options fixed at
+# compile time, the launches the paths make past the nano layout: neither
+# the play table nor a forced first play, the play table, a forced first
+# play (`nano_kind` picks)
+LAYOUT_KINDS = ("nano", "row", "heads", "row bare", "row play", "row forced")
+# K1's instantiations, (kind, collect_stats, collect_players): each of the
+# first three layouts with each combination of the collectors, the last
+# three score-only
+NANO_INSTANTIATIONS = tuple(
+    [(k, st, pl) for k in range(3) for st in (False, True) for pl in (False, True)]
+    + [(k, False, False) for k in range(3, len(LAYOUT_KINDS))])
+# the play table's score-diff bins, as K1 builds them once a block: a table
+# of the integer score diffs PLAY_SD_LO .. PLAY_SD_LO + PLAY_SD_BINS - 1
+# (kPlaySdLo, kPlaySdBins), each score diff clamped into it
+PLAY_SD_LO, PLAY_SD_BINS = -128, 256
+# K1 indexes table rows in 32 bits, as JAX's int32 index
+_MAX_ROWS = 2 ** 31 - 1
 # fourth.force and the forced first play's decision, as K1's codes
 FORCE_CODES = {None: 0, "go": 1, "fg": 2, "punt": 3}
 # the key of each per-head table (stage 2's where its table keys on slots)
@@ -1036,6 +1053,34 @@ def _force_code(force) -> int:
     return FORCE_CODES[force]
 
 
+def play_sd_bins(edges: torch.Tensor) -> torch.Tensor:
+    """(PLAY_SD_BINS,) int32: the play table's score-diff bin (`_bin`: the
+    edges below the value, compared in f32) of each integer score diff from
+    PLAY_SD_LO on, as K1 builds the table in shared memory once a block.
+    A score diff outside the range takes its nearest end's bin
+    (`play_sd_bin`), its own bin where every finite edge lies in
+    [PLAY_SD_LO, PLAY_SD_LO + PLAY_SD_BINS - 1) (`pack_nano_game` checks)."""
+    sd = torch.arange(PLAY_SD_LO, PLAY_SD_LO + PLAY_SD_BINS, device=edges.device).to(F32)
+    return (sd[:, None] > edges.to(F32)[None, :]).sum(dim=1, dtype=I32)
+
+
+def play_sd_bin(sd: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """The bins `play_sd_bins` gives, of integer score diffs `sd`."""
+    return bins[(sd.clamp(PLAY_SD_LO, PLAY_SD_LO + PLAY_SD_BINS - 1) - PLAY_SD_LO).long()]
+
+
+def direction_bases(args: "NanoGameArgs") -> Tuple[torch.Tensor, torch.Tensor]:
+    """((2G,) int32, (2G,) int32): each direction's first row in the table
+    of the one-row layouts (dirx * per_dir; 0 for per-head tables) and in
+    the play table (0 without one), as a lane of K1's score-only one-row
+    layouts takes them for both directions of its game."""
+    d = args.dirs.shape[0]
+    dirx = torch.arange(d, dtype=torch.int64, device=args.dirs.device)
+    rows = dirx * (0 if args.table_layout == "per_head" else args.consts.per_dir)
+    play = torch.zeros_like(dirx) if args.play_base is None else args.play_base.to(dirx.device)
+    return rows.to(I32), play.to(I32)
+
+
 def _check_dirs(t, d: int, what: str) -> None:
     if t.row_map.shape[0] != d:
         raise ValueError(f"the {what} table holds {t.row_map.shape[0]} directions, the pack {d}")
@@ -1123,6 +1168,11 @@ def pack_nano_game(pack: MatchupPack, cfg: SimConfig, th) -> NanoGameArgs:
         t, edges = th.play, th.play_sd_edges.tolist()
         if len(edges) > _PLAY_EDGES:
             raise ValueError(f"{len(edges)} play-table score-diff edges; K1 takes {_PLAY_EDGES}")
+        lo, hi = PLAY_SD_LO, PLAY_SD_LO + PLAY_SD_BINS - 1
+        outside = [e for e in edges if math.isfinite(e) and not lo <= e < hi]
+        if outside:
+            raise ValueError(f"K1 bins the play table's score diff on the integers {lo}..{hi}; "
+                             f"edges {outside} lie outside [{lo}, {hi})")
         lay.has_play, lay.play_nsd, lay.play_cols = 1, th.play_nsd, t.values.shape[1]
         lay.play_rows = t.values.shape[0]
         lay.play_edges[:] = edges + [_INF] * (_PLAY_EDGES - len(edges))
@@ -1132,6 +1182,9 @@ def pack_nano_game(pack: MatchupPack, cfg: SimConfig, th) -> NanoGameArgs:
         else:                         # direction d's block of equal-sized blocks
             base = dirx * (t.values.shape[0] // t.row_map.numel())
         play, play_base = t.values, base.to(torch.int64).contiguous()
+    if lay.rows > _MAX_ROWS or lay.play_rows > _MAX_ROWS:
+        raise ValueError(f"K1 indexes table rows in 32 bits: {max(lay.rows, lay.play_rows):,} "
+                         "rows")
     if layout == "per_head":
         kind = "heads"
     else:
@@ -1201,13 +1254,13 @@ def _packed_heads(args: NanoGameArgs, dirx, sd, down0, dist0, ytg0, sec0, u):
         sdi2 = _seg_bin_packed(sdf, lay.sd2) if lay.sd2_on else torch.zeros_like(di)
         cell2 = ((down_i * lay.nd2 + di2) * lay.ny2 + yi2) * lay.ns2 + si2
     p_ml = None
+    row_base, play_base = (b[dirx.long()].long() for b in direction_bases(args))
     if lay.has_play:
-        sdp = (sdf[:, None] > torch.tensor(list(lay.play_edges), dtype=F32,
-                                          device=sdf.device)).sum(dim=1, dtype=I32)
-        idx = args.play_base[dirx.long()] + cell2 * lay.play_nsd + sdp
+        bins = play_sd_bins(torch.tensor(list(lay.play_edges), dtype=F32, device=sdf.device))
+        idx = play_base + cell2 * lay.play_nsd + play_sd_bin(sd, bins)
         p_ml = args.play[idx.clamp(0, lay.play_rows - 1), 0]
     if args.table_layout != "per_head":
-        row = (dirx.long() * c.per_dir + down_i * lay.s_down + di * lay.s_dist
+        row = (row_base + down_i * lay.s_down + di * lay.s_dist
                + yi * lay.s_ytg + si * lay.s_sec + sdi * lay.s_sd).clamp(0, lay.rows - 1)
         start = row * c.cols + (down_i * lay.b_down + sdi * lay.b_sd).long()
         nch = 7 + 2 * c.has_s2 + c.has_fumble
@@ -1649,6 +1702,22 @@ def _launch_layout(args: NanoGameArgs, dev: torch.device, force: Optional[str],
     return lay
 
 
+def nano_kind(args: NanoGameArgs, force: Optional[str] = None, collect_players: bool = False,
+              collect_stats: bool = False) -> int:
+    """The LAYOUT_KINDS index of K1's instantiation for a launch: the
+    layout's (`args.kind`; a forced first play on the nano layout takes the
+    one-row one); a score-only one-row launch with at most one of the play
+    table and a forced first play takes the one-row layout of its own,
+    those options fixed at compile time."""
+    kind = LAYOUT_KINDS[args.kind]
+    if force is not None and kind == "nano":
+        kind = "row"
+    play = args.play is not None
+    if kind == "row" and not (collect_players or collect_stats) and not (play and force):
+        kind = "row play" if play else "row forced" if force else "row bare"
+    return LAYOUT_KINDS.index(kind)
+
+
 def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                    anti: bool = False, plays: Optional[torch.Tensor] = None,
                    iters: Optional[torch.Tensor] = None,
@@ -1660,8 +1729,7 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     draws (the forced first play with `force` on `force_key`'s stream
     too), with the collectors asked for added in place to `s.stats` and
     `s.pstats` (contiguous f32 of the collectors' shapes, K = args.k
-    slots).  The instantiation is the layout's (`args.kind`; a forced
-    play on the nano layout takes the one-row one).  Raises ValueError for
+    slots).  The instantiation is `nano_kind`'s.  Raises ValueError for
     tensors off the card (the CPU runs `nano_game_plain`) or of another
     dtype or shape, and RuntimeError where the kernel does not build or
     launch.  `plays` and `iters`, (1,) int64 tensors on the card, have the
@@ -1672,7 +1740,8 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     `launches_collecting` those with a collector on, `launches_fused` and
     `launches_per_head` those on those table layouts, `launches_play` those
     reading the play-policy table, `launches_forced` those with a forced
-    first play."""
+    first play, `launches_compiled` those of the score-only one-row
+    layouts whose options are fixed at compile time."""
     n = s.off.shape[0]
     dev = s.sec.device
     collected = ([("stats", s.stats, (n, 2, N_TEAM_STATS))] if collect_stats else []) + (
@@ -1721,7 +1790,7 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     if r0 < 0 or r0 + rows > 2 ** 32:
         raise ValueError(f"draw rows {r0}..{r0 + rows - 1} outside the 32-bit row counter")
     lay = _launch_layout(args, dev, force, force_key)
-    kind = max(args.kind, LAYOUT_KINDS.index("row")) if force is not None else args.kind
+    kind = nano_kind(args, force, collect_players, collect_stats)
     if n == 0:
         return s
     outs = [torch.empty_like(t) for t in ins[1:]]
@@ -1758,6 +1827,7 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     f.launches_per_head += per_head
     f.launches_play += args.play is not None
     f.launches_forced += force is not None
+    f.launches_compiled += kind >= LAYOUT_KINDS.index("row bare")
     off, sec, down, dist, ytg, period, in_rz, going, score = outs
     return GameState(gid=s.gid, fo=s.fo, off=off, sec=sec, down=down, dist=dist, ytg=ytg,
                      period=period, in_rz=in_rz, going=going, score=score, stats=s.stats,
@@ -1766,7 +1836,7 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
 
 # the launch counts (`nano_game_cuda`'s docstring), set to 0 by the smoke
 NANO_COUNTERS = ("launches", "launches_collecting", "launches_fused", "launches_per_head",
-                 "launches_play", "launches_forced")
+                 "launches_play", "launches_forced", "launches_compiled")
 for _name in NANO_COUNTERS:
     setattr(nano_game_cuda, _name, 0)
 

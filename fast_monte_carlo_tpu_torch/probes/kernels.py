@@ -30,7 +30,10 @@ also timed with each combination of the collectors at 65,536 games of the
 focus-roster fixture (`COLLECTORS`), and on each other layout
 (`layout_times`: fused tables, the play-policy table, a focus roster's
 per-head tables score-only and with both collectors, a forced first play)
-in turns with the nano score-only launch (nano, layout, layout, nano).
+in turns with the nano score-only launch (nano, layout, layout, nano), and
+on fused tables over a 60-matchup slate launch (`fused_slate_time`).
+Copied into an earlier commit's archive, it times that commit's kernels
+and wrappers the same way (`kind_of`).
 `--games-only` times K1 and K2 alone.  `--sass-against FILE` compares the
 nano instantiations' SASS with FILE's (another commit's `--sass` output),
 instruction for instruction.  The last line is one JSON object of the
@@ -413,6 +416,7 @@ def game_times(dev: torch.device) -> Dict[str, dict]:
                      "bound_class": bd["bound_class"], "share": bd["bound_ms"] / ms, **rec}
     out.update(_collector_times(dev, cs, cfg, key, th, fo))
     out.update(layout_times(dev, cs, cfg, key, pack, th, fo))
+    out.update(fused_slate_time(dev, cs, cfg, key))
     for name, sc in (("score_moments", scores), ("score_moments G=60", sc60)):
         bd = cs.moment_bound(sc.shape[0], sc.shape[1])
         ms = _held(lambda: k2(sc), GAME_REPS[name], name)
@@ -548,10 +552,63 @@ def layout_times(dev: torch.device, cs, cfg, key: int, pack, th, fo) -> Dict[str
         out[name] = {"ms": min(turns[name]), "turns": turns[name], "nano_turns": turns["nano"],
                      "plays": int(plays), "bound_ms": bd["bound_ms"],
                      "bound_class": bd["bound_class"], "share": bd["bound_ms"] / min(turns[name]),
-                     "kind": game.LAYOUT_KINDS[max(args.kind, int(force is not None))]}
+                     "kind": game.LAYOUT_KINDS[kind_of(game, args, force, coll)]}
         print(f"  {name} ({out[name]['kind']} instantiation): {turns[name]} ms held, nano "
               f"score-only {turns['nano']} in turns; {int(plays) / n:.1f} plays a game")
     return out
+
+
+def kind_of(game, args, force, coll) -> int:
+    """K1's instantiation for a launch (`game.nano_kind`; a tree from
+    before the score-only one-row layouts: the layout's, a forced play on
+    the nano layout the one-row one)."""
+    if hasattr(game, "nano_kind"):
+        return game.nano_kind(args, force, **coll)
+    return max(args.kind, int(force is not None))
+
+
+def fused_slate_time(dev: torch.device, cs, cfg, key: int) -> Dict[str, dict]:
+    """K1 on the fused layout over a 60-matchup slate (phase 21's: one
+    matchup's fixture fused tables on the nano profile packed SLATE_GAMES
+    times, 2 x SLATE_CHUNK games a matchup, score-only), first held to
+    `nano_game_plain` on GAME_CHECK games of its first matchup bit for bit;
+    held ms beside its bound."""
+    from .. import fixtures
+    from ..matchup import build_direction
+    from ..models.tables import nano_profile
+    from ..ops import game
+    from ..ops import table_lookup as tl
+    from ..ops.pack import pack_matchups
+
+    none = dict(collect_players=False, collect_stats=False)
+    slate = tl.pack_tables_multi([fixtures.fused_tables(cs.TABLE_SEED)] * cs.SLATE_GAMES, dev,
+                                 fused_prof=nano_profile())
+    a, b = fixtures.teams()
+    spack = pack_matchups([build_direction(a, b, cfg), build_direction(b, a, cfg)]
+                          * cs.SLATE_GAMES, dev)
+    per = 2 * cs.SLATE_CHUNK
+    sn = cs.SLATE_GAMES * per
+    t = torch.arange(sn, dtype=torch.int32, device=dev)
+    args = game.pack_nano_game(spack, cfg, slate)
+    m = GAME_CHECK
+    want = game.nano_game_plain(args, game.initial_state(m, t[:m] % 2, cfg, dev, t[:m] // per,
+                                                         **none), key)
+    got = game.nano_game_cuda(args, game.initial_state(m, t[:m] % 2, cfg, dev, t[:m] // per,
+                                                       **none), key)
+    for f in game.GameState._fields:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise RuntimeError(f"nano_game fused slate: field {f} of the first {m:,} games "
+                               "differs from nano_game_plain")
+    s = game.initial_state(sn, t % 2, cfg, dev, t // per, **none)
+    plays = torch.zeros(1, dtype=torch.int64, device=dev)
+    game.nano_game_cuda(args, s, key, plays=plays)
+    bd = cs.layout_bound(args, sn, int(plays))
+    ms = _held(lambda: game.nano_game_cuda(args, s, key), GAME_REPS["nano_game slate"],
+               "nano_game fused slate")
+    return {"nano_game fused slate": {
+        "ms": ms, "plays": int(plays), "bound_ms": bd["bound_ms"],
+        "bound_class": bd["bound_class"], "share": bd["bound_ms"] / ms,
+        "kind": game.LAYOUT_KINDS[kind_of(game, args, None, none)]}}
 
 
 def sass_functions(text: str) -> Dict[str, list]:
@@ -597,6 +654,19 @@ def compare_nano_sass(new: Path, old: Path) -> Dict[str, dict]:
     return out
 
 
+def k1_sass_sizes(dump: Path) -> Dict[str, int]:
+    """Instructions of each K1 instantiation in a `cuobjdump -sass` dump,
+    by its template arguments (layout, stats, players)."""
+    import re
+
+    out = {}
+    for name, ins in sass_functions(dump.read_text()).items():
+        m = re.search(r"nano_game_kernelI(?:Li(\d)E)?Lb(\d)ELb(\d)E", name)
+        if m:
+            out[f"layout {m.group(1) or 0}, stats {m.group(2)}, players {m.group(3)}"] = len(ins)
+    return out
+
+
 def _held(fn, reps: int, name: str) -> float:
     for _ in range(HELD_TRIES):
         ms, held = held_ms(fn, reps)
@@ -626,7 +696,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     csrc = args.csrc.resolve()
     timed = (("forest_eval",) if args.forests_only
              else GAME_SOURCES if args.games_only else SOURCES)
+    t0 = time.perf_counter()
     libs = dict(zip(timed, cuda_build.load_kernel_libraries(*timed, csrc=csrc)))
+    build_s = time.perf_counter() - t0
+    print(f"  built or loaded {', '.join(timed)} in {build_s:.1f} s (one nvcc a source, "
+          "together; a cached build loads)")
     usage = {}
     for name in timed:
         sass = None
@@ -644,6 +718,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"  nano_game nano layout, {what}: {c['instructions']} instructions against "
                   f"{c['old_instructions']}, {'identical' if c['identical'] else 'differing'} "
                   f"({c['differing_lines']} lines of the diff)")
+    sizes = {}
+    if args.sass is not None:
+        sizes = {"this": k1_sass_sizes(args.sass / "nano_game.sass")}
+        if args.sass_against is not None:
+            sizes["against"] = k1_sass_sizes(args.sass_against)
+        for which, by in sizes.items():
+            for inst, count in by.items():
+                print(f"  nano_game SASS ({which}), {inst}: {count} instructions")
     dev = torch.device("cuda")
     names = [n for n in RUNS if "row0" in (csrc / "philox_draws.cu").read_text()
              or not n.startswith("philox")]
@@ -666,7 +748,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"  {name}: bound {g['bound_ms']:.5f} ms ({g['bound_class']}), "
               f"{g['share']:.1%} of it{extra} ({card})")
     print(json.dumps({"csrc": str(csrc), "card": card, "held_ms": times, "games": games,
-                      "registers": usage, "sass": sass_cmp}))
+                      "registers": usage, "sass": sass_cmp, "sass_sizes": sizes,
+                      "build_s": build_s}))
     return 0
 
 

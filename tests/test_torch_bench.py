@@ -131,11 +131,15 @@ def test_bench_shard_budget_ends_every_rank():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    budget = 8.0        # expires in the first run or the next: each plays 16 launches
+    # the budget outlasts the set-up and expires in the first run or the
+    # next: a run is 32 sharded launches (--chunk 32), so that two runs take
+    # several budgets even on a fast host, and the bench never ends its
+    # repeats by its own estimate (emit "complete") before the deadline
+    budget = 8.0
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "fast_monte_carlo_tpu_torch.bench", "--smoke", "--shard",
-         "--repeats", "500", "-n", "4096", "--chunk", "128", "--budget", str(budget)],
+         "--repeats", "500", "-n", "4096", "--chunk", "32", "--budget", str(budget)],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(ENV, WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
                  MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))) for r in range(2)]

@@ -17,7 +17,11 @@ built from `fixtures.heads(13, "small")`).  A forced first play on
 injected draws is held to the JAX package's `play_step` under
 fourth.force, integer state equal in at least 98% of rows, as the table
 layouts' own play step is.  The 4th-down evaluator's forced choice, now
-one launch, gives what its eager composition gave."""
+one launch, gives what its eager composition gave.  What K1 computes once
+a block or a game for the one-row layouts (the play table's score-diff
+bins, each direction's first rows) and the packed lookups built on them
+are held to the JAX package's `_bin` and play-table lookup, and each
+launch to the instantiation it takes."""
 import dataclasses
 
 import jax
@@ -41,7 +45,8 @@ from test_torch_nano_game import FIELDS, _bits, with_play_table
 from test_torch_support import (TABLE_SEED, jax_pack, jax_state, port_pack, port_state,
                                 row_mismatch)
 from test_torch_support import table_cache_off  # noqa: F401 (autouse)
-from test_torch_table_layouts import CM, HEADS_SEED, LAYOUTS, _layout_heads, env  # noqa: F401
+from test_torch_table_layouts import (CM, HEADS_SEED, LAYOUTS, _layout_heads,  # noqa: F401
+                                      _obs_fields, env)
 
 torch.set_num_threads(1)
 
@@ -324,8 +329,9 @@ def test_smoke_bounds_of_k1_layouts(env):
     """chip_smoke's bound of a K1 launch on any layout (`layout_bound`):
     on the nano table it is `nano_bound`'s; a layout's counts replace the
     nano profile's binning with its own and add its lookups (the play
-    table's 26-edge search, the per-head slots and tables), every class at
-    or under dispatch; the focus roster's default-profile per-head tables,
+    table's coarse cell and score-diff bin, the least any binning of an
+    integer among its 26 edges needs: a clamp and a load; the per-head
+    slots and tables), every class at or under dispatch; the focus roster's default-profile per-head tables,
     larger than the L2, are read a sector a lookup."""
     import chip_smoke as cs
 
@@ -333,6 +339,7 @@ def test_smoke_bounds_of_k1_layouts(env):
     th = ttl.pack_tables(*fixtures.nano_tables(TABLE_SEED), device="cpu")
     nano = tg.pack_nano_game(pack, cfg, th)
     plays = 10_723_604
+    assert cs.PLAY_SEARCH_COUNTS == {"alu": 2, "imad": 0, "mufu_cvt": 0, "dispatch": 3}
     assert cs.layout_counts(nano) == cs.NANO_COUNTS
     assert cs.layout_bound(nano, 65_536, plays) == cs.nano_bound(65_536, plays,
                                                                  th.nano_values.numel() * 4)
@@ -344,8 +351,10 @@ def test_smoke_bounds_of_k1_layouts(env):
         counts = cs.layout_counts(args)
         assert counts["dispatch"] > cs.NANO_COUNTS["dispatch"]
         assert counts["alu"] + counts["imad"] + counts["mufu_cvt"] <= counts["dispatch"]
-    assert (cs.layout_counts(play)["alu"] - cs.NANO_COUNTS["alu"]
-            >= cs.PLAY_SEARCH_COUNTS["alu"])
+    coarse = cs.bin_counts([sum(1 for e in g.enter if e != float("inf"))
+                            for g in (play.layout.dist2, play.layout.ytg2, play.layout.sec2)])
+    for k, v in cs.layout_counts(play).items():
+        assert v == cs.NANO_COUNTS[k] + coarse[k] + cs.PLAY_SEARCH_COUNTS[k], k
     # small tables are read once; past the L2, a sector a lookup a play
     read = [t for i, t in enumerate(heads.heads)
             if t is not None and (i != 5 or heads.layout.use_fumble)]
@@ -356,3 +365,120 @@ def test_smoke_bounds_of_k1_layouts(env):
     big = heads._replace(heads=tuple(None if t is None else (wide, t[1]) for t in heads.heads))
     assert cs.table_read_bytes(big, plays) == (heads.play.numel() * 4
                                                + plays * len(read) * cs.SECTOR_BYTES)
+
+
+# edges of the play table's score diff: the default ones (halves and
+# integers: -29.5, -23, -21, .., 23, 29.5) and a set at the table's ends
+# with integers and halves side by side, unsorted
+PLAY_EDGES = {"default": tt.edges_from_reps(tt.sd_reps_default()),
+              "integers_and_halves": np.asarray([126.5, -128.0, -99.5, -7.0, -6.5, 0.0, 0.5,
+                                                 1.0, 13.5, 42.0, 126.0, float("inf")])}
+
+
+@pytest.mark.parametrize("edges", list(PLAY_EDGES))
+def test_play_sd_bins_equal_jax_bin(edges):
+    """The play table's score-diff bins K1 builds once a block
+    (`play_sd_bins`, read through `play_sd_bin`'s clamp) give every integer
+    score diff in [-200, 200] the JAX package's `_bin`, ties included."""
+    e = PLAY_EDGES[edges].astype(np.float32)
+    sd = np.arange(-200, 201, dtype=np.int32)
+    want = np.asarray(jtl._bin(jnp.asarray(sd, jnp.float32), jnp.asarray(e)))
+    bins = tg.play_sd_bins(torch.from_numpy(e))
+    assert bins.shape == (tg.PLAY_SD_BINS,) and bins.dtype == torch.int32
+    np.testing.assert_array_equal(tg.play_sd_bin(torch.from_numpy(sd), bins).numpy(), want)
+    assert want.min() == 0 and want.max() == np.isfinite(e).sum()
+
+
+@pytest.mark.parametrize("edge", [-128.5, 127.0, 300.0])
+def test_pack_refuses_play_edges_past_the_bins(edge):
+    """A finite play-table edge outside [PLAY_SD_LO, PLAY_SD_LO +
+    PLAY_SD_BINS - 1), where a clamped score diff would take another bin
+    than its own, is refused when K1's inputs are packed."""
+    pack, cfg = _nano_pack()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_play_model=True))
+    th = with_play_table(ttl.pack_tables(*fixtures.nano_tables(TABLE_SEED), device="cpu"))
+    e = th.play_sd_edges.clone()
+    e[-1] = edge
+    with pytest.raises(ValueError, match="edges"):
+        tg.pack_nano_game(pack, cfg, dataclasses.replace(th, play_sd_edges=e))
+    assert tg.pack_nano_game(pack, cfg, th).layout.has_play
+
+
+@pytest.mark.parametrize("layout", ["nano_play", "fused_play", "per_head"])
+def test_direction_bases_and_play_lookup_equal_jax(env, layout):
+    """Each direction's first rows (`direction_bases`: what a lane of the
+    one-row layouts takes with its game) are the JAX lookups' (the nano and
+    fused row dirx * per_dir; the play table's dirx * its rows a direction,
+    or the per-head play row map's entry), and the packed lookups built on
+    them and on the score-diff bins give the JAX package's P(pass) of the
+    play table bit for bit (table_lookup.py:588-597, :627-639), and on the
+    one-row layouts its row's channels, at play_states rows, states at and
+    past every grid edge and score diffs past the bins' ends."""
+    th, jth, cfg, jcfg = _layout_heads(env, layout)
+    jpack = jax_pack(jcfg, focus_csv=env["focus_csv"] if LAYOUTS[layout][0] == "focus" else None)
+    args = tg.pack_nano_game(port_pack(jpack), cfg, th)
+    rows, play = tg.direction_bases(args)
+    dirx = torch.arange(2)
+    if args.table_layout == "per_head":
+        assert torch.equal(play, torch.from_numpy(np.array(jth.play.row_map)).reshape(-1))
+        assert not rows.any()
+    else:
+        assert torch.equal(rows, dirx.int() * args.consts.per_dir)
+        per_dir_p = jth.play.values.shape[0] // jth.play.row_map.size
+        assert torch.equal(play, dirx.int() * per_dir_p)
+    fields = _obs_fields(9, 3000)
+    far = np.asarray([-300.0, -200.0, -129.0, -128.0, 127.0, 128.0, 200.0], np.float32)
+    k = far.size
+    fields = {f: np.concatenate([v, v[:k]]) for f, v in fields.items()}
+    fields["sd"][-k:] = far
+    jobs = jg.StepObs(x=None, **{f: jnp.asarray(v) for f, v in fields.items()})
+    want = jax.jit(lambda t, o: jtl.make_table_heads_eval(jcfg)(t, o, jpack))(jth, jobs)
+    n = fields["sd"].size
+    got = tg._packed_heads(args, torch.from_numpy(fields["dirx"]),
+                           torch.from_numpy(fields["sd"].astype(np.int32)),
+                           torch.from_numpy(fields["down"]), torch.from_numpy(fields["dist"]),
+                           torch.from_numpy(fields["ytg"]), torch.from_numpy(fields["sec"]),
+                           torch.zeros(n, 13))
+    np.testing.assert_array_equal(got[-1].numpy(), np.asarray(want.p_pass_ml))
+    assert float(got[-1].std()) > 0
+    if args.table_layout != "per_head":
+        p_c, pass_ms, rush_ms, sack_ms = got[:4]
+        for g, w in ((p_c, want.p_complete), (pass_ms, want.pass_ms), (rush_ms, want.rush_ms),
+                     (sack_ms, want.sack_ms)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_each_launch_takes_its_instantiation(env):
+    """`nano_kind`: the nano layout stays nano; a score-only one-row launch
+    with neither the play table nor a forced first play (fused tables,
+    fourth.force on every play) takes 'row bare', with the play table 'row
+    play', with a forced first play 'row forced'; with both, or with a
+    collector, the general 'row'; per-head tables 'heads'.  Every kind it
+    gives is one of the kernel's instantiations (NANO_INSTANTIATIONS)."""
+    pack, cfg = _nano_pack()
+    nano_th = ttl.pack_tables(*fixtures.nano_tables(TABLE_SEED), device="cpu")
+    fused_th = ttl.pack_tables(*fixtures.fused_tables(TABLE_SEED), device="cpu",
+                               fused_prof=tt.nano_profile())
+    pcfg = cfg.replace(model=dataclasses.replace(cfg.model, use_play_model=True))
+    ecfg = cfg.replace(fourth=dataclasses.replace(cfg.fourth, force="go"))
+    hpack, hth, hcfg = _port_layout(env, "per_head")
+    packed = {"nano": tg.pack_nano_game(pack, cfg, nano_th),
+              "fused": tg.pack_nano_game(pack, cfg, fused_th),
+              "play": tg.pack_nano_game(pack, pcfg, with_play_table(nano_th)),
+              "every": tg.pack_nano_game(pack, ecfg, nano_th),
+              "heads": tg.pack_nano_game(hpack, hcfg, hth)}
+    box = dict(collect_stats=True)
+    cases = [("nano", None, {}, "nano"), ("nano", "go", {}, "row forced"),
+             ("nano", "fg", box, "row"), ("nano", None, box, "nano"),
+             ("fused", None, {}, "row bare"), ("fused", "punt", {}, "row forced"),
+             ("fused", None, dict(collect_players=True), "row"),
+             ("play", None, {}, "row play"), ("play", "go", {}, "row"),
+             ("play", None, box, "row"), ("every", None, {}, "row bare"),
+             ("heads", None, {}, "heads"), ("heads", "go", {}, "heads")]
+    for what, force, coll, want in cases:
+        kind = tg.nano_kind(packed[what], force, **coll)
+        assert tg.LAYOUT_KINDS[kind] == want, (what, force, coll)
+        inst = (kind, coll.get("collect_stats", False), coll.get("collect_players", False))
+        assert inst in tg.NANO_INSTANTIATIONS, (what, force, coll)
+    assert len(set(tg.NANO_INSTANTIATIONS)) == 15
+

@@ -410,7 +410,9 @@ def test_packed_constants_follow_the_kernel_struct():
                 for n, k in _struct_fields(src, name)]
         assert ctypes_fields(cls) == want, name
     for i, kind in enumerate(tg.LAYOUT_KINDS):
-        assert re.search(r"kLayout%s = %d" % (kind.capitalize(), i), src), kind
+        name = "".join(w.capitalize() for w in kind.split())
+        assert re.search(r"kLayout%s = %d" % (name, i), src), kind
+    assert "kPlaySdLo = %d, kPlaySdBins = %d" % (tg.PLAY_SD_LO, tg.PLAY_SD_BINS) in src
     assert "kForceGo = %d, kForceFg = %d" % (tg.FORCE_CODES["go"], tg.FORCE_CODES["fg"]) in src
     pack, th = _pack_and_tables()
     args = tg.pack_nano_game(pack, SimConfig(), th)
