@@ -564,7 +564,7 @@ REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
                                   "(per-head heads: ops/table_lookup.py:540-605)",
             "nano_game_play": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games "
                               "(play-policy lookup: ops/table_lookup.py:588-597, :627-639)",
-            "nano_game_forced": "fast_monte_carlo_tpu/api.py:478 _forced_live_moments_jit "
+            "nano_game_forced": "fast_monte_carlo_tpu/api.py:481-482 _forced_live_moments_jit "
                                 "(ops/game.py:392-415 forced play, then :844 simulate_games)",
             "score_moments": "fast_monte_carlo_tpu/parallel/aggregate.py:76 score_moments"}
 
@@ -1261,12 +1261,16 @@ def phase_gather(card: str) -> dict:
         flat = torch.from_numpy(g.random(rows * cols + skip, dtype=np.float32)).to(dev)
         return flat[skip:].view(rows, cols)
 
-    # the lane groups at every width they take: 1-32 lanes, float4 items
-    # (width % 4 == 0) and floats, one item per lane, a loop within the
-    # warp; 8,193 rows, so the grid's last block is ragged
+    # the lane groups of both kernels at every width they take: 1-32 lanes,
+    # float4 items (width % 4 == 0) and floats, one item per lane, a loop
+    # within the warp; 8,193 rows, so the grid's last block is ragged, and
+    # for row_gather 37 too
     for cols in (1, 3, 5, 8, 127, 128, 129, 1000):
         idx = torch.from_numpy(g.integers(0, 4096, 8193, dtype=np.int32)).to(dev)
-        close_sum(rand_table(4096, cols), idx, f"width {cols}, 8,193 rows")
+        table = rand_table(4096, cols)
+        same_gather(table, idx, f"width {cols}, 8,193 rows")
+        close_sum(table, idx, f"width {cols}, 8,193 rows")
+        same_gather(table, idx[:37], f"width {cols}, 37 rows")
     # a table one float past a 16-byte boundary takes the scalar path
     for cols in (8, 128):
         table = rand_table(4096, cols, skip=1)
@@ -1282,9 +1286,9 @@ def phase_gather(card: str) -> dict:
         same_gather(table, idx, f"out-of-range indices, width {cols}")
         close_sum(table, idx, f"out-of-range indices, width {cols}")
 
-    # back-to-back launches against the same launches one at a time:
-    # row_gather_sum is launched with PDL, and a read or write placed before
-    # its griddepcontrol.wait would show here
+    # back-to-back launches against the same launches one at a time: both
+    # kernels are launched with PDL, and a read or write placed before their
+    # griddepcontrol.wait would show here
     tab3, idx3 = ga.b3_inputs(dev)
     check(torch.equal(ga.b3_loop(ga.row_gather_sum, tab3, idx3),
                       ga.b3_loop(ga.row_gather_sum, tab3, idx3, sync=True)),
@@ -1303,24 +1307,43 @@ def phase_gather(card: str) -> dict:
     check(torch.equal(chain(False), chain(True)),
           "24 launches, each summing the previous one's output as its table: back to "
           "back == synchronised after every launch")
+    for rows in ga.B5_ROWS:
+        table, idx1 = ga.b5_inputs(rows, dev)
+        check(torch.equal(ga.b5_loop(ga.row_gather, table, idx1),
+                          ga.b5_loop(ga.row_gather, table, idx1, sync=True)),
+              f"B5's {ga.B5_ITERS}-launch loop at R={rows} back to back == synchronised "
+              "after every launch")
+    for cols in (8, 128):
+        t1 = rand_table(8192, cols)
 
-    held = kernel_times(dev, [n for n in RUNS if n.startswith("row_gather_sum")])
+        def gather_chain(sync: bool):
+            x = t1
+            for _ in range(24):
+                x = ga.row_gather(x, cidx[:8192])   # the next launch's table
+                if sync:
+                    torch.cuda.synchronize()
+            return x
+
+        check(torch.equal(gather_chain(False), gather_chain(True)),
+              f"24 row_gather launches at width {cols}, each gathering from the previous "
+              "one's output: back to back == synchronised after every launch")
+
+    held = kernel_times(dev, [n for n in RUNS if n.startswith("row_gather")])
     out = {}
     for what, table, idx in ga.probe_shapes(dev):
         same_gather(table, idx, what)
         close_sum(table, idx, what)
         rows_touched = int(torch.unique(idx).numel())
         n, c = idx.numel(), table.shape[1]
-        gbd = bound(4 * n + rows_touched * c * 4 + n * c * 4, {})
+        gbd = bound(ga.row_gather_bytes(table, idx), {})
         sbd = bound(4 * n + rows_touched * c * 4 + n * 4, {"dispatch": n * c})
-        gm, g_ev = {**gbd}, {}
+        gm, g_ev = {**gbd, "ms": held[f"row_gather {what}"]}, {}
         sm_ms = held.get(f"row_gather_sum {what}")
         if sm_ms is None:        # a shape kernel_times does not take
             sm_ms = held_ms(lambda: ga.row_gather_sum(table, idx), 100)[0]
         sm, sm_ev = {**sbd, "ms": sm_ms, "library_ms": None}, {}
         hows = set()
         for d, ev, key, fn in (
-                (gm, g_ev, "ms", lambda: ga.row_gather(table, idx)),
                 (gm, g_ev, "plain_ms", lambda: ga.row_gather_reference(table, idx)),
                 (gm, g_ev, "library_ms", lambda: torch.index_select(table, 0, idx)),
                 (sm, sm_ev, "plain_ms", lambda: ga.row_gather_sum_reference(table, idx))):
@@ -1328,7 +1351,8 @@ def phase_gather(card: str) -> dict:
             hows.add(how)
         print(f"  {what} table {tuple(table.shape)} x {n:,}, ms device "
               f"({', '.join(sorted(hows))}; by events in brackets): "
-              f"row_gather {gm['ms']:.4f} ({g_ev['ms']:.4f}), plain {gm['plain_ms']:.4f} "
+              f"row_gather {gm['ms']:.4f} (held only; {gm['ms'] - launch_gap_ms():.4f} above "
+              f"the launch gap), plain {gm['plain_ms']:.4f} "
               f"({g_ev['plain_ms']:.4f}), index_select {gm['library_ms']:.4f} "
               f"({g_ev['library_ms']:.4f}), bound {gm['bound_ms']:.4f}; row_gather_sum "
               f"{sm['ms']:.4f} (held only), plain {sm['plain_ms']:.4f} "

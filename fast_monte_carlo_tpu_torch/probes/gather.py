@@ -173,6 +173,13 @@ def b3_inputs(dev: torch.device):
     return tab, idx
 
 
+def b5_inputs(rows: int, dev: torch.device):
+    """B5's table (rows, 128) on `mod_table` and its indices idx1 (rows,),
+    (k * 1103 + 7) % rows (pallas_dyngather.py:15-16)."""
+    idx1 = (torch.arange(rows, dtype=torch.int32, device=dev) * 1103 + 7) % rows
+    return mod_table(rows, B5_COLS, dev), idx1
+
+
 def probe_shapes(dev: torch.device):
     """[(name, table, idx)] at each probe's timed shape, names as in
     `PROBE_SHAPES`: B3's inputs, then B4, B5 and B6 on `mod_table`."""
@@ -181,12 +188,18 @@ def probe_shapes(dev: torch.device):
               ("B4", mod_table(B4_ROWS, B4_COLS, dev),
                (torch.arange(B4_B, dtype=torch.int32, device=dev) * 7) % B4_ROWS)]
     for rows in B5_ROWS:
-        shapes.append((f"B5 R={rows}", mod_table(rows, B5_COLS, dev),
-                       (torch.arange(rows, dtype=torch.int32, device=dev) * 1103 + 7) % rows))
+        shapes.append((f"B5 R={rows}", *b5_inputs(rows, dev)))
     for b in B6_BS:
         shapes.append((f"B6 B={b}", mod_table(B6_ROWS, B6_COLS, dev),
                        (torch.arange(b, dtype=torch.int32, device=dev) * 1103 + 7) % B6_ROWS))
     return shapes
+
+
+def row_gather_bytes(table: torch.Tensor, idx: torch.Tensor) -> int:
+    """Bytes `row_gather(table, idx)` must move: the indices and each row
+    they touch read once, the output written once."""
+    touched = int(torch.unique(idx).numel())
+    return 4 * idx.numel() + (touched + idx.numel()) * table.shape[1] * 4
 
 
 PROBE_SHAPES = ("B3", "B4", *(f"B5 R={r}" for r in B5_ROWS), *(f"B6 B={b}" for b in B6_BS))
@@ -204,6 +217,21 @@ def b3_loop(fn: Callable, tab: torch.Tensor, idx: torch.Tensor,
         if sync:
             _sync(tab.device)
     return c
+
+
+def b5_loop(fn: Callable, table: torch.Tensor, idx1: torch.Tensor,
+            steps: int = B5_ITERS, sync: bool = False) -> torch.Tensor:
+    """B5's loop (pallas_dyngather.py:23-27, and its XLA reference
+    `xla_loop` :36-40): fn(table, (idx1 + i) % rows) accumulated over
+    `steps` i, 50 in the probe.  `sync` synchronises the device after every
+    call of fn, so that no call overlaps another."""
+    rows = table.shape[0]
+    acc = torch.zeros((idx1.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
+    for i in range(steps):
+        acc = acc + fn(table, (idx1 + i) % rows)
+        if sync:
+            _sync(table.device)
+    return acc
 
 
 def probe_b3(dev: torch.device) -> dict:
@@ -231,19 +259,11 @@ def probe_b4(dev: torch.device) -> dict:
 def probe_b5(dev: torch.device, rows: int) -> dict:
     """table[idx1] at (R, 128), once and accumulated over 50 shifted index
     sets (pallas_dyngather.py:14-33)."""
-    table = mod_table(rows, B5_COLS, dev)
-    idx1 = (torch.arange(rows, dtype=torch.int32, device=dev) * 1103 + 7) % rows
+    table, idx1 = b5_inputs(rows, dev)
     out = row_gather(table, idx1)
     correct = bool(torch.allclose(out, table[idx1.long()]))
-
-    def loop(fn):
-        acc = torch.zeros((rows, B5_COLS), dtype=torch.float32, device=dev)
-        for i in range(B5_ITERS):
-            acc = acc + fn(table, (idx1 + i) % rows)
-        return acc
-
-    got, ms = _once(lambda: loop(row_gather), dev)
-    want, plain_ms = _once(lambda: loop(row_gather_reference), dev)
+    got, ms = _once(lambda: b5_loop(row_gather, table, idx1), dev)
+    want, plain_ms = _once(lambda: b5_loop(row_gather_reference, table, idx1), dev)
     return dict(correct=correct and bool(torch.equal(got, want)),
                 ms_per_call=ms / B5_ITERS, plain_ms_per_call=plain_ms / B5_ITERS)
 

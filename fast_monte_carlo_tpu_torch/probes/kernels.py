@@ -1,7 +1,7 @@
 """The CUDA kernels alone, timed by held CUDA events.
 
     python -m fast_monte_carlo_tpu_torch.probes.kernels [--csrc DIR]
-        [--forests-only | --games-only] [--sass DIR]
+        [--forests-only | --games-only | --gathers-only] [--sass DIR]
 
 builds every source of `csrc/` (or of DIR, a variant of this commit's
 `csrc/` whose K1 and K2 launchers take the package's parameters, so that
@@ -9,17 +9,20 @@ two versions are timed in one call, one process each; an earlier commit is
 timed by its own copy of this probe, from its `git archive`),
 prints the registers and spill bytes of each kernel it times (`nvcc
 -Xptxas -v`;
-`--sass DIR` also writes the game kernels' `cuobjdump -sass` there) and
+`--sass DIR` also writes the game and gather kernels' `cuobjdump -sass`
+there and prints the gather kernels' instruction counts) and
 the device time per call of each kernel at the shapes `chip_smoke.py`
-times, of a step of
-the probe loops that launch fused_step_tab and row_gather_sum, in their own
-launch order (`path_times`), and of a near-empty launch
+times (row_gather at every gather probe's shape, beside `index_select` and
+its bytes bound: `gather_yardsticks`), of a step of
+the probe loops that launch fused_step_tab, row_gather_sum and row_gather,
+in their own launch order (`path_times`), and of a near-empty launch
 (`torch.cuda._sleep(1)`): the gap between back-to-back kernels that every
-held time includes.  K5 (`forest_times`) is timed at the exact-mode play's
-shapes: each forest of `fixtures.heads(0, "reference")` on 65,536 rows of
-play states, and their sum over the 11 forests a play evaluates at the
-default config; a DIR whose forest_eval.cu has the first K5's launcher (one
-f32 node table) gets its inputs packed for that launcher.  `--forests-only`
+held time includes.  `--gathers-only` times the gather kernels alone.
+K5 (`forest_times`) is timed at the exact-mode play's shapes: each forest
+of `fixtures.heads(0, "reference")` on 65,536 rows of play states, and
+their sum over the 11 forests a play evaluates at the default config; a
+DIR whose forest_eval.cu has the first K5's launcher (one f32 node table)
+gets its inputs packed for that launcher.  `--forests-only`
 times K5 alone.  K1 and K2 (`game_times`) are timed at phase 21's shapes:
 K1 a 65,536-game launch and a 60-matchup slate launch of 1,966,080 games,
 K2 at (1, 65,536) and (60, 32,768), each beside its bound; K1's lane share
@@ -65,17 +68,22 @@ from ..utils import cuda_build
 from . import gather
 
 GAME_SOURCES = ("nano_game", "score_moments")
-SOURCES = ("philox_draws", "fused_step", "row_gather", "forest_eval") + GAME_SOURCES
-# what kernel_times times, with the calls of each held run
+GATHER_SOURCES = ("row_gather",)
+SOURCES = ("philox_draws", "fused_step") + GATHER_SOURCES + ("forest_eval",) + GAME_SOURCES
+# what kernel_times times, with the calls of each held run: row_gather at
+# every gather probe's shape
 RUNS = {"philox_draws ch=24": 50, "philox_draws ch=1": 200, "fused_step ch=24": 50,
         "fused_step ch=1": 200, "fused_step_tab": 200, "row_gather_sum B3": 200,
-        f"row_gather_sum B6 B={gather.B6_BS[-1]}": 200}
+        f"row_gather_sum B6 B={gather.B6_BS[-1]}": 200,
+        **{f"row_gather {what}": 200 for what in gather.PROBE_SHAPES}}
 # philox_draws' first row in kernel_times: rank 1's rows of a two-rank
 # launch of 131,072 games
 DRAW_ROW0 = 65_536
 # what path_times times: steps of each probe loop in one held run, about
-# 530 and 260 launches, within the card's launch queue
-PATH_STEPS = {"hybrid-tab step": 16, "B3 loop step": 64}
+# 530, 260 and 200 launches, within the card's launch queue; B5's steps at
+# each R are its probe's own loop
+PATH_STEPS = {"hybrid-tab step": 16, "B3 loop step": 64,
+              **{f"B5 loop step R={rows}": gather.B5_ITERS for rows in gather.B5_ROWS}}
 # K5's inputs: fixtures.heads(HEADS_SEED, "reference") on the focus-roster
 # teams of FOCUS_SEED, K5_B rows a launch, K5_REPS calls a held run
 HEADS_SEED, FOCUS_SEED, K5_B, K5_REPS = 0, 3, 65_536, 20
@@ -148,8 +156,9 @@ def kernel_times(dev: torch.device, names: Sequence[str] = tuple(RUNS)) -> Dict[
     from row DRAW_ROW0;
     fused_step at B = 131,072, ch = 24 and 1, from kick-off; fused_step_tab
     at B = 131,072; row_gather_sum at B3's shape and at B6's 8,192 rows of
-    128.  Each kernel runs back to back after itself, a launch order no
-    probe has (`path_times` times theirs).  Raises where the hold did not
+    128; row_gather at every shape of `gather.probe_shapes`.  Each kernel
+    runs back to back after itself, a launch order no probe has
+    (`path_times` times theirs).  Raises where the hold did not
     cover the enqueue in any of HELD_TRIES measurements (a kernel's enqueue
     takes microseconds, so a miss is the host stalling, not the kernel)."""
     from ..ops import rng
@@ -169,11 +178,11 @@ def kernel_times(dev: torch.device, names: Sequence[str] = tuple(RUNS)) -> Dict[
         calls["fused_step ch=24"] = lambda: sa.fused_step(s0, key, 0, sa.CH)
         calls["fused_step ch=1"] = lambda: sa.fused_step(s0, key, 0, 1)
         calls["fused_step_tab"] = lambda: sa.fused_step_tab(s0, heads, key, 0)
-    if any(n.startswith("row_gather_sum") for n in names):
+    if any(n.startswith("row_gather") for n in names):
         for what, table, idx in gather.probe_shapes(dev):
-            if f"row_gather_sum {what}" in RUNS:
-                calls[f"row_gather_sum {what}"] = (
-                    lambda table=table, idx=idx: gather.row_gather_sum(table, idx))
+            for fn in (gather.row_gather, gather.row_gather_sum):
+                if f"{fn.__name__} {what}" in RUNS:
+                    calls[f"{fn.__name__} {what}"] = functools.partial(fn, table, idx)
     out = {}
     for name in names:
         for _ in range(HELD_TRIES):
@@ -186,12 +195,14 @@ def kernel_times(dev: torch.device, names: Sequence[str] = tuple(RUNS)) -> Dict[
     return out
 
 
-def path_times(dev: torch.device) -> Dict[str, float]:
-    """Held device ms per step of the two probe loops that launch
-    fused_step_tab and row_gather_sum, in the order they launch them: a
-    hybrid-tab step at B = 131,072 (`heads_of`'s torch kernels, then
-    fused_step_tab on the previous step's state) and a step of B3's loop
-    (the index shift in torch, row_gather_sum, the accumulate).  There each
+def path_times(dev: torch.device, names: Sequence[str] = tuple(PATH_STEPS)) -> Dict[str, float]:
+    """Held device ms per step of each probe loop of `names` (keys of
+    PATH_STEPS) that launches fused_step_tab, row_gather_sum or row_gather,
+    in the order it launches them: a hybrid-tab step at B = 131,072
+    (`heads_of`'s torch kernels, then fused_step_tab on the previous step's
+    state), a step of B3's loop (the index shift in torch, row_gather_sum,
+    the accumulate) and a step of B5's loop at each R (`gather.b5_loop`:
+    the shift and `%` in torch, row_gather, the accumulate).  There each
     kernel follows and precedes torch kernels.  Each held run starts anew
     from the same inputs.  Raises where the hold did not cover the
     enqueue."""
@@ -201,6 +212,7 @@ def path_times(dev: torch.device) -> Dict[str, float]:
     key, values = rng.root_key(8), sa.make_table(dev)
     s0 = sa.init_state(sa.B_DEFAULT, dev)
     tab, idx = gather.b3_inputs(dev)
+    b5 = {rows: gather.b5_inputs(rows, dev) for rows in gather.B5_ROWS}
 
     def hybrid():
         s = s0
@@ -210,13 +222,31 @@ def path_times(dev: torch.device) -> Dict[str, float]:
 
     runs = {"hybrid-tab step": hybrid,
             "B3 loop step": lambda: gather.b3_loop(gather.row_gather_sum, tab, idx,
-                                                   steps=PATH_STEPS["B3 loop step"])}
+                                                   steps=PATH_STEPS["B3 loop step"]),
+            **{f"B5 loop step R={rows}": functools.partial(
+                gather.b5_loop, gather.row_gather, *b5[rows],
+                steps=PATH_STEPS[f"B5 loop step R={rows}"]) for rows in gather.B5_ROWS}}
     out = {}
-    for name, fn in runs.items():
-        ms, held = held_ms(fn, 1)
+    for name in names:
+        ms, held = held_ms(runs[name], 1)
         if not held:
             raise RuntimeError(f"{name}: the hold did not cover the enqueue")
         out[name] = ms / PATH_STEPS[name]
+    return out
+
+
+def gather_yardsticks(dev: torch.device) -> Dict[str, dict]:
+    """At every gather probe's shape: `index_select`'s held ms (one PyTorch
+    call computing row_gather's function on in-range indices) and
+    row_gather's bytes bound (`gather.row_gather_bytes` at the HBM rate,
+    `chip_smoke.bound`)."""
+    import chip_smoke as cs    # the smoke's rates (run from the repo root)
+
+    out = {}
+    for what, table, idx in gather.probe_shapes(dev):
+        out[what] = {"index_select": _held(lambda: torch.index_select(table, 0, idx),
+                                           RUNS[f"row_gather {what}"], f"index_select {what}"),
+                     "bound_ms": cs.bound(gather.row_gather_bytes(table, idx), {})["bound_ms"]}
     return out
 
 
@@ -654,6 +684,13 @@ def compare_nano_sass(new: Path, old: Path) -> Dict[str, dict]:
     return out
 
 
+def gather_sass_sizes(dump: Path) -> Dict[str, int]:
+    """Instructions of each row_gather and row_gather_sum instantiation in
+    a `cuobjdump -sass` dump of row_gather.cu, by mangled name."""
+    return {name: len(ins) for name, ins in sass_functions(dump.read_text()).items()
+            if "row_gather" in name}
+
+
 def k1_sass_sizes(dump: Path) -> Dict[str, int]:
     """Instructions of each K1 instantiation in a `cuobjdump -sass` dump,
     by its template arguments (layout, stats, players)."""
@@ -682,8 +719,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--forests-only", action="store_true", help="time K5 alone")
     only.add_argument("--games-only", action="store_true", help="time K1 and K2 alone")
+    only.add_argument("--gathers-only", action="store_true",
+                      help="time row_gather and row_gather_sum alone")
     ap.add_argument("--sass", type=Path, metavar="DIR",
-                    help="write the SASS of nano_game.cu and score_moments.cu into DIR")
+                    help="write the SASS of nano_game.cu, score_moments.cu and row_gather.cu "
+                         "into DIR")
     ap.add_argument("--sass-against", type=Path, metavar="FILE",
                     help="compare the nano instantiations' SASS with FILE's (needs --sass)")
     args = ap.parse_args(argv)
@@ -694,8 +734,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     csrc = args.csrc.resolve()
-    timed = (("forest_eval",) if args.forests_only
-             else GAME_SOURCES if args.games_only else SOURCES)
+    timed = (("forest_eval",) if args.forests_only else GAME_SOURCES if args.games_only
+             else GATHER_SOURCES if args.gathers_only else SOURCES)
     t0 = time.perf_counter()
     libs = dict(zip(timed, cuda_build.load_kernel_libraries(*timed, csrc=csrc)))
     build_s = time.perf_counter() - t0
@@ -704,7 +744,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     usage = {}
     for name in timed:
         sass = None
-        if args.sass is not None and name in GAME_SOURCES:
+        if args.sass is not None and name in GAME_SOURCES + GATHER_SOURCES:
             args.sass.mkdir(parents=True, exist_ok=True)
             sass = args.sass / f"{name}.sass"
         usage.update(cuda_build.ptxas_usage(name, csrc, sass))
@@ -712,34 +752,50 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"  {kernel}: {u['registers']} registers, spill stores {u['spill_stores']} B, "
               f"spill loads {u['spill_loads']} B")
     sass_cmp = {}
-    if args.sass is not None and args.sass_against is not None:
+    if args.sass is not None and args.sass_against is not None and "nano_game" in timed:
         sass_cmp = compare_nano_sass(args.sass / "nano_game.sass", args.sass_against)
         for what, c in sass_cmp.items():
             print(f"  nano_game nano layout, {what}: {c['instructions']} instructions against "
                   f"{c['old_instructions']}, {'identical' if c['identical'] else 'differing'} "
                   f"({c['differing_lines']} lines of the diff)")
     sizes = {}
-    if args.sass is not None:
-        sizes = {"this": k1_sass_sizes(args.sass / "nano_game.sass")}
+    if args.sass is not None and "row_gather" in timed:
+        sizes["gather"] = gather_sass_sizes(args.sass / "row_gather.sass")
+        for kernel, count in sizes["gather"].items():
+            print(f"  {kernel}: {count} SASS instructions")
+    if args.sass is not None and "nano_game" in timed:
+        k1 = {"this": k1_sass_sizes(args.sass / "nano_game.sass")}
         if args.sass_against is not None:
-            sizes["against"] = k1_sass_sizes(args.sass_against)
-        for which, by in sizes.items():
+            k1["against"] = k1_sass_sizes(args.sass_against)
+        for which, by in k1.items():
             for inst, count in by.items():
                 print(f"  nano_game SASS ({which}), {inst}: {count} instructions")
+        sizes.update(k1)
     dev = torch.device("cuda")
     names = [n for n in RUNS if "row0" in (csrc / "philox_draws.cu").read_text()
              or not n.startswith("philox")]
-    times, games = {}, {}
+    times, games, yard = {}, {}, {}
     if not (args.forests_only or args.games_only):
-        times.update({**kernel_times(dev, names), **path_times(dev)})
-    if not args.games_only:
+        paths = list(PATH_STEPS)
+        if args.gathers_only:
+            names = [n for n in names if n.startswith("row_gather")]
+            paths = [n for n in paths if n.startswith(("B3", "B5"))]
+        times.update({**kernel_times(dev, names), **path_times(dev, paths)})
+        yard = gather_yardsticks(dev)
+    if not (args.games_only or args.gathers_only):
         times.update(forest_times(dev, libs["forest_eval"]))
-    if not args.forests_only:
+    if not (args.forests_only or args.gathers_only):
         games = game_times(dev)
         times.update({name: g["ms"] for name, g in games.items()})
     times["launch gap"] = launch_gap_ms()
     for name, ms in times.items():
         print(f"  {name}: {ms:.5f} ms held ({card})")
+    gap = times["launch gap"]
+    for what, y in yard.items():
+        ms = times[f"row_gather {what}"]
+        print(f"  row_gather {what}: {ms:.5f} ms held, {ms - gap:.5f} above the launch gap, "
+              f"index_select {y['index_select']:.5f}, bound {y['bound_ms']:.5f} ms (bytes), "
+              f"{y['bound_ms'] / ms:.1%} of it ({card})")
     for name, g in games.items():
         if "bound_ms" not in g:
             continue
@@ -748,7 +804,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"  {name}: bound {g['bound_ms']:.5f} ms ({g['bound_class']}), "
               f"{g['share']:.1%} of it{extra} ({card})")
     print(json.dumps({"csrc": str(csrc), "card": card, "held_ms": times, "games": games,
-                      "registers": usage, "sass": sass_cmp, "sass_sizes": sizes,
+                      "gathers": yard, "registers": usage, "sass": sass_cmp, "sass_sizes": sizes,
                       "build_s": build_s}))
     return 0
 

@@ -4,6 +4,7 @@ probes (B3 `pallas_gather_probe.py`, B4 `pallas_gather_forms.py`, B5
 `pallas_dyngather.py`, B6 `pallas_dma_gather.py`).  Here the wrappers run
 their plain versions; `chip_smoke.py` holds the CUDA kernels to them on a
 card."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -153,3 +154,81 @@ def test_b3_loop_accumulates_the_shifted_row_sums():
     assert torch.allclose(ga.b3_loop(ga.row_gather_sum, tab, idx, steps=3), want)
     assert torch.equal(ga.b3_loop(ga.row_gather_sum, tab, idx, steps=3),
                        ga.b3_loop(ga.row_gather_sum, tab, idx, sync=True, steps=3))
+
+
+@pytest.mark.parametrize("rows", ga.B5_ROWS)
+def test_b5_loop_equals_the_jax_probes_xla_loop(rows):
+    """gather.b5_loop against pallas_dyngather.py's `xla_loop` (:36-40; the
+    Pallas loop :23-27 sums the same gathers): jnp.take of 50 shifted index
+    sets summed by a fori_loop, on the probe's inputs (:15-16).  The
+    table's values are integers below 997, so every f32 sum is exact and
+    the two agree bit for bit."""
+    table, idx1 = ga.b5_inputs(rows, CPU)
+    np.testing.assert_array_equal(table.numpy(), _mod_np(rows, ga.B5_COLS))
+    np.testing.assert_array_equal(idx1.numpy(), (np.arange(rows) * 1103 + 7) % rows)
+
+    @jax.jit
+    def xla_loop(t, i1):
+        def body(i, acc):
+            return acc + jnp.take(t, (i1 + i) % rows, axis=0)
+        return jax.lax.fori_loop(0, ga.B5_ITERS, body,
+                                 jnp.zeros((rows, ga.B5_COLS), jnp.float32))
+
+    want = np.asarray(xla_loop(jnp.asarray(table.numpy()), jnp.asarray(idx1.numpy())))
+    got = ga.b5_loop(ga.row_gather, table, idx1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ga.b5_loop(ga.row_gather, table, idx1, sync=True).numpy(), want)
+
+
+@pytest.mark.parametrize("cols", [1, 3, 5, 8, 127, 128, 129, 1000])
+def test_row_gather_at_every_lane_group_width(cols):
+    """The widths at which the kernel takes each lane group (1-32 lanes,
+    float4 items and floats, one item a lane and a loop within the warp),
+    some indices outside the table: row_gather equals jnp.take with
+    mode="clip", bit for bit, as `chip_smoke.py` holds the kernel to its
+    plain version."""
+    g = np.random.default_rng(100 + cols)
+    t = g.random((300, cols), dtype=np.float32)
+    i = g.integers(-5, 305, 1001).astype(np.int32)
+    want = np.asarray(jnp.take(jnp.asarray(t), jnp.asarray(i), axis=0, mode="clip"))
+    np.testing.assert_array_equal(ga.row_gather(torch.from_numpy(t), torch.from_numpy(i)).numpy(),
+                                  want)
+
+
+def test_the_timer_takes_every_row_gather_shape_and_b5_step_from_the_probes():
+    """probes.kernels times row_gather at every gather probe's shape and a
+    step of B5's loop at each R, on the probes' own inputs, beside the
+    bytes row_gather must move."""
+    timed = {n.split(" ", 1)[1] for n in kernels.RUNS if n.startswith("row_gather ")}
+    assert timed == set(ga.PROBE_SHAPES)
+    steps = {n: k for n, k in kernels.PATH_STEPS.items() if n.startswith("B5 loop step")}
+    assert steps == {f"B5 loop step R={r}": ga.B5_ITERS for r in ga.B5_ROWS}
+    shapes = {what: (table, idx) for what, table, idx in ga.probe_shapes(CPU)}
+    for rows in ga.B5_ROWS:
+        table, idx1 = ga.b5_inputs(rows, CPU)
+        assert torch.equal(shapes[f"B5 R={rows}"][0], table)
+        assert torch.equal(shapes[f"B5 R={rows}"][1], idx1)
+    # B5 at R = 8,192: the indices, every row once in and once out
+    assert ga.row_gather_bytes(*shapes["B5 R=8192"]) == 4 * 8192 + 2 * 8192 * 128 * 4
+    table, idx = shapes["B6 B=1024"]
+    assert ga.row_gather_bytes(table, idx) == 4 * 1024 + 2 * 1024 * 128 * 4
+    table, idx = torch.zeros(10, 4), torch.tensor([3, 3, 3, 7], dtype=torch.int32)
+    assert ga.row_gather_bytes(table, idx) == 4 * 4 + (2 + 4) * 4 * 4
+
+
+def test_gather_sass_sizes_counts_each_gather_kernel(tmp_path):
+    """`probes.kernels --sass` counts the instructions of each gather
+    kernel in a `cuobjdump -sass` dump, and of nothing else."""
+    ins = "        /*{:04x}*/                   {} ;      /* 0x000000000000000000 */"
+    dump = ["", "\tcode for sm_90a",
+            "\t\tFunction : _ZN12_GLOBAL__N_117row_gather_kernelI6float4Li2EEEvPKT_PKiPS2_iiii"]
+    ops = ["LDC R1, c[0x0][0x28]", "S2R R0, SR_TID.X", "EXIT", "BRA 0x30"]
+    dump += [ins.format(16 * k, op) for k, op in enumerate(ops)]
+    dump += ["\t\tFunction : _ZN12_GLOBAL__N_121row_gather_sum_kernelIfEEvPKT_PKiPfiiii"]
+    dump += [ins.format(16 * k, "NOP") for k in range(3)]
+    dump += ["\t\tFunction : _Z11other_kernelv", ins.format(0, "EXIT")]
+    path = tmp_path / "row_gather.sass"
+    path.write_text("\n".join(dump) + "\n")
+    assert kernels.gather_sass_sizes(path) == {
+        "_ZN12_GLOBAL__N_117row_gather_kernelI6float4Li2EEEvPKT_PKiPS2_iiii": 4,
+        "_ZN12_GLOBAL__N_121row_gather_sum_kernelIfEEvPKT_PKiPfiiii": 3}
