@@ -157,15 +157,25 @@ Phases, in order (any failure raises and exits non-zero):
     would overflow the row slot, raises ValueError with no launch; one
     exact-mode play step at 4,096 states (16,384 before phase 18, 65,536
     before phase 16) on CUDA
-    and on the CPU, integer state equal in >= 99.5%; the nano tables built from the same heads
+    and on the CPU, integer state equal in >= 99.5%; K1's exact
+    instantiation alone on these heads at a 65,536-game launch (the 11
+    forests' 21 tiles, most forests over two), held ms beside its bound on
+    the launch's plays (the walks a row of the K5 rows above, the 11
+    forests a play: the exact JSON row's ms and bound); K1 against
+    `nano_game_plain` from the same start at 4,096 games
+    (`--exact-plain-games`; the plain time by events is the row's
+    plain_ms) and, at 512 games, `simulate_games` (one K1 launch) against
+    the eager loop, 0 differing games allowed in either (the row's
+    max|d|); the nano tables built from the same heads
     (`MatchupRunner(mode="table", heads=)`, host seconds); then
-    `run_pairs_summary` of `MatchupRunner(mode="exact")` and of that table
-    runner in turns (exact, then table; exact, table, table, exact before
-    the smoke outgrew its limit), each turn 65,536-game
-    launches, as many as fill about 6 s of exact mode after a warm-up (at
-    most 2), each with the summary checks, exact mode's forests through K5
-    only (the plain walk never called, no K5 launch in a table turn), and
-    the two games/s side by side;
+    `run_pairs_summary` of `MatchupRunner(mode="exact")`, of that table
+    runner and of `MatchupRunner(mode="analytic")` in turns (exact, table,
+    analytic; exact, table, table, exact before the smoke outgrew its
+    limit), each turn 65,536-game launches, as many as fill about 6 s of
+    exact mode after a warm-up (at most 2), each with the summary checks;
+    every launch one K1 launch (exact and analytic ones counted), no K5 or
+    philox_draws launch, the plain walk never called; the three games/s
+    side by side;
 13. inputs from files: a schema-B SP+ sheet of 136 teams
     (`fixtures.write_sp_sheet`) and the focus sheet written to a temporary
     directory; the SP+ load, `load_heads(fixtures.ARTIFACT_DIR)` cold and
@@ -181,6 +191,8 @@ Phases, in order (any failure raises and exits non-zero):
     the focus sheet and in table mode without it, each with the summary
     checks and equal column for column to the same run composed by hand
     (contexts, heads, `MatchupRunner`), games/s of the hand-composed runs;
+    the exact route one K1 exact launch, no K5 or philox_draws launch, the
+    run composed by hand as many;
     `simulate_live_game` and `evaluate_fourth_down` through `sp_path=`;
     `simulate_slate_summary_rows(sp_path=, layout="game_shard")` over 2
     matchups (`SlateRunner(heads=)`);
@@ -194,7 +206,8 @@ Phases, in order (any failure raises and exits non-zero):
     posted while the service lock is held (coalesced), /slate with lines
     on 4 matchups, /live and /live with situations, /fourth, /parlay,
     /season; a second server in exact mode with the focus sheet: /sim
-    (16,384 pairs, K5) and /props over the fixture prop sheet; every
+    (16,384 pairs, K1's exact instantiation) and /props over the fixture
+    prop sheet; every launch on K1, no philox_draws or K5 launch; every
     answer's summary rows checked; then, after the counts are read, the
     first and the last coalesced answer (each before the smoke outgrew its
     limit) equal bitwise to the same request alone, the cold
@@ -204,16 +217,17 @@ Phases, in order (any failure raises and exits non-zero):
 15. saved sims, bundles and the backtest, in a temporary working directory
     with the 136-team sheet, the focus sheet, the fixture prop sheet and the
     fixture artifacts, on phase 14's table disk cache (its own fresh one
-    before the smoke outgrew its limit), each step timed with its K4 and
-    K5 launches: `cli sim
+    before the smoke outgrew its limit), each step timed with its K4, K1
+    and K5 launches: `cli sim
     --save --players` (exact mode on the focus rosters, 8,192 pairs), then
     `edges` (spread, total, props, ladders, both middles) and `prop
     --ladder` over the saved files, their printed cover, over and win shares
     held to numpy's counts over the CSV rows, `moneyline_from_sims` too;
     `edges --device` market-only at 32,768 pairs (run_pairs_summary), with
     props on the focus rosters (exact mode) and in exact mode at 8,192
-    pairs, each summary's n exact, K5 11 a play in every exact run and the
-    plain walk never called, `player_stat_probs` on the card equal to numpy
+    pairs, each summary's n exact, every exact run on K1's exact
+    instantiation with no K4 or K5 launch and the plain walk never called,
+    `player_stat_probs` on the card equal to numpy
     over the host pstats for every resolved prop row; a small market-only
     query under `utils.profiling.trace_context` (a Chrome trace with kernel
     events); the batched sweep's core (3 chunks of 8,192 pairs, each
@@ -291,9 +305,10 @@ Phases, in order (any failure raises and exits non-zero):
     --budget 180` (table mode, nano tables built from the fixture heads)
     and (b) `python -m fast_monte_carlo_tpu_torch.cli bench --mode exact -n
     65536`: exactly one stdout line with the contract's keys, device
-    platform "gpu", emit "complete", games/s > 0, philox_draws launched,
-    forest_eval none in (a) and 11 a play in (b) (11 x 24 a philox_draws
-    launch), the stderr sanity line's mean points in (10, 50); the
+    platform "gpu", emit "complete", games/s > 0, nano_game and
+    score_moments launched and philox_draws and forest_eval none in both
+    (exact mode's forests are walked inside K1), the stderr sanity
+    line's mean points in (10, 50); the
     bench's games/s printed beside phase 5's;
 20. training on the card's host: (a) `python -m fast_monte_carlo_tpu_torch.cli
     train` on a small seeded plays csv in a subprocess, which on a host
@@ -304,9 +319,10 @@ Phases, in order (any failure raises and exits non-zero):
     cuda` on the 136-team sheet's Team A and Team B and the fixture
     artifact directory's heads at 48 oracle games (the JAX script's 96 cut
     in half): calibration.json alone, the play forest's margins walked by
-    K5 in one launch; then one exact-mode launch (16,384 games)
-    under `reconstructed_config()` on `load_reconstructed_heads`, which
-    reads the port's own overlay; (c) K5's margins bitwise equal to the
+    K5 in one launch; then one exact-mode launch (16,384 games, one K1
+    launch, no K5) under `reconstructed_config()` on
+    `load_reconstructed_heads`, which reads the port's own overlay; (c)
+    K5's margins bitwise equal to the
     plain walk's on the card and to the CPU's, the temperature equal to the
     one fitted on the CPU's margins, the overlay's directory inside the
     port's package; the oracle's seconds and states, K5's launches and
@@ -331,7 +347,16 @@ Phases, in order (any failure raises and exits non-zero):
     times; the props instantiation (both collectors, the focus roster,
     65,536 games) beside its bound on the launch's plays, slots sampled and
     player rows added (`accrual_work`) and the score-only K1's held ms in
-    the same call; and K2's held ms, bound and torch body's time.
+    the same call; and K2's held ms, bound and torch body's time.  Then the
+    heads that read no table (`phase_k1_heads`): K1's exact instantiation
+    (small heads, focus roster: score-only, both collectors with the fumble
+    and play heads, a forced go; a 3-matchup slate) and its analytic one
+    (score-only, both collectors antithetic, a forced go), each `simulate_games` one K1
+    launch, against the eager loop and `nano_game_plain` at 1,024 games,
+    none differing, and exact mode on the tiled heads (stage 1 and the
+    play head over eight tiles each) with both collectors the same way;
+    their registers; the analytic one held at 65,536 games beside its bound
+    (the exact one's row is phase 12's).
 Every phase prints its seconds, and a line before the JSON lines lists
 them with the whole smoke's.
 Every kernel's launch count is set to 0 just before each path (5, 6, 7, 8,
@@ -341,9 +366,13 @@ bench's own, from its JSON line); a path that launched one of its kernels
 no time fails.  nano_game's and score_moments' launches in the JSON line
 are every path's (`PATH_LAUNCHES`), phase 18's and phase 19's; phase 21's
 comparisons count none.  nano_game_props is K1's instantiation with both
-collectors: its launches are the paths' K1 launches with a collector on.  forest_eval's launches in the JSON line are exact mode's,
-phase 13's, phase 14's, phase 15's, phase 19's and phase 20's; its times
-are per play (11 launches), the bound too.  The JSON line's philox_draws
+collectors: its launches are the paths' K1 launches with a collector on;
+nano_game_exact's and nano_game_analytic's are the paths' K1 launches of
+exact mode and of the analytic heads (phases 12-15, 19, 20).
+forest_eval's launches in the JSON line are phase 20's training
+temperature's (exact mode walks its forests inside K1: 0 from phases
+12-15 and 19); its times are per play (11 launches), the bound too.
+The JSON line's philox_draws
 launches are the main path's, the live queries', the slate path's, phase
 11's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's (its child
 process's included), phase 18's (its ranks' included), phase 19's and
@@ -431,10 +460,17 @@ SEASON_REPS = 0                    # timed calls of the season after its first (
                                    # the smoke passed 1,200 s on a slower host)
 K5_BS = (65_536, 1, 255, 257, 65_573)  # K5 against its plain version: the launch, ragged
 EXACT_LAUNCH_GAMES = 65_536        # exact mode's games a launch
+EXACT_EAGER_GAMES = 512            # K1's exact instantiation against the eager loop on the
+                                   # reference-shape heads (some 700 kernels a play there)
+EXACT_PLAIN_GAMES = 4_096          # and against nano_game_plain there (--exact-plain-games)
+K1_HEADS_GAMES = 1_024             # phase 21's exact and analytic variants, K1 against the eager
+                                   # loop and nano_game_plain
+K1_HEADS_SEED = 11                 # their small and tiled heads (fixtures.heads)
 EXACT_TARGET_S = 6                 # exact mode's timed launches fill about this (12
                                    # before phase 17)
 EXACT_MAX_LAUNCHES = 4
-EXACT_TURNS = ("exact", "table")   # (exact, table, table, exact) before the smoke passed
+EXACT_TURNS = ("exact", "table", "analytic")   # (exact, table, table, exact) before the smoke
+                                                # passed; the analytic runner added since
                                    # 1,200 s on a slower host
 EXACT_STEP_STATES = 4_096          # the exact play step, CUDA vs CPU (16,384 before phase 18,
                                    # 65,536 before phase 16)
@@ -534,18 +570,22 @@ BENCH_SANITY = re.compile(r"# sanity: mean \[([-\d.]+), ([-\d.]+)\] winA ([\d.]+
 # (nano_game_props: K1's instantiation with both collectors, the props path's;
 # nano_game_fused and _per_head: K1 on those table layouts, the one-row and
 # the per-head instantiation; nano_game_play: K1 reading the play-policy
-# table; nano_game_forced: K1 with the 4th-down evaluator's forced first play)
+# table; nano_game_forced: K1 with the 4th-down evaluator's forced first play;
+# nano_game_exact and _analytic: K1 under exact mode's forests and under the
+# analytic heads)
 KERNEL_SOURCES = {"philox_draws": "philox_draws", "fused_step": "fused_step",
                   "fused_step_tab": "fused_step", "row_gather": "row_gather",
                   "row_gather_sum": "row_gather", "forest_eval": "forest_eval",
                   "nano_game": "nano_game", "nano_game_props": "nano_game",
                   "nano_game_fused": "nano_game", "nano_game_per_head": "nano_game",
                   "nano_game_play": "nano_game", "nano_game_forced": "nano_game",
+                  "nano_game_exact": "nano_game", "nano_game_analytic": "nano_game",
                   "score_moments": "score_moments"}
 # K1's rows past the nano score-only one: the wrapper's count of each
 K1_ROWS = {"nano_game_props": "launches_collecting", "nano_game_fused": "launches_fused",
            "nano_game_per_head": "launches_per_head", "nano_game_play": "launches_play",
-           "nano_game_forced": "launches_forced"}
+           "nano_game_forced": "launches_forced", "nano_game_exact": "launches_exact",
+           "nano_game_analytic": "launches_analytic"}
 SOURCES = tuple(dict.fromkeys(KERNEL_SOURCES.values()))
 # the Pallas kernel each replaces (the timed shape's; PERF.md lists them all)
 REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
@@ -566,6 +606,11 @@ REPLACES = {"philox_draws": "fast_monte_carlo_tpu/ops/rng_pallas.py:94",
                               "(play-policy lookup: ops/table_lookup.py:588-597, :627-639)",
             "nano_game_forced": "fast_monte_carlo_tpu/api.py:481-482 _forced_live_moments_jit "
                                 "(ops/game.py:392-415 forced play, then :844 simulate_games)",
+            "nano_game_exact": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games (exact heads: "
+                               ":145 make_exact_heads_eval, :294 _play_pass_prob, :318 "
+                               "_state_features; ops/forest_eval.py:96 eval_margin)",
+            "nano_game_analytic": "fast_monte_carlo_tpu/ops/game.py:844 simulate_games "
+                                  "(analytic heads: :267 make_analytic_heads_eval)",
             "score_moments": "fast_monte_carlo_tpu/parallel/aggregate.py:76 score_moments"}
 
 # The H100 SXM's rates by class, on 132 SMs at 1.98 GHz: HBM bytes/s
@@ -2216,9 +2261,10 @@ def forest_bound(f, tf, leaves, n_feat: int) -> tuple:
     return nbytes, counts
 
 
-def phase_exact(card: str) -> dict:
+def phase_exact(card: str, plain_games: int = EXACT_PLAIN_GAMES) -> dict:
     """Exact mode and tables from heads, on fixtures.heads(0, "reference")
-    (`probes.kernels.k5_forests`)."""
+    (`probes.kernels.k5_forests`); K1's exact launch held to
+    `nano_game_plain` at `plain_games` games."""
     import torch
     from fast_monte_carlo_tpu_torch import fixtures
     from fast_monte_carlo_tpu_torch.api import MatchupRunner
@@ -2313,62 +2359,110 @@ def phase_exact(card: str) -> dict:
     check(bad.mean() <= 0.005, f"exact play step at {n:,} states: integer state equal on "
           f"CUDA and the CPU in {n - bad.sum():,} ({bad.sum()} differ, at most 0.5%)")
 
-    # exact mode end to end, and the table path built from the same heads,
-    # timed in turns (EXACT_TURNS) on the fixture teams
+    # K1's exact instantiation alone at the main path's launch: held ms beside
+    # its bound on this launch's plays, the walks counted a row as this
+    # phase's K5 rows take them (the 11 forests a play)
     a, b = fixtures.teams()
-    runner = MatchupRunner(a, b, heads, cfg, mode="exact", device="cuda")
+    walk = {c: sum(per_forest[k]["counts"].get(c, 0.0) for k in play) / K5_BS[0]
+            for c in RATES if c != "bytes"}
+    pk, hpk = build_packs(a, b, heads, cfg, dev)
+    x_args = game.pack_nano_game(pk, cfg, hpk)
+    check(len(x_args.exact.heads) == len(play),
+          f"K1's exact instantiation walks the {len(play)} forests a play reads "
+          f"({x_args.exact.tiles.shape[0]} tiles, {x_args.exact.records.shape[0]:,} records)")
+    fo = torch.arange(EXACT_LAUNCH_GAMES, dtype=torch.int32, device=dev) % 2
+    score_only = dict(collect_players=False, collect_stats=False)
+    s0 = game.initial_state(EXACT_LAUNCH_GAMES, fo, cfg, dev, **score_only)
+    k1x = _k1_timed(card, "nano_game exact (reference-shape heads, the main path's launch)",
+                    x_args, s0, 41, score_only, reps=2, walk=walk,
+                    plain=plain_games == EXACT_LAUNCH_GAMES)
+    del s0
+    if plain_games != EXACT_LAUNCH_GAMES:
+        # the plain version walks 11 forests in torch a play: about 18 s
+        # at 4,096 games on an H100, 265 s at 65,536
+        fp = torch.arange(plain_games, dtype=torch.int32, device=dev) % 2
+        held = _k1_timed(card, "nano_game exact (reference-shape heads) against its plain "
+                         "version", x_args, game.initial_state(plain_games, fp, cfg, dev,
+                                                                **score_only),
+                         41, score_only, reps=2, walk=walk)
+        k1x.update(plain_ms=held["plain_ms"], max_abs_err=held["max_abs_err"])
+    k1x["plain_games"] = plain_games
+    # simulate_games (one K1 launch) against the eager loop (K5 a forest a
+    # play) on the same heads
+    m = EXACT_EAGER_GAMES
+    he = game.make_exact_heads_eval(cfg)
+    sm = game.initial_state(m, fo[:m], cfg, dev, **score_only)
+    before = launch_count("nano_game_exact")
+    got = game.simulate_games(pk, cfg, he, hpk, 41, m, 0, init_state=game.GameState(
+        *(f.clone() for f in sm)), **score_only)
+    check(launch_count("nano_game_exact") == before + 1,
+          "exact mode, reference-shape heads: simulate_games on the card was one K1 launch")
+    want = game.simulate_games_eager(pk, cfg, he, hpk, 41, m, 0, init_state=game.GameState(
+        *(f.clone() for f in sm)), **score_only)
+    k1x["max_abs_err"] = max(k1x["max_abs_err"], nano_diff(
+        want, got, f"K1 against the eager loop, exact heads, reference shape, {m:,} games"))
+    print(f"  K1 exact on the reference-shape heads: 0 differing games against nano_game_plain "
+          f"({plain_games:,} games) and the eager loop ({m:,}), max|d| "
+          f"{k1x['max_abs_err']:.3g}; the row's ms and bound at {EXACT_LAUNCH_GAMES:,} games, "
+          f"its plain_ms at {plain_games:,}")
+
+    # exact mode end to end on K1, the table path built from the same heads
+    # and the analytic heads, timed in turns (EXACT_TURNS) on the fixture
+    # teams
+    runners = {"exact": MatchupRunner(a, b, heads, cfg, mode="exact", device="cuda"),
+               "analytic": MatchupRunner(a, b, None, cfg, mode="analytic", device="cuda")}
     t0 = time.perf_counter()
-    table = MatchupRunner(a, b, heads, cfg, mode="table", device="cuda")
+    runners["table"] = MatchupRunner(a, b, heads, cfg, mode="table", device="cuda")
     build_s = time.perf_counter() - t0
     print(f"  nano tables from reference-shape heads: {build_s:.2f} s for both directions "
           f"({build_s / 2:.2f} s a direction, host numpy)")
     pairs = EXACT_LAUNCH_GAMES // 2
     warm = {}
-    for what, r in (("exact", runner), ("table", table)):
+    for what in EXACT_TURNS:
         t0 = time.perf_counter()
-        r.run_pairs_summary(pairs, seed=98, chunk_pairs=pairs)
+        runners[what].run_pairs_summary(pairs, seed=98, chunk_pairs=pairs)
         torch.cuda.synchronize()
         warm[what] = time.perf_counter() - t0
     half = max(1, min(EXACT_MAX_LAUNCHES // 2, int(EXACT_TARGET_S / 2 / warm["exact"])))
     games = half * EXACT_LAUNCH_GAMES
-    print(f"  warm-up launches: exact {warm['exact']:.3f} s, table {warm['table']:.3f} s; "
-          f"timing {half} launches of {EXACT_LAUNCH_GAMES:,} games a turn, "
+    print(f"  warm-up launches: " + ", ".join(f"{w} {v:.3f} s" for w, v in warm.items())
+          + f"; timing {half} launches of {EXACT_LAUNCH_GAMES:,} games a turn, "
           f"{', '.join(EXACT_TURNS)}")
     plain_calls = []
     plain = fe.eval_margin_reference
     fe.eval_margin_reference = lambda *a, **k: plain_calls.append(1) or plain(*a, **k)
-    secs = {"exact": 0.0, "table": 0.0}
-    k5 = {"exact": 0, "table": 0}
+    secs = dict.fromkeys(EXACT_TURNS, 0.0)
     try:
         torch.cuda.synchronize()
         zero_counts()
         for i, what in enumerate(EXACT_TURNS):
-            r = runner if what == "exact" else table
-            before = fe.eval_margin_cuda.launches
             t0 = time.perf_counter()
-            sm = r.run_pairs_summary(half * pairs, seed=i, chunk_pairs=pairs)
+            sm = runners[what].run_pairs_summary(half * pairs, seed=i, chunk_pairs=pairs)
             torch.cuda.synchronize()
             secs[what] += time.perf_counter() - t0
-            k5[what] += fe.eval_margin_cuda.launches - before
             check_summary(sm, games, f"{what} mode, turn {i + 1}")
             print(f"  {what}: mean pts {sm.mean_pts.cpu().numpy().round(3).tolist()}, "
                   f"win {sm.win_rate.cpu().numpy().round(4).tolist()}")
-        counts = read_counts("exact mode and the table path from heads",
-                             ["philox_draws", "forest_eval", "nano_game", "score_moments"])
+        counts = read_counts("exact mode, the table path from heads and the analytic heads",
+                             ["nano_game", "nano_game_exact", "nano_game_analytic",
+                              "score_moments"])
     finally:
         fe.eval_margin_reference = plain
-    check(not plain_calls and k5["exact"] == counts["forest_eval"]
-          and counts["forest_eval"] % len(play) == 0,
-          f"exact mode evaluated its forests through K5 only: {k5['exact']} launches, "
-          f"{len(play)} a play, the plain walk called {len(plain_calls)} times")
-    check(k5["table"] == 0, "the table path from heads launched no forest walk")
-    turns = EXACT_TURNS.count("exact")
-    exact_gps, table_gps = turns * games / secs["exact"], turns * games / secs["table"]
-    print(f"  exact mode {exact_gps:,.0f} games/s ({k5['exact'] // len(play) // (turns * half)} "
-          f"plays a launch), table path from heads {table_gps:,.0f} games/s, exact at "
-          f"{exact_gps / table_gps:.3f} of it, {turns * games:,} games each in turns ({card})")
-    return {**row, "launches": counts["forest_eval"], "exact_gps": exact_gps,
-            "table_gps": table_gps, "build_s": build_s}
+    check(not plain_calls and counts["forest_eval"] == 0 and counts["philox_draws"] == 0
+          and counts["nano_game_exact"] == half and counts["nano_game_analytic"] == half
+          and counts["nano_game"] == len(EXACT_TURNS) * half,
+          f"exact and analytic mode played one K1 launch a launch of games (exact "
+          f"{counts['nano_game_exact']}, analytic {counts['nano_game_analytic']}, all K1 "
+          f"{counts['nano_game']}), no forest_eval ({counts['forest_eval']}) or philox_draws "
+          f"({counts['philox_draws']}) launch, the plain walk called {len(plain_calls)} times")
+    gps = {what: games / secs[what] for what in EXACT_TURNS}
+    print(f"  exact mode {gps['exact']:,.0f} games/s, table path from heads "
+          f"{gps['table']:,.0f}, analytic heads {gps['analytic']:,.0f} games/s; exact at "
+          f"{gps['exact'] / gps['table']:.3f} of the table path, {games:,} games each in turns "
+          f"({card})")
+    return {**row, "launches": counts["forest_eval"], "exact_gps": gps["exact"],
+            "table_gps": gps["table"], "analytic_gps": gps["analytic"], "build_s": build_s,
+            "walk": walk, "k1_exact": k1x}
 
 
 def _columns_summary(scores, team_a: str, device="cuda"):
@@ -2408,6 +2502,7 @@ def phase_files(card: str) -> dict:
     from fast_monte_carlo_tpu_torch.models import heads as heads_mod
     from fast_monte_carlo_tpu_torch.models.tables import nano_profile
     from fast_monte_carlo_tpu_torch.ops import forest_eval as fe
+    from fast_monte_carlo_tpu_torch.ops import game
     from fast_monte_carlo_tpu_torch.ops.game import Situation
     from fast_monte_carlo_tpu_torch.ops.pack import build_packs
     from fast_monte_carlo_tpu_torch.ops.table_lookup import build_table_heads
@@ -2514,7 +2609,7 @@ def phase_files(card: str) -> dict:
     live_kw = dict(sp_path=sp_path, artifact_dir=fixtures.ARTIFACT_DIR)
     q4 = Situation(offense=0, sec=300, down=2, dist=7.0, ytg=40.0, score_a=21, score_b=17)
     games = [("Team A", "Team B"), ("Team 000", "Team 001")]
-    routes, k5_route = {}, {}
+    routes, k1x_route = {}, {}
     plain_calls = []
     plain = fe.eval_margin_reference
     fe.eval_margin_reference = lambda *a, **k: plain_calls.append(1) or plain(*a, **k)
@@ -2522,11 +2617,11 @@ def phase_files(card: str) -> dict:
         torch.cuda.synchronize()
         zero_counts()
         for mode, focus in modes:
-            before = fe.eval_margin_cuda.launches
+            before = game.nano_game_cuda.launches_exact
             routes[mode] = api.simulate_upcoming_matchup_columns(
                 "Team A", "Team B", sp_path=sp_path, focus_csv=focus, mode=mode, **kw)
             torch.cuda.synchronize()
-            k5_route[mode] = fe.eval_margin_cuda.launches - before
+            k1x_route[mode] = game.nano_game_cuda.launches_exact - before
         row, _ = api.simulate_live_game("Team A", "Team B", q4, n_games=FILE_LIVE_GAMES,
                                         **live_kw)
         fourth = api.evaluate_fourth_down(
@@ -2538,15 +2633,16 @@ def phase_files(card: str) -> dict:
             n_pairs=FILE_SLATE_PAIRS, chunk_pairs=FILE_SLATE_PAIRS, layout="game_shard")
         torch.cuda.synchronize()
         launches = read_counts("inputs-from-files path",
-                               ["philox_draws", "forest_eval", "nano_game", "score_moments"])
+                               ["nano_game", "nano_game_exact", "score_moments"])
     finally:
         fe.eval_margin_reference = plain
-    check(not plain_calls and k5_route["exact"] > 0 and k5_route["exact"] % len(play) == 0
-          and launches["forest_eval"] == k5_route["exact"],
-          f"the exact route evaluated its forests through K5 only: {k5_route['exact']} "
-          f"launches, {len(play)} a play, the plain walk called {len(plain_calls)} times")
-    check(k5_route["table"] == 0, "the table route (nano tables from the loaded heads) "
-          "launched no forest walk")
+    check(not plain_calls and k1x_route["exact"] == 1 and launches["forest_eval"] == 0
+          and launches["philox_draws"] == 0,
+          f"the exact route walked its forests in K1: {k1x_route['exact']} exact launch, "
+          f"forest_eval {launches['forest_eval']} and philox_draws {launches['philox_draws']} "
+          f"launches, the plain walk called {len(plain_calls)} times")
+    check(k1x_route["table"] == 0, "the table route (nano tables from the loaded heads) "
+          "launched no exact K1")
 
     gps, warm = {}, {}
     for mode, focus in modes:
@@ -2558,15 +2654,15 @@ def phase_files(card: str) -> dict:
         ha = build_team_context_from_sp_flex("Team A", 2025, 1, sp, focus_csv=focus)
         hb = build_team_context_from_sp_flex("Team B", 2025, 1, sp, focus_csv=focus)
         runner = api.MatchupRunner(ha, hb, heads, cfg, mode)
-        before = fe.eval_margin_cuda.launches
+        before = game.nano_game_cuda.launches_exact
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = runner.run_pairs(FILE_PAIRS, seed=7, collect_players=True)
         want_scores = api.scores_columns(out, "Team A", "Team B")
         warm[mode] = n_games / (time.perf_counter() - t0)
-        check(fe.eval_margin_cuda.launches - before == k5_route[mode],
-              f"mode={mode!r}: the run composed by hand launched K5 as often as the route "
-              f"({k5_route[mode]})")
+        check(game.nano_game_cuda.launches_exact - before == k1x_route[mode],
+              f"mode={mode!r}: the run composed by hand launched exact K1 as often as the "
+              f"route ({k1x_route[mode]})")
         _same_columns(scores, want_scores, f"simulate_upcoming_matchup, mode={mode!r}")
         _same_columns(players, api.players_columns(out, ha, hb),
                       f"its player rows, mode={mode!r}")
@@ -2759,13 +2855,15 @@ def phase_serve(card: str) -> dict:
         health_ms = [1e3 * _http(exact_base, "/health")[2] for _ in range(HEALTH_GETS)]
         torch.cuda.synchronize()
         launches = read_counts("server path",
-                               ["philox_draws", "forest_eval", "nano_game", "score_moments"])
+                               ["nano_game", "nano_game_exact", "score_moments"])
         k3 = rng.philox_draws.launches_by_ch[1] - by_ch.get(1, 0)
         k4 = rng.philox_draws.launches_by_ch[CH] - by_ch.get(CH, 0)
-        check(k3 == 0 and k4 > 0 and launches["nano_game_forced"] > 0,
-              f"server path: philox_draws ch=24 (K4, exact mode's play chunks) {k4} launches, "
-              f"ch=1 (K3) {k3} (0 allowed: /fourth's forced plays run in K1, "
-              f"{launches['nano_game_forced']} forced launches)")
+        check(k3 == 0 and k4 == 0 and launches["forest_eval"] == 0
+              and launches["nano_game_forced"] > 0 and launches["nano_game_exact"] >= 2,
+              f"server path: every launch on K1 (exact mode's /sim and /props "
+              f"{launches['nano_game_exact']} exact launches, /fourth's forced plays "
+              f"{launches['nano_game_forced']}); philox_draws ch=24 (K4) {k4}, ch=1 (K3) {k3}, "
+              f"forest_eval {launches['forest_eval']} launches (0 allowed)")
 
         check(warm == {"heads": "loaded", "sp": "loaded", "compiled": "2 matchups @ 256 pairs"},
               f"warm: {warm}")
@@ -2930,17 +3028,19 @@ def phase_saved(card: str) -> dict:
     ab = ["--team-a", "Team A", "--team-b", "Team B"]
     base = api.csv_base_from("Team A", "Team B", 1)
     meter = SimMeter()
-    ms, k4, k1, k5, out_text, step_games = {}, {}, {}, {}, {}, {}
+    ms, k4, k1, k1x, k5, out_text, step_games = {}, {}, {}, {}, {}, {}, {}
     plain_calls = []
     plain = fe.eval_margin_reference
     fe.eval_margin_reference = lambda *a, **k: plain_calls.append(1) or plain(*a, **k)
 
     def step(name, fn, games=0):
         """fn() timed on the host clock ending in a synchronize, with its K4
-        (philox_draws ch=24), K1 (nano_game) and K5 (forest_eval) launches."""
+        (philox_draws ch=24), K1 (nano_game; of them exact mode's) and K5
+        (forest_eval) launches."""
         torch.cuda.synchronize()
         n4 = rng.philox_draws.launches_by_ch[CH]
         n1 = engine_launches()["K1"]
+        n1x = launch_count("nano_game_exact")
         n5 = fe.eval_margin_cuda.launches
         t0 = time.perf_counter()
         if games:     # a simulated step: one "simulate" record with its games
@@ -2954,6 +3054,7 @@ def phase_saved(card: str) -> dict:
         step_games[name] = games
         k4[name] = rng.philox_draws.launches_by_ch[CH] - n4
         k1[name] = engine_launches()["K1"] - n1
+        k1x[name] = launch_count("nano_game_exact") - n1x
         k5[name] = fe.eval_margin_cuda.launches - n5
         if games:
             check(k4[name] + k1[name] > 0, f"{name}: K4 launched {k4[name]} times, K1 "
@@ -3046,7 +3147,7 @@ def phase_saved(card: str) -> dict:
                                  games=2 * (1024 + EDGES_SMALL_PAIRS) * len(SAVED_SLATE_GAMES))
         torch.cuda.synchronize()
         launches = read_counts("saved-sims path",
-                               ["philox_draws", "forest_eval", "nano_game", "score_moments"])
+                               ["nano_game", "nano_game_exact", "score_moments"])
     finally:
         fe.eval_margin_reference = plain
         os.chdir(home)
@@ -3095,10 +3196,11 @@ def phase_saved(card: str) -> dict:
               f"{EDGES_PAIRS // 32_768} launches of 65,536 games, no forest walk")
         for name in ("sim --save", "edges --device (props, exact)", "edges --device (exact)",
                      "slate --props (2 matchups)"):
-            check(k5[name] == 11 * CH * k4[name], f"{name} (exact mode): K5 {k5[name]} "
-                  f"launches, 11 a play over {k4[name]} chunks of {CH} plays")
-        check(not plain_calls, f"exact mode walked its forests through K5 only (the plain "
-              f"walk called {len(plain_calls)} times)")
+            check(k1x[name] > 0 and k5[name] == 0 and k4[name] == 0,
+                  f"{name} (exact mode): {k1x[name]} of its {k1[name]} K1 launches exact mode's, "
+                  f"forest_eval {k5[name]}, philox_draws {k4[name]} (0 allowed)")
+        check(not plain_calls, f"exact mode walked its forests in K1 only (the plain walk "
+              f"called {len(plain_calls)} times)")
         runner_p, pa_ctx, pb_ctx, _ = api._prepared_runner(
             "Team A", "Team B", sp_path=sheet, year=2025, week=1, artifact_dir=art,
             focus_csv="focus.csv", mode="exact", table_quality="nano", cfg=None, shard=False,
@@ -4015,14 +4117,11 @@ def phase_bench(card: str, main_gps: float) -> dict:
               f"{meta['emit']}, mode {meta['mode']}")
         got = meta["launches"]
         k4, k5, k1 = got["philox_draws"], got["forest_eval"], got["nano_game"]
-        if mode == "exact":      # the eager loop: K4 a chunk, K5 11 a play
-            check(k4 > 0 and k5 == 11 * 24 * k4 and k1 == 0,
-                  f"{what}: philox_draws {k4} launches, forest_eval {k5} (11 a play), "
-                  f"nano_game {k1}")
-        else:                    # K1 a launch, no draw buffer, no forest
-            check(k1 > 0 and k4 == 0 and k5 == 0 and got["score_moments"] > 0,
-                  f"{what}: nano_game {k1} launches, score_moments {got['score_moments']}, "
-                  f"philox_draws {k4}, forest_eval {k5}")
+        # either mode: K1 a launch (exact mode's forests walked inside it), no
+        # draw buffer, no forest_eval launch
+        check(k1 > 0 and k4 == 0 and k5 == 0 and got["score_moments"] > 0,
+              f"{what}: nano_game {k1} launches, score_moments {got['score_moments']}, "
+              f"philox_draws {k4}, forest_eval {k5}")
         m = BENCH_SANITY.search(proc.stderr)
         check(m is not None and all(10 < float(v) < 50 for v in m.groups()[:2])
               and 0 < float(m.group(3)) < 1,
@@ -4125,10 +4224,12 @@ def _add(counts: dict, more: dict, times: float = 1.0) -> None:
         counts[k] += v * times
 
 
-def layout_counts(args) -> dict:
+def layout_counts(args, walk: Optional[dict] = None) -> dict:
     """K1's instructions a play on the packed inputs `args` (any layout),
     by LAYOUT rules above: NANO_COUNTS less the nano profile's binning,
-    plus the layout's binning and lookups."""
+    plus the layout's binning and lookups.  The heads that read no table:
+    less the row's loads too; in exact mode the three slots sampled and
+    `walk`, the forests' walks a row (the FOREST_* counts)."""
     import math
 
     def nsegs(g):
@@ -4137,6 +4238,13 @@ def layout_counts(args) -> dict:
     c, lay = args.consts, args.layout
     counts = dict(NANO_COUNTS)
     _add(counts, bin_counts([5, 8, 8, 1]), -1)
+    if args.table_layout in ("analytic", "exact"):
+        counts["dispatch"] -= NANO_ROW_LOADS
+        if args.table_layout == "exact":
+            _add(counts, HEAD_SLOT_COUNTS, 3)
+            for k, v in (walk or {}).items():
+                counts[k] = counts.get(k, 0.0) + v
+        return counts
     sd1 = lay.sd1 if args.kind else c.nsd > 1
     _add(counts, bin_counts([nsegs(c.dist), nsegs(c.ytg), nsegs(c.sec)]
                             + ([nsegs(c.sd)] if sd1 else [])))
@@ -4164,6 +4272,9 @@ def table_read_bytes(args, plays: int) -> float:
     lookup a play (a row of the nano or fused table: the sectors its
     channels span; a per-head table read and the play table: one)."""
     tables = []       # (bytes, sectors a play)
+    if args.table_layout in ("analytic", "exact"):
+        # no table; the forests' records (read from the L2 a play)
+        return args.exact.records.numel() * 4 if args.exact is not None else 0
     if args.table_layout == "per_head":
         tables += [(t[0].numel() * 4 + t[1].numel() * 4, 1) for i, t in enumerate(args.heads)
                    if t is not None and (i != 5 or args.layout.use_fumble)]
@@ -4177,11 +4288,13 @@ def table_read_bytes(args, plays: int) -> float:
                for nbytes, sectors in tables)
 
 
-def layout_bound(args, games: int, plays: int, accrual: Optional[dict] = None) -> dict:
+def layout_bound(args, games: int, plays: int, accrual: Optional[dict] = None,
+                 walk: Optional[dict] = None) -> dict:
     """`bound` of one K1 launch on any layout (`nano_bound`'s terms with
-    `layout_counts` a play and `table_read_bytes`)."""
+    `layout_counts` a play, `walk` the forests' a row in exact mode, and
+    `table_read_bytes`)."""
     return _k1_bound(games * (NANO_STATE_IN + NANO_STATE_OUT) + table_read_bytes(args, plays),
-                     per(layout_counts(args), plays), plays, accrual)
+                     per(layout_counts(args, walk), plays), plays, accrual)
 
 
 def accrual_work(out) -> dict:
@@ -4207,7 +4320,8 @@ def moment_bound(groups: int, n: int) -> dict:
                  per(MOMENT_COUNTS, groups * n))
 
 
-def phase_nano_game(card: str, layouts: Optional[dict] = None) -> dict:
+def phase_nano_game(card: str, layouts: Optional[dict] = None,
+                    exact: Optional[dict] = None) -> dict:
     """K1 (nano_game) against the eager loop (`simulate_games_eager`, its
     plain version at the level of a launch) and against `nano_game_plain`
     on the same start states and keys, in each variant (every branch of
@@ -4367,6 +4481,7 @@ def phase_nano_game(card: str, layouts: Optional[dict] = None) -> dict:
              sr.heads_state, g_n, t % 2, dict(game_id=t // NANO_SLATE_GAMES))
     args = game.pack_nano_game(pack, cfg, th)
     layout_rows = phase_k1_layouts(card, layouts, held, errs, pack, fpack, th, key)
+    layout_rows.update(phase_k1_heads(card, exact))
 
     # K2 against the torch body, bit for bit
     gen = torch.Generator(device=dev).manual_seed(64)
@@ -4482,12 +4597,15 @@ def phase_nano_game(card: str, layouts: Optional[dict] = None) -> dict:
 
 
 def _k1_timed(card: str, what: str, args, s, key: int, coll: dict, force=None, reps: int = 10,
-              anti: bool = False, plain: bool = True) -> dict:
+              anti: bool = False, plain: bool = True, walk: Optional[dict] = None) -> dict:
     """One K1 launch on the packed inputs `args` from state `s`: held ms
     (`times`, `reps` calls), the bound on this launch's plays
-    (`layout_bound`; with both collectors on, from zero stats, their work
-    too), the plain version's device time (one profiled call, where
-    `plain`), printed beside the card."""
+    (`layout_bound`, `walk` the forests' counts a row in exact mode; with
+    both collectors on, from zero stats, their work too), the plain
+    version's device time (one profiled call, where `plain`; in exact mode,
+    whose plain version launches hundreds of thousands of kernels, one call
+    by CUDA events, its games held to K1's: `max_abs_err`), printed beside
+    the card."""
     import torch
     from fast_monte_carlo_tpu_torch import api
     from fast_monte_carlo_tpu_torch.ops import game, rng
@@ -4502,11 +4620,23 @@ def _k1_timed(card: str, what: str, args, s, key: int, coll: dict, force=None, r
     plays = torch.zeros(1, dtype=torch.int64, device=s.sec.device)
     first = game.nano_game_cuda(args, fresh(), key, 0, anti, plays=plays, **kw)
     both = coll.get("collect_players") and coll.get("collect_stats")
-    bd = layout_bound(args, n, int(plays), accrual_work(first) if both else None)
+    bd = layout_bound(args, n, int(plays), accrual_work(first) if both else None, walk)
     start = fresh()
     ms, _, how = times(lambda: game.nano_game_cuda(args, start, key, 0, anti, **kw), reps)
-    plain_ms, plain_how = float("nan"), "not run"
-    if plain:
+    plain_ms, plain_how, err = float("nan"), "not run", {}
+    if plain and args.table_layout == "exact":
+        # one call by events, no warm-up; its games held to K1's first launch's
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_plain = fresh()
+        e0.record()
+        want = game.nano_game_plain(args, start_plain, key, 0, anti, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms, plain_how = e0.elapsed_time(e1), "events"
+        err = {"max_abs_err": nano_diff(want, first, f"K1 against nano_game_plain, {what}, "
+                                        f"{n:,} games")}
+        del want, start_plain
+    elif plain:
         prof = device_profile(lambda: game.nano_game_plain(args, fresh(), key, 0, anti, **kw), 1,
                               warm=False)     # its kernels ran in phase 21's variants
         plain_ms, plain_how = (prof[0], "profiler") if prof else (float("nan"), "not recorded")
@@ -4514,7 +4644,116 @@ def _k1_timed(card: str, what: str, args, s, key: int, coll: dict, force=None, r
           f"{ms:.4f} ms ({how}), bound {bd['bound_ms']:.4f} ms ({bd['bound_class']}; "
           f"{bd['bound_ms'] / ms:.1%} of it); nano_game_plain {plain_ms:.2f} ms device "
           f"({plain_how}) ({card})")
-    return {"ms": ms, "plain_ms": plain_ms, "plays": int(plays), **bd}
+    return {"ms": ms, "plain_ms": plain_ms, "plays": int(plays), **bd, **err}
+
+
+def phase_k1_heads(card: str, exact: Optional[dict]) -> dict:
+    """Phase 21's heads that read no table: K1's exact instantiation (the
+    small heads on the focus roster: score-only, both collectors with the
+    fumble and play heads on, a forced go; the tiled heads, stage 1 and the
+    play head over eight tiles each, with both collectors; a 3-matchup
+    slate with rosters and both collectors) and its analytic one
+    (score-only, both collectors antithetic, a forced go) against the eager
+    loop (`simulate_games_eager`: K5 a forest a play in exact mode) and
+    `nano_game_plain` on the card, K1_HEADS_GAMES games each, 0 differing
+    allowed; each instantiation's registers and local bytes; then the JSON
+    rows: the exact instantiation's from phase 12 (`exact["k1_exact"]`: the
+    main path's 65,536-game launch on the reference-shape heads; its plain
+    version's time and max|d| from the same heads at EXACT_PLAIN_GAMES and
+    EXACT_EAGER_GAMES), the analytic one timed at LAUNCH_GAMES."""
+    import torch
+    from fast_monte_carlo_tpu_torch import api, fixtures
+    from fast_monte_carlo_tpu_torch.config import SimConfig
+    from fast_monte_carlo_tpu_torch.matchup import build_direction
+    from fast_monte_carlo_tpu_torch.ops import game, rng
+    from fast_monte_carlo_tpu_torch.ops.pack import build_packs, pack_heads, pack_matchups
+
+    dev = torch.device("cuda")
+    cfg = SimConfig()
+    full = cfg.replace(model=dataclasses.replace(cfg.model, enable_fumbles=True,
+                                                 use_play_model=True))
+    anti = cfg.replace(engine=dataclasses.replace(cfg.engine, antithetic=True))
+    small = fixtures.heads(K1_HEADS_SEED, "small")
+    tiled = fixtures.heads(K1_HEADS_SEED, "tiled")
+    focus = fixtures.focus_teams(FOCUS_SEED)
+    key = rng.root_key(27)
+    n = K1_HEADS_GAMES
+    fo = torch.arange(n, dtype=torch.int32, device=dev) % 2
+    errs = {"exact": 0.0, "analytic": 0.0}
+    for mode, what, c, players, stats, force, heads in (
+            ("exact", "score-only", cfg, False, False, None, small),
+            ("exact", "both collectors, fumble and play heads", full, True, True, None, small),
+            ("exact", "a forced go from 4th and 2", cfg, False, False, "go", small),
+            ("exact", "tiled heads, both collectors, fumble and play heads", full, True, True,
+             None, tiled),
+            ("analytic", "score-only", cfg, False, False, None, small),
+            ("analytic", "both collectors, antithetic", anti, True, True, None, small),
+            ("analytic", "a forced go from 4th and 2", cfg, False, False, "go", small)):
+        pack, hp = build_packs(*focus, heads, c, dev, fixtures.COACH_MAP)
+        hs = hp if mode == "exact" else None
+        he = (game.make_exact_heads_eval if mode == "exact" else game.make_analytic_heads_eval)(c)
+        coll = dict(collect_players=players, collect_stats=stats)
+        if force:
+            s0 = game.state_from_situation(n, game.Situation(fo, 1500, 4, 2.0, 45.0, 10, 14), c,
+                                           dev, 0, pack.k, **coll)
+        else:
+            s0 = game.initial_state(n, fo, c, dev, 0, pack.k, **coll)
+        fk = rng.fold_in(key, api.FORCED_PLAY_STREAM) if force else None
+        kw = dict(coll, first_play_force=force, first_play_key=fk)
+        before = launch_count(f"nano_game_{mode}")
+        got = game.simulate_games(pack, c, he, hs, key, n, 0, init_state=game.GameState(
+            *(f.clone() for f in s0)), **kw)
+        check(launch_count(f"nano_game_{mode}") == before + 1,
+              f"{mode}, {what}: simulate_games on the card was one K1 launch")
+        want = game.simulate_games_eager(pack, c, he, hs, key, n, 0, init_state=game.GameState(
+            *(f.clone() for f in s0)), **kw)
+        plain = game.nano_game_plain(game.pack_nano_game(pack, c, hs), game.GameState(
+            *(f.clone() for f in s0)), key, 0, c.engine.antithetic and n % 4 == 0, force=force,
+            force_key=fk, **coll)
+        errs[mode] = max(errs[mode], nano_diff(want, got, f"K1 against the eager loop, {mode} "
+                                               f"heads, {what}"),
+                         nano_diff(plain, got, f"K1 against nano_game_plain, {mode} heads, "
+                                   f"{what}"))
+    # exact mode over a 3-matchup pack with rosters: game g of matchup g % 3
+    dirs = []
+    for x, y in fixtures.focus_slate(3, 11)[0]:
+        dirs += [build_direction(x, y, full, small, fixtures.COACH_MAP),
+                 build_direction(y, x, full, small, fixtures.COACH_MAP)]
+    spack, shp = pack_matchups(dirs, dev), pack_heads(small, dev)
+    he = game.make_exact_heads_eval(full)
+    s0 = game.initial_state(n, fo, full, dev, torch.arange(n, device=dev).to(torch.int32) % 3,
+                            spack.k)
+    runs = [fn(spack, full, he, shp, key, n, 0, init_state=game.GameState(
+        *(f.clone() for f in s0))) for fn in (game.simulate_games, game.simulate_games_eager)]
+    plain = game.nano_game_plain(game.pack_nano_game(spack, full, shp), game.GameState(
+        *(f.clone() for f in s0)), key, collect_players=True, collect_stats=True)
+    errs["exact"] = max(errs["exact"],
+                        nano_diff(runs[1], runs[0], "K1 against the eager loop, exact heads, a "
+                                  "3-matchup slate with rosters, both collectors"),
+                        nano_diff(plain, runs[0], "K1 against nano_game_plain, exact heads, a "
+                                  "3-matchup slate with rosters, both collectors"))
+    for mode in ("exact", "analytic"):
+        kind = game.LAYOUT_KINDS.index(mode)
+        for st, pl in ((False, False), (True, False), (False, True), (True, True)):
+            regs, local = game.nano_game_usage(kind, st, pl)
+            blocks = game.nano_geometry(dev.index or 0, st, pl, kind,
+                                        3 * 2 * pack.k if pl else 0)[0]
+            print(f"  nano_game {mode} (stats {int(st)}, players {int(pl)}): {regs} registers, "
+                  f"{local} local bytes, {blocks} blocks resident ({card})")
+    score_only = dict(collect_players=False, collect_stats=False)
+    check(exact is not None and "max_abs_err" in exact.get("k1_exact", {}),
+          "phase 12 timed K1's exact instantiation at the main path's launch and held it to "
+          "nano_game_plain")
+    print(f"  K1's exact and analytic variants at {n:,} games: max|d| exact {errs['exact']:.3g}, "
+          f"analytic {errs['analytic']:.3g} (the exact JSON row's is phase 12's)")
+    pack, _ = build_packs(*fixtures.teams(), fixtures.heads(0, "reference"), cfg, dev)
+    fl = torch.arange(LAUNCH_GAMES, dtype=torch.int32, device=dev) % 2
+    rows = {"nano_game_exact": dict(exact["k1_exact"], library_ms=None),
+            "nano_game_analytic": _k1_timed(
+                card, "nano_game analytic", game.pack_nano_game(pack, cfg, None),
+                game.initial_state(LAUNCH_GAMES, fl, cfg, dev, **score_only), key, score_only)}
+    rows["nano_game_analytic"].update(max_abs_err=errs["analytic"], library_ms=None)
+    return rows
 
 
 def per_head_resumed(pk, c, t, n: int, key: int):
@@ -4758,7 +4997,8 @@ def phase_train(card: str, device: str = "cuda") -> dict:
     if device != "cpu":
         torch.cuda.synchronize()
     exact_s = time.perf_counter() - t0
-    counts = read_counts("training phase (calibration, then one exact launch)", ["forest_eval"])
+    counts = read_counts("training phase (calibration, then one exact launch)",
+                         ["forest_eval", "nano_game_exact"])
 
     check(cal_k5 == 1, f"build_reconstructed --calibration-only walked the play forest in "
           f"{cal_k5} K5 launch")
@@ -4795,8 +5035,9 @@ def phase_train(card: str, device: str = "cuda") -> dict:
           f"stage 2 of {recon.stage2.n_trees} trees, temperature {recon.play_temperature}")
     check_summary(summary, 2 * TRAIN_EXACT_PAIRS, "reconstructed_config() exact launch")
     exact_k5 = counts["forest_eval"] - cal_k5
-    check(exact_k5 > 0, f"the exact launch walked {exact_k5} forests through K5 in "
-          f"{exact_s:.2f} s")
+    check(exact_k5 == 0 and counts["nano_game_exact"] == 1,
+          f"the exact launch walked its forests in {counts['nano_game_exact']} K1 launch "
+          f"({exact_k5} forest_eval launches) in {exact_s:.2f} s")
 
     # (a)'s result
     try:
@@ -4931,6 +5172,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="also profile one launch into DIR/profile_launch.txt")
+    ap.add_argument("--exact-plain-games", type=int, default=EXACT_PLAIN_GAMES, metavar="N",
+                    help="games of phase 12's exact launch held to nano_game_plain (65536: the "
+                         "main path's launch itself, about 265 s more on an H100)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -4989,7 +5233,7 @@ def main() -> int:
                   args.profile)
     exact = phase(12, "exact mode and tables from heads: K5 (forest_eval) vs plain torch, "
                   "MatchupRunner(mode='exact') and mode='table' with heads on cuda",
-                  phase_exact, card)
+                  phase_exact, card, args.exact_plain_games)
     files = phase(13, "inputs from files: an SP+ sheet and the trained-head fixture "
                   "directory through load_heads, simulate_upcoming_matchup and the sp_path= "
                   "routes on cuda", phase_files, card)
@@ -5015,9 +5259,9 @@ def main() -> int:
                   "build_reconstructed --calibration-only (K5 on the play forest), the port's "
                   "overlay in one exact launch", phase_train, card)
     nano = phase(21, "K1 (nano_game) against the eager loop and nano_game_plain on every "
-                 "table layout, the play-policy table and the forced play, K2 "
-                 "(score_moments) against the torch body, on cuda; both timed",
-                 phase_nano_game, card, layouts)
+                 "table layout, the play-policy table, the forced play, exact mode's forests "
+                 "and the analytic heads, K2 (score_moments) against the torch body, on cuda; "
+                 "both timed", phase_nano_game, card, layouts, exact)
     cache_root.cleanup()
     k["launches"] = mp["launches"]["philox_draws"]
     layout_k4 = layouts["launches"]["philox_draws"]

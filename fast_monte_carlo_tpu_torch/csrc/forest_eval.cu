@@ -41,73 +41,27 @@
 //   other's latency; then it adds their leaf values to its class sums in
 //   tree order, as the plain version (`eval_margin_reference`) does, so
 //   the two agree bitwise.
+//   A walk's level and the tile copies are forest_walk.cuh's, which K1's
+//   exact-mode instantiation shares (csrc/nano_game.cu).
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "forest_walk.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;     // rows a block
-constexpr int kWalks = 8;         // trees a thread walks at once
-constexpr int kGroups = 4;        // id slots at the front of a staged row
-constexpr int kTileRecords = 4096;  // records a tile buffer: 32 KB
-constexpr int kMaxFeatures = 64;
-// the record's meta word (ops/forest_eval.py states the layout and limits)
-constexpr unsigned kSlotMask = (1u << 9) - 1;  // byte offset of the row word read
-constexpr unsigned kIsCat = 1u << 9;
-constexpr unsigned kDefaultRight = 1u << 10;
-constexpr unsigned kCatMatchRight = 1u << 11;
-constexpr unsigned kCatMissRight = 1u << 12;
-constexpr int kLeftShift = 17;  // the left child's byte offset in its tree
-// the walk reads the three outcome bits as bit 3 (the right child's extra
-// 8 bytes) after a shift
-static_assert(kDefaultRight >> 7 == 8 && kCatMatchRight >> 8 == 8 && kCatMissRight >> 9 == 8,
-              "outcome bits");
-constexpr size_t kTileBytes = static_cast<size_t>(kTileRecords) * 8;
-constexpr size_t kRowsOffset = 2 * kTileBytes + 128;  // after the tiles and barriers
+using fw::kGroups;
+using fw::kMaxFeatures;
+using fw::kTileBytes;
+using fw::kTileRecords;
+using fw::kWalks;
+using fw::row_stride;
 
-__host__ __device__ inline int row_stride(int n_feat) { return (kGroups + n_feat) | 1; }
+constexpr int kThreads = 256;     // rows a block
+constexpr size_t kRowsOffset = 2 * kTileBytes + 128;  // after the tiles and barriers
 
 size_t smem_bytes(int n_feat) {
   return kRowsOffset + static_cast<size_t>(kThreads) * row_stride(n_feat) * 4;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// the tile's bytes arrive on `bar`, which thread 0 arms for them
-__device__ __forceinline__ void load_tile(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  // order this block's earlier reads of the buffer before the async write
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
 }
 
 template <int C, bool LT, bool ZAM>
@@ -124,12 +78,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int stride = row_stride(n_feat);
 
   if (tid == 0) {
-    mbar_init(&bar[0]);
-    mbar_init(&bar[1]);
-    fence_barrier_init();
+    fw::mbar_init(&bar[0]);
+    fw::mbar_init(&bar[1]);
+    fw::fence_barrier_init();
     for (int i = 0; i < 2 && i < n_tiles; ++i) {
       const int4 tl = __ldg(tiles + i);
-      load_tile(smem + i * kTileBytes, recs + tl.x, static_cast<unsigned>(tl.y), &bar[i]);
+      fw::load_tile(smem + i * kTileBytes, recs + tl.x, static_cast<unsigned>(tl.y), &bar[i]);
     }
   }
   // the block's rows, read coalesced while the first tiles arrive
@@ -156,7 +110,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     int next[kWalks];  // the byte offsets of the next kWalks trees' roots
 #pragma unroll
     for (int k = 0; k < kWalks; ++k) next[k] = __ldg(tree_off + min(tl.z + k, tl.w - 1)) * 8;
-    mbar_wait(&bar[i & 1], static_cast<unsigned>(i >> 1) & 1u);
+    fw::mbar_wait(&bar[i & 1], static_cast<unsigned>(i >> 1) & 1u);
     for (int t = tl.z; t < tl.w; t += kWalks) {
       const unsigned char* root[kWalks];
       unsigned node[kWalks];
@@ -168,21 +122,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       for (int s = 0; s < steps; ++s) {
 #pragma unroll
-        for (int k = 0; k < kWalks; ++k) {
-          const uint2 r = *reinterpret_cast<const uint2*>(root[k] + node[k]);
-          const unsigned m = r.y;
-          const unsigned w = *reinterpret_cast<const unsigned*>(xr + (m & kSlotMask));
-          const float wf = __uint_as_float(w), th = __uint_as_float(r.x);
-          // 8 (the right child's extra offset) or 0, kept as integers so
-          // that no bool is materialised: the numeric compare, else a
-          // categorical node's outcome bit (11 on a match, 12 otherwise;
-          // bit 3 after the shift)
-          unsigned right = (LT ? wf < th : wf <= th) ? 0u : 8u;
-          if (ZAM && wf == 0.0f) right = (m >> 7) & 8u;
-          const unsigned cat_right = (m >> (w == r.x ? 8 : 9)) & 8u;
-          right = (m & kIsCat) ? cat_right : right;
-          node[k] = (m >> kLeftShift) + right;
-        }
+        for (int k = 0; k < kWalks; ++k) node[k] = fw::walk_step<LT, ZAM>(root[k], node[k], xr);
       }
 #pragma unroll
       for (int k = 0; k < kWalks; ++k) {
@@ -202,8 +142,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // every thread is done with this buffer
     if (tid == 0 && i + 2 < n_tiles) {
       const int4 nx = __ldg(tiles + i + 2);
-      load_tile(smem + (i & 1) * kTileBytes, recs + nx.x, static_cast<unsigned>(nx.y),
-                &bar[i & 1]);
+      fw::load_tile(smem + (i & 1) * kTileBytes, recs + nx.x, static_cast<unsigned>(nx.y),
+                    &bar[i & 1]);
     }
   }
   if (tid < rows) {

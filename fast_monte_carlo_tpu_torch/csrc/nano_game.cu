@@ -1,5 +1,6 @@
-// K1: a whole launch of table-mode games in one kernel launch, score-only or
-// with the box score, the player stats or both, on any table layout.
+// K1: a whole launch of games in one kernel launch, score-only or with the
+// box score, the player stats or both, on any table layout, under exact
+// mode's forests or under the analytic heads.
 //
 // Replaces the compiled game loop of the JAX package (XLA on the TPU, not a
 // Pallas kernel): fast_monte_carlo_tpu/ops/game.py:844 simulate_games (its
@@ -7,7 +8,11 @@
 // inside it) with the table heads of fast_monte_carlo_tpu/ops/
 // table_lookup.py (:661 _nano_eval, :644 _fused_eval with :607
 // _unpack_head_row, the per-head lookups :540-605 and the play-policy
-// lookup :588-597, :627-639), the forced first play of the 4th-down
+// lookup :588-597, :627-639), exact mode's heads (game.py:145
+// make_exact_heads_eval, :294 _play_pass_prob, :318 _state_features, the
+// forests of fast_monte_carlo_tpu/ops/forest_eval.py:96 eval_margin and
+// :138 predict) and the analytic ones (game.py:267
+// make_analytic_heads_eval), the forced first play of the 4th-down
 // evaluator (game.py:392-415 under fast_monte_carlo_tpu/api.py:478-500
 // _forced_live_moments_jit), and its collectors: :309 _sample_slot, the
 // team box score (:586-620) and the player stats (:622-653).  Its plain
@@ -67,6 +72,37 @@
 //   launch, fourth.force on every play), with the play table, with a forced
 //   first play: the launches the paths make past the nano layout
 //   (ops/game.nano_kind picks; Opts says what each reads).
+// - kLayoutAnalytic: the analytic heads' closed forms of the distance and
+//   the direction's stage-1 bias (`analytic_row`), the analytic stage 2, a
+//   constant fumble probability, no play head; no table.
+// - kLayoutExact: exact mode.  Each play stages the game's 17 ST1 features
+//   (`stage_features`) in the thread's row of shared memory, samples the
+//   QB, rusher and target slots from the slots' Philox block, and walks
+//   every forest the config reads (stage 1, stage 2, the three quantile
+//   trios, the fumble and play heads) on that row with K5's design
+//   (forest_eval.cu; a walk's level shared through forest_walk.cuh): the
+//   launch's tiles of whole trees stream through two shared buffers by
+//   cp.async.bulk under an mbarrier each, the same cyclic order every play,
+//   thread 0 copying a tile as soon as its buffer is free (the next play's
+//   first tiles at a play's end, awaited before the block exits); a thread
+//   walks kWalks trees of its row at once and adds the leaves to its class
+//   sums in tree order.  A forest's first tile puts its groups' ids (the
+//   pack's id tables at the play's slots, the coach's by direction) in the
+//   row's first words; its last turns the sums into head values (its link,
+//   `head_values`: the logistic, the softmax as max, exp in class order,
+//   sum in class order, divide, or the play head's P(pass) at its
+//   temperature), kept in shared memory; `exact_row` then forms the
+//   play's heads as make_exact_heads_eval does.  The loop is
+//   block-synchronous (__syncthreads_or): a lane with no game left walks
+//   the tiles too and plays nothing; the work queue and refill are the
+//   other layouts'.  A block takes kExactBytes of dynamic shared memory
+//   past the stripe and slot tables: 64 KB of tiles, 21.5 KB of rows (21
+//   words a thread: 4 ids, 17 features, an odd stride), 20 KB of head
+//   values; score-only, at 113 registers, two blocks an SM (the whole
+//   carveout asked for), with the team stats' stripe one.  The links'
+//   expf and division are the ones torch.exp and torch's division run on
+//   the card (0 differing games against the eager loop, whose links are
+//   ops/forest_eval.sigmoid_f32, softmax_f32 and game.play_link).
 // In kLayoutRow and kLayoutHeads the play-policy table (the coach's P(pass)
 // on the coarse profile's cell and the score diff's bin among 26 edges) and
 // the forced 4th-down decision are branches uniform across the grid: the
@@ -215,6 +251,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "forest_walk.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -234,6 +271,9 @@ constexpr int kRoles = 3;       // QB, rusher, target: pstats' role axis
 // play table, with a forced first play
 constexpr int kLayoutNano = 0, kLayoutRow = 1, kLayoutHeads = 2, kLayoutRowBare = 3,
               kLayoutRowPlay = 4, kLayoutRowForced = 5;
+// the heads read no table: the closed-form (analytic) heads, and exact
+// mode's forests walked every play
+constexpr int kLayoutAnalytic = 6, kLayoutExact = 7;
 constexpr int kHeadTables = 6;  // stage1, stage2, pq, rq, sq, fumble (game.HEAD_TABLES)
 constexpr int kPlayEdges = 32;  // the play table's score-diff edges (26), padded
 // the play table's score-diff bins, a table of the integer score diffs
@@ -241,6 +281,18 @@ constexpr int kPlayEdges = 32;  // the play table's score-diff edges (26), padde
 constexpr int kPlaySdLo = -128, kPlaySdBins = 256;
 // fourth.force codes (game.FORCE_CODES)
 constexpr int kForceGo = 1, kForceFg = 2;
+// kLayoutExact (game.EXACT_*): the 17 ST1 features of a play's staged row
+// after its kGroups ids, the head values a thread keeps in shared memory,
+// a forest's and a tile's int32 words, the per-direction floats (xdirs)
+constexpr int kFeatures = 17;
+constexpr int kRowWords = (fw::kGroups + kFeatures) | 1;
+constexpr int kHeadVals = 20;
+constexpr int kForestWords = 20;
+constexpr int kMaxClasses = 8;
+constexpr int kXdirVals = 8;
+// a forest's link (game.EXACT_LINKS): its margins as they are, the logistic
+// of the first, the softmax, and the play head's P(pass) at its temperature
+constexpr int kLinkIdentity = 0, kLinkSigmoid = 1, kLinkSoftmax = 2, kLinkPlay = 3;
 }  // namespace
 
 // One axis of _seg_bin (ops/table_lookup.py): segment k maps v to
@@ -356,6 +408,38 @@ struct LayoutConsts {
   // of the tables' keys; whether the fumble head is read
   HeadTable heads[kHeadTables];
   int k_heads, use_fumble;
+  // kLayoutAnalytic, kLayoutExact: per direction (bias, the 4 SP+ columns of
+  // the ST1 rows, the coach's id as int32 bits, 2 unused), (2 x n_matchups,
+  // kXdirVals) f32; stage 1's clip
+  const float* xdirs;
+  float stage1_clip_lo, stage1_clip_hi;
+  // kLayoutExact: the forests' records (8 bytes each, 16-byte aligned), the
+  // tiles (n_tiles, 8): [first record, bytes, first tree, end tree, forest,
+  // its first tile, its last tile, walk variant (classes > 1) x 4 + lt x 2 +
+  // zeros missing]; each tree's first record in its tile and its class; the
+  // forests (n_forests, kForestWords): [first tile, tiles, classes, link,
+  // lt, zeros missing, steps, first head value, the id source of each group
+  // (-1: none, else id table x 4 + role: 0 QB, 1 rusher, 2 target), the
+  // base margins' f32 bits (kMaxClasses)]; the id tables (n, 2 x
+  // n_matchups, id_k) int32
+  const uint2* recs;
+  const int* tiles;
+  const int* tree_off;
+  const int* tree_class;
+  const int* forests;
+  const int* ids;
+  int n_tiles, n_forests, id_k;
+  // the first head value of each head (stage 2's 3 in its class order), -1
+  // where the head is absent; stage 2's (incomplete, intercepted, sack)
+  // classes; sigma's scale and each trio's floor (pass, rush, sack); the
+  // play head's temperature reciprocal, its pass and run classes (-1: none)
+  // and its clip; ST1's timeouts
+  int v_stage1, v_stage2, v_pq, v_rq, v_sq, v_fumble, v_play;
+  int s2_order[3];
+  float sigma_scale, pass_floor, rush_floor, sack_floor;
+  float play_scale;
+  int play_pass, play_run;
+  float play_clip_lo, play_clip_hi, timeouts;
 };
 
 namespace {
@@ -508,6 +592,20 @@ __device__ __forceinline__ float rz_finish_prob(const NanoConsts& c, const float
   return clip(base + tilt, m[4], m[5]);
 }
 
+// analytic.stage2_nudge of (P(inc), P(int), P(sack)): the nudged and renormed
+// (P(inc), P(inc) + P(sack))
+__device__ __forceinline__ void stage2_nudge(const NanoConsts& c, float p_inc, float p_int,
+                                             float p_sck, float* cum0, float* cum1) {
+  p_inc = fmaxf(p_inc, 0.0f);
+  p_int = fmaxf(p_int, 0.0f) * c.stage2_int_scale + c.stage2_int_add;
+  p_sck = fmaxf(p_sck, 0.0f) * c.stage2_sack_scale;
+  float s = p_inc + p_int + p_sck;
+  s = s == 0.0f ? 1.0f : s;
+  const float inc = p_inc / s;
+  *cum0 = inc;
+  *cum1 = inc + p_sck / s;
+}
+
 // analytic.stage2_fallback_probs then stage2_nudge: (P(inc), P(inc) + P(sack))
 __device__ __forceinline__ void stage2_fallback(const NanoConsts& c, int down, float dist,
                                                 float* cum0, float* cum1) {
@@ -516,18 +614,8 @@ __device__ __forceinline__ void stage2_fallback(const NanoConsts& c, int down, f
                             + 0.15f * long_d);
   float p_int = c.s2_int * (1.0f + 0.10f * long_d);
   float p_inc = c.s2_inc;
-  float s = p_inc + p_int + p_sck;
-  p_inc = p_inc / s;
-  p_int = p_int / s;
-  p_sck = p_sck / s;
-  p_inc = fmaxf(p_inc, 0.0f);
-  p_int = fmaxf(p_int, 0.0f) * c.stage2_int_scale + c.stage2_int_add;
-  p_sck = fmaxf(p_sck, 0.0f) * c.stage2_sack_scale;
-  s = p_inc + p_int + p_sck;
-  s = s == 0.0f ? 1.0f : s;
-  const float inc = p_inc / s;
-  *cum0 = inc;
-  *cum1 = inc + p_sck / s;
+  const float s = p_inc + p_int + p_sck;
+  stage2_nudge(c, p_inc / s, p_int / s, p_sck / s, cum0, cum1);
 }
 
 // game._taper: t = (t1, t2, r1, r2, t1 + (t2 - t1) * r1)
@@ -784,6 +872,273 @@ __device__ __forceinline__ Row head_rows(const NanoConsts& c, const LayoutConsts
   r.sack_mu = __ldg(h[4]);
   r.sack_sg = __ldg(h[4] + 1);
   r.p_f = lay.use_fumble ? __ldg(h[5]) : 0.0f;
+  return r;
+}
+
+// kLayoutAnalytic: game.make_analytic_heads_eval's closed forms for the
+// state `s` of direction dirx (its stage-1 bias in xdirs); stage 2 is the
+// analytic fallback (NanoConsts::has_s2 is 0), there is no play head.
+__device__ __forceinline__ Row analytic_row(const LayoutConsts& lay, const Game& s, int dirx) {
+  Row r{};
+  const float bias = __ldg(lay.xdirs + dirx * kXdirVals);
+  r.p_c = clip(0.68f - 0.022f * fmaxf(s.dist - 3.0f, 0.0f) + bias, lay.stage1_clip_lo,
+               lay.stage1_clip_hi);
+  r.pass_mu = 4.5f + 0.45f * s.dist;
+  r.pass_sg = 7.0f;
+  r.rush_mu = 4.2f;
+  r.rush_sg = 4.0f;
+  r.sack_mu = -6.0f;
+  r.sack_sg = 2.2f;
+  r.p_f = 0.012f;
+  return r;
+}
+
+// kLayoutExact's part of a block's dynamic shared memory, from a 128-byte
+// boundary: the two tile buffers, their mbarriers, the threads' staged
+// rows (kRowWords each) and their head values (value v of thread t at
+// v * kThreads + t).
+struct ExactSmem {
+  unsigned char* tiles;
+  uint64_t* bar;
+  unsigned* rows;
+  float* vals;
+};
+
+constexpr size_t kExactBytes = 128 + 2 * fw::kTileBytes + 16
+                               + static_cast<size_t>(kThreads) * (kRowWords + kHeadVals) * 4;
+
+__device__ __forceinline__ ExactSmem exact_smem(unsigned char* base) {
+  // the offset to the boundary, so the pointer keeps its shared space
+  unsigned char* p = base + ((128u - (fw::smem_addr(base) & 127u)) & 127u);
+  ExactSmem e;
+  e.tiles = p;
+  e.bar = reinterpret_cast<uint64_t*>(p + 2 * fw::kTileBytes);
+  e.rows = reinterpret_cast<unsigned*>(p + 2 * fw::kTileBytes + 16);
+  e.vals = reinterpret_cast<float*>(e.rows + kThreads * kRowWords);
+  return e;
+}
+
+// The play's 17 ST1 features (game._state_features, column for column)
+// into the thread's staged row past its ids.
+__device__ __forceinline__ void stage_features(const NanoConsts& c, const LayoutConsts& lay,
+                                               unsigned* row, const Game& s, int dirx) {
+  const int sd = (s.sa - s.sb) * (1 - 2 * s.off);
+  const float* sp = lay.xdirs + dirx * kXdirVals + 1;
+  const auto f = [](bool b) { return b ? 1.0f : 0.0f; };
+  // Python's % (sec > 0 on every play K1 runs, so C's % agrees)
+  const float x[kFeatures] = {static_cast<float>(s.down),
+                              s.dist,
+                              s.ytg,
+                              f(s.ytg <= 20.0f),
+                              static_cast<float>(sd),
+                              static_cast<float>(s.sec),
+                              lay.timeouts,
+                              lay.timeouts,
+                              __ldg(sp),
+                              __ldg(sp + 1),
+                              __ldg(sp + 2),
+                              __ldg(sp + 3),
+                              f(s.dist >= s.ytg - 0.5f),
+                              f(s.down == 4 && s.dist <= 2.0f),
+                              f(s.ytg <= 33.0f),
+                              s.sec > c.half_seconds ? 1.0f : 2.0f,
+                              f(s.sec % c.half_seconds <= 120)};
+#pragma unroll
+  for (int k = 0; k < kFeatures; ++k) row[fw::kGroups + k] = __float_as_uint(x[k]);
+}
+
+// A group's category id for the play (game._gather2k of the group's id
+// table at the role's slot): `src` -1 (a group the heads pass no id for:
+// unseen, -1), else id table x 4 + role (0 QB, 1 rusher, 2 target).
+__device__ __forceinline__ unsigned group_id(const LayoutConsts& lay, int src, int dirx,
+                                             const int (&slot)[kRoles], int dirs) {
+  if (src < 0) return 0xffffffffu;
+  const int role = src & 3;
+  const int sl = role == 0 ? slot[0] : (role == 1 ? slot[1] : slot[2]);
+  return static_cast<unsigned>(
+      __ldg(lay.ids + (static_cast<long long>(src >> 2) * dirs + dirx) * lay.id_k + sl));
+}
+
+// A forest's head values from its class sums (ops/forest_eval.forest_link,
+// op for op): the margins (sums + base), then its link: the margins
+// themselves, the logistic of the first, the softmax (the max, exp(m -
+// max) in class order, their sum in class order, each over the sum), or
+// the play head's P(pass) of the softmax at its temperature (game.
+// _play_pass_prob: reduced by P(run) where it has one, clipped).
+__device__ __forceinline__ void head_values(const LayoutConsts& lay, const int* fd,
+                                            const float (&acc)[kMaxClasses], float* v) {
+  const int classes = __ldg(fd + 2), link = __ldg(fd + 3);
+  float m[kMaxClasses];
+#pragma unroll
+  for (int k = 0; k < kMaxClasses; ++k) m[k] = acc[k] + __int_as_float(__ldg(fd + 12 + k));
+  if (link == kLinkSigmoid) {
+    v[0] = 1.0f / (1.0f + expf(-m[0]));
+    return;
+  }
+  if (link == kLinkIdentity) {
+#pragma unroll
+    for (int k = 0; k < kMaxClasses; ++k)
+      if (k < classes) v[k * kThreads] = m[k];
+    return;
+  }
+  if (link == kLinkPlay) {
+#pragma unroll
+    for (int k = 0; k < kMaxClasses; ++k) m[k] = m[k] * lay.play_scale;
+  }
+  float mx = m[0];
+#pragma unroll
+  for (int k = 1; k < kMaxClasses; ++k)
+    if (k < classes) mx = fmaxf(mx, m[k]);
+  float e[kMaxClasses];
+#pragma unroll
+  for (int k = 0; k < kMaxClasses; ++k) e[k] = k < classes ? expf(m[k] - mx) : 0.0f;
+  float sum = e[0];
+#pragma unroll
+  for (int k = 1; k < kMaxClasses; ++k)
+    if (k < classes) sum = sum + e[k];
+  if (link == kLinkSoftmax) {
+#pragma unroll
+    for (int k = 0; k < kMaxClasses; ++k)
+      if (k < classes) v[k * kThreads] = e[k] / sum;
+    return;
+  }
+  float e_pass = 0.0f, e_run = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxClasses; ++k) {
+    e_pass = k == lay.play_pass ? e[k] : e_pass;
+    e_run = k == lay.play_run ? e[k] : e_run;
+  }
+  float p_pass = e_pass / sum;
+  if (lay.play_run >= 0) p_pass = p_pass / fmaxf(p_pass + e_run / sum, 1e-9f);
+  v[0] = clip(p_pass, lay.play_clip_lo, lay.play_clip_hi);
+}
+
+// A tile's trees [t0, t1) walked for the thread's staged row `xr`, kWalks at
+// once (their roots' byte offsets in the tile `next`, read ahead), `steps`
+// levels each (forest_walk.cuh's `walk_step`), each leaf added to its
+// class sum in tree order (classes > 1: the tree's class of tree_class).
+template <bool kMulti, bool LT, bool ZAM>
+__device__ __forceinline__ void walk_tile(const unsigned char* tile, const LayoutConsts& lay,
+                                          int t0, int t1, int steps, const unsigned char* xr,
+                                          int (&next)[fw::kWalks], float (&acc)[kMaxClasses]) {
+  for (int t = t0; t < t1; t += fw::kWalks) {
+    unsigned root[fw::kWalks], node[fw::kWalks];
+#pragma unroll
+    for (int k = 0; k < fw::kWalks; ++k) {
+      root[k] = static_cast<unsigned>(next[k]);
+      node[k] = 0;
+      next[k] = __ldg(lay.tree_off + min(t + fw::kWalks + k, t1 - 1)) * 8;
+    }
+    for (int s = 0; s < steps; ++s) {
+#pragma unroll
+      for (int k = 0; k < fw::kWalks; ++k)
+        node[k] = fw::walk_step<LT, ZAM>(tile + root[k], node[k], xr);
+    }
+#pragma unroll
+    for (int k = 0; k < fw::kWalks; ++k) {
+      if (t + k < t1) {
+        const float v = *reinterpret_cast<const float*>(tile + root[k] + node[k]);
+        if constexpr (kMulti) {
+          // every class sum adds v or +0.0, branch-free (a sum that starts
+          // at +0.0 is never -0.0, so +0.0 leaves it as it is)
+          const int c = __ldg(lay.tree_class + t + k);
+#pragma unroll
+          for (int j = 0; j < kMaxClasses; ++j) acc[j] += c == j ? v : 0.0f;
+        } else {
+          acc[0] += v;
+        }
+      }
+    }
+  }
+}
+
+// walk_tile by walk variant: (classes > 1) x 4 + lt x 2 + zeros missing.
+__device__ __forceinline__ void walk_variant(int variant, const unsigned char* tile,
+                                             const LayoutConsts& lay, int t0, int t1, int steps,
+                                             const unsigned char* xr, int (&next)[fw::kWalks],
+                                             float (&acc)[kMaxClasses]) {
+#define WALK(MULTI, LT, ZAM) walk_tile<MULTI, LT, ZAM>(tile, lay, t0, t1, steps, xr, next, acc)
+  switch (variant) {
+    case 0: WALK(false, false, false); break;
+    case 1: WALK(false, false, true); break;
+    case 2: WALK(false, true, false); break;
+    case 3: WALK(false, true, true); break;
+    case 4: WALK(true, false, false); break;
+    case 5: WALK(true, false, true); break;
+    case 6: WALK(true, true, false); break;
+    default: WALK(true, true, true); break;
+  }
+#undef WALK
+}
+
+// kLayoutExact: every forest of the launch walked for this play, K5's design
+// (csrc/forest_eval.cu) inside the game loop.  Every thread of the block
+// takes part, a lane with no game too (its row is not read back): the
+// launch's tiles stream through the two buffers in the same order every
+// play, tile (global count) ti in buffer ti & 1, thread 0 copying tile ti +
+// 2 (cyclically, the next play's first ones at the end) as soon as every
+// thread is done with ti's buffer.  A forest's first tile puts its groups'
+// ids in the row; its last turns the class sums into head values.
+__device__ __forceinline__ void walk_forests(const LayoutConsts& lay, const ExactSmem& ex,
+                                             unsigned& ti, bool live, int dirx,
+                                             const int (&slot)[kRoles], int dirs) {
+  unsigned* row = ex.rows + threadIdx.x * kRowWords;
+  const unsigned char* xr = reinterpret_cast<const unsigned char*>(row);
+  const int4* tiles = reinterpret_cast<const int4*>(lay.tiles);
+  float acc[kMaxClasses];
+  for (int i = 0; i < lay.n_tiles; ++i, ++ti) {
+    const int4 t = __ldg(tiles + 2 * i);      // first record, bytes, first tree, end tree
+    const int4 f = __ldg(tiles + 2 * i + 1);  // forest, first tile, last tile, variant
+    const int* fd = lay.forests + f.x * kForestWords;
+    if (f.y) {
+      if (live) {
+#pragma unroll
+        for (int g = 0; g < fw::kGroups; ++g) row[g] = group_id(lay, __ldg(fd + 8 + g), dirx, slot, dirs);
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxClasses; ++k) acc[k] = 0.0f;
+    }
+    const unsigned char* tile = ex.tiles + (ti & 1u) * fw::kTileBytes;
+    int next[fw::kWalks];  // the byte offsets of the next kWalks trees' roots
+#pragma unroll
+    for (int k = 0; k < fw::kWalks; ++k) next[k] = __ldg(lay.tree_off + min(t.z + k, t.w - 1)) * 8;
+    fw::mbar_wait(&ex.bar[ti & 1u], (ti >> 1) & 1u);
+    walk_variant(f.w, tile, lay, t.z, t.w, __ldg(fd + 6), xr, next, acc);
+    if (f.z) head_values(lay, fd, acc, ex.vals + __ldg(fd + 7) * kThreads + threadIdx.x);
+    __syncthreads();  // every thread is done with this buffer
+    if (threadIdx.x == 0) {
+      int j = i + 2;
+      while (j >= lay.n_tiles) j -= lay.n_tiles;
+      const int4 nx = __ldg(tiles + 2 * j);
+      fw::load_tile(ex.tiles + (ti & 1u) * fw::kTileBytes, lay.recs + nx.x,
+                    static_cast<unsigned>(nx.y), &ex.bar[ti & 1u]);
+    }
+  }
+}
+
+// kLayoutExact: game.make_exact_heads_eval's head channels from the play's
+// head values `v` (the thread's value 0): stage 1 biased by the direction
+// and clipped, stage 2 in its (incomplete, intercepted, sack) order nudged
+// (the analytic fallback where there is no stage 2: NanoConsts::has_s2 0),
+// each trio's (q50, max((q90 - q10) x scale, floor)), the fumble head where
+// it is read.  The play head's P(pass) is the play's value v_play.
+__device__ __forceinline__ Row exact_row(const NanoConsts& c, const LayoutConsts& lay,
+                                         const float* v, int dirx) {
+  const auto at = [&](int i) { return v[i * kThreads]; };
+  Row r{};
+  r.p_c = clip(at(lay.v_stage1) + __ldg(lay.xdirs + dirx * kXdirVals), lay.stage1_clip_lo,
+               lay.stage1_clip_hi);
+  if (c.has_s2) {
+    stage2_nudge(c, at(lay.v_stage2 + lay.s2_order[0]), at(lay.v_stage2 + lay.s2_order[1]),
+                 at(lay.v_stage2 + lay.s2_order[2]), &r.s2c0, &r.s2c1);
+  }
+  r.pass_mu = at(lay.v_pq + 1);
+  r.pass_sg = fmaxf((at(lay.v_pq + 2) - at(lay.v_pq)) * lay.sigma_scale, lay.pass_floor);
+  r.rush_mu = at(lay.v_rq + 1);
+  r.rush_sg = fmaxf((at(lay.v_rq + 2) - at(lay.v_rq)) * lay.sigma_scale, lay.rush_floor);
+  r.sack_mu = at(lay.v_sq + 1);
+  r.sack_sg = fmaxf((at(lay.v_sq + 2) - at(lay.v_sq)) * lay.sigma_scale, lay.sack_floor);
+  r.p_f = lay.v_fumble >= 0 ? at(lay.v_fumble) : 0.0f;
   return r;
 }
 
@@ -1050,12 +1405,80 @@ constexpr int kNo = 0, kYes = 1, kLaid = 2;
 
 template <int kLayout>
 struct Opts {
-  static constexpr bool general = kLayout == kLayoutRow || kLayout == kLayoutHeads;
-  static constexpr bool row = kLayout != kLayoutHeads;
-  static constexpr int play = general ? kLaid : kLayout == kLayoutRowPlay ? kYes : kNo;
+  // the heads read no table (analytic, exact): no play table, no bases
+  static constexpr bool free = kLayout == kLayoutAnalytic || kLayout == kLayoutExact;
+  static constexpr bool general = kLayout == kLayoutRow || kLayout == kLayoutHeads || free;
+  static constexpr bool row = kLayout != kLayoutHeads && !free;
+  static constexpr int play = free ? kNo : general ? kLaid : kLayout == kLayoutRowPlay ? kYes : kNo;
   static constexpr int forced = general ? kLaid : kLayout == kLayoutRowForced ? kYes : kNo;
   static constexpr bool bases = !general;
 };
+
+// The play's Philox stream and fourth-down code past kLayoutNano: the
+// forced first play's own while it is next, the launch's after.
+template <int kLayout>
+__device__ __forceinline__ void play_stream(const Lane& g, const LayoutConsts& lay, uint32_t k0,
+                                            uint32_t k1, uint32_t& dk0, uint32_t& dk1,
+                                            int& code) {
+  using O = Opts<kLayout>;
+  dk0 = k0;
+  dk1 = k1;
+  code = lay.force_every;
+  if constexpr (O::forced == kLaid) {
+    dk0 = g.forced ? lay.fk0 : k0;
+    dk1 = g.forced ? lay.fk1 : k1;
+    code = g.forced ? lay.force_first : lay.force_every;
+  } else if constexpr (O::forced == kYes) {
+    dk0 = g.dk0;
+    dk1 = g.dk1;
+    code = g.code;
+  }
+}
+
+// A play past kLayoutNano once its row, P(pass) and tracked rows are read:
+// its other draws (given the slots' Philox block `w` where it sampled
+// slots), mirrored under antithetic, the play, and the lane's advance.  The
+// forced play and the first unforced one are both step 0 (j stays 0 over
+// the forced play).
+template <int kLayout, bool kStats, bool kPlayers, bool kSampled>
+__device__ __forceinline__ void draw_and_play(Lane& g, const NanoConsts& c,
+                                              const LayoutConsts& lay, const float* grid,
+                                              const Row& r, float* team, const Accrual& acc,
+                                              const Slots& sl, uint32_t k0, uint32_t k1,
+                                              uint32_t dk0, uint32_t dk1, int code,
+                                              const float (&w)[4], bool use_ml, float p_ml) {
+  using O = Opts<kLayout>;
+  const uint32_t step = static_cast<uint32_t>(g.j);
+  float u[philox::kUniforms], z[philox::kNormals];
+  if constexpr (kSampled) {
+    philox::step_draws_given<U_QB / 4>(dk0, dk1, step, g.row, w, u, z);
+  } else {
+    philox::step_draws(dk0, dk1, step, g.row, u, z);
+  }
+  if (g.mirror) {
+#pragma unroll
+    for (int k = 0; k < philox::kUniforms; ++k) u[k] = 1.0f - u[k];
+#pragma unroll
+    for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
+  }
+  play<kStats, kPlayers, true>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl, code, use_ml,
+                               p_ml);
+  if constexpr (O::forced == kNo) {
+    ++g.j;
+  } else if (g.forced) {
+    // the forced play, played: the launch's stream and code from now on
+    g.forced = false;
+    g.extra = 1;
+    if constexpr (O::forced == kYes) {
+      g.dk0 = k0;
+      g.dk1 = k1;
+      g.code = lay.force_every;
+    }
+  } else {
+    ++g.j;
+  }
+  g.live = g.s.sec > 0 && g.j < c.cap;
+}
 
 // Lane `g` takes game i: its state and its directions' constants read, and
 // what the eager loop does before its first play (`run`: it plays at all);
@@ -1190,7 +1613,9 @@ __global__ void __launch_bounds__(kThreads)
                      const Accrual acc, int n, const LayoutConsts lay) {
   constexpr bool kGeneral = kLayout != kLayoutNano;
   using O = Opts<kLayout>;
-  constexpr bool kSampled = kPlayers || kLayout == kLayoutHeads;   // plays sample slots
+  constexpr bool kExact = kLayout == kLayoutExact;
+  // plays sample slots
+  constexpr bool kSampled = kPlayers || kLayout == kLayoutHeads || kExact;
   // the second profile's bins: the per-head tables on it, or the play table
   constexpr bool kSecond = kLayout == kLayoutHeads || O::play != kNo;
   static_assert(kPlaySdBins == kThreads, "one score diff's bin a thread");
@@ -1217,6 +1642,16 @@ __global__ void __launch_bounds__(kThreads)
     sa.cum = cum;
     sa.tracked = tracked;
   }
+  // kLayoutExact: its tiles, rows and head values past the stripe and the
+  // slot tables (`dynamic_bytes`)
+  ExactSmem ex{};
+  if constexpr (kExact) {
+    const size_t slot_tables =
+        kPlayers ? (static_cast<size_t>(kRoles * acc.dirs * acc.k) * 5 + 15) / 16 * 16 : 0;
+    ex = exact_smem(reinterpret_cast<unsigned char*>(stripes)
+                    + (kStats ? 2 * kTeamStats * kThreads * sizeof(float) : 0) + slot_tables);
+  }
+  unsigned ti = 0;   // kLayoutExact: the tiles walked so far
   if constexpr (!kGeneral) {
     if (threadIdx.x == 0) {
       block_plays = 0;
@@ -1239,6 +1674,20 @@ __global__ void __launch_bounds__(kThreads)
       block_iters = 0;
     }
     copy_segs(c, lay, sv, kSecond ? 8 : 4);
+    if constexpr (kExact) {
+      // the forests' first two tiles on their way
+      if (threadIdx.x == 0) {
+        fw::mbar_init(&ex.bar[0]);
+        fw::mbar_init(&ex.bar[1]);
+        fw::fence_barrier_init();
+        const int4* tiles = reinterpret_cast<const int4*>(lay.tiles);
+        for (int b = 0; b < 2; ++b) {
+          const int4 t = __ldg(tiles + 2 * (b < lay.n_tiles ? b : 0));
+          fw::load_tile(ex.tiles + b * fw::kTileBytes, lay.recs + t.x, static_cast<unsigned>(t.y),
+                        &ex.bar[b]);
+        }
+      }
+    }
     if constexpr (O::play != kNo) {
       if (O::play == kYes || lay.has_play) {
         const float sdf = static_cast<float>(kPlaySdLo + static_cast<int>(threadIdx.x));
@@ -1264,9 +1713,37 @@ __global__ void __launch_bounds__(kThreads)
   bool open = lanes < n;             // the queue has games to hand out (warp-uniform)
   unsigned long long played = 0;     // plays of this lane's finished games
   unsigned int iters = 0;            // this warp's loop trips
-  while (__any_sync(kFull, g.i < n)) {
+  // kLayoutExact's loop is block-synchronous (every thread walks every
+  // tile, a lane with no game too), the others' warp-synchronous
+  while (kExact ? __syncthreads_or(g.i < n) != 0 : __any_sync(kFull, g.i < n)) {
     ++iters;
-    if constexpr (!kGeneral) {
+    if constexpr (kExact) {
+      // the slots' Philox block, the slots and the feature row; every
+      // forest walked (by every lane: the tile copies and barriers are the
+      // block's); then the play as the general layouts play it
+      int slot[kRoles] = {0, 0, 0};
+      int dirx = 0, code = 0;
+      uint32_t dk0 = k0, dk1 = k1;
+      float w[4];
+      if (g.live) {
+        dirx = g.s.gid * 2 + g.s.off;
+        play_stream<kLayout>(g, lay, k0, k1, dk0, dk1, code);
+        philox::block_uniforms(dk0, dk1, static_cast<uint32_t>(g.j), g.row, U_QB / 4, w);
+        sample_roles<kPlayers>(sa, dirx, w, g.mirror, slot);
+        stage_features(c, lay, ex.rows + threadIdx.x * kRowWords, g.s, dirx);
+      }
+      walk_forests(lay, ex, ti, g.live, dirx, slot, acc.dirs);
+      if (g.live) {
+        const float* v = ex.vals + threadIdx.x;
+        const Row r = exact_row(c, lay, v, dirx);
+        const bool use_ml = lay.v_play >= 0;
+        const float p_ml = use_ml ? v[lay.v_play * kThreads] : 0.0f;
+        Slots sl{};
+        if constexpr (kPlayers) sl = tracked_rows(sa, game_rows(acc, g.i), dirx, slot, g.s.off);
+        draw_and_play<kLayout, kStats, kPlayers, true>(g, c, lay, grid, r, team, acc, sl, k0, k1,
+                                                       dk0, dk1, code, w, use_ml, p_ml);
+      }
+    } else if constexpr (!kGeneral) {
       if (g.live) {
         // the row's loads first; with kPlayers the slots' Philox block, the
         // slots and the tracked rows' loads next; the (other) draws under
@@ -1302,8 +1779,7 @@ __global__ void __launch_bounds__(kThreads)
         // the slots, and the per-head lookups and the tracked player rows
         // keyed on them issued together next; then the play's other draws
         // (the forced play's on its own stream) under their latency, then
-        // the play.  The forced play and the first unforced one are both
-        // step 0 (j stays 0 over the forced play).
+        // the play (`draw_and_play`).
         const int dirx = g.s.gid * 2 + g.s.off;
         const bool a = g.s.off == 0;
         const bool use_ml = O::play == kYes || (O::play == kLaid && lay.has_play);
@@ -1312,6 +1788,8 @@ __global__ void __launch_bounds__(kThreads)
         Row r{};
         if constexpr (O::row) {
           r = load_row(c, row_at(c, lay, table, b, O::bases ? (a ? g.rb0 : g.rb1) : dirx * c.per_dir));
+        } else if constexpr (kLayout == kLayoutAnalytic) {
+          r = analytic_row(lay, g.s, dirx);
         }
         float p_ml = 0.0f;
         if (use_ml) {
@@ -1319,54 +1797,21 @@ __global__ void __launch_bounds__(kThreads)
                                     : static_cast<int>(__ldg(lay.play_base + dirx));
           p_ml = __ldg(play_at(lay, sd_bins, b, base));
         }
-        uint32_t dk0 = k0, dk1 = k1;
-        int code = lay.force_every;
-        if constexpr (O::forced == kLaid) {
-          dk0 = g.forced ? lay.fk0 : k0;
-          dk1 = g.forced ? lay.fk1 : k1;
-          code = g.forced ? lay.force_first : lay.force_every;
-        } else if constexpr (O::forced == kYes) {
-          dk0 = g.dk0;
-          dk1 = g.dk1;
-          code = g.code;
-        }
+        uint32_t dk0, dk1;
+        int code;
+        play_stream<kLayout>(g, lay, k0, k1, dk0, dk1, code);
         const uint32_t step = static_cast<uint32_t>(g.j);
-        float u[philox::kUniforms], z[philox::kNormals];
         Slots sl{};
+        float w[4];
         if constexpr (kSampled) {
-          float w[4];
           philox::block_uniforms(dk0, dk1, step, g.row, U_QB / 4, w);
           int slot[kRoles];
           sample_roles<kPlayers>(sa, dirx, w, g.mirror, slot);
           if constexpr (kLayout == kLayoutHeads) r = head_rows(c, lay, b, dirx, slot);
           if constexpr (kPlayers) sl = tracked_rows(sa, game_rows(acc, g.i), dirx, slot, g.s.off);
-          philox::step_draws_given<U_QB / 4>(dk0, dk1, step, g.row, w, u, z);
-        } else {
-          philox::step_draws(dk0, dk1, step, g.row, u, z);
         }
-        if (g.mirror) {
-#pragma unroll
-          for (int k = 0; k < philox::kUniforms; ++k) u[k] = 1.0f - u[k];
-#pragma unroll
-          for (int k = 0; k < philox::kNormals; ++k) z[k] = -z[k];
-        }
-        play<kStats, kPlayers, true>(c, grid, r, g.d0, g.d1, g.s, u, z, team, acc, sl, code,
-                                     use_ml, p_ml);
-        if constexpr (O::forced == kNo) {
-          ++g.j;
-        } else if (g.forced) {
-          // the forced play, played: the launch's stream and code from now on
-          g.forced = false;
-          g.extra = 1;
-          if constexpr (O::forced == kYes) {
-            g.dk0 = k0;
-            g.dk1 = k1;
-            g.code = lay.force_every;
-          }
-        } else {
-          ++g.j;
-        }
-        g.live = g.s.sec > 0 && g.j < c.cap;
+        draw_and_play<kLayout, kStats, kPlayers, kSampled>(g, c, lay, grid, r, team, acc, sl, k0,
+                                                           k1, dk0, dk1, code, w, use_ml, p_ml);
       }
     }
     const bool done = g.i < n && !g.live;
@@ -1400,6 +1845,14 @@ __global__ void __launch_bounds__(kThreads)
                                 acc, c, lay, k0, k1);
         }
       }
+    }
+  }
+  if constexpr (kExact) {
+    // the two tiles still on their way (the next play's first) land before
+    // the block's shared memory is let go
+    if (threadIdx.x == 0) {
+      fw::mbar_wait(&ex.bar[ti & 1u], (ti >> 1) & 1u);
+      fw::mbar_wait(&ex.bar[(ti + 1) & 1u], ((ti + 1) >> 1) & 1u);
     }
   }
   if (cnt.plays != nullptr) atomicAdd(&block_plays, played);
@@ -1439,6 +1892,8 @@ KernelFn kernel_of(int layout, bool stats, bool players) {
     case kLayoutNano: return kernel_of_layout<kLayoutNano>(stats, players);
     case kLayoutRow: return kernel_of_layout<kLayoutRow>(stats, players);
     case kLayoutHeads: return kernel_of_layout<kLayoutHeads>(stats, players);
+    case kLayoutAnalytic: return kernel_of_layout<kLayoutAnalytic>(stats, players);
+    case kLayoutExact: return kernel_of_layout<kLayoutExact>(stats, players);
     case kLayoutRowBare: return score_only ? nano_game_kernel<kLayoutRowBare, false, false> : nullptr;
     case kLayoutRowPlay: return score_only ? nano_game_kernel<kLayoutRowPlay, false, false> : nullptr;
     case kLayoutRowForced:
@@ -1449,28 +1904,40 @@ KernelFn kernel_of(int layout, bool stats, bool players) {
 
 // Whether the launch's LayoutConsts are what the layout's instantiation
 // reads: the play table and the forced first play present where it reads
-// them and absent where it does not.
+// them and absent where it does not; the per-direction floats where the
+// heads read no table, and the forests' tiles and descriptors in exact mode.
 bool layout_takes(int layout, const LayoutConsts& lay) {
   switch (layout) {
     case kLayoutRowBare: return !lay.has_play && lay.force_first == 0;
     case kLayoutRowPlay: return lay.has_play && lay.force_first == 0;
     case kLayoutRowForced: return !lay.has_play && lay.force_first != 0;
+    case kLayoutAnalytic: return !lay.has_play && lay.xdirs != nullptr;
+    case kLayoutExact:
+      return !lay.has_play && lay.xdirs != nullptr && lay.n_tiles > 0 && lay.recs != nullptr
+             && lay.tiles != nullptr && lay.forests != nullptr && lay.ids != nullptr;
     default: return true;
   }
 }
 
 // Its dynamic shared memory: the lanes' team-stat stripes, then with the
 // player stats the slot tables of `entries` shares (f32) and as many
-// tracked flags (a byte each), in 16-byte units.
-size_t dynamic_bytes(bool stats, bool players, int entries) {
+// tracked flags (a byte each), in 16-byte units; in exact mode then the
+// tiles, rows and head values (kExactBytes, with its alignment's slack).
+size_t dynamic_bytes(int layout, bool stats, bool players, int entries) {
   const size_t stripes = stats ? 2 * kTeamStats * kThreads * sizeof(float) : 0;
   const size_t slot_tables = players ? (static_cast<size_t>(entries) * 5 + 15) / 16 * 16 : 0;
-  return stripes + slot_tables;
+  return stripes + slot_tables + (layout == kLayoutExact ? kExactBytes : 0);
 }
 
 // Lets `fn` take `bytes` of dynamic shared memory (past the 48 KB a launch
-// may take without asking).
-cudaError_t allow_dynamic(KernelFn fn, size_t bytes) {
+// may take without asking); exact mode's instantiations ask for the whole
+// carveout as shared memory, so that two blocks fit an SM.
+cudaError_t allow_dynamic(KernelFn fn, size_t bytes, int layout) {
+  if (layout == kLayoutExact) {
+    const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+  }
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
@@ -1485,7 +1952,7 @@ extern "C" int nano_game_layout_size() { return static_cast<int>(sizeof(LayoutCo
 // Threads a block of K1.
 extern "C" int nano_game_threads() { return kThreads; }
 
-// Blocks of K1's instantiation for the layout (kLayoutNano .. kLayoutRowForced,
+// Blocks of K1's instantiation for the layout (kLayoutNano .. kLayoutExact,
 // ops/game.LAYOUT_KINDS) and the collectors `stats` and `players` (0 or 1) that one
 // SM holds at once, with the player stats staging slot tables of `entries`
 // shares (kRoles x the launch's directions x k)
@@ -1494,8 +1961,8 @@ extern "C" int nano_game_threads() { return kThreads; }
 extern "C" int nano_game_blocks_per_sm(int layout, int stats, int players, int entries) {
   const KernelFn fn = kernel_of(layout, stats, players);
   if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = dynamic_bytes(stats, players, entries);
-  cudaError_t err = allow_dynamic(fn, bytes);
+  const size_t bytes = dynamic_bytes(layout, stats, players, entries);
+  cudaError_t err = allow_dynamic(fn, bytes, layout);
   int blocks = 0;
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, bytes);
@@ -1533,12 +2000,14 @@ extern "C" int nano_game_attributes(int layout, int stats, int players, int* reg
 // stats, and pstats, a contiguous (n, 2, 3, k, 6) f32 tensor of their
 // player stats, both added to in place; with pstats, cum and tracked, the
 // (3, 2 x n_matchups, k) f32 cumulative shares and bool tracked flags of
-// the QB, rusher and target slots (cum also for kLayoutHeads, whose lookups
-// key on the slots).  `layout` picks the instantiation, `lay` its
-// LayoutConsts (past kLayoutNano: the force codes and key, the strides, the
-// second profile, the play table and the per-head tables); a score-only
-// one-row layout takes no collector, and the play table and the forced
-// play as it reads them (`layout_takes`), else cudaErrorInvalidValue.  `blocks` blocks
+// the QB, rusher and target slots (cum also for kLayoutHeads and
+// kLayoutExact, whose lookups and forests key on the slots).  `layout`
+// picks the instantiation, `lay` its LayoutConsts (past kLayoutNano: the
+// force codes and key, the strides, the second profile, the play table and
+// the per-head tables; the per-direction floats of the analytic and exact
+// heads, the forests); a score-only one-row layout takes no collector, and
+// every layout the tables and forests as it reads them (`layout_takes`),
+// else cudaErrorInvalidValue.  `blocks` blocks
 // of kThreads (at most the resident blocks, `nano_game_blocks_per_sm` of the
 // instantiation and its slot tables x the SMs).  Launches on `stream` and
 // returns cudaGetLastError() (0 on success).
@@ -1568,8 +2037,8 @@ extern "C" int nano_game_launch(const NanoConsts* c, const void* table, const vo
   const bool with_stats = stats != nullptr, with_players = pstats != nullptr;
   const KernelFn fn = kernel_of(layout, with_stats, with_players);
   if (fn == nullptr || !layout_takes(layout, *lay)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = dynamic_bytes(with_stats, with_players, kRoles * acc.dirs * k);
-  const cudaError_t err = allow_dynamic(fn, bytes);
+  const size_t bytes = dynamic_bytes(layout, with_stats, with_players, kRoles * acc.dirs * k);
+  const cudaError_t err = allow_dynamic(fn, bytes, layout);
   if (err != cudaSuccess) return static_cast<int>(err);
   fn<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       *c, static_cast<const float*>(table), static_cast<const float*>(dirs), n_matchups, ip,

@@ -33,8 +33,9 @@ re-layout runs on them as it does on a built table.
 checking one play step against a reference on the same inputs.
 
 `heads(seed, shape)` makes trained-head stand-ins: seeded FlatForests in
-numpy with the reference heads' shapes ("reference") or a few trees a head
-("small"), thresholds drawn inside each feature's range, category names
+numpy with the reference heads' shapes ("reference"), a few trees a head
+("small"), or the small ones with stage 1 and the play head over several
+of K5's tiles ("tiled"), thresholds drawn inside each feature's range, category names
 that include the fixture rosters' players and "Unknown" (so the fixture
 teams' ids are not all -1), `COACH_MAP` naming the teams' coaches.  Random
 trees: they drive exact mode and the table build at the heads' real shapes,
@@ -422,6 +423,10 @@ HEAD_SHAPES = {
                   "fumble": (104, 6), "play": (200, 6)},
     "small": {"stage1": (6, 6), "stage2": (6, 6), "quant": (5, 4),
               "fumble": (4, 6), "play": (10, 6)},
+    # the small heads but for stage 1 and the play head, each over several
+    # of K5's tiles (a tile's first, middle and last trees)
+    "tiled": {"stage1": (900, 6), "stage2": (6, 6), "quant": (5, 4),
+              "fumble": (4, 6), "play": (900, 6)},
 }
 # category names a group holds beyond the rosters ("Unknown" and the
 # fixture players come first), by shape
@@ -429,6 +434,7 @@ GROUP_SIZES = {"reference": {"passer_name": 563, "target_name": 900, "rusher_nam
                              "head_coach": 170},
                "small": {"passer_name": 12, "target_name": 16, "rusher_name": 10,
                          "head_coach": 8}}
+GROUP_SIZES["tiled"] = GROUP_SIZES["small"]
 # (link, cmp, zero_as_missing, base margins, leaf sd) by head; quantile
 # base margins are the (q10, q50, q90) yards
 _HEAD_KIND = {

@@ -28,6 +28,12 @@ numpy oracle in float64, so margins agree to a few ulps; the leaves a row
 reaches agree exactly (`walk_leaves`), being f32 comparisons of equal
 inputs.
 
+`predict` applies the forest's link through `forest_link`: the logistic
+and the softmax as explicit f32 operations in K1's order (`sigmoid_f32`,
+`softmax_f32`), so the eager loop, K1's plain version and K1's exact-mode
+instantiation (which walks these records inside its launch,
+csrc/nano_game.cu) agree bit for bit on the card.
+
 The JAX package's merged walk (`MergedForest`, `merge_forests`,
 `eval_merged`) is a TPU experiment, off by default there
 (`EngineConfig.exact_merged`), and is not ported.
@@ -558,13 +564,42 @@ def eval_margin(tf: TorchForest, x_num: torch.Tensor,
     return eval_margin_cuda(tf, x_num.contiguous(), cid)
 
 
-def predict(tf: TorchForest, x_num: torch.Tensor,
-            cat_ids: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-    """The forest's link of its margins: (B,) for identity with one class
-    and for sigmoid, (B, C) otherwise."""
-    m = eval_margin(tf, x_num, cat_ids)
+# ---------------------------------------------------------------------------
+# links, as explicit f32 operations in K1's order (csrc/nano_game.cu
+# head_values): torch.sigmoid and torch.softmax on the card add in orders of
+# their own, so the eager loop, the plain version and the kernel all take
+# these
+# ---------------------------------------------------------------------------
+
+def sigmoid_f32(m: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-m)), elementwise."""
+    return torch.reciprocal(torch.exp(-m) + 1.0)
+
+
+def softmax_f32(m: torch.Tensor) -> torch.Tensor:
+    """The softmax of each row of (B, C) margins: the row's max, exp(m -
+    max) class by class, their sum in class order, each over the sum."""
+    mx = m[:, 0]
+    for k in range(1, m.shape[1]):
+        mx = torch.maximum(mx, m[:, k])
+    e = [torch.exp(m[:, k] - mx) for k in range(m.shape[1])]
+    total = e[0]
+    for ek in e[1:]:
+        total = total + ek
+    return torch.stack([ek / total for ek in e], dim=1)
+
+
+def forest_link(tf: TorchForest, m: torch.Tensor) -> torch.Tensor:
+    """The forest's link of its margins (B, C): (B,) for identity with one
+    class and for sigmoid, (B, C) otherwise."""
     if tf.link == "identity":
         return m[:, 0] if tf.n_classes == 1 else m
     if tf.link == "sigmoid":
-        return torch.sigmoid(m[:, 0])
-    return torch.softmax(m, dim=1)
+        return sigmoid_f32(m[:, 0])
+    return softmax_f32(m)
+
+
+def predict(tf: TorchForest, x_num: torch.Tensor,
+            cat_ids: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """The forest's link of its margins (`forest_link`)."""
+    return forest_link(tf, eval_margin(tf, x_num, cat_ids))

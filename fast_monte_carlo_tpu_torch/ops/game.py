@@ -24,7 +24,8 @@ B/2 rows, and games 4k+2, 4k+3 replay games 4k, 4k+1's draws mirrored
 Heads: `make_analytic_heads_eval` (closed-form stand-ins),
 `make_exact_heads_eval` (exact mode: every compiled forest evaluated on
 each play's 17-column feature rows, `_state_features`, through the K5
-kernel on the card) and the table heads of `ops/table_lookup.py`.
+kernel where the eager loop plays on the card) and the table heads of
+`ops/table_lookup.py`.  On the card K1 plays all three in its launch.
 
 `Situation` and `state_from_situation` resume games from a mid-game state
 (live win probability, the 4th-down evaluator); `simulate_games` takes one
@@ -52,6 +53,7 @@ import functools
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import SimConfig
@@ -59,7 +61,8 @@ from ..models import analytic
 from ..models.heads import ST1_FEATURES
 from ..stats import (N_PLAYER_STATS, N_TEAM_STATS, ROLE_PASS, ROLE_REC, ROLE_RUSH,
                      TEAM_STAT_FIELDS, TS)
-from .forest_eval import eval_margin, predict
+from .forest_eval import (IS_CAT_BIT, MAX_CLASSES, MAX_GROUPS, SLOT_MASK, eval_margin,
+                          eval_margin_packed, forest_link, predict, softmax_f32)
 from .pack import HeadsPack, MatchupPack
 from .rng import N_NORMALS, N_UNIFORMS, chunk_draws, step_draws
 
@@ -177,30 +180,39 @@ def mirror_draws(u: torch.Tensor, n: torch.Tensor):
     return one(u, lambda f: 1.0 - f), one(n, torch.neg)
 
 
+def analytic_channels(bias: torch.Tensor, dist: torch.Tensor, lo: float, hi: float):
+    """The closed-form heads of a play at distance `dist` in a direction of
+    stage-1 bias `bias`: (p_complete clipped to [lo, hi], pass, rush and
+    sack (mu, sigma) (B, 2) each, p_fumble); stage 2 is the analytic
+    fallback.  `make_analytic_heads_eval` and K1's plain version both take
+    them."""
+    p_c = torch.clamp(0.68 - 0.022 * torch.clamp_min(dist - 3.0, 0.0) + bias, lo, hi)
+
+    def ms(mu, sigma):
+        return torch.stack([mu if torch.is_tensor(mu) else torch.full_like(dist, mu),
+                            torch.full_like(dist, sigma)], dim=1)
+
+    return (p_c, ms(4.5 + 0.45 * dist, 7.0), ms(4.2, 4.0), ms(-6.0, 2.2),
+            torch.full_like(dist, 0.012))
+
+
 def make_analytic_heads_eval(cfg: SimConfig) -> HeadsEvalFn:
     """Artifact-free heads: smooth closed-form stand-ins for every model
-    head (clearly NOT the reference models).  heads_state is unused."""
+    head (clearly NOT the reference models).  heads_state is unused.  On
+    the card K1 plays these heads (`analytic_heads`)."""
 
     def heads_eval(heads_state, obs: StepObs, pack: MatchupPack) -> HeadOut:
-        bias = take_dir(pack.bias, obs.dirx)
-        p_c = torch.clamp(
-            0.68 - 0.022 * torch.clamp_min(obs.dist - 3.0, 0.0) + bias,
-            cfg.model.stage1_clip_lo, cfg.model.stage1_clip_hi)
+        p_c, pass_ms, rush_ms, sack_ms, p_f = analytic_channels(
+            take_dir(pack.bias, obs.dirx), obs.dist, cfg.model.stage1_clip_lo,
+            cfg.model.stage1_clip_hi)
         inc, itc, sck = analytic.stage2_fallback_probs(
             obs.down.to(F32), obs.dist, cfg)
         inc, itc, sck = analytic.stage2_nudge(inc, itc, sck, cfg)
         s2_cum = torch.stack([inc, inc + sck], dim=1)
-
-        def ms(mu, sigma):
-            return torch.stack([mu if torch.is_tensor(mu)
-                                else torch.full_like(obs.dist, mu),
-                                torch.full_like(obs.dist, sigma)], dim=1)
-
-        return HeadOut(p_c, s2_cum, ms(4.5 + 0.45 * obs.dist, 7.0),
-                       ms(4.2, 4.0), ms(-6.0, 2.2),
-                       torch.full_like(obs.dist, 0.012), None)
+        return HeadOut(p_c, s2_cum, pass_ms, rush_ms, sack_ms, p_f, None)
 
     heads_eval.needs_x = False
+    heads_eval.analytic_heads = True
     return heads_eval
 
 
@@ -210,22 +222,35 @@ def _gather2k(arr2k: torch.Tensor, dirx: torch.Tensor, slot: torch.Tensor) -> to
     return arr2k.reshape(-1)[(dirx.long() * k + slot.long()).clamp(0, arr2k.numel() - 1)]
 
 
+def _head_ids(head: str, pack: MatchupPack, dirx: torch.Tensor, slots) -> dict:
+    """The ids `head`'s forest reads, by group (`_EXACT_GROUPS`): each
+    group's id table on the pack at the slot its role sampled (`slots`, in
+    pstats' role order), the coach's by direction alone."""
+    out = {}
+    for name, (table, role) in _EXACT_GROUPS[head].items():
+        arr = getattr(pack, table)
+        out[name] = take_dir(arr, dirx) if arr.dim() == 1 else _gather2k(arr, dirx, slots[role])
+    return out
+
+
 def make_exact_heads_eval(cfg: SimConfig) -> HeadsEvalFn:
     """Exact mode: every compiled forest evaluated on each play's feature
-    rows (`eval_margin`: the K5 kernel on the card).  heads_state is a
-    HeadsPack; each forest is walked on its own (the JAX package's
-    default; its merged walk, `exact_merged`, is not ported)."""
+    rows (`eval_margin`: the K5 kernel on the card, a launch a forest, where
+    the eager loop plays; K1 walks them inside its launch, `exact_heads`).
+    heads_state is a HeadsPack; each forest is walked on its own (the JAX
+    package's default; its merged walk, `exact_merged`, is not ported)."""
 
     def heads_eval(hp: HeadsPack, obs: StepObs, pack: MatchupPack) -> HeadOut:
-        x, off, qb, wr, rb = obs.x, obs.dirx, obs.qb, obs.wr, obs.rb
-        p_raw = predict(hp.stage1, x, {"passer_name": _gather2k(pack.ids_qb_stage1, off, qb)})
+        x, off = obs.x, obs.dirx
+
+        def ids(head):
+            return _head_ids(head, pack, off, (obs.qb, obs.rb, obs.wr))
+
+        p_raw = predict(hp.stage1, x, ids("stage1"))
         p_c = torch.clamp(p_raw + take_dir(pack.bias, off),
                           cfg.model.stage1_clip_lo, cfg.model.stage1_clip_hi)
         if hp.stage2 is not None:
-            probs = predict(hp.stage2, x, {
-                "passer_name": _gather2k(pack.ids_qb_stage2, off, qb),
-                "target_name": _gather2k(pack.ids_wr_stage2, off, wr),
-            })
+            probs = predict(hp.stage2, x, ids("stage2"))
             o = hp.stage2_order
             inc, itc, sck = probs[:, o[0]], probs[:, o[1]], probs[:, o[2]]
         else:
@@ -239,51 +264,62 @@ def make_exact_heads_eval(cfg: SimConfig) -> HeadsEvalFn:
                                     * analytic.recip(cfg.model.sigma_denom), floor)
             return torch.stack([q[:, 1], sigma], dim=1)
 
-        pass_ms = ms(hp.pq, {"passer_name": _gather2k(pack.ids_qb_passq, off, qb),
-                             "target_name": _gather2k(pack.ids_wr_passq, off, wr)},
-                     cfg.model.pass_sigma_floor)
-        rush_ms = ms(hp.rq, {"rusher_name": _gather2k(pack.ids_rb_rushq, off, rb)},
-                     cfg.model.rush_sigma_floor)
-        sack_ms = ms(hp.sq, {"passer_name": _gather2k(pack.ids_qb_sackq, off, qb)},
-                     cfg.model.sack_sigma_floor)
+        pass_ms = ms(hp.pq, ids("pq"), cfg.model.pass_sigma_floor)
+        rush_ms = ms(hp.rq, ids("rq"), cfg.model.rush_sigma_floor)
+        sack_ms = ms(hp.sq, ids("sq"), cfg.model.sack_sigma_floor)
         if hp.fumble is not None and cfg.model.enable_fumbles:
-            p_f = predict(hp.fumble, x, {"rusher_name": _gather2k(pack.ids_rb_fumble, off, rb)})
+            p_f = predict(hp.fumble, x, ids("fumble"))
         else:
             p_f = torch.zeros_like(p_c)
         p_pass_ml = None
         if hp.play is not None and cfg.model.use_play_model:
-            p_pass_ml = _play_pass_prob(hp, x, take_dir(pack.coach_id, off), cfg)
+            p_pass_ml = _play_pass_prob(hp, x, ids("play")["head_coach"], cfg)
         return HeadOut(p_c, s2_cum, pass_ms, rush_ms, sack_ms, p_f, p_pass_ml)
 
     heads_eval.needs_x = True  # full ST1 feature rows feed the forests
+    heads_eval.exact_heads = True
     return heads_eval
+
+
+def play_link(m: torch.Tensor, scale: float, pass_idx: int, run_idx: int, lo: float,
+              hi: float) -> torch.Tensor:
+    """The play head's P(pass) of its margins (B, C): the softmax
+    (`softmax_f32`) at the play temperature, the margins times its f32
+    reciprocal `scale` (as XLA folds the division by it), reduced to P(pass)
+    / (P(pass) + P(run)) where the head has a run class, clipped."""
+    p = softmax_f32(m * scale)
+    p_pass = p[:, pass_idx]
+    if run_idx >= 0:
+        p_pass = p_pass / torch.clamp_min(p_pass + p[:, run_idx], 1e-9)
+    return torch.clamp(p_pass, lo, hi)
 
 
 def _play_pass_prob(hp: HeadsPack, x: torch.Tensor, coach: torch.Tensor, cfg: SimConfig):
     """P(pass) of the ML play head: its numerics picked from the ST1 rows,
-    softmax at the play temperature, a 5-class head reduced to
-    P(pass) / (P(pass) + P(run)), clipped."""
+    then `play_link`."""
     tf = hp.play
     cols = [ST1_FEATURES.index(n) for n in tf.numeric_names]
     m = eval_margin(tf, x[:, cols].contiguous(), {"head_coach": coach})
-    p = torch.softmax(m / max(1e-6, hp.play_temperature), dim=1)
-    p_pass = p[:, hp.play_pass_idx]
-    if hp.play_run_idx >= 0:
-        p_pass = p_pass / torch.clamp_min(p_pass + p[:, hp.play_run_idx], 1e-9)
-    return torch.clamp(p_pass, cfg.model.play_clip_lo, cfg.model.play_clip_hi)
+    return play_link(m, analytic.recip(max(1e-6, hp.play_temperature)), hp.play_pass_idx,
+                     hp.play_run_idx, cfg.model.play_clip_lo, cfg.model.play_clip_hi)
 
 
 def _state_features(pack: MatchupPack, cfg: SimConfig, dirx, down, dist, ytg, sec, sd):
     """(B, 17) f32 ST1 feature rows of the play-start state, the JAX
     package's column for column."""
-    half_s = cfg.clock.half_seconds
+    return st1_rows(take_dir(pack.sp, dirx), cfg.timeouts, cfg.clock.half_seconds, down, dist,
+                    ytg, sec, sd)
+
+
+def st1_rows(sp: torch.Tensor, timeouts: float, half_s: int, down, dist, ytg, sec, sd):
+    """`_state_features` of the plays' SP+ rows `sp` (B, 4): what K1's
+    plain version stages from its packed inputs too."""
     sec_f = sec.to(F32)
-    sp = take_dir(pack.sp, dirx)   # (B, 4)
     cols = [
         down.to(F32), dist, ytg,
         (ytg <= 20).to(F32),
         sd.to(F32), sec_f,
-        torch.full_like(sec_f, cfg.timeouts), torch.full_like(sec_f, cfg.timeouts),
+        torch.full_like(sec_f, timeouts), torch.full_like(sec_f, timeouts),
         sp[:, 0], sp[:, 1], sp[:, 2], sp[:, 3],
         (dist >= ytg - 0.5).to(F32),
         ((down == 4) & (dist <= 2.0)).to(F32),
@@ -745,12 +781,12 @@ def simulate_games(
     outside the play cap; the games go on from there under `cfg`.
 
     On the card a launch that `nano_game_covers` (table heads of any
-    layout, with or without the play-policy table, any fourth.force and
-    forced first play; either collector, both or none) runs K1, the whole
-    launch in one kernel launch (`nano_game`, the layout's and the
-    collectors' instantiation); a failure to build or launch it raises.
-    Every other launch (exact and analytic heads), and every launch on the
-    CPU, runs the eager loop of `simulate_games_eager`, which
+    layout, with or without the play-policy table; exact heads on a
+    HeadsPack; the analytic heads; any fourth.force and forced first play;
+    either collector, both or none) runs K1, the whole launch in one kernel
+    launch (`nano_game`, the layout's and the collectors' instantiation); a
+    failure to build or launch it raises.  Every launch on the CPU runs the
+    eager loop of `simulate_games_eager`, which
     plays the same games: plays run in chunks of `play_chunk`; before each
     chunk the host asks once whether any game is still running (with
     early_exit), as the JAX package's while_loop cond does, so resumed
@@ -795,9 +831,9 @@ def simulate_games_eager(
     first_play_key: Optional[int] = None,
 ) -> GameState:
     """`simulate_games` on the eager loop alone, on any device: one eager
-    `play_step` a play (some 630-750 device kernels a play on the card).
-    K1's plain version at the level of a launch, and the path of every
-    launch K1 does not cover."""
+    `play_step` a play (some 630-750 device kernels a play on the card, and
+    in exact mode a K5 launch a forest).  K1's plain version at the level of
+    a launch, and the path of every launch K1 does not cover."""
     s, cfg, anti = _launch_state(pack, cfg, n, first_offense, collect_players, game_id,
                                  collect_stats, situation, init_state, row0, antithetic,
                                  first_play_force, first_play_key)
@@ -806,7 +842,7 @@ def simulate_games_eager(
 
 
 # ---------------------------------------------------------------------------
-# K1: a whole launch of table-mode games in one kernel (csrc/nano_game.cu)
+# K1: a whole launch of games in one kernel (csrc/nano_game.cu)
 # ---------------------------------------------------------------------------
 
 _SLOTS = 8          # go-for-it edges an axis, FG points (padded)
@@ -899,24 +935,39 @@ class LayoutConsts(ctypes.Structure):
         + [("play", ctypes.c_void_p), ("play_base", ctypes.c_void_p),
            ("play_rows", ctypes.c_int64), ("play_edges", ctypes.c_float * _PLAY_EDGES),
            ("heads", _HeadTable * len(HEAD_TABLES))]
-        + _ints("k_heads", "use_fumble"))
+        + _ints("k_heads", "use_fumble")
+        + [("xdirs", ctypes.c_void_p)]
+        + _floats("stage1_clip_lo", "stage1_clip_hi")
+        + [(name, ctypes.c_void_p)
+           for name in ("recs", "tiles", "tree_off", "tree_class", "forests", "ids")]
+        + _ints("n_tiles", "n_forests", "id_k", "v_stage1", "v_stage2", "v_pq", "v_rq", "v_sq",
+                "v_fumble", "v_play")
+        + [("s2_order", ctypes.c_int * 3)]
+        + _floats("sigma_scale", "pass_floor", "rush_floor", "sack_floor", "play_scale")
+        + _ints("play_pass", "play_run")
+        + _floats("play_clip_lo", "play_clip_hi", "timeouts"))
 
 
 # K1's instantiations by layout (kLayout in csrc/nano_game.cu): the nano
 # table with no play-policy lookup and no forced play; one row a play (the
 # fused layout, or the nano one with the play table or a forced play), the
 # play table and the forced play read as LayoutConsts says; the per-head
-# tables; and three score-only one-row layouts with their options fixed at
+# tables; three score-only one-row layouts with their options fixed at
 # compile time, the launches the paths make past the nano layout: neither
 # the play table nor a forced first play, the play table, a forced first
-# play (`nano_kind` picks)
-LAYOUT_KINDS = ("nano", "row", "heads", "row bare", "row play", "row forced")
+# play (`nano_kind` picks); and the heads that read no table: the analytic
+# closed forms, and exact mode's forests walked every play
+LAYOUT_KINDS = ("nano", "row", "heads", "row bare", "row play", "row forced", "analytic",
+                "exact")
+_FREE_KINDS = (LAYOUT_KINDS.index("analytic"), LAYOUT_KINDS.index("exact"))
 # K1's instantiations, (kind, collect_stats, collect_players): each of the
-# first three layouts with each combination of the collectors, the last
-# three score-only
+# first three layouts with each combination of the collectors, the three
+# score-only one-row layouts, each of the two without tables with each
+# combination of the collectors
 NANO_INSTANTIATIONS = tuple(
     [(k, st, pl) for k in range(3) for st in (False, True) for pl in (False, True)]
-    + [(k, False, False) for k in range(3, len(LAYOUT_KINDS))])
+    + [(k, False, False) for k in range(3, 6)]
+    + [(k, st, pl) for k in _FREE_KINDS for st in (False, True) for pl in (False, True)])
 # the play table's score-diff bins, as K1 builds them once a block: a table
 # of the integer score diffs PLAY_SD_LO .. PLAY_SD_LO + PLAY_SD_BINS - 1
 # (kPlaySdLo, kPlaySdBins), each score diff clamped into it
@@ -947,6 +998,10 @@ class NanoGameArgs(NamedTuple):
     heads: tuple                # per HEAD_TABLES: (values, row_map) or None
     play: Optional[torch.Tensor] = None       # (rows, C) play-policy table, when read
     play_base: Optional[torch.Tensor] = None  # (2G,) int64: each direction's first row
+    xdirs: Optional[torch.Tensor] = None      # analytic, exact: (2G, 8) f32 per direction:
+                                              # bias, the 4 SP+ columns, the coach's id bits
+    exact: Optional["ExactForests"] = None    # exact: the forests as K1 walks them
+    ids: Optional[torch.Tensor] = None        # exact: (9, 2G, K) int32 EXACT_ID_TABLES
 
 
 def _segs(segs) -> _Segs:
@@ -1081,6 +1136,187 @@ def direction_bases(args: "NanoGameArgs") -> Tuple[torch.Tensor, torch.Tensor]:
     return rows.to(I32), play.to(I32)
 
 
+# exact mode on K1: the forest's link codes (kLink* in csrc/nano_game.cu; the
+# play head's P(pass) at its temperature is EXACT_PLAY_LINK), the id tables
+# of the pack the forests' groups read (the coach's broadcast over the
+# slots), and each head's groups: (id table, role: 0 QB, 1 rusher, 2 target,
+# pstats' order), which the eager heads (`_head_ids`), K1's packer and its
+# plain version all read; a group a head passes no id for is unseen (-1)
+EXACT_LINKS = {"identity": 0, "sigmoid": 1, "softmax": 2}
+EXACT_PLAY_LINK = 3
+EXACT_ID_TABLES = ("ids_qb_stage1", "ids_qb_stage2", "ids_wr_stage2", "ids_qb_passq",
+                   "ids_wr_passq", "ids_rb_rushq", "ids_qb_sackq", "ids_rb_fumble", "coach_id")
+_EXACT_GROUPS = {
+    "stage1": {"passer_name": ("ids_qb_stage1", ROLE_PASS)},
+    "stage2": {"passer_name": ("ids_qb_stage2", ROLE_PASS),
+               "target_name": ("ids_wr_stage2", ROLE_REC)},
+    "pq": {"passer_name": ("ids_qb_passq", ROLE_PASS), "target_name": ("ids_wr_passq", ROLE_REC)},
+    "rq": {"rusher_name": ("ids_rb_rushq", ROLE_RUSH)},
+    "sq": {"passer_name": ("ids_qb_sackq", ROLE_PASS)},
+    "fumble": {"rusher_name": ("ids_rb_fumble", ROLE_RUSH)},
+    "play": {"head_coach": ("coach_id", ROLE_PASS)},
+}
+EXACT_FEATURES = len(ST1_FEATURES)   # kFeatures: the ST1 row a play stages
+EXACT_HEAD_VALS = 20                 # kHeadVals: the head values a thread keeps
+EXACT_FOREST_WORDS = 20              # kForestWords
+EXACT_XDIR_VALS = 8                  # kXdirVals
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactForests:
+    """Exact mode's forests as K1 walks them (`exact_forests`), in the order
+    a play walks them: stage 1, stage 2, the pass, rush and sack trios, the
+    fumble head, the play head (the last two where the config reads them).
+    Each forest keeps K5's records (`pack_kernel_records`), its numeric
+    nodes reading the ST1 column of their feature in the staged row (the
+    play head's numerics are a pick of ST1's)."""
+    heads: tuple          # (head, TorchForest, the ST1 column of each numeric,
+                          #  each group's (id table, role) or None) per forest
+    vals: dict            # each head read: its first head value
+    records: torch.Tensor     # (R, 2) int32, every forest's, 16-byte aligned
+    tiles: torch.Tensor       # (n_tiles, 8) int32 (LayoutConsts::tiles)
+    tree_off: torch.Tensor    # (T,) int32 each tree's first record in its tile
+    tree_class: torch.Tensor  # (T,) int32
+    forests: torch.Tensor     # (n_forests, EXACT_FOREST_WORDS) int32
+
+
+def exact_forests(hp: HeadsPack, use_fumble: bool, use_play: bool) -> ExactForests:
+    """The forests of `hp` that a play of exact mode reads (the fumble head
+    where `use_fumble`, the play head where `use_play`) packed for K1, once
+    a HeadsPack and choice (memoized on the pack).  Raises ValueError for a
+    forest K5's records do not take (more than 4 groups, 64 numerics or
+    4,096 records a tree: `pack_kernel_records`), of more than 8 classes,
+    numerics past ST1's, or heads past the kernel's head values."""
+    memo = hp.__dict__.setdefault("_k1_exact", {})
+    key = (bool(use_fumble), bool(use_play))
+    if key in memo:
+        return memo[key]
+    order = ([("stage1", hp.stage1)] + ([("stage2", hp.stage2)] if hp.stage2 is not None else [])
+             + [(h, f) for h in ("pq", "rq", "sq") for f in getattr(hp, h)]
+             + ([("fumble", hp.fumble)] if use_fumble else [])
+             + ([("play", hp.play)] if use_play else []))
+    heads, vals = [], {}
+    recs, tiles, tree_off, tree_class, desc = [], [], [], [], []
+    n_rec = n_tree = n_vals = 0
+    for fi, (head, tf) in enumerate(order):
+        kf = tf.kernel
+        if kf is None:
+            raise ValueError(f"K1 does not take the {head} forest: {tf.kernel_refusal}")
+        if not 1 <= tf.n_classes <= MAX_CLASSES:
+            raise ValueError(f"the {head} forest has {tf.n_classes} classes; K1 sums "
+                             f"1..{MAX_CLASSES}")
+        if head == "play":
+            cols = tuple(ST1_FEATURES.index(n) for n in tf.numeric_names)
+            link, width = EXACT_PLAY_LINK, 1
+        else:
+            if len(tf.numeric_names) > EXACT_FEATURES:
+                raise ValueError(f"the {head} forest reads {len(tf.numeric_names)} numerics; a "
+                                 f"play's row holds ST1's {EXACT_FEATURES}")
+            cols = tuple(range(len(tf.numeric_names)))
+            link = EXACT_LINKS.get(tf.link, EXACT_LINKS["softmax"])
+            width = 1 if tf.link == "sigmoid" else tf.n_classes
+        vals.setdefault(head, n_vals)
+        groups = tuple(_EXACT_GROUPS[head].get(g) for g in tf.group_names)
+        heads.append((head, tf, cols, groups))
+        rec = kf.records.cpu().numpy().copy()
+        meta = rec[:, 1].view(np.uint32)
+        numeric = ((meta & IS_CAT_BIT) == 0) & (kf.node_of.cpu().numpy() >= 0)
+        j = ((meta[numeric] & SLOT_MASK) >> 2).astype(np.int64) - MAX_GROUPS
+        meta[numeric] = ((meta[numeric] & ~np.uint32(SLOT_MASK))
+                         | (4 * (MAX_GROUPS + np.asarray(cols, np.int64)[j])).astype(np.uint32))
+        variant = (tf.n_classes > 1) * 4 + tf.cmp_lt * 2 + tf.zero_as_missing
+        tl = kf.tiles.cpu().numpy().astype(np.int64)
+        for i, (first, nbytes, t0, t1) in enumerate(tl):
+            tiles.append([first + n_rec, nbytes, t0 + n_tree, t1 + n_tree, fi, i == 0,
+                          i == len(tl) - 1, variant])
+        src = [-1] * MAX_GROUPS
+        for g, grp in enumerate(groups):
+            if grp is not None:
+                src[g] = EXACT_ID_TABLES.index(grp[0]) * 4 + grp[1]
+        base = np.zeros(MAX_CLASSES, np.float32)
+        base[:tf.n_classes] = tf.base_margin.cpu().numpy()
+        desc.append([len(tiles) - len(tl), len(tl), tf.n_classes, link, tf.cmp_lt,
+                     tf.zero_as_missing, kf.steps, n_vals, *src, *base.view(np.int32).tolist()])
+        recs.append(rec)
+        tree_off.append(kf.trees.cpu().numpy())
+        tree_class.append(tf.tree_class.cpu().numpy())
+        n_rec, n_tree, n_vals = n_rec + rec.shape[0], n_tree + tf.n_trees, n_vals + width
+    if n_vals > EXACT_HEAD_VALS:
+        raise ValueError(f"the heads give {n_vals} values a play; K1 keeps {EXACT_HEAD_VALS}")
+    dev = hp.stage1.device
+
+    def t(parts):
+        return torch.tensor(np.concatenate(parts) if isinstance(parts, list) else parts,
+                            dtype=torch.int32, device=dev).contiguous()
+
+    out = ExactForests(tuple(heads), vals, t(recs), t(np.asarray(tiles, np.int64)), t(tree_off),
+                       t(tree_class), t(np.asarray(desc, np.int64)))
+    memo[key] = out
+    return out
+
+
+def _direction_consts(pack: MatchupPack, cfg: SimConfig) -> torch.Tensor:
+    """(2G, 5) f32: what the eager step computes from the direction alone
+    (ymult, mz, the red-zone tilts of pass and run, the explosive base), by
+    its own torch expressions on the pack's device."""
+    mc = cfg.matchup
+    gap = pack.off_offense - pack.def_defense
+    tilt_pass = mc.rz_pass_tilt * torch.tanh(gap * analytic.recip(mc.rz_pass_tilt_denom))
+    tilt_run = mc.rz_run_tilt * torch.tanh(gap * analytic.recip(mc.rz_run_tilt_denom))
+    exp_base = mc.explosive_base + mc.explosive_z_k * (gap * analytic.recip(mc.mismatch_denom))
+    return torch.stack([pack.ymult, pack.mz, tilt_pass, tilt_run, exp_base],
+                       dim=1).to(F32).contiguous()
+
+
+def _slot_tables(pack: MatchupPack) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The slots' cumulative shares and tracked flags by role, (3, 2G, K)."""
+    return (torch.stack([pack.qb_cum, pack.rb_cum, pack.wr_cum]).to(F32).contiguous(),
+            torch.stack([pack.qb_tracked, pack.rb_tracked,
+                         pack.wr_tracked]).to(torch.bool).contiguous())
+
+
+def _pack_free_heads(pack: MatchupPack, cfg: SimConfig, hp: Optional[HeadsPack]) -> NanoGameArgs:
+    """K1's inputs for heads that read no table: the analytic closed forms
+    (`hp` None) or exact mode's forests (`hp` a HeadsPack; the fumble head
+    where the config enables fumbles, the play head under use_play_model):
+    the constants, the direction table, per direction the stage-1 bias, the
+    ST1 rows' SP+ columns and the coach's id (`xdirs`), and in exact mode
+    the forests (`exact_forests`, memoized on `hp`) and the pack's id
+    tables."""
+    d = pack.bias.shape[0]
+    c, lay = _config_consts(cfg), LayoutConsts()
+    m = cfg.model
+    lay.force_every = _force_code(cfg.fourth.force)
+    lay.stage1_clip_lo, lay.stage1_clip_hi = m.stage1_clip_lo, m.stage1_clip_hi
+    coach = pack.coach_id.to(I32).view(F32)
+    xdirs = torch.cat([pack.bias.to(F32)[:, None], pack.sp.to(F32), coach[:, None],
+                       pack.bias.new_zeros((d, 2), dtype=F32)], dim=1).contiguous()
+    kind, exact, ids = "analytic", None, None
+    if hp is not None:
+        kind = "exact"
+        exact = exact_forests(hp, hp.fumble is not None and m.enable_fumbles,
+                              hp.play is not None and m.use_play_model)
+        c.has_s2 = hp.stage2 is not None
+        ids = torch.stack([getattr(pack, name) if name != "coach_id"
+                           else pack.coach_id[:, None].expand(d, pack.k)
+                           for name in EXACT_ID_TABLES]).to(I32).contiguous()
+        lay.n_tiles, lay.n_forests, lay.id_k = exact.tiles.shape[0], exact.forests.shape[0], pack.k
+        for head in ("stage1", "stage2", "pq", "rq", "sq", "fumble", "play"):
+            setattr(lay, f"v_{head}", exact.vals.get(head, -1))
+        lay.s2_order[:] = hp.stage2_order
+        lay.sigma_scale = analytic.recip(m.sigma_denom)
+        lay.pass_floor, lay.rush_floor = m.pass_sigma_floor, m.rush_sigma_floor
+        lay.sack_floor = m.sack_sigma_floor
+        lay.play_scale = analytic.recip(max(1e-6, hp.play_temperature))
+        lay.play_pass, lay.play_run = hp.play_pass_idx, hp.play_run_idx
+        lay.play_clip_lo, lay.play_clip_hi = m.play_clip_lo, m.play_clip_hi
+        lay.timeouts = cfg.timeouts
+    return NanoGameArgs(c, _direction_consts(pack, cfg), pack.bias.new_empty(0, dtype=F32),
+                        cfg.engine.early_exit, *_slot_tables(pack), pack.k, lay,
+                        LAYOUT_KINDS.index(kind), kind, (None,) * len(HEAD_TABLES),
+                        xdirs=xdirs, exact=exact, ids=ids)
+
+
 def _check_dirs(t, d: int, what: str) -> None:
     if t.row_map.shape[0] != d:
         raise ValueError(f"the {what} table holds {t.row_map.shape[0]} directions, the pack {d}")
@@ -1102,7 +1338,10 @@ def pack_nano_game(pack: MatchupPack, cfg: SimConfig, th) -> NanoGameArgs:
     device (the same bits as the step's per-game copies), and the player
     slots' cumulative shares and tracked flags by role.  Under
     `use_play_model` with a play table, the play-policy lookup on the
-    coarse profile beside any layout."""
+    coarse profile beside any layout.  `th` None packs the analytic heads,
+    a HeadsPack exact mode's forests (`_pack_free_heads`)."""
+    if th is None or isinstance(th, HeadsPack):
+        return _pack_free_heads(pack, cfg, th)
     d = pack.bias.shape[0]
     c, lay = _config_consts(cfg), LayoutConsts()
     lay.force_every = _force_code(cfg.fourth.force)
@@ -1189,26 +1428,25 @@ def pack_nano_game(pack: MatchupPack, cfg: SimConfig, th) -> NanoGameArgs:
         kind = "heads"
     else:
         kind = "row" if layout == "fused" or has_play or lay.force_every else "nano"
-    mc = cfg.matchup
-    gap = pack.off_offense - pack.def_defense
-    tilt_pass = mc.rz_pass_tilt * torch.tanh(gap * analytic.recip(mc.rz_pass_tilt_denom))
-    tilt_run = mc.rz_run_tilt * torch.tanh(gap * analytic.recip(mc.rz_run_tilt_denom))
-    exp_base = mc.explosive_base + mc.explosive_z_k * (gap * analytic.recip(mc.mismatch_denom))
-    dirs = torch.stack([pack.ymult, pack.mz, tilt_pass, tilt_run, exp_base], dim=1)
-    return NanoGameArgs(c, dirs.to(F32).contiguous(), table, cfg.engine.early_exit,
-                        torch.stack([pack.qb_cum, pack.rb_cum, pack.wr_cum]).to(F32).contiguous(),
-                        torch.stack([pack.qb_tracked, pack.rb_tracked,
-                                     pack.wr_tracked]).to(torch.bool).contiguous(),
-                        pack.k, lay, LAYOUT_KINDS.index(kind), layout, heads, play, play_base)
+    return NanoGameArgs(c, _direction_consts(pack, cfg), table, cfg.engine.early_exit,
+                        *_slot_tables(pack), pack.k, lay, LAYOUT_KINDS.index(kind), layout, heads,
+                        play, play_base)
 
 
 def nano_game_covers(cfg: SimConfig, heads_eval: HeadsEvalFn, heads_state) -> bool:
     """Whether K1 plays a launch of these settings: table heads
     (`heads_eval.table_heads`) on a TableHeads of any layout (nano, fused,
     or per-head tables on the fine and coarse profiles), with the
-    play-policy table or not (it needs the coarse profile), any fourth.force
-    and either collector, both or none.  Exact and analytic heads stay on
-    the eager loop."""
+    play-policy table or not (it needs the coarse profile); exact heads
+    (`heads_eval.exact_heads`) on a HeadsPack with stage 1 and the three
+    trios; analytic heads (`heads_eval.analytic_heads`) with no heads state;
+    any fourth.force and either collector, both or none."""
+    if getattr(heads_eval, "analytic_heads", False):
+        return heads_state is None and cfg.fourth.force in FORCE_CODES
+    if getattr(heads_eval, "exact_heads", False):
+        return (isinstance(heads_state, HeadsPack)
+                and all(getattr(heads_state, n) is not None for n in ("stage1", "pq", "rq", "sq"))
+                and cfg.fourth.force in FORCE_CODES)
     th = heads_state
     if not getattr(heads_eval, "table_heads", False) or th is None:
         return False
@@ -1233,13 +1471,68 @@ def _seg_bin_packed(v: torch.Tensor, g: _Segs) -> torch.Tensor:
     return idx
 
 
+def _nudged_cum(c: NanoConsts, p_inc, p_int, p_sck):
+    """analytic.stage2_nudge on the packed constants: the nudged and
+    renormed (P(inc), P(inc) + P(sack))."""
+    p_inc = torch.clamp_min(p_inc, 0.0)
+    p_int = torch.clamp_min(p_int, 0.0) * c.stage2_int_scale + c.stage2_int_add
+    p_sck = torch.clamp_min(p_sck, 0.0) * c.stage2_sack_scale
+    tot = p_inc + p_int + p_sck
+    tot = torch.where(tot == 0.0, 1.0, tot)
+    s2c0 = p_inc / tot
+    return s2c0, s2c0 + p_sck / tot
+
+
+def _exact_heads(args: NanoGameArgs, dirx, sd, down0, dist0, ytg0, sec0, u):
+    """Exact mode's head channels as K1 computes them from its packed
+    inputs: the play's ST1 rows (`st1_rows`, the SP+ columns from xdirs),
+    the slots sampled, each forest walked on its packed
+    records (`eval_margin_packed`) with its groups' ids from the id tables,
+    its link (`forest_link`, the play head's `play_link`), then
+    `make_exact_heads_eval`'s post-processing."""
+    c, lay, ex = args.consts, args.layout, args.exact
+    xd = args.xdirs[dirx.long()]
+    x = st1_rows(xd[:, 1:5], lay.timeouts, c.half_seconds, down0, dist0, ytg0, sec0, sd)
+    slots = [_sample_slot(args.slot_cum[r], dirx, u[:, draw])
+             for r, draw in enumerate((U_QB, U_RB, U_WR))]
+    vals = {}
+    for head, tf, cols, groups in ex.heads:
+        cat = {name: _gather2k(args.ids[EXACT_ID_TABLES.index(g[0])], dirx, slots[g[1]])
+               for name, g in zip(tf.group_names, groups) if g is not None}
+        m = eval_margin_packed(tf, x[:, list(cols)].contiguous(), cat)
+        out = (play_link(m, lay.play_scale, lay.play_pass, lay.play_run, lay.play_clip_lo,
+                         lay.play_clip_hi) if head == "play" else forest_link(tf, m))
+        vals.setdefault(head, []).append(out)
+    p_c = torch.clamp(vals["stage1"][0] + xd[:, 0], lay.stage1_clip_lo, lay.stage1_clip_hi)
+    s2 = None
+    if "stage2" in vals:
+        probs, o = vals["stage2"][0], lay.s2_order
+        s2 = _nudged_cum(c, probs[:, o[0]], probs[:, o[1]], probs[:, o[2]])
+
+    def ms(head, floor):
+        q = vals[head]
+        return torch.stack([q[1], torch.clamp_min((q[2] - q[0]) * lay.sigma_scale, floor)],
+                           dim=1)
+
+    return (p_c, ms("pq", lay.pass_floor), ms("rq", lay.rush_floor), ms("sq", lay.sack_floor),
+            s2, vals["fumble"][0] if "fumble" in vals else None,
+            vals["play"][0] if "play" in vals else None)
+
+
 def _packed_heads(args: NanoGameArgs, dirx, sd, down0, dist0, ytg0, sec0, u):
     """The play's head channels from the packed tables, as K1 reads them:
     (p_c, pass (mu, sigma), rush, sack, stage 2's cumulative pair or None
     where the analytic stage 2 applies, p_fumble or None, the play table's
     P(pass) or None).  One row by strides (nano, fused), or a lookup a head
-    through its row map keyed on the play's sampled slots (per-head)."""
+    through its row map keyed on the play's sampled slots (per-head); the
+    closed forms (analytic); the forests (exact, `_exact_heads`)."""
     c, lay = args.consts, args.layout
+    if args.table_layout == "analytic":
+        p_c, pass_ms, rush_ms, sack_ms, p_f = analytic_channels(
+            args.xdirs[dirx.long(), 0], dist0, lay.stage1_clip_lo, lay.stage1_clip_hi)
+        return p_c, pass_ms, rush_ms, sack_ms, None, p_f, None
+    if args.table_layout == "exact":
+        return _exact_heads(args, dirx, sd, down0, dist0, ytg0, sec0, u)
     down_i = torch.clamp(down0 - 1, 0, 4)
     sdf = sd.to(F32)
     di = _seg_bin_packed(dist0, c.dist)
@@ -1365,14 +1658,7 @@ def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
         p_int = c.s2_int * (1.0 + 0.10 * long_d)
         p_inc = torch.full_like(p_sck, c.s2_inc)
         tot = p_inc + p_int + p_sck
-        p_inc, p_int, p_sck = p_inc / tot, p_int / tot, p_sck / tot
-        p_inc = torch.clamp_min(p_inc, 0.0)
-        p_int = torch.clamp_min(p_int, 0.0) * c.stage2_int_scale + c.stage2_int_add
-        p_sck = torch.clamp_min(p_sck, 0.0) * c.stage2_sack_scale
-        tot = p_inc + p_int + p_sck
-        tot = torch.where(tot == 0.0, 1.0, tot)
-        s2c0 = p_inc / tot
-        s2c1 = s2c0 + p_sck / tot
+        s2c0, s2c1 = _nudged_cum(c, p_inc / tot, p_int / tot, p_sck / tot)
     if p_f is None:
         p_f = torch.zeros_like(p_c)
 
@@ -1690,6 +1976,16 @@ def _launch_layout(args: NanoGameArgs, dev: torch.device, force: Optional[str],
                                    for name, t in zip(HEAD_TABLES, args.heads) if t is not None]
     if args.play is not None:
         tables += [("play values", args.play, F32), ("play rows", args.play_base, torch.int64)]
+    if args.xdirs is not None:
+        tables.append(("direction floats", args.xdirs, F32))
+    if args.exact is not None:
+        ex = args.exact
+        tables += [("forest records", ex.records, I32), ("forest tiles", ex.tiles, I32),
+                   ("tree offsets", ex.tree_off, I32), ("tree classes", ex.tree_class, I32),
+                   ("forests", ex.forests, I32), ("id tables", args.ids, I32)]
+        if ex.records.data_ptr() % 16:
+            raise ValueError("the forest records must be 16-byte aligned (K1 copies tiles of "
+                             "them by cp.async.bulk)")
     for what, t, dtype in tables:
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"the {what} must be a contiguous {dtype} tensor on {dev}, got "
@@ -1699,6 +1995,14 @@ def _launch_layout(args: NanoGameArgs, dev: torch.device, force: Optional[str],
             lay.heads[i].values, lay.heads[i].row_map = t[0].data_ptr(), t[1].data_ptr()
     if args.play is not None:
         lay.play, lay.play_base = args.play.data_ptr(), args.play_base.data_ptr()
+    if args.xdirs is not None:
+        lay.xdirs = args.xdirs.data_ptr()
+    if args.exact is not None:
+        ex = args.exact
+        lay.recs, lay.tiles, lay.tree_off = (ex.records.data_ptr(), ex.tiles.data_ptr(),
+                                             ex.tree_off.data_ptr())
+        lay.tree_class, lay.forests = ex.tree_class.data_ptr(), ex.forests.data_ptr()
+        lay.ids = args.ids.data_ptr()
     return lay
 
 
@@ -1741,13 +2045,16 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     `launches_per_head` those on those table layouts, `launches_play` those
     reading the play-policy table, `launches_forced` those with a forced
     first play, `launches_compiled` those of the score-only one-row
-    layouts whose options are fixed at compile time."""
+    layouts whose options are fixed at compile time, `launches_exact` and
+    `launches_analytic` those of exact mode's forests and of the analytic
+    heads."""
     n = s.off.shape[0]
     dev = s.sec.device
     collected = ([("stats", s.stats, (n, 2, N_TEAM_STATS))] if collect_stats else []) + (
         [("pstats", s.pstats, (n, 2, 3, args.k, N_PLAYER_STATS))] if collect_players else [])
     per_head = args.table_layout == "per_head"
-    with_cum = collect_players or per_head
+    exact = args.table_layout == "exact"
+    with_cum = collect_players or per_head or exact
     tensors = ([getattr(s, f) for f, _ in _NANO_IN] + [args.table, args.dirs]
                + [t for _, t, _ in collected]
                + ([args.slot_cum] if with_cum else [])
@@ -1827,7 +2134,9 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     f.launches_per_head += per_head
     f.launches_play += args.play is not None
     f.launches_forced += force is not None
-    f.launches_compiled += kind >= LAYOUT_KINDS.index("row bare")
+    f.launches_compiled += kind in range(LAYOUT_KINDS.index("row bare"), _FREE_KINDS[0])
+    f.launches_exact += exact
+    f.launches_analytic += args.table_layout == "analytic"
     off, sec, down, dist, ytg, period, in_rz, going, score = outs
     return GameState(gid=s.gid, fo=s.fo, off=off, sec=sec, down=down, dist=dist, ytg=ytg,
                      period=period, in_rz=in_rz, going=going, score=score, stats=s.stats,
@@ -1836,7 +2145,8 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
 
 # the launch counts (`nano_game_cuda`'s docstring), set to 0 by the smoke
 NANO_COUNTERS = ("launches", "launches_collecting", "launches_fused", "launches_per_head",
-                 "launches_play", "launches_forced", "launches_compiled")
+                 "launches_play", "launches_forced", "launches_compiled", "launches_exact",
+                 "launches_analytic")
 for _name in NANO_COUNTERS:
     setattr(nano_game_cuda, _name, 0)
 

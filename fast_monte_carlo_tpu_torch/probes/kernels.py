@@ -9,8 +9,8 @@ two versions are timed in one call, one process each; an earlier commit is
 timed by its own copy of this probe, from its `git archive`),
 prints the registers and spill bytes of each kernel it times (`nvcc
 -Xptxas -v`;
-`--sass DIR` also writes the game and gather kernels' `cuobjdump -sass`
-there and prints the gather kernels' instruction counts) and
+`--sass DIR` also writes each built source's `cuobjdump -sass` there and
+prints the gather kernels' instruction counts) and
 the device time per call of each kernel at the shapes `chip_smoke.py`
 times (row_gather at every gather probe's shape, beside `index_select` and
 its bytes bound: `gather_yardsticks`), of a step of
@@ -38,8 +38,10 @@ on fused tables over a 60-matchup slate launch (`fused_slate_time`).
 Copied into an earlier commit's archive, it times that commit's kernels
 and wrappers the same way (`kind_of`).
 `--games-only` times K1 and K2 alone.  `--sass-against FILE` compares the
-nano instantiations' SASS with FILE's (another commit's `--sass` output),
-instruction for instruction.  The last line is one JSON object of the
+nano instantiations' SASS with FILE's (another commit's `--sass` output of
+nano_game.cu), instruction for instruction; `--sass-against DIR`, another
+commit's whole `--sass` directory, compares every kernel there (K5's, every
+K1 instantiation) with the kernel of the same mangled name here.  The last line is one JSON object of the
 times.
 philox_draws is timed at row offset `DRAW_ROW0` (the rows a second rank
 plays); a DIR whose philox_draws.cu predates the row offset (its launcher
@@ -662,7 +664,6 @@ def compare_nano_sass(new: Path, old: Path) -> Dict[str, dict]:
     in the SASS dump `new`, each against its counterpart in `old` (a
     dump of a commit whose kernel took the collectors alone as template
     arguments): instructions each and the lines that differ."""
-    import difflib
     import re
 
     nf, of = sass_functions(new.read_text()), sass_functions(old.read_text())
@@ -673,14 +674,42 @@ def compare_nano_sass(new: Path, old: Path) -> Dict[str, dict]:
             continue
         key = f"ILi0ELb{m.group(1)}ELb{m.group(2)}E"
         match = [k for k in nf if key in k]
-        if not match:
-            continue
-        nins = nf[match[0]]
-        diff = [ln for ln in difflib.unified_diff(oins, nins, lineterm="", n=0)
-                if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
-        out[f"stats {m.group(1)}, players {m.group(2)}"] = {
-            "instructions": len(nins), "old_instructions": len(oins),
+        if match:
+            out[f"stats {m.group(1)}, players {m.group(2)}"] = _sass_diff(nf[match[0]], oins)
+    return out
+
+
+def _sass_diff(nins: list, oins: list) -> dict:
+    import difflib
+
+    diff = [ln for ln in difflib.unified_diff(oins, nins, lineterm="", n=0)
+            if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+    return {"instructions": len(nins), "old_instructions": len(oins),
             "differing_lines": len(diff), "identical": nins == oins}
+
+
+def compare_sass_dir(new: Path, old: Path) -> Dict[str, dict]:
+    """Every kernel of each dump in the directory `old` (another commit's
+    `--sass` output) against the kernel of the same mangled name in this
+    run's dump of the same source in `new` (the anonymous namespace's
+    hash, which follows the file's bytes, left out), instruction for
+    instruction: {"<source> <kernel>": instructions each and the lines that
+    differ}."""
+    import re
+
+    def named(dump: Path) -> Dict[str, list]:
+        return {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", k): v
+                for k, v in sass_functions(dump.read_text()).items()}
+
+    out = {}
+    for dump in sorted(old.glob("*.sass")):
+        mine = new / dump.name
+        if not mine.exists():
+            continue
+        nf = named(mine)
+        for name, oins in named(dump).items():
+            if name in nf:
+                out[f"{dump.stem} {name}"] = _sass_diff(nf[name], oins)
     return out
 
 
@@ -722,10 +751,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     only.add_argument("--gathers-only", action="store_true",
                       help="time row_gather and row_gather_sum alone")
     ap.add_argument("--sass", type=Path, metavar="DIR",
-                    help="write the SASS of nano_game.cu, score_moments.cu and row_gather.cu "
-                         "into DIR")
-    ap.add_argument("--sass-against", type=Path, metavar="FILE",
-                    help="compare the nano instantiations' SASS with FILE's (needs --sass)")
+                    help="write the SASS of each source it builds into DIR")
+    ap.add_argument("--sass-against", type=Path, metavar="PATH",
+                    help="compare the nano instantiations' SASS with FILE's, or, given a "
+                         "directory of another commit's --sass output, every kernel of it "
+                         "with the kernel of the same name here (needs --sass)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernels: this probe needs an NVIDIA card", file=sys.stderr)
@@ -744,7 +774,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     usage = {}
     for name in timed:
         sass = None
-        if args.sass is not None and name in GAME_SOURCES + GATHER_SOURCES:
+        if args.sass is not None:
             args.sass.mkdir(parents=True, exist_ok=True)
             sass = args.sass / f"{name}.sass"
         usage.update(cuda_build.ptxas_usage(name, csrc, sass))
@@ -752,7 +782,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"  {kernel}: {u['registers']} registers, spill stores {u['spill_stores']} B, "
               f"spill loads {u['spill_loads']} B")
     sass_cmp = {}
-    if args.sass is not None and args.sass_against is not None and "nano_game" in timed:
+    if args.sass is not None and args.sass_against is not None and args.sass_against.is_dir():
+        sass_cmp = compare_sass_dir(args.sass, args.sass_against)
+        for what, c in sass_cmp.items():
+            print(f"  {what}: {c['instructions']} instructions against "
+                  f"{c['old_instructions']}, {'identical' if c['identical'] else 'differing'} "
+                  f"({c['differing_lines']} lines of the diff)")
+    elif args.sass is not None and args.sass_against is not None and "nano_game" in timed:
         sass_cmp = compare_nano_sass(args.sass / "nano_game.sass", args.sass_against)
         for what, c in sass_cmp.items():
             print(f"  nano_game nano layout, {what}: {c['instructions']} instructions against "
@@ -766,7 +802,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.sass is not None and "nano_game" in timed:
         k1 = {"this": k1_sass_sizes(args.sass / "nano_game.sass")}
         if args.sass_against is not None:
-            k1["against"] = k1_sass_sizes(args.sass_against)
+            k1["against"] = k1_sass_sizes(args.sass_against if args.sass_against.is_file()
+                                          else args.sass_against / "nano_game.sass")
         for which, by in k1.items():
             for inst, count in by.items():
                 print(f"  nano_game SASS ({which}), {inst}: {count} instructions")

@@ -453,8 +453,9 @@ def test_each_launch_takes_its_instantiation(env):
     with neither the play table nor a forced first play (fused tables,
     fourth.force on every play) takes 'row bare', with the play table 'row
     play', with a forced first play 'row forced'; with both, or with a
-    collector, the general 'row'; per-head tables 'heads'.  Every kind it
-    gives is one of the kernel's instantiations (NANO_INSTANTIATIONS)."""
+    collector, the general 'row'; per-head tables 'heads'; the analytic
+    heads 'analytic', forced or with a collector too.  Every kind it gives
+    is one of the kernel's instantiations (NANO_INSTANTIATIONS)."""
     pack, cfg = _nano_pack()
     nano_th = ttl.pack_tables(*fixtures.nano_tables(TABLE_SEED), device="cpu")
     fused_th = ttl.pack_tables(*fixtures.fused_tables(TABLE_SEED), device="cpu",
@@ -466,7 +467,8 @@ def test_each_launch_takes_its_instantiation(env):
               "fused": tg.pack_nano_game(pack, cfg, fused_th),
               "play": tg.pack_nano_game(pack, pcfg, with_play_table(nano_th)),
               "every": tg.pack_nano_game(pack, ecfg, nano_th),
-              "heads": tg.pack_nano_game(hpack, hcfg, hth)}
+              "heads": tg.pack_nano_game(hpack, hcfg, hth),
+              "analytic": tg.pack_nano_game(pack, cfg, None)}
     box = dict(collect_stats=True)
     cases = [("nano", None, {}, "nano"), ("nano", "go", {}, "row forced"),
              ("nano", "fg", box, "row"), ("nano", None, box, "nano"),
@@ -474,11 +476,12 @@ def test_each_launch_takes_its_instantiation(env):
              ("fused", None, dict(collect_players=True), "row"),
              ("play", None, {}, "row play"), ("play", "go", {}, "row"),
              ("play", None, box, "row"), ("every", None, {}, "row bare"),
-             ("heads", None, {}, "heads"), ("heads", "go", {}, "heads")]
+             ("heads", None, {}, "heads"), ("heads", "go", {}, "heads"),
+             ("analytic", None, {}, "analytic"), ("analytic", "go", box, "analytic")]
     for what, force, coll, want in cases:
         kind = tg.nano_kind(packed[what], force, **coll)
         assert tg.LAYOUT_KINDS[kind] == want, (what, force, coll)
         inst = (kind, coll.get("collect_stats", False), coll.get("collect_players", False))
         assert inst in tg.NANO_INSTANTIATIONS, (what, force, coll)
-    assert len(set(tg.NANO_INSTANTIATIONS)) == 15
+    assert len(set(tg.NANO_INSTANTIATIONS)) == 23
 

@@ -331,8 +331,8 @@ COVER_CASES = {
     "fused_layout": ("table", {"nano": None, "fused": "fused"}, None, False, False, True),
     "play_table_without_coarse": ("table", {"play": "play", "coarse": None}, _PLAY, False,
                                   False, False),
-    "analytic": ("analytic", {}, None, False, False, False),
-    "exact": ("exact", {}, None, False, False, False),
+    "analytic": ("analytic", {}, None, False, False, True),
+    "exact": ("exact", {}, None, False, False, False),    # no HeadsPack
 }
 
 
@@ -342,10 +342,12 @@ def test_nano_game_covers_exactly_the_score_only_nano_launches(case):
     per-head tables' cases are tests/test_torch_k1_layouts.py's), with or
     without the play-policy lookup, under any fourth.force, whichever
     collectors the launch asks for (K1 has an instantiation for each);
-    exact and analytic heads, and a play table without the coarse profile
-    its cells are on, stay on the eager loop.  The collectors decide the
-    instantiation, never whether K1 plays.  Where it plays, its plain
-    version on the launch's settings gives what the eager loop gives."""
+    the analytic heads too (tests/test_torch_k1_heads.py covers them and
+    exact mode's); exact heads with no HeadsPack, and a play table without
+    the coarse profile its cells are on, stay on the eager loop.  The
+    collectors decide the instantiation, never whether K1 plays.  Where it
+    plays, its plain version on the launch's settings gives what the eager
+    loop gives."""
     heads, change, cfg_change, players, stats, covered = COVER_CASES[case]
     cfg = SimConfig()
     if cfg_change == "go":
