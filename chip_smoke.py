@@ -2261,6 +2261,31 @@ def forest_bound(f, tf, leaves, n_feat: int) -> tuple:
     return nbytes, counts
 
 
+def exact_walk_costs(args, per_forest: dict) -> list:
+    """The FOREST_* counts of one (row, tree) walk of each forest of
+    `args.exact` (K1's order), as this phase's K5 rows of that forest take
+    them (`per_forest[name]["counts"]` over K5_BS[0] rows x its trees;
+    phase 12's names: stage1, stage2, pq0-pq2, rq0-rq2, sq0-sq2, fumble,
+    play)."""
+    seen, out = {}, []
+    for head, tf, *_ in args.exact.heads:
+        i = seen[head] = seen.get(head, -1) + 1
+        name = head if head in ("stage1", "stage2", "fumble", "play") else f"{head}{i}"
+        out.append({c: v / (K5_BS[0] * tf.n_trees)
+                    for c, v in per_forest[name]["counts"].items()})
+    return out
+
+
+def exact_walk(costs: list, walks, plays: int) -> dict:
+    """FOREST_* counts a play of walks `walks` (a launch's, forest by
+    forest) at `costs` a walk (`exact_walk_costs`) over its `plays`."""
+    out = {}
+    for cost, w in zip(costs, walks):
+        for c, v in cost.items():
+            out[c] = out.get(c, 0.0) + v * float(w) / plays
+    return out
+
+
 def phase_exact(card: str, plain_games: int = EXACT_PLAIN_GAMES) -> dict:
     """Exact mode and tables from heads, on fixtures.heads(0, "reference")
     (`probes.kernels.k5_forests`); K1's exact launch held to
@@ -2360,31 +2385,33 @@ def phase_exact(card: str, plain_games: int = EXACT_PLAIN_GAMES) -> dict:
           f"CUDA and the CPU in {n - bad.sum():,} ({bad.sum()} differ, at most 0.5%)")
 
     # K1's exact instantiation alone at the main path's launch: held ms beside
-    # its bound on this launch's plays, the walks counted a row as this
-    # phase's K5 rows take them (the 11 forests a play)
+    # its bound on the walks this launch's plays read (its walk counter,
+    # each (row, tree) walk costing what this phase's K5 rows of the forest
+    # take a walk) and beside the bound on every forest's walks a play
     a, b = fixtures.teams()
-    walk = {c: sum(per_forest[k]["counts"].get(c, 0.0) for k in play) / K5_BS[0]
-            for c in RATES if c != "bytes"}
     pk, hpk = build_packs(a, b, heads, cfg, dev)
     x_args = game.pack_nano_game(pk, cfg, hpk)
+    costs = exact_walk_costs(x_args, per_forest)
     check(len(x_args.exact.heads) == len(play),
-          f"K1's exact instantiation walks the {len(play)} forests a play reads "
-          f"({x_args.exact.tiles.shape[0]} tiles, {x_args.exact.records.shape[0]:,} records)")
+          f"K1's exact instantiation packs the {len(play)} forests a play may read "
+          f"({x_args.exact.tiles.shape[0]} tiles, {x_args.exact.records.shape[0]:,} records), "
+          f"phases at forests {x_args.exact.phase_forest}")
     fo = torch.arange(EXACT_LAUNCH_GAMES, dtype=torch.int32, device=dev) % 2
     score_only = dict(collect_players=False, collect_stats=False)
     s0 = game.initial_state(EXACT_LAUNCH_GAMES, fo, cfg, dev, **score_only)
     k1x = _k1_timed(card, "nano_game exact (reference-shape heads, the main path's launch)",
-                    x_args, s0, 41, score_only, reps=2, walk=walk,
+                    x_args, s0, 41, score_only, reps=2, walk_costs=costs,
                     plain=plain_games == EXACT_LAUNCH_GAMES)
     del s0
     if plain_games != EXACT_LAUNCH_GAMES:
         # the plain version walks 11 forests in torch a play: about 18 s
-        # at 4,096 games on an H100, 265 s at 65,536
+        # at 4,096 games on an H100, 265 s at 65,536; its walk count is held
+        # to the kernel's counter
         fp = torch.arange(plain_games, dtype=torch.int32, device=dev) % 2
         held = _k1_timed(card, "nano_game exact (reference-shape heads) against its plain "
                          "version", x_args, game.initial_state(plain_games, fp, cfg, dev,
                                                                 **score_only),
-                         41, score_only, reps=2, walk=walk)
+                         41, score_only, reps=2, walk_costs=costs)
         k1x.update(plain_ms=held["plain_ms"], max_abs_err=held["max_abs_err"])
     k1x["plain_games"] = plain_games
     # simulate_games (one K1 launch) against the eager loop (K5 a forest a
@@ -2462,7 +2489,7 @@ def phase_exact(card: str, plain_games: int = EXACT_PLAIN_GAMES) -> dict:
           f"({card})")
     return {**row, "launches": counts["forest_eval"], "exact_gps": gps["exact"],
             "table_gps": gps["table"], "analytic_gps": gps["analytic"], "build_s": build_s,
-            "walk": walk, "k1_exact": k1x}
+            "k1_exact": k1x}
 
 
 def _columns_summary(scores, team_a: str, device="cuda"):
@@ -4229,7 +4256,7 @@ def layout_counts(args, walk: Optional[dict] = None) -> dict:
     by LAYOUT rules above: NANO_COUNTS less the nano profile's binning,
     plus the layout's binning and lookups.  The heads that read no table:
     less the row's loads too; in exact mode the three slots sampled and
-    `walk`, the forests' walks a row (the FOREST_* counts)."""
+    `walk`, the FOREST_* counts a play of the walks taken (`exact_walk`)."""
     import math
 
     def nsegs(g):
@@ -4291,8 +4318,8 @@ def table_read_bytes(args, plays: int) -> float:
 def layout_bound(args, games: int, plays: int, accrual: Optional[dict] = None,
                  walk: Optional[dict] = None) -> dict:
     """`bound` of one K1 launch on any layout (`nano_bound`'s terms with
-    `layout_counts` a play, `walk` the forests' a row in exact mode, and
-    `table_read_bytes`)."""
+    `layout_counts` a play, `walk` the walks' counts a play in exact mode,
+    and `table_read_bytes`)."""
     return _k1_bound(games * (NANO_STATE_IN + NANO_STATE_OUT) + table_read_bytes(args, plays),
                      per(layout_counts(args, walk), plays), plays, accrual)
 
@@ -4597,15 +4624,17 @@ def phase_nano_game(card: str, layouts: Optional[dict] = None,
 
 
 def _k1_timed(card: str, what: str, args, s, key: int, coll: dict, force=None, reps: int = 10,
-              anti: bool = False, plain: bool = True, walk: Optional[dict] = None) -> dict:
+              anti: bool = False, plain: bool = True, walk_costs: Optional[list] = None) -> dict:
     """One K1 launch on the packed inputs `args` from state `s`: held ms
     (`times`, `reps` calls), the bound on this launch's plays
-    (`layout_bound`, `walk` the forests' counts a row in exact mode; with
-    both collectors on, from zero stats, their work too), the plain
-    version's device time (one profiled call, where `plain`; in exact mode,
-    whose plain version launches hundreds of thousands of kernels, one call
-    by CUDA events, its games held to K1's: `max_abs_err`), printed beside
-    the card."""
+    (`layout_bound`; with both collectors on, from zero stats, their work
+    too; in exact mode the walks its plays read, by the kernel's walk
+    counter at `walk_costs` a walk, and beside it the bound on every
+    forest's walks a play, `bound_all_ms`), the plain version's device time
+    (one profiled call, where `plain`; in exact mode, whose plain version
+    launches hundreds of thousands of kernels, one call by CUDA events, its
+    games held to K1's, `max_abs_err`, and its walk count to the
+    counter's), printed beside the card."""
     import torch
     from fast_monte_carlo_tpu_torch import api
     from fast_monte_carlo_tpu_torch.ops import game, rng
@@ -4613,28 +4642,52 @@ def _k1_timed(card: str, what: str, args, s, key: int, coll: dict, force=None, r
     fk = rng.fold_in(key, api.FORCED_PLAY_STREAM) if force else None
     kw = dict(coll, force=force, force_key=fk)
     n = s.off.shape[0]
+    exact = args.table_layout == "exact"
 
     def fresh():
         return game.GameState(*(f.clone() for f in s))
 
     plays = torch.zeros(1, dtype=torch.int64, device=s.sec.device)
-    first = game.nano_game_cuda(args, fresh(), key, 0, anti, plays=plays, **kw)
+    walks = (torch.zeros(args.exact.forests.shape[0], dtype=torch.int64, device=s.sec.device)
+             if exact else None)
+    first = game.nano_game_cuda(args, fresh(), key, 0, anti, plays=plays,
+                                **(dict(walks=walks) if exact else {}), **kw)
     both = coll.get("collect_players") and coll.get("collect_stats")
-    bd = layout_bound(args, n, int(plays), accrual_work(first) if both else None, walk)
+    accrual = accrual_work(first) if both else None
+    extra, walk_note = {}, ""
+    if exact:
+        trees = [tf.n_trees for _, tf, *_ in args.exact.heads]
+        every = [int(plays) * t for t in trees]
+        share = float(walks.sum()) / sum(every)
+        check(0 < share < 1, f"{what}: the plays read {int(walks.sum()):,} of every forest's "
+              f"{sum(every):,} (row, tree) walks ({share:.1%}), some and not all")
+        bd = layout_bound(args, n, int(plays), accrual, exact_walk(walk_costs, walks, int(plays)))
+        bd_all = layout_bound(args, n, int(plays), accrual, exact_walk(walk_costs, every,
+                                                                         int(plays)))
+        extra = {"walks": walks.tolist(), "walk_share": share, "bound_all_ms": bd_all["bound_ms"]}
+        walk_note = (f"; {share:.1%} of every forest's walks read, the bound on them all "
+                     f"{bd_all['bound_ms']:.4f} ms")
+    else:
+        bd = layout_bound(args, n, int(plays), accrual)
     start = fresh()
     ms, _, how = times(lambda: game.nano_game_cuda(args, start, key, 0, anti, **kw), reps)
     plain_ms, plain_how, err = float("nan"), "not run", {}
-    if plain and args.table_layout == "exact":
-        # one call by events, no warm-up; its games held to K1's first launch's
+    if plain and exact:
+        # one call by events, no warm-up; its games held to K1's first
+        # launch's, its walk count (`exact_heads_read`) to the counter's
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start_plain = fresh()
+        plain_walks = torch.zeros_like(walks)
         e0.record()
-        want = game.nano_game_plain(args, start_plain, key, 0, anti, **kw)
+        want = game.nano_game_plain(args, start_plain, key, 0, anti, walks=plain_walks, **kw)
         e1.record()
         torch.cuda.synchronize()
         plain_ms, plain_how = e0.elapsed_time(e1), "events"
         err = {"max_abs_err": nano_diff(want, first, f"K1 against nano_game_plain, {what}, "
                                         f"{n:,} games")}
+        check(torch.equal(plain_walks, walks), f"{what}, {n:,} games: K1's walk counter "
+              f"equals nano_game_plain's count forest by forest ({walks.tolist()}; plain "
+              f"{plain_walks.tolist()})")
         del want, start_plain
     elif plain:
         prof = device_profile(lambda: game.nano_game_plain(args, fresh(), key, 0, anti, **kw), 1,
@@ -4642,20 +4695,23 @@ def _k1_timed(card: str, what: str, args, s, key: int, coll: dict, force=None, r
         plain_ms, plain_how = (prof[0], "profiler") if prof else (float("nan"), "not recorded")
     print(f"  {what} at {n:,} games ({int(plays):,} plays, {int(plays) / n:.1f} a game): K1 "
           f"{ms:.4f} ms ({how}), bound {bd['bound_ms']:.4f} ms ({bd['bound_class']}; "
-          f"{bd['bound_ms'] / ms:.1%} of it); nano_game_plain {plain_ms:.2f} ms device "
-          f"({plain_how}) ({card})")
-    return {"ms": ms, "plain_ms": plain_ms, "plays": int(plays), **bd, **err}
+          f"{bd['bound_ms'] / ms:.1%} of it){walk_note}; nano_game_plain {plain_ms:.2f} ms "
+          f"device ({plain_how}) ({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "plays": int(plays), **bd, **err, **extra}
 
 
 def phase_k1_heads(card: str, exact: Optional[dict]) -> dict:
     """Phase 21's heads that read no table: K1's exact instantiation (the
     small heads on the focus roster: score-only, both collectors with the
-    fumble and play heads on, a forced go; the tiled heads, stage 1 and the
-    play head over eight tiles each, with both collectors; a 3-matchup
-    slate with rosters and both collectors) and its analytic one
-    (score-only, both collectors antithetic, a forced go) against the eager
-    loop (`simulate_games_eager`: K5 a forest a play in exact mode) and
-    `nano_game_plain` on the card, K1_HEADS_GAMES games each, 0 differing
+    fumble and play heads on, the box score alone with the play head, the
+    player stats alone with the fumble head in a ragged launch, no stage 2
+    in a launch of 37 games, a forced go, a forced punt with both
+    collectors; the tiled heads, stage 1 and the play head over eight tiles
+    each, with both collectors; a 3-matchup slate with rosters and both
+    collectors) and its analytic one (score-only, both collectors
+    antithetic, a forced go) against the eager loop (`simulate_games_eager`:
+    K5 a forest a play in exact mode) and `nano_game_plain` on the card,
+    K1_HEADS_GAMES games each where no other count is named, 0 differing
     allowed; each instantiation's registers and local bytes; then the JSON
     rows: the exact instantiation's from phase 12 (`exact["k1_exact"]`: the
     main path's 65,536-game launch on the reference-shape heads; its plain
@@ -4672,49 +4728,69 @@ def phase_k1_heads(card: str, exact: Optional[dict]) -> dict:
     cfg = SimConfig()
     full = cfg.replace(model=dataclasses.replace(cfg.model, enable_fumbles=True,
                                                  use_play_model=True))
+    play_only = cfg.replace(model=dataclasses.replace(cfg.model, use_play_model=True))
+    fumble_only = cfg.replace(model=dataclasses.replace(cfg.model, enable_fumbles=True))
     anti = cfg.replace(engine=dataclasses.replace(cfg.engine, antithetic=True))
     small = fixtures.heads(K1_HEADS_SEED, "small")
     tiled = fixtures.heads(K1_HEADS_SEED, "tiled")
     focus = fixtures.focus_teams(FOCUS_SEED)
     key = rng.root_key(27)
     n = K1_HEADS_GAMES
-    fo = torch.arange(n, dtype=torch.int32, device=dev) % 2
     errs = {"exact": 0.0, "analytic": 0.0}
-    for mode, what, c, players, stats, force, heads in (
-            ("exact", "score-only", cfg, False, False, None, small),
-            ("exact", "both collectors, fumble and play heads", full, True, True, None, small),
-            ("exact", "a forced go from 4th and 2", cfg, False, False, "go", small),
+    # (mode, what, config, players, stats, forced first play, heads, games,
+    # stage 2 dropped from the HeadsPack): exact mode walks only the
+    # forests each play reads, so every choice of heads and collectors,
+    # ragged launches and the forced plays are played
+    for mode, what, c, players, stats, force, heads, games, no_s2 in (
+            ("exact", "score-only", cfg, False, False, None, small, n, False),
+            ("exact", "both collectors, fumble and play heads", full, True, True, None, small,
+             n, False),
+            ("exact", "box score only, play head, no fumble head", play_only, False, True,
+             None, small, n, False),
+            ("exact", "player stats only, fumble head, no play head, ragged", fumble_only,
+             True, False, None, small, 1_000, False),
+            ("exact", "no stage 2, play and fumble heads, ragged", full, False, False, None,
+             small, 37, True),
+            ("exact", "a forced go from 4th and 2", cfg, False, False, "go", small, n, False),
+            ("exact", "a forced punt from 4th and 2, both collectors, play head", play_only,
+             True, True, "punt", small, 1_000, False),
             ("exact", "tiled heads, both collectors, fumble and play heads", full, True, True,
-             None, tiled),
-            ("analytic", "score-only", cfg, False, False, None, small),
-            ("analytic", "both collectors, antithetic", anti, True, True, None, small),
-            ("analytic", "a forced go from 4th and 2", cfg, False, False, "go", small)):
+             None, tiled, n, False),
+            ("analytic", "score-only", cfg, False, False, None, small, n, False),
+            ("analytic", "both collectors, antithetic", anti, True, True, None, small, n, False),
+            ("analytic", "a forced go from 4th and 2", cfg, False, False, "go", small, n, False)):
         pack, hp = build_packs(*focus, heads, c, dev, fixtures.COACH_MAP)
+        if no_s2:
+            hp = dataclasses.replace(hp, stage2=None)
         hs = hp if mode == "exact" else None
         he = (game.make_exact_heads_eval if mode == "exact" else game.make_analytic_heads_eval)(c)
         coll = dict(collect_players=players, collect_stats=stats)
+        fo = torch.arange(games, dtype=torch.int32, device=dev) % 2
         if force:
-            s0 = game.state_from_situation(n, game.Situation(fo, 1500, 4, 2.0, 45.0, 10, 14), c,
-                                           dev, 0, pack.k, **coll)
+            s0 = game.state_from_situation(games, game.Situation(fo, 1500, 4, 2.0, 45.0, 10, 14),
+                                           c, dev, 0, pack.k, **coll)
         else:
-            s0 = game.initial_state(n, fo, c, dev, 0, pack.k, **coll)
+            s0 = game.initial_state(games, fo, c, dev, 0, pack.k, **coll)
         fk = rng.fold_in(key, api.FORCED_PLAY_STREAM) if force else None
         kw = dict(coll, first_play_force=force, first_play_key=fk)
         before = launch_count(f"nano_game_{mode}")
-        got = game.simulate_games(pack, c, he, hs, key, n, 0, init_state=game.GameState(
+        got = game.simulate_games(pack, c, he, hs, key, games, 0, init_state=game.GameState(
             *(f.clone() for f in s0)), **kw)
         check(launch_count(f"nano_game_{mode}") == before + 1,
               f"{mode}, {what}: simulate_games on the card was one K1 launch")
-        want = game.simulate_games_eager(pack, c, he, hs, key, n, 0, init_state=game.GameState(
-            *(f.clone() for f in s0)), **kw)
+        want = game.simulate_games_eager(pack, c, he, hs, key, games, 0,
+                                         init_state=game.GameState(*(f.clone() for f in s0)),
+                                         **kw)
         plain = game.nano_game_plain(game.pack_nano_game(pack, c, hs), game.GameState(
-            *(f.clone() for f in s0)), key, 0, c.engine.antithetic and n % 4 == 0, force=force,
-            force_key=fk, **coll)
+            *(f.clone() for f in s0)), key, 0, c.engine.antithetic and games % 4 == 0,
+            force=force, force_key=fk, **coll)
+        what = f"{what}, {games:,} games"
         errs[mode] = max(errs[mode], nano_diff(want, got, f"K1 against the eager loop, {mode} "
                                                f"heads, {what}"),
                          nano_diff(plain, got, f"K1 against nano_game_plain, {mode} heads, "
                                    f"{what}"))
     # exact mode over a 3-matchup pack with rosters: game g of matchup g % 3
+    fo = torch.arange(n, dtype=torch.int32, device=dev) % 2
     dirs = []
     for x, y in fixtures.focus_slate(3, 11)[0]:
         dirs += [build_direction(x, y, full, small, fixtures.COACH_MAP),

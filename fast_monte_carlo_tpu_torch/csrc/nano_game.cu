@@ -77,32 +77,51 @@
 //   constant fumble probability, no play head; no table.
 // - kLayoutExact: exact mode.  Each play stages the game's 17 ST1 features
 //   (`stage_features`) in the thread's row of shared memory, samples the
-//   QB, rusher and target slots from the slots' Philox block, and walks
-//   every forest the config reads (stage 1, stage 2, the three quantile
-//   trios, the fumble and play heads) on that row with K5's design
-//   (forest_eval.cu; a walk's level shared through forest_walk.cuh): the
-//   launch's tiles of whole trees stream through two shared buffers by
-//   cp.async.bulk under an mbarrier each, the same cyclic order every play,
-//   thread 0 copying a tile as soon as its buffer is free (the next play's
-//   first tiles at a play's end, awaited before the block exits); a thread
-//   walks kWalks trees of its row at once and adds the leaves to its class
-//   sums in tree order.  A forest's first tile puts its groups' ids (the
-//   pack's id tables at the play's slots, the coach's by direction) in the
-//   row's first words; its last turns the sums into head values (its link,
+//   QB, rusher and target slots from the slots' Philox block, and walks the
+//   forests the config reads (stage 1, stage 2, the three quantile trios,
+//   the fumble and play heads) with K5's design (forest_eval.cu; a walk's
+//   level shared through forest_walk.cuh), but only on the rows whose play
+//   reads them.  A play runs in phases: phase 0 walks nothing and
+//   settles the 4th-down decision, so whether the play is a scrimmage play;
+//   phase A walks the play head on the scrimmage plays and settles pass or
+//   run; phase B stage 1 and stage 2 on the passes, the rush trio and the
+//   fumble head on the runs, and settles a completion or a sack; phase C
+//   the pass trio on the completions and the sack trio on the sacks.  Each
+//   decision is `play`'s on the same values, its uniforms drawn again from
+//   their Philox block (`exact_uniform`), so a play reads no head value its
+//   row did not walk (ops/game.exact_heads_read is the same rule in torch).
+//   Before a phase the block gathers the rows of its two lists into shared
+//   memory in ascending order (`build_lists`: a warp's ballot and one pass
+//   over the eight warps' counts), and thread t walks row list[t] while t
+//   is under the list's count, every tree of the forest in tree order, so
+//   the sums and every game stay the plain walk's; the warps past the count
+//   skip the walk and wait at the tile's barrier.  The launch's tiles of
+//   whole trees, in phase order (ops/game.exact_forests), stream through
+//   two shared buffers by cp.async.bulk under an mbarrier each, the same
+//   cyclic order every play, thread 0 copying a tile as soon as its buffer
+//   is free (the next play's first tiles at a play's end, awaited before
+//   the block exits); a tile opens with its trees' roots and classes
+//   (ops/game._tiles_with_trees), so the walk reads no global memory.  A
+//   walker puts the forest's group ids of its row (from the row's direction
+//   and slots, staged with the row) in the row's first words, walks kWalks
+//   trees at once and adds the leaves to its class sums in tree order; the
+//   forest's last tile turns its sums into head values (its link,
 //   `head_values`: the logistic, the softmax as max, exp in class order,
 //   sum in class order, divide, or the play head's P(pass) at its
-//   temperature), kept in shared memory; `exact_row` then forms the
-//   play's heads as make_exact_heads_eval does.  The loop is
-//   block-synchronous (__syncthreads_or): a lane with no game left walks
-//   the tiles too and plays nothing; the work queue and refill are the
-//   other layouts'.  A block takes kExactBytes of dynamic shared memory
-//   past the stripe and slot tables: 64 KB of tiles, 21.5 KB of rows (21
-//   words a thread: 4 ids, 17 features, an odd stride), 20 KB of head
-//   values; score-only, at 113 registers, two blocks an SM (the whole
-//   carveout asked for), with the team stats' stripe one.  The links'
-//   expf and division are the ones torch.exp and torch's division run on
-//   the card (0 differing games against the eager loop, whose links are
-//   ops/forest_eval.sigmoid_f32, softmax_f32 and game.play_link).
+//   temperature), kept in shared memory; `exact_row` then forms the play's
+//   heads as make_exact_heads_eval does.  The loop is block-synchronous
+//   (__syncthreads_or): a lane with no game left passes the barriers and
+//   walks nothing; the work queue and refill are the other layouts'.  The
+//   block counts each forest's (row, tree) walks in shared memory and adds
+//   them to LayoutConsts::walks where given.  A block takes kExactBytes of
+//   dynamic shared memory past the stripe and slot tables: 64 KB of tiles,
+//   21.5 KB of rows (21 words a thread: 4 ids, 17 features, an odd stride),
+//   20 KB of head values, 4 KB of the rows' directions and slots, 1.5 KB of
+//   lists; score-only two blocks an SM (the whole carveout asked for),
+//   with the team stats' stripe one.  The links' expf and division are the
+//   ones torch.exp and torch's division run on the card (0 differing games
+//   against the eager loop, whose links are ops/forest_eval.sigmoid_f32,
+//   softmax_f32 and game.play_link).
 // In kLayoutRow and kLayoutHeads the play-policy table (the coach's P(pass)
 // on the coarse profile's cell and the score diff's bin among 26 edges) and
 // the forced 4th-down decision are branches uniform across the grid: the
@@ -244,6 +263,17 @@
 //   earlier scan and step select for them traded the two (1.1135-1.1142
 //   and 1.8051-1.8064, in turns with this design's 1.0901-1.0973 and
 //   1.8254-1.8276), so it was not kept.
+// - kLayoutExact, held ms a 65,536-game launch of phase 12 (the fixture
+//   teams on fixtures.heads(0, "reference"), 23.8% of every forest's (row,
+//   tree) walks read; probes/kernels.py --exact-only, in turns, on an
+//   NVIDIA H100 80GB HBM3 at 700 W): every forest walked on every row
+//   every play 123.70 and 125.10 ms; the phases with the rows gathered a
+//   forest 64.95 and 64.94 ms, with the trees' roots and classes read from
+//   global memory 66.34 and 66.81 ms (so the tiles carry them).  The walk
+//   keeps its sums and next roots in registers (one instantiation a forest
+//   variant, not a switch a tile), and the play link selects its classes by
+//   the descriptor's masks: a select on a class index compiled into a
+//   local array.
 // Each thread adds its games' plays to a block count in shared memory and
 // one thread a block adds that to `plays`, when given: what the
 // measurement's bound counts.
@@ -287,9 +317,20 @@ constexpr int kForceGo = 1, kForceFg = 2;
 constexpr int kFeatures = 17;
 constexpr int kRowWords = (fw::kGroups + kFeatures) | 1;
 constexpr int kHeadVals = 20;
-constexpr int kForestWords = 20;
+constexpr int kForestWords = 24;
 constexpr int kMaxClasses = 8;
 constexpr int kXdirVals = 8;
+// kLayoutExact's phases and row lists (game.EXACT_LISTS): a play walks its
+// forests in three phases, each forest on the block's rows of one list,
+// phase p's two lists being 2p and 2p + 1: the scrimmage plays (the play
+// head), the passes (stage 1, stage 2) and runs (the rush trio, the
+// fumble head), the completions (the pass trio) and sacks (the sack trio).
+// Each forest is one value at least, so kHeadVals bounds the forests.
+constexpr int kPhases = 3;
+constexpr int kLists = 2 * kPhases;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxForests = kHeadVals;
+using Count = unsigned long long;   // what atomicAdd adds in 64 bits
 // a forest's link (game.EXACT_LINKS): its margins as they are, the logistic
 // of the first, the softmax, and the play head's P(pass) at its temperature
 constexpr int kLinkIdentity = 0, kLinkSigmoid = 1, kLinkSoftmax = 2, kLinkPlay = 3;
@@ -420,27 +461,37 @@ struct LayoutConsts {
   // forests (n_forests, kForestWords): [first tile, tiles, classes, link,
   // lt, zeros missing, steps, first head value, the id source of each group
   // (-1: none, else id table x 4 + role: 0 QB, 1 rusher, 2 target), the
-  // base margins' f32 bits (kMaxClasses)]; the id tables (n, 2 x
-  // n_matchups, id_k) int32
+  // base margins' f32 bits (kMaxClasses), its row list, its trees, the play
+  // head's pass and run classes as bit masks (0 for another forest)], in
+  // phase order; the id tables (n, 2 x n_matchups, id_k) int32.  A tile
+  // opens with its trees' roots and classes (ops/game._tiles_with_trees).
   const uint2* recs;
   const int* tiles;
-  const int* tree_off;
-  const int* tree_class;
   const int* forests;
   const int* ids;
   int n_tiles, n_forests, id_k;
   // the first head value of each head (stage 2's 3 in its class order), -1
   // where the head is absent; stage 2's (incomplete, intercepted, sack)
   // classes; sigma's scale and each trio's floor (pass, rush, sack); the
-  // play head's temperature reciprocal, its pass and run classes (-1: none)
-  // and its clip; ST1's timeouts
+  // play head's temperature reciprocal, its pass and run classes (-1: none;
+  // the kernel reads them as the descriptor's masks) and its clip; ST1's
+  // timeouts
   int v_stage1, v_stage2, v_pq, v_rq, v_sq, v_fumble, v_play;
   int s2_order[3];
   float sigma_scale, pass_floor, rush_floor, sack_floor;
   float play_scale;
   int play_pass, play_run;
   float play_clip_lo, play_clip_hi, timeouts;
+  // kLayoutExact: each phase's first forest and the end of the last (a
+  // phase without forests is empty); the launch's (row, tree) walks of
+  // each forest are added to `walks` (n_forests uint64), or null.  Last in
+  // the struct, so the fields before them keep their offsets in every
+  // instantiation's parameters.
+  int phase_forest[4];
+  Count* walks;
 };
+static_assert(sizeof(LayoutConsts::phase_forest) == (kPhases + 1) * sizeof(int),
+              "each phase's first forest and the end");
 
 namespace {
 
@@ -894,18 +945,29 @@ __device__ __forceinline__ Row analytic_row(const LayoutConsts& lay, const Game&
 }
 
 // kLayoutExact's part of a block's dynamic shared memory, from a 128-byte
-// boundary: the two tile buffers, their mbarriers, the threads' staged
-// rows (kRowWords each) and their head values (value v of thread t at
-// v * kThreads + t).
+// boundary: the two tile buffers, their mbarriers, the rows staged by
+// their threads (kRowWords each; row j is thread j's game's) and their
+// head values (value v of row j at v * kThreads + j), each row's direction
+// and slots (what a walker of the row needs for its groups' ids), the
+// block's walks a forest, and the lists: the rows of each list in
+// ascending order, each warp's count in each list and each list's count.
 struct ExactSmem {
   unsigned char* tiles;
   uint64_t* bar;
   unsigned* rows;
   float* vals;
+  int4* meta;                 // (dirx, QB slot, rusher slot, target slot)
+  unsigned long long* walks;  // kMaxForests
+  int* warp_counts;           // kLists x kWarps
+  int* counts;                // kLists
+  unsigned char* lists;       // kLists x kThreads
 };
 
 constexpr size_t kExactBytes = 128 + 2 * fw::kTileBytes + 16
-                               + static_cast<size_t>(kThreads) * (kRowWords + kHeadVals) * 4;
+                               + static_cast<size_t>(kThreads) * (kRowWords + kHeadVals + 4) * 4
+                               + kMaxForests * 8 + (kLists * kWarps + kLists) * 4
+                               + static_cast<size_t>(kLists) * kThreads;
+static_assert(kThreads <= 256, "a list holds row numbers as bytes");
 
 __device__ __forceinline__ ExactSmem exact_smem(unsigned char* base) {
   // the offset to the boundary, so the pointer keeps its shared space
@@ -915,6 +977,11 @@ __device__ __forceinline__ ExactSmem exact_smem(unsigned char* base) {
   e.bar = reinterpret_cast<uint64_t*>(p + 2 * fw::kTileBytes);
   e.rows = reinterpret_cast<unsigned*>(p + 2 * fw::kTileBytes + 16);
   e.vals = reinterpret_cast<float*>(e.rows + kThreads * kRowWords);
+  e.meta = reinterpret_cast<int4*>(e.vals + kThreads * kHeadVals);
+  e.walks = reinterpret_cast<unsigned long long*>(e.meta + kThreads);
+  e.warp_counts = reinterpret_cast<int*>(e.walks + kMaxForests);
+  e.counts = e.warp_counts + kLists * kWarps;
+  e.lists = reinterpret_cast<unsigned char*>(e.counts + kLists);
   return e;
 }
 
@@ -1002,32 +1069,42 @@ __device__ __forceinline__ void head_values(const LayoutConsts& lay, const int* 
       if (k < classes) v[k * kThreads] = e[k] / sum;
     return;
   }
+  // the pass and run classes as the descriptor's bit masks: a select of
+  // e[k] on k == a kernel parameter compiles into an indexed local array
+  const unsigned pass_bits = __ldg(fd + 22), run_bits = __ldg(fd + 23);
   float e_pass = 0.0f, e_run = 0.0f;
 #pragma unroll
   for (int k = 0; k < kMaxClasses; ++k) {
-    e_pass = k == lay.play_pass ? e[k] : e_pass;
-    e_run = k == lay.play_run ? e[k] : e_run;
+    e_pass = (pass_bits >> k) & 1u ? e[k] : e_pass;
+    e_run = (run_bits >> k) & 1u ? e[k] : e_run;
   }
   float p_pass = e_pass / sum;
-  if (lay.play_run >= 0) p_pass = p_pass / fmaxf(p_pass + e_run / sum, 1e-9f);
+  if (run_bits != 0u) p_pass = p_pass / fmaxf(p_pass + e_run / sum, 1e-9f);
   v[0] = clip(p_pass, lay.play_clip_lo, lay.play_clip_hi);
 }
 
-// A tile's trees [t0, t1) walked for the thread's staged row `xr`, kWalks at
-// once (their roots' byte offsets in the tile `next`, read ahead), `steps`
+// A tile's trees walked for the staged row `xr`, kWalks at once, `steps`
 // levels each (forest_walk.cuh's `walk_step`), each leaf added to its
-// class sum in tree order (classes > 1: the tree's class of tree_class).
+// class sum in tree order.  The tile opens with its table of its `trees`
+// trees (ops/game._tiles_with_trees: a word a tree, its root's byte offset
+// in the tile | its class << 16), so the roots (read a group ahead, into
+// `next`) and the classes come from shared memory with the records.
+// `next` is the tile's own and `acc` its forest walk's, both in one
+// instantiation, so neither leaves the registers.
 template <bool kMulti, bool LT, bool ZAM>
-__device__ __forceinline__ void walk_tile(const unsigned char* tile, const LayoutConsts& lay,
-                                          int t0, int t1, int steps, const unsigned char* xr,
-                                          int (&next)[fw::kWalks], float (&acc)[kMaxClasses]) {
-  for (int t = t0; t < t1; t += fw::kWalks) {
+__device__ __forceinline__ void walk_tile(const unsigned char* tile, int trees, int steps,
+                                          const unsigned char* xr, float (&acc)[kMaxClasses]) {
+  const unsigned* table = reinterpret_cast<const unsigned*>(tile);
+  unsigned next[fw::kWalks];
+#pragma unroll
+  for (int k = 0; k < fw::kWalks; ++k) next[k] = table[min(k, trees - 1)] & 0xFFFFu;
+  for (int t = 0; t < trees; t += fw::kWalks) {
     unsigned root[fw::kWalks], node[fw::kWalks];
 #pragma unroll
     for (int k = 0; k < fw::kWalks; ++k) {
-      root[k] = static_cast<unsigned>(next[k]);
+      root[k] = next[k];
       node[k] = 0;
-      next[k] = __ldg(lay.tree_off + min(t + fw::kWalks + k, t1 - 1)) * 8;
+      next[k] = table[min(t + fw::kWalks + k, trees - 1)] & 0xFFFFu;
     }
     for (int s = 0; s < steps; ++s) {
 #pragma unroll
@@ -1036,12 +1113,12 @@ __device__ __forceinline__ void walk_tile(const unsigned char* tile, const Layou
     }
 #pragma unroll
     for (int k = 0; k < fw::kWalks; ++k) {
-      if (t + k < t1) {
+      if (t + k < trees) {
         const float v = *reinterpret_cast<const float*>(tile + root[k] + node[k]);
         if constexpr (kMulti) {
           // every class sum adds v or +0.0, branch-free (a sum that starts
           // at +0.0 is never -0.0, so +0.0 leaves it as it is)
-          const int c = __ldg(lay.tree_class + t + k);
+          const int c = static_cast<int>(table[t + k] >> 16);
 #pragma unroll
           for (int j = 0; j < kMaxClasses; ++j) acc[j] += c == j ? v : 0.0f;
         } else {
@@ -1052,68 +1129,141 @@ __device__ __forceinline__ void walk_tile(const unsigned char* tile, const Layou
   }
 }
 
-// walk_tile by walk variant: (classes > 1) x 4 + lt x 2 + zeros missing.
-__device__ __forceinline__ void walk_variant(int variant, const unsigned char* tile,
-                                             const LayoutConsts& lay, int t0, int t1, int steps,
-                                             const unsigned char* xr, int (&next)[fw::kWalks],
-                                             float (&acc)[kMaxClasses]) {
-#define WALK(MULTI, LT, ZAM) walk_tile<MULTI, LT, ZAM>(tile, lay, t0, t1, steps, xr, next, acc)
-  switch (variant) {
-    case 0: WALK(false, false, false); break;
-    case 1: WALK(false, false, true); break;
-    case 2: WALK(false, true, false); break;
-    case 3: WALK(false, true, true); break;
-    case 4: WALK(true, false, false); break;
-    case 5: WALK(true, false, true); break;
-    case 6: WALK(true, true, false); break;
-    default: WALK(true, true, true); break;
+// One forest of a play walked on the block's rows of its list (`list`,
+// `count` rows), K5's design (csrc/forest_eval.cu) inside the game loop:
+// thread t walks row list[t] while t < count, every tree of the forest in
+// tree order, after putting the row's ids of the forest's groups in the
+// row's first words (from the row's direction and slots); the forest's
+// last tile turns the class sums into the row's head values.  One thread
+// a row and the trees' order keep every class sum, and so every game, what
+// the plain walk gives.  The launch's tiles stream through the two buffers
+// in the same order every play, tile (global count) ti in buffer ti & 1: a
+// walker waits for its tile's bytes and thread 0 for every tile's, since
+// it refills the buffer with tile i + 2 (cyclically, the next play's first
+// ones at the end) once every thread is past the tile's barrier.  The
+// warps past the count walk nothing and wait at the barriers.
+template <bool kMulti, bool LT, bool ZAM>
+__device__ __forceinline__ void walk_forest(const LayoutConsts& lay, const ExactSmem& ex,
+                                            const int* fd, int count,
+                                            const unsigned char* list, unsigned& ti, int dirs) {
+  const bool walker = static_cast<int>(threadIdx.x) < count;
+  const int j = walker ? list[threadIdx.x] : 0;
+  unsigned* row = ex.rows + j * kRowWords;
+  if (walker) {
+    const int4 m = ex.meta[j];
+    const int slot[kRoles] = {m.y, m.z, m.w};
+#pragma unroll
+    for (int g = 0; g < fw::kGroups; ++g) row[g] = group_id(lay, __ldg(fd + 8 + g), m.x, slot, dirs);
   }
-#undef WALK
-}
-
-// kLayoutExact: every forest of the launch walked for this play, K5's design
-// (csrc/forest_eval.cu) inside the game loop.  Every thread of the block
-// takes part, a lane with no game too (its row is not read back): the
-// launch's tiles stream through the two buffers in the same order every
-// play, tile (global count) ti in buffer ti & 1, thread 0 copying tile ti +
-// 2 (cyclically, the next play's first ones at the end) as soon as every
-// thread is done with ti's buffer.  A forest's first tile puts its groups'
-// ids in the row; its last turns the class sums into head values.
-__device__ __forceinline__ void walk_forests(const LayoutConsts& lay, const ExactSmem& ex,
-                                             unsigned& ti, bool live, int dirx,
-                                             const int (&slot)[kRoles], int dirs) {
-  unsigned* row = ex.rows + threadIdx.x * kRowWords;
   const unsigned char* xr = reinterpret_cast<const unsigned char*>(row);
   const int4* tiles = reinterpret_cast<const int4*>(lay.tiles);
+  const int first = __ldg(fd), end = first + __ldg(fd + 1), steps = __ldg(fd + 6);
   float acc[kMaxClasses];
-  for (int i = 0; i < lay.n_tiles; ++i, ++ti) {
-    const int4 t = __ldg(tiles + 2 * i);      // first record, bytes, first tree, end tree
-    const int4 f = __ldg(tiles + 2 * i + 1);  // forest, first tile, last tile, variant
-    const int* fd = lay.forests + f.x * kForestWords;
-    if (f.y) {
-      if (live) {
 #pragma unroll
-        for (int g = 0; g < fw::kGroups; ++g) row[g] = group_id(lay, __ldg(fd + 8 + g), dirx, slot, dirs);
-      }
-#pragma unroll
-      for (int k = 0; k < kMaxClasses; ++k) acc[k] = 0.0f;
-    }
+  for (int k = 0; k < kMaxClasses; ++k) acc[k] = 0.0f;
+  for (int i = first; i < end; ++i, ++ti) {
     const unsigned char* tile = ex.tiles + (ti & 1u) * fw::kTileBytes;
-    int next[fw::kWalks];  // the byte offsets of the next kWalks trees' roots
-#pragma unroll
-    for (int k = 0; k < fw::kWalks; ++k) next[k] = __ldg(lay.tree_off + min(t.z + k, t.w - 1)) * 8;
-    fw::mbar_wait(&ex.bar[ti & 1u], (ti >> 1) & 1u);
-    walk_variant(f.w, tile, lay, t.z, t.w, __ldg(fd + 6), xr, next, acc);
-    if (f.z) head_values(lay, fd, acc, ex.vals + __ldg(fd + 7) * kThreads + threadIdx.x);
+    if (walker || threadIdx.x == 0) fw::mbar_wait(&ex.bar[ti & 1u], (ti >> 1) & 1u);
+    if (walker) {
+      const int4 t = __ldg(tiles + 2 * i);   // first record, bytes, first tree, end tree
+      walk_tile<kMulti, LT, ZAM>(tile, t.w - t.z, steps, xr, acc);
+      if (i == end - 1) head_values(lay, fd, acc, ex.vals + __ldg(fd + 7) * kThreads + j);
+    }
     __syncthreads();  // every thread is done with this buffer
     if (threadIdx.x == 0) {
-      int j = i + 2;
-      while (j >= lay.n_tiles) j -= lay.n_tiles;
-      const int4 nx = __ldg(tiles + 2 * j);
+      int k = i + 2;
+      while (k >= lay.n_tiles) k -= lay.n_tiles;
+      const int4 nx = __ldg(tiles + 2 * k);
       fw::load_tile(ex.tiles + (ti & 1u) * fw::kTileBytes, lay.recs + nx.x,
                     static_cast<unsigned>(nx.y), &ex.bar[ti & 1u]);
     }
   }
+}
+
+// One phase of a play: its forests [f0, f1), each on its list's rows, the
+// block's walks of each counted (thread 0: the list's rows x the forest's
+// trees).  The walk variant (classes > 1, lt, zeros missing) picks the
+// instantiation of a whole forest's walk.
+__device__ __forceinline__ void walk_phase(const LayoutConsts& lay, const ExactSmem& ex, int f0,
+                                           int f1, unsigned& ti, int dirs) {
+  for (int f = f0; f < f1; ++f) {
+    const int* fd = lay.forests + f * kForestWords;
+    const int li = __ldg(fd + 20);
+    const int count = ex.counts[li];
+    if (threadIdx.x == 0) ex.walks[f] += static_cast<unsigned long long>(count) * __ldg(fd + 21);
+    const unsigned char* list = ex.lists + li * kThreads;
+    const int variant = (__ldg(fd + 2) > 1 ? 4 : 0) + __ldg(fd + 4) * 2 + __ldg(fd + 5);
+#define WALK(MULTI, LT, ZAM) walk_forest<MULTI, LT, ZAM>(lay, ex, fd, count, list, ti, dirs)
+    switch (variant) {
+      case 0: WALK(false, false, false); break;
+      case 1: WALK(false, false, true); break;
+      case 2: WALK(false, true, false); break;
+      case 3: WALK(false, true, true); break;
+      case 4: WALK(true, false, false); break;
+      case 5: WALK(true, false, true); break;
+      case 6: WALK(true, true, false); break;
+      default: WALK(true, true, true); break;
+    }
+#undef WALK
+  }
+}
+
+// Phase p's two lists (2p, 2p + 1): the block's rows whose thread has `a`,
+// `b` set, each in ascending row order (a warp's ballot placed after the
+// rows of the warps before it, from one pass over the kWarps counts), and
+// their counts.  Every thread of the block calls it.
+__device__ __forceinline__ void build_lists(const ExactSmem& ex, int p, bool a, bool b) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ma = __ballot_sync(kFull, a), mb = __ballot_sync(kFull, b);
+  int* wc = ex.warp_counts + 2 * p * kWarps;
+  if (lane == 0) {
+    wc[warp] = __popc(ma);
+    wc[kWarps + warp] = __popc(mb);
+  }
+  __syncthreads();
+  int pa = 0, pb = 0, na = 0, nb = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int ca = wc[w], cb = wc[kWarps + w];
+    pa += w < warp ? ca : 0;
+    pb += w < warp ? cb : 0;
+    na += ca;
+    nb += cb;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  unsigned char* la = ex.lists + 2 * p * kThreads;
+  if (a) la[pa + __popc(ma & below)] = static_cast<unsigned char>(threadIdx.x);
+  if (b) la[kThreads + pb + __popc(mb & below)] = static_cast<unsigned char>(threadIdx.x);
+  if (threadIdx.x == 0) {
+    ex.counts[2 * p] = na;
+    ex.counts[2 * p + 1] = nb;
+  }
+  __syncthreads();
+}
+
+// kLayoutExact's phase 0: whether the play of state `s` is a scrimmage
+// play, by `play`'s 4th-down decision on the same values (its U_GO
+// uniform, mirrored as the play's; the fourth.force code).
+__device__ __forceinline__ bool exact_scrimmage(const NanoConsts& c, const float* grid,
+                                                const Game& s, float u_go, int force) {
+  const int sd = (s.sa - s.sb) * (1 - 2 * s.off);
+  const float p_go = fminf(go_for_it_prob(c, grid, s.ytg, s.dist, sd, s.sec) * c.go_multiplier, 1.0f);
+  const bool is4 = s.down == 4;
+  const bool forced = force != 0;
+  const bool go = forced ? is4 && force == kForceGo : is4 && u_go < p_go;
+  const bool st_play = forced ? is4 && force != kForceGo : is4 && !go;
+  return !st_play;
+}
+
+// Uniform kU of the play at `step` of draw row `row` on the stream (dk0,
+// dk1), mirrored where the game's draws are: drawn again from its Philox
+// block where a phase decides, rather than held across the walks.
+template <int kU>
+__device__ __forceinline__ float exact_uniform(uint32_t dk0, uint32_t dk1, int step,
+                                               uint32_t row, bool mirror) {
+  float w[4];
+  philox::block_uniforms(dk0, dk1, static_cast<uint32_t>(step), row, kU / 4, w);
+  return mirror ? 1.0f - w[kU % 4] : w[kU % 4];
 }
 
 // kLayoutExact: game.make_exact_heads_eval's head channels from the play's
@@ -1675,6 +1825,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     copy_segs(c, lay, sv, kSecond ? 8 : 4);
     if constexpr (kExact) {
+      if (threadIdx.x < kMaxForests) ex.walks[threadIdx.x] = 0;
       // the forests' first two tiles on their way
       if (threadIdx.x == 0) {
         fw::mbar_init(&ex.bar[0]);
@@ -1713,33 +1864,98 @@ __global__ void __launch_bounds__(kThreads)
   bool open = lanes < n;             // the queue has games to hand out (warp-uniform)
   unsigned long long played = 0;     // plays of this lane's finished games
   unsigned int iters = 0;            // this warp's loop trips
-  // kLayoutExact's loop is block-synchronous (every thread walks every
-  // tile, a lane with no game too), the others' warp-synchronous
+  // kLayoutExact's loop is block-synchronous (every thread passes every
+  // tile's barrier, a lane with no game too), the others' warp-synchronous
   while (kExact ? __syncthreads_or(g.i < n) != 0 : __any_sync(kFull, g.i < n)) {
     ++iters;
     if constexpr (kExact) {
-      // the slots' Philox block, the slots and the feature row; every
-      // forest walked (by every lane: the tile copies and barriers are the
-      // block's); then the play as the general layouts play it
-      int slot[kRoles] = {0, 0, 0};
-      int dirx = 0, code = 0;
-      uint32_t dk0 = k0, dk1 = k1;
-      float w[4];
+      // phase 0, no walk: the play's stream, its slots (the slots' Philox
+      // block), its staged row and the row's direction and slots, and the
+      // 4th-down decision, which settles whether it is a scrimmage play.
+      // Then phases A-C (`kPhases`), each deciding from the heads walked
+      // so far which rows read its forests: A the play head on the
+      // scrimmage plays; B stage 1 and stage 2 on the passes, the rush trio
+      // and the fumble head on the runs; C the pass trio on the
+      // completions, the sack trio on the sacks.  Each decision is `play`'s
+      // on the same values (the uniforms drawn again from their blocks), so
+      // the play reads no head value its row did not walk; it runs last, as
+      // the general layouts play.
+      bool scrim = false, is_pass = false;
       if (g.live) {
-        dirx = g.s.gid * 2 + g.s.off;
+        const int dirx = g.s.gid * 2 + g.s.off;
+        uint32_t dk0, dk1;
+        int code;
         play_stream<kLayout>(g, lay, k0, k1, dk0, dk1, code);
+        float w[4];
         philox::block_uniforms(dk0, dk1, static_cast<uint32_t>(g.j), g.row, U_QB / 4, w);
+        int slot[kRoles];
         sample_roles<kPlayers>(sa, dirx, w, g.mirror, slot);
         stage_features(c, lay, ex.rows + threadIdx.x * kRowWords, g.s, dirx);
+        ex.meta[threadIdx.x] = make_int4(dirx, slot[0], slot[1], slot[2]);
+        scrim = exact_scrimmage(c, grid, g.s,
+                                exact_uniform<U_GO>(dk0, dk1, g.j, g.row, g.mirror), code);
       }
-      walk_forests(lay, ex, ti, g.live, dirx, slot, acc.dirs);
+#pragma unroll 1
+      for (int p = 0; p < kPhases; ++p) {
+        const int f0 = lay.phase_forest[p], f1 = lay.phase_forest[p + 1];
+        if (f0 == f1) continue;   // no forest (phase A without a play head)
+        bool a = false, b = false;
+        if (g.live) {
+          const float* v = ex.vals + threadIdx.x;
+          uint32_t dk0, dk1;
+          int code;
+          play_stream<kLayout>(g, lay, k0, k1, dk0, dk1, code);
+          if (p == 0) {
+            a = scrim;
+          } else if (p == 1) {
+            const int sd = (g.s.sa - g.s.sb) * (1 - 2 * g.s.off);
+            const float p_pass = lay.v_play >= 0
+                                     ? v[lay.v_play * kThreads]
+                                     : pass_prob_v1(c, g.s.down, g.s.dist, g.s.ytg, g.s.sec, sd);
+            is_pass = scrim && exact_uniform<U_CALL>(dk0, dk1, g.j, g.row, g.mirror) < p_pass;
+            a = is_pass;
+            b = scrim && !is_pass;
+          } else {
+            const int dirx = g.s.gid * 2 + g.s.off;
+            const float p_c = clip(v[lay.v_stage1 * kThreads] + __ldg(lay.xdirs + dirx * kXdirVals),
+                                   lay.stage1_clip_lo, lay.stage1_clip_hi);
+            const bool complete =
+                is_pass && exact_uniform<U_COMPLETE>(dk0, dk1, g.j, g.row, g.mirror) < p_c;
+            float s2c0, s2c1;
+            if (c.has_s2) {
+              stage2_nudge(c, v[(lay.v_stage2 + lay.s2_order[0]) * kThreads],
+                           v[(lay.v_stage2 + lay.s2_order[1]) * kThreads],
+                           v[(lay.v_stage2 + lay.s2_order[2]) * kThreads], &s2c0, &s2c1);
+            } else {
+              stage2_fallback(c, g.s.down, g.s.dist, &s2c0, &s2c1);
+            }
+            const bool notc = is_pass && !complete;
+            const float u2 = exact_uniform<U_S2>(dk0, dk1, g.j, g.row, g.mirror);
+            const bool o_inc = notc && u2 < s2c0;
+            a = complete;
+            b = notc && !o_inc && u2 < s2c1;
+          }
+        }
+        build_lists(ex, p, a, b);
+        walk_phase(lay, ex, f0, f1, ti, acc.dirs);
+      }
       if (g.live) {
+        const int dirx = g.s.gid * 2 + g.s.off;
+        uint32_t dk0, dk1;
+        int code;
+        play_stream<kLayout>(g, lay, k0, k1, dk0, dk1, code);
+        float w[4];
+        philox::block_uniforms(dk0, dk1, static_cast<uint32_t>(g.j), g.row, U_QB / 4, w);
         const float* v = ex.vals + threadIdx.x;
         const Row r = exact_row(c, lay, v, dirx);
         const bool use_ml = lay.v_play >= 0;
         const float p_ml = use_ml ? v[lay.v_play * kThreads] : 0.0f;
         Slots sl{};
-        if constexpr (kPlayers) sl = tracked_rows(sa, game_rows(acc, g.i), dirx, slot, g.s.off);
+        if constexpr (kPlayers) {
+          const int4 m = ex.meta[threadIdx.x];
+          const int slot[kRoles] = {m.y, m.z, m.w};
+          sl = tracked_rows(sa, game_rows(acc, g.i), dirx, slot, g.s.off);
+        }
         draw_and_play<kLayout, kStats, kPlayers, true>(g, c, lay, grid, r, team, acc, sl, k0, k1,
                                                        dk0, dk1, code, w, use_ml, p_ml);
       }
@@ -1858,6 +2074,10 @@ __global__ void __launch_bounds__(kThreads)
   if (cnt.plays != nullptr) atomicAdd(&block_plays, played);
   if (cnt.iters != nullptr && lane == 0) atomicAdd(&block_iters, static_cast<unsigned long long>(iters));
   __syncthreads();
+  if constexpr (kExact) {
+    if (lay.walks != nullptr && static_cast<int>(threadIdx.x) < lay.n_forests)
+      atomicAdd(lay.walks + threadIdx.x, ex.walks[threadIdx.x]);
+  }
   if (threadIdx.x == 0) {
     if (cnt.plays != nullptr) atomicAdd(cnt.plays, block_plays);
     if (cnt.iters != nullptr) atomicAdd(cnt.iters, block_iters);

@@ -61,8 +61,8 @@ from ..models import analytic
 from ..models.heads import ST1_FEATURES
 from ..stats import (N_PLAYER_STATS, N_TEAM_STATS, ROLE_PASS, ROLE_REC, ROLE_RUSH,
                      TEAM_STAT_FIELDS, TS)
-from .forest_eval import (IS_CAT_BIT, MAX_CLASSES, MAX_GROUPS, SLOT_MASK, eval_margin,
-                          eval_margin_packed, forest_link, predict, softmax_f32)
+from .forest_eval import (IS_CAT_BIT, MAX_CLASSES, MAX_GROUPS, SLOT_MASK, TILE_RECORDS,
+                          eval_margin, eval_margin_packed, forest_link, predict, softmax_f32)
 from .pack import HeadsPack, MatchupPack
 from .rng import N_NORMALS, N_UNIFORMS, chunk_draws, step_draws
 
@@ -938,14 +938,14 @@ class LayoutConsts(ctypes.Structure):
         + _ints("k_heads", "use_fumble")
         + [("xdirs", ctypes.c_void_p)]
         + _floats("stage1_clip_lo", "stage1_clip_hi")
-        + [(name, ctypes.c_void_p)
-           for name in ("recs", "tiles", "tree_off", "tree_class", "forests", "ids")]
+        + [(name, ctypes.c_void_p) for name in ("recs", "tiles", "forests", "ids")]
         + _ints("n_tiles", "n_forests", "id_k", "v_stage1", "v_stage2", "v_pq", "v_rq", "v_sq",
                 "v_fumble", "v_play")
         + [("s2_order", ctypes.c_int * 3)]
         + _floats("sigma_scale", "pass_floor", "rush_floor", "sack_floor", "play_scale")
         + _ints("play_pass", "play_run")
-        + _floats("play_clip_lo", "play_clip_hi", "timeouts"))
+        + _floats("play_clip_lo", "play_clip_hi", "timeouts")
+        + [("phase_forest", ctypes.c_int * 4), ("walks", ctypes.c_void_p)])
 
 
 # K1's instantiations by layout (kLayout in csrc/nano_game.cu): the nano
@@ -1158,26 +1158,94 @@ _EXACT_GROUPS = {
 }
 EXACT_FEATURES = len(ST1_FEATURES)   # kFeatures: the ST1 row a play stages
 EXACT_HEAD_VALS = 20                 # kHeadVals: the head values a thread keeps
-EXACT_FOREST_WORDS = 20              # kForestWords
+EXACT_FOREST_WORDS = 24              # kForestWords
 EXACT_XDIR_VALS = 8                  # kXdirVals
+# K1 walks a play's forests in three phases (kPhases), each forest on the
+# rows of one list: phase p's lists are 2p and 2p + 1 (kLists).  The list
+# of each head (`exact_heads_read` names the rows in it): the play head on
+# the scrimmage plays (phase A), stage 1 and stage 2 on the passes and the
+# rush trio and the fumble head on the runs (B), the pass trio on the
+# completions and the sack trio on the sacks (C).
+EXACT_LISTS = {"play": 0, "stage1": 2, "stage2": 2, "rq": 3, "fumble": 3, "pq": 4, "sq": 5}
+EXACT_PHASES = 3
 
 
 @dataclasses.dataclass(frozen=True)
 class ExactForests:
     """Exact mode's forests as K1 walks them (`exact_forests`), in the order
-    a play walks them: stage 1, stage 2, the pass, rush and sack trios, the
-    fumble head, the play head (the last two where the config reads them).
-    Each forest keeps K5's records (`pack_kernel_records`), its numeric
-    nodes reading the ST1 column of their feature in the staged row (the
-    play head's numerics are a pick of ST1's)."""
+    a play walks them, phase by phase (EXACT_LISTS): the play head (where
+    the config reads it); stage 1, stage 2, the rush trio, the fumble head
+    (where read); the pass and sack trios.  Each forest keeps K5's records
+    (`pack_kernel_records`), its numeric nodes reading the ST1 column of
+    their feature in the staged row (the play head's numerics are a pick of
+    ST1's)."""
     heads: tuple          # (head, TorchForest, the ST1 column of each numeric,
                           #  each group's (id table, role) or None) per forest
     vals: dict            # each head read: its first head value
     records: torch.Tensor     # (R, 2) int32, every forest's, 16-byte aligned
     tiles: torch.Tensor       # (n_tiles, 8) int32 (LayoutConsts::tiles)
-    tree_off: torch.Tensor    # (T,) int32 each tree's first record in its tile
-    tree_class: torch.Tensor  # (T,) int32
+    tree_off: torch.Tensor    # (T,) int32 each tree's root record in its tile
+    tree_class: torch.Tensor  # (T,) int32 (both in each tile's table too)
     forests: torch.Tensor     # (n_forests, EXACT_FOREST_WORDS) int32
+    phase_forest: tuple       # each phase's first forest, and n_forests
+
+
+def _class_bits(hp: HeadsPack, head: str) -> Tuple[int, int]:
+    """The play head's pass and run classes as bit masks (no run class: 0);
+    (0, 0) for another forest."""
+    if head != "play":
+        return 0, 0
+    return 1 << hp.play_pass_idx, (1 << hp.play_run_idx) if hp.play_run_idx >= 0 else 0
+
+
+def _tiles_with_trees(head: str, rec: np.ndarray, kf, tree_class: np.ndarray):
+    """K5's records of one forest (`rec`, (R, 2) int32, its tiles' layout in
+    `kf`) retiled for K1: each tile a table of its trees, a uint32 a tree
+    (its root's byte offset in the tile | its class << 16, padded to 8
+    bytes), then the trees' records in order, at most TILE_RECORDS records
+    in all, from an even record and padded to 16 bytes, so a tile's copy
+    brings the walk all it reads.  (records, tiles (n, 4): first record,
+    bytes, first tree, end tree; each tree's root record in its tile)."""
+    node_of = kf.node_of.cpu().numpy()
+    first_rec, count = [], []
+    for first, nbytes, t0, t1 in kf.tiles.cpu().numpy().astype(np.int64):
+        used = int((node_of[first:first + nbytes // 8] >= 0).sum())
+        starts = kf.trees[t0:t1].cpu().numpy().astype(np.int64)
+        first_rec += (first + starts).tolist()
+        count += np.diff(np.append(starts, used)).tolist()
+    out, tiles = [], []
+    offs = np.zeros(len(count), np.int64)
+    cur, n_out = [], 0
+
+    def flush():
+        nonlocal n_out
+        table = (len(cur) + 1) // 2           # records of 8 bytes the table takes
+        words = np.zeros(2 * table, np.uint32)
+        at = table
+        for i, t in enumerate(cur):
+            offs[t] = at
+            words[i] = (at * 8) | (int(tree_class[t]) << 16)
+            at += count[t]
+        parts = [words.view(np.int32).reshape(-1, 2)] + [
+            rec[first_rec[t]:first_rec[t] + count[t]] for t in cur]
+        if at % 2:
+            parts.append(np.zeros((1, 2), np.int32))
+        out.append(np.concatenate(parts))
+        tiles.append((n_out, (at * 8 + 15) // 16 * 16, cur[0], cur[-1] + 1))
+        n_out += at + at % 2
+
+    held = 0                                  # records of the trees in `cur`
+    for t in range(len(count)):
+        if cur and (len(cur) + 2) // 2 + held + count[t] > TILE_RECORDS:
+            flush()
+            cur, held = [], 0
+        if 1 + count[t] > TILE_RECORDS:
+            raise ValueError(f"the {head} forest has a tree of {count[t]} records; with its "
+                             f"table entry K1's tile holds {TILE_RECORDS - 1}")
+        cur.append(t)
+        held += count[t]
+    flush()
+    return np.concatenate(out), np.asarray(tiles, np.int64), offs.astype(np.int32)
 
 
 def exact_forests(hp: HeadsPack, use_fumble: bool, use_play: bool) -> ExactForests:
@@ -1191,10 +1259,10 @@ def exact_forests(hp: HeadsPack, use_fumble: bool, use_play: bool) -> ExactFores
     key = (bool(use_fumble), bool(use_play))
     if key in memo:
         return memo[key]
-    order = ([("stage1", hp.stage1)] + ([("stage2", hp.stage2)] if hp.stage2 is not None else [])
-             + [(h, f) for h in ("pq", "rq", "sq") for f in getattr(hp, h)]
-             + ([("fumble", hp.fumble)] if use_fumble else [])
-             + ([("play", hp.play)] if use_play else []))
+    order = ([("play", hp.play)] if use_play else []) + [("stage1", hp.stage1)] + (
+        [("stage2", hp.stage2)] if hp.stage2 is not None else []) + [
+        ("rq", f) for f in hp.rq] + ([("fumble", hp.fumble)] if use_fumble else []) + [
+        (h, f) for h in ("pq", "sq") for f in getattr(hp, h)]
     heads, vals = [], {}
     recs, tiles, tree_off, tree_class, desc = [], [], [], [], []
     n_rec = n_tree = n_vals = 0
@@ -1225,7 +1293,7 @@ def exact_forests(hp: HeadsPack, use_fumble: bool, use_play: bool) -> ExactFores
         meta[numeric] = ((meta[numeric] & ~np.uint32(SLOT_MASK))
                          | (4 * (MAX_GROUPS + np.asarray(cols, np.int64)[j])).astype(np.uint32))
         variant = (tf.n_classes > 1) * 4 + tf.cmp_lt * 2 + tf.zero_as_missing
-        tl = kf.tiles.cpu().numpy().astype(np.int64)
+        rec, tl, offs = _tiles_with_trees(head, rec, kf, tf.tree_class.cpu().numpy())
         for i, (first, nbytes, t0, t1) in enumerate(tl):
             tiles.append([first + n_rec, nbytes, t0 + n_tree, t1 + n_tree, fi, i == 0,
                           i == len(tl) - 1, variant])
@@ -1236,9 +1304,10 @@ def exact_forests(hp: HeadsPack, use_fumble: bool, use_play: bool) -> ExactFores
         base = np.zeros(MAX_CLASSES, np.float32)
         base[:tf.n_classes] = tf.base_margin.cpu().numpy()
         desc.append([len(tiles) - len(tl), len(tl), tf.n_classes, link, tf.cmp_lt,
-                     tf.zero_as_missing, kf.steps, n_vals, *src, *base.view(np.int32).tolist()])
+                     tf.zero_as_missing, kf.steps, n_vals, *src, *base.view(np.int32).tolist(),
+                     EXACT_LISTS[head], tf.n_trees, *_class_bits(hp, head)])
         recs.append(rec)
-        tree_off.append(kf.trees.cpu().numpy())
+        tree_off.append(offs)
         tree_class.append(tf.tree_class.cpu().numpy())
         n_rec, n_tree, n_vals = n_rec + rec.shape[0], n_tree + tf.n_trees, n_vals + width
     if n_vals > EXACT_HEAD_VALS:
@@ -1249,8 +1318,10 @@ def exact_forests(hp: HeadsPack, use_fumble: bool, use_play: bool) -> ExactFores
         return torch.tensor(np.concatenate(parts) if isinstance(parts, list) else parts,
                             dtype=torch.int32, device=dev).contiguous()
 
+    phases = [EXACT_LISTS[head] // 2 for head, *_ in heads]
+    phase_forest = tuple(sum(q < p for q in phases) for p in range(EXACT_PHASES + 1))
     out = ExactForests(tuple(heads), vals, t(recs), t(np.asarray(tiles, np.int64)), t(tree_off),
-                       t(tree_class), t(np.asarray(desc, np.int64)))
+                       t(tree_class), t(np.asarray(desc, np.int64)), phase_forest)
     memo[key] = out
     return out
 
@@ -1301,6 +1372,7 @@ def _pack_free_heads(pack: MatchupPack, cfg: SimConfig, hp: Optional[HeadsPack])
                            else pack.coach_id[:, None].expand(d, pack.k)
                            for name in EXACT_ID_TABLES]).to(I32).contiguous()
         lay.n_tiles, lay.n_forests, lay.id_k = exact.tiles.shape[0], exact.forests.shape[0], pack.k
+        lay.phase_forest[:] = exact.phase_forest
         for head in ("stage1", "stage2", "pq", "rq", "sq", "fumble", "play"):
             setattr(lay, f"v_{head}", exact.vals.get(head, -1))
         lay.s2_order[:] = hp.stage2_order
@@ -1584,25 +1656,19 @@ def _packed_heads(args: NanoGameArgs, dirx, sd, down0, dist0, ytg0, sec0, u):
             look(5)[:, 0] if lay.use_fumble else None, p_ml)
 
 
-def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
-               u: torch.Tensor, n: torch.Tensor, collect_players: bool,
-               collect_stats: bool, force: int = 0) -> GameState:
-    """One masked play of every game from the packed inputs: `play_step`
-    with the table heads, as K1 plays it, the 4th-down decision forced
-    where `force` is a FORCE_CODES code.  A collector adds only what K1
-    adds: the team stats of the games still running, and per role the row
-    of the games whose play involves it (QB and target on a pass play,
-    rusher on a run) on a tracked slot; every add it leaves out is one of
-    the eager step's +0.0."""
-    c, dirs = args.consts, args.dirs
-    ytg_edges, dist_edges, grid = go
-    active = s.sec > 0
-    off, down0, dist0, ytg0, sec0 = s.off, s.down, s.dist, s.ytg, s.sec
-    dirx = s.gid * 2 + off
-    sd = (s.score[:, 0] - s.score[:, 1]) * (1 - 2 * off)
-    ymult, mz, tilt_pass, tilt_run, exp_base = dirs[dirx.long()].unbind(1)
+def _go_tables(c: NanoConsts, dev) -> Tuple[torch.Tensor, ...]:
+    """The go-for-it table's padded ytg and dist edges and its grid."""
+    return (torch.tensor(list(c.go_ytg_edges), dtype=F32, device=dev),
+            torch.tensor(list(c.go_dist_edges), dtype=F32, device=dev),
+            torch.tensor(list(c.go_grid)[:c.go_cells], dtype=F32, device=dev))
 
-    # ---- 4th-down decision
+
+def _fourth_decision(c: NanoConsts, go: Tuple[torch.Tensor, ...], active, down0, dist0, ytg0,
+                     sec0, sd, u: torch.Tensor, force: int):
+    """(go, st_play, fg_att) of the plays from the packed constants and the
+    go tables (`_go_tables`): the go-for-it probability, the decision forced
+    where `force` is a FORCE_CODES code."""
+    ytg_edges, dist_edges, grid = go
     yi = (ytg0[:, None] > ytg_edges).sum(dim=1)
     di = (dist0[:, None] > dist_edges).sum(dim=1)
     p = grid[yi * c.go_row + di]
@@ -1622,6 +1688,103 @@ def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
         go = active & is4 & (u[:, U_GO] < p_go)
         st_play = active & is4 & ~go
         fg_att = st_play & (ytg0 <= c.fg_attempt_max_ytg)
+    return go, st_play, fg_att
+
+
+def _stage2_pair(c: NanoConsts, s2, down0, dist0):
+    """Stage 2's cumulative pair: the heads' (`s2`), else the analytic
+    fallback's."""
+    if s2 is not None:
+        return s2
+    long_d = torch.clamp_min(dist0 - 7.0, 0.0) * c.r10
+    p_sck = c.s2_sck * (1.0 + 0.25 * torch.where(down0.to(F32) >= 3, 1.0, 0.0)
+                        + 0.15 * long_d)
+    p_int = c.s2_int * (1.0 + 0.10 * long_d)
+    p_inc = torch.full_like(p_sck, c.s2_inc)
+    tot = p_inc + p_int + p_sck
+    return _nudged_cum(c, p_inc / tot, p_int / tot, p_sck / tot)
+
+
+def _pass_prob_packed(c: NanoConsts, down0, dist0, ytg0, sec0, sd):
+    """analytic.pass_prob_v1 on the packed constants."""
+    r10 = c.r10
+    base = 0.53 + torch.where(
+        down0 == 1, 0.02 + 0.010 * torch.clamp_min(dist0 - 10, 0.0) * r10, 0.0)
+    base = base + torch.where(
+        down0 == 2, 0.12 + 0.020 * torch.clamp_min(dist0 - 7, 0.0) * r10, 0.0)
+    base = base + torch.where(
+        down0 == 3, 0.28 + 0.030 * torch.clamp_min(dist0 - 5, 0.0) * r10, 0.0)
+    base = base + torch.where(
+        down0 == 4, 0.45 + 0.035 * torch.clamp_min(dist0 - 3, 0.0) * r10, 0.0)
+    base = base - torch.where(ytg0 <= 10, 0.05, 0.0)
+    base = base - torch.where(ytg0 <= 5, 0.03, 0.0)
+    two_min = (sec0 % c.half_seconds) <= 120
+    base = base + torch.where(two_min & (sd < 0), 0.22, 0.0)
+    base = base + torch.where((sec0 < 600) & (sd < 0), 0.06, 0.0)
+    return torch.clamp(base, c.heuristic_clip_lo, c.heuristic_clip_hi)
+
+
+def exact_heads_read(args: NanoGameArgs, down0, dist0, ytg0, sec0, sd, u: torch.Tensor,
+                     heads, force: int = 0) -> dict:
+    """The rows whose play reads each head of exact mode, by the rule K1's
+    exact instantiation walks its phases by (EXACT_LISTS), from the state
+    (`down0` .. `sd`, the offense's score diff; a row with sec0 <= 0 plays
+    nothing), the play's (mirrored) uniforms `u` and its head values `heads`
+    (`_exact_heads`' tuple: p_c, pass, rush and sack (mu, sigma), stage 2's
+    pair or None, p_fumble or None, the play head's P(pass) or None), under
+    the FORCE_CODES code `force`: {head: (B,) bool} for each head of
+    `args.exact`.  The play head on a scrimmage play; stage 1 and stage 2 on
+    a pass (stage 2 decides a sack, so it is walked on every pass), the rush
+    trio and the fumble head on a run; the pass trio on a completion, the
+    sack trio on a sack.  `_nano_play`'s decisions on the same values, so a
+    head a row does not read never reaches its play.  Nothing on the main
+    path calls it: tests hold it to the games, and `nano_game_plain`
+    counts the kernel's walks by it."""
+    c = args.consts
+    active = sec0 > 0
+    _, st_play, _ = _fourth_decision(c, _go_tables(c, sec0.device), active, down0, dist0, ytg0,
+                                     sec0, sd, u, force)
+    scrim = active & ~st_play
+    p_c, _, _, _, s2, _, p_ml = heads
+    p_pass = p_ml if p_ml is not None else _pass_prob_packed(c, down0, dist0, ytg0, sec0, sd)
+    is_pass = scrim & (u[:, U_CALL] < p_pass)
+    complete = is_pass & (u[:, U_COMPLETE] < p_c)
+    notc = is_pass & ~complete
+    s2c0, s2c1 = _stage2_pair(c, s2, down0, dist0)
+    o_inc = notc & (u[:, U_S2] < s2c0)
+    rows = {0: scrim, 2: is_pass, 3: scrim & ~is_pass, 4: complete,
+            5: notc & ~o_inc & (u[:, U_S2] < s2c1)}
+    return {head: rows[EXACT_LISTS[head]] for head in args.exact.vals}
+
+
+def exact_walk_counts(args: NanoGameArgs, read: dict) -> torch.Tensor:
+    """(n_forests,) int64: the (row, tree) walks of the rows `read` marks
+    (`exact_heads_read`), forest by forest in K1's order."""
+    return torch.stack([read[head].sum() * tf.n_trees
+                        for head, tf, *_ in args.exact.heads]).to(torch.int64)
+
+
+def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
+               u: torch.Tensor, n: torch.Tensor, collect_players: bool,
+               collect_stats: bool, force: int = 0,
+               walks: Optional[torch.Tensor] = None) -> GameState:
+    """One masked play of every game from the packed inputs: `play_step`
+    with the table heads, as K1 plays it, the 4th-down decision forced
+    where `force` is a FORCE_CODES code.  A collector adds only what K1
+    adds: the team stats of the games still running, and per role the row
+    of the games whose play involves it (QB and target on a pass play,
+    rusher on a run) on a tracked slot; every add it leaves out is one of
+    the eager step's +0.0.  In exact mode `walks` has the walks K1 takes
+    (`exact_heads_read`) added to it."""
+    c, dirs = args.consts, args.dirs
+    active = s.sec > 0
+    off, down0, dist0, ytg0, sec0 = s.off, s.down, s.dist, s.ytg, s.sec
+    dirx = s.gid * 2 + off
+    sd = (s.score[:, 0] - s.score[:, 1]) * (1 - 2 * off)
+    ymult, mz, tilt_pass, tilt_run, exp_base = dirs[dirx.long()].unbind(1)
+
+    # ---- 4th-down decision
+    go, st_play, fg_att = _fourth_decision(c, go, active, down0, dist0, ytg0, sec0, sd, u, force)
     punt = st_play & ~fg_att
     scrim = active & ~st_play
 
@@ -1647,36 +1810,16 @@ def _nano_play(args: NanoGameArgs, go: Tuple[torch.Tensor, ...], s: GameState,
 
     # ---- scrimmage play
     trip1 = scrim & ~s.in_rz & (ytg0 <= 20)
-    p_c, pass_ms, rush_ms, sack_ms, s2, p_f, p_ml = _packed_heads(
-        args, dirx, sd, down0, dist0, ytg0, sec0, u)
-    if s2 is not None:
-        s2c0, s2c1 = s2
-    else:
-        long_d = torch.clamp_min(dist0 - 7.0, 0.0) * c.r10
-        p_sck = c.s2_sck * (1.0 + 0.25 * torch.where(down0.to(F32) >= 3, 1.0, 0.0)
-                            + 0.15 * long_d)
-        p_int = c.s2_int * (1.0 + 0.10 * long_d)
-        p_inc = torch.full_like(p_sck, c.s2_inc)
-        tot = p_inc + p_int + p_sck
-        s2c0, s2c1 = _nudged_cum(c, p_inc / tot, p_int / tot, p_sck / tot)
+    heads = _packed_heads(args, dirx, sd, down0, dist0, ytg0, sec0, u)
+    p_c, pass_ms, rush_ms, sack_ms, s2, p_f, p_ml = heads
+    if walks is not None:
+        read = exact_heads_read(args, down0, dist0, ytg0, sec0, sd, u, heads, force)
+        walks += exact_walk_counts(args, read)
+    s2c0, s2c1 = _stage2_pair(c, s2, down0, dist0)
     if p_f is None:
         p_f = torch.zeros_like(p_c)
 
-    r10 = c.r10
-    base = 0.53 + torch.where(
-        down0 == 1, 0.02 + 0.010 * torch.clamp_min(dist0 - 10, 0.0) * r10, 0.0)
-    base = base + torch.where(
-        down0 == 2, 0.12 + 0.020 * torch.clamp_min(dist0 - 7, 0.0) * r10, 0.0)
-    base = base + torch.where(
-        down0 == 3, 0.28 + 0.030 * torch.clamp_min(dist0 - 5, 0.0) * r10, 0.0)
-    base = base + torch.where(
-        down0 == 4, 0.45 + 0.035 * torch.clamp_min(dist0 - 3, 0.0) * r10, 0.0)
-    base = base - torch.where(ytg0 <= 10, 0.05, 0.0)
-    base = base - torch.where(ytg0 <= 5, 0.03, 0.0)
-    two_min = (sec0 % c.half_seconds) <= 120
-    base = base + torch.where(two_min & (sd < 0), 0.22, 0.0)
-    base = base + torch.where((sec0 < 600) & (sd < 0), 0.06, 0.0)
-    p_pass = torch.clamp(base, c.heuristic_clip_lo, c.heuristic_clip_hi)
+    p_pass = _pass_prob_packed(c, down0, dist0, ytg0, sec0, sd)
     if p_ml is not None:
         p_pass = p_ml
     is_pass = scrim & (u[:, U_CALL] < p_pass)
@@ -1822,8 +1965,8 @@ def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     collect_players: bool = False, collect_stats: bool = False,
                     force: Optional[str] = None, force_key: Optional[int] = None,
-                    force_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                    ) -> GameState:
+                    force_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    walks: Optional[torch.Tensor] = None) -> GameState:
     """K1's specification in plain torch, on the device of `s`: the packed
     inputs of `args`, one masked play of every game (`sec > 0`) at a time
     until no game is running or the cap.  Game b draws row row0 + b of
@@ -1838,22 +1981,23 @@ def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     draw from step 0 of `key`.  As the eager loop, it plays at all only
     where some game is running or early_exit is off.  The collectors add
     to `s.stats` and `s.pstats` in place, as the eager loop does, and
-    `points` takes the final score."""
+    `points` takes the final score.  In exact mode `walks`, an
+    (n_forests,) int64 tensor, has the (row, tree) walks of K1's phases
+    added to it (`exact_heads_read`), as `nano_game_cuda`'s `walks`; the
+    plain version itself walks every forest."""
     c = args.consts
     dev = s.sec.device
     n = s.off.shape[0]
     rows = n // 2 if anti else n
     r0 = row0 // 2 if anti else row0
-    go = (torch.tensor(list(c.go_ytg_edges), dtype=F32, device=dev),
-          torch.tensor(list(c.go_dist_edges), dtype=F32, device=dev),
-          torch.tensor(list(c.go_grid)[:c.go_cells], dtype=F32, device=dev))
+    go = _go_tables(c, dev)
     coll = (collect_players, collect_stats)
     if force is not None:
         u, z = (step_draws(force_key, 0, rows, dev, row0=r0) if force_draws is None
                 else force_draws)
         if anti:
             u, z = mirror_draws(u, z)
-        s = _nano_play(args, go, s, u, z, *coll, force=_force_code(force))
+        s = _nano_play(args, go, s, u, z, *coll, force=_force_code(force), walks=walks)
     cap = c.cap if draws is None else min(c.cap, draws[0].shape[0])
     if not args.early_exit or bool((s.sec > 0).any()):
         for j in range(cap):
@@ -1863,7 +2007,7 @@ def nano_game_plain(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                     else (draws[0][j], draws[1][j]))
             if anti:
                 u, z = mirror_draws(u, z)
-            s = _nano_play(args, go, s, u, z, *coll, force=args.layout.force_every)
+            s = _nano_play(args, go, s, u, z, *coll, force=args.layout.force_every, walks=walks)
     if collect_stats:
         s.stats[:, :, TS["points"]] = s.score.to(F32)
     return s
@@ -1981,7 +2125,6 @@ def _launch_layout(args: NanoGameArgs, dev: torch.device, force: Optional[str],
     if args.exact is not None:
         ex = args.exact
         tables += [("forest records", ex.records, I32), ("forest tiles", ex.tiles, I32),
-                   ("tree offsets", ex.tree_off, I32), ("tree classes", ex.tree_class, I32),
                    ("forests", ex.forests, I32), ("id tables", args.ids, I32)]
         if ex.records.data_ptr() % 16:
             raise ValueError("the forest records must be 16-byte aligned (K1 copies tiles of "
@@ -1999,10 +2142,8 @@ def _launch_layout(args: NanoGameArgs, dev: torch.device, force: Optional[str],
         lay.xdirs = args.xdirs.data_ptr()
     if args.exact is not None:
         ex = args.exact
-        lay.recs, lay.tiles, lay.tree_off = (ex.records.data_ptr(), ex.tiles.data_ptr(),
-                                             ex.tree_off.data_ptr())
-        lay.tree_class, lay.forests = ex.tree_class.data_ptr(), ex.forests.data_ptr()
-        lay.ids = args.ids.data_ptr()
+        lay.recs, lay.tiles = ex.records.data_ptr(), ex.tiles.data_ptr()
+        lay.forests, lay.ids = ex.forests.data_ptr(), args.ids.data_ptr()
     return lay
 
 
@@ -2027,7 +2168,8 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
                    iters: Optional[torch.Tensor] = None,
                    game_plays: Optional[torch.Tensor] = None, collect_players: bool = False,
                    collect_stats: bool = False, force: Optional[str] = None,
-                   force_key: Optional[int] = None) -> GameState:
+                   force_key: Optional[int] = None,
+                   walks: Optional[torch.Tensor] = None) -> GameState:
     """K1 on the card: the games of `s` to their end in one launch of
     csrc/nano_game.cu on the current stream, drawing as `nano_game_plain`
     draws (the forced first play with `force` on `force_key`'s stream
@@ -2039,7 +2181,9 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     launch.  `plays` and `iters`, (1,) int64 tensors on the card, have the
     games' plays (the forced one included) and the warps' loop trips added
     to them (plays / (32 x iters) is the share of lanes that played);
-    `game_plays`, an (n,) int32 tensor, is given each game's plays.
+    `game_plays`, an (n,) int32 tensor, is given each game's plays; in
+    exact mode `walks`, an (n_forests,) int64 tensor, has each forest's
+    (row, tree) walks added to it (K1's phases: `exact_heads_read`).
     `nano_game_cuda.launches` counts kernel launches and nothing else;
     `launches_collecting` those with a collector on, `launches_fused` and
     `launches_per_head` those on those table layouts, `launches_play` those
@@ -2073,9 +2217,13 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
         ins.append(t.contiguous())
     if args.table.dtype != F32 or args.dirs.dtype != F32 or not args.table.is_contiguous():
         raise ValueError("the table and the direction constants must be contiguous f32")
+    if walks is not None and not exact:
+        raise ValueError("walks are counted in exact mode only")
+    n_forests = args.exact.forests.shape[0] if exact else 0
     for name, t, dtype, shape in (("plays", plays, torch.int64, (1,)),
                                   ("iters", iters, torch.int64, (1,)),
                                   ("game_plays", game_plays, I32, (n,)),
+                                  ("walks", walks, torch.int64, (n_forests,)),
                                   *[(name, t, F32, shape) for name, t, shape in collected]):
         if t is not None and (t.dtype != dtype or t.device != dev or tuple(t.shape) != shape
                               or not t.is_contiguous()):
@@ -2097,6 +2245,8 @@ def nano_game_cuda(args: NanoGameArgs, s: GameState, key: int, row0: int = 0,
     if r0 < 0 or r0 + rows > 2 ** 32:
         raise ValueError(f"draw rows {r0}..{r0 + rows - 1} outside the 32-bit row counter")
     lay = _launch_layout(args, dev, force, force_key)
+    if walks is not None:
+        lay.walks = walks.data_ptr()
     kind = nano_kind(args, force, collect_players, collect_stats)
     if n == 0:
         return s

@@ -94,6 +94,11 @@ GAME_REPS = {"nano_game": 10, "nano_game slate": 3, "score_moments": 20,
              "score_moments G=60": 20}
 # games the plain version plays on the card to check K1's launch
 GAME_CHECK = 4_096
+# K1's exact instantiation (`exact_time`): calls of each held run (a call
+# is about 0.05-0.13 s), its key (phase 12's), and the games its plain
+# version plays on the card to check its launch (the plain version walks
+# every forest in torch: seconds a game's worth of plays)
+EXACT_REPS, EXACT_KEY, EXACT_CHECK = 3, 41, 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -457,6 +462,58 @@ def game_times(dev: torch.device) -> Dict[str, dict]:
     return out
 
 
+def exact_time(dev: torch.device, check: bool = True) -> Dict[str, dict]:
+    """K1's exact instantiation at phase 12's launch: EXACT_LAUNCH_GAMES
+    games of the fixture teams on `fixtures.heads(HEADS_SEED, "reference")`,
+    score-only, first held to `nano_game_plain` on EXACT_CHECK games on
+    every field (where `check`); held ms, plays, lane share, registers,
+    local bytes and blocks resident, and, where the tree's wrapper counts
+    them, the walks of each forest and their share of every forest's.
+    Copied into an earlier commit's archive it times that commit's
+    instantiation the same way."""
+    import inspect
+
+    import chip_smoke as cs
+
+    from .. import fixtures
+    from ..config import SimConfig
+    from ..ops import game
+    from ..ops.pack import build_packs
+
+    cfg = SimConfig()
+    pack, hp = build_packs(*fixtures.teams(), fixtures.heads(HEADS_SEED, "reference"), cfg, dev)
+    args = game.pack_nano_game(pack, cfg, hp)
+    n = cs.EXACT_LAUNCH_GAMES
+    fo = torch.arange(n, dtype=torch.int32, device=dev) % 2
+    none = dict(collect_players=False, collect_stats=False)
+    s0 = game.initial_state(n, fo, cfg, dev, **none)
+    counted = "walks" in inspect.signature(game.nano_game_cuda).parameters
+    walks = torch.zeros(args.exact.forests.shape[0], dtype=torch.int64, device=dev)
+    plays = torch.zeros(1, dtype=torch.int64, device=dev)
+    iters = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = game.nano_game_cuda(args, s0, EXACT_KEY, plays=plays, iters=iters,
+                              **(dict(walks=walks) if counted else {}))
+    if check:
+        m = EXACT_CHECK
+        want = game.nano_game_plain(args, game.initial_state(m, fo[:m], cfg, dev, **none),
+                                    EXACT_KEY)
+        for f in game.GameState._fields:
+            if not torch.equal(getattr(got, f)[:m], getattr(want, f)):
+                raise RuntimeError(f"nano_game exact: field {f} of the first {m:,} games "
+                                   "differs from nano_game_plain")
+    kind = game.LAYOUT_KINDS.index("exact")
+    regs, local = game.nano_game_usage(kind)
+    rec = {"ms": _held(lambda: game.nano_game_cuda(args, s0, EXACT_KEY), EXACT_REPS,
+                       "nano_game exact"),
+           "plays": int(plays), "lane_share": float(plays) / (32 * float(iters)),
+           "registers": regs, "local_bytes": local,
+           "blocks": game.nano_geometry(dev.index or 0, False, False, kind)[0]}
+    if counted:
+        every = int(plays) * sum(tf.n_trees for _, tf, *_ in args.exact.heads)
+        rec.update(walks=walks.tolist(), walk_share=float(walks.sum()) / every)
+    return {"nano_game exact": rec}
+
+
 # K1's instantiations with collectors that `_collector_times` times
 COLLECTORS = {"nano_game props": (True, True), "nano_game box score": (False, True),
               "nano_game player stats": (True, False)}
@@ -750,6 +807,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     only.add_argument("--games-only", action="store_true", help="time K1 and K2 alone")
     only.add_argument("--gathers-only", action="store_true",
                       help="time row_gather and row_gather_sum alone")
+    only.add_argument("--exact-only", action="store_true",
+                      help="time K1's exact instantiation alone (exact_time)")
+    ap.add_argument("--no-check", action="store_true",
+                    help="with --exact-only, time without holding the launch to nano_game_plain")
     ap.add_argument("--sass", type=Path, metavar="DIR",
                     help="write the SASS of each source it builds into DIR")
     ap.add_argument("--sass-against", type=Path, metavar="PATH",
@@ -765,7 +826,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     csrc = args.csrc.resolve()
     timed = (("forest_eval",) if args.forests_only else GAME_SOURCES if args.games_only
-             else GATHER_SOURCES if args.gathers_only else SOURCES)
+             else GATHER_SOURCES if args.gathers_only
+             else ("nano_game",) if args.exact_only else SOURCES)
     t0 = time.perf_counter()
     libs = dict(zip(timed, cuda_build.load_kernel_libraries(*timed, csrc=csrc)))
     build_s = time.perf_counter() - t0
@@ -812,18 +874,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     names = [n for n in RUNS if "row0" in (csrc / "philox_draws.cu").read_text()
              or not n.startswith("philox")]
     times, games, yard = {}, {}, {}
-    if not (args.forests_only or args.games_only):
+    if args.exact_only:
+        games = exact_time(dev, not args.no_check)
+        g = games["nano_game exact"]
+        print(f"  nano_game exact: {g['plays']:,} plays, lane share {g['lane_share']:.4f}, "
+              f"{g['registers']} registers, {g['local_bytes']} local bytes, {g['blocks']} "
+              "blocks resident" + (f", {g['walk_share']:.1%} of every forest's walks read"
+                                   if "walk_share" in g else "") + f" ({card})")
+    elif not (args.forests_only or args.games_only):
         paths = list(PATH_STEPS)
         if args.gathers_only:
             names = [n for n in names if n.startswith("row_gather")]
             paths = [n for n in paths if n.startswith(("B3", "B5"))]
         times.update({**kernel_times(dev, names), **path_times(dev, paths)})
         yard = gather_yardsticks(dev)
-    if not (args.games_only or args.gathers_only):
+    if not (args.games_only or args.gathers_only or args.exact_only):
         times.update(forest_times(dev, libs["forest_eval"]))
-    if not (args.forests_only or args.gathers_only):
+    if not (args.forests_only or args.gathers_only or args.exact_only):
         games = game_times(dev)
-        times.update({name: g["ms"] for name, g in games.items()})
+    times.update({name: g["ms"] for name, g in games.items()})
     times["launch gap"] = launch_gap_ms()
     for name, ms in times.items():
         print(f"  {name}: {ms:.5f} ms held ({card})")

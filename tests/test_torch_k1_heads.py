@@ -316,8 +316,8 @@ def test_exact_forests_walk_as_their_plain_walk(shape, heads):
     pack, hp = _packs(h, cfg)
     ex = tg.pack_nano_game(pack, cfg, hp).exact
     assert ex is tg.exact_forests(hp, True, True)          # memoized on the HeadsPack
-    assert [h for h, *_ in ex.heads] == ["stage1", "stage2"] + ["pq"] * 3 + ["rq"] * 3 + \
-        ["sq"] * 3 + ["fumble", "play"]
+    assert [h for h, *_ in ex.heads] == ["play", "stage1", "stage2"] + ["rq"] * 3 + \
+        ["fumble"] + ["pq"] * 3 + ["sq"] * 3
     rng = np.random.default_rng(5)
     n = 512
     d = fixtures.play_states(rng, n)
